@@ -1,0 +1,207 @@
+"""Synthetic LDBC-SNB-shaped Person/KNOWS graph at north-star scale.
+
+A copy of the array-native half of `nebula_tpu/bench/datagen.py`:
+`make_social_arrays` draws the edge arrays (uniform endpoints with Zipf
+tails on both sides, so some sources are supernodes), and
+`snapshot_from_arrays` lays them out as a CsrSnapshot with out and in
+KNOWS blocks and w (INT64) / f (DOUBLE) / city (STRING) edge props.
+`host_csr_traverse` is the numpy GO oracle the port's device path is
+checked against, and `SnapshotStore` the store stand-in the runtime's
+`traverse` reads dense ids and edge-type ids from.  `north_star` sets up
+the repo's north-star GO once for every script that runs it.
+"""
+from __future__ import annotations
+
+from typing import List, NamedTuple, Tuple
+
+import numpy as np
+
+from ..core import expr as E
+from ..graphstore.csr import CsrBlock, CsrSnapshot, StringPool
+from ..graphstore.schema import PropType
+
+_NAMES = ["ada", "bob", "cid", "dee", "eve", "fay", "gus", "hal",
+          "ivy", "joe", "kim", "lee", "mia", "ned", "oda", "pam"]
+
+
+def make_social_arrays(n_persons: int, avg_degree: int, seed: int = 7,
+                       hot_frac: float = 0.15, src_hot_frac: float = 0.05):
+    """Edge arrays: uniform endpoints, a Zipf tail on destinations
+    (hot_frac of edges) and on sources (src_hot_frac), self-loops
+    dropped.  The source tail is what puts supernodes on the frontier."""
+    rng = np.random.default_rng(seed)
+    n_edges = n_persons * avg_degree
+    src = rng.integers(0, n_persons, n_edges, dtype=np.int64)
+    dst = rng.integers(0, n_persons, n_edges, dtype=np.int64)
+    hot = rng.random(n_edges) < hot_frac
+    dst[hot] = (rng.zipf(1.6, int(hot.sum())) - 1) % n_persons
+    shot = rng.random(n_edges) < src_hot_frac
+    src[shot] = (rng.zipf(1.5, int(shot.sum())) - 1) % n_persons
+    keep = src != dst
+    src, dst = src[keep], dst[keep]
+    n_edges = src.size
+    return {
+        "n": n_persons,
+        "src": src,
+        "dst": dst,
+        "w": rng.integers(0, 100, n_edges, dtype=np.int64),
+        "f": rng.random(n_edges),
+        "city": rng.integers(0, len(_NAMES), n_edges, dtype=np.int64),
+    }
+
+
+def _coo_to_padded_csr(owner, local, nbr_dense, vmax, P):
+    """Vectorized COO → (P, ...) padded CSR.  Inputs must already be
+    sorted by (owner, local, tiebreak).  Returns (indptr, nbr, order
+    positions within part, emax)."""
+    counts = np.bincount(owner, minlength=P)
+    emax = max(int(counts.max()), 1)
+    row_id = owner * vmax + np.minimum(local, vmax - 1)
+    per_vertex = np.bincount(row_id, minlength=P * vmax).reshape(P, vmax)
+    indptr = np.zeros((P, vmax + 1), np.int64)
+    np.cumsum(per_vertex, axis=1, out=indptr[:, 1:])
+    starts = np.zeros(P + 1, np.int64)
+    np.cumsum(counts, out=starts[1:])
+    pos = np.arange(owner.size, dtype=np.int64) - starts[owner]
+    nbr = np.full((P, emax), -1, np.int32)
+    nbr[owner, pos] = nbr_dense.astype(np.int32)
+    return indptr.astype(np.int32), nbr, pos, emax
+
+
+def snapshot_from_arrays(arrs, parts: int = 8,
+                         space: str = "snb") -> CsrSnapshot:
+    """Build a CsrSnapshot (out + in KNOWS blocks, w/f/city props)
+    directly from edge arrays — the bulk-ingest path for benchmark-scale
+    graphs.  dense id = vid, owner = vid % P."""
+    n, P = int(arrs["n"]), parts
+    src, dst = arrs["src"], arrs["dst"]
+    pool = StringPool()
+    city_codes = np.asarray([pool.encode(s) for s in _NAMES],
+                            np.int64)[arrs["city"]]
+    counts = np.bincount(np.arange(n, dtype=np.int64) % P, minlength=P)
+    vmax = max(int(counts.max()), 1)
+    snap = CsrSnapshot(space=space, epoch=0, num_parts=P, vmax=vmax,
+                       num_vertices=counts.astype(np.int32), pool=pool,
+                       dense_to_vid=list(range(n)))
+    for direction in ("out", "in"):
+        a, b = (src, dst) if direction == "out" else (dst, src)
+        owner = a % P
+        local = a // P
+        order = np.lexsort((b, local, owner))
+        ow, lo, nb = owner[order], local[order], b[order]
+        indptr, nbr, pos, emax = _coo_to_padded_csr(ow, lo, nb, vmax, P)
+        rank = np.zeros_like(nbr)
+        props = {}
+        for name, col, pt in (("w", arrs["w"], PropType.INT64),
+                              ("f", arrs["f"], PropType.DOUBLE),
+                              ("city", city_codes, PropType.STRING)):
+            dt = np.float64 if pt == PropType.DOUBLE else np.int64
+            padded = np.full((P, emax),
+                             np.nan if dt == np.float64 else -2, dt)
+            padded[ow, pos] = col[order].astype(dt)
+            props[name] = padded
+        snap.blocks[("KNOWS", direction)] = CsrBlock(
+            etype="KNOWS", direction=direction, indptr=indptr, nbr=nbr,
+            rank=rank, props=props,
+            prop_types={"w": PropType.INT64, "f": PropType.DOUBLE,
+                        "city": PropType.STRING})
+    return snap
+
+
+def host_csr_traverse(snap, seeds, steps: int, w_gt=None,
+                      materialize: bool = False, etypes=("KNOWS",)):
+    """Numpy GO oracle over the same CSR: per hop, gather neighbor
+    ranges with repeat, dedup with np.unique; `w_gt` filters the final
+    hop on KNOWS.w > w_gt.  Returns (edges_traversed, final_kept_count)
+    and, with materialize=True, also the final hop's (dst, w) arrays."""
+    P = snap.num_parts
+    blks = [snap.block(et, "out") for et in etypes]
+    frontier = np.unique(np.asarray(seeds, np.int64))
+    total = 0
+    for hop in range(steps):
+        owner = frontier % P
+        local = frontier // P
+        nxts, ws = [], []
+        for blk in blks:
+            s = blk.indptr[owner, local].astype(np.int64)
+            e = blk.indptr[owner, local + 1].astype(np.int64)
+            deg = e - s
+            total += int(deg.sum())
+            if deg.sum() == 0:
+                nxts.append(np.empty(0, np.int64))
+                ws.append(np.empty(0, blk.props["w"].dtype))
+                continue
+            rows = np.repeat(np.arange(frontier.size), deg)
+            offs = np.arange(deg.sum(), dtype=np.int64) - \
+                np.repeat(np.cumsum(deg) - deg, deg)
+            idx = s[rows] + offs
+            nxts.append(blk.nbr[owner[rows], idx].astype(np.int64))
+            if hop == steps - 1:
+                ws.append(blk.props["w"][owner[rows], idx])
+        nxt = np.concatenate(nxts) if len(nxts) > 1 else nxts[0]
+        if nxt.size == 0:
+            return (total, 0, None, None) if materialize else (total, 0)
+        if hop == steps - 1:
+            w = np.concatenate(ws) if len(ws) > 1 else ws[0]
+            if w_gt is not None:
+                keep = w > w_gt
+                nxt, w = nxt[keep], w[keep]
+            if materialize:
+                return total, int(nxt.size), nxt, w
+            return total, int(nxt.size)
+        frontier = np.unique(nxt)
+    return (total, 0, None, None) if materialize else (total, 0)
+
+
+class SnapshotStore:
+    """Store stand-in backed by a prebuilt CsrSnapshot — the surface
+    GpuRuntime.traverse reads (dense_id, epoch, edge-type catalog)."""
+
+    class _SD:
+        def __init__(self, n, epoch):
+            self._n = n
+            self.epoch = epoch
+
+        def dense_id(self, v):
+            v = int(v)
+            return v if 0 <= v < self._n else -1
+
+    class _Edge:
+        edge_type = 1
+
+    class _Catalog:
+        def get_edge(self, space, et):
+            return SnapshotStore._Edge()
+
+    def __init__(self, snap):
+        self.snap = snap
+        self._sd = SnapshotStore._SD(len(snap.dense_to_vid), snap.epoch)
+        self.catalog = SnapshotStore._Catalog()
+
+    def space(self, name):
+        return self._sd
+
+
+class NorthStar(NamedTuple):
+    snap: CsrSnapshot
+    store: SnapshotStore
+    seeds: List[int]
+    yields: List[Tuple[E.Expr, str]]
+    w_filter: E.Expr           # WHERE KNOWS.w > w_gt
+    w_gt: int
+    n_edges: int
+
+
+def north_star(persons: int = 1_000_000) -> NorthStar:
+    """The north-star GO of bench.py config 6: make_social_arrays(persons,
+    30, seed=7) in 8 parts (space "ns"), GO 3 STEPS FROM the 16 seeds
+    np.unique(src[:64])[:16] OVER KNOWS YIELD dst(edge) AS d, KNOWS.w AS
+    w, unfiltered or WHERE KNOWS.w > 50."""
+    arrs = make_social_arrays(persons, 30, seed=7)
+    snap = snapshot_from_arrays(arrs, parts=8, space="ns")
+    seeds = np.unique(arrs["src"][:64])[:16].tolist()
+    yields = [(E.FunctionCall("dst", [E.EdgeExpr()]), "d"),
+              (E.EdgeProp("KNOWS", "w"), "w")]
+    w_filter = E.Binary(">", E.EdgeProp("KNOWS", "w"), E.Literal(50))
+    return NorthStar(snap, SnapshotStore(snap), seeds, yields, w_filter, 50,
+                     int(arrs["src"].size))

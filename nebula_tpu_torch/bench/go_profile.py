@@ -1,0 +1,84 @@
+"""Where a north-star GO 3 STEPS spends its time on one CUDA card.
+
+    python3 -m nebula_tpu_torch.bench.go_profile [--persons N] [--queries Q]
+
+Builds the north-star graph of chip_smoke.py (datagen.north_star(N)),
+pins it, warms up, then runs Q queries of its GO 3 STEPS WHERE
+KNOWS.w > 50 YIELD dst(edge), KNOWS.w and prints one JSON line with:
+  phases_ms  the median TraverseStats phases (seed put, device hop loop,
+             fetch, host materialization, total) over the Q queries;
+  kernels    device time by kernel name over the profiled window
+             (torch.profiler, CUDA activity), with launch counts;
+  busy_share device time of all kernels and copies / the window's wall
+             time — 1 minus it is the device's idle share.
+Times are the card's: run it where `torch.cuda.is_available()`.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from collections import defaultdict
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--persons", type=int, default=1_000_000)
+    ap.add_argument("--queries", type=int, default=10)
+    args = ap.parse_args(argv)
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    if not torch.cuda.is_available():
+        print("go_profile: CUDA is not available", file=sys.stderr)
+        return 2
+    from ..gpu import GpuRuntime
+    from .datagen import north_star
+
+    ns = north_star(args.persons)
+    rt = GpuRuntime()
+    rt.pin_prebuilt(ns.snap)
+
+    def query():
+        return rt.traverse(ns.store, "ns", ns.seeds, ["KNOWS"], "out", 3,
+                           edge_filter=ns.w_filter, yields=ns.yields)
+
+    for _ in range(2):
+        query()
+    torch.cuda.synchronize()
+    stats = []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.queries):
+            stats.append(query()[1])
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    by_name = defaultdict(lambda: [0, 0.0])
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            rec = by_name[evt.name]
+            rec[0] += 1
+            rec[1] += evt.time_range.elapsed_us()
+    device_us = sum(us for _, us in by_name.values())
+    if not by_name:
+        raise RuntimeError("the profiler recorded no device activity")
+    phases = {k: float(np.median([getattr(s, k) for s in stats])) * 1e3
+              for k in ("put_s", "device_s", "fetch_s", "mat_s", "total_s")}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    print(json.dumps({
+        "card": torch.cuda.get_device_name(0), "queries": args.queries,
+        "edges_per_query": stats[-1].edges_traversed(),
+        "rows_per_query": stats[-1].result_edges,
+        "phases_ms": phases,
+        "window_ms": window_us / 1e3, "device_ms": device_us / 1e3,
+        "busy_share": device_us / window_us,
+        "kernels": [{"name": n[:90], "calls": c, "ms": us / 1e3}
+                    for n, (c, us) in top[:25]]}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,93 @@
+// compact_capture — stable compaction of the final hop's kept slots plus
+// the YIELD column gather (Queue B K3 with K5 fused in).
+//
+// Replaces nebula_tpu/tpu/hop.py:_compact_cap (:238) and the per-block
+// yield gather of _build_local_fn (:543-550).  Per part, the exclusive scan
+// of `keep` gives each kept slot its position (scan.cuh's three phases);
+// the slot's src/dst/rank/eidx go there, and so does the 8-byte word of
+// each yield column at [p, eidx] — int64 and float64 share one code path.
+// kcount[p] is the scan's total.  Positions at and past kcount[p] get the
+// padding src = dst = -1, rank = eidx = 0, column words 0.  Positions come
+// from the scan, never from atomics, so the order of the kept slots — the
+// (part, src)-contiguous ascending-eidx order of expand — is kept.
+//
+// Bound: bytes.  17 bytes read a slot (four int32 arrays and keep), 16
+// written a slot plus 8 per yield column, and 8 bytes gathered per kept
+// slot and column, at 3.35 TB/s.  src/dst/rank/eidx are read only for kept
+// slots, but the card reads whole 32-byte sectors (8 int32 slots): where
+// the filter keeps about half the slots at random, as WHERE KNOWS.w > 50
+// does, a sector holds no kept slot with odds near 0.5^8, so all four
+// arrays are read in full and the bound counts every slot.  The gather
+// reads at eidx, which ascends within a row, so neighbouring kept slots
+// mostly read neighbouring words.
+#include "scan.cuh"
+
+namespace {
+
+constexpr int kMaxCols = 4;
+
+struct Keep {
+  const uint8_t* __restrict__ keep;
+  int EB;
+  __device__ int operator()(int p, int i) const {
+    return keep[(size_t)p * EB + i] != 0;
+  }
+};
+
+struct Scatter {
+  const int* src;
+  const int* dst;
+  const int* rank;
+  const int* eidx;
+  const long long* cols[kMaxCols];
+  long long* ocols[kMaxCols];
+  int* osrc;
+  int* odst;
+  int* orank;
+  int* oeidx;
+  const int* kcount;
+  int ncols, emax, EB;
+
+  __device__ void operator()(int p, int i, int pos, int kept) const {
+    const size_t in = (size_t)p * EB + i;
+    if (kept) {
+      const size_t o = (size_t)p * EB + pos;
+      const int e = eidx[in];
+      osrc[o] = src[in];
+      odst[o] = dst[in];
+      orank[o] = rank[in];
+      oeidx[o] = e;
+      const bool ok = e >= 0 && e < emax;
+#pragma unroll
+      for (int c = 0; c < kMaxCols; ++c)   // static indices: no spills
+        if (c < ncols) ocols[c][o] = ok ? cols[c][(size_t)p * emax + e] : 0;
+    }
+    if (i >= kcount[p]) {
+      osrc[in] = -1;
+      odst[in] = -1;
+      orank[in] = 0;
+      oeidx[in] = 0;
+#pragma unroll
+      for (int c = 0; c < kMaxCols; ++c)
+        if (c < ncols) ocols[c][in] = 0;
+    }
+  }
+};
+
+}  // namespace
+
+extern "C" int nt_compact_capture(
+    const int* src, const int* dst, const int* rank, const int* eidx,
+    const uint8_t* keep, int P, int EB, int ncols, int emax,
+    const long long* col0, const long long* col1, const long long* col2,
+    const long long* col3, int* osrc, int* odst, int* orank, int* oeidx,
+    long long* ocol0, long long* ocol1, long long* ocol2, long long* ocol3,
+    int* kcount, int* chunk_sums, void* stream) {
+  if (ncols < 0 || ncols > kMaxCols) return (int)cudaErrorInvalidValue;
+  Scatter op{src, dst, rank, eidx,
+             {col0, col1, col2, col3}, {ocol0, ocol1, ocol2, ocol3},
+             osrc, odst, orank, oeidx, kcount, ncols, emax, EB};
+  nt::scan_apply(Keep{keep, EB}, op, P, EB, chunk_sums, kcount,
+                 (cudaStream_t)stream);
+  return (int)cudaGetLastError();
+}

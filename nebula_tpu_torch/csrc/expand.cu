@@ -1,0 +1,149 @@
+// expand — frontier-bitmap CSR expansion of one block (Queue B K1).
+//
+// Replaces nebula_tpu/tpu/hop.py:_expand_block (:58), which XLA compiled
+// from jnp ops: degree mask, cumsum to slot starts, a cumsum-scatter map
+// from slot to row, and gathers of nbr/rank.  For each part p of the
+// (P, vmax) bitmap `fbm`, the expanded slots are the edges of the active
+// rows in ascending row, then ascending eidx order — the (part, src)
+// contiguous order the host materializers rely on (hop.py:39-43).
+//
+// Two C entry points, with one small device-to-host read between them:
+//   nt_expand_scan  masked degree → exclusive scan → starts (P, vmax)
+//                   and total (P,) — scan.cuh's three phases;
+//   (host)          reads total and sizes the slot arrays exactly at
+//                   EB = max(total), where the reference climbed a
+//                   power-of-two ladder because XLA needs static shapes;
+//   nt_expand_fill  writes src/dst/rank/eidx (P, EB) int32: one warp per
+//                   32 consecutive rows ballots the active ones and copies
+//                   each active row's edge range with its 32 lanes; slots
+//                   at and past total[p] get the reference's padding
+//                   (src = dst = -1, rank = eidx = 0).
+//
+// Bound: bytes.  It reads indptr and fbm once (5 bytes a row), nbr and
+// rank of the expanded edges (8 bytes an edge) and writes 16 bytes a slot,
+// at 3.35 TB/s; it does no arithmetic worth counting.  The design keeps
+// every load and store of the copy coalesced along a row.  Its known
+// weakness is load balance: a Zipf supernode's row of hundreds of
+// thousands of edges is walked by one warp while the others finish, so
+// the longest row, not the byte count, can set the time.
+#include "scan.cuh"
+
+namespace {
+
+struct MaskedDegree {
+  const int* __restrict__ indptr;
+  const uint8_t* __restrict__ fbm;
+  int vmax;
+  __device__ int operator()(int p, int i) const {
+    if (!fbm[(size_t)p * vmax + i]) return 0;
+    const int* ip = indptr + (size_t)p * (vmax + 1) + i;
+    return ip[1] - ip[0];
+  }
+};
+
+struct WriteStart {
+  int* __restrict__ starts;
+  int vmax;
+  __device__ void operator()(int p, int i, int excl, int) const {
+    starts[(size_t)p * vmax + i] = excl;
+  }
+};
+
+__global__ void __launch_bounds__(256)
+expand_rows_kernel(const int* __restrict__ indptr,
+                   const int* __restrict__ nbr,
+                   const int* __restrict__ rank,
+                   const uint8_t* __restrict__ fbm,
+                   const int* __restrict__ starts, int P, int vmax,
+                   int emax, int EB, int* __restrict__ src,
+                   int* __restrict__ dst, int* __restrict__ rk,
+                   int* __restrict__ eidx) {
+  const int lane = threadIdx.x & 31;
+  const long long warp =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const long long nwarps = ((long long)gridDim.x * blockDim.x) >> 5;
+  const int groups = (vmax + 31) / 32;          // 32-row groups per part
+  const long long ngroups = (long long)P * groups;
+  for (long long g = warp; g < ngroups; g += nwarps) {
+    const int p = (int)(g / groups);
+    const int row0 = (int)(g % groups) * 32;
+    const int r = row0 + lane;
+    int beg = 0, deg = 0, st = 0;
+    if (r < vmax && fbm[(size_t)p * vmax + r]) {
+      const int* ip = indptr + (size_t)p * (vmax + 1) + r;
+      beg = ip[0];
+      deg = ip[1] - beg;
+      st = starts[(size_t)p * vmax + r];
+    }
+    unsigned active = __ballot_sync(nt::kFullMask, deg > 0);
+    const int* nb = nbr + (size_t)p * emax;
+    const int* rkp = rank + (size_t)p * emax;
+    const size_t orow = (size_t)p * EB;
+    while (active) {                      // uniform across the warp
+      const int b = __ffs(active) - 1;
+      active &= active - 1;
+      const int rb = __shfl_sync(nt::kFullMask, beg, b);
+      const int rd = __shfl_sync(nt::kFullMask, deg, b);
+      const size_t o = orow + __shfl_sync(nt::kFullMask, st, b);
+      const int sid = (row0 + b) * P + p;
+#pragma unroll 4
+      for (int j = lane; j < rd; j += 32) {
+        const int e = rb + j;
+        dst[o + j] = nb[e];
+        rk[o + j] = rkp[e];
+        eidx[o + j] = e;
+        src[o + j] = sid;
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(256)
+expand_pad_kernel(const int* __restrict__ total, int P, int EB,
+                  int* __restrict__ src, int* __restrict__ dst,
+                  int* __restrict__ rk, int* __restrict__ eidx) {
+  const long long n = (long long)P * EB;
+  const long long step = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < n; i += step) {
+    const int p = (int)(i / EB);
+    if ((int)(i % EB) >= total[p]) {
+      src[i] = -1;
+      dst[i] = -1;
+      rk[i] = 0;
+      eidx[i] = 0;
+    }
+  }
+}
+
+int grid_for(long long work_items, int per_block) {
+  long long g = (work_items + per_block - 1) / per_block;
+  if (g > 132 * 16) g = 132 * 16;         // grid-stride beyond this
+  return g < 1 ? 1 : (int)g;
+}
+
+}  // namespace
+
+extern "C" int nt_scan_chunk() { return nt::kChunk; }
+
+extern "C" int nt_expand_scan(const int* indptr, const uint8_t* fbm, int P,
+                              int vmax, int* starts, int* total,
+                              int* chunk_sums, void* stream) {
+  nt::scan_apply(MaskedDegree{indptr, fbm, vmax}, WriteStart{starts, vmax},
+                 P, vmax, chunk_sums, total, (cudaStream_t)stream);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int nt_expand_fill(const int* indptr, const int* nbr,
+                              const int* rank, const uint8_t* fbm,
+                              const int* starts, const int* total, int P,
+                              int vmax, int emax, int EB, int* src, int* dst,
+                              int* rk, int* eidx, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long groups = (long long)P * ((vmax + 31) / 32);
+  expand_rows_kernel<<<grid_for(groups, 8), 256, 0, s>>>(
+      indptr, nbr, rank, fbm, starts, P, vmax, emax, EB, src, dst, rk, eidx);
+  expand_pad_kernel<<<grid_for((long long)P * EB, 256), 256, 0, s>>>(
+      total, P, EB, src, dst, rk, eidx);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,50 @@
+// mark — scatter kept destination ids into the (P, vmax) frontier bitmap
+// (Queue B K2, and K6 for the seed bitmap).
+//
+// Replaces nebula_tpu/tpu/hop.py:_mark (:168) with the OR over blocks and
+// source parts in _build_local_fn (:580), and the seed-bitmap `build` in
+// nebula_tpu/tpu/runtime.py:_seed_builder (:969).  Dense id d lives at
+// row d % P, column d / P: the one scatter does dedup (duplicates set the
+// same byte) and routing (the row is the owning part).  Every block of
+// every hop writes into the one next-frontier tensor, which is the OR.
+//
+// Only ones are ever stored, so duplicate writers agree and no atomics are
+// needed; a slot that is not kept, or whose id lies outside [0, P*vmax),
+// writes nothing (the reference's scatter dropped out-of-range ids; a
+// scatter of `keep` values would let a False overwrite a True).  With no
+// keep mask, a slot is kept when its id is >= 0: expand pads invalid slots
+// with -1, and the seed list is exactly the ids to set.
+//
+// Bound: bytes — 4 bytes of id (and 1 of keep) read per slot, and the
+// bitmap bytes written; the writes land at scattered addresses, one byte
+// each, so the achieved rate sits well under the streaming rate.
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+__global__ void __launch_bounds__(256)
+mark_kernel(const int* __restrict__ ids, const uint8_t* __restrict__ keep,
+            long long n, int P, int vmax, uint8_t* __restrict__ out) {
+  const long long lim = (long long)P * vmax;
+  const long long step = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < n; i += step) {
+    const int d = ids[i];
+    if (d < 0 || d >= lim) continue;
+    if (keep != nullptr && !keep[i]) continue;
+    out[(size_t)(d % P) * vmax + d / P] = 1;
+  }
+}
+
+}  // namespace
+
+extern "C" int nt_mark(const int* ids, const uint8_t* keep, long long n,
+                       int P, int vmax, uint8_t* out, void* stream) {
+  long long g = (n + 255) / 256;
+  if (g > 132 * 32) g = 132 * 32;
+  if (g > 0)
+    mark_kernel<<<(int)g, 256, 0, (cudaStream_t)stream>>>(ids, keep, n, P,
+                                                          vmax, out);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,394 @@
+"""GpuRuntime: pinned snapshots and the GO traversal on one device.
+
+Port of the solo single-device path of `nebula_tpu/tpu/runtime.py`:
+`pin_prebuilt` (:871), `unpin`, `hbm_bytes`, the seed bitmap (:941-987),
+`traverse` (:1753) with a columnar YIELD list, `_block_columns` (:2266),
+`_materialize_yields` (:2373), `_d2v`, `_cap_keys_for_yields` and
+`_cat_parts`.
+
+What this slice leaves out raises `CannotCompile`, as the reference does
+for a filter it cannot compile: GO without `yields` (Edge rows, which need
+the store's catalog), degree-split hub rows, the delta plane, query lanes
+and the mesh.  A traversal runs on the runtime's one `torch.device`;
+`GpuRuntime()` means `cuda:0`, and the CPU runs only when the caller
+passes `device="cpu"` (the kernels' plain versions then run).
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..core import expr as E
+from ..core.value import ColumnarDataSet
+from ..graphstore.csr import DECODABLE, decode_prop_column_np
+from .device import DeviceSnapshot, GpuUnavailable, pin_snapshot, \
+    resolve_device
+from .exprjit import CannotCompile, compile_predicate, eval_yield_column_np
+from .hop import run_hops
+from .kernels import mark
+
+_MAX_YIELD_COLS = 4     # device-gathered yield columns (runtime.py:1812)
+
+
+def _d2v(host) -> np.ndarray:
+    """Cached dense-id → vid array for batch vid decode.  INT64 when every
+    vid is an int, object otherwise; also caches whether the mapping is
+    the identity (sequential-int-vid spaces skip the gather)."""
+    arr = getattr(host, "_d2v_arr", None)
+    if arr is None or len(arr) != len(host.dense_to_vid):
+        d2v = host.dense_to_vid
+        # gate on an ACTUAL int vid: np.asarray would parse digit strings
+        sample = next((v for v in d2v if v is not None), None)
+        if isinstance(sample, int) and not isinstance(sample, bool):
+            try:
+                arr = np.asarray(d2v, dtype=np.int64)
+            except (TypeError, ValueError, OverflowError):
+                arr = np.asarray(d2v, dtype=object)
+        else:
+            arr = np.asarray(d2v, dtype=object)
+        # identity flag published BEFORE the array (a reader that sees
+        # the cached array must also see the flag)
+        host._d2v_identity = bool(
+            arr.dtype.kind == "i"
+            and (arr == np.arange(len(arr), dtype=arr.dtype)).all())
+        host._d2v_arr = arr
+    return arr
+
+
+def _cap_keys_for_yields(yields, device_props=()) -> Optional[set]:
+    """Which capture arrays a yield list reads: a subset of {'src',
+    'dst','rank','eidx'} plus 'prop:<name>' for device-gathered props,
+    or None (fetch everything) when a yield isn't fully recognized."""
+    if yields is None:
+        return None
+    need = set()
+    for e, _ in yields:
+        for x in E.walk(e):
+            k = x.kind
+            if k in ("literal", "function", "edge_prop", "edge"):
+                if k == "function":
+                    name = getattr(x, "name", "")
+                    if name == "src":
+                        need.add("src")
+                    elif name == "dst":
+                        need.add("dst")
+                    elif name == "rank":
+                        need.add("rank")
+                    elif name in ("type", "typeid"):
+                        pass             # per-block constants
+                    else:
+                        return None      # unknown function: fetch all
+                elif k == "edge_prop":
+                    if x.name == "_rank":
+                        need.add("rank")
+                    elif x.name == "_src":
+                        need.add("src")
+                    elif x.name == "_dst":
+                        need.add("dst")
+                    elif x.name == "_type":
+                        pass             # per-block constant
+                    elif x.name in device_props:
+                        need.add("prop:" + x.name)
+                    else:
+                        need.add("eidx")
+            else:
+                return None              # unmodeled expr: fetch all
+    return need
+
+
+def _cat_parts(parts, dtype=None):
+    """Concatenate per-part kept-prefix slices, preserving (part, slot)
+    order; always returns an owned array."""
+    if dtype is not None:
+        if len(parts) > 1:
+            return np.concatenate(parts, dtype=dtype)
+        return parts[0].astype(dtype)
+    if len(parts) > 1:
+        return np.concatenate(parts)
+    return parts[0].copy()
+
+
+class TraverseStats:
+    __slots__ = ("hop_edges", "frontier_sizes", "result_edges", "e_cap",
+                 "steps", "device_s", "pin_s", "put_s", "fetch_s", "mat_s",
+                 "total_s", "hbm_bytes")
+
+    def __init__(self):
+        self.hop_edges: List[int] = []
+        self.frontier_sizes: List[int] = []   # popcount entering each hop
+        self.result_edges = 0
+        self.e_cap: List[int] = []            # per-hop slot width
+        self.steps = 0
+        # per-phase wall time; device_s ends in a device synchronisation
+        self.device_s = 0.0
+        self.pin_s = 0.0
+        self.put_s = 0.0
+        self.fetch_s = 0.0
+        self.mat_s = 0.0
+        self.total_s = 0.0
+        self.hbm_bytes = 0
+
+    def edges_traversed(self) -> int:
+        return int(sum(self.hop_edges))
+
+
+class GpuRuntime:
+    """Holds the pinned spaces of one device and runs GO on them."""
+
+    def __init__(self, device: Any = None):
+        self.device = resolve_device(device)
+        self.snapshots: Dict[str, DeviceSnapshot] = {}
+
+    # -- pinning ----------------------------------------------------------
+
+    def pin_prebuilt(self, snap) -> DeviceSnapshot:
+        """Pin an externally built CsrSnapshot (bulk-ingest / bench path),
+        replacing any snapshot of the same space."""
+        if snap.num_parts * snap.vmax >= 1 << 31:
+            # dense ids are int32 on the device, as in the reference
+            raise GpuUnavailable(
+                f"P*vmax = {snap.num_parts * snap.vmax} exceeds int32")
+        self.unpin(snap.space)
+        dev = pin_snapshot(snap, self.device)
+        self.snapshots[snap.space] = dev
+        return dev
+
+    def pin(self, store, space: str) -> DeviceSnapshot:
+        """The pinned snapshot serving `space` at the store's epoch."""
+        dev = self.snapshots.get(space)
+        epoch = store.space(space).epoch
+        if dev is None or dev.epoch != epoch:
+            raise GpuUnavailable(
+                f"space {space!r} has no snapshot pinned at epoch {epoch}: "
+                f"pin one with pin_prebuilt (building one from a store "
+                f"waits for the store slice)")
+        return dev
+
+    def unpin(self, space: str) -> None:
+        self.snapshots.pop(space, None)
+
+    def hbm_bytes(self) -> int:
+        return sum(s.hbm_bytes() for s in self.snapshots.values())
+
+    # -- traversal --------------------------------------------------------
+
+    @staticmethod
+    def _seed_sorted(dense_ids: Sequence[int], P: int,
+                     vmax: int) -> List[int]:
+        """Normalized seed list with the range check: an id outside
+        [0, P*vmax) (a stale or foreign snapshot) fails loudly here and
+        never reaches a kernel."""
+        d = sorted(set(int(x) for x in dense_ids if x >= 0))
+        if d and d[-1] >= P * vmax:
+            raise ValueError(
+                f"dense seed id {d[-1]} out of range for snapshot "
+                f"(P={P}, vmax={vmax})")
+        return d
+
+    def _seed_frontier(self, dev: DeviceSnapshot,
+                       dense_ids: Sequence[int]) -> torch.Tensor:
+        """The (P, vmax) bool seed bitmap, scattered on the device by the
+        `mark` kernel (K6) from the seed ids alone."""
+        P, vmax = dev.num_parts, dev.vmax
+        d = self._seed_sorted(dense_ids, P, vmax)
+        ids = torch.tensor(d, dtype=torch.int32).to(self.device)
+        return mark(ids, P, vmax)
+
+    @staticmethod
+    def _blocks_for(etypes: Sequence[str], direction: str):
+        keys = []
+        for et in etypes:
+            if direction in ("out", "both"):
+                keys.append((et, "out"))
+            if direction in ("in", "both"):
+                keys.append((et, "in"))
+        return keys
+
+    def traverse(self, store, space: str, vids: Sequence[Any],
+                 etypes: Sequence[str], direction: str, steps: int,
+                 edge_filter: Optional[E.Expr] = None,
+                 capture: bool = True,
+                 yields: Optional[List[Tuple[Any, str]]] = None
+                 ) -> Tuple[Any, TraverseStats]:
+        """Run an N-step GO expansion on the device.
+
+        Returns (rows, stats).  With `yields` — (Expr, name) pairs that
+        evaluate columnar-side — rows is a ColumnarDataSet holding the
+        final output as numpy columns; with capture=False only the stats
+        are computed.  Raises CannotCompile for a filter that does not
+        vectorize and for what this slice does not port (see module
+        docstring)."""
+        t_start = time.perf_counter()
+        dev = self.pin(store, space)
+        sd = store.space(space)
+        stats = TraverseStats()
+        stats.steps = steps
+        stats.pin_s = time.perf_counter() - t_start
+        if capture and yields is None:
+            raise CannotCompile(
+                "GO without yields (Edge rows) is not ported yet")
+        if dev.host.hub_dense is not None:
+            raise CannotCompile("degree-split hub rows are not ported yet")
+
+        block_keys = self._blocks_for(etypes, direction)
+        pred = None
+        pred_cols: List[str] = []
+        if edge_filter is not None:
+            # single-etype constraint is enforced by the optimizer rule
+            bl = dev.blocks[block_keys[0]]
+            pred, pred_cols = compile_predicate(
+                edge_filter, bl.prop_types, dev.pool,
+                vid_to_dense=sd.dense_id, device=self.device)
+
+        dense = [sd.dense_id(v) for v in vids]
+        dense = [d for d in dense if d >= 0]
+        if not dense:
+            return [], stats
+
+        # edge props the yields read and every block carries are gathered
+        # on the device at the compacted final-hop slots (at most 4); the
+        # rest decode on the host via the captured eidx
+        yield_cols: tuple = ()
+        if capture:
+            wanted = {x.name for e, _ in yields for x in E.walk(e)
+                      if x.kind == "edge_prop"
+                      and not x.name.startswith("_")}
+            for bk in block_keys:
+                hb = dev.blocks[bk]
+                bad = [n for n in wanted if n in hb.prop_types
+                       and hb.prop_types[n] not in DECODABLE]
+                if bad:
+                    raise CannotCompile(
+                        f"yield of {bad[0]} ({hb.prop_types[bad[0]].name}) "
+                        f"is not ported yet")
+            yield_cols = tuple(sorted(
+                n for n in wanted
+                if all(n in dev.blocks[bk].props for bk in block_keys))
+            )[:_MAX_YIELD_COLS]
+        fetch_keys = _cap_keys_for_yields(yields, yield_cols) \
+            if capture else None
+        if fetch_keys is not None and fetch_keys & {"src", "dst"} \
+                and any(d == "in" for _, d in block_keys):
+            # reverse blocks serve src(edge) from the dst array and vice
+            # versa (physical-edge orientation) — need both
+            fetch_keys |= {"src", "dst"}
+
+        tp = time.perf_counter()
+        frontier = self._seed_frontier(dev, dense)
+        stats.put_s = time.perf_counter() - tp
+
+        t0 = time.perf_counter()
+        res = run_hops([dev.blocks[bk] for bk in block_keys], frontier,
+                       steps, pred=pred, pred_cols=pred_cols,
+                       capture=capture, yield_cols=yield_cols)
+        hop_edges = res["hop_edges"].cpu().numpy()   # synchronises
+        t1 = time.perf_counter()
+        stats.device_s = t1 - t0
+        stats.hop_edges = [int(x) for x in hop_edges.sum(axis=0)]
+        stats.frontier_sizes = [
+            int(x) for x in res["frontier_sizes"].cpu().numpy().sum(axis=0)]
+        stats.e_cap = list(res["e_cap"])
+        stats.hbm_bytes = self.hbm_bytes()
+        if not capture:
+            stats.fetch_s = time.perf_counter() - t1
+            stats.total_s = time.perf_counter() - t_start
+            return [], stats
+
+        caps = []
+        for cap in res["cap"]:
+            kc = cap["kcount"].cpu().numpy()
+            K = int(kc.max()) if kc.size else 0
+            got = {k: v[:, :K].cpu().numpy() for k, v in cap.items()
+                   if k != "kcount" and (fetch_keys is None
+                                         or k in fetch_keys)}
+            got["kcount"] = kc
+            caps.append(got)
+        stats.fetch_s = time.perf_counter() - t1
+
+        t_mat = time.perf_counter()
+        rows = self._materialize_yields(store, space, dev, block_keys, caps,
+                                        yields)
+        stats.mat_s = time.perf_counter() - t_mat
+        stats.result_edges = len(rows)
+        stats.total_s = time.perf_counter() - t_start
+        return rows, stats
+
+    # -- host materialization ---------------------------------------------
+
+    def _block_columns(self, store, space: str, dev: DeviceSnapshot,
+                       block_keys, caps, prop_names: Sequence[str]):
+        """Vectorized gather of the captured final-hop edge set: per-block
+        dicts of flat numpy arrays — sv/dv (vids), rr (ranks), decoded
+        prop columns."""
+        host = dev.host
+        d2v_arr = _d2v(host)
+        d2v_id = host._d2v_identity
+        etype_ids = {et: store.catalog.get_edge(space, et).edge_type
+                     for et, _ in block_keys}
+        for (et, dirn), cap in zip(block_keys, caps):
+            hb = host.blocks[(et, dirn)]
+            # kept entries are a compacted PREFIX per part row
+            kc = cap["kcount"]
+            pids = [p for p in range(len(kc)) if kc[p] > 0]
+            if not pids:
+                continue
+            n_rows = int(sum(int(kc[p]) for p in pids))
+
+            def catp(name, dtype=None):
+                return _cat_parts([cap[name][p, :kc[p]] for p in pids],
+                                  dtype)
+
+            ss = catp("src", np.int64) if "src" in cap else None
+            dd = catp("dst", np.int64) if "dst" in cap else None
+            rr = catp("rank") if "rank" in cap else None
+            props = {}
+            for n in [x for x in prop_names if x in hb.props]:
+                if ("prop:" + n) in cap:
+                    raw = catp("prop:" + n)     # device-gathered
+                elif "eidx" in cap:
+                    raw = [hb.props[n][p][cap["eidx"][p, :kc[p]]]
+                           for p in pids]
+                    raw = np.concatenate(raw) if len(raw) > 1 else raw[0]
+                else:
+                    continue
+                props[n] = decode_prop_column_np(hb.prop_types[n], raw,
+                                                 host.pool)
+            eid = etype_ids[et]
+            yield {"et": et, "dirn": dirn,
+                   "etype": eid if dirn == "out" else -eid, "n": n_rows,
+                   "sv": (ss if d2v_id else d2v_arr[ss])
+                   if ss is not None else None,
+                   "dv": (dd if d2v_id else d2v_arr[dd])
+                   if dd is not None else None,
+                   "rr": rr, "props": props}
+
+    def _materialize_yields(self, store, space: str, dev: DeviceSnapshot,
+                            block_keys, caps, yields) -> ColumnarDataSet:
+        """Final output as a lazy columnar DataSet (fused Project)."""
+        needed = [x.name for e, _ in yields for x in E.walk(e)
+                  if x.kind == "edge_prop"]
+        per_block: List[List[np.ndarray]] = []
+        for b in self._block_columns(store, space, dev, block_keys, caps,
+                                     prop_names=needed):
+            per_block.append([eval_yield_column_np(e, b)
+                              for e, _ in yields])
+        names = [alias for _, alias in yields]
+        if not per_block:
+            return ColumnarDataSet(
+                names, [np.empty(0, object) for _ in yields])
+        if len(per_block) == 1:
+            return ColumnarDataSet(names, per_block[0])
+
+        def _cat(j):
+            # mixed int/float blocks concatenate as object, never upcast
+            # (5 must not become 5.0)
+            blks = [blk[j] for blk in per_block]
+            kinds = {b.dtype.kind for b in blks}
+            if len(kinds) > 1 and "O" not in kinds:
+                blks = [b.astype(object) for b in blks]
+            return np.concatenate(blks)
+
+        return ColumnarDataSet(names, [_cat(j) for j in range(len(yields))])

@@ -1,0 +1,207 @@
+"""The CSR snapshot: each space's adjacency and edge-property columns as
+padded numpy arrays, the state the device plane pins.
+
+A copy of the parts of `nebula_tpu/graphstore/csr.py` this slice needs:
+StringPool, the NULL sentinels, the batched prop-column decode, CsrBlock
+and CsrSnapshot.  Building a snapshot from a live store waits for the
+store slice; `snapshot_from_fields` builds one from plain arrays (the
+fields another process or package exported), and
+`bench.datagen.snapshot_from_arrays` from generated edge arrays.
+
+Layout (identical to the reference):
+  * one CsrBlock per (edge type, direction), every part padded to the
+    same (Vmax, Emax), so a block is one (P, ...) array stack;
+  * dense vids encode their partition: owner(d) = d % P, local(d) = d // P;
+  * strings are dictionary codes against the space's StringPool;
+  * NULL sentinels inside columns: int → INT64_MIN, float → NaN.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from .schema import PropType
+
+INT_NULL = np.iinfo(np.int64).min
+
+# prop types whose columns decode in this slice; temporal and geography
+# columns need the value classes the store slice brings
+DECODABLE = frozenset({
+    PropType.BOOL, PropType.INT64, PropType.INT32, PropType.INT16,
+    PropType.INT8, PropType.TIMESTAMP, PropType.FLOAT, PropType.DOUBLE,
+    PropType.STRING, PropType.FIXED_STRING})
+
+
+class StringPool:
+    """Per-space string dictionary: str ↔ int32 code."""
+
+    def __init__(self, strings: Optional[List[str]] = None):
+        self.strings: List[str] = []
+        self.codes: Dict[str, int] = {}
+        for s in strings or ():
+            self.encode(s)
+
+    def encode(self, s: str) -> int:
+        c = self.codes.get(s)
+        if c is None:
+            c = len(self.strings)
+            self.strings.append(s)
+            self.codes[s] = c
+        return c
+
+    def lookup(self, s: str) -> int:
+        """Encode WITHOUT inserting (query-time constant); -2 if absent
+        (matches nothing, unlike the null sentinel -1)."""
+        return self.codes.get(s, -2)
+
+    def obj_array(self) -> np.ndarray:
+        """Cached object-dtype view of the dictionary for batched decode."""
+        arr = getattr(self, "_obj_arr", None)
+        if arr is None or len(arr) != len(self.strings):
+            arr = np.asarray(self.strings, dtype=object)
+            self._obj_arr = arr
+        return arr
+
+
+def decode_prop_column(pt: PropType, raw: np.ndarray,
+                       pool: StringPool) -> List[Any]:
+    """Batched decode of a whole property column to Python values
+    (sentinels → NULL)."""
+    from ..core.value import NULL
+    if pt not in DECODABLE:
+        raise ValueError(f"prop type {pt.name} does not decode in this port")
+    if pt in (PropType.FLOAT, PropType.DOUBLE):
+        a = raw.astype(np.float64)
+        if not np.isnan(a).any():
+            return a.tolist()
+        return [NULL if x != x else x for x in a.tolist()]
+    av = raw.astype(np.int64)
+    if pt in (PropType.STRING, PropType.FIXED_STRING):
+        strings = pool.strings
+        ns = len(strings)
+        if av.size and ((av >= 0) & (av < ns)).all():
+            return pool.obj_array()[av].tolist()
+        return [strings[r] if 0 <= r < ns else NULL for r in av.tolist()]
+    vals = av.tolist()
+    if pt == PropType.BOOL:
+        return [NULL if r == INT_NULL else bool(r) for r in vals]
+    if not (av == INT_NULL).any():
+        return vals
+    return [NULL if r == INT_NULL else r for r in vals]
+
+
+def decode_prop_column_np(pt: PropType, raw: np.ndarray,
+                          pool: StringPool) -> np.ndarray:
+    """decode_prop_column, columnar: native numeric dtype on the
+    null-free fast paths, object dtype otherwise."""
+    if pt in (PropType.FLOAT, PropType.DOUBLE):
+        a = raw.astype(np.float64)
+        if not np.isnan(a).any():
+            return a
+    elif pt in (PropType.STRING, PropType.FIXED_STRING):
+        av = raw.astype(np.int64)
+        ns = len(pool.strings)
+        if av.size == 0 or ((av >= 0) & (av < ns)).all():
+            return pool.obj_array()[av]
+    elif pt in DECODABLE and pt != PropType.BOOL:
+        av = raw.astype(np.int64)
+        if not (av == INT_NULL).any():
+            return av
+    out = np.empty(len(raw), dtype=object)
+    out[:] = decode_prop_column(pt, raw, pool)
+    return out
+
+
+@dataclass
+class CsrBlock:
+    """One (edge-type, direction) adjacency across ALL parts, padded.
+
+    indptr : (P, Vmax+1) int32 — per part, CSR row pointers over local idx
+    nbr    : (P, Emax) int32   — dense id of neighbor (dst for out, src for in)
+    rank   : (P, Emax) int32
+    props  : name → (P, Emax) int64/float64 — edge property columns
+    """
+    etype: str
+    direction: str               # "out" | "in"
+    indptr: np.ndarray
+    nbr: np.ndarray
+    rank: np.ndarray
+    props: Dict[str, np.ndarray] = field(default_factory=dict)
+    prop_types: Dict[str, PropType] = field(default_factory=dict)
+
+
+@dataclass
+class CsrSnapshot:
+    """Epoch-tagged, device-shippable snapshot of one space."""
+    space: str
+    epoch: int
+    num_parts: int
+    vmax: int                               # padded local-vertex count
+    num_vertices: np.ndarray                # (P,) actual local counts
+    blocks: Dict[Tuple[str, str], CsrBlock] = field(default_factory=dict)
+    pool: StringPool = field(default_factory=StringPool)
+    dense_to_vid: List[Any] = field(default_factory=list)
+    # dense ids of degree-split supernodes (None = unsplit); the port
+    # refuses split snapshots until the hub-row kernels land
+    hub_dense: Optional[np.ndarray] = None
+
+    def block(self, etype: str, direction: str = "out") -> CsrBlock:
+        return self.blocks[(etype, direction)]
+
+    def hbm_bytes(self) -> int:
+        total = self.num_vertices.nbytes
+        for b in self.blocks.values():
+            total += b.indptr.nbytes + b.nbr.nbytes + b.rank.nbytes
+            total += sum(a.nbytes for a in b.props.values())
+        return total
+
+
+def snapshot_from_fields(fields: Dict[str, Any]) -> CsrSnapshot:
+    """Build a CsrSnapshot from plain numpy arrays and lists.
+
+    fields: space, epoch, num_parts, vmax, num_vertices, dense_to_vid,
+    pool (the pool's strings in code order), hub_dense (None or an
+    array), and blocks: {(etype, direction): {indptr, nbr, rank, props:
+    {name: array}, prop_types: {name: PropType name}}}.
+
+    Shapes and dtypes are checked here: the arrays are the state every
+    kernel reads, so a malformed field must fail at the boundary, not as
+    an out-of-range read on the device."""
+    P, vmax = int(fields["num_parts"]), int(fields["vmax"])
+    snap = CsrSnapshot(
+        space=str(fields["space"]), epoch=int(fields.get("epoch", 0)),
+        num_parts=P, vmax=vmax,
+        num_vertices=np.asarray(fields["num_vertices"], np.int32),
+        pool=StringPool(list(fields["pool"])),
+        dense_to_vid=list(fields["dense_to_vid"]),
+        hub_dense=(None if fields.get("hub_dense") is None
+                   else np.asarray(fields["hub_dense"], np.int64)))
+    if snap.num_vertices.shape != (P,):
+        raise ValueError(f"num_vertices must be ({P},)")
+    for (et, dirn), b in fields["blocks"].items():
+        indptr = np.ascontiguousarray(b["indptr"], np.int32)
+        nbr = np.ascontiguousarray(b["nbr"], np.int32)
+        rank = np.ascontiguousarray(b["rank"], np.int32)
+        if indptr.shape != (P, vmax + 1):
+            raise ValueError(f"{et}/{dirn}: indptr must be ({P}, {vmax + 1})")
+        emax = nbr.shape[1] if nbr.ndim == 2 else -1
+        if nbr.shape != (P, emax) or rank.shape != (P, emax):
+            raise ValueError(f"{et}/{dirn}: nbr and rank must be (P, Emax)")
+        if (np.diff(indptr, axis=1) < 0).any() or indptr[:, 0].any() \
+                or (indptr[:, -1] > emax).any():
+            raise ValueError(f"{et}/{dirn}: indptr is not a CSR row "
+                             f"pointer into Emax={emax}")
+        types = {n: PropType[t] for n, t in b["prop_types"].items()}
+        props = {}
+        for n, a in b["props"].items():
+            dt = (np.float64 if types[n] in (PropType.FLOAT, PropType.DOUBLE)
+                  else np.int64)
+            props[n] = np.ascontiguousarray(a, dt)
+            if props[n].shape != (P, emax):
+                raise ValueError(f"{et}/{dirn}: prop {n} must be (P, Emax)")
+        snap.blocks[(et, dirn)] = CsrBlock(
+            etype=et, direction=dirn, indptr=indptr, nbr=nbr, rank=rank,
+            props=props, prop_types=types)
+    return snap
