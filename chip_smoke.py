@@ -5,25 +5,36 @@ Run from the repository root on a machine with a CUDA card and nvcc:
 
     python3 chip_smoke.py                 # the north-star size
     python3 chip_smoke.py --persons 20000 # a quick check
+    python3 chip_smoke.py --split 0       # skip the degree-split path
 
 Phases, in order; any failure exits non-zero before the result line:
   1. the card's name and power limit (nvidia-smi) and torch's name for it;
   2. build the kernels from nebula_tpu_torch/csrc (nvcc, sm_90a);
   3. the north-star GO (datagen.north_star): make_social_arrays(persons,
-     30, seed=7) → snapshot_from_arrays(parts=8) → GpuRuntime().pin_prebuilt,
-     then GO 3 STEPS from 16 seeds YIELD dst(edge) AS d, KNOWS.w AS w,
-     unfiltered and WHERE KNOWS.w > 50, each checked against the host
-     oracle host_csr_traverse (rows by lexsorted equality, traversed
-     edges by count); launch counters are zeroed just before and read
-     just after, and every kernel must have launched;
+     30, seed=7) → snapshot_from_arrays(parts=8), then GO 3 STEPS from 16
+     seeds YIELD dst(edge) AS d, KNOWS.w AS w, unfiltered and WHERE
+     KNOWS.w > 50, each checked against the host oracle
+     host_csr_traverse on the unsplit snapshot (rows by lexsorted
+     equality, traversed edges by count), on two paths:
+       a. unsplit: GpuRuntime().pin_prebuilt;
+       b. split, as bench.py runs it: GpuRuntime(degree_split_threshold=
+          --split, 2048 by default).pin_prebuilt of the same arrays; its
+          per-hop hop_edges must equal the unsplit run's.
+     Launch counters are zeroed just before each path and read just
+     after; every kernel of the path must have launched;
   4. each kernel against its plain PyTorch version on the card, on the
-     inputs the main path gives it (expand at hop 3, mark at hop 2 and
-     for the seeds, compact_capture at the filtered hop 3, with the w
-     column and again with the int64/float64 columns w, f, city, w): exact
-     equality, kernel / plain / one-library-call times from CUDA events,
-     and the byte bound at 3.35 TB/s;
-  5. the `kernels` JSON line, the card line, and the result line
-     {"ok": true, "device": {...}} last.
+     inputs the main path gives it: expand at each hop of both layouts
+     (the hub-row branch at split hops 1-3), mark at hop 2 (into the
+     split frontier buffer's strided view too) and for the seeds,
+     extend_hubs at split hops 2 and 3, predicate_mask for w > 50 and
+     eleven predicates over int, float-with-NaN, bool and string-code
+     columns with nulls at the filtered split hop 3, compact_capture
+     there with the w column and with four columns; exact equality,
+     kernel / plain / one-library-call times from CUDA events, and each
+     kernel's bound (bytes at 3.35 TB/s or int32 operations at
+     33.5 TOP/s, whichever is larger);
+  5. the `kernels` JSON line (the split path's launches), the card line,
+     and the result line {"ok": true, "device": {...}} last.
 Without CUDA it prints no result and exits 2.
 """
 from __future__ import annotations
@@ -41,9 +52,16 @@ ROUTE_SOURCES = {
                "nebula_tpu/tpu/hop.py:58"),
     "mark": ("nebula_tpu_torch/csrc/mark.cu",
              "nebula_tpu/tpu/hop.py:168"),
+    "extend_hubs": ("nebula_tpu_torch/csrc/hubs.cu",
+                    "nebula_tpu/tpu/hop.py:303"),
+    "predicate_mask": ("nebula_tpu_torch/csrc/predicate.cu",
+                       "nebula_tpu/tpu/exprjit.py:201"),
     "compact_capture": ("nebula_tpu_torch/csrc/compact_capture.cu",
                         "nebula_tpu/tpu/hop.py:238"),
 }
+# kernels each path must launch
+UNSPLIT_KERNELS = ("expand", "mark", "predicate_mask", "compact_capture")
+SPLIT_KERNELS = UNSPLIT_KERNELS + ("extend_hubs",)
 
 
 def log(msg: str) -> None:
@@ -79,7 +97,7 @@ def max_abs_err(got, want) -> float:
     raises unless they are equal bit for bit."""
     import torch
     err = 0.0
-    for a, b in zip(got, want):
+    for a, b in zip(got, want, strict=True):
         if a.shape != b.shape or a.dtype != b.dtype:
             raise AssertionError(f"shape/dtype {a.shape} {a.dtype} vs "
                                  f"{b.shape} {b.dtype}")
@@ -105,20 +123,133 @@ def bound(bytes_moved: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def run_go(rt, ns, repeats: int, label: str, K):
+    """Drive the GO path of `rt` (unfiltered and filtered), each query
+    checked against the oracle; returns (results, launches)."""
+    import numpy as np
+    import torch
+    from nebula_tpu_torch.bench.datagen import host_csr_traverse
+
+    results = {}
+    K.reset_launch_counts()
+    for flabel, filt, w_gt in (("unfiltered", None, None),
+                               (f"w>{ns.w_gt}", ns.w_filter, ns.w_gt)):
+        lat, dev_lat = [], []
+        for _ in range(repeats + 1):           # the first run is warm-up
+            t = time.perf_counter()
+            rows, st = rt.traverse(ns.store, "ns", ns.seeds, ["KNOWS"],
+                                   "out", 3, edge_filter=filt,
+                                   yields=ns.yields)
+            lat.append(time.perf_counter() - t)
+            dev_lat.append(st.device_s)
+        total, kept, want_d, want_w = host_csr_traverse(
+            ns.snap, ns.seeds, 3, w_gt=w_gt, materialize=True)
+        if st.edges_traversed() != total or len(rows) != kept:
+            raise AssertionError(f"{label} {flabel}: edges "
+                                 f"{st.edges_traversed()} vs {total}, rows "
+                                 f"{len(rows)} vs {kept}")
+        d = np.asarray(rows.column_array("d"), np.int64)
+        w = np.asarray(rows.column_array("w"), np.int64)
+        a, b = np.lexsort((w, d)), np.lexsort((want_w, want_d))
+        if not (np.array_equal(d[a], want_d[b])
+                and np.array_equal(w[a], want_w[b])):
+            raise AssertionError(f"{label} {flabel}: rows differ from the "
+                                 f"oracle")
+        p50 = float(np.median(lat[1:]))
+        results[flabel] = {
+            "rows": len(rows), "edges": total,
+            "hop_edges": st.hop_edges, "frontier_sizes": st.frontier_sizes,
+            "e_cap": st.e_cap, "p50_ms": p50 * 1e3,
+            "min_ms": min(lat[1:]) * 1e3, "max_ms": max(lat[1:]) * 1e3,
+            "device_p50_ms": float(np.median(dev_lat[1:])) * 1e3,
+            "fetch_ms": st.fetch_s * 1e3, "mat_ms": st.mat_s * 1e3,
+            "edges_per_s": total / p50, "samples": len(lat) - 1}
+        log(f"    GO 3 STEPS {label} {flabel}: "
+            f"{json.dumps(results[flabel])}")
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    log(f"    {label} launches over {2 * (repeats + 1)} queries: "
+        f"{launches}")
+    return results, launches
+
+
+def predicates(E, NULL):
+    """WHERE KNOWS.w > 50 and eleven predicates over the w/f/city columns
+    and the nullable wn (int), fn (float), bn (bool), cn (string-code)
+    columns; they mix /, %, IN with NULL, AND/OR/XOR/NOT, IS NULL, unary
+    minus, id($$) IN [...] and rank(edge)."""
+    def col(n):
+        return E.EdgeProp("KNOWS", n)
+
+    def lit(v):
+        return E.Literal(v)
+
+    def b(op, x, y):
+        return E.Binary(op, x, y)
+
+    def lst(*vs):
+        return E.ListExpr([lit(v) for v in vs])
+
+    dst_id = E.FunctionCall("id", [E.VertexExpr("$$")])
+    rank = E.FunctionCall("rank", [E.EdgeExpr()])
+    return {
+        "w>50": b(">", col("w"), lit(50)),
+        "wn/7>2 AND fn<0.25": b("AND", b(">", b("/", col("wn"), lit(7)),
+                                           lit(2)),
+                                b("<", col("fn"), lit(0.25))),
+        "wn%7==-3 OR (bn AND true)": b(
+            "OR", b("==", b("%", col("wn"), lit(7)), lit(-3)),
+            b("AND", col("bn"), lit(True))),
+        "cn IN [eve,bob,NULL] XOR fn IS NULL": b(
+            "XOR", b("IN", col("cn"), lst("eve", "bob", NULL)),
+            E.Unary("IS_NULL", col("fn"))),
+        "NOT bn AND wn IS NOT NULL": b(
+            "AND", E.Unary("NOT", col("bn")),
+            E.Unary("IS_NOT_NULL", col("wn"))),
+        "fn%0.3<0.1 OR wn IN [1,2,3,NULL]": b(
+            "OR", b("<", b("%", col("fn"), lit(0.3)), lit(0.1)),
+            b("IN", col("wn"), lst(1, 2, 3, NULL))),
+        "id($$) IN [...] OR -wn<-40": b(
+            "OR", b("IN", dst_id, lst(0, 1, 2, 3, 5, 8, 13, 21)),
+            b("<", E.Unary("-", col("wn")), lit(-40))),
+        "(wn&7)==3 AND cn!=ada": b(
+            "AND", b("==", b("&", col("wn"), lit(7)), lit(3)),
+            b("!=", col("cn"), lit("ada"))),
+        "wn/(w-50)>0": b(">", b("/", col("wn"), b("-", col("w"), lit(50))),
+                         lit(0)),
+        "rank==0 AND fn*100>=wn": b(
+            "AND", b("==", rank, lit(0)),
+            b(">=", b("*", col("fn"), lit(100)), col("wn"))),
+        "wn NOT IN [0,-1,NULL] OR city==eve": b(
+            "OR", b("NOT IN", col("wn"), lst(0, -1, NULL)),
+            b("==", col("city"), lit("eve"))),
+        "bn IN [true] AND wn+fn>10": b(
+            "AND", b("IN", col("bn"), lst(True)),
+            b(">", b("+", col("wn"), col("fn")), lit(10))),
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--persons", type=int, default=1_000_000)
     ap.add_argument("--repeats", type=int, default=10)
+    ap.add_argument("--split", type=int, default=2048,
+                    help="degree-split threshold of path 3b (0 skips it)")
     args = ap.parse_args(argv)
 
-    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    from nebula_tpu_torch.bench.datagen import host_csr_traverse, north_star
+    from nebula_tpu_torch.bench.datagen import north_star
+    from nebula_tpu_torch.core import expr as E
+    from nebula_tpu_torch.core.value import NULL
     from nebula_tpu_torch.gpu import GpuRuntime
+    from nebula_tpu_torch.gpu import exprjit as X
     from nebula_tpu_torch.gpu import kernels as K
+    from nebula_tpu_torch.gpu.hop import new_frontier
+    from nebula_tpu_torch.graphstore.csr import INT_NULL, degree_split
+    from nebula_tpu_torch.graphstore.schema import PropType
 
     # -- 1. the card ------------------------------------------------------
     card = card_line()
@@ -133,128 +264,178 @@ def main(argv=None) -> int:
         if "registers" in line or "spill" in line or line.startswith("=="):
             log("    " + line.strip())
 
-    # -- 3. the north-star GO ----------------------------------------------
+    # -- 3a. the north-star GO, unsplit ------------------------------------
     t0 = time.perf_counter()
-    ns = north_star(args.persons)
-    snap, store, seeds, yields = ns.snap, ns.store, ns.seeds, ns.yields
+    ns = north_star(args.persons, split_threshold=args.split)
     log(f"[3] graph: {args.persons} persons, {ns.n_edges} KNOWS edges,"
         f" built in {time.perf_counter() - t0:.1f} s")
     rt = GpuRuntime()
     t0 = time.perf_counter()
-    rt.pin_prebuilt(snap)
+    rt.pin_prebuilt(ns.snap)
     torch.cuda.synchronize()
-    log(f"    pinned {rt.hbm_bytes()} bytes in "
+    log(f"[3a] unsplit: pinned {rt.hbm_bytes()} bytes in "
         f"{time.perf_counter() - t0:.2f} s")
-
     torch.cuda.reset_peak_memory_stats()
-    K.reset_launch_counts()
-    results = {}
-    for label, filt, w_gt in (("unfiltered", None, None),
-                              (f"w>{ns.w_gt}", ns.w_filter, ns.w_gt)):
-        lat, dev_lat = [], []
-        for _ in range(args.repeats + 1):      # the first run is warm-up
-            t = time.perf_counter()
-            rows, st = rt.traverse(store, "ns", seeds, ["KNOWS"], "out", 3,
-                                   edge_filter=filt, yields=yields)
-            lat.append(time.perf_counter() - t)
-            dev_lat.append(st.device_s)
-        total, kept, want_d, want_w = host_csr_traverse(
-            snap, seeds, 3, w_gt=w_gt, materialize=True)
-        if st.edges_traversed() != total or len(rows) != kept:
-            raise AssertionError(f"{label}: edges {st.edges_traversed()} vs "
-                                 f"{total}, rows {len(rows)} vs {kept}")
-        d = np.asarray(rows.column_array("d"), np.int64)
-        w = np.asarray(rows.column_array("w"), np.int64)
-        a, b = np.lexsort((w, d)), np.lexsort((want_w, want_d))
-        if not (np.array_equal(d[a], want_d[b])
-                and np.array_equal(w[a], want_w[b])):
-            raise AssertionError(f"{label}: rows differ from the oracle")
-        p50 = float(np.median(lat[1:]))
-        results[label] = {
-            "rows": len(rows), "edges": total,
-            "hop_edges": st.hop_edges, "frontier_sizes": st.frontier_sizes,
-            "e_cap": st.e_cap, "p50_ms": p50 * 1e3,
-            "min_ms": min(lat[1:]) * 1e3, "max_ms": max(lat[1:]) * 1e3,
-            "device_p50_ms": float(np.median(dev_lat[1:])) * 1e3,
-            "fetch_ms": st.fetch_s * 1e3, "mat_ms": st.mat_s * 1e3,
-            "edges_per_s": total / p50, "samples": len(lat) - 1}
-        log(f"    GO 3 STEPS {label}: {json.dumps(results[label])}")
-    launches = K.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    queries = 2 * (args.repeats + 1)
-    log(f"    launches over {queries} queries: {launches}; hbm_bytes "
-        f"{rt.hbm_bytes()}; max_memory_allocated {peak}")
-    for name, n in launches.items():
-        if n <= 0:
+    res_u, launches_u = run_go(rt, ns, args.repeats, "unsplit", K)
+    peak_u = torch.cuda.max_memory_allocated()
+    for name in UNSPLIT_KERNELS:
+        if launches_u[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
-                                 f"main path")
+                                 f"unsplit path")
+    results = {"unsplit": res_u}
+    launches = launches_u
+
+    # -- 3b. the north-star GO, degree-split as bench.py runs it -----------
+    rts = None
+    if args.split > 0:
+        t0 = time.perf_counter()
+        hubs_direct = degree_split(ns.snap, args.split).hub_dense
+        split_s = time.perf_counter() - t0
+        rts = GpuRuntime(degree_split_threshold=ns.split_threshold)
+        t0 = time.perf_counter()
+        rts.pin_prebuilt(ns.snap)
+        torch.cuda.synchronize()
+        pin_s = time.perf_counter() - t0
+        dev_s = rts.snapshots["ns"]
+        H = dev_s.num_hubs
+        if H == 0 or H != (0 if hubs_direct is None else len(hubs_direct)):
+            raise AssertionError(f"split pinned {H} hubs")
+        log(f"[3b] split at {args.split}: H={H} hubs, degree_split "
+            f"{split_s:.2f} s, pin_prebuilt (split included) {pin_s:.2f} s,"
+            f" pinned {rts.hbm_bytes()} bytes, hub ids "
+            f"{dev_s.host.hub_dense[:8].tolist()}...")
+        torch.cuda.reset_peak_memory_stats()
+        res_s, launches = run_go(rts, ns, args.repeats, "split", K)
+        peak_s = torch.cuda.max_memory_allocated()
+        for name in SPLIT_KERNELS:
+            if launches[name] <= 0:
+                raise AssertionError(f"kernel {name} never launched on "
+                                     f"the split path")
+        for flabel, r in res_s.items():
+            if r["hop_edges"] != res_u[flabel]["hop_edges"]:
+                raise AssertionError(
+                    f"split {flabel}: hop_edges {r['hop_edges']} vs "
+                    f"unsplit {res_u[flabel]['hop_edges']}")
+        results["split"] = res_s
+        log(f"    e_cap per hop: unsplit {res_u['unfiltered']['e_cap']}, "
+            f"split {res_s['unfiltered']['e_cap']}; max_memory_allocated "
+            f"unsplit {peak_u}, split {peak_s}")
 
     # -- 4. kernels against their plain versions at the path's shapes ----
-    dev = rt.snapshots["ns"]
-    blk = dev.blocks[("KNOWS", "out")]
-    P, vmax = dev.num_parts, dev.vmax
-    seed_ids = torch.tensor(sorted(set(seeds)), dtype=torch.int32,
-                            device=rt.device)
-    fbm = K.mark_plain(seed_ids, P, vmax)
-    hop_in = [fbm]
-    for _ in range(2):                         # frontiers entering hops 2, 3
-        src, dst, rk, eidx, total = K.expand_plain(blk.indptr, blk.nbr,
-                                                   blk.rank, hop_in[-1])
-        hop_in.append(K.mark_plain(dst, P, vmax))
-    dst2 = K.expand_plain(blk.indptr, blk.nbr, blk.rank, hop_in[1])[1]
-    fbm3 = hop_in[2]
     reps = 20
     rows_out = []
+    extra = []
 
-    def record(name, got, want, ms, plain_ms, lib_ms, nbytes, ops):
+    def record(name, got, want, ms, plain_ms, lib_ms, nbytes, ops,
+               into=rows_out, note="", counts=None):
         err = max_abs_err(got, want)
         b_ms, b_by = bound(nbytes, ops)
         src_path, replaces = ROUTE_SOURCES[name]
-        rows_out.append({
+        into.append({
             "name": name, "route": "cuda", "source": src_path,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            "launches": (launches if counts is None else counts)[name],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
-        log(f"[4] {name}: {json.dumps(rows_out[-1])}")
+        log(f"[4] {name}{note}: {json.dumps(into[-1])}")
 
-    # expand at hop 3
-    args3 = (blk.indptr, blk.nbr, blk.rank, fbm3)
-    got = K.expand(*args3)
-    want = K.expand_plain(*args3)
-    tot = int(want[4].sum())
-    EB3 = want[0].shape[1]
-    nbytes = (P * (vmax + 1) * 4 + P * vmax + 8 * tot
-              + 16 * P * EB3 + 4 * P)
+    def hop_inputs(dev):
+        """Frontier buffers entering hops 1-3 (hub columns filled) and
+        the hop-2 dst ids, from the plain versions."""
+        blk = dev.blocks[("KNOWS", "out")]
+        P, vmax = dev.num_parts, dev.vmax
+        ids = torch.tensor(sorted(set(ns.seeds)), dtype=torch.int32,
+                           device=dev.device)
+        buf = new_frontier(dev)
+        K.mark_plain(ids, P, vmax, out=buf[:, :vmax])
+        bufs, dsts = [], []
+        for hop in range(3):
+            if dev.num_hubs:
+                K.extend_hubs_plain(buf, dev.hub_owner, dev.hub_local, vmax)
+            bufs.append(buf)
+            if hop == 2:
+                break
+            dst = K.expand_plain(blk.indptr, blk.nbr, blk.rank, buf,
+                                 dev.hub_dense)[1]
+            dsts.append(dst)
+            buf = new_frontier(dev)
+            K.mark_plain(dst, P, vmax, out=buf[:, :vmax])
+        return blk, ids, bufs, dsts
 
-    def lib_expand(indptr=blk.indptr, nbr=blk.nbr, rank=blk.rank,
-                   f=fbm3):
-        # repeat_interleave of the active rows over their degrees
-        rows = f.view(-1).nonzero().view(-1)
-        p, r = rows // vmax, rows % vmax
-        beg = indptr[p, r].long()
-        deg = indptr[p, r + 1].long() - beg
-        slot_row = torch.repeat_interleave(torch.arange(
-            rows.numel(), device=f.device), deg)
-        off = torch.arange(slot_row.numel(), device=f.device) \
-            - torch.repeat_interleave(torch.cumsum(deg, 0) - deg, deg)
-        e = beg[slot_row] + off
-        return nbr[p[slot_row], e], rank[p[slot_row], e]
+    def expand_bytes(P, nrows, H, tot, EB):
+        return (P * (nrows + 1) * 4 + P * nrows + 8 * tot + 16 * P * EB
+                + 4 * P + 4 * H)
 
-    record("expand", got, want,
-           cuda_ms(lambda: K.expand(*args3), reps),
-           cuda_ms(lambda: K.expand_plain(*args3), reps),
-           cuda_ms(lib_expand, reps), nbytes,
-           P * vmax * 3 + tot)
+    def lib_expand_for(blk, f):
+        def lib_expand():
+            # repeat_interleave of the active rows over their degrees
+            rows = f.view(-1).nonzero().view(-1)
+            nrows = f.shape[1]
+            p, r = rows // nrows, rows % nrows
+            beg = blk.indptr[p, r].long()
+            deg = blk.indptr[p, r + 1].long() - beg
+            slot_row = torch.repeat_interleave(torch.arange(
+                rows.numel(), device=f.device), deg)
+            off = torch.arange(slot_row.numel(), device=f.device) \
+                - torch.repeat_interleave(torch.cumsum(deg, 0) - deg, deg)
+            e = beg[slot_row] + off
+            return blk.nbr[p[slot_row], e], blk.rank[p[slot_row], e]
+        return lib_expand
 
-    # mark at hop 2 (the largest mark of the path), then the seed call
+    per_hop = {}
+    layouts = [("unsplit", rt.snapshots["ns"])]
+    if rts is not None:
+        layouts.append(("split", rts.snapshots["ns"]))
+    inputs = {}
+    for lname, dev in layouts:
+        blk, ids, bufs, dsts = hop_inputs(dev)
+        inputs[lname] = (blk, ids, bufs, dsts)
+        P, H = dev.num_parts, dev.num_hubs
+        hd = dev.hub_dense
+        for hop, f in enumerate(bufs, 1):
+            a = (blk.indptr, blk.nbr, blk.rank, f, hd)
+            got = K.expand(*a)
+            want = K.expand_plain(*a)
+            max_abs_err(got, want)
+            tot, EB = int(want[4].sum()), want[0].shape[1]
+            ms = cuda_ms(lambda a=a: K.expand(*a), reps)
+            b_ms, _ = bound(expand_bytes(P, f.shape[1], H, tot, EB),
+                            P * f.shape[1] * 3 + tot)
+            per_hop[f"{lname} hop {hop}"] = {
+                "ms": ms, "edges": tot, "EB": EB, "bound_ms": b_ms}
+            log(f"[4] expand {lname} hop {hop}: "
+                f"{json.dumps(per_hop[f'{lname} hop {hop}'])}")
+            if hop == 3:
+                rec = dict(
+                    got=got, want=want, ms=ms,
+                    plain_ms=cuda_ms(lambda a=a: K.expand_plain(*a), reps),
+                    lib_ms=cuda_ms(lib_expand_for(blk, f), reps),
+                    nbytes=expand_bytes(P, f.shape[1], H, tot, EB),
+                    ops=P * f.shape[1] * 3 + tot)
+                main = lname == layouts[-1][0]
+                record("expand", rec["got"], rec["want"], rec["ms"],
+                       rec["plain_ms"], rec["lib_ms"], rec["nbytes"],
+                       rec["ops"], into=rows_out if main else extra,
+                       note=f" ({lname} hop 3)",
+                       counts=launches if main else launches_u)
+
+    # the main path's layout: split when it ran, else unsplit
+    lname, dev = layouts[-1]
+    blk, ids, bufs, dsts = inputs[lname]
+    P, vmax, H = dev.num_parts, dev.vmax, dev.num_hubs
+
+    # mark at hop 2 (the largest mark of the path), into the frontier
+    # buffer's first vmax columns, with a keep mask, and the seed call
+    dst2 = dsts[1]
     n2 = dst2.numel()
-    got = [K.mark(dst2, P, vmax)]
-    want = [K.mark_plain(dst2, P, vmax)]
-    keep2 = (dst2 % 3) == 0
-    got.append(K.mark(dst2, P, vmax, keep=keep2))
-    want.append(K.mark_plain(dst2, P, vmax, keep=keep2))
-    got.append(K.mark(seed_ids, P, vmax))
-    want.append(K.mark_plain(seed_ids, P, vmax))
+    got, want = [], []
+    for keep in (None, (dst2 % 3) == 0):
+        got.append(K.mark(dst2, P, vmax, keep=keep,
+                          out=new_frontier(dev)[:, :vmax]))
+        want.append(K.mark_plain(dst2, P, vmax, keep=keep,
+                                 out=new_frontier(dev)[:, :vmax]))
+    got.append(K.mark(ids, P, vmax))
+    want.append(K.mark_plain(ids, P, vmax))
 
     def lib_mark(d=dst2):
         out = torch.zeros((P, vmax), dtype=torch.bool, device=d.device)
@@ -265,24 +446,88 @@ def main(argv=None) -> int:
         return out
 
     record("mark", got, want,
-           cuda_ms(lambda: K.mark(dst2, P, vmax), reps),
-           cuda_ms(lambda: K.mark_plain(dst2, P, vmax), reps),
-           cuda_ms(lib_mark, reps), 4 * n2 + P * vmax, 3 * n2)
+           cuda_ms(lambda: K.mark(dst2, P, vmax,
+                                  out=new_frontier(dev)[:, :vmax]), reps),
+           cuda_ms(lambda: K.mark_plain(dst2, P, vmax,
+                                        out=new_frontier(dev)[:, :vmax]),
+                   reps),
+           cuda_ms(lib_mark, reps), 4 * n2 + P * (vmax + H), 3 * n2)
+
+    # extend_hubs at the frontiers entering hops 2 and 3
+    if H:
+        got, want = [], []
+        for f in bufs[1:]:
+            g, w = f.clone(), f.clone()
+            g[:, vmax:] = False
+            w[:, vmax:] = False
+            got.append(K.extend_hubs(g, dev.hub_owner, dev.hub_local, vmax))
+            want.append(K.extend_hubs_plain(w, dev.hub_owner, dev.hub_local,
+                                            vmax))
+        f3 = bufs[2].clone()
+        record("extend_hubs", got, want,
+               cuda_ms(lambda: K.extend_hubs(f3, dev.hub_owner,
+                                             dev.hub_local, vmax), reps),
+               cuda_ms(lambda: K.extend_hubs_plain(f3, dev.hub_owner,
+                                                   dev.hub_local, vmax),
+                       reps),
+               None, H + P * H + 8 * H, P * H)
+
+    # predicate_mask at the filtered hop 3: w > 50 (the main path's
+    # program) and eleven more over nullable columns made from a seed
+    f3 = bufs[2]
+    a3 = (blk.indptr, blk.nbr, blk.rank, f3, dev.hub_dense)
+    src, dst, rk, eidx, total = K.expand_plain(*a3)
+    EB3 = src.shape[1]
+    tot3 = int(total.sum())
+    gen = torch.Generator(device=rt.device)
+    gen.manual_seed(7)
+    w, fcol, city = blk.props["w"], blk.props["f"], blk.props["city"]
+
+    def nulls(frac=0.1):
+        return torch.rand(w.shape, generator=gen, device=w.device) < frac
+
+    cols = {"w": w, "f": fcol, "city": city,
+            "wn": torch.where(nulls(), INT_NULL, w - 50),
+            "fn": torch.where(nulls(), float("nan"), fcol - 0.5),
+            "bn": torch.where(nulls(), INT_NULL, w % 2),
+            "cn": torch.where(nulls(), INT_NULL, city)}
+    types = {"w": PropType.INT64, "f": PropType.DOUBLE,
+             "city": PropType.STRING, "wn": PropType.INT64,
+             "fn": PropType.DOUBLE, "bn": PropType.BOOL,
+             "cn": PropType.STRING}
+    got, want, kept = [], [], {}
+    base = n_insns = None
+    for pname, expr in predicates(E, NULL).items():
+        prog, _ = X.compile_predicate(expr, types, dev.pool,
+                                      vid_to_dense=ns.store.space(
+                                          "ns").dense_id,
+                                      device=rt.device)
+        pa = (prog, src, dst, rk, eidx, total,
+              [cols[n] for n in prog.columns])
+        got.append(K.predicate_mask(*pa))
+        want.append(K.predicate_mask_plain(*pa))
+        kept[pname] = int(want[-1].sum())
+        if base is None:
+            base, n_insns = pa, len(prog.code)
+    log(f"    predicates checked at split hop 3 ({P}x{EB3} slots, "
+        f"{tot3} valid), kept slots: {json.dumps(kept)}")
+    record("predicate_mask", got, want,
+           cuda_ms(lambda: K.predicate_mask(*base), reps),
+           cuda_ms(lambda: K.predicate_mask_plain(*base), reps),
+           None, tot3 * (4 + 8) + P * EB3 + 4 * P,
+           tot3 * n_insns)
 
     # compact_capture at the filtered hop 3 with the w yield column (the
     # main path's call), then with four columns of both word types
-    src, dst, rk, eidx, total = K.expand_plain(*args3)
-    keep = torch.arange(EB3, dtype=torch.int32, device=rt.device) \
-        < total[:, None]
-    keep &= torch.gather(blk.props["w"], 1, eidx.long()) > ns.w_gt
-    cargs = (src, dst, rk, eidx, keep, [blk.props["w"]])
+    keep = got[0]
+    cargs = (src, dst, rk, eidx, keep, [w])
     got, want = [], []
-    for cols in (cargs[5], [blk.props[c] for c in ("w", "f", "city", "w")]):
+    for ycols in (cargs[5], [w, fcol, city, w]):
         for out, fn in ((got, K.compact_capture),
                         (want, K.compact_capture_plain)):
-            r = fn(*cargs[:5], cols)
+            r = fn(*cargs[:5], ycols)
             out.extend([*r[:4], *r[4], r[5]])
-    kept = int(want[-1].sum())
+    n_kept = int(want[-1].sum())
 
     def lib_compact(a=cargs):
         pi, si = a[4].nonzero(as_tuple=True)
@@ -297,12 +542,15 @@ def main(argv=None) -> int:
            cuda_ms(lib_compact, reps),
            # every slot's 17 bytes: at about half kept, each 32-byte sector
            # holds a kept slot (see compact_capture.cu)
-           17 * P * EB3 + 8 * kept + (16 + 8) * P * EB3 + 4 * P,
+           17 * P * EB3 + 8 * n_kept + (16 + 8) * P * EB3 + 4 * P,
            2 * P * EB3)
 
     # -- 5. result ---------------------------------------------------------
-    log(json.dumps({"go3": results, "hbm_bytes": rt.hbm_bytes(),
-                    "max_memory_allocated": peak, "queries": queries}))
+    log(json.dumps({"go3": results, "expand_per_hop": per_hop,
+                    "unsplit_launches": launches_u,
+                    "unsplit_kernels": extra,
+                    "hbm_bytes": rt.hbm_bytes() + (
+                        rts.hbm_bytes() if rts is not None else 0)}))
     print(json.dumps({"kernels": rows_out}))
     print(card)
     print(json.dumps({"ok": True, "device": {

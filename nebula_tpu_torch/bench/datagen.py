@@ -190,13 +190,21 @@ class NorthStar(NamedTuple):
     w_filter: E.Expr           # WHERE KNOWS.w > w_gt
     w_gt: int
     n_edges: int
+    split_threshold: int       # GpuRuntime(degree_split_threshold=...)
 
 
-def north_star(persons: int = 1_000_000) -> NorthStar:
+def north_star(persons: int = 1_000_000,
+               split_threshold: int = 0) -> NorthStar:
     """The north-star GO of bench.py config 6: make_social_arrays(persons,
     30, seed=7) in 8 parts (space "ns"), GO 3 STEPS FROM the 16 seeds
     np.unique(src[:64])[:16] OVER KNOWS YIELD dst(edge) AS d, KNOWS.w AS
-    w, unfiltered or WHERE KNOWS.w > 50."""
+    w, unfiltered or WHERE KNOWS.w > 50.  bench.py runs it with the
+    supernode degree-split at threshold 2048 (bench.py:310-318): pass
+    split_threshold and pin `snap` into
+    GpuRuntime(degree_split_threshold=split_threshold), which splits it
+    at pin time.  `snap` itself stays unsplit — the layout
+    host_csr_traverse reads (in a split snapshot a hub's own row is
+    empty), with the same edges, so it stays the oracle."""
     arrs = make_social_arrays(persons, 30, seed=7)
     snap = snapshot_from_arrays(arrs, parts=8, space="ns")
     seeds = np.unique(arrs["src"][:64])[:16].tolist()
@@ -204,4 +212,4 @@ def north_star(persons: int = 1_000_000) -> NorthStar:
               (E.EdgeProp("KNOWS", "w"), "w")]
     w_filter = E.Binary(">", E.EdgeProp("KNOWS", "w"), E.Literal(50))
     return NorthStar(snap, SnapshotStore(snap), seeds, yields, w_filter, 50,
-                     int(arrs["src"].size))
+                     int(arrs["src"].size), int(split_threshold))

@@ -1,9 +1,12 @@
 """Where a north-star GO 3 STEPS spends its time on one CUDA card.
 
     python3 -m nebula_tpu_torch.bench.go_profile [--persons N] [--queries Q]
+                                                 [--split T]
 
 Builds the north-star graph of chip_smoke.py (datagen.north_star(N)),
-pins it, warms up, then runs Q queries of its GO 3 STEPS WHERE
+pins it — degree-split at threshold T, 2048 by default as bench.py runs
+it, or unsplit with --split 0 — warms up, then runs Q queries of its
+GO 3 STEPS WHERE
 KNOWS.w > 50 YIELD dst(edge), KNOWS.w and prints one JSON line with:
   phases_ms  the median TraverseStats phases (seed put, device hop loop,
              fetch, host materialization, total) over the Q queries;
@@ -26,6 +29,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--persons", type=int, default=1_000_000)
     ap.add_argument("--queries", type=int, default=10)
+    ap.add_argument("--split", type=int, default=2048,
+                    help="degree-split threshold (0 = unsplit)")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -37,8 +42,8 @@ def main(argv=None) -> int:
     from ..gpu import GpuRuntime
     from .datagen import north_star
 
-    ns = north_star(args.persons)
-    rt = GpuRuntime()
+    ns = north_star(args.persons, split_threshold=args.split)
+    rt = GpuRuntime(degree_split_threshold=ns.split_threshold)
     rt.pin_prebuilt(ns.snap)
 
     def query():
@@ -70,6 +75,8 @@ def main(argv=None) -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     print(json.dumps({
         "card": torch.cuda.get_device_name(0), "queries": args.queries,
+        "split": args.split, "hubs": rt.snapshots["ns"].num_hubs,
+        "e_cap": stats[-1].e_cap,
         "edges_per_query": stats[-1].edges_traversed(),
         "rows_per_query": stats[-1].result_edges,
         "phases_ms": phases,

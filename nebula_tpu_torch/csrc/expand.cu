@@ -19,6 +19,14 @@
 //                   at and past total[p] get the reference's padding
 //                   (src = dst = -1, rank = eidx = 0).
 //
+// Degree-split snapshots (nebula_tpu/tpu/hop.py:104-110): a block then has
+// vmax_local + H rows per part, the last H being hub rows, and fbm is the
+// (P, vmax_local + H) bitmap with the hub bits filled in (hubs.cu).  A
+// local row r of part p is vertex r * P + p; hub row vmax_local + h is
+// vertex hub_dense[h].  Nothing else changes: hub rows are scanned and
+// copied like any other row, after the local rows, so slots stay in
+// ascending row, then eidx, order.
+//
 // Bound: bytes.  It reads indptr and fbm once (5 bytes a row), nbr and
 // rank of the expanded edges (8 bytes an edge) and writes 16 bytes a slot,
 // at 3.35 TB/s; it does no arithmetic worth counting.  The design keeps
@@ -55,6 +63,7 @@ expand_rows_kernel(const int* __restrict__ indptr,
                    const int* __restrict__ rank,
                    const uint8_t* __restrict__ fbm,
                    const int* __restrict__ starts, int P, int vmax,
+                   int vloc, const int* __restrict__ hub_dense,
                    int emax, int EB, int* __restrict__ src,
                    int* __restrict__ dst, int* __restrict__ rk,
                    int* __restrict__ eidx) {
@@ -85,7 +94,8 @@ expand_rows_kernel(const int* __restrict__ indptr,
       const int rb = __shfl_sync(nt::kFullMask, beg, b);
       const int rd = __shfl_sync(nt::kFullMask, deg, b);
       const size_t o = orow + __shfl_sync(nt::kFullMask, st, b);
-      const int sid = (row0 + b) * P + p;
+      const int row = row0 + b;
+      const int sid = row < vloc ? row * P + p : hub_dense[row - vloc];
 #pragma unroll 4
       for (int j = lane; j < rd; j += 32) {
         const int e = rb + j;
@@ -134,15 +144,20 @@ extern "C" int nt_expand_scan(const int* indptr, const uint8_t* fbm, int P,
   return (int)cudaGetLastError();
 }
 
+// vmax: rows per part (vmax_local + H); vloc: local rows (vmax when the
+// snapshot is unsplit, and then hub_dense may be null).
 extern "C" int nt_expand_fill(const int* indptr, const int* nbr,
                               const int* rank, const uint8_t* fbm,
                               const int* starts, const int* total, int P,
-                              int vmax, int emax, int EB, int* src, int* dst,
-                              int* rk, int* eidx, void* stream) {
+                              int vmax, int vloc, const int* hub_dense,
+                              int emax, int EB, int* src, int* dst, int* rk,
+                              int* eidx, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (vloc < vmax && hub_dense == nullptr) return (int)cudaErrorInvalidValue;
   const long long groups = (long long)P * ((vmax + 31) / 32);
   expand_rows_kernel<<<grid_for(groups, 8), 256, 0, s>>>(
-      indptr, nbr, rank, fbm, starts, P, vmax, emax, EB, src, dst, rk, eidx);
+      indptr, nbr, rank, fbm, starts, P, vmax, vloc, hub_dense, emax, EB,
+      src, dst, rk, eidx);
   expand_pad_kernel<<<grid_for((long long)P * EB, 256), 256, 0, s>>>(
       total, P, EB, src, dst, rk, eidx);
   return (int)cudaGetLastError();

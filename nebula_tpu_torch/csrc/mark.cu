@@ -8,6 +8,10 @@
 // same byte) and routing (the row is the owning part).  Every block of
 // every hop writes into the one next-frontier tensor, which is the OR.
 //
+// The bitmap's rows are `ld` bytes apart: ld = vmax for a plain (P, vmax)
+// bitmap, vmax + H when it is the first vmax columns of a degree-split
+// snapshot's (P, vmax + H) expansion bitmap (see hubs.cu).
+//
 // Only ones are ever stored, so duplicate writers agree and no atomics are
 // needed; a slot that is not kept, or whose id lies outside [0, P*vmax),
 // writes nothing (the reference's scatter dropped out-of-range ids; a
@@ -25,7 +29,8 @@ namespace {
 
 __global__ void __launch_bounds__(256)
 mark_kernel(const int* __restrict__ ids, const uint8_t* __restrict__ keep,
-            long long n, int P, int vmax, uint8_t* __restrict__ out) {
+            long long n, int P, int vmax, long long ld,
+            uint8_t* __restrict__ out) {
   const long long lim = (long long)P * vmax;
   const long long step = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -33,18 +38,19 @@ mark_kernel(const int* __restrict__ ids, const uint8_t* __restrict__ keep,
     const int d = ids[i];
     if (d < 0 || d >= lim) continue;
     if (keep != nullptr && !keep[i]) continue;
-    out[(size_t)(d % P) * vmax + d / P] = 1;
+    out[(size_t)(d % P) * ld + d / P] = 1;
   }
 }
 
 }  // namespace
 
 extern "C" int nt_mark(const int* ids, const uint8_t* keep, long long n,
-                       int P, int vmax, uint8_t* out, void* stream) {
+                       int P, int vmax, long long ld, uint8_t* out,
+                       void* stream) {
   long long g = (n + 255) / 256;
   if (g > 132 * 32) g = 132 * 32;
   if (g > 0)
     mark_kernel<<<(int)g, 256, 0, (cudaStream_t)stream>>>(ids, keep, n, P,
-                                                          vmax, out);
+                                                          vmax, ld, out);
   return (int)cudaGetLastError();
 }

@@ -26,7 +26,7 @@ class DeviceBlock:
     """One (edge type, direction) CSR block resident on the device."""
     etype: str
     direction: str
-    indptr: torch.Tensor              # (P, Vmax+1) i32
+    indptr: torch.Tensor              # (P, Vmax+H+1) i32
     nbr: torch.Tensor                 # (P, Emax)   i32
     rank: torch.Tensor                # (P, Emax)   i32
     props: Dict[str, torch.Tensor] = field(default_factory=dict)  # (P, Emax)
@@ -45,9 +45,23 @@ class DeviceSnapshot:
     blocks: Dict[Tuple[str, str], DeviceBlock] = field(default_factory=dict)
     pool: StringPool = field(default_factory=StringPool)
     host: Optional[CsrSnapshot] = None   # kept for vid and prop decode
+    # degree-split hub tables (the reference's `_hub_consts`, hop.py:271),
+    # (H,) int32 each, or None for an unsplit snapshot: hub dense id, its
+    # owner part (dense % P) and its owner-local row (dense // P)
+    hub_dense: Optional[torch.Tensor] = None
+    hub_owner: Optional[torch.Tensor] = None
+    hub_local: Optional[torch.Tensor] = None
+
+    @property
+    def num_hubs(self) -> int:
+        return 0 if self.hub_dense is None else int(self.hub_dense.numel())
 
     def _leaves(self):
         yield self.num_vertices
+        if self.hub_dense is not None:
+            yield self.hub_dense
+            yield self.hub_owner
+            yield self.hub_local
         for b in self.blocks.values():
             yield b.indptr
             yield b.nbr
@@ -59,7 +73,8 @@ class DeviceSnapshot:
 
 
 def pin_snapshot(snap: CsrSnapshot, device: torch.device) -> DeviceSnapshot:
-    """Copy every snapshot array to `device` (contiguous, same dtypes)."""
+    """Copy every snapshot array to `device` (contiguous, same dtypes;
+    the hub tables as int32, which the caller's P*vmax check bounds)."""
 
     def put(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -68,6 +83,15 @@ def pin_snapshot(snap: CsrSnapshot, device: torch.device) -> DeviceSnapshot:
                          num_parts=snap.num_parts, vmax=snap.vmax,
                          device=device, num_vertices=put(snap.num_vertices),
                          pool=snap.pool, host=snap)
+    hubs = snap.hub_dense
+    if hubs is not None and len(hubs):
+        hubs = np.asarray(hubs, np.int64)
+        if hubs.min() < 0 or hubs.max() >= snap.num_parts * snap.vmax:
+            raise GpuUnavailable("hub_dense holds ids outside [0, P*vmax)")
+        P = snap.num_parts
+        dev.hub_dense = put(hubs.astype(np.int32))
+        dev.hub_owner = put((hubs % P).astype(np.int32))
+        dev.hub_local = put((hubs // P).astype(np.int32))
     for key, b in snap.blocks.items():
         dev.blocks[key] = DeviceBlock(
             etype=b.etype, direction=b.direction,

@@ -1,11 +1,18 @@
 """The hand-written CUDA kernels of the GO path: build, load, wrappers.
 
-Three kernels, sources in `nebula_tpu_torch/csrc/`:
+Five kernels, sources in `nebula_tpu_torch/csrc/`:
 
-  expand            Queue B K1 — frontier-bitmap CSR expansion
-                    (nebula_tpu/tpu/hop.py:_expand_block :58)
+  expand            Queue B K1 — frontier-bitmap CSR expansion, with the
+                    hub rows of a degree-split snapshot
+                    (nebula_tpu/tpu/hop.py:_expand_block :58, :104-110)
   mark              K2 / K6 — kept dst ids into the (P, vmax) bitmap
                     (hop.py:_mark :168, runtime.py:_seed_builder :969)
+  extend_hubs       K8 — hub-active bits appended to the expansion
+                    bitmap (hop.py:_hub_consts :271, _extend_fbm_local
+                    :303)
+  predicate_mask    K4 — the WHERE keep mask, a register program from
+                    gpu/exprjit.py run per slot with the column gathers
+                    fused (nebula_tpu/tpu/exprjit.py:201/289)
   compact_capture   K3 + K5 — stable compaction of the final hop and
                     the YIELD column gather (hop.py:_compact_cap :238,
                     _build_local_fn :543-550)
@@ -36,10 +43,13 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from . import exprjit as X
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("expand.cu", "mark.cu", "compact_capture.cu")
+SOURCES = ("expand.cu", "mark.cu", "hubs.cu", "predicate.cu",
+           "compact_capture.cu")
 HEADERS = ("scan.cuh",)
 MAX_COLS = 4                  # yield columns compact_capture gathers
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -129,14 +139,25 @@ def _lib() -> ctypes.CDLL:
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.nt_scan_chunk.argtypes, lib.nt_scan_chunk.restype = [], I
     lib.nt_expand_scan.argtypes = [P, P, I, I, P, P, P, P]
-    lib.nt_expand_fill.argtypes = [P, P, P, P, P, P, I, I, I, I,
+    lib.nt_expand_fill.argtypes = [P, P, P, P, P, P, I, I, I, P, I, I,
                                    P, P, P, P, P]
-    lib.nt_mark.argtypes = [P, P, LL, I, I, P, P]
+    lib.nt_mark.argtypes = [P, P, LL, I, I, LL, P, P]
+    lib.nt_extend_hubs.argtypes = [P, P, P, I, I, I, P]
+    lib.nt_predicate_sizes.argtypes = [P]
+    lib.nt_predicate_mask.argtypes = [P] * 6 + [I] * 3 + [P, P]
     lib.nt_compact_capture.argtypes = ([P] * 5 + [I] * 4 + [P] * 4
                                        + [P] * 4 + [P] * 4 + [P, P, P])
     for fn in (lib.nt_expand_scan, lib.nt_expand_fill, lib.nt_mark,
-               lib.nt_compact_capture):
+               lib.nt_extend_hubs, lib.nt_predicate_sizes,
+               lib.nt_predicate_mask, lib.nt_compact_capture):
         fn.restype = I
+    sizes = (I * 5)()
+    lib.nt_predicate_sizes(sizes)
+    want = (X.MAX_REGS, X.MAX_INSNS, X.MAX_CONSTS, X.MAX_COLS,
+            ctypes.sizeof(_ProgramImage))
+    if tuple(sizes) != want:
+        raise KernelError(f"predicate kernel sizes {tuple(sizes)} differ "
+                          f"from the lowering's {want}")
     _lib_cache["lib"] = lib
     return lib
 
@@ -166,14 +187,17 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def _wrappers():
+    return (expand, mark, extend_hubs, predicate_mask, compact_capture)
+
+
 def reset_launch_counts() -> None:
-    for fn in (expand, mark, compact_capture):
+    for fn in _wrappers():
         fn.launches = 0
 
 
 def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in (expand, mark,
-                                                compact_capture)}
+    return {fn.__name__: fn.launches for fn in _wrappers()}
 
 
 # ---------------------------------------------------------------------------
@@ -181,13 +205,15 @@ def launch_counts() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def expand_plain(indptr, nbr, rank, fbm):
+def expand_plain(indptr, nbr, rank, fbm, hub_dense=None):
     """Plain version of `expand`: (src, dst, rank, eidx) (P, EB) int32
     and total (P,) int32, EB = max(total).  Slot j < total[p] of part p
     is edge eidx of row `row`, where row is the frontier row whose
     degree range holds j; slots past total[p] are padding (-1, -1, 0,
-    0)."""
-    P, vmax = fbm.shape
+    0).  With hub_dense (H,) the last H of fbm's rows are hub rows and
+    their slots' src is hub_dense[row - (rows - H)]."""
+    P, nrows = fbm.shape
+    H = 0 if hub_dense is None else int(hub_dense.numel())
     deg = torch.where(fbm, indptr[:, 1:] - indptr[:, :-1], 0).to(_I32)
     ends = torch.cumsum(deg, 1, dtype=_I32)
     total = ends[:, -1].contiguous()
@@ -204,29 +230,39 @@ def expand_plain(indptr, nbr, rank, fbm):
     dst = torch.where(valid, torch.gather(nbr, 1, el), -1).to(_I32)
     rk = torch.where(valid, torch.gather(rank, 1, el), 0).to(_I32)
     pid = torch.arange(P, dtype=torch.int64, device=dev)[:, None]
-    src = torch.where(valid, row * P + pid, -1).to(_I32)
+    sid = row * P + pid
+    if H:
+        vloc = nrows - H
+        hub = hub_dense.long()[(row - vloc).clamp(0, H - 1)]
+        sid = torch.where(row < vloc, sid, hub)
+    src = torch.where(valid, sid, -1).to(_I32)
     return src, dst, rk, eidx, total
 
 
-def expand(indptr, nbr, rank, fbm):
-    """Expand one block's CSR from the (P, vmax) bool frontier bitmap.
-    Returns (src, dst, rank, eidx, total) as `expand_plain` does."""
+def expand(indptr, nbr, rank, fbm, hub_dense=None):
+    """Expand one block's CSR from the (P, rows) bool frontier bitmap.
+    Returns (src, dst, rank, eidx, total) as `expand_plain` does.  An
+    unsplit block has rows = vmax; a degree-split one rows = vmax + H,
+    with its (H,) int32 hub ids in hub_dense."""
     if fbm.device.type == "cpu":
-        return expand_plain(indptr, nbr, rank, fbm)
-    P, vmax = fbm.shape
+        return expand_plain(indptr, nbr, rank, fbm, hub_dense)
+    P, nrows = fbm.shape
     emax = nbr.shape[1]
     dev = fbm.device
-    _want(fbm, "fbm", torch.bool, (P, vmax), dev)
-    _want(indptr, "indptr", _I32, (P, vmax + 1), dev)
+    H = 0 if hub_dense is None else int(hub_dense.numel())
+    _want(fbm, "fbm", torch.bool, (P, nrows), dev)
+    _want(indptr, "indptr", _I32, (P, nrows + 1), dev)
     _want(nbr, "nbr", _I32, (P, emax), dev)
     _want(rank, "rank", _I32, (P, emax), dev)
+    if H:
+        _want(hub_dense, "hub_dense", _I32, (H,), dev)
     lib = _lib()
-    starts = torch.empty((P, vmax), dtype=_I32, device=dev)
+    starts = torch.empty((P, nrows), dtype=_I32, device=dev)
     total = torch.empty((P,), dtype=_I32, device=dev)
-    sums = torch.empty((P, max(_cdiv(vmax, lib.nt_scan_chunk()), 1)),
+    sums = torch.empty((P, max(_cdiv(nrows, lib.nt_scan_chunk()), 1)),
                        dtype=_I32, device=dev)
     stream = _stream(fbm)
-    _check(lib.nt_expand_scan(indptr.data_ptr(), fbm.data_ptr(), P, vmax,
+    _check(lib.nt_expand_scan(indptr.data_ptr(), fbm.data_ptr(), P, nrows,
                               starts.data_ptr(), total.data_ptr(),
                               sums.data_ptr(), stream), "expand scan")
     EB = int(total.max()) if P else 0        # the one read per hop
@@ -234,8 +270,9 @@ def expand(indptr, nbr, rank, fbm):
     if EB:
         _check(lib.nt_expand_fill(
             indptr.data_ptr(), nbr.data_ptr(), rank.data_ptr(),
-            fbm.data_ptr(), starts.data_ptr(), total.data_ptr(), P, vmax,
-            emax, EB, *[o.data_ptr() for o in outs], stream), "expand fill")
+            fbm.data_ptr(), starts.data_ptr(), total.data_ptr(), P, nrows,
+            nrows - H, hub_dense.data_ptr() if H else None, emax, EB,
+            *[o.data_ptr() for o in outs], stream), "expand fill")
     expand.launches += 1
     return (*outs, total)
 
@@ -255,20 +292,26 @@ def mark_plain(ids, P: int, vmax: int, keep=None, out=None):
     if keep is not None:
         sel &= keep.reshape(-1)
     d = d[sel]
-    out.view(-1)[(d % P) * vmax + d // P] = True
+    out[d % P, d // P] = True
     return out
 
 
 def mark(ids, P: int, vmax: int, keep=None, out=None):
-    """OR the kept int32 dense ids into a (P, vmax) bool bitmap (`out`,
-    or a fresh zero bitmap).  keep=None keeps every id >= 0."""
+    """OR the kept int32 dense ids into a (P, vmax) bool bitmap: `out`,
+    or a fresh zero bitmap.  `out` may be the first vmax columns of a
+    wider bitmap (rows contiguous, any row stride).  keep=None keeps
+    every id >= 0."""
     if out is None:
         out = torch.zeros((P, vmax), dtype=torch.bool, device=ids.device)
     if ids.device.type == "cpu":
         return mark_plain(ids, P, vmax, keep, out)
     dev = ids.device
     _want(ids, "ids", _I32, ids.shape, dev)
-    _want(out, "out", torch.bool, (P, vmax), dev)
+    if out.device != dev or out.dtype != torch.bool \
+            or tuple(out.shape) != (P, vmax) \
+            or (out.numel() and out.stride(1) != 1):
+        raise ValueError(f"out must be a ({P}, {vmax}) bool bitmap on {dev}"
+                         f" with contiguous rows")
     if keep is not None:
         _want(keep, "keep", torch.bool, ids.shape, dev)
     n = ids.numel()
@@ -276,9 +319,121 @@ def mark(ids, P: int, vmax: int, keep=None, out=None):
         return out
     keep_ptr = None if keep is None else keep.data_ptr()
     _check(_lib().nt_mark(ids.data_ptr(), keep_ptr, n, P, vmax,
-                          out.data_ptr(), _stream(ids)), "mark")
+                          out.stride(0), out.data_ptr(), _stream(ids)),
+           "mark")
     mark.launches += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# extend_hubs (K8)
+# ---------------------------------------------------------------------------
+
+
+def extend_hubs_plain(fbm, hub_owner, hub_local, vmax: int):
+    """Plain version of `extend_hubs`: fbm[:, vmax + h] =
+    fbm[hub_owner[h], hub_local[h]] for every part, in place."""
+    bits = fbm[hub_owner.long(), hub_local.long()]
+    fbm[:, vmax:] = bits[None, :]
+    return fbm
+
+
+def extend_hubs(fbm, hub_owner, hub_local, vmax: int):
+    """Fill the H hub columns of the (P, vmax + H) bool expansion bitmap
+    from the hub bits in the first vmax columns (their owners' rows).
+    Returns fbm, updated in place."""
+    if fbm.device.type == "cpu":
+        return extend_hubs_plain(fbm, hub_owner, hub_local, vmax)
+    P, width = fbm.shape
+    H = width - vmax
+    dev = fbm.device
+    _want(fbm, "fbm", torch.bool, (P, width), dev)
+    _want(hub_owner, "hub_owner", _I32, (H,), dev)
+    _want(hub_local, "hub_local", _I32, (H,), dev)
+    if H <= 0 or P == 0:
+        return fbm
+    _check(_lib().nt_extend_hubs(fbm.data_ptr(), hub_owner.data_ptr(),
+                                 hub_local.data_ptr(), P, vmax, H,
+                                 _stream(fbm)), "extend_hubs")
+    extend_hubs.launches += 1
+    return fbm
+
+
+# ---------------------------------------------------------------------------
+# predicate_mask (K4)
+# ---------------------------------------------------------------------------
+
+
+class _ProgramImage(ctypes.Structure):
+    """The kernel's `Program` parameter (csrc/predicate.cu)."""
+    _fields_ = [("n_insns", ctypes.c_int), ("n_cols", ctypes.c_int),
+                ("always_false", ctypes.c_int), ("pad", ctypes.c_int),
+                ("code", ctypes.c_int * (8 * X.MAX_INSNS)),
+                ("consts", ctypes.c_longlong * X.MAX_CONSTS),
+                ("cols", ctypes.c_void_p * X.MAX_COLS)]
+
+
+def _program_image(prog, cols) -> _ProgramImage:
+    img = _ProgramImage()
+    img.n_insns, img.n_cols = len(prog.code), len(cols)
+    img.always_false = int(prog.always_false)
+    for i, insn in enumerate(prog.code):
+        img.code[8 * i:8 * i + 8] = list(insn)
+    for i, w in enumerate(prog.consts):
+        img.consts[i] = w
+    for i, c in enumerate(cols):
+        img.cols[i] = c.data_ptr()
+    return img
+
+
+def predicate_mask_plain(prog, src, dst, rank, eidx, total, cols):
+    """Plain version of `predicate_mask`: gather each of the program's
+    columns (cols, in prog.columns order, each (P, emax)) at eidx, run
+    the program with torch ops, and AND with slot < total[p]."""
+    P, EB = src.shape
+    valid = (torch.arange(EB, dtype=_I32, device=src.device)
+             < total[:, None])
+    el = eidx.long()
+    c = {"_rank": rank, "_src": src, "_dst": dst}
+    for name, col in zip(prog.columns, cols):
+        c[name] = torch.gather(col, 1, el)
+    return valid & prog(c)
+
+
+def predicate_mask(prog, src, dst, rank, eidx, total, cols):
+    """The (P, EB) bool keep mask of a WHERE predicate program
+    (gpu/exprjit.py) over one block's expanded slots: True where the
+    slot is valid and the predicate is true (not false, not null)."""
+    if prog.error is not None:
+        raise prog.error
+    if src.device.type == "cpu":
+        return predicate_mask_plain(prog, src, dst, rank, eidx, total, cols)
+    P, EB = src.shape
+    dev = src.device
+    for name, t in (("src", src), ("dst", dst), ("rank", rank),
+                    ("eidx", eidx)):
+        _want(t, name, _I32, (P, EB), dev)
+    _want(total, "total", _I32, (P,), dev)
+    if len(cols) != len(prog.columns):
+        raise ValueError(f"the program reads {len(prog.columns)} columns, "
+                         f"got {len(cols)}")
+    emax = cols[0].shape[1] if cols else 0
+    for name, c in zip(prog.columns, cols):
+        if c.dtype not in (torch.int64, torch.float64):
+            raise ValueError(f"column {name} is {c.dtype}; int64 or "
+                             f"float64")
+        _want(c, f"column {name}", c.dtype, (P, emax), dev)
+    keep = torch.empty((P, EB), dtype=torch.bool, device=dev)
+    if P * EB == 0:
+        return keep
+    lib = _lib()
+    img = _program_image(prog, cols)
+    _check(lib.nt_predicate_mask(
+        ctypes.addressof(img), src.data_ptr(), dst.data_ptr(),
+        rank.data_ptr(), eidx.data_ptr(), total.data_ptr(), P, EB, emax,
+        keep.data_ptr(), _stream(src)), "predicate_mask")
+    predicate_mask.launches += 1
+    return keep
 
 
 # ---------------------------------------------------------------------------
@@ -356,6 +511,5 @@ def compact_capture(src, dst, rank, eidx, keep,
     return (*outs, props, kcount)
 
 
-expand.launches = 0
-mark.launches = 0
-compact_capture.launches = 0
+for _fn in _wrappers():
+    _fn.launches = 0

@@ -4,14 +4,15 @@ Port of the solo single-device path of `nebula_tpu/tpu/runtime.py`:
 `pin_prebuilt` (:871), `unpin`, `hbm_bytes`, the seed bitmap (:941-987),
 `traverse` (:1753) with a columnar YIELD list, `_block_columns` (:2266),
 `_materialize_yields` (:2373), `_d2v`, `_cap_keys_for_yields` and
-`_cat_parts`.
+`_cat_parts`, and the supernode degree-split at pin time
+(`_maybe_degree_split`, :857).
 
 What this slice leaves out raises `CannotCompile`, as the reference does
 for a filter it cannot compile: GO without `yields` (Edge rows, which need
-the store's catalog), degree-split hub rows, the delta plane, query lanes
-and the mesh.  A traversal runs on the runtime's one `torch.device`;
-`GpuRuntime()` means `cuda:0`, and the CPU runs only when the caller
-passes `device="cpu"` (the kernels' plain versions then run).
+the store's catalog), the delta plane, query lanes and the mesh.  A
+traversal runs on the runtime's one `torch.device`; `GpuRuntime()` means
+`cuda:0`, and the CPU runs only when the caller passes `device="cpu"`
+(the kernels' plain versions then run).
 """
 from __future__ import annotations
 
@@ -23,11 +24,11 @@ import torch
 
 from ..core import expr as E
 from ..core.value import ColumnarDataSet
-from ..graphstore.csr import DECODABLE, decode_prop_column_np
+from ..graphstore.csr import DECODABLE, decode_prop_column_np, degree_split
 from .device import DeviceSnapshot, GpuUnavailable, pin_snapshot, \
     resolve_device
 from .exprjit import CannotCompile, compile_predicate, eval_yield_column_np
-from .hop import run_hops
+from .hop import new_frontier, run_hops
 from .kernels import mark
 
 _MAX_YIELD_COLS = 4     # device-gathered yield columns (runtime.py:1812)
@@ -136,17 +137,27 @@ class TraverseStats:
 
 
 class GpuRuntime:
-    """Holds the pinned spaces of one device and runs GO on them."""
+    """Holds the pinned spaces of one device and runs GO on them.
 
-    def __init__(self, device: Any = None):
+    degree_split_threshold: the reference's flag
+    `tpu_degree_split_threshold` (utils/config.py:184; 0 = off).  When it
+    is > 0, `pin_prebuilt` splits every vertex whose degree exceeds it
+    into hub rows spread over the parts (graphstore.csr.degree_split)."""
+
+    def __init__(self, device: Any = None, degree_split_threshold: int = 0):
         self.device = resolve_device(device)
+        self.degree_split_threshold = int(degree_split_threshold)
         self.snapshots: Dict[str, DeviceSnapshot] = {}
 
     # -- pinning ----------------------------------------------------------
 
     def pin_prebuilt(self, snap) -> DeviceSnapshot:
         """Pin an externally built CsrSnapshot (bulk-ingest / bench path),
-        replacing any snapshot of the same space."""
+        replacing any snapshot of the same space.  With the degree-split
+        threshold set, an unsplit snapshot is split first, and the pinned
+        copy and its host mirror share the split layout."""
+        if self.degree_split_threshold > 0 and snap.hub_dense is None:
+            snap = degree_split(snap, self.degree_split_threshold)
         if snap.num_parts * snap.vmax >= 1 << 31:
             # dense ids are int32 on the device, as in the reference
             raise GpuUnavailable(
@@ -190,12 +201,15 @@ class GpuRuntime:
 
     def _seed_frontier(self, dev: DeviceSnapshot,
                        dense_ids: Sequence[int]) -> torch.Tensor:
-        """The (P, vmax) bool seed bitmap, scattered on the device by the
-        `mark` kernel (K6) from the seed ids alone."""
+        """The seed frontier buffer (hop.new_frontier): the (P, vmax) bool
+        seed bitmap in its first vmax columns, scattered on the device by
+        the `mark` kernel (K6) from the seed ids alone."""
         P, vmax = dev.num_parts, dev.vmax
         d = self._seed_sorted(dense_ids, P, vmax)
         ids = torch.tensor(d, dtype=torch.int32).to(self.device)
-        return mark(ids, P, vmax)
+        fbm = new_frontier(dev)
+        mark(ids, P, vmax, out=fbm[:, :vmax])
+        return fbm
 
     @staticmethod
     def _blocks_for(etypes: Sequence[str], direction: str):
@@ -230,18 +244,17 @@ class GpuRuntime:
         if capture and yields is None:
             raise CannotCompile(
                 "GO without yields (Edge rows) is not ported yet")
-        if dev.host.hub_dense is not None:
-            raise CannotCompile("degree-split hub rows are not ported yet")
 
         block_keys = self._blocks_for(etypes, direction)
         pred = None
-        pred_cols: List[str] = []
         if edge_filter is not None:
             # single-etype constraint is enforced by the optimizer rule
             bl = dev.blocks[block_keys[0]]
-            pred, pred_cols = compile_predicate(
+            pred, _ = compile_predicate(
                 edge_filter, bl.prop_types, dev.pool,
                 vid_to_dense=sd.dense_id, device=self.device)
+            if pred.error is not None:
+                raise pred.error
 
         dense = [sd.dense_id(v) for v in vids]
         dense = [d for d in dense if d >= 0]
@@ -281,9 +294,9 @@ class GpuRuntime:
         stats.put_s = time.perf_counter() - tp
 
         t0 = time.perf_counter()
-        res = run_hops([dev.blocks[bk] for bk in block_keys], frontier,
-                       steps, pred=pred, pred_cols=pred_cols,
-                       capture=capture, yield_cols=yield_cols)
+        res = run_hops(dev, [dev.blocks[bk] for bk in block_keys], frontier,
+                       steps, pred=pred, capture=capture,
+                       yield_cols=yield_cols)
         hop_edges = res["hop_edges"].cpu().numpy()   # synchronises
         t1 = time.perf_counter()
         stats.device_s = t1 - t0

@@ -2,11 +2,11 @@
 padded numpy arrays, the state the device plane pins.
 
 A copy of the parts of `nebula_tpu/graphstore/csr.py` this slice needs:
-StringPool, the NULL sentinels, the batched prop-column decode, CsrBlock
-and CsrSnapshot.  Building a snapshot from a live store waits for the
-store slice; `snapshot_from_fields` builds one from plain arrays (the
-fields another process or package exported), and
-`bench.datagen.snapshot_from_arrays` from generated edge arrays.
+StringPool, the NULL sentinels, the batched prop-column decode, CsrBlock,
+CsrSnapshot and the supernode `degree_split`.  Building a snapshot from
+a live store waits for the store slice; `snapshot_from_fields` builds
+one from plain arrays (the fields another process or package exported),
+and `bench.datagen.snapshot_from_arrays` from generated edge arrays.
 
 Layout (identical to the reference):
   * one CsrBlock per (edge type, direction), every part padded to the
@@ -118,7 +118,8 @@ def decode_prop_column_np(pt: PropType, raw: np.ndarray,
 class CsrBlock:
     """One (edge-type, direction) adjacency across ALL parts, padded.
 
-    indptr : (P, Vmax+1) int32 — per part, CSR row pointers over local idx
+    indptr : (P, Vmax+H+1) int32 — per part, CSR row pointers over local
+             idx, then H hub rows in a degree-split snapshot
     nbr    : (P, Emax) int32   — dense id of neighbor (dst for out, src for in)
     rank   : (P, Emax) int32
     props  : name → (P, Emax) int64/float64 — edge property columns
@@ -143,8 +144,8 @@ class CsrSnapshot:
     blocks: Dict[Tuple[str, str], CsrBlock] = field(default_factory=dict)
     pool: StringPool = field(default_factory=StringPool)
     dense_to_vid: List[Any] = field(default_factory=list)
-    # dense ids of degree-split supernodes (None = unsplit); the port
-    # refuses split snapshots until the hub-row kernels land
+    # dense ids of degree-split supernodes (None = unsplit): each block
+    # then carries H hub rows after the vmax local rows (`degree_split`)
     hub_dense: Optional[np.ndarray] = None
 
     def block(self, etype: str, direction: str = "out") -> CsrBlock:
@@ -158,13 +159,107 @@ class CsrSnapshot:
         return total
 
 
+def degree_split(snap: CsrSnapshot, threshold: int,
+                 max_hubs: int = 1024) -> CsrSnapshot:
+    """Split supernode adjacency across parts (the reference's
+    `graphstore/csr.py:degree_split`, :490).
+
+    A vertex whose degree exceeds `threshold` in ANY block becomes a
+    hub (at most `max_hubs`, the highest degrees, kept in ascending id
+    order): each block's edge arrays are rebuilt so the hub's adjacency
+    is divided into P contiguous chunks, chunk k living in part k as one
+    of H extra hub rows appended after the vmax local rows (the hub's
+    own local row becomes empty).  Every part then expands ~1/P of a
+    hub's edges per hop instead of the owner expanding all of them.
+
+    A pure layout change: same edges, same properties, host mirror
+    identical to the device copy, so eidx decode is unchanged.  Returns
+    a NEW snapshot with hub_dense set (the input itself when no vertex
+    exceeds the threshold); vertex ownership is untouched."""
+    P, vmax = snap.num_parts, snap.vmax
+    # deg[local*P + p] == deg.reshape(vmax, P)[local, p]
+    deg2d = np.zeros((vmax, P), np.int64)
+    for b in snap.blocks.values():
+        lens = b.indptr[:, 1:] - b.indptr[:, :-1]        # (P, vmax)
+        np.maximum(deg2d, lens.T, out=deg2d)
+    deg = deg2d.reshape(-1)
+    hubs = np.nonzero(deg > threshold)[0]
+    if hubs.size == 0:
+        return snap
+    if hubs.size > max_hubs:
+        hubs = hubs[np.argsort(deg[hubs])[::-1][:max_hubs]]
+    hubs = np.sort(hubs).astype(np.int64)
+    H = int(hubs.size)
+    ho, hl = (hubs % P).astype(np.int64), (hubs // P).astype(np.int64)
+
+    def split_block(b: CsrBlock) -> CsrBlock:
+        lens = b.indptr[:, 1:] - b.indptr[:, :-1]
+        # per-hub chunk bounds into the OWNER part's edge range
+        bounds = []
+        for i in range(H):
+            s = int(b.indptr[ho[i], hl[i]])
+            e = int(b.indptr[ho[i], hl[i] + 1])
+            bounds.append(s + (e - s) * np.arange(P + 1) // P)
+        new_lens, new_cols = [], {"nbr": [], "rank": []}
+        for n in b.props:
+            new_cols[("prop", n)] = []
+        for p in range(P):
+            ep = int(b.indptr[p, -1])
+            keep = np.ones(ep, bool)
+            base = lens[p].astype(np.int64).copy()
+            for i in range(H):
+                if ho[i] == p:
+                    keep[int(b.indptr[p, hl[i]]):
+                         int(b.indptr[p, hl[i] + 1])] = False
+                    base[hl[i]] = 0
+            hub_lens = np.asarray(
+                [bounds[i][p + 1] - bounds[i][p] for i in range(H)],
+                np.int64)
+            new_lens.append(np.concatenate([base, hub_lens]))
+
+            def build(src_arr, out_key):
+                parts = [src_arr[p, :ep][keep]]
+                for i in range(H):
+                    parts.append(src_arr[ho[i],
+                                         bounds[i][p]:bounds[i][p + 1]])
+                new_cols[out_key].append(np.concatenate(parts))
+            build(b.nbr, "nbr")
+            build(b.rank, "rank")
+            for n in b.props:
+                build(b.props[n], ("prop", n))
+        emax = max(int(x.size) for x in new_cols["nbr"])
+
+        def pad(rows, fill=0):
+            out = np.full((P, emax), fill, rows[0].dtype)
+            for p, r in enumerate(rows):
+                out[p, :r.size] = r
+            return out
+        indptr = np.zeros((P, vmax + H + 1), b.indptr.dtype)
+        for p in range(P):
+            indptr[p, 1:] = np.cumsum(new_lens[p])
+        return CsrBlock(etype=b.etype, direction=b.direction,
+                        indptr=indptr, nbr=pad(new_cols["nbr"]),
+                        rank=pad(new_cols["rank"]),
+                        props={n: pad(new_cols[("prop", n)])
+                               for n in b.props},
+                        prop_types=dict(b.prop_types))
+
+    return CsrSnapshot(space=snap.space, epoch=snap.epoch, num_parts=P,
+                       vmax=vmax, num_vertices=snap.num_vertices,
+                       blocks={k: split_block(b)
+                               for k, b in snap.blocks.items()},
+                       pool=snap.pool, dense_to_vid=snap.dense_to_vid,
+                       hub_dense=hubs)
+
+
 def snapshot_from_fields(fields: Dict[str, Any]) -> CsrSnapshot:
     """Build a CsrSnapshot from plain numpy arrays and lists.
 
     fields: space, epoch, num_parts, vmax, num_vertices, dense_to_vid,
     pool (the pool's strings in code order), hub_dense (None or an
-    array), and blocks: {(etype, direction): {indptr, nbr, rank, props:
-    {name: array}, prop_types: {name: PropType name}}}.
+    array of H hub ids; each indptr then has vmax + H + 1 columns), and
+    blocks: {(etype, direction): {indptr, nbr, rank, props: {name:
+    array}, prop_types: {name: PropType name}}}.
 
     Shapes and dtypes are checked here: the arrays are the state every
     kernel reads, so a malformed field must fail at the boundary, not as
@@ -180,12 +275,19 @@ def snapshot_from_fields(fields: Dict[str, Any]) -> CsrSnapshot:
                    else np.asarray(fields["hub_dense"], np.int64)))
     if snap.num_vertices.shape != (P,):
         raise ValueError(f"num_vertices must be ({P},)")
+    H = 0
+    if snap.hub_dense is not None:
+        H = int(snap.hub_dense.size)
+        if snap.hub_dense.shape != (H,) or (snap.hub_dense < 0).any() \
+                or (snap.hub_dense >= P * vmax).any():
+            raise ValueError("hub_dense must be dense ids in [0, P*vmax)")
     for (et, dirn), b in fields["blocks"].items():
         indptr = np.ascontiguousarray(b["indptr"], np.int32)
         nbr = np.ascontiguousarray(b["nbr"], np.int32)
         rank = np.ascontiguousarray(b["rank"], np.int32)
-        if indptr.shape != (P, vmax + 1):
-            raise ValueError(f"{et}/{dirn}: indptr must be ({P}, {vmax + 1})")
+        if indptr.shape != (P, vmax + H + 1):
+            raise ValueError(f"{et}/{dirn}: indptr must be "
+                             f"({P}, {vmax + H + 1})")
         emax = nbr.shape[1] if nbr.ndim == 2 else -1
         if nbr.shape != (P, emax) or rank.shape != (P, emax):
             raise ValueError(f"{et}/{dirn}: nbr and rank must be (P, Emax)")

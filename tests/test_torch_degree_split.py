@@ -1,0 +1,253 @@
+"""The supernode degree-split in the port against the JAX reference.
+
+`degree_split` (graphstore/csr.py) array for array against the
+reference's, `extend_hubs_plain` (K8) against `hop._extend_fbm_local`,
+`expand_plain` with hub rows against `hop._expand_block(...,
+hub_dense=...)` under `jax.vmap`, and GO N STEPS with the split active:
+the reference `TpuRuntime` pinned with `tpu_degree_split_threshold` set
+and the port's `GpuRuntime(device="cpu", degree_split_threshold=...)`,
+every column equal in order, hop_edges and frontier_sizes equal.  The
+graph is make_social_arrays(2000, 8), P = 8, whose Zipf tails give a
+few vertices hundreds of edges.  Tolerance: exact — the path moves
+integers and copies float64 values.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nebula_tpu.bench import datagen as ref_datagen
+from nebula_tpu.core import expr as RE
+from nebula_tpu.graphstore import csr as ref_csr
+from nebula_tpu.tpu import TpuRuntime, make_mesh
+from nebula_tpu.tpu import hop as ref_hop
+from nebula_tpu.utils.config import get_config
+
+from nebula_tpu_torch.bench import datagen as port_datagen
+from nebula_tpu_torch.core import expr as PE
+from nebula_tpu_torch.gpu import GpuRuntime
+from nebula_tpu_torch.gpu import kernels as K
+from nebula_tpu_torch.graphstore import csr as port_csr
+from nebula_tpu_torch.graphstore.csr import snapshot_from_fields
+
+P = 8
+THRESHOLD = 64
+
+
+def _fields(snap):
+    """Plain arrays and lists out of a reference CsrSnapshot."""
+    return {
+        "space": snap.space, "epoch": snap.epoch,
+        "num_parts": snap.num_parts, "vmax": snap.vmax,
+        "num_vertices": np.asarray(snap.num_vertices),
+        "dense_to_vid": list(snap.dense_to_vid),
+        "pool": list(snap.pool.strings),
+        "hub_dense": snap.hub_dense,
+        "blocks": {k: {"indptr": b.indptr, "nbr": b.nbr, "rank": b.rank,
+                       "props": dict(b.props),
+                       "prop_types": {n: t.name
+                                      for n, t in b.prop_types.items()}}
+                   for k, b in snap.blocks.items()},
+    }
+
+
+@pytest.fixture(scope="module")
+def graph():
+    arrs = ref_datagen.make_social_arrays(2000, 8)
+    ref_snap = ref_datagen.snapshot_from_arrays(arrs, parts=P)
+    carried = snapshot_from_fields(_fields(ref_snap))
+    cfg = get_config()
+    cfg.set_dynamic("tpu_degree_split_threshold", THRESHOLD)
+    try:
+        ref_rt = TpuRuntime(make_mesh(1))
+        # one bucket that fits every case: one XLA compile per case
+        ref_rt.init_eb = 1 << 13
+        ref_rt.pin_prebuilt(ref_snap)
+    finally:
+        cfg.set_dynamic("tpu_degree_split_threshold", 0)
+    port_rt = GpuRuntime(device="cpu", degree_split_threshold=THRESHOLD)
+    port_rt.pin_prebuilt(carried)
+    hubs = port_rt.snapshots["snb"].host.hub_dense
+    # the usual 16 seeds plus two hubs, whose edges reach every part
+    seeds = sorted(set(np.unique(arrs["src"][:64])[:16].tolist())
+                   | {int(hubs[0]), int(hubs[-1])})
+    return dict(ref_snap=ref_snap, carried=carried, ref_rt=ref_rt,
+                port_rt=port_rt, seeds=seeds,
+                ref_store=ref_datagen.SnapshotStore(ref_snap),
+                port_store=port_datagen.SnapshotStore(carried))
+
+
+def _assert_split_equal(ref, port):
+    if ref.hub_dense is None:
+        assert port.hub_dense is None
+    else:
+        assert port.hub_dense.dtype == ref.hub_dense.dtype
+        np.testing.assert_array_equal(port.hub_dense, ref.hub_dense)
+    assert (ref.num_parts, ref.vmax) == (port.num_parts, port.vmax)
+    assert sorted(ref.blocks) == sorted(port.blocks)
+    for k, rb in ref.blocks.items():
+        pb = port.blocks[k]
+        for name in ("indptr", "nbr", "rank"):
+            a, b = getattr(rb, name), getattr(pb, name)
+            assert a.dtype == b.dtype and a.shape == b.shape, (k, name)
+            np.testing.assert_array_equal(a, b, err_msg=f"{k} {name}")
+        for n in rb.props:
+            assert rb.props[n].dtype == pb.props[n].dtype
+            np.testing.assert_array_equal(rb.props[n], pb.props[n])
+
+
+@pytest.mark.parametrize("threshold, max_hubs, hubs", [
+    (10 ** 6, 1024, "none"),       # no vertex exceeds it
+    (THRESHOLD, 1024, "few"),
+    (12, 16, "capped"),            # more candidates than max_hubs
+])
+def test_degree_split_matches_reference(graph, threshold, max_hubs, hubs):
+    ref = ref_csr.degree_split(graph["ref_snap"], threshold,
+                               max_hubs=max_hubs)
+    port = port_csr.degree_split(graph["carried"], threshold,
+                                 max_hubs=max_hubs)
+    _assert_split_equal(ref, port)
+    if hubs == "none":
+        assert port is graph["carried"]
+    elif hubs == "few":
+        assert 0 < len(port.hub_dense) < max_hubs
+    else:
+        assert len(port.hub_dense) == max_hubs
+        lens = [b.indptr[:, 1:] - b.indptr[:, :-1]
+                for b in graph["carried"].blocks.values()]
+        deg = np.maximum.reduce([x.T.reshape(-1) for x in lens])
+        assert (deg > threshold).sum() > max_hubs
+
+
+def test_pinned_split_is_the_reference_split(graph):
+    dev = graph["port_rt"].snapshots["snb"]
+    ref_dev = graph["ref_rt"].snapshots["snb"]
+    _assert_split_equal(ref_dev.host, dev.host)
+    H = len(dev.host.hub_dense)
+    assert dev.num_hubs == H > 0
+    hubs = dev.host.hub_dense
+    for name, want in (("hub_dense", hubs), ("hub_owner", hubs % P),
+                       ("hub_local", hubs // P)):
+        t = getattr(dev, name)
+        assert t.dtype == torch.int32, name
+        np.testing.assert_array_equal(t.numpy(), want)
+    # the hub tables count in the pinned bytes
+    assert dev.hbm_bytes() == sum(
+        t.numel() * t.element_size() for t in dev._leaves())
+    assert dev.hbm_bytes() > dev.host.hbm_bytes()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_extend_hubs_matches_reference(graph, seed):
+    rng = np.random.default_rng(seed)
+    vmax = graph["carried"].vmax
+    hubs = np.sort(rng.choice(P * vmax, 24, replace=False))
+    fbm = rng.random((P, vmax)) < 0.3
+    owner, local = (hubs % P).astype(np.int32), (hubs // P).astype(np.int32)
+    want = np.asarray(ref_hop._extend_fbm_local(
+        jnp.asarray(fbm), jnp.asarray(owner), jnp.asarray(local), P))
+    buf = torch.zeros((P, vmax + len(hubs)), dtype=torch.bool)
+    buf[:, :vmax] = torch.from_numpy(fbm)
+    got = K.extend_hubs(buf, torch.from_numpy(owner),
+                        torch.from_numpy(local), vmax)
+    assert got is buf
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("direction", ["out", "in"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_expand_hub_rows_match_reference(graph, direction, seed):
+    dev = graph["port_rt"].snapshots["snb"]
+    hb = dev.host.blocks[("KNOWS", direction)]
+    hubs = dev.host.hub_dense
+    vmax, H = dev.vmax, len(hubs)
+    rng = np.random.default_rng(seed)
+    fbm = rng.random((P, vmax)) < 0.05
+    fbm[hubs[:3] % P, hubs[:3] // P] = True       # some hubs are active
+    buf = torch.zeros((P, vmax + H), dtype=torch.bool)
+    buf[:, :vmax] = torch.from_numpy(fbm)
+    K.extend_hubs(buf, dev.hub_owner, dev.hub_local, vmax)
+    src, dst, rk, eidx, total = K.expand(
+        torch.from_numpy(hb.indptr), torch.from_numpy(hb.nbr),
+        torch.from_numpy(hb.rank), buf, dev.hub_dense)
+    EB = src.shape[1]
+    hd = jnp.asarray(hubs.astype(np.int32))
+    ref = jax.vmap(lambda ip, nb, r, f, pid: ref_hop._expand_block(
+        ip, nb, r, f, EB, P, pid, vmax_local=vmax, hub_dense=hd))(
+        jnp.asarray(hb.indptr), jnp.asarray(hb.nbr), jnp.asarray(hb.rank),
+        jnp.asarray(buf.numpy()), jnp.arange(P, dtype=jnp.int32))
+    np.testing.assert_array_equal(total.numpy(), np.asarray(ref[5]))
+    assert EB == int(np.asarray(ref[5]).max()) and not np.asarray(ref[6]).any()
+    for i, (name, got) in enumerate((("src", src), ("dst", dst),
+                                     ("rank", rk), ("eidx", eidx))):
+        assert got.dtype == torch.int32, name
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref[i]),
+                                      err_msg=name)
+    # hub rows really ran: some slot's source is a hub expanded outside
+    # its owner part
+    s = src.numpy()
+    part = np.broadcast_to(np.arange(P)[:, None], s.shape)
+    assert ((s >= 0) & (s % P != part)).any()
+
+
+def _yields(M):
+    return [(M.FunctionCall("dst", [M.EdgeExpr()]), "d"),
+            (M.FunctionCall("src", [M.EdgeExpr()]), "s"),
+            (M.EdgeProp("KNOWS", "w"), "w")]
+
+
+_FILTERS = {
+    "none": None,
+    "w_gt_50": lambda M: M.Binary(">", M.EdgeProp("KNOWS", "w"),
+                                  M.Literal(50)),
+    "mixed": lambda M: M.Binary(
+        "OR", M.Binary("<", M.EdgeProp("KNOWS", "f"), M.Literal(0.25)),
+        M.Binary("==", M.Binary("%", M.EdgeProp("KNOWS", "w"),
+                                M.Literal(3)), M.Literal(0))),
+}
+
+
+@pytest.mark.parametrize("filt", sorted(_FILTERS))
+@pytest.mark.parametrize("direction", ["out", "in", "both"])
+@pytest.mark.parametrize("steps", [1, 2, 3])
+def test_split_go_matches_reference(graph, steps, direction, filt):
+    mk = _FILTERS[filt]
+    ref_rows, ref_st = graph["ref_rt"].traverse(
+        graph["ref_store"], "snb", graph["seeds"], ["KNOWS"], direction,
+        steps, edge_filter=mk(RE) if mk else None, yields=_yields(RE))
+    rows, st = graph["port_rt"].traverse(
+        graph["port_store"], "snb", graph["seeds"], ["KNOWS"], direction,
+        steps, edge_filter=mk(PE) if mk else None, yields=_yields(PE))
+    assert rows.column_names == ref_rows.column_names
+    assert len(rows) == len(ref_rows) > 0
+    for name in rows.column_names:
+        a = np.asarray(ref_rows.column_array(name))
+        b = np.asarray(rows.column_array(name))
+        assert a.dtype == b.dtype, name
+        # equal IN ORDER: hub slots follow the local rows in each part
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    assert st.hop_edges == ref_st.hop_edges
+    assert st.frontier_sizes == ref_st.frontier_sizes
+    assert st.result_edges == ref_st.result_edges == len(rows)
+
+
+def test_split_go_matches_unsplit_oracle(graph):
+    """The oracle reads the UNSPLIT snapshot (a hub's own row is empty
+    in the split one); the edges are the same, so rows agree
+    lexsorted and the traversed-edge counts agree exactly."""
+    for w_gt in (None, 50):
+        filt = None if w_gt is None else PE.Binary(
+            ">", PE.EdgeProp("KNOWS", "w"), PE.Literal(w_gt))
+        rows, st = graph["port_rt"].traverse(
+            graph["port_store"], "snb", graph["seeds"], ["KNOWS"], "out", 3,
+            edge_filter=filt, yields=_yields(PE))
+        total, kept, d, w = port_datagen.host_csr_traverse(
+            graph["carried"], graph["seeds"], 3, w_gt=w_gt,
+            materialize=True)
+        assert st.edges_traversed() == total and len(rows) == kept
+        dd = np.asarray(rows.column_array("d"), np.int64)
+        ww = np.asarray(rows.column_array("w"), np.int64)
+        a, b = np.lexsort((ww, dd)), np.lexsort((w, d))
+        np.testing.assert_array_equal(dd[a], d[b])
+        np.testing.assert_array_equal(ww[a], w[b])

@@ -17,7 +17,11 @@ import torch
 from nebula_tpu.tpu import TpuRuntime, make_mesh
 from nebula_tpu.tpu import hop as ref_hop
 
+from nebula_tpu_torch.core import expr as PE
+from nebula_tpu_torch.gpu import exprjit as X
 from nebula_tpu_torch.gpu import kernels as K
+from nebula_tpu_torch.graphstore.csr import StringPool
+from nebula_tpu_torch.graphstore.schema import PropType
 
 P = 8
 
@@ -203,7 +207,8 @@ def test_wrappers_never_fall_back_off_the_cpu(monkeypatch):
         raise AssertionError("plain version used for a device tensor")
 
     monkeypatch.setattr(K, "_lib", no_lib)
-    for name in ("expand_plain", "mark_plain", "compact_capture_plain"):
+    for name in ("expand_plain", "mark_plain", "compact_capture_plain",
+                 "extend_hubs_plain", "predicate_mask_plain"):
         monkeypatch.setattr(K, name, plain_called)
     K.reset_launch_counts()
     m = dict(device="meta")
@@ -217,8 +222,19 @@ def test_wrappers_never_fall_back_off_the_cpu(monkeypatch):
     ints = [torch.empty((P, 4), dtype=torch.int32, **m) for _ in range(4)]
     with pytest.raises(K.KernelError):
         K.compact_capture(*ints, torch.empty((P, 4), dtype=torch.bool, **m))
-    assert K.launch_counts() == {"expand": 0, "mark": 0,
-                                 "compact_capture": 0}
+    hubs = torch.empty((2,), dtype=torch.int32, **m)
+    with pytest.raises(K.KernelError):
+        K.extend_hubs(torch.empty((P, 6), dtype=torch.bool, **m), hubs,
+                      hubs, 4)
+    prog, _ = X.compile_predicate(
+        PE.Binary(">", PE.EdgeProp("e", "w"), PE.Literal(1)),
+        {"w": PropType.INT64}, StringPool())
+    with pytest.raises(K.KernelError):
+        K.predicate_mask(prog, *ints, torch.empty((P,), dtype=torch.int32,
+                                                  **m),
+                         [torch.empty((P, 3), dtype=torch.int64, **m)])
+    assert K.launch_counts() == {"expand": 0, "mark": 0, "extend_hubs": 0,
+                                 "predicate_mask": 0, "compact_capture": 0}
 
 
 def test_wrapper_rejects_bad_inputs_before_launch():
