@@ -32,9 +32,30 @@ Phases, in order; any failure exits non-zero before the result line:
      there with the w column and with four columns; exact equality,
      kernel / plain / one-library-call times from CUDA events, and each
      kernel's bound (bytes at 3.35 TB/s or int32 operations at
-     33.5 TOP/s, whichever is larger);
-  5. the `kernels` JSON line (the split path's launches), the card line,
-     and the result line {"ok": true, "device": {...}} last.
+     33.5 TOP/s, whichever is larger); the seed bitmap (K6, mark with
+     its zero fill) is timed apart;
+  5. the algo plane (`CALL algo.*`, algo/engine.run_algorithm on
+     GpuRuntime()):
+       a. on the north-star snapshot of phase 3 (30M KNOWS edges, 60M
+          for WCC's both directions, 1M slots): PageRank (max_iter=20,
+          tol=0), WCC, SSSP (src=0, weight="w"), launch counters zeroed
+          first; each step kernel's launches must equal the iterations
+          run.  The same iterations driven through the plain steps on
+          the card must give the same state (WCC, SSSP exactly; PageRank
+          max |Δrank| <= 1e-8) and two kernel PageRank runs bit-identical
+          ranks; the cold run's host parts are timed apart;
+       b. tools/algo_bench.run_suite at bench.py's algo size
+          (min(--persons, 300000) persons, degree 30, 8 parts): rows equal
+          to the numpy oracles (PageRank within 1e-8);
+       c. each step kernel against its plain version on the inputs of
+          the first and a middle iteration of (a) (exact; PageRank
+          within 1e-12, the kernel's moved count exact over its own
+          ranks and equal to the plain version's vertex by vertex
+          wherever rounding cannot flip `> tol`), timed with its plain version
+          and one library call (index_add_, scatter_reduce_ amin);
+  6. the `kernels` JSON line (the split path's and the algo path's
+     launches), the card line, and the result line {"ok": true,
+     "device": {...}} last.
 Without CUDA it prints no result and exits 2.
 """
 from __future__ import annotations
@@ -47,6 +68,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 INT32_OPS_PER_S = 33.5e12        # half the 67 TFLOP/s float32 CUDA-core rate
+FP64_OPS_PER_S = 34e12           # H100 SXM float64 outside the tensor cores
 ROUTE_SOURCES = {
     "expand": ("nebula_tpu_torch/csrc/expand.cu",
                "nebula_tpu/tpu/hop.py:58"),
@@ -58,7 +80,19 @@ ROUTE_SOURCES = {
                        "nebula_tpu/tpu/exprjit.py:201"),
     "compact_capture": ("nebula_tpu_torch/csrc/compact_capture.cu",
                         "nebula_tpu/tpu/hop.py:238"),
+    "pagerank_step": ("nebula_tpu_torch/csrc/pagerank.cu",
+                      "nebula_tpu/algo/kernels.py:49"),
+    "wcc_step": ("nebula_tpu_torch/csrc/relax.cu",
+                 "nebula_tpu/algo/kernels.py:79"),
+    "sssp_step": ("nebula_tpu_torch/csrc/relax.cu",
+                  "nebula_tpu/algo/kernels.py:95"),
 }
+# the algo path: each algorithm's parameters and its step kernel
+ALGO_RUNS = {"pagerank": ({"max_iter": 20, "tol": 0.0}, "pagerank_step"),
+             "wcc": ({}, "wcc_step"),
+             "sssp": ({"src": 0, "weight": "w"}, "sssp_step")}
+PAGERANK_RUN_TOL = 1e-8          # the reference's rank parity bar
+PAGERANK_STEP_TOL = 1e-12
 # kernels each path must launch
 UNSPLIT_KERNELS = ("expand", "mark", "predicate_mask", "compact_capture")
 SPLIT_KERNELS = UNSPLIT_KERNELS + ("extend_hubs",)
@@ -117,9 +151,36 @@ def max_abs_err(got, want) -> float:
     return err
 
 
-def bound(bytes_moved: float, ops: float):
+def pagerank_step_err(label, a, got, want) -> float:
+    """Hold one PageRank step of the kernel (`got`) against its plain
+    version (`want`) on inputs `a`; returns the max |Δ| of rank and L1
+    delta.  Raises when that passes PAGERANK_STEP_TOL or the moved counts
+    disagree.  The kernel's count must equal `|new - rank| > tol` over
+    its own ranks exactly.  The two counts are compared vertex by vertex:
+    they must agree on every vertex except one whose plain change lies
+    within that vertex's |Δrank| of tol, where the two summation orders'
+    rounding may fall on either side (the plain version adds with float
+    atomics, in an order that varies from run to run)."""
+    rank, tol = a[0], a[8]
+    err = max(float((got[0] - want[0]).abs().max()),
+              abs(float(got[1]) - float(want[1])))
+    mk = (got[0] - rank).abs() > tol
+    mp_change = (want[0] - rank).abs()
+    split = (mk != (mp_change > tol)) & (
+        (mp_change - tol).abs() > (got[0] - want[0]).abs())
+    if (err > PAGERANK_STEP_TOL or int(got[2]) != int(mk.sum())
+            or int(want[2]) != int((mp_change > tol).sum())
+            or bool(split.any())):
+        raise AssertionError(
+            f"pagerank_step at {label}: max |Δ| {err}, moved {int(got[2])} "
+            f"(own ranks {int(mk.sum())}) vs {int(want[2])}, "
+            f"{int(split.sum())} vertices counted apart beyond rounding")
+    return err
+
+
+def bound(bytes_moved: float, ops: float, ops_per_s=INT32_OPS_PER_S):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -171,6 +232,178 @@ def run_go(rt, ns, repeats: int, label: str, K):
     log(f"    {label} launches over {2 * (repeats + 1)} queries: "
         f"{launches}")
     return results, launches
+
+
+def run_algo(rt, ns, K, AE, AK):
+    """Phase 5a: PageRank, WCC and SSSP through run_algorithm on the
+    north-star snapshot, launch counts against iterations, then the same
+    iterations through the plain steps on the card (state compared) and
+    PageRank twice (bit-identical).  Returns (results, launch counts);
+    each result carries the step inputs of its first and middle
+    iteration for phase 5c."""
+    import numpy as np
+    import torch
+    snap, sd = ns.snap, ns.store.space("ns")
+    res = {}
+    K.reset_launch_counts()
+    for func, (params, _k) in ALGO_RUNS.items():
+        us = []
+        t = time.perf_counter()
+        rows, info = AE.run_algorithm(func, {**params, "mode": "device"},
+                                      snap, sd, rt=rt, iter_us=us)
+        e2e = time.perf_counter() - t
+        vals = np.asarray([r[1] for r in rows], np.float64)
+        if func == "pagerank":
+            ok = (len(rows) == info["n_vertices"] and np.isfinite(vals).all()
+                  and abs(vals.sum() - 1.0) < 1e-6)
+        elif func == "wcc":
+            ok = len(rows) == info["n_vertices"] and (vals >= 0).all()
+        else:
+            ok = (0 < len(rows) <= info["n_vertices"] and rows[0][1] == 0.0
+                  and np.isfinite(vals).all() and (vals >= 0).all())
+        if not ok:
+            raise AssertionError(f"algo.{func}: malformed rows")
+        res[func] = {"iterations": info["iterations"],
+                     "iter_ms_p50": float(np.median(us)) / 1e3,
+                     "iter_ms": [u / 1e3 for u in us],
+                     "e2e_cold_s": e2e, "rows": len(rows),
+                     "n_edges": info["n_edges"],
+                     "n_vertices": info["n_vertices"]}
+        if func == "wcc":
+            res[func]["components"] = len({r[1] for r in rows})
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    for func, (params, kname) in ALGO_RUNS.items():
+        if launches[kname] <= 0 or launches[kname] != res[func]["iterations"]:
+            raise AssertionError(f"{kname} launched {launches[kname]} times "
+                                 f"in {res[func]['iterations']} iterations")
+    loops = {"pagerank": AE._device_pagerank, "wcc": AE._device_wcc,
+               "sssp": AE._device_sssp}
+    for func, (params, kname) in ALGO_RUNS.items():
+        p, keys, g, src = AE.prepare(func, {**params, "mode": "device"},
+                                     snap, sd)
+        extra = (src,) if func == "sssp" else ()
+        calls = []
+
+        def plain(*a, fn=getattr(AK, kname + "_plain")):
+            calls.append(a)
+            return fn(*a)
+
+        t = time.perf_counter()
+        state_k, it_k = loops[func](rt, snap, keys, g, p, None, *extra)
+        warm = time.perf_counter() - t
+        state_p, it_p = loops[func](rt, snap, keys, g, p, None, *extra,
+                                      step=plain)
+        if it_k != it_p or it_k != res[func]["iterations"]:
+            raise AssertionError(f"algo.{func}: iterations {it_k} (kernel) "
+                                 f"vs {it_p} (plain)")
+        if func == "pagerank":
+            diff = float(np.abs(state_k - state_p).max())
+            again, _ = loops[func](rt, snap, keys, g, p, None)
+            if not np.array_equal(again.view(np.int64),
+                                  state_k.view(np.int64)):
+                raise AssertionError("two PageRank runs differ")
+            if diff > PAGERANK_RUN_TOL:
+                raise AssertionError(f"PageRank kernel vs plain: {diff}")
+            res[func]["max_abs_diff_vs_plain"] = diff
+            res[func]["bit_identical_rerun"] = True
+        elif not np.array_equal(state_k.view(np.int64),
+                                state_p.view(np.int64)):
+            raise AssertionError(f"algo.{func}: kernel state differs from "
+                                 f"the plain steps'")
+        res[func]["e2e_warm_s"] = warm
+        res[func].update(cold_parts(AE, rt, snap, sd, func, params, g,
+                                    state_k))
+        mid = it_k // 2 + 1
+        log(f"[5a] algo.{func}: {json.dumps(res[func])}")
+        res[func]["check_args"] = [(1, calls[0])] + (
+            [(mid, calls[mid - 1])] if mid > 1 else [])
+    return res, launches
+
+
+def cold_parts(AE, rt, snap, sd, func, params, g, state):
+    """Where a cold run's host time goes: rows from the final state,
+    then, with the algo caches emptied (and restored after, so later
+    runs stay warm), the flat graph, its destination sort and the
+    upload, each timed alone (seconds)."""
+    import torch
+    t = time.perf_counter()
+    AE.assemble_rows(func, g, state)
+    out = {"rows_s": time.perf_counter() - t}
+    caches = (AE._graph_cache, AE._dev_cache)
+    saved = [dict(c) for c in caches]
+    for c in caches:
+        c.clear()
+    try:
+        t = time.perf_counter()
+        p, keys, g2, _ = AE.prepare(func, {**params, "mode": "device"},
+                                    snap, sd)
+        out["graph_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        g2.by_dst()
+        out["sort_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        AE._device_edges(rt, snap, keys, p.get("weight"), g2)
+        torch.cuda.synchronize()
+        out["upload_s"] = time.perf_counter() - t
+    finally:
+        for c, old in zip(caches, saved):
+            c.clear()
+            c.update(old)
+    return out
+
+
+def run_algo_suite(rt, persons: int):
+    """Phase 5b: the port's algo_bench at bench.py's algo size; rows
+    must equal the numpy oracles'."""
+    from nebula_tpu_torch.tools.algo_bench import run_suite
+    t = time.perf_counter()
+    suite = run_suite(persons=persons, degree=30, parts=8, repeats=1,
+                      runtime=rt)
+    suite["wall_s"] = time.perf_counter() - t
+    log(f"[5b] algo_bench: {json.dumps(suite)}")
+    for func in ALGO_RUNS:
+        if not suite[func]["rows_match"]:
+            raise AssertionError(f"algo_bench {func}: rows differ from the "
+                                 f"oracle")
+    return suite
+
+
+def algo_work(kname: str, a):
+    """(bytes, operations, operation rate, library call) of one step on
+    inputs `a`: each input read once and each output written once; for
+    WCC and SSSP the edges whose source is masked off need their esrc
+    only (their kernel reads no more of them)."""
+    import torch
+    if kname == "pagerank_step":
+        rank, esrc, starts, out_inv_e, dmask, vmask = a[:6]
+        n, E = rank.numel(), esrc.numel()
+        contrib = rank[esrc.long()] * out_inv_e
+        dst = torch.repeat_interleave(
+            torch.arange(n, device=rank.device), starts[1:] - starts[:-1])
+
+        def lib():
+            return torch.zeros_like(rank).index_add_(0, dst, contrib)
+        return (12 * E + (8 + 8 + 1 + 1 + 8) * n + 8 + 16, 2 * E + 6 * n,
+                FP64_OPS_PER_S, lib)
+    val, mask, esrc, edst = a[:4]
+    w = a[4] if len(a) > 4 else None
+    n, E = val.numel(), esrc.numel()
+    s = esrc.long()
+    active_e = int(mask[s].sum())
+    sentinel = (1 << 63) - 1 if kname == "wcc_step" else float("inf")
+    inc = 1.0 if kname == "sssp_step" and w is None else w
+    send = torch.where(mask[s], val[s] if inc is None else val[s] + inc,
+                       sentinel)
+    d = edst.long()
+
+    def lib():
+        return val.clone().scatter_reduce_(0, d, send, "amin",
+                                           include_self=True)
+    per_edge = 4 + (8 if w is not None else 0)
+    rate = FP64_OPS_PER_S if kname == "sssp_step" else INT32_OPS_PER_S
+    return (4 * E + per_edge * active_e + 2 * (8 + 1) * n + 8, active_e,
+            rate, lib)
 
 
 def predicates(E, NULL):
@@ -241,6 +474,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    from nebula_tpu_torch.algo import engine as AE
+    from nebula_tpu_torch.algo import kernels as AK
     from nebula_tpu_torch.bench.datagen import north_star
     from nebula_tpu_torch.core import expr as E
     from nebula_tpu_torch.core.value import NULL
@@ -327,9 +562,11 @@ def main(argv=None) -> int:
     extra = []
 
     def record(name, got, want, ms, plain_ms, lib_ms, nbytes, ops,
-               into=rows_out, note="", counts=None):
-        err = max_abs_err(got, want)
-        b_ms, b_by = bound(nbytes, ops)
+               into=rows_out, note="", counts=None, err=None,
+               ops_per_s=INT32_OPS_PER_S, tag="[4]"):
+        if err is None:
+            err = max_abs_err(got, want)
+        b_ms, b_by = bound(nbytes, ops, ops_per_s)
         src_path, replaces = ROUTE_SOURCES[name]
         into.append({
             "name": name, "route": "cuda", "source": src_path,
@@ -337,7 +574,7 @@ def main(argv=None) -> int:
             "launches": (launches if counts is None else counts)[name],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
-        log(f"[4] {name}{note}: {json.dumps(into[-1])}")
+        log(f"{tag} {name}{note}: {json.dumps(into[-1])}")
 
     def hop_inputs(dev):
         """Frontier buffers entering hops 1-3 (hub columns filled) and
@@ -453,6 +690,26 @@ def main(argv=None) -> int:
                    reps),
            cuda_ms(lib_mark, reps), 4 * n2 + P * (vmax + H), 3 * n2)
 
+    # K6, the seed bitmap as _seed_frontier builds it: a fresh frontier
+    # buffer (its zero fill) and the 16 seed ids marked into it
+    def lib_seed():
+        out = new_frontier(dev)
+        il = ids.long()
+        out.index_put_((il % P, il // P),
+                       torch.ones((), dtype=torch.bool, device=ids.device))
+        return out
+
+    k6 = {"ms": cuda_ms(lambda: K.mark(ids, P, vmax,
+                                       out=new_frontier(dev)[:, :vmax]),
+                        reps),
+          "plain_ms": cuda_ms(lambda: K.mark_plain(
+              ids, P, vmax, out=new_frontier(dev)[:, :vmax]), reps),
+          "library_ms": cuda_ms(lib_seed, reps)}
+    k6["bound_ms"], k6["bound_by"] = bound(4 * ids.numel() + P * (vmax + H),
+                                           3 * ids.numel())
+    log(f"[4] mark (K6 seed bitmap, {ids.numel()} seeds, with the zero "
+        f"fill): {json.dumps(k6)}")
+
     # extend_hubs at the frontiers entering hops 2 and 3
     if H:
         got, want = [], []
@@ -464,13 +721,20 @@ def main(argv=None) -> int:
             want.append(K.extend_hubs_plain(w, dev.hub_owner, dev.hub_local,
                                             vmax))
         f3 = bufs[2].clone()
+        own_l, loc_l = dev.hub_owner.long(), dev.hub_local.long()
+
+        def lib_hubs():
+            # one gather and one broadcast assignment, indices ready
+            f3[:, vmax:] = f3[own_l, loc_l][None, :]
+            return f3
+
         record("extend_hubs", got, want,
                cuda_ms(lambda: K.extend_hubs(f3, dev.hub_owner,
                                              dev.hub_local, vmax), reps),
                cuda_ms(lambda: K.extend_hubs_plain(f3, dev.hub_owner,
                                                    dev.hub_local, vmax),
                        reps),
-               None, H + P * H + 8 * H, P * H)
+               cuda_ms(lib_hubs, reps), H + P * H + 8 * H, P * H)
 
     # predicate_mask at the filtered hop 3: w > 50 (the main path's
     # program) and eleven more over nullable columns made from a seed
@@ -545,10 +809,35 @@ def main(argv=None) -> int:
            17 * P * EB3 + 8 * n_kept + (16 + 8) * P * EB3 + 4 * P,
            2 * P * EB3)
 
-    # -- 5. result ---------------------------------------------------------
+    # -- 5. the algo plane --------------------------------------------------
+    algo, algo_launches = run_algo(rt, ns, K, AE, AK)
+    algo["suite"] = run_algo_suite(rt, min(args.persons, 300_000))
+    for func, (params, kname) in ALGO_RUNS.items():
+        checks = algo[func].pop("check_args")
+        plain = getattr(AK, kname + "_plain")
+        kern = getattr(AK, kname)
+        errs = []
+        for label, cargs in checks:
+            got, want = kern(*cargs), plain(*cargs)
+            if kname == "pagerank_step":
+                err = pagerank_step_err(label, cargs, got, want)
+            else:
+                err = max_abs_err(got, want)
+            errs.append(err)
+        # timed at the middle iteration's inputs (the last checked)
+        mid_args = checks[-1][1]
+        nbytes, ops, rate, lib = algo_work(kname, mid_args)
+        record(kname, None, None,
+               cuda_ms(lambda: kern(*mid_args), reps),
+               cuda_ms(lambda: plain(*mid_args), reps), cuda_ms(lib, reps),
+               nbytes, ops, counts=algo_launches, err=max(errs),
+               ops_per_s=rate, tag="[5c]",
+               note=f" ({func}, iterations {[lb for lb, _ in checks]})")
+
+    # -- 6. result ---------------------------------------------------------
     log(json.dumps({"go3": results, "expand_per_hop": per_hop,
                     "unsplit_launches": launches_u,
-                    "unsplit_kernels": extra,
+                    "unsplit_kernels": extra, "algo": algo,
                     "hbm_bytes": rt.hbm_bytes() + (
                         rts.hbm_bytes() if rts is not None else 0)}))
     print(json.dumps({"kernels": rows_out}))

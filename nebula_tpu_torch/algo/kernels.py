@@ -1,0 +1,209 @@
+"""The per-iteration step kernels of the algo plane (Queue B K12-K14).
+
+Each algorithm's edge-propagate/combine/apply step is one wrapper here:
+
+  pagerank_step   K12 — contributions over destination-sorted edges, a
+                  deterministic segment sum per vertex, dangling mass,
+                  damping, the L1 delta and the moved count
+                  (nebula_tpu/algo/kernels.py:pagerank_step :49;
+                  csrc/pagerank.cu)
+  wcc_step        K13 — min-label hooking: masked gather, scatter-min
+                  by destination (kernels.py:wcc_step :79; csrc/relax.cu)
+  sssp_step       K14 — frontier relaxation: scatter-min of dist + w
+                  (or + 1.0) by destination (kernels.py:sssp_step :95;
+                  csrc/relax.cu)
+
+Each has a plain PyTorch version (`*_plain`) that computes what the
+reference's jitted step computes, with the same outputs and dtypes, and
+a wrapper that runs the plain version only for CPU tensors; for a CUDA
+tensor it launches the kernel or raises.  Each wrapper counts its
+launches in a plain int attribute (`pagerank_step.launches`, ...),
+listed by `gpu.kernels.launch_counts()`.
+
+Dtypes follow the reference, which runs under x64: rank, dist and weight
+float64; label int64 with the sentinel BIG = INT64_MAX; esrc and edst
+int32; starts int64; the counts int64 scalars.  The state a step
+returns is new; its inputs are never written.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..gpu import kernels as GK
+
+BIG = int(np.iinfo(np.int64).max)
+
+_I32, _I64, _F64 = torch.int32, torch.int64, torch.float64
+
+
+def _check_edges(n: int, *idx) -> None:
+    """The wrappers' range check on the CPU side: every esrc/edst in
+    [0, n) (a negative index would wrap around in torch's gather).  A
+    CUDA kernel skips an out-of-range edge instead, without a device
+    read; the arrays `graph.build_algo_graph` makes never hold one."""
+    for t in idx:
+        if t.numel() and (int(t.min()) < 0 or int(t.max()) >= n):
+            raise ValueError(f"edge endpoint outside [0, {n})")
+
+
+# ---------------------------------------------------------------------------
+# pagerank_step (K12)
+# ---------------------------------------------------------------------------
+
+
+def pagerank_step_plain(rank, esrc, starts, out_inv_e, dmask, vmask,
+                        n: float, damping: float, tol: float):
+    """Plain version of `pagerank_step`: (new rank (n_slots,) float64,
+    L1 delta and moved count as 0-d float64 / int64 tensors).
+
+    The segment sums are added up directly by destination.  The
+    reference takes them as differences of one inclusive cumsum, whose
+    rounding over 30M edges quantizes each vertex's sum to about 1e-16
+    and moves it by up to about 1e-13: enough to hide late iterations'
+    true changes from a tol=0 moved count."""
+    n_slots, E = rank.shape[0], esrc.shape[0]
+    contrib = rank[esrc.long()] * out_inv_e
+    dst = torch.repeat_interleave(
+        torch.arange(n_slots, device=rank.device), starts[1:] - starts[:-1],
+        output_size=E)
+    acc = torch.zeros_like(rank).index_add_(0, dst, contrib)
+    dangling = torch.where(dmask, rank, 0.0).sum()
+    # divide by a tensor: CUDA divides by a Python scalar through its
+    # reciprocal, one ulp off the kernel's (and numpy's) true division
+    nt = torch.full((), n, dtype=_F64, device=rank.device)
+    base = (1.0 - damping + damping * dangling) / nt
+    new = torch.where(vmask, base + damping * acc, 0.0)
+    moved = (new - rank).abs()
+    return new, moved.sum(), (moved > tol).sum(dtype=_I64)
+
+
+def pagerank_step(rank, esrc, starts, out_inv_e, dmask, vmask,
+                  n: float, damping: float, tol: float):
+    """One PageRank iteration over destination-sorted edges: rank (n,)
+    float64, esrc (E,) int32 sources in destination order, starts (n+1,)
+    int64 segment index, out_inv_e (E,) float64 per-edge 1/outdeg,
+    dmask/vmask (n,) bool, n the vertex count.  Returns (new rank, L1
+    delta, moved count) as `pagerank_step_plain`; bit-identical from run
+    to run on the card (no float atomics)."""
+    if rank.device.type == "cpu":
+        _check_edges(rank.shape[0], esrc)
+        return pagerank_step_plain(rank, esrc, starts, out_inv_e, dmask,
+                                   vmask, n, damping, tol)
+    dev = rank.device
+    N, E = rank.shape[0], esrc.shape[0]
+    GK._want(rank, "rank", _F64, (N,), dev)
+    GK._want(dmask, "dmask", torch.bool, (N,), dev)
+    GK._want(vmask, "vmask", torch.bool, (N,), dev)
+    GK._want(esrc, "esrc", _I32, (E,), dev)
+    GK._want(out_inv_e, "out_inv_e", _F64, (E,), dev)
+    GK._want(starts, "starts", _I64, (N + 1,), dev)
+    lib = GK._lib()
+    ntiles = GK._cdiv(E, lib.nt_pagerank_tile())
+    nvb = GK._cdiv(N, lib.nt_pagerank_vblock())
+    fscr = torch.empty((ntiles + 2 * nvb + 2,), dtype=_F64, device=dev)
+    iscr = torch.empty((ntiles + 1 + nvb + 1,), dtype=_I64, device=dev)
+    new = torch.empty((N,), dtype=_F64, device=dev)
+    part_first, dpart = fscr[:ntiles], fscr[ntiles:ntiles + nvb]
+    mpart = fscr[ntiles + nvb:ntiles + 2 * nvb]
+    dsum, delta = fscr[-2:-1], fscr[-1:]
+    tile_lo, cpart, active = (iscr[:ntiles + 1],
+                              iscr[ntiles + 1:ntiles + 1 + nvb], iscr[-1:])
+    GK._check(lib.nt_pagerank_step(
+        rank.data_ptr(), esrc.data_ptr(), starts.data_ptr(),
+        out_inv_e.data_ptr(), dmask.data_ptr(), vmask.data_ptr(), N, E,
+        float(n), float(damping), float(tol), tile_lo.data_ptr(),
+        part_first.data_ptr(), dpart.data_ptr(), mpart.data_ptr(),
+        cpart.data_ptr(), dsum.data_ptr(), new.data_ptr(),
+        delta.data_ptr(), active.data_ptr(), GK._stream(rank)),
+        "pagerank_step")
+    pagerank_step.launches += 1
+    return new, delta[0], active[0]
+
+
+# ---------------------------------------------------------------------------
+# wcc_step (K13) and sssp_step (K14)
+# ---------------------------------------------------------------------------
+
+
+def _relax_plain(val, mask, esrc, edst, inc, sentinel):
+    s = esrc.long()
+    v = val[s] if inc is None else val[s] + inc
+    send = torch.where(mask[s], v, sentinel)
+    cand = torch.full_like(val, sentinel).scatter_reduce_(
+        0, edst.long(), send, "amin", include_self=True)
+    new = torch.minimum(val, cand)
+    changed = new < val
+    return new, changed, changed.sum(dtype=_I64)
+
+
+def wcc_step_plain(label, active, esrc, edst):
+    """Plain version of `wcc_step`: (new label (n,) int64, changed (n,)
+    bool, changed count 0-d int64)."""
+    return _relax_plain(label, active, esrc, edst, None, BIG)
+
+
+def sssp_step_plain(dist, frontier, esrc, edst, w: Optional[torch.Tensor]
+                    = None):
+    """Plain version of `sssp_step`: (new dist (n,) float64, the next
+    frontier (n,) bool, its size 0-d int64).  w=None weighs every edge
+    1.0."""
+    return _relax_plain(dist, frontier, esrc, edst,
+                        1.0 if w is None else w, float("inf"))
+
+
+def _relax_launch(fn_name, val, mask, esrc, edst, w):
+    dev = val.device
+    N, E = val.shape[0], esrc.shape[0]
+    GK._want(mask, "mask", torch.bool, (N,), dev)
+    GK._want(esrc, "esrc", _I32, (E,), dev)
+    GK._want(edst, "edst", _I32, (E,), dev)
+    if w is not None:
+        GK._want(w, "w", _F64, (E,), dev)
+    lib = GK._lib()
+    new = torch.empty_like(val)
+    changed = torch.empty((N,), dtype=torch.bool, device=dev)
+    count = torch.empty((1,), dtype=_I64, device=dev)
+    args = [val.data_ptr(), mask.data_ptr(), esrc.data_ptr(),
+            edst.data_ptr()]
+    if fn_name == "nt_sssp_step":
+        args.append(None if w is None else w.data_ptr())
+    GK._check(getattr(lib, fn_name)(
+        *args, E, N, new.data_ptr(), changed.data_ptr(), count.data_ptr(),
+        GK._stream(val)), fn_name[3:])
+    return new, changed, count[0]
+
+
+def wcc_step(label, active, esrc, edst):
+    """One min-label hooking iteration: every active vertex sends its
+    label along its edges; a vertex whose label drops joins the next
+    active set.  label (n,) int64, active (n,) bool, esrc/edst (E,)
+    int32.  Returns (new label, changed, count) as `wcc_step_plain`."""
+    if label.device.type == "cpu":
+        _check_edges(label.shape[0], esrc, edst)
+        return wcc_step_plain(label, active, esrc, edst)
+    GK._want(label, "label", _I64, (label.shape[0],), label.device)
+    out = _relax_launch("nt_wcc_step", label, active, esrc, edst, None)
+    wcc_step.launches += 1
+    return out
+
+
+def sssp_step(dist, frontier, esrc, edst, w: Optional[torch.Tensor] = None):
+    """One frontier relaxation (Bellman-Ford over the active set):
+    frontier vertices send dist + w (w=None: + 1.0) along their edges;
+    strictly improved vertices form the next frontier.  dist (n,)
+    float64, frontier (n,) bool, esrc/edst (E,) int32, w (E,) float64.
+    Returns (new dist, next frontier, its size) as `sssp_step_plain`."""
+    if dist.device.type == "cpu":
+        _check_edges(dist.shape[0], esrc, edst)
+        return sssp_step_plain(dist, frontier, esrc, edst, w)
+    GK._want(dist, "dist", _F64, (dist.shape[0],), dist.device)
+    out = _relax_launch("nt_sssp_step", dist, frontier, esrc, edst, w)
+    sssp_step.launches += 1
+    return out
+
+
+for _fn in (pagerank_step, wcc_step, sssp_step):
+    _fn.launches = 0

@@ -1,6 +1,6 @@
-"""The hand-written CUDA kernels of the GO path: build, load, wrappers.
+"""The hand-written CUDA kernels: build, load, and the GO path's wrappers.
 
-Five kernels, sources in `nebula_tpu_torch/csrc/`:
+The GO path's five kernels, sources in `nebula_tpu_torch/csrc/`:
 
   expand            Queue B K1 — frontier-bitmap CSR expansion, with the
                     hub rows of a degree-split snapshot
@@ -16,6 +16,9 @@ Five kernels, sources in `nebula_tpu_torch/csrc/`:
   compact_capture   K3 + K5 — stable compaction of the final hop and
                     the YIELD column gather (hop.py:_compact_cap :238,
                     _build_local_fn :543-550)
+
+The algo plane's three (pagerank.cu, relax.cu) are built into the same
+library; their wrappers live in `algo/kernels.py`.
 
 Each has a plain PyTorch version here (`*_plain`) with the same outputs,
 and a wrapper that runs the plain version only for CPU tensors; for CUDA
@@ -49,7 +52,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("expand.cu", "mark.cu", "hubs.cu", "predicate.cu",
-           "compact_capture.cu")
+           "compact_capture.cu", "pagerank.cu", "relax.cu")
 HEADERS = ("scan.cuh",)
 MAX_COLS = 4                  # yield columns compact_capture gathers
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -147,9 +150,16 @@ def _lib() -> ctypes.CDLL:
     lib.nt_predicate_mask.argtypes = [P] * 6 + [I] * 3 + [P, P]
     lib.nt_compact_capture.argtypes = ([P] * 5 + [I] * 4 + [P] * 4
                                        + [P] * 4 + [P] * 4 + [P, P, P])
+    D = ctypes.c_double
+    lib.nt_pagerank_tile.argtypes = lib.nt_pagerank_vblock.argtypes = []
+    lib.nt_pagerank_step.argtypes = [P] * 6 + [LL, LL, D, D, D] + [P] * 10
+    lib.nt_wcc_step.argtypes = [P] * 4 + [LL, LL] + [P] * 4
+    lib.nt_sssp_step.argtypes = [P] * 5 + [LL, LL] + [P] * 4
     for fn in (lib.nt_expand_scan, lib.nt_expand_fill, lib.nt_mark,
                lib.nt_extend_hubs, lib.nt_predicate_sizes,
-               lib.nt_predicate_mask, lib.nt_compact_capture):
+               lib.nt_predicate_mask, lib.nt_compact_capture,
+               lib.nt_pagerank_tile, lib.nt_pagerank_vblock,
+               lib.nt_pagerank_step, lib.nt_wcc_step, lib.nt_sssp_step):
         fn.restype = I
     sizes = (I * 5)()
     lib.nt_predicate_sizes(sizes)
@@ -187,8 +197,15 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _wrappers():
+def _go_wrappers():
     return (expand, mark, extend_hubs, predicate_mask, compact_capture)
+
+
+def _wrappers():
+    """Every kernel wrapper: the GO path's, then the algo plane's
+    (imported here: algo/kernels.py imports this module)."""
+    from ..algo import kernels as AK
+    return _go_wrappers() + (AK.pagerank_step, AK.wcc_step, AK.sssp_step)
 
 
 def reset_launch_counts() -> None:
@@ -511,5 +528,5 @@ def compact_capture(src, dst, rank, eidx, keep,
     return (*outs, props, kcount)
 
 
-for _fn in _wrappers():
+for _fn in _go_wrappers():
     _fn.launches = 0

@@ -4,8 +4,9 @@ Port of the solo single-device path of `nebula_tpu/tpu/runtime.py`:
 `pin_prebuilt` (:871), `unpin`, `hbm_bytes`, the seed bitmap (:941-987),
 `traverse` (:1753) with a columnar YIELD list, `_block_columns` (:2266),
 `_materialize_yields` (:2373), `_d2v`, `_cap_keys_for_yields` and
-`_cat_parts`, and the supernode degree-split at pin time
-(`_maybe_degree_split`, :857).
+`_cat_parts`, the supernode degree-split at pin time
+(`_maybe_degree_split`, :857), and `algo_dispatch` (:1105), the algo
+plane's one dispatch per iteration.
 
 What this slice leaves out raises `CannotCompile`, as the reference does
 for a filter it cannot compile: GO without `yields` (Edge rows, which need
@@ -183,6 +184,18 @@ class GpuRuntime:
 
     def hbm_bytes(self) -> int:
         return sum(s.hbm_bytes() for s in self.snapshots.values())
+
+    def algo_dispatch(self, kernel: str, fn, *args):
+        """One device dispatch of the algo plane: an iteration step of
+        static full-graph shapes.  Runs fn(*args), waits for the device
+        and returns (result, wall µs).  `kernel` names the step (the
+        reference's per-kernel metric label; the gate, cost and metric
+        accounting wait for the port's utils)."""
+        t0 = time.perf_counter()
+        res = fn(*args)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return res, int((time.perf_counter() - t0) * 1e6)
 
     # -- traversal --------------------------------------------------------
 

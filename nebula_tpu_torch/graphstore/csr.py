@@ -1,12 +1,13 @@
 """The CSR snapshot: each space's adjacency and edge-property columns as
 padded numpy arrays, the state the device plane pins.
 
-A copy of the parts of `nebula_tpu/graphstore/csr.py` this slice needs:
+A copy of the parts of `nebula_tpu/graphstore/csr.py` the port needs:
 StringPool, the NULL sentinels, the batched prop-column decode, CsrBlock,
-CsrSnapshot and the supernode `degree_split`.  Building a snapshot from
-a live store waits for the store slice; `snapshot_from_fields` builds
-one from plain arrays (the fields another process or package exported),
-and `bench.datagen.snapshot_from_arrays` from generated edge arrays.
+TagTable, CsrSnapshot and the supernode `degree_split`.  Building a
+snapshot from a live store waits for the store slice;
+`snapshot_from_fields` builds one from plain arrays (the fields another
+process or package exported), and `bench.datagen.snapshot_from_arrays`
+from generated edge arrays.
 
 Layout (identical to the reference):
   * one CsrBlock per (edge type, direction), every part padded to the
@@ -134,6 +135,18 @@ class CsrBlock:
 
 
 @dataclass
+class TagTable:
+    """Vertex property columns for one tag, aligned to local idx per part.
+
+    present: (P, Vmax) bool; props: name → (P, Vmax).
+    """
+    tag: str
+    present: np.ndarray
+    props: Dict[str, np.ndarray] = field(default_factory=dict)
+    prop_types: Dict[str, PropType] = field(default_factory=dict)
+
+
+@dataclass
 class CsrSnapshot:
     """Epoch-tagged, device-shippable snapshot of one space."""
     space: str
@@ -142,6 +155,7 @@ class CsrSnapshot:
     vmax: int                               # padded local-vertex count
     num_vertices: np.ndarray                # (P,) actual local counts
     blocks: Dict[Tuple[str, str], CsrBlock] = field(default_factory=dict)
+    tags: Dict[str, TagTable] = field(default_factory=dict)
     pool: StringPool = field(default_factory=StringPool)
     dense_to_vid: List[Any] = field(default_factory=list)
     # dense ids of degree-split supernodes (None = unsplit): each block
@@ -156,6 +170,8 @@ class CsrSnapshot:
         for b in self.blocks.values():
             total += b.indptr.nbytes + b.nbr.nbytes + b.rank.nbytes
             total += sum(a.nbytes for a in b.props.values())
+        for t in self.tags.values():
+            total += t.present.nbytes + sum(a.nbytes for a in t.props.values())
         return total
 
 
@@ -248,8 +264,12 @@ def degree_split(snap: CsrSnapshot, threshold: int,
                        vmax=vmax, num_vertices=snap.num_vertices,
                        blocks={k: split_block(b)
                                for k, b in snap.blocks.items()},
-                       pool=snap.pool, dense_to_vid=snap.dense_to_vid,
-                       hub_dense=hubs)
+                       tags=snap.tags, pool=snap.pool,
+                       dense_to_vid=snap.dense_to_vid, hub_dense=hubs)
+
+
+def _col_dtype(pt: PropType):
+    return np.float64 if pt in (PropType.FLOAT, PropType.DOUBLE) else np.int64
 
 
 def snapshot_from_fields(fields: Dict[str, Any]) -> CsrSnapshot:
@@ -257,9 +277,11 @@ def snapshot_from_fields(fields: Dict[str, Any]) -> CsrSnapshot:
 
     fields: space, epoch, num_parts, vmax, num_vertices, dense_to_vid,
     pool (the pool's strings in code order), hub_dense (None or an
-    array of H hub ids; each indptr then has vmax + H + 1 columns), and
+    array of H hub ids; each indptr then has vmax + H + 1 columns),
     blocks: {(etype, direction): {indptr, nbr, rank, props: {name:
-    array}, prop_types: {name: PropType name}}}.
+    array}, prop_types: {name: PropType name}}}, and optionally tags:
+    {name: {present, props: {name: array}, prop_types: {name: PropType
+    name}}}, each array (P, vmax).
 
     Shapes and dtypes are checked here: the arrays are the state every
     kernel reads, so a malformed field must fail at the boundary, not as
@@ -298,12 +320,22 @@ def snapshot_from_fields(fields: Dict[str, Any]) -> CsrSnapshot:
         types = {n: PropType[t] for n, t in b["prop_types"].items()}
         props = {}
         for n, a in b["props"].items():
-            dt = (np.float64 if types[n] in (PropType.FLOAT, PropType.DOUBLE)
-                  else np.int64)
-            props[n] = np.ascontiguousarray(a, dt)
+            props[n] = np.ascontiguousarray(a, _col_dtype(types[n]))
             if props[n].shape != (P, emax):
                 raise ValueError(f"{et}/{dirn}: prop {n} must be (P, Emax)")
         snap.blocks[(et, dirn)] = CsrBlock(
             etype=et, direction=dirn, indptr=indptr, nbr=nbr, rank=rank,
             props=props, prop_types=types)
+    for tg, t in (fields.get("tags") or {}).items():
+        present = np.ascontiguousarray(t["present"], bool)
+        if present.shape != (P, vmax):
+            raise ValueError(f"tag {tg}: present must be ({P}, {vmax})")
+        types = {n: PropType[ty] for n, ty in t["prop_types"].items()}
+        props = {}
+        for n, a in t["props"].items():
+            props[n] = np.ascontiguousarray(a, _col_dtype(types[n]))
+            if props[n].shape != (P, vmax):
+                raise ValueError(f"tag {tg}: prop {n} must be ({P}, {vmax})")
+        snap.tags[tg] = TagTable(tag=tg, present=present, props=props,
+                                 prop_types=types)
     return snap

@@ -17,6 +17,7 @@ import torch
 from nebula_tpu.tpu import TpuRuntime, make_mesh
 from nebula_tpu.tpu import hop as ref_hop
 
+from nebula_tpu_torch.algo import kernels as AK
 from nebula_tpu_torch.core import expr as PE
 from nebula_tpu_torch.gpu import exprjit as X
 from nebula_tpu_torch.gpu import kernels as K
@@ -210,6 +211,9 @@ def test_wrappers_never_fall_back_off_the_cpu(monkeypatch):
     for name in ("expand_plain", "mark_plain", "compact_capture_plain",
                  "extend_hubs_plain", "predicate_mask_plain"):
         monkeypatch.setattr(K, name, plain_called)
+    for name in ("pagerank_step_plain", "wcc_step_plain",
+                 "sssp_step_plain"):
+        monkeypatch.setattr(AK, name, plain_called)
     K.reset_launch_counts()
     m = dict(device="meta")
     with pytest.raises(K.KernelError):
@@ -233,8 +237,25 @@ def test_wrappers_never_fall_back_off_the_cpu(monkeypatch):
         K.predicate_mask(prog, *ints, torch.empty((P,), dtype=torch.int32,
                                                   **m),
                          [torch.empty((P, 3), dtype=torch.int64, **m)])
+    n, E = 6, 9
+    f64 = torch.empty((n,), dtype=torch.float64, **m)
+    vbool = torch.empty((n,), dtype=torch.bool, **m)
+    e32 = torch.empty((E,), dtype=torch.int32, **m)
+    with pytest.raises(K.KernelError):
+        AK.pagerank_step(f64, e32, torch.empty((n + 1,), dtype=torch.int64,
+                                               **m),
+                         torch.empty((E,), dtype=torch.float64, **m),
+                         vbool, vbool, 6.0, 0.85, 0.0)
+    with pytest.raises(K.KernelError):
+        AK.wcc_step(torch.empty((n,), dtype=torch.int64, **m), vbool, e32,
+                    e32)
+    with pytest.raises(K.KernelError):
+        AK.sssp_step(f64, vbool, e32, e32,
+                     torch.empty((E,), dtype=torch.float64, **m))
     assert K.launch_counts() == {"expand": 0, "mark": 0, "extend_hubs": 0,
-                                 "predicate_mask": 0, "compact_capture": 0}
+                                 "predicate_mask": 0, "compact_capture": 0,
+                                 "pagerank_step": 0, "wcc_step": 0,
+                                 "sssp_step": 0}
 
 
 def test_wrapper_rejects_bad_inputs_before_launch():

@@ -32,7 +32,10 @@ def test_port_modules_exist():
               "nebula_tpu_torch.bench.datagen",
               "nebula_tpu_torch.gpu.device", "nebula_tpu_torch.gpu.exprjit",
               "nebula_tpu_torch.gpu.hop", "nebula_tpu_torch.gpu.runtime",
-              "nebula_tpu_torch.gpu.kernels"):
+              "nebula_tpu_torch.gpu.kernels", "nebula_tpu_torch.algo",
+              "nebula_tpu_torch.algo.graph", "nebula_tpu_torch.algo.oracles",
+              "nebula_tpu_torch.algo.kernels", "nebula_tpu_torch.algo.engine",
+              "nebula_tpu_torch.tools.algo_bench"):
         assert m in names, m
 
 
