@@ -1,5 +1,8 @@
 #!/usr/bin/env python3
-"""Start the PyTorch/CUDA port on one NVIDIA GPU and prove its GO path.
+"""Start the PyTorch/CUDA port on one NVIDIA GPU and prove its paths.
+
+The paths are GO N STEPS, `CALL algo.*` and the device BFS of FIND
+SHORTEST PATH, each through the hand-written CUDA kernels.
 
 Run from the repository root on a machine with a CUDA card and nvcc:
 
@@ -53,9 +56,26 @@ Phases, in order; any failure exits non-zero before the result line:
           ranks and equal to the plain version's vertex by vertex
           wherever rounding cannot flip `> tol`), timed with its plain version
           and one library call (index_add_, scatter_reduce_ amin);
-  6. the `kernels` JSON line (the split path's and the algo path's
-     launches), the card line, and the result line {"ok": true,
-     "device": {...}} last.
+  6. the device BFS of FIND SHORTEST PATH, as bench.py config 5 runs it:
+     GpuRuntime.bfs(store, "ns", [seeds[0]], ["KNOWS"], "out", 5) on the
+     north-star snapshot, one cold and three warm runs per path, launch
+     counters zeroed just before each path and read just after:
+       a. unsplit and split at --split: dist equal to host_bfs, hop_edges
+          equal to a numpy count of each level's slots under the
+          reference's switch (the frontier's out-degrees top-down, the
+          unvisited vertices' in-degrees bottom-up; so equal between the
+          layouts), at least one level bottom-up; expand, mark,
+          bfs_probe, bfs_level (and extend_hubs split) launched;
+       b. WHERE KNOWS.w > 50 on the split path against a numpy level BFS
+          over the edges with w > 50; predicate_mask launched too;
+       c. bfs_probe and bfs_level against their plain versions on the
+          inputs of every level of (a) and (b) on the main path (exact),
+          timed at the widest bottom-up level with their plain versions
+          and one library formulation (the gather plus index_put_; the
+          three torch ops plus two sums), and their byte bounds;
+  7. the `kernels` JSON line (the split GO path's, the algo path's and
+     the split BFS path's launches), the card line, and the result line
+     {"ok": true, "device": {...}} last.
 Without CUDA it prints no result and exits 2.
 """
 from __future__ import annotations
@@ -86,6 +106,10 @@ ROUTE_SOURCES = {
                  "nebula_tpu/algo/kernels.py:79"),
     "sssp_step": ("nebula_tpu_torch/csrc/relax.cu",
                   "nebula_tpu/algo/kernels.py:95"),
+    "bfs_probe": ("nebula_tpu_torch/csrc/bfs.cu",
+                  "nebula_tpu/algo/frontier.py:136"),
+    "bfs_level": ("nebula_tpu_torch/csrc/bfs.cu",
+                  "nebula_tpu/tpu/bfs.py:170"),
 }
 # the algo path: each algorithm's parameters and its step kernel
 ALGO_RUNS = {"pagerank": ({"max_iter": 20, "tol": 0.0}, "pagerank_step"),
@@ -96,6 +120,9 @@ PAGERANK_STEP_TOL = 1e-12
 # kernels each path must launch
 UNSPLIT_KERNELS = ("expand", "mark", "predicate_mask", "compact_capture")
 SPLIT_KERNELS = UNSPLIT_KERNELS + ("extend_hubs",)
+BFS_KERNELS = ("expand", "mark", "bfs_probe", "bfs_level")
+BFS_STEPS = 5                    # bench.py config 5: rt.bfs(..., "out", 5)
+BFS_RUNS = 4                     # one cold run, then the timed warm runs
 
 
 def log(msg: str) -> None:
@@ -124,6 +151,30 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_ms_fresh(fn, reset, reps: int) -> float:
+    """Mean device milliseconds of fn() over `reps` calls, by one pair of
+    CUDA events around each call, with reset() run before each call (and
+    before one warm call) outside the timed span.  A spin kernel of about
+    10 ms holds the stream while the host queues every call, so that no
+    host launch gap falls inside a span."""
+    import torch
+    reset()
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    torch.cuda._sleep(20_000_000)
+    for _ in range(reps):
+        reset()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
 
 
 def max_abs_err(got, want) -> float:
@@ -406,6 +457,143 @@ def algo_work(kname: str, a):
             rate, lib)
 
 
+def host_bfs_where(snap, src_dense, steps: int, w_gt: int):
+    """Numpy level-synchronous BFS over the KNOWS out-edges with w > w_gt:
+    the oracle of the filtered device BFS (host_bfs with the edge mask)."""
+    import numpy as np
+    P = snap.num_parts
+    blk = snap.block("KNOWS", "out")
+    dist = np.full(len(snap.dense_to_vid), -1, np.int32)
+    fr = np.unique(np.asarray(src_dense, np.int64))
+    dist[fr] = 0
+    for hop in range(1, steps + 1):
+        owner, local = fr % P, fr // P
+        s = blk.indptr[owner, local].astype(np.int64)
+        deg = blk.indptr[owner, local + 1].astype(np.int64) - s
+        rows = np.repeat(np.arange(fr.size), deg)
+        idx = s[rows] + np.arange(int(deg.sum()), dtype=np.int64) \
+            - np.repeat(np.cumsum(deg) - deg, deg)
+        kept = blk.props["w"][owner[rows], idx] > w_gt
+        nxt = np.unique(blk.nbr[owner[rows], idx][kept].astype(np.int64))
+        fr = nxt[dist[nxt] < 0]
+        dist[fr] = hop
+    return dist
+
+
+def bfs_branches(dist, steps: int):
+    """The levels the reference's switch (tpu/bfs.py:159) sends
+    bottom-up, derived from a dense-id depth array: the frontier entering
+    level L is dist == L-1, the unvisited set dist < 0 or dist >= L (the
+    switch subtracts the padding slots, which a dense-id array lacks)."""
+    return [int((dist == level - 1).sum()) * 8
+            > int(((dist < 0) | (dist >= level)).sum())
+            for level in range(1, steps + 1)]
+
+
+def bfs_level_edges(snap, dist, steps: int):
+    """The pre-filter slots each level of the direction-optimizing BFS
+    expands, from a dense-id depth array and the unsplit snapshot's
+    degrees: the frontier's out-degrees on a top-down level, the
+    unvisited vertices' in-degrees on a bottom-up one."""
+    import numpy as np
+    P = snap.num_parts
+    vv = np.arange(len(snap.dense_to_vid))
+
+    def degrees(direction):
+        ip = snap.block("KNOWS", direction).indptr
+        return (ip[:, 1:] - ip[:, :-1])[vv % P, vv // P].astype(np.int64)
+
+    out_deg, in_deg = degrees("out"), degrees("in")
+    edges = []
+    for level, bu in enumerate(bfs_branches(dist, steps), 1):
+        front = dist == level - 1
+        if not front.any():
+            edges.append(0)
+        elif bu:
+            edges.append(int(in_deg[(dist < 0) | (dist >= level)].sum()))
+        else:
+            edges.append(int(out_deg[front].sum()))
+    return edges
+
+
+def run_bfs_path(rt, ns, seed, label, K, filt=None):
+    """Drive GpuRuntime.bfs as bench.py config 5 does (one cold run, then
+    warm runs), launch counters zeroed just before and read just after.
+    Returns (dist as dense-id order, stats of the last run, results,
+    launches)."""
+    import numpy as np
+    import torch
+    P = ns.snap.num_parts
+    vv = np.arange(len(ns.snap.dense_to_vid))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    lat, dev_lat = [], []
+    for _ in range(BFS_RUNS):
+        t = time.perf_counter()
+        dist, st = rt.bfs(ns.store, "ns", [seed], ["KNOWS"], "out",
+                          BFS_STEPS, edge_filter=filt)
+        lat.append(time.perf_counter() - t)
+        dev_lat.append(st.device_s)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    d = dist[vv % P, vv // P]
+    res = {"hop_edges": st.hop_edges, "e_cap": st.e_cap,
+           "edges_per_run": st.edges_traversed(),
+           "reached": int((d >= 0).sum()),
+           "per_level": [int((d == lv).sum()) for lv in range(BFS_STEPS + 1)],
+           "p50_ms": float(np.median(lat[1:])) * 1e3,
+           "min_ms": min(lat[1:]) * 1e3, "max_ms": max(lat[1:]) * 1e3,
+           "cold_ms": lat[0] * 1e3,
+           "device_p50_ms": float(np.median(dev_lat[1:])) * 1e3,
+           "put_ms": st.put_s * 1e3, "max_memory_allocated": peak,
+           "working_set_bytes": peak - base,
+           "pinned_bytes": rt.hbm_bytes(), "samples": BFS_RUNS - 1,
+           "launches_per_run": {k: v / BFS_RUNS for k, v in launches.items()
+                                if v}}
+    log(f"[6a] BFS {label}: {json.dumps(res)}")
+    return d, st, res, launches
+
+
+def strided_copy(v):
+    """A copy of the (P, n) view v with v's row stride (the first n
+    columns of a fresh (P, stride) buffer)."""
+    import torch
+    buf = torch.empty((v.shape[0], v.stride(0)), dtype=v.dtype,
+                      device=v.device)
+    buf[:, :v.shape[1]] = v
+    return buf[:, :v.shape[1]]
+
+
+def capture_bfs_calls(rt, ns, seed, FR, GB, filt=None):
+    """One more run of a BFS path with bfs_probe and bfs_level wrapped
+    to keep each call's inputs (the buffers they update in place copied
+    with their row stride), for phase 6c."""
+    calls = {"bfs_probe": [], "bfs_level": []}
+    kernels = FR.bfs_probe, GB.bfs_level
+
+    def probe(src, nbr, keep, total, fbm, out):
+        calls["bfs_probe"].append((src, nbr, keep, total,
+                                   strided_copy(fbm), strided_copy(out)))
+        return kernels[0](src, nbr, keep, total, fbm, out)
+
+    def level(cand, dist, lv, fbm_out, unvis_out):
+        calls["bfs_level"].append((strided_copy(cand), dist.clone(), lv,
+                                   strided_copy(fbm_out),
+                                   strided_copy(unvis_out)))
+        return kernels[1](cand, dist, lv, fbm_out, unvis_out)
+
+    FR.bfs_probe, GB.bfs_level = probe, level
+    try:
+        rt.bfs(ns.store, "ns", [seed], ["KNOWS"], "out", BFS_STEPS,
+               edge_filter=filt)
+    finally:
+        FR.bfs_probe, GB.bfs_level = kernels
+    return calls
+
+
 def predicates(E, NULL):
     """WHERE KNOWS.w > 50 and eleven predicates over the w/f/city columns
     and the nullable wn (int), fn (float), bn (bool), cn (string-code)
@@ -470,6 +658,7 @@ def main(argv=None) -> int:
                     help="degree-split threshold of path 3b (0 skips it)")
     args = ap.parse_args(argv)
 
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -834,10 +1023,137 @@ def main(argv=None) -> int:
                ops_per_s=rate, tag="[5c]",
                note=f" ({func}, iterations {[lb for lb, _ in checks]})")
 
-    # -- 6. result ---------------------------------------------------------
+    # -- 6. the device BFS of FIND SHORTEST PATH (bench.py config 5) -------
+    from nebula_tpu_torch.algo import frontier as FR
+    from nebula_tpu_torch.bench.datagen import host_bfs
+    from nebula_tpu_torch.gpu import bfs as GB
+    seed = ns.seeds[0]
+    t0 = time.perf_counter()
+    want = host_bfs(ns.snap, [seed], BFS_STEPS)
+    host_bfs_s = time.perf_counter() - t0
+    bu_levels = [lv for lv, b in enumerate(bfs_branches(want, BFS_STEPS), 1)
+                 if b]
+    if not bu_levels:
+        raise AssertionError("no level of the BFS goes bottom-up")
+    want_edges = bfs_level_edges(ns.snap, want, BFS_STEPS)
+    bfs = {"seed": seed, "host_bfs_s": host_bfs_s,
+           "bottom_up_levels": bu_levels, "level_edges_numpy": want_edges}
+    log(f"[6] BFS from vertex {seed}, {BFS_STEPS} levels: {json.dumps(bfs)}")
+    bfs_paths = [("unsplit", rt)] + ([("split", rts)] if rts is not None
+                                     else [])
+    bfs_launches = {}
+    for blabel, brt in bfs_paths:
+        d, st, res, bl = run_bfs_path(brt, ns, seed, blabel, K)
+        if not np.array_equal(d, want):
+            raise AssertionError(f"BFS {blabel}: dist differs from host_bfs")
+        if st.hop_edges != want_edges:
+            raise AssertionError(f"BFS {blabel}: hop_edges {st.hop_edges} vs "
+                                 f"{want_edges} for the switch's branches")
+        for name in BFS_KERNELS + (("extend_hubs",) if brt is rts else ()):
+            if bl[name] <= 0:
+                raise AssertionError(f"kernel {name} never launched on the "
+                                     f"{blabel} BFS path")
+        bfs[blabel], bfs_launches[blabel] = res, bl
+    # the main BFS path: split as bench.py runs it, when it ran
+    mlabel, mrt = bfs_paths[-1]
+    fw = f"{mlabel} w>{ns.w_gt}"
+    want_f = host_bfs_where(ns.snap, [seed], BFS_STEPS, ns.w_gt)
+    d, st, res, bl = run_bfs_path(mrt, ns, seed, fw, K, filt=ns.w_filter)
+    if not np.array_equal(d, want_f):
+        raise AssertionError(f"BFS {fw}: dist differs from the numpy oracle")
+    if st.hop_edges != bfs_level_edges(ns.snap, want_f, BFS_STEPS):
+        raise AssertionError(f"BFS {fw}: hop_edges {st.hop_edges}")
+    for name in BFS_KERNELS + ("predicate_mask",):
+        if bl[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"filtered BFS path")
+    bfs[fw] = dict(res, bottom_up_levels=[
+        lv for lv, b in enumerate(bfs_branches(want_f, BFS_STEPS), 1) if b])
+    bfs_launches[fw] = bl
+
+    # 6c. each new kernel against its plain version on the inputs of every
+    # level of the main path, unfiltered and filtered
+    calls = capture_bfs_calls(mrt, ns, seed, FR, GB)
+    calls_f = capture_bfs_calls(mrt, ns, seed, FR, GB, filt=ns.w_filter)
+
+    got, want_k = [], []
+    for a in calls["bfs_probe"] + calls_f["bfs_probe"]:
+        for out, fn in ((got, K.bfs_probe), (want_k, K.bfs_probe_plain)):
+            out.append(fn(*a[:5], strided_copy(a[5])))
+    probe_err = max_abs_err(got, want_k)
+    got, want_k = [], []
+    for a in calls["bfs_level"] + calls_f["bfs_level"]:
+        for out, fn in ((got, K.bfs_level), (want_k, K.bfs_level_plain)):
+            o = [a[1].clone(), strided_copy(a[3]), strided_copy(a[4])]
+            out.extend([fn(a[0], o[0], a[2], o[1], o[2])] + o)
+    level_err = max_abs_err(got, want_k)
+    log(f"[6c] bfs_probe checked at {len(calls['bfs_probe'])} + "
+        f"{len(calls_f['bfs_probe'])} bottom-up calls, bfs_level at "
+        f"{len(calls['bfs_level'])} + {len(calls_f['bfs_level'])} levels "
+        f"(level 0 included): equal")
+
+    # timed at the widest bottom-up probe of the unfiltered run, and at
+    # the level update after it, each call on a fresh copy of that
+    # level's depth array, so that every call writes the level's new
+    # vertices as the main path does
+    pa = max(calls["bfs_probe"], key=lambda a: int(a[3].sum()))
+    src, nbr, keep, total, fbm, out0 = pa
+    Pp, EBp = src.shape
+    vmax = fbm.shape[1]
+    ok = torch.arange(EBp, device=src.device) < total[:, None]
+    nbl = torch.where(ok, nbr.long(), 0)
+    members = int((ok & fbm[nbl % Pp, nbl // Pp]).sum())
+    out_t = strided_copy(out0)
+    reached = int((K.bfs_probe(*pa[:5], strided_copy(out0)) & ~out0).sum())
+
+    def lib_probe():
+        sel = ok & fbm[nbl % Pp, nbl // Pp]
+        sl = src[sel].long()
+        out_t.index_put_((sl % Pp, sl // Pp),
+                         torch.ones((), dtype=torch.bool, device=sl.device))
+        return out_t
+
+    tot = int(total.sum())
+    record("bfs_probe", None, None,
+           cuda_ms(lambda: K.bfs_probe(*pa[:5], out_t), reps),
+           cuda_ms(lambda: K.bfs_probe_plain(*pa[:5], out_t), reps),
+           cuda_ms(lib_probe, reps),
+           4 * tot + Pp * vmax + 4 * members + 4 * Pp + reached, 2 * tot,
+           counts=bfs_launches[mlabel], err=probe_err, tag="[6c]",
+           note=f" ({mlabel}, widest bottom-up level: {tot} slots, "
+                f"{members} on the frontier, {reached} reached)")
+    la = calls["bfs_level"][[a[2] for a in calls["bfs_level"]].index(
+        bu_levels[0])]
+    cand, dist0, lv = la[0], la[1], la[2]
+    f_t, u_t = strided_copy(la[3]), strided_copy(la[4])
+    n = cand.numel()
+    fresh = int((cand & (dist0 < 0)).sum())
+    d_t = dist0.clone()
+
+    def reset():
+        d_t.copy_(dist0)
+
+    def lib_level():
+        new = cand & (d_t < 0)
+        nd = torch.where(new, lv, d_t)
+        return nd, torch.stack([new.sum(), (nd < 0).sum()])
+
+    # bytes: cand, dist, fbm and unvis once each (1 + 4 + 1 + 1), dist
+    # written at the fresh vertices only, and the two counts
+    record("bfs_level", None, None,
+           cuda_ms_fresh(lambda: K.bfs_level(cand, d_t, lv, f_t, u_t),
+                         reset, reps),
+           cuda_ms_fresh(lambda: K.bfs_level_plain(cand, d_t, lv, f_t, u_t),
+                         reset, reps),
+           cuda_ms_fresh(lib_level, reset, reps), 7 * n + 4 * fresh + 16,
+           4 * n, counts=bfs_launches[mlabel], err=level_err, tag="[6c]",
+           note=f" ({mlabel}, level {lv}, {n} slots, {fresh} fresh)")
+
+    # -- 7. result ---------------------------------------------------------
     log(json.dumps({"go3": results, "expand_per_hop": per_hop,
                     "unsplit_launches": launches_u,
-                    "unsplit_kernels": extra, "algo": algo,
+                    "unsplit_kernels": extra, "algo": algo, "bfs": bfs,
+                    "bfs_launches": bfs_launches,
                     "hbm_bytes": rt.hbm_bytes() + (
                         rts.hbm_bytes() if rts is not None else 0)}))
     print(json.dumps({"kernels": rows_out}))

@@ -1,0 +1,108 @@
+"""The BFS level bodies: top-down and bottom-up frontier steps.
+
+Port of the single-device half of `nebula_tpu/algo/frontier.py`:
+
+  * `expand_part`    — one block's expansion (K1) with the WHERE mask
+                       (K4) folded into `keep`, including the bottom-up
+                       endpoint swap (:39);
+  * `top_down_step`  — expand every block from the frontier buffer and
+                       OR the kept destinations into one candidate bitmap
+                       (K2) — the reference's OR over blocks and parts
+                       (:82);
+  * `bottom_up_step` — expand every REVERSE block from the unvisited
+                       buffer; an unvisited vertex becomes a candidate
+                       when an in-neighbour is on the frontier
+                       (`bfs_probe`, :110).
+
+The reference vmaps each over the parts; the port's kernels take all P
+parts in one launch.  Each step marks its candidates into the caller's
+bitmap in place and returns (edges (P,) int32, width): edges is the
+pre-filter slot count per part (the level's hop_edges), width the
+level's slot width (the largest block's EB).  The reference's
+`ovf` has no counterpart: `expand` sizes its slots exactly.  The delta
+branch of `expand_part` (:57-66) comes with the delta plane, and
+`sharded_level_step` (:145) with the mesh.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from ..gpu.device import DeviceBlock
+from ..gpu.exprjit import Program
+from ..gpu.kernels import bfs_probe, expand, mark, predicate_mask
+
+__all__ = ["expand_part", "top_down_step", "bottom_up_step"]
+
+
+def expand_part(block: DeviceBlock, fbm: torch.Tensor,
+                hub_dense: Optional[torch.Tensor] = None,
+                pred: Optional[Program] = None, swap_ends: bool = False):
+    """Expand one block from the (P, rows) bitmap `fbm` (rows = vmax, or
+    vmax + H with the hub columns filled) for every part, and apply the
+    compiled edge predicate.
+
+    `swap_ends` is the bottom-up contract: $^/$$ are TRAVERSAL source
+    and destination, and bottom-up expands the REVERSE adjacency, so the
+    expansion source is the traversal destination (the vertex to reach)
+    and the neighbour is the frontier side: the predicate sees the two
+    endpoint columns swapped.
+
+    Returns (src, dst, keep, total) per `kernels.expand`'s slot contract;
+    keep is the predicate's (P, EB) mask (valid slots only), or None
+    without a predicate, meaning every valid slot."""
+    src, dst, rk, eidx, total = expand(block.indptr, block.nbr, block.rank,
+                                       fbm, hub_dense)
+    keep = None
+    if pred is not None:
+        ps, pd = (dst, src) if swap_ends else (src, dst)
+        keep = predicate_mask(pred, ps, pd, rk, eidx, total,
+                              [block.props[n] for n in pred.columns])
+    return src, dst, keep, total
+
+
+def top_down_step(blocks: Sequence[DeviceBlock], efbm: torch.Tensor,
+                  cand: torch.Tensor, hub_dense=None, pred=None
+                  ) -> Tuple[torch.Tensor, int]:
+    """Forward level body: expand every block from the frontier buffer
+    `efbm` (hub columns filled by the caller) and mark each kept
+    destination into the (P, vmax) candidate bitmap `cand` (zeroed by
+    the caller; it may be the first vmax columns of a wider buffer).
+
+    -> (edges (P,) int32, width)."""
+    P, vmax = cand.shape
+    edges = torch.zeros((P,), dtype=torch.int32, device=cand.device)
+    width = 0
+    for b in blocks:
+        _s, dst, keep, total = expand_part(b, efbm, hub_dense, pred)
+        edges += total
+        width = max(width, dst.shape[1])
+        # without a predicate every valid slot is kept, and expand pads
+        # the invalid ones with dst = -1, which mark drops
+        mark(dst, P, vmax, keep=keep, out=cand)
+    return edges, width
+
+
+def bottom_up_step(rev_blocks: Sequence[DeviceBlock], fbm: torch.Tensor,
+                   eunvis: torch.Tensor, cand: torch.Tensor,
+                   hub_dense=None, pred=None
+                   ) -> Tuple[torch.Tensor, int]:
+    """Direction-optimizing level body: expand the REVERSE adjacency of
+    the unvisited vertices (`eunvis`, hub columns filled by the caller);
+    a vertex joins `cand` when an in-neighbour's bit is set in the
+    (P, vmax) frontier bitmap `fbm`.  A degree-split hub row's vertex is
+    owned by another part, so `bfs_probe` routes every reached vertex to
+    its owner row.
+
+    -> (edges (P,) int32, width)."""
+    P, vmax = cand.shape
+    edges = torch.zeros((P,), dtype=torch.int32, device=cand.device)
+    width = 0
+    for b in rev_blocks:
+        src, nb, keep, total = expand_part(b, eunvis, hub_dense, pred,
+                                           swap_ends=True)
+        edges += total
+        width = max(width, src.shape[1])
+        bfs_probe(src, nb, keep, total, fbm, cand)
+    return edges, width

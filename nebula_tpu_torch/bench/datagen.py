@@ -6,8 +6,10 @@ tails on both sides, so some sources are supernodes), and
 `snapshot_from_arrays` lays them out as a CsrSnapshot with out and in
 KNOWS blocks and w (INT64) / f (DOUBLE) / city (STRING) edge props.
 `host_csr_traverse` is the numpy GO oracle the port's device path is
-checked against, and `SnapshotStore` the store stand-in the runtime's
-`traverse` reads dense ids and edge-type ids from.  `north_star` sets up
+checked against, `host_bfs` (a copy of the reference's, :282) the numpy
+BFS oracle of bench.py config 5, and `SnapshotStore` the store stand-in
+the runtime's `traverse` and `bfs` read dense ids and edge-type ids
+from.  `north_star` sets up
 the repo's north-star GO once for every script that runs it.
 """
 from __future__ import annotations
@@ -151,6 +153,39 @@ def host_csr_traverse(snap, seeds, steps: int, w_gt=None,
             return total, int(nxt.size)
         frontier = np.unique(nxt)
     return (total, 0, None, None) if materialize else (total, 0)
+
+
+def host_bfs(snap, src_dense, steps: int, etype: str = "KNOWS"):
+    """Numpy BFS comparator for bench.py config 5: level-synchronous BFS
+    over the out-CSR, returning the full dense-id distance array (-1
+    unreached, 0..steps otherwise).  The device BFS kernel's distance
+    output must match element-for-element."""
+    P = snap.num_parts
+    blk = snap.block(etype, "out")
+    n = len(snap.dense_to_vid)
+    dist = np.full(n, -1, np.int32)
+    fr = np.unique(np.asarray(src_dense, np.int64))
+    dist[fr] = 0
+    for hop in range(1, steps + 1):
+        if fr.size == 0:
+            break
+        owner = fr % P
+        local = fr // P
+        s = blk.indptr[owner, local].astype(np.int64)
+        e = blk.indptr[owner, local + 1].astype(np.int64)
+        deg = e - s
+        tot = int(deg.sum())
+        if tot == 0:
+            break
+        rows = np.repeat(np.arange(fr.size), deg)
+        offs = np.arange(tot, dtype=np.int64) - \
+            np.repeat(np.cumsum(deg) - deg, deg)
+        idx = s[rows] + offs
+        nxt = np.unique(blk.nbr[owner[rows], idx].astype(np.int64))
+        nxt = nxt[dist[nxt] < 0]
+        dist[nxt] = hop
+        fr = nxt
+    return dist
 
 
 class SnapshotStore:

@@ -25,6 +25,38 @@ import time
 from collections import defaultdict
 
 
+def profiled(call, n: int, warm: int = 2):
+    """Run call() `warm` times, then n times under torch.profiler.
+    Returns (the n results' stats, window µs, device µs, the top 25
+    device activities by time as {name, calls, ms})."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warm):
+        call()
+    torch.cuda.synchronize()
+    stats = []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            stats.append(call()[1])
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    by_name = defaultdict(lambda: [0, 0.0])
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            rec = by_name[evt.name]
+            rec[0] += 1
+            rec[1] += evt.time_range.elapsed_us()
+    if not by_name:
+        raise RuntimeError("the profiler recorded no device activity")
+    device_us = sum(us for _, us in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    return stats, window_us, device_us, [
+        {"name": name[:90], "calls": c, "ms": us / 1e3}
+        for name, (c, us) in top[:25]]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--persons", type=int, default=1_000_000)
@@ -35,7 +67,6 @@ def main(argv=None) -> int:
 
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     if not torch.cuda.is_available():
         print("go_profile: CUDA is not available", file=sys.stderr)
         return 2
@@ -50,29 +81,9 @@ def main(argv=None) -> int:
         return rt.traverse(ns.store, "ns", ns.seeds, ["KNOWS"], "out", 3,
                            edge_filter=ns.w_filter, yields=ns.yields)
 
-    for _ in range(2):
-        query()
-    torch.cuda.synchronize()
-    stats = []
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.queries):
-            stats.append(query()[1])
-        torch.cuda.synchronize()
-        window_us = (time.perf_counter() - t0) * 1e6
-    by_name = defaultdict(lambda: [0, 0.0])
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            rec = by_name[evt.name]
-            rec[0] += 1
-            rec[1] += evt.time_range.elapsed_us()
-    device_us = sum(us for _, us in by_name.values())
-    if not by_name:
-        raise RuntimeError("the profiler recorded no device activity")
+    stats, window_us, device_us, kernels = profiled(query, args.queries)
     phases = {k: float(np.median([getattr(s, k) for s in stats])) * 1e3
               for k in ("put_s", "device_s", "fetch_s", "mat_s", "total_s")}
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     print(json.dumps({
         "card": torch.cuda.get_device_name(0), "queries": args.queries,
         "split": args.split, "hubs": rt.snapshots["ns"].num_hubs,
@@ -81,9 +92,7 @@ def main(argv=None) -> int:
         "rows_per_query": stats[-1].result_edges,
         "phases_ms": phases,
         "window_ms": window_us / 1e3, "device_ms": device_us / 1e3,
-        "busy_share": device_us / window_us,
-        "kernels": [{"name": n[:90], "calls": c, "ms": us / 1e3}
-                    for n, (c, us) in top[:25]]}))
+        "busy_share": device_us / window_us, "kernels": kernels}))
     return 0
 
 

@@ -1,0 +1,93 @@
+"""The single-device level-synchronous BFS (Queue B K11).
+
+Port of `nebula_tpu/tpu/bfs.py:build_bfs_fn_local` (:107), the device half
+of FIND SHORTEST PATH.  The reference is one jitted XLA program with a
+`lax.cond` per level; here it is a host loop over the hand-written kernels,
+as `gpu/hop.py:run_hops` is for GO:
+
+  level 0:    bfs_level turns the seed bitmap into dist (0 at the seeds,
+              -1 elsewhere), the first frontier and the unvisited bitmap,
+              and counts both;
+  per level:  the dense-level switch `|frontier| * 8 > |unvisited| -
+              n_phantom` (bfs.py:159) from the two counts of the previous
+              update — one (2,) int64 read to the host per level; then
+              top-down (frontier.top_down_step: extend_hubs, expand,
+              predicate_mask, mark) or, with the reverse blocks, bottom-up
+              (frontier.bottom_up_step: extend_hubs on the unvisited
+              buffer, expand of the reverse blocks, predicate_mask with
+              the endpoints swapped, bfs_probe); then bfs_level.
+
+Unlike GO (`run_hops`, which filters the final hop only), the WHERE mask
+applies at every level, as in the reference (frontier.py:67-76).  All
+`max_steps` levels are reported: once the frontier is empty a level
+expands nothing, so its launches are skipped and it reports 0 edges, as
+the reference's fixed program computes.  The frontier, unvisited and
+candidate bitmaps are the first vmax columns of (P, vmax + H) buffers
+(`hop.new_frontier`), so extend_hubs fills their hub columns in place.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Sequence
+
+import torch
+
+from ..algo.frontier import bottom_up_step, top_down_step
+from .device import DeviceBlock, DeviceSnapshot
+from .exprjit import Program
+from .hop import new_frontier
+from .kernels import bfs_level, extend_hubs
+
+
+def run_bfs(dev: DeviceSnapshot, blocks: Sequence[DeviceBlock],
+            rev_blocks: Optional[Sequence[DeviceBlock]],
+            seeds: torch.Tensor, max_steps: int,
+            pred: Optional[Program] = None,
+            n_phantom: int = 0) -> Dict[str, Any]:
+    """Run a `max_steps`-level BFS from the seed buffer `seeds` (a
+    `new_frontier` buffer with the seeds marked into its first vmax
+    columns; it becomes the candidate buffer, and its contents are
+    consumed).  With `rev_blocks` (each block's reverse twin, in the
+    same order) dense levels go bottom-up; None keeps every level
+    top-down.  n_phantom: the padding slots, P*vmax - sum(num_vertices).
+
+    Returns:
+      dist (P, vmax) int32 on the device: depth per slot, -1 unreached
+      hop_edges (P, max_steps) int32 on the device: pre-filter slots per
+        level and part
+      e_cap: per-level slot width (ints; 0 for a level that expanded
+        nothing)
+      bottom_up: per-level branch (bools)
+    """
+    P, vmax, H = dev.num_parts, dev.vmax, dev.num_hubs
+    fbuf, ubuf = new_frontier(dev), new_frontier(dev)
+    cand, fbm, unvis = seeds[:, :vmax], fbuf[:, :vmax], ubuf[:, :vmax]
+    dist = torch.full((P, vmax), -1, dtype=torch.int32, device=seeds.device)
+    n_front, n_unvis = bfs_level(cand, dist, 0, fbm, unvis).tolist()
+    no_edges = torch.zeros((P,), dtype=torch.int32, device=seeds.device)
+    hop_edges: List[torch.Tensor] = []
+    e_cap: List[int] = []
+    bottom_up: List[bool] = []
+    for level in range(1, max_steps + 1):
+        use_bu = (rev_blocks is not None
+                  and n_front * 8 > n_unvis - n_phantom)
+        bottom_up.append(use_bu)
+        if n_front == 0:
+            hop_edges.append(no_edges)
+            e_cap.append(0)
+            continue
+        cand.zero_()
+        if use_bu:
+            if H:
+                extend_hubs(ubuf, dev.hub_owner, dev.hub_local, vmax)
+            edges, width = bottom_up_step(rev_blocks, fbm, ubuf, cand,
+                                          dev.hub_dense, pred)
+        else:
+            if H:
+                extend_hubs(fbuf, dev.hub_owner, dev.hub_local, vmax)
+            edges, width = top_down_step(blocks, fbuf, cand,
+                                         dev.hub_dense, pred)
+        hop_edges.append(edges)
+        e_cap.append(width)
+        n_front, n_unvis = bfs_level(cand, dist, level, fbm, unvis).tolist()
+    return {"dist": dist, "hop_edges": torch.stack(hop_edges, 1),
+            "e_cap": e_cap, "bottom_up": bottom_up}

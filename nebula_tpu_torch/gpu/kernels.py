@@ -1,4 +1,5 @@
-"""The hand-written CUDA kernels: build, load, and the GO path's wrappers.
+"""The hand-written CUDA kernels: build, load, and the GO and BFS paths'
+wrappers.
 
 The GO path's five kernels, sources in `nebula_tpu_torch/csrc/`:
 
@@ -16,6 +17,15 @@ The GO path's five kernels, sources in `nebula_tpu_torch/csrc/`:
   compact_capture   K3 + K5 — stable compaction of the final hop and
                     the YIELD column gather (hop.py:_compact_cap :238,
                     _build_local_fn :543-550)
+
+The BFS path (gpu/bfs.py) reuses expand, mark, extend_hubs and
+predicate_mask and adds two, both in bfs.cu:
+
+  bfs_probe         K11 — the bottom-up membership test: a reverse slot's
+                    unvisited src is reached when its in-neighbour is on
+                    the frontier (nebula_tpu/algo/frontier.py:136-141)
+  bfs_level         K11 — the level update and the switch's popcounts
+                    (nebula_tpu/tpu/bfs.py:153-159, 170-172)
 
 The algo plane's three (pagerank.cu, relax.cu) are built into the same
 library; their wrappers live in `algo/kernels.py`.
@@ -52,7 +62,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("expand.cu", "mark.cu", "hubs.cu", "predicate.cu",
-           "compact_capture.cu", "pagerank.cu", "relax.cu")
+           "compact_capture.cu", "bfs.cu", "pagerank.cu", "relax.cu")
 HEADERS = ("scan.cuh",)
 MAX_COLS = 4                  # yield columns compact_capture gathers
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -150,6 +160,8 @@ def _lib() -> ctypes.CDLL:
     lib.nt_predicate_mask.argtypes = [P] * 6 + [I] * 3 + [P, P]
     lib.nt_compact_capture.argtypes = ([P] * 5 + [I] * 4 + [P] * 4
                                        + [P] * 4 + [P] * 4 + [P, P, P])
+    lib.nt_bfs_probe.argtypes = [P] * 4 + [I] * 3 + [P, LL, P, LL, P]
+    lib.nt_bfs_level.argtypes = [P, LL, P, I, I, I, P, LL, P, LL, P, P]
     D = ctypes.c_double
     lib.nt_pagerank_tile.argtypes = lib.nt_pagerank_vblock.argtypes = []
     lib.nt_pagerank_step.argtypes = [P] * 6 + [LL, LL, D, D, D] + [P] * 10
@@ -158,6 +170,7 @@ def _lib() -> ctypes.CDLL:
     for fn in (lib.nt_expand_scan, lib.nt_expand_fill, lib.nt_mark,
                lib.nt_extend_hubs, lib.nt_predicate_sizes,
                lib.nt_predicate_mask, lib.nt_compact_capture,
+               lib.nt_bfs_probe, lib.nt_bfs_level,
                lib.nt_pagerank_tile, lib.nt_pagerank_vblock,
                lib.nt_pagerank_step, lib.nt_wcc_step, lib.nt_sssp_step):
         fn.restype = I
@@ -193,19 +206,30 @@ def _want(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def _bitmap_view(t, name: str, shape, device) -> None:
+    """A (P, vmax) bool bitmap, or the first vmax columns of a wider one:
+    rows contiguous, any row stride."""
+    if t.device != device or t.dtype != torch.bool \
+            or tuple(t.shape) != tuple(shape) \
+            or (t.numel() and t.stride(1) != 1):
+        raise ValueError(f"{name} must be a {tuple(shape)} bool bitmap on "
+                         f"{device} with contiguous rows")
+
+
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _go_wrappers():
-    return (expand, mark, extend_hubs, predicate_mask, compact_capture)
+def _own_wrappers():
+    return (expand, mark, extend_hubs, predicate_mask, compact_capture,
+            bfs_probe, bfs_level)
 
 
 def _wrappers():
-    """Every kernel wrapper: the GO path's, then the algo plane's
-    (imported here: algo/kernels.py imports this module)."""
+    """Every kernel wrapper: the GO and BFS paths', then the algo
+    plane's (imported here: algo/kernels.py imports this module)."""
     from ..algo import kernels as AK
-    return _go_wrappers() + (AK.pagerank_step, AK.wcc_step, AK.sssp_step)
+    return _own_wrappers() + (AK.pagerank_step, AK.wcc_step, AK.sssp_step)
 
 
 def reset_launch_counts() -> None:
@@ -324,11 +348,7 @@ def mark(ids, P: int, vmax: int, keep=None, out=None):
         return mark_plain(ids, P, vmax, keep, out)
     dev = ids.device
     _want(ids, "ids", _I32, ids.shape, dev)
-    if out.device != dev or out.dtype != torch.bool \
-            or tuple(out.shape) != (P, vmax) \
-            or (out.numel() and out.stride(1) != 1):
-        raise ValueError(f"out must be a ({P}, {vmax}) bool bitmap on {dev}"
-                         f" with contiguous rows")
+    _bitmap_view(out, "out", (P, vmax), dev)
     if keep is not None:
         _want(keep, "keep", torch.bool, ids.shape, dev)
     n = ids.numel()
@@ -528,5 +548,98 @@ def compact_capture(src, dst, rank, eidx, keep,
     return (*outs, props, kcount)
 
 
-for _fn in _go_wrappers():
+# ---------------------------------------------------------------------------
+# bfs_probe, bfs_level (K11)
+# ---------------------------------------------------------------------------
+
+
+def bfs_probe_plain(src, nbr, keep, total, fbm, out):
+    """Plain version of `bfs_probe`: for every slot j < total[p] whose
+    nbr id is on the frontier fbm (and kept, when keep is given), set
+    out[src % P, src // P]; ids < 0 or outside [0, P*vmax) set
+    nothing."""
+    P, EB = src.shape
+    vmax = fbm.shape[1]
+    nb = nbr.long()
+    ok = (torch.arange(EB, device=src.device) < total[:, None]) \
+        & (nb >= 0) & (nb < P * vmax)
+    if keep is not None:
+        ok &= keep
+    nb = torch.where(ok, nb, 0)
+    member = ok & fbm[nb % P, nb // P]
+    return mark_plain(src, P, vmax, keep=member, out=out)
+
+
+def bfs_probe(src, nbr, keep, total, fbm, out):
+    """The bottom-up membership test over one reverse block's expanded
+    slots (src the unvisited vertex, nbr its in-neighbour): OR into the
+    (P, vmax) candidate bitmap `out` every src with a valid, kept slot
+    whose nbr is set in the (P, vmax) frontier bitmap `fbm`.  fbm and out
+    may each be the first vmax columns of a wider buffer.  keep=None
+    keeps every valid slot.  Returns out, updated in place."""
+    if src.device.type == "cpu":
+        return bfs_probe_plain(src, nbr, keep, total, fbm, out)
+    P, EB = src.shape
+    vmax = fbm.shape[1]
+    dev = src.device
+    _want(src, "src", _I32, (P, EB), dev)
+    _want(nbr, "nbr", _I32, (P, EB), dev)
+    _want(total, "total", _I32, (P,), dev)
+    if keep is not None:
+        _want(keep, "keep", torch.bool, (P, EB), dev)
+    _bitmap_view(fbm, "fbm", (P, vmax), dev)
+    _bitmap_view(out, "out", (P, vmax), dev)
+    if P * EB == 0:
+        return out
+    _check(_lib().nt_bfs_probe(
+        src.data_ptr(), nbr.data_ptr(),
+        None if keep is None else keep.data_ptr(), total.data_ptr(), P, EB,
+        vmax, fbm.data_ptr(), fbm.stride(0), out.data_ptr(), out.stride(0),
+        _stream(src)), "bfs_probe")
+    bfs_probe.launches += 1
+    return out
+
+
+def bfs_level_plain(cand, dist, level: int, fbm_out, unvis_out):
+    """Plain version of `bfs_level`: new = cand & (dist < 0); dist =
+    where(new, level, dist); fbm_out = new; unvis_out = dist < 0, all in
+    place.  Returns (|new|, |unvis|) as a (2,) int64 tensor."""
+    new = cand & (dist < 0)
+    dist.copy_(torch.where(new, level, dist))
+    unvis = dist < 0
+    fbm_out.copy_(new)
+    unvis_out.copy_(unvis)
+    return torch.stack([new.sum(), unvis.sum()]).to(torch.int64)
+
+
+def bfs_level(cand, dist, level: int, fbm_out, unvis_out):
+    """One BFS level update over the (P, vmax) int32 depth array `dist`,
+    in place: the candidates `cand` not yet visited become the next
+    frontier `fbm_out` at depth `level`, and `unvis_out` is the next
+    unvisited bitmap.  cand, fbm_out and unvis_out are (P, vmax) bool
+    bitmaps (or the first vmax columns of wider buffers); cand must not
+    share memory with the two outputs.  Returns the (2,) int64 counts
+    (|new frontier|, |unvisited|) on the device; phantom slots count as
+    unvisited."""
+    if dist.device.type == "cpu":
+        return bfs_level_plain(cand, dist, level, fbm_out, unvis_out)
+    P, vmax = dist.shape
+    dev = dist.device
+    _want(dist, "dist", _I32, (P, vmax), dev)
+    for name, t in (("cand", cand), ("fbm_out", fbm_out),
+                    ("unvis_out", unvis_out)):
+        _bitmap_view(t, name, (P, vmax), dev)
+    if P * vmax == 0:
+        return torch.zeros((2,), dtype=torch.int64, device=dev)
+    counts = torch.empty((2,), dtype=torch.int64, device=dev)
+    _check(_lib().nt_bfs_level(
+        cand.data_ptr(), cand.stride(0), dist.data_ptr(), P, vmax,
+        int(level), fbm_out.data_ptr(), fbm_out.stride(0),
+        unvis_out.data_ptr(), unvis_out.stride(0), counts.data_ptr(),
+        _stream(dist)), "bfs_level")
+    bfs_level.launches += 1
+    return counts
+
+
+for _fn in _own_wrappers():
     _fn.launches = 0

@@ -5,8 +5,9 @@ Port of the solo single-device path of `nebula_tpu/tpu/runtime.py`:
 `traverse` (:1753) with a columnar YIELD list, `_block_columns` (:2266),
 `_materialize_yields` (:2373), `_d2v`, `_cap_keys_for_yields` and
 `_cat_parts`, the supernode degree-split at pin time
-(`_maybe_degree_split`, :857), and `algo_dispatch` (:1105), the algo
-plane's one dispatch per iteration.
+(`_maybe_degree_split`, :857), `algo_dispatch` (:1105), the algo
+plane's one dispatch per iteration, and `bfs` (:2121), the device BFS
+of FIND SHORTEST PATH.
 
 What this slice leaves out raises `CannotCompile`, as the reference does
 for a filter it cannot compile: GO without `yields` (Edge rows, which need
@@ -26,6 +27,7 @@ import torch
 from ..core import expr as E
 from ..core.value import ColumnarDataSet
 from ..graphstore.csr import DECODABLE, decode_prop_column_np, degree_split
+from .bfs import run_bfs
 from .device import DeviceSnapshot, GpuUnavailable, pin_snapshot, \
     resolve_device
 from .exprjit import CannotCompile, compile_predicate, eval_yield_column_np
@@ -115,14 +117,15 @@ def _cat_parts(parts, dtype=None):
 
 class TraverseStats:
     __slots__ = ("hop_edges", "frontier_sizes", "result_edges", "e_cap",
-                 "steps", "device_s", "pin_s", "put_s", "fetch_s", "mat_s",
-                 "total_s", "hbm_bytes")
+                 "retries", "steps", "device_s", "pin_s", "put_s",
+                 "fetch_s", "mat_s", "total_s", "hbm_bytes")
 
     def __init__(self):
         self.hop_edges: List[int] = []
         self.frontier_sizes: List[int] = []   # popcount entering each hop
         self.result_edges = 0
         self.e_cap: List[int] = []            # per-hop slot width
+        self.retries = 0                      # no escalation: always 0
         self.steps = 0
         # per-phase wall time; device_s ends in a device synchronisation
         self.device_s = 0.0
@@ -341,6 +344,73 @@ class GpuRuntime:
         stats.result_edges = len(rows)
         stats.total_s = time.perf_counter() - t_start
         return rows, stats
+
+    # -- BFS (FIND SHORTEST PATH device plane) -----------------------------
+
+    def bfs(self, store, space: str, srcs: Sequence[Any],
+            etypes: Sequence[str], direction: str, max_steps: int,
+            edge_filter: Optional[E.Expr] = None
+            ) -> Tuple[np.ndarray, TraverseStats]:
+        """Level-synchronous device BFS from `srcs`.
+
+        Returns (dist, stats): dist is the (P, vmax) int32 numpy array of
+        BFS depths (-1 unreached; dense id v at [v % P, v // P]); the
+        caller rebuilds paths on the host.  With `edge_filter` (raises
+        CannotCompile for a filter that does not vectorize) the BFS
+        traverses only mask-passing edges, at every level.  When every
+        block's reverse twin is pinned, dense levels go bottom-up, as the
+        reference's single-chip program does; stats.hop_edges counts the
+        branch's slots per level (out-edges of the frontier top-down,
+        in-edges of the unvisited set bottom-up)."""
+        t_start = time.perf_counter()
+        dev = self.pin(store, space)
+        sd = store.space(space)
+        stats = TraverseStats()
+        stats.steps = max_steps
+        stats.pin_s = time.perf_counter() - t_start
+
+        block_keys = self._blocks_for(etypes, direction)
+        pred = None
+        if edge_filter is not None:
+            bl = dev.blocks[block_keys[0]]
+            pred, _ = compile_predicate(
+                edge_filter, bl.prop_types, dev.pool,
+                vid_to_dense=sd.dense_id, device=self.device)
+            if pred.error is not None:
+                raise pred.error
+        P, vmax = dev.num_parts, dev.vmax
+        dense = [sd.dense_id(v) for v in srcs]
+        dense = [d for d in dense if d >= 0]
+        if not dense:
+            return np.full((P, vmax), -1, np.int32), stats
+
+        # direction-optimizing: each block's REVERSE twin rides along so
+        # dense levels can go bottom-up.  The port has no delta plane and
+        # no mesh, so the twins being pinned is the whole condition (the
+        # reference's runtime.py:2160-2171); for "both" the twins of the
+        # out and in blocks are the in and out blocks
+        rev_of = {"out": "in", "in": "out"}
+        rev_keys = [(et, rev_of[d]) for et, d in block_keys]
+        have_rev = all(rk in dev.blocks for rk in rev_keys)
+        n_phantom = P * vmax - int(np.asarray(dev.host.num_vertices).sum())
+
+        tp = time.perf_counter()
+        seeds = self._seed_frontier(dev, dense)
+        stats.put_s = time.perf_counter() - tp
+
+        t0 = time.perf_counter()
+        res = run_bfs(dev, [dev.blocks[bk] for bk in block_keys],
+                      [dev.blocks[rk] for rk in rev_keys] if have_rev
+                      else None, seeds, max_steps, pred=pred,
+                      n_phantom=n_phantom)
+        dist = res["dist"].cpu().numpy()            # synchronises
+        hop_edges = res["hop_edges"].cpu().numpy()
+        stats.device_s = time.perf_counter() - t0
+        stats.hop_edges = [int(x) for x in hop_edges.sum(axis=0)]
+        stats.e_cap = list(res["e_cap"])
+        stats.hbm_bytes = self.hbm_bytes()
+        stats.total_s = time.perf_counter() - t_start
+        return dist, stats
 
     # -- host materialization ---------------------------------------------
 

@@ -209,7 +209,8 @@ def test_wrappers_never_fall_back_off_the_cpu(monkeypatch):
 
     monkeypatch.setattr(K, "_lib", no_lib)
     for name in ("expand_plain", "mark_plain", "compact_capture_plain",
-                 "extend_hubs_plain", "predicate_mask_plain"):
+                 "extend_hubs_plain", "predicate_mask_plain",
+                 "bfs_probe_plain", "bfs_level_plain"):
         monkeypatch.setattr(K, name, plain_called)
     for name in ("pagerank_step_plain", "wcc_step_plain",
                  "sssp_step_plain"):
@@ -252,8 +253,16 @@ def test_wrappers_never_fall_back_off_the_cpu(monkeypatch):
     with pytest.raises(K.KernelError):
         AK.sssp_step(f64, vbool, e32, e32,
                      torch.empty((E,), dtype=torch.float64, **m))
+    bits = torch.empty((P, 6), dtype=torch.bool, **m)[:, :4]
+    with pytest.raises(K.KernelError):
+        K.bfs_probe(*ints[:2], torch.empty((P, 4), dtype=torch.bool, **m),
+                    torch.empty((P,), dtype=torch.int32, **m), bits, bits)
+    with pytest.raises(K.KernelError):
+        K.bfs_level(bits, torch.empty((P, 4), dtype=torch.int32, **m), 1,
+                    bits, bits)
     assert K.launch_counts() == {"expand": 0, "mark": 0, "extend_hubs": 0,
                                  "predicate_mask": 0, "compact_capture": 0,
+                                 "bfs_probe": 0, "bfs_level": 0,
                                  "pagerank_step": 0, "wcc_step": 0,
                                  "sssp_step": 0}
 
@@ -267,3 +276,11 @@ def test_wrapper_rejects_bad_inputs_before_launch():
                  torch.empty((P, 3), dtype=torch.int32, **m),
                  torch.empty((P, 3), dtype=torch.int32, **m),
                  torch.empty((P, 4), dtype=torch.bool, **m))
+    ints = torch.empty((P, 4), dtype=torch.int32, **m)
+    total = torch.empty((P,), dtype=torch.int32, **m)
+    bits = torch.empty((P, 6), dtype=torch.bool, **m)
+    with pytest.raises(ValueError, match="contiguous rows"):
+        K.bfs_probe(ints, ints, None, total, bits[:, ::2][:, :3],
+                    bits[:, :3])
+    with pytest.raises(ValueError, match="bool bitmap"):
+        K.bfs_level(bits[:, :4], ints, 1, ints, bits[:, :4])
