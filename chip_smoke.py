@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Start the PyTorch/CUDA port on one NVIDIA GPU and prove its paths.
 
-The paths are GO N STEPS, `CALL algo.*` and the device BFS of FIND
-SHORTEST PATH, each through the hand-written CUDA kernels.
+The paths are GO N STEPS, `CALL algo.*`, the device BFS of FIND
+SHORTEST PATH, and GO and the BFS again on a snapshot with writes
+pending in its delta plane, each through the hand-written CUDA kernels.
 
 Run from the repository root on a machine with a CUDA card and nvcc:
 
     python3 chip_smoke.py                 # the north-star size
     python3 chip_smoke.py --persons 20000 # a quick check
     python3 chip_smoke.py --split 0       # skip the degree-split path
+    python3 chip_smoke.py --seed 3        # another write batch (phase 7)
 
 Phases, in order; any failure exits non-zero before the result line:
   1. the card's name and power limit (nvidia-smi) and torch's name for it;
@@ -73,9 +75,38 @@ Phases, in order; any failure exits non-zero before the result line:
           timed at the widest bottom-up level with their plain versions
           and one library formulation (the gather plus index_put_; the
           three torch ops plus two sums), and their byte bounds;
-  7. the `kernels` JSON line (the split GO path's, the algo path's and
-     the split BFS path's launches), the card line, and the result line
-     {"ok": true, "device": {...}} last.
+  7. the delta plane: GpuRuntime(delta_max_edges=8192).pin_prebuilt of
+     the unsplit north-star snapshot (an empty plane armed), a
+     SnapshotStore over its arrays watching writes, and a write batch made
+     from --seed with numpy: an LDBC SNB Interactive-style mix of 24,000
+     KNOWS inserts between persons (1,000 of them from the 16 seeds),
+     8,000 deletes and 8,000 overwrites of w on base edges, in a random
+     order.  Launch counters are zeroed just before each run and read
+     just after:
+       a. one pin folds the 40,000 writes into the plane without a
+          re-pin: apply seconds, bytes put, hbm_bytes before and after;
+       b. GO 3 STEPS from the 16 seeds, unfiltered and WHERE KNOWS.w > 50,
+          before the writes and after (p50 of DELTA_REPEATS runs after a
+          warm-up, each state): rows equal, in order, to a fresh
+          GpuRuntime() pin of snapshot_from_arrays(store.mutated_arrays())
+          (the full rebuild) and, lexsorted, to host_csr_traverse on it;
+          hop_edges equal to the reference's count (each hop's frontier's
+          base out-degrees, deletes included, plus its delta rows);
+          expand, merge_delta, mark, predicate_mask and compact_capture
+          launched;
+       c. config 5's BFS from vertex 0, every level top-down (the plane
+          turns bottom-up off): dist equal to host_bfs on the rebuilt
+          snapshot, hop_edges to the same count, bfs_probe never
+          launched;
+       d. at hop 3's shapes: expand with the delta tail, merge_delta,
+          and predicate_mask and compact_capture reading the delta column
+          halves, each against its plain version (exact); merge_delta
+          timed behind a spin kernel with its plain version and a
+          library formulation (searchsorted + gather + cat), and its
+          byte bound;
+  8. the `kernels` JSON line (the split GO path's, the algo path's, the
+     split BFS path's and the delta GO path's launches), the card line,
+     and the result line {"ok": true, "device": {...}} last.
 Without CUDA it prints no result and exits 2.
 """
 from __future__ import annotations
@@ -110,6 +141,8 @@ ROUTE_SOURCES = {
                   "nebula_tpu/algo/frontier.py:136"),
     "bfs_level": ("nebula_tpu_torch/csrc/bfs.cu",
                   "nebula_tpu/tpu/bfs.py:170"),
+    "merge_delta": ("nebula_tpu_torch/csrc/delta.cu",
+                    "nebula_tpu/tpu/hop.py:118"),
 }
 # the algo path: each algorithm's parameters and its step kernel
 ALGO_RUNS = {"pagerank": ({"max_iter": 20, "tol": 0.0}, "pagerank_step"),
@@ -123,10 +156,26 @@ SPLIT_KERNELS = UNSPLIT_KERNELS + ("extend_hubs",)
 BFS_KERNELS = ("expand", "mark", "bfs_probe", "bfs_level")
 BFS_STEPS = 5                    # bench.py config 5: rt.bfs(..., "out", 5)
 BFS_RUNS = 4                     # one cold run, then the timed warm runs
+DELTA_CAP = 8192                 # GpuRuntime(delta_max_edges=...), phase 7
+DELTA_REPEATS = 3                # phase 7's timed GO runs a query and state
+# phase 7's write batch: inserts (those from the seeds), deletes, and
+# overwrites of w (each a tombstone plus an insert)
+WRITES = {"insert": 24_000, "seed_insert": 1_000, "delete": 8_000,
+          "overwrite": 8_000}
+DELTA_GO_KERNELS = ("expand", "merge_delta", "mark", "predicate_mask",
+                    "compact_capture")
+DELTA_BFS_KERNELS = ("expand", "merge_delta", "mark", "bfs_level")
+
+
+T0 = time.perf_counter()
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def stamp(phase: str) -> None:
+    log(f"[t] {phase} starts at {time.perf_counter() - T0:.1f} s")
 
 
 def card_line() -> str:
@@ -650,12 +699,130 @@ def predicates(E, NULL):
     }
 
 
+def write_batch(store, arrs, seeds, seed: int):
+    """Phase 7's writes, made from `seed` with numpy, in a random order:
+    ("insert", src, dst, props), ("delete", src, dst) and ("overwrite",
+    src, dst, {"w": new w}).  Deletes and overwrites take distinct base
+    edges the store can address (no parallel edge shares their (src,
+    dst)); inserts take pairs of distinct persons that are no base edge,
+    distinct among themselves, WRITES["seed_insert"] of them from a
+    seed."""
+    import numpy as np
+    from nebula_tpu_torch.bench.datagen import _NAMES
+    rng = np.random.default_rng(seed)
+    n = int(arrs["n"])
+    pick = rng.choice(store.writable_edges(),
+                      WRITES["delete"] + WRITES["overwrite"], replace=False)
+    ops = [("delete", int(arrs["src"][i]), int(arrs["dst"][i]))
+           for i in pick[:WRITES["delete"]]]
+    for i in pick[WRITES["delete"]:]:
+        w = int(arrs["w"][i])
+        ops.append(("overwrite", int(arrs["src"][i]), int(arrs["dst"][i]),
+                    {"w": (w + 1 + int(rng.integers(99))) % 100}))
+    n_seed = WRITES["seed_insert"]
+    m = 2 * WRITES["insert"]
+    src = rng.integers(0, n, m)
+    src[:2 * n_seed] = rng.choice(np.asarray(seeds), 2 * n_seed)
+    dst = rng.integers(0, n, m)
+    ok = (src != dst) & ~store.base_has(src, dst)
+    _, at = np.unique(src * n + dst, return_index=True)
+    once = np.zeros(m, bool)
+    once[at] = True
+    idx = np.nonzero(ok & once)[0]
+    idx = np.concatenate([idx[idx < 2 * n_seed][:n_seed],
+                          idx[idx >= 2 * n_seed][:WRITES["insert"] - n_seed]])
+    if idx.size != WRITES["insert"]:
+        raise AssertionError(f"made {idx.size} inserts")
+    for i in idx:
+        ops.append(("insert", int(src[i]), int(dst[i]),
+                    {"w": int(rng.integers(100)), "f": float(rng.random()),
+                     "city": _NAMES[int(rng.integers(len(_NAMES)))]}))
+    return [ops[i] for i in rng.permutation(len(ops))]
+
+
+def apply_writes(store, ops) -> None:
+    for op in ops:
+        if op[0] == "insert":
+            store.insert_edge(op[1], op[2], op[3])
+        elif op[0] == "delete":
+            store.delete_edge(op[1], op[2])
+        else:
+            store.update_edge(op[1], op[2], op[3])
+
+
+def delta_rule_edges(base, hd, frontiers):
+    """The reference's hop_edges over a delta plane, per hop: the base
+    out-degrees of the hop's frontier (tombstoned edges included) plus
+    the plane's insert rows whose source is on it (hop.py:145-159)."""
+    import numpy as np
+    P = base.num_parts
+    ip = base.block("KNOWS", "out").indptr
+    deg = (ip[:, 1:] - ip[:, :-1]).T.reshape(-1).astype(np.int64)
+    ins = hd.ins[("KNOWS", "out")]
+    dsrc = np.asarray([li * P + p for p in range(P)
+                       for (li, _nbr, _rank) in ins[p]], np.int64)
+    return [int(deg[f].sum()) + int(np.isin(dsrc, f).sum())
+            for f in frontiers]
+
+
+def go_frontiers(snap, seeds, steps: int):
+    """The dense ids entering each hop of GO on `snap` (every hop's
+    destinations, deduplicated, as the device marks them)."""
+    import numpy as np
+    P = snap.num_parts
+    blk = snap.block("KNOWS", "out")
+    fr = np.unique(np.asarray(seeds, np.int64))
+    out = []
+    for _ in range(steps):
+        out.append(fr)
+        o, lo = fr % P, fr // P
+        s = blk.indptr[o, lo].astype(np.int64)
+        deg = blk.indptr[o, lo + 1].astype(np.int64) - s
+        rows = np.repeat(np.arange(fr.size), deg)
+        idx = s[rows] + np.arange(int(deg.sum()), dtype=np.int64) \
+            - np.repeat(np.cumsum(deg) - deg, deg)
+        fr = np.unique(blk.nbr[o[rows], idx].astype(np.int64))
+    return out
+
+
+def time_go(rt, store, ns, repeats: int):
+    """p50 milliseconds of GO 3 STEPS, unfiltered and WHERE w > 50, after
+    one warm-up run each; returns ({label: p50}, {label: (rows, stats)})."""
+    import numpy as np
+    p50, last = {}, {}
+    for flabel, filt in (("unfiltered", None),
+                         (f"w>{ns.w_gt}", ns.w_filter)):
+        lat = []
+        for _ in range(repeats + 1):
+            t = time.perf_counter()
+            rows, st = rt.traverse(store, "ns", ns.seeds, ["KNOWS"], "out",
+                                   3, edge_filter=filt, yields=ns.yields)
+            lat.append(time.perf_counter() - t)
+        p50[flabel] = float(np.median(lat[1:])) * 1e3
+        last[flabel] = (rows, st)
+    return p50, last
+
+
+def time_bfs(rt, store, src: int):
+    """p50 milliseconds of config 5's BFS over BFS_RUNS - 1 warm runs;
+    returns (p50, dist, stats of the last run)."""
+    import numpy as np
+    lat = []
+    for _ in range(BFS_RUNS):
+        t = time.perf_counter()
+        dist, st = rt.bfs(store, "ns", [src], ["KNOWS"], "out", BFS_STEPS)
+        lat.append(time.perf_counter() - t)
+    return float(np.median(lat[1:])) * 1e3, dist, st
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--persons", type=int, default=1_000_000)
     ap.add_argument("--repeats", type=int, default=10)
     ap.add_argument("--split", type=int, default=2048,
                     help="degree-split threshold of path 3b (0 skips it)")
+    ap.add_argument("--seed", type=int, default=1,
+                    help="seed of phase 7's write batch")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -689,6 +856,7 @@ def main(argv=None) -> int:
             log("    " + line.strip())
 
     # -- 3a. the north-star GO, unsplit ------------------------------------
+    stamp("phase 3a")
     t0 = time.perf_counter()
     ns = north_star(args.persons, split_threshold=args.split)
     log(f"[3] graph: {args.persons} persons, {ns.n_edges} KNOWS edges,"
@@ -710,6 +878,7 @@ def main(argv=None) -> int:
     launches = launches_u
 
     # -- 3b. the north-star GO, degree-split as bench.py runs it -----------
+    stamp("phase 3b")
     rts = None
     if args.split > 0:
         t0 = time.perf_counter()
@@ -746,6 +915,7 @@ def main(argv=None) -> int:
             f"unsplit {peak_u}, split {peak_s}")
 
     # -- 4. kernels against their plain versions at the path's shapes ----
+    stamp("phase 4")
     reps = 20
     rows_out = []
     extra = []
@@ -999,6 +1169,7 @@ def main(argv=None) -> int:
            2 * P * EB3)
 
     # -- 5. the algo plane --------------------------------------------------
+    stamp("phase 5")
     algo, algo_launches = run_algo(rt, ns, K, AE, AK)
     algo["suite"] = run_algo_suite(rt, min(args.persons, 300_000))
     for func, (params, kname) in ALGO_RUNS.items():
@@ -1024,6 +1195,7 @@ def main(argv=None) -> int:
                note=f" ({func}, iterations {[lb for lb, _ in checks]})")
 
     # -- 6. the device BFS of FIND SHORTEST PATH (bench.py config 5) -------
+    stamp("phase 6")
     from nebula_tpu_torch.algo import frontier as FR
     from nebula_tpu_torch.bench.datagen import host_bfs
     from nebula_tpu_torch.gpu import bfs as GB
@@ -1149,11 +1321,235 @@ def main(argv=None) -> int:
            4 * n, counts=bfs_launches[mlabel], err=level_err, tag="[6c]",
            note=f" ({mlabel}, level {lv}, {n} slots, {fresh} fresh)")
 
-    # -- 7. result ---------------------------------------------------------
+    # -- 7. the delta plane: GO and the BFS through pending writes --------
+    stamp("phase 7")
+    from nebula_tpu_torch.bench.datagen import (SnapshotStore,
+                                                host_csr_traverse,
+                                                snapshot_from_arrays)
+    delta = {"writes": dict(WRITES, seed=args.seed, cap=DELTA_CAP)}
+    rtd = GpuRuntime(delta_max_edges=DELTA_CAP)
+    dstore = SnapshotStore(ns.snap, ns.arrs)
+    dstore.delta_watch("ns")
+    t0 = time.perf_counter()
+    rtd.pin_prebuilt(ns.snap)
+    torch.cuda.synchronize()
+    devd = rtd.snapshots["ns"]
+    if devd.delta is None:
+        raise AssertionError("no delta plane armed")
+    delta["pin_s"] = time.perf_counter() - t0
+    delta["hbm_bytes_before"] = rtd.hbm_bytes()
+    delta["plane_bytes"] = devd.delta.last_put_bytes
+    p50_before, go_before = time_go(rtd, dstore, ns, min(args.repeats,
+                                                         DELTA_REPEATS))
+    bfs_before = time_bfs(rtd, dstore, 0)[0]
+    t0 = time.perf_counter()
+    ops = write_batch(dstore, ns.arrs, ns.seeds, args.seed)
+    delta["make_writes_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    apply_writes(dstore, ops)
+    delta["store_writes_s"] = time.perf_counter() - t0
+    # 7a. one pin folds the whole batch in
+    t0 = time.perf_counter()
+    if rtd.pin(dstore, "ns") is not devd:
+        raise AssertionError("the writes re-pinned the snapshot")
+    torch.cuda.synchronize()
+    hd = devd.delta.host
+    delta.update(apply_s=time.perf_counter() - t0,
+                 bytes_put=devd.delta.last_put_bytes,
+                 hbm_bytes_after=rtd.hbm_bytes(),
+                 applied_epoch=devd.delta.applied_epoch,
+                 insert_rows=hd.total_edges(), tombstones=hd.total_tombs(),
+                 fill_ratio=hd.fill_ratio())
+    if devd.delta.applied_epoch != dstore.space("ns").epoch \
+            or dstore.delta_records("ns")[0]:
+        raise AssertionError("the apply left writes behind")
+    log(f"[7a] {len(ops)} writes applied: {json.dumps(delta)}")
+    t0 = time.perf_counter()
+    rebuilt = snapshot_from_arrays(dstore.mutated_arrays(), parts=8,
+                                   space="ns")
+    rebuild_s = time.perf_counter() - t0
+    rtf = GpuRuntime()
+    t0 = time.perf_counter()
+    rtf.pin_prebuilt(rebuilt)
+    torch.cuda.synchronize()
+    delta.update(rebuild_snapshot_s=rebuild_s,
+                 rebuild_pin_s=time.perf_counter() - t0)
+    fstore = SnapshotStore(rebuilt)
+
+    # 7b. GO through the pending writes
+    K.reset_launch_counts()
+    p50_after, go_last = time_go(rtd, dstore, ns, min(args.repeats,
+                                                      DELTA_REPEATS))
+    torch.cuda.synchronize()
+    launches_d = K.launch_counts()
+    for name in DELTA_GO_KERNELS:
+        if launches_d[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"delta GO path")
+    want_hops = delta_rule_edges(ns.snap, hd,
+                                 go_frontiers(rebuilt, ns.seeds, 3))
+    go_d = {}
+    for flabel, filt, w_gt in (("unfiltered", None, None),
+                               (f"w>{ns.w_gt}", ns.w_filter, ns.w_gt)):
+        rows, st = go_last[flabel]
+        fresh, _ = rtf.traverse(fstore, "ns", ns.seeds, ["KNOWS"], "out", 3,
+                                edge_filter=filt, yields=ns.yields)
+        d = np.asarray(rows.column_array("d"), np.int64)
+        w = np.asarray(rows.column_array("w"), np.int64)
+        if not (np.array_equal(d, np.asarray(fresh.column_array("d"),
+                                             np.int64))
+                and np.array_equal(w, np.asarray(fresh.column_array("w"),
+                                                 np.int64))):
+            raise AssertionError(f"delta GO {flabel}: rows differ, in "
+                                 f"order, from the rebuilt snapshot's")
+        _t, kept, want_d, want_w = host_csr_traverse(
+            rebuilt, ns.seeds, 3, w_gt=w_gt, materialize=True)
+        a, b = np.lexsort((w, d)), np.lexsort((want_w, want_d))
+        if len(rows) != kept or not (np.array_equal(d[a], want_d[b])
+                                     and np.array_equal(w[a], want_w[b])):
+            raise AssertionError(f"delta GO {flabel}: rows differ from "
+                                 f"host_csr_traverse on the rebuild")
+        if st.hop_edges != want_hops:
+            raise AssertionError(f"delta GO {flabel}: hop_edges "
+                                 f"{st.hop_edges} vs {want_hops}")
+        go_d[flabel] = {"rows": len(rows), "hop_edges": st.hop_edges,
+                        "e_cap": st.e_cap,
+                        "p50_ms_no_writes": p50_before[flabel],
+                        "p50_ms_writes_pending": p50_after[flabel]}
+        # the last timed run's phases, without writes and with them
+        for tag, (_r, s0) in (("no_writes", go_before[flabel]),
+                              ("writes_pending", (rows, st))):
+            go_d[flabel].update({f"device_ms_{tag}": s0.device_s * 1e3,
+                                 f"fetch_ms_{tag}": s0.fetch_s * 1e3,
+                                 f"mat_ms_{tag}": s0.mat_s * 1e3})
+        log(f"[7b] delta GO 3 STEPS {flabel}: {json.dumps(go_d[flabel])}")
+    log(f"    delta GO launches over "
+        f"{2 * (min(args.repeats, DELTA_REPEATS) + 1)} queries: "
+        f"{launches_d}")
+    delta["go"] = go_d
+
+    # 7c. config 5's BFS from vertex 0, every level top-down
+    K.reset_launch_counts()
+    bfs_after, dist_d, st_d = time_bfs(rtd, dstore, 0)
+    torch.cuda.synchronize()
+    bl_d = K.launch_counts()
+    vv = np.arange(len(ns.snap.dense_to_vid))
+    dd_ = dist_d[vv % 8, vv // 8]
+    want_bfs = host_bfs(rebuilt, [0], BFS_STEPS)
+    if not np.array_equal(dd_, want_bfs):
+        raise AssertionError("delta BFS: dist differs from host_bfs on the "
+                             "rebuilt snapshot")
+    want_lv = delta_rule_edges(ns.snap, hd, [
+        np.nonzero(want_bfs == lv)[0] for lv in range(BFS_STEPS)])
+    if st_d.hop_edges != want_lv:
+        raise AssertionError(f"delta BFS: hop_edges {st_d.hop_edges} vs "
+                             f"{want_lv}")
+    for name in DELTA_BFS_KERNELS:
+        if bl_d[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"delta BFS path")
+    if bl_d["bfs_probe"]:
+        raise AssertionError("a bottom-up level ran with a plane armed")
+    delta["bfs"] = {"hop_edges": st_d.hop_edges,
+                    "reached": int((dd_ >= 0).sum()),
+                    "p50_ms_no_writes": bfs_before,
+                    "p50_ms_writes_pending": bfs_after,
+                    "launches_per_run": {k: v / BFS_RUNS
+                                         for k, v in bl_d.items() if v}}
+    log(f"[7c] delta BFS from 0: {json.dumps(delta['bfs'])}")
+
+    # 7d. the kernels of the delta path against their plain versions at
+    # hop 3's shapes; the slots come from the plain versions
+    bk = ("KNOWS", "out")
+    blk = devd.blocks[bk]
+    dl = rtd._grab_delta(devd, [bk], {"w"})[1][0]
+    P, vmax, emax = devd.num_parts, devd.vmax, blk.nbr.shape[1]
+    Dcap, Tcap = dl["d_src"].shape[1], dl["d_tomb"].shape[1]
+    dargs = (dl["d_src"], dl["d_dst"], dl["d_rank"], dl["d_valid"],
+             dl["d_tomb"], emax)
+    fbm = new_frontier(devd)
+    K.mark_plain(torch.tensor(sorted(set(ns.seeds)), dtype=torch.int32,
+                              device=rtd.device), P, vmax, out=fbm)
+    for _hop in range(2):
+        sl = K.expand_plain(blk.indptr, blk.nbr, blk.rank, fbm, None, Dcap)
+        K.merge_delta_plain(*sl, fbm, *dargs)
+        fbm = new_frontier(devd)
+        K.mark_plain(sl[1], P, vmax, out=fbm)
+    a3 = (blk.indptr, blk.nbr, blk.rank, fbm, None, Dcap)
+    base3 = K.expand_plain(*a3)
+    err_e = max_abs_err(K.expand(*a3), base3)
+    gs = [t.clone() for t in base3[:4]]
+    ws = [t.clone() for t in base3[:4]]
+    total3 = base3[4]
+    gv, gt = K.merge_delta(*gs, total3, fbm, *dargs)
+    wv, wt = K.merge_delta_plain(*ws, total3, fbm, *dargs)
+    err_m = max_abs_err([gv, gt, *gs], [wv, wt, *ws])
+    EB3 = gs[0].shape[1] - Dcap
+    prog, _ = X.compile_predicate(ns.w_filter, blk.prop_types, devd.pool,
+                                  vid_to_dense=dstore.space("ns").dense_id,
+                                  device=rtd.device)
+    pa = (prog, *ws, wv, [blk.props["w"]], [dl["d_props"]["w"]])
+    keep_k, keep_p = K.predicate_mask(*pa), K.predicate_mask_plain(*pa)
+    err_p = max_abs_err([keep_k], [keep_p])
+    ca = (*ws, keep_p, [blk.props["w"]], [dl["d_props"]["w"]])
+    ck, cp = K.compact_capture(*ca), K.compact_capture_plain(*ca)
+    err_c = max_abs_err([*ck[:4], *ck[4], ck[5]], [*cp[:4], *cp[4], cp[5]])
+    n_valid = int((torch.arange(EB3, device=rtd.device)
+                   < total3[:, None]).sum())
+    hits = n_valid - int(wv[:, :EB3].sum())
+    active = int(wv[:, EB3:].sum())
+    pid = torch.arange(P, dtype=torch.int32, device=rtd.device)[:, None]
+    col = torch.arange(EB3, dtype=torch.int32, device=rtd.device)
+
+    def lib_merge(s=ws):
+        # the reference's formulation: searchsorted + gather + cat
+        e = s[3][:, :EB3].contiguous()
+        pos = torch.searchsorted(dl["d_tomb"], e).clamp_(max=Tcap - 1)
+        vb = (col < total3[:, None]) \
+            & (torch.gather(dl["d_tomb"], 1, pos) != e)
+        act = dl["d_valid"] & torch.gather(
+            fbm, 1, dl["d_src"].clamp(0, vmax - 1).long())
+        return (torch.cat([vb, act], 1),
+                torch.cat([s[0][:, :EB3],
+                           torch.where(act, dl["d_src"] * P + pid, -1)], 1),
+                torch.cat([s[1][:, :EB3],
+                           torch.where(act, dl["d_dst"], -1)], 1),
+                torch.cat([s[2][:, :EB3],
+                           torch.where(act, dl["d_rank"], 0)], 1),
+                total3 + act.sum(1, dtype=torch.int32))
+
+    def noop():
+        pass
+
+    log(f"[7d] at hop 3: {P}x({EB3}+{Dcap}) slots, {n_valid} valid, "
+        f"{hits} tombstoned, {active} delta rows active; expand "
+        f"(tail), predicate_mask and compact_capture (delta halves) equal "
+        f"to their plain versions (max abs err {max(err_e, err_p, err_c)})")
+    # bytes: eidx of the valid slots, the valid byte of every slot, dst at
+    # the hits; per delta row 13 bytes read, 17 written and its frontier
+    # byte; the tombstone rows once; total in and out.  Operations: about
+    # log2(Tcap) + 1 probes per valid slot
+    probes = max(int(Tcap).bit_length(), 1)
+    record("merge_delta", None, None,
+           cuda_ms_fresh(lambda: K.merge_delta(*gs, total3, fbm, *dargs),
+                         noop, reps),
+           cuda_ms_fresh(lambda: K.merge_delta_plain(*ws, total3, fbm,
+                                                     *dargs), noop, reps),
+           cuda_ms_fresh(lib_merge, noop, reps),
+           4 * n_valid + P * EB3 + 4 * hits + P * Dcap * (13 + 17 + 1)
+           + 4 * P * Tcap + 8 * P,
+           n_valid * probes + 4 * P * Dcap,
+           counts=launches_d, err=err_m, tag="[7d]",
+           note=f" (delta GO hop 3: {n_valid} valid slots, {hits} "
+                f"tombstoned, {active} of {P * Dcap} delta rows active)")
+
+    # -- 8. result ---------------------------------------------------------
+    stamp("phase 8")
     log(json.dumps({"go3": results, "expand_per_hop": per_hop,
                     "unsplit_launches": launches_u,
                     "unsplit_kernels": extra, "algo": algo, "bfs": bfs,
-                    "bfs_launches": bfs_launches,
+                    "bfs_launches": bfs_launches, "delta": delta,
+                    "delta_launches": launches_d,
                     "hbm_bytes": rt.hbm_bytes() + (
                         rts.hbm_bytes() if rts is not None else 0)}))
     print(json.dumps({"kernels": rows_out}))

@@ -2,9 +2,10 @@
 
 Port of the single-device half of `nebula_tpu/algo/frontier.py`:
 
-  * `expand_part`    — one block's expansion (K1) with the WHERE mask
-                       (K4) folded into `keep`, including the bottom-up
-                       endpoint swap (:39);
+  * `expand_part`    — one block's expansion (K1), merged with its
+                       delta plane (K9) top-down (:57-66), with the WHERE
+                       mask (K4) folded into `keep`, including the
+                       bottom-up endpoint swap (:39);
   * `top_down_step`  — expand every block from the frontier buffer and
                        OR the kept destinations into one candidate bitmap
                        (K2) — the reference's OR over blocks and parts
@@ -19,26 +20,27 @@ parts in one launch.  Each step marks its candidates into the caller's
 bitmap in place and returns (edges (P,) int32, width): edges is the
 pre-filter slot count per part (the level's hop_edges), width the
 level's slot width (the largest block's EB).  The reference's
-`ovf` has no counterpart: `expand` sizes its slots exactly.  The delta
-branch of `expand_part` (:57-66) comes with the delta plane, and
-`sharded_level_step` (:145) with the mesh.
+`ovf` has no counterpart: `expand` sizes its slots exactly.
+`sharded_level_step` (:145) comes with the mesh.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
 from ..gpu.device import DeviceBlock
 from ..gpu.exprjit import Program
-from ..gpu.kernels import bfs_probe, expand, mark, predicate_mask
+from ..gpu.hop import expand_merged
+from ..gpu.kernels import bfs_probe, mark, predicate_mask
 
 __all__ = ["expand_part", "top_down_step", "bottom_up_step"]
 
 
 def expand_part(block: DeviceBlock, fbm: torch.Tensor,
                 hub_dense: Optional[torch.Tensor] = None,
-                pred: Optional[Program] = None, swap_ends: bool = False):
+                pred: Optional[Program] = None, swap_ends: bool = False,
+                delta: Optional[Dict[str, Any]] = None):
     """Expand one block from the (P, rows) bitmap `fbm` (rows = vmax, or
     vmax + H with the hub columns filled) for every part, and apply the
     compiled edge predicate.
@@ -49,37 +51,50 @@ def expand_part(block: DeviceBlock, fbm: torch.Tensor,
     and the neighbour is the frontier side: the predicate sees the two
     endpoint columns swapped.
 
+    `delta` (the block's delta plane tensors) is merged top-down only:
+    the runtime turns bottom-up off while a plane is armed, since the
+    reverse adjacency's delta rows would need the swapped endpoints the
+    merge does not model.
+
     Returns (src, dst, keep, total) per `kernels.expand`'s slot contract;
-    keep is the predicate's (P, EB) mask (valid slots only), or None
-    without a predicate, meaning every valid slot."""
-    src, dst, rk, eidx, total = expand(block.indptr, block.nbr, block.rank,
-                                       fbm, hub_dense)
-    keep = None
+    keep is the predicate's (P, EB) mask (valid slots only), the merged
+    valid mask without a predicate, or None without either, meaning
+    every slot below total."""
+    dl = None if swap_ends else delta
+    src, dst, rk, eidx, valid, total = expand_merged(block, fbm, hub_dense,
+                                                     dl)
+    keep = valid
     if pred is not None:
         ps, pd = (dst, src) if swap_ends else (src, dst)
-        keep = predicate_mask(pred, ps, pd, rk, eidx, total,
-                              [block.props[n] for n in pred.columns])
+        keep = predicate_mask(
+            pred, ps, pd, rk, eidx, valid if valid is not None else total,
+            [block.props[n] for n in pred.columns],
+            None if dl is None else [dl["d_props"][n]
+                                     for n in pred.columns])
     return src, dst, keep, total
 
 
 def top_down_step(blocks: Sequence[DeviceBlock], efbm: torch.Tensor,
-                  cand: torch.Tensor, hub_dense=None, pred=None
-                  ) -> Tuple[torch.Tensor, int]:
+                  cand: torch.Tensor, hub_dense=None, pred=None,
+                  deltas: Optional[Sequence[Optional[Dict[str, Any]]]]
+                  = None) -> Tuple[torch.Tensor, int]:
     """Forward level body: expand every block from the frontier buffer
-    `efbm` (hub columns filled by the caller) and mark each kept
-    destination into the (P, vmax) candidate bitmap `cand` (zeroed by
-    the caller; it may be the first vmax columns of a wider buffer).
+    `efbm` (hub columns filled by the caller), merged with its delta
+    plane (`deltas`, per block, or None), and mark each kept destination
+    into the (P, vmax) candidate bitmap `cand` (zeroed by the caller; it
+    may be the first vmax columns of a wider buffer).
 
     -> (edges (P,) int32, width)."""
     P, vmax = cand.shape
     edges = torch.zeros((P,), dtype=torch.int32, device=cand.device)
     width = 0
-    for b in blocks:
-        _s, dst, keep, total = expand_part(b, efbm, hub_dense, pred)
+    for b, dl in zip(blocks, deltas or [None] * len(blocks)):
+        _s, dst, keep, total = expand_part(b, efbm, hub_dense, pred,
+                                           delta=dl)
         edges += total
         width = max(width, dst.shape[1])
-        # without a predicate every valid slot is kept, and expand pads
-        # the invalid ones with dst = -1, which mark drops
+        # without a predicate every valid slot is kept, and expand and
+        # merge_delta give the invalid ones dst = -1, which mark drops
         mark(dst, P, vmax, keep=keep, out=cand)
     return edges, width
 

@@ -9,18 +9,19 @@ KNOWS blocks and w (INT64) / f (DOUBLE) / city (STRING) edge props.
 checked against, `host_bfs` (a copy of the reference's, :282) the numpy
 BFS oracle of bench.py config 5, and `SnapshotStore` the store stand-in
 the runtime's `traverse` and `bfs` read dense ids and edge-type ids
-from.  `north_star` sets up
+from, with a write side for the delta plane.  `north_star` sets up
 the repo's north-star GO once for every script that runs it.
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
 from ..core import expr as E
 from ..graphstore.csr import CsrBlock, CsrSnapshot, StringPool
-from ..graphstore.schema import PropType
+from ..graphstore.delta import DeltaLog
+from ..graphstore.schema import PropDef, PropType
 
 _NAMES = ["ada", "bob", "cid", "dee", "eve", "fay", "gus", "hal",
           "ivy", "joe", "kim", "lee", "mia", "ned", "oda", "pam"]
@@ -188,9 +189,31 @@ def host_bfs(snap, src_dense, steps: int, etype: str = "KNOWS"):
     return dist
 
 
+class _KnowsSchema:
+    """The KNOWS edge schema the delta reader hands out: no defaults."""
+    props = [PropDef("w", PropType.INT64), PropDef("f", PropType.DOUBLE),
+             PropDef("city", PropType.STRING)]
+
+
 class SnapshotStore:
     """Store stand-in backed by a prebuilt CsrSnapshot — the surface
-    GpuRuntime.traverse reads (dense_id, epoch, edge-type catalog)."""
+    GpuRuntime.traverse reads (dense_id, epoch, edge-type catalog).
+
+    Given `arrs`, the `make_social_arrays` edge arrays the snapshot was
+    built from, it also has the write side the delta-plane bench needs,
+    with the reference store's delta protocol (graphstore/store.py:
+    379-411): `insert_edge`, `delete_edge` and `update_edge` on KNOWS,
+    each bumping the epoch and noting its key on the `DeltaLog` that
+    `delta_watch` attached; `delta_records`, `delta_trim`, and
+    `delta_reader`, a reader over the base arrays plus the write overlay.
+    `mutated_arrays()` returns the written graph as
+    `make_social_arrays`-shaped arrays, for the full-rebuild oracle.
+
+    This is a bench stand-in, not a store: one space, one edge type, no
+    vertices or tags, rank 0 only (the arrays have no rank), every
+    insert carries all of w, f and city, and a key (src, dst, 0) shared
+    by parallel base edges cannot be written (a store keeps one edge per
+    key; the generated multigraph may hold several)."""
 
     class _SD:
         def __init__(self, n, epoch):
@@ -208,13 +231,176 @@ class SnapshotStore:
         def get_edge(self, space, et):
             return SnapshotStore._Edge()
 
-    def __init__(self, snap):
+    class _Reader:
+        """The delta reader protocol (graphstore/delta.py) over the store."""
+
+        def __init__(self, store):
+            self.store = store
+
+        def dense_of(self, vid) -> Optional[int]:
+            d = self.store._sd.dense_id(vid)
+            return None if d < 0 else d
+
+        def edge_row(self, etype, src, dst, rank):
+            if etype != "KNOWS":
+                return None, None
+            return self.store.edge_row(src, dst, rank), _KnowsSchema
+
+        def vertex_rows(self, vid) -> Dict[str, Dict[str, Any]]:
+            return {}
+
+        def tag_schema(self, tag):
+            return None
+
+    def __init__(self, snap, arrs=None):
         self.snap = snap
         self._sd = SnapshotStore._SD(len(snap.dense_to_vid), snap.epoch)
         self.catalog = SnapshotStore._Catalog()
+        self._arrs = arrs
+        self._overlay: Dict[Tuple[int, int, int], Optional[dict]] = {}
+        self._log: Optional[DeltaLog] = None
+        self._keys = None          # (sorted src*n + dst codes, their order)
 
     def space(self, name):
         return self._sd
+
+    # -- write side ---------------------------------------------------------
+
+    def _codes(self):
+        if self._keys is None:
+            if self._arrs is None:
+                raise ValueError("this SnapshotStore has no edge arrays: "
+                                 "pass arrs to write")
+            n = int(self._arrs["n"])
+            codes = self._arrs["src"] * n + self._arrs["dst"]
+            order = np.argsort(codes, kind="stable")
+            self._keys = (codes[order], order)
+        return self._keys
+
+    def _base_index(self, src: int, dst: int) -> Optional[int]:
+        """The arrays' index of base edge (src, dst), None when absent;
+        raises for a key parallel base edges share."""
+        codes, order = self._codes()
+        c = int(src) * int(self._arrs["n"]) + int(dst)
+        lo = int(np.searchsorted(codes, c, "left"))
+        hi = int(np.searchsorted(codes, c, "right"))
+        if hi - lo > 1:
+            raise ValueError(f"KNOWS ({src}, {dst}) names {hi - lo} "
+                             f"parallel base edges")
+        return int(order[lo]) if hi > lo else None
+
+    def writable_edges(self) -> np.ndarray:
+        """Ascending indices into the edge arrays of the base edges a
+        write can address: those whose (src, dst) no parallel edge
+        shares."""
+        codes, order = self._codes()
+        new = codes[1:] != codes[:-1]
+        return np.sort(order[np.r_[True, new] & np.r_[new, True]])
+
+    def base_has(self, src, dst) -> np.ndarray:
+        """Whether each (src, dst) pair names a base edge (vectorized)."""
+        codes, _ = self._codes()
+        c = np.asarray(src, np.int64) * int(self._arrs["n"]) \
+            + np.asarray(dst, np.int64)
+        if codes.size == 0:
+            return np.zeros(c.shape, bool)
+        return codes[np.minimum(np.searchsorted(codes, c),
+                                codes.size - 1)] == c
+
+    def edge_row(self, src: int, dst: int, rank: int = 0) -> Optional[dict]:
+        """The live KNOWS row of (src, dst, rank): the overlay's, else
+        the base arrays'; None when absent."""
+        key = (int(src), int(dst), int(rank))
+        if key in self._overlay:
+            return self._overlay[key]
+        if rank != 0:
+            return None
+        i = self._base_index(src, dst)
+        if i is None:
+            return None
+        a = self._arrs
+        return {"w": int(a["w"][i]), "f": float(a["f"][i]),
+                "city": _NAMES[int(a["city"][i])]}
+
+    def _write(self, src: int, dst: int, rank: int,
+               row: Optional[dict]) -> None:
+        n = int(self._arrs["n"]) if self._arrs is not None else 0
+        if rank != 0:
+            raise ValueError("the bench's KNOWS edges carry rank 0 only")
+        if not (0 <= src < n and 0 <= dst < n):
+            raise ValueError(f"({src}, {dst}) is not a pair of persons")
+        self._base_index(src, dst)      # refuses parallel-edge keys
+        self._overlay[(int(src), int(dst), 0)] = row
+        self._sd.epoch += 1
+        if self._log is not None:
+            self._log.note(("e", "KNOWS", int(src), int(dst), 0))
+
+    def insert_edge(self, src: int, dst: int, props: Dict[str, Any],
+                    rank: int = 0) -> None:
+        """Insert KNOWS (src, dst, rank) — or overwrite it, as INSERT
+        EDGE does — with all of w (int), f (float) and city (a name)."""
+        if set(props) != {"w", "f", "city"} or props["city"] not in _NAMES:
+            raise ValueError("an insert carries w, f and one of the "
+                             "bench's city names")
+        self._write(src, dst, rank, {"w": int(props["w"]),
+                                     "f": float(props["f"]),
+                                     "city": props["city"]})
+
+    def delete_edge(self, src: int, dst: int, rank: int = 0) -> None:
+        self._write(src, dst, rank, None)
+
+    def update_edge(self, src: int, dst: int, props: Dict[str, Any],
+                    rank: int = 0) -> None:
+        """Overwrite some props of a live KNOWS edge."""
+        cur = self.edge_row(src, dst, rank)
+        if cur is None:
+            raise KeyError(f"no KNOWS ({src}, {dst}, {rank})")
+        self.insert_edge(src, dst, {**cur, **props}, rank)
+
+    # -- the reference store's delta protocol ---------------------------------
+
+    def delta_watch(self, space: str, cap: int = 65536) -> int:
+        if self._log is None or self._log.broken:
+            self._log = DeltaLog(floor_epoch=self._sd.epoch, cap=cap)
+        return self._sd.epoch
+
+    def delta_records(self, space: str):
+        """-> (dirty keys, target epoch, log floor epoch), or None when
+        no log is watching or it broke."""
+        if self._log is None or self._log.broken:
+            return None
+        return list(self._log.keys), self._sd.epoch, self._log.floor_epoch
+
+    def delta_trim(self, space: str, keys) -> None:
+        if self._log is not None:
+            self._log.trim(keys)
+
+    def delta_reader(self, space: str):
+        return SnapshotStore._Reader(self)
+
+    def mutated_arrays(self) -> Dict[str, Any]:
+        """The written graph as `make_social_arrays`-shaped arrays: the
+        base edges minus every written key, then the live written rows in
+        write order.  `snapshot_from_arrays` of it is what a full rebuild
+        pins."""
+        a = self._arrs
+        keep = np.ones(a["src"].size, bool)
+        for (s, d, _r) in self._overlay:
+            i = self._base_index(s, d)
+            if i is not None:
+                keep[i] = False
+        live = [(k, r) for k, r in self._overlay.items() if r is not None]
+        city = {c: i for i, c in enumerate(_NAMES)}
+        out = {"n": a["n"]}
+        for name, new, dt in (
+                ("src", [k[0] for k, _ in live], np.int64),
+                ("dst", [k[1] for k, _ in live], np.int64),
+                ("w", [r["w"] for _, r in live], np.int64),
+                ("f", [r["f"] for _, r in live], np.float64),
+                ("city", [city[r["city"]] for _, r in live], np.int64)):
+            out[name] = np.concatenate([a[name][keep],
+                                        np.asarray(new, dt)])
+        return out
 
 
 class NorthStar(NamedTuple):
@@ -226,6 +412,7 @@ class NorthStar(NamedTuple):
     w_gt: int
     n_edges: int
     split_threshold: int       # GpuRuntime(degree_split_threshold=...)
+    arrs: Dict[str, Any]       # the edge arrays, for SnapshotStore's writes
 
 
 def north_star(persons: int = 1_000_000,
@@ -247,4 +434,4 @@ def north_star(persons: int = 1_000_000,
               (E.EdgeProp("KNOWS", "w"), "w")]
     w_filter = E.Binary(">", E.EdgeProp("KNOWS", "w"), E.Literal(50))
     return NorthStar(snap, SnapshotStore(snap), seeds, yields, w_filter, 50,
-                     int(arrs["src"].size), int(split_threshold))
+                     int(arrs["src"].size), int(split_threshold), arrs)

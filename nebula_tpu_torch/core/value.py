@@ -62,6 +62,10 @@ NULL_DIV_BY_ZERO = NullValue(NullKind.DIV_BY_ZERO)
 NULL_OUT_OF_RANGE = NullValue(NullKind.OUT_OF_RANGE)
 
 
+def is_null(v: Any) -> bool:
+    return isinstance(v, NullValue)
+
+
 class Edge:
     __slots__ = ("src", "dst", "etype", "name", "ranking", "props")
 

@@ -6,6 +6,9 @@
 // of `keep` gives each kept slot its position (scan.cuh's three phases);
 // the slot's src/dst/rank/eidx go there, and so does the 8-byte word of
 // each yield column at [p, eidx] — int64 and float64 share one code path.
+// On a block merged with its delta plane (delta.cu), a slot whose eidx is
+// emax + k reads the column's (P, dcap) delta half at [p, k] instead, so
+// no per-hop concatenation of a column (hop.py:547) is ever made.
 // kcount[p] is the scan's total.  Positions at and past kcount[p] get the
 // padding src = dst = -1, rank = eidx = 0, column words 0.  Positions come
 // from the scan, never from atomics, so the order of the kept slots — the
@@ -40,13 +43,14 @@ struct Scatter {
   const int* rank;
   const int* eidx;
   const long long* cols[kMaxCols];
+  const long long* dcols[kMaxCols];
   long long* ocols[kMaxCols];
   int* osrc;
   int* odst;
   int* orank;
   int* oeidx;
   const int* kcount;
-  int ncols, emax, EB;
+  int ncols, emax, dcap, EB;
 
   __device__ void operator()(int p, int i, int pos, int kept) const {
     const size_t in = (size_t)p * EB + i;
@@ -58,9 +62,13 @@ struct Scatter {
       orank[o] = rank[in];
       oeidx[o] = e;
       const bool ok = e >= 0 && e < emax;
+      const bool dok = e >= emax && e - emax < dcap;
 #pragma unroll
       for (int c = 0; c < kMaxCols; ++c)   // static indices: no spills
-        if (c < ncols) ocols[c][o] = ok ? cols[c][(size_t)p * emax + e] : 0;
+        if (c < ncols)
+          ocols[c][o] = ok    ? cols[c][(size_t)p * emax + e]
+                        : dok ? dcols[c][(size_t)p * dcap + (e - emax)]
+                              : 0;
     }
     if (i >= kcount[p]) {
       osrc[in] = -1;
@@ -80,13 +88,17 @@ extern "C" int nt_compact_capture(
     const int* src, const int* dst, const int* rank, const int* eidx,
     const uint8_t* keep, int P, int EB, int ncols, int emax,
     const long long* col0, const long long* col1, const long long* col2,
-    const long long* col3, int* osrc, int* odst, int* orank, int* oeidx,
+    const long long* col3, int dcap, const long long* dcol0,
+    const long long* dcol1, const long long* dcol2, const long long* dcol3,
+    int* osrc, int* odst, int* orank, int* oeidx,
     long long* ocol0, long long* ocol1, long long* ocol2, long long* ocol3,
     int* kcount, int* chunk_sums, void* stream) {
   if (ncols < 0 || ncols > kMaxCols) return (int)cudaErrorInvalidValue;
+  if (dcap < 0) return (int)cudaErrorInvalidValue;
   Scatter op{src, dst, rank, eidx,
-             {col0, col1, col2, col3}, {ocol0, ocol1, ocol2, ocol3},
-             osrc, odst, orank, oeidx, kcount, ncols, emax, EB};
+             {col0, col1, col2, col3}, {dcol0, dcol1, dcol2, dcol3},
+             {ocol0, ocol1, ocol2, ocol3},
+             osrc, odst, orank, oeidx, kcount, ncols, emax, dcap, EB};
   nt::scan_apply(Keep{keep, EB}, op, P, EB, chunk_sums, kcount,
                  (cudaStream_t)stream);
   return (int)cudaGetLastError();

@@ -17,7 +17,11 @@
 //                   32 consecutive rows ballots the active ones and copies
 //                   each active row's edge range with its 32 lanes; slots
 //                   at and past total[p] get the reference's padding
-//                   (src = dst = -1, rank = eidx = 0).
+//                   (src = dst = -1, rank = eidx = 0).  The rows of the
+//                   four arrays are `ld` >= EB slots apart: a block with a
+//                   delta plane gets them EB + Dcap wide, the tail padded
+//                   here and then filled by merge_delta (delta.cu), so its
+//                   base slots are never copied.
 //
 // Degree-split snapshots (nebula_tpu/tpu/hop.py:104-110): a block then has
 // vmax_local + H rows per part, the last H being hub rows, and fbm is the
@@ -64,7 +68,7 @@ expand_rows_kernel(const int* __restrict__ indptr,
                    const uint8_t* __restrict__ fbm,
                    const int* __restrict__ starts, int P, int vmax,
                    int vloc, const int* __restrict__ hub_dense,
-                   int emax, int EB, int* __restrict__ src,
+                   int emax, long long ld, int* __restrict__ src,
                    int* __restrict__ dst, int* __restrict__ rk,
                    int* __restrict__ eidx) {
   const int lane = threadIdx.x & 31;
@@ -87,7 +91,7 @@ expand_rows_kernel(const int* __restrict__ indptr,
     unsigned active = __ballot_sync(nt::kFullMask, deg > 0);
     const int* nb = nbr + (size_t)p * emax;
     const int* rkp = rank + (size_t)p * emax;
-    const size_t orow = (size_t)p * EB;
+    const size_t orow = (size_t)p * ld;
     while (active) {                      // uniform across the warp
       const int b = __ffs(active) - 1;
       active &= active - 1;
@@ -109,15 +113,15 @@ expand_rows_kernel(const int* __restrict__ indptr,
 }
 
 __global__ void __launch_bounds__(256)
-expand_pad_kernel(const int* __restrict__ total, int P, int EB,
+expand_pad_kernel(const int* __restrict__ total, int P, long long ld,
                   int* __restrict__ src, int* __restrict__ dst,
                   int* __restrict__ rk, int* __restrict__ eidx) {
-  const long long n = (long long)P * EB;
+  const long long n = (long long)P * ld;
   const long long step = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < n; i += step) {
-    const int p = (int)(i / EB);
-    if ((int)(i % EB) >= total[p]) {
+    const int p = (int)(i / ld);
+    if (i % ld >= total[p]) {
       src[i] = -1;
       dst[i] = -1;
       rk[i] = 0;
@@ -145,20 +149,21 @@ extern "C" int nt_expand_scan(const int* indptr, const uint8_t* fbm, int P,
 }
 
 // vmax: rows per part (vmax_local + H); vloc: local rows (vmax when the
-// snapshot is unsplit, and then hub_dense may be null).
+// snapshot is unsplit, and then hub_dense may be null); ld: the output
+// row stride, at least max(total).
 extern "C" int nt_expand_fill(const int* indptr, const int* nbr,
                               const int* rank, const uint8_t* fbm,
                               const int* starts, const int* total, int P,
                               int vmax, int vloc, const int* hub_dense,
-                              int emax, int EB, int* src, int* dst, int* rk,
-                              int* eidx, void* stream) {
+                              int emax, long long ld, int* src, int* dst,
+                              int* rk, int* eidx, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (vloc < vmax && hub_dense == nullptr) return (int)cudaErrorInvalidValue;
   const long long groups = (long long)P * ((vmax + 31) / 32);
   expand_rows_kernel<<<grid_for(groups, 8), 256, 0, s>>>(
-      indptr, nbr, rank, fbm, starts, P, vmax, vloc, hub_dense, emax, EB,
+      indptr, nbr, rank, fbm, starts, P, vmax, vloc, hub_dense, emax, ld,
       src, dst, rk, eidx);
-  expand_pad_kernel<<<grid_for((long long)P * EB, 256), 256, 0, s>>>(
-      total, P, EB, src, dst, rk, eidx);
+  expand_pad_kernel<<<grid_for((long long)P * ld, 256), 256, 0, s>>>(
+      total, P, ld, src, dst, rk, eidx);
   return (int)cudaGetLastError();
 }

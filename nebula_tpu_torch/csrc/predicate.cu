@@ -9,11 +9,16 @@
 // runs every predicate, so no compilation happens per query.
 //
 // One thread per slot (p, i) of the expanded (P, EB) arrays, grid-stride:
-//   * slots at and past total[p] are padding: keep = 0;
+//   * invalid slots get keep = 0: those at and past total[p], or, on a
+//     block merged with its delta plane (delta.cu), those whose byte in
+//     the (P, EB) valid mask is 0 — one of the two is given;
 //   * otherwise the thread runs the program over a register file of
 //     (64-bit word, null bit) pairs, loading each predicate column
 //     straight from the pinned (P, emax) column at [p, eidx] — no
-//     (P, EB) int64 copy of any column is made — and writes
+//     (P, EB) int64 copy of any column is made; a delta slot's eidx is
+//     emax + k, and it reads the column's (P, dcap) delta half at
+//     [p, k] instead (the reference concatenated the halves per hop,
+//     hop.py:494) — and writes
 //     keep = value & ~null of register 0 as one byte.
 // The program, its constants and the column pointers travel by value as
 // one __grid_constant__ kernel parameter; every thread of a warp runs the
@@ -70,6 +75,7 @@ struct Program {
   Insn code[kMaxInsns];
   long long consts[kMaxConsts];
   const long long* cols[kMaxCols];
+  const long long* dcols[kMaxCols];   // delta halves, (P, dcap) each
 };
 
 __device__ __forceinline__ double f64(long long w) {
@@ -108,19 +114,24 @@ __global__ void __launch_bounds__(256)
 predicate_kernel(const __grid_constant__ Program prog,
                  const int* __restrict__ src, const int* __restrict__ dst,
                  const int* __restrict__ rank, const int* __restrict__ eidx,
-                 const int* __restrict__ total, int P, int EB, int emax,
-                 uint8_t* __restrict__ keep) {
+                 const int* __restrict__ total,
+                 const uint8_t* __restrict__ valid, int P, int EB,
+                 int emax, int dcap, uint8_t* __restrict__ keep) {
   const long long n = (long long)P * EB;
   const long long step = (long long)gridDim.x * blockDim.x;
   for (long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        s < n; s += step) {
     const int p = (int)(s / EB);
     const int i = (int)(s % EB);
-    if (i >= total[p] || prog.always_false) {
+    if ((valid != nullptr ? !valid[s] : i >= total[p]) ||
+        prog.always_false) {
       keep[s] = 0;
       continue;
     }
-    const size_t row = (size_t)p * emax + eidx[s];
+    const int e = eidx[s];
+    const bool in_delta = e >= emax;
+    const size_t row = in_delta ? (size_t)p * dcap + (e - emax)
+                                : (size_t)p * emax + e;
     long long R[kRegs] = {};
     unsigned nul = 0;
     for (int pc = 0; pc < prog.n_insns; ++pc) {
@@ -130,10 +141,16 @@ predicate_kernel(const __grid_constant__ Program prog,
       long long v = 0;
       bool z = false;
       switch (in.op) {
-        case LOAD_I: v = prog.cols[in.k][row]; z = v == kIntNull; break;
-        case LOAD_F: v = prog.cols[in.k][row]; z = isnan(f64(v)); break;
+        case LOAD_I:
+          v = (in_delta ? prog.dcols : prog.cols)[in.k][row];
+          z = v == kIntNull;
+          break;
+        case LOAD_F:
+          v = (in_delta ? prog.dcols : prog.cols)[in.k][row];
+          z = isnan(f64(v));
+          break;
         case LOAD_B: {
-          const long long raw = prog.cols[in.k][row];
+          const long long raw = (in_delta ? prog.dcols : prog.cols)[in.k][row];
           v = raw != 0;
           z = raw == kIntNull;
           break;
@@ -243,21 +260,24 @@ extern "C" int nt_predicate_sizes(int* out) {
 }
 
 // prog: a host Program image (gpu/kernels.py packs it); copied into the
-// launch's parameter space, so it may be freed when this returns.
+// launch's parameter space, so it may be freed when this returns.  Exactly
+// one of total (P,) and valid (P, EB) is non-null; dcap > 0 only with the
+// delta halves in prog.dcols.
 extern "C" int nt_predicate_mask(const void* prog, const int* src,
                                  const int* dst, const int* rank,
-                                 const int* eidx, const int* total, int P,
-                                 int EB, int emax, uint8_t* keep,
+                                 const int* eidx, const int* total,
+                                 const uint8_t* valid, int P, int EB,
+                                 int emax, int dcap, uint8_t* keep,
                                  void* stream) {
   const Program& pr = *(const Program*)prog;
   if (pr.n_insns < 0 || pr.n_insns > kMaxInsns || pr.n_cols < 0 ||
-      pr.n_cols > kMaxCols)
+      pr.n_cols > kMaxCols || (total == nullptr) == (valid == nullptr))
     return (int)cudaErrorInvalidValue;
   const long long n = (long long)P * EB;
   long long g = (n + 255) / 256;
   if (g > 132 * 16) g = 132 * 16;
   if (g > 0)
     predicate_kernel<<<(int)g, 256, 0, (cudaStream_t)stream>>>(
-        pr, src, dst, rank, eidx, total, P, EB, emax, keep);
+        pr, src, dst, rank, eidx, total, valid, P, EB, emax, dcap, keep);
   return (int)cudaGetLastError();
 }

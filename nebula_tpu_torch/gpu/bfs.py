@@ -12,7 +12,8 @@ as `gpu/hop.py:run_hops` is for GO:
               n_phantom` (bfs.py:159) from the two counts of the previous
               update — one (2,) int64 read to the host per level; then
               top-down (frontier.top_down_step: extend_hubs, expand,
-              predicate_mask, mark) or, with the reverse blocks, bottom-up
+              merge_delta on a block with a delta plane, predicate_mask,
+              mark) or, with the reverse blocks, bottom-up
               (frontier.bottom_up_step: extend_hubs on the unvisited
               buffer, expand of the reverse blocks, predicate_mask with
               the endpoints swapped, bfs_probe); then bfs_level.
@@ -42,13 +43,17 @@ def run_bfs(dev: DeviceSnapshot, blocks: Sequence[DeviceBlock],
             rev_blocks: Optional[Sequence[DeviceBlock]],
             seeds: torch.Tensor, max_steps: int,
             pred: Optional[Program] = None,
-            n_phantom: int = 0) -> Dict[str, Any]:
+            n_phantom: int = 0,
+            deltas: Optional[Sequence[Optional[Dict[str, Any]]]] = None
+            ) -> Dict[str, Any]:
     """Run a `max_steps`-level BFS from the seed buffer `seeds` (a
     `new_frontier` buffer with the seeds marked into its first vmax
     columns; it becomes the candidate buffer, and its contents are
     consumed).  With `rev_blocks` (each block's reverse twin, in the
     same order) dense levels go bottom-up; None keeps every level
     top-down.  n_phantom: the padding slots, P*vmax - sum(num_vertices).
+    deltas: per block, its delta plane's tensors or None; top-down levels
+    merge them (the caller passes no rev_blocks while a plane is armed).
 
     Returns:
       dist (P, vmax) int32 on the device: depth per slot, -1 unreached
@@ -85,7 +90,7 @@ def run_bfs(dev: DeviceSnapshot, blocks: Sequence[DeviceBlock],
             if H:
                 extend_hubs(fbuf, dev.hub_owner, dev.hub_local, vmax)
             edges, width = top_down_step(blocks, fbuf, cand,
-                                         dev.hub_dense, pred)
+                                         dev.hub_dense, pred, deltas)
         hop_edges.append(edges)
         e_cap.append(width)
         n_front, n_unvis = bfs_level(cand, dist, level, fbm, unvis).tolist()

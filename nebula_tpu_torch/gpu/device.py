@@ -4,6 +4,10 @@ Port of `nebula_tpu/tpu/device.py` for one device: every partition of
 every block is resident on the one `torch.device` as a (P, ...) tensor
 stack, so the per-hop exchange of the reference's mesh becomes writes
 into one shared (P, vmax) bitmap.  There is no mesh and no sharding.
+
+The delta plane (`DeviceDelta`, `put_delta_blocks`, the reference's
+device.py:178/319) keeps each block's padded insert rows and sorted
+tombstones on the device beside the immutable base arrays.
 """
 from __future__ import annotations
 
@@ -34,6 +38,37 @@ class DeviceBlock:
 
 
 @dataclass
+class DeviceDelta:
+    """Device-resident delta-CSR buffers for one pinned snapshot: per
+    (etype, direction) block, the padded insert rows and the sorted
+    tombstoned base edge indices, re-put whole per apply (small: (P,
+    Dcap) and (P, Tcap)).  `host` is the numpy mirror
+    (graphstore.delta.HostDelta) the arrays are rebuilt from."""
+    host: Any
+    # bk → {"d_src", "d_dst", "d_rank", "d_valid", "d_tomb": tensors,
+    #        "d_props": {name: tensor},
+    #        "np": the numpy block_arrays dict these were put from}
+    blocks: Dict[Tuple[str, str], Dict[str, Any]] = field(
+        default_factory=dict)
+    applied_epoch: int = 0            # store epoch the delta covers
+    epoch: int = 0                    # bumped per apply
+    # (epoch, blocks) published as ONE tuple: an apply REPLACES the blocks
+    # dict and its tensors (copy-on-write) and then swaps this tuple in,
+    # so a view grabbed before an apply keeps decoding as it was
+    view: Tuple[int, Optional[Dict[Tuple[str, str], Dict[str, Any]]]] = \
+        (0, None)
+    last_put_bytes: int = 0           # bytes the last apply uploaded
+
+    def _leaves(self):
+        for arrs in self.blocks.values():
+            for k, v in arrs.items():
+                if k == "d_props":
+                    yield from v.values()
+                elif k != "np":
+                    yield v
+
+
+@dataclass
 class DeviceSnapshot:
     """Epoch-tagged device-resident copy of one space."""
     space: str
@@ -51,6 +86,8 @@ class DeviceSnapshot:
     hub_dense: Optional[torch.Tensor] = None
     hub_owner: Optional[torch.Tensor] = None
     hub_local: Optional[torch.Tensor] = None
+    # the delta plane; None = off for this pin
+    delta: Optional[DeviceDelta] = None
 
     @property
     def num_hubs(self) -> int:
@@ -67,6 +104,8 @@ class DeviceSnapshot:
             yield b.nbr
             yield b.rank
             yield from b.props.values()
+        if self.delta is not None:
+            yield from self.delta._leaves()
 
     def hbm_bytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in self._leaves())
@@ -99,6 +138,41 @@ def pin_snapshot(snap: CsrSnapshot, device: torch.device) -> DeviceSnapshot:
             props={k: put(v) for k, v in b.props.items()},
             prop_types=dict(b.prop_types))
     return dev
+
+
+def put_delta_blocks(dev: DeviceSnapshot, host_delta,
+                     block_keys=None) -> int:
+    """(Re-)place the delta buffers of `block_keys` (None = all blocks)
+    of a pinned snapshot from the mirror `host_delta`; returns the bytes
+    uploaded.  Copy-on-write: every block gets new tensors in a new
+    blocks dict, published with a new (epoch, blocks) view, so tensors a
+    grabbed view holds are never written."""
+    if dev.delta is None:
+        dev.delta = DeviceDelta(host=host_delta, applied_epoch=dev.epoch)
+    dd = dev.delta
+
+    def put(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev.device)
+
+    keys = list(dev.blocks if block_keys is None else block_keys)
+    new_blocks = dict(dd.blocks)
+    moved = 0
+    for bk in keys:
+        arrs = host_delta.block_arrays(bk)
+        placed: Dict[str, Any] = {"np": arrs}
+        for k, v in arrs.items():
+            if k == "d_props":
+                placed[k] = {n: put(a) for n, a in v.items()}
+                moved += sum(a.nbytes for a in v.values())
+            else:
+                placed[k] = put(v)
+                moved += v.nbytes
+        new_blocks[bk] = placed
+    dd.epoch += 1
+    dd.blocks = new_blocks
+    dd.view = (dd.epoch, new_blocks)
+    dd.last_put_bytes = moved
+    return moved
 
 
 def resolve_device(device: Any = None) -> torch.device:

@@ -11,20 +11,28 @@ configuration; here it is a host loop over the hand-written kernels of
   per hop, per block:  expand (K1) the frontier bitmap through the block's
                        CSR (hub rows included) — its slot arrays are sized
                        exactly from the block's degree scan, so there is
-                       no overflow and no escalation ladder;
+                       no overflow and no escalation ladder; on a block
+                       with a delta plane (never degree-split) they are
+                       Dcap columns wider, and merge_delta (K9) masks the
+                       tombstoned base slots (dst = -1) and appends the
+                       frontier-active delta rows in that tail
+                       (hop.py:478-497);
   every hop but the last: mark (K2) the valid destinations into the first
                        vmax columns of the one next-frontier buffer (that
                        tensor is the OR over blocks and source parts — the
                        reference's single-device exchange);
   the last hop:        predicate_mask (K4) runs the WHERE program over the
-                       slots, gathering its columns at eidx itself, then
+                       valid slots, gathering its columns at eidx itself
+                       (a delta slot's from the column's delta half), then
                        compact_capture (K3 + K5) moves the kept slots and
                        their YIELD columns to the front of each part's row.
 
 As in the reference, the predicate applies to the final hop only (GO's
 WHERE filters the edges it yields), hop_edges counts the pre-filter
-expansion of each hop, and frontier_sizes counts the ownership bitmap
-without the hub columns (hop.py:511).
+expansion of each hop — with a delta plane, the base slots of frontier
+rows, tombstoned ones included, plus the active delta rows — and
+frontier_sizes counts the ownership bitmap without the hub columns
+(hop.py:511).
 """
 from __future__ import annotations
 
@@ -35,7 +43,7 @@ import torch
 from .device import DeviceBlock, DeviceSnapshot
 from .exprjit import Program
 from .kernels import compact_capture, expand, extend_hubs, mark, \
-    predicate_mask
+    merge_delta, predicate_mask
 
 
 def new_frontier(dev: DeviceSnapshot) -> torch.Tensor:
@@ -45,12 +53,35 @@ def new_frontier(dev: DeviceSnapshot) -> torch.Tensor:
                        dtype=torch.bool, device=dev.device)
 
 
+def expand_merged(b: DeviceBlock, fbm: torch.Tensor, hub_dense=None,
+                  dl: Optional[Dict[str, Any]] = None):
+    """expand (K1) one block from the frontier buffer, then, when the
+    block has a delta plane `dl` (its d_* tensors), merge_delta (K9).
+    Returns (src, dst, rank, eidx, valid, total): valid is the merged
+    (P, EB + Dcap) mask, or None when the valid slots are each row's
+    prefix below total."""
+    dcap = 0 if dl is None else dl["d_src"].shape[1]
+    src, dst, rk, eidx, total = expand(b.indptr, b.nbr, b.rank, fbm,
+                                       hub_dense, extra=dcap)
+    if dl is None:
+        return src, dst, rk, eidx, None, total
+    # a delta snapshot is never degree-split: fbm is the (P, vmax) bitmap
+    valid, total = merge_delta(
+        src, dst, rk, eidx, total, fbm, dl["d_src"], dl["d_dst"],
+        dl["d_rank"], dl["d_valid"], dl["d_tomb"], b.nbr.shape[1])
+    return src, dst, rk, eidx, valid, total
+
+
 def run_hops(dev: DeviceSnapshot, blocks: Sequence[DeviceBlock],
              frontier: torch.Tensor, steps: int,
              pred: Optional[Program] = None, capture: bool = True,
-             yield_cols: Sequence[str] = ()) -> Dict[str, Any]:
+             yield_cols: Sequence[str] = (),
+             deltas: Optional[Sequence[Optional[Dict[str, Any]]]] = None
+             ) -> Dict[str, Any]:
     """Run a `steps`-hop GO from the seed frontier buffer (`new_frontier`
-    with the seeds marked into its first vmax columns).
+    with the seeds marked into its first vmax columns).  `deltas`: per
+    block, its delta plane's tensors (d_src, d_dst, d_rank, d_valid,
+    d_tomb and d_props {name: (P, Dcap)}) or None.
 
     Returns, all on the device:
       hop_edges (P, steps) int32: pre-filter expansion size per hop/part
@@ -58,9 +89,10 @@ def run_hops(dev: DeviceSnapshot, blocks: Sequence[DeviceBlock],
       e_cap: per-hop slot width (max over blocks of max(total)) — ints
       cap (if capture): one dict per block of (P, EB) arrays src, dst,
         rank, eidx, prop:<name> per yield col (kept slots compacted to a
-        prefix) and kcount (P,) int32
+        prefix: base slots, then delta slots) and kcount (P,) int32
     """
     P, vmax, H = dev.num_parts, dev.vmax, dev.num_hubs
+    deltas = list(deltas) if deltas is not None else [None] * len(blocks)
     fbm = frontier
     hop_edges: List[torch.Tensor] = []
     frontier_sizes: List[torch.Tensor] = []
@@ -74,26 +106,34 @@ def run_hops(dev: DeviceSnapshot, blocks: Sequence[DeviceBlock],
         nxt = None if last else torch.zeros_like(fbm)
         edges = torch.zeros((P,), dtype=torch.int32, device=fbm.device)
         width = 0
-        for b in blocks:
-            src, dst, rk, eidx, total = expand(b.indptr, b.nbr, b.rank, fbm,
-                                               dev.hub_dense)
+        for b, dl in zip(blocks, deltas):
+            src, dst, rk, eidx, valid, total = expand_merged(
+                b, fbm, dev.hub_dense, dl)
             edges += total
             width = max(width, src.shape[1])
             if not last:
                 # no predicate before the final hop: every valid slot is
-                # kept, and expand pads the invalid ones with dst = -1
+                # kept, and the invalid ones — expand's padding, the
+                # merge's tombstoned and inactive slots — have dst = -1
                 mark(dst, P, vmax, out=nxt[:, :vmax])
                 continue
             if not capture:
                 continue
             if pred is None:
-                keep = (torch.arange(src.shape[1], dtype=torch.int32,
-                                     device=fbm.device) < total[:, None])
+                keep = valid if valid is not None else (
+                    torch.arange(src.shape[1], dtype=torch.int32,
+                                 device=fbm.device) < total[:, None])
             else:
-                keep = predicate_mask(pred, src, dst, rk, eidx, total,
-                                      [b.props[n] for n in pred.columns])
+                keep = predicate_mask(
+                    pred, src, dst, rk, eidx,
+                    valid if valid is not None else total,
+                    [b.props[n] for n in pred.columns],
+                    None if dl is None
+                    else [dl["d_props"][n] for n in pred.columns])
             cs, cd, cr, ce, props, kc = compact_capture(
-                src, dst, rk, eidx, keep, [b.props[n] for n in yield_cols])
+                src, dst, rk, eidx, keep, [b.props[n] for n in yield_cols],
+                None if dl is None
+                else [dl["d_props"][n] for n in yield_cols])
             cap = {"src": cs, "dst": cd, "rank": cr, "eidx": ce,
                    "kcount": kc}
             cap.update({"prop:" + n: c for n, c in zip(yield_cols, props)})

@@ -17,6 +17,16 @@ The GO path's five kernels, sources in `nebula_tpu_torch/csrc/`:
   compact_capture   K3 + K5 — stable compaction of the final hop and
                     the YIELD column gather (hop.py:_compact_cap :238,
                     _build_local_fn :543-550)
+  merge_delta       K9 — the delta plane merged into a block's expanded
+                    slots: tombstoned base slots masked, frontier-active
+                    delta rows appended at columns EB + k
+                    (hop.py:_merge_delta :118)
+
+On a block with a delta plane, expand writes its slots (P, EB + Dcap)
+wide, merge_delta fills the tail in place and returns the merged valid
+mask, and predicate_mask and compact_capture read each prop column as a
+pair: the base (P, emax) tensor and the delta (P, Dcap) tensor, the
+delta half at eidx - emax.
 
 The BFS path (gpu/bfs.py) reuses expand, mark, extend_hubs and
 predicate_mask and adds two, both in bfs.cu:
@@ -62,7 +72,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("expand.cu", "mark.cu", "hubs.cu", "predicate.cu",
-           "compact_capture.cu", "bfs.cu", "pagerank.cu", "relax.cu")
+           "compact_capture.cu", "bfs.cu", "pagerank.cu", "relax.cu",
+           "delta.cu")
 HEADERS = ("scan.cuh",)
 MAX_COLS = 4                  # yield columns compact_capture gathers
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -152,14 +163,17 @@ def _lib() -> ctypes.CDLL:
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.nt_scan_chunk.argtypes, lib.nt_scan_chunk.restype = [], I
     lib.nt_expand_scan.argtypes = [P, P, I, I, P, P, P, P]
-    lib.nt_expand_fill.argtypes = [P, P, P, P, P, P, I, I, I, P, I, I,
+    lib.nt_expand_fill.argtypes = [P, P, P, P, P, P, I, I, I, P, I, LL,
                                    P, P, P, P, P]
     lib.nt_mark.argtypes = [P, P, LL, I, I, LL, P, P]
     lib.nt_extend_hubs.argtypes = [P, P, P, I, I, I, P]
     lib.nt_predicate_sizes.argtypes = [P]
-    lib.nt_predicate_mask.argtypes = [P] * 6 + [I] * 3 + [P, P]
-    lib.nt_compact_capture.argtypes = ([P] * 5 + [I] * 4 + [P] * 4
-                                       + [P] * 4 + [P] * 4 + [P, P, P])
+    lib.nt_predicate_mask.argtypes = [P] * 7 + [I] * 4 + [P, P]
+    lib.nt_compact_capture.argtypes = ([P] * 5 + [I] * 4 + [P] * 4 + [I]
+                                       + [P] * 4 + [P] * 4 + [P] * 4
+                                       + [P, P, P])
+    lib.nt_merge_delta.argtypes = ([P, P, LL, I] + [P] * 4 + [I, P]
+                                   + [I] * 4 + [P] * 7)
     lib.nt_bfs_probe.argtypes = [P] * 4 + [I] * 3 + [P, LL, P, LL, P]
     lib.nt_bfs_level.argtypes = [P, LL, P, I, I, I, P, LL, P, LL, P, P]
     D = ctypes.c_double
@@ -170,7 +184,7 @@ def _lib() -> ctypes.CDLL:
     for fn in (lib.nt_expand_scan, lib.nt_expand_fill, lib.nt_mark,
                lib.nt_extend_hubs, lib.nt_predicate_sizes,
                lib.nt_predicate_mask, lib.nt_compact_capture,
-               lib.nt_bfs_probe, lib.nt_bfs_level,
+               lib.nt_bfs_probe, lib.nt_bfs_level, lib.nt_merge_delta,
                lib.nt_pagerank_tile, lib.nt_pagerank_vblock,
                lib.nt_pagerank_step, lib.nt_wcc_step, lib.nt_sssp_step):
         fn.restype = I
@@ -222,7 +236,7 @@ def _cdiv(a: int, b: int) -> int:
 
 def _own_wrappers():
     return (expand, mark, extend_hubs, predicate_mask, compact_capture,
-            bfs_probe, bfs_level)
+            bfs_probe, bfs_level, merge_delta)
 
 
 def _wrappers():
@@ -246,20 +260,20 @@ def launch_counts() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def expand_plain(indptr, nbr, rank, fbm, hub_dense=None):
-    """Plain version of `expand`: (src, dst, rank, eidx) (P, EB) int32
-    and total (P,) int32, EB = max(total).  Slot j < total[p] of part p
-    is edge eidx of row `row`, where row is the frontier row whose
-    degree range holds j; slots past total[p] are padding (-1, -1, 0,
-    0).  With hub_dense (H,) the last H of fbm's rows are hub rows and
-    their slots' src is hub_dense[row - (rows - H)]."""
+def expand_plain(indptr, nbr, rank, fbm, hub_dense=None, extra: int = 0):
+    """Plain version of `expand`: (src, dst, rank, eidx) (P, EB + extra)
+    int32 and total (P,) int32, EB = max(total).  Slot j < total[p] of
+    part p is edge eidx of row `row`, where row is the frontier row
+    whose degree range holds j; slots past total[p] are padding (-1, -1,
+    0, 0).  With hub_dense (H,) the last H of fbm's rows are hub rows
+    and their slots' src is hub_dense[row - (rows - H)]."""
     P, nrows = fbm.shape
     H = 0 if hub_dense is None else int(hub_dense.numel())
     deg = torch.where(fbm, indptr[:, 1:] - indptr[:, :-1], 0).to(_I32)
     ends = torch.cumsum(deg, 1, dtype=_I32)
     total = ends[:, -1].contiguous()
     starts = ends - deg
-    EB = int(total.max()) if P else 0
+    EB = (int(total.max()) if P else 0) + int(extra)
     dev = fbm.device
     j = torch.arange(EB, dtype=_I32, device=dev).expand(P, EB).contiguous()
     valid = j < total[:, None]
@@ -280,13 +294,14 @@ def expand_plain(indptr, nbr, rank, fbm, hub_dense=None):
     return src, dst, rk, eidx, total
 
 
-def expand(indptr, nbr, rank, fbm, hub_dense=None):
+def expand(indptr, nbr, rank, fbm, hub_dense=None, extra: int = 0):
     """Expand one block's CSR from the (P, rows) bool frontier bitmap.
     Returns (src, dst, rank, eidx, total) as `expand_plain` does.  An
     unsplit block has rows = vmax; a degree-split one rows = vmax + H,
-    with its (H,) int32 hub ids in hub_dense."""
+    with its (H,) int32 hub ids in hub_dense.  `extra` padding columns
+    follow the EB slot columns: room for `merge_delta`'s delta rows."""
     if fbm.device.type == "cpu":
-        return expand_plain(indptr, nbr, rank, fbm, hub_dense)
+        return expand_plain(indptr, nbr, rank, fbm, hub_dense, extra)
     P, nrows = fbm.shape
     emax = nbr.shape[1]
     dev = fbm.device
@@ -307,12 +322,13 @@ def expand(indptr, nbr, rank, fbm, hub_dense=None):
                               starts.data_ptr(), total.data_ptr(),
                               sums.data_ptr(), stream), "expand scan")
     EB = int(total.max()) if P else 0        # the one read per hop
-    outs = [torch.empty((P, EB), dtype=_I32, device=dev) for _ in range(4)]
-    if EB:
+    W = EB + int(extra)
+    outs = [torch.empty((P, W), dtype=_I32, device=dev) for _ in range(4)]
+    if W:
         _check(lib.nt_expand_fill(
             indptr.data_ptr(), nbr.data_ptr(), rank.data_ptr(),
             fbm.data_ptr(), starts.data_ptr(), total.data_ptr(), P, nrows,
-            nrows - H, hub_dense.data_ptr() if H else None, emax, EB,
+            nrows - H, hub_dense.data_ptr() if H else None, emax, W,
             *[o.data_ptr() for o in outs], stream), "expand fill")
     expand.launches += 1
     return (*outs, total)
@@ -407,10 +423,11 @@ class _ProgramImage(ctypes.Structure):
                 ("always_false", ctypes.c_int), ("pad", ctypes.c_int),
                 ("code", ctypes.c_int * (8 * X.MAX_INSNS)),
                 ("consts", ctypes.c_longlong * X.MAX_CONSTS),
-                ("cols", ctypes.c_void_p * X.MAX_COLS)]
+                ("cols", ctypes.c_void_p * X.MAX_COLS),
+                ("dcols", ctypes.c_void_p * X.MAX_COLS)]
 
 
-def _program_image(prog, cols) -> _ProgramImage:
+def _program_image(prog, cols, dcols=None) -> _ProgramImage:
     img = _ProgramImage()
     img.n_insns, img.n_cols = len(prog.code), len(cols)
     img.always_false = int(prog.always_false)
@@ -420,37 +437,71 @@ def _program_image(prog, cols) -> _ProgramImage:
         img.consts[i] = w
     for i, c in enumerate(cols):
         img.cols[i] = c.data_ptr()
+    for i, c in enumerate(dcols or ()):
+        img.dcols[i] = c.data_ptr()
     return img
 
 
-def predicate_mask_plain(prog, src, dst, rank, eidx, total, cols):
-    """Plain version of `predicate_mask`: gather each of the program's
-    columns (cols, in prog.columns order, each (P, emax)) at eidx, run
-    the program with torch ops, and AND with slot < total[p]."""
-    P, EB = src.shape
-    valid = (torch.arange(EB, dtype=_I32, device=src.device)
-             < total[:, None])
+def _take_pair(col, dcol, rows, eidx):
+    """col (P, emax) at [rows, eidx], or its delta half dcol (P, dcap) at
+    [rows, eidx - emax] where eidx >= emax: the two halves are read
+    apart, never concatenated.  rows broadcasts against eidx; slots
+    outside both halves read 0."""
+    emax = col.shape[1]
     el = eidx.long()
+    zero = torch.zeros((), dtype=col.dtype, device=col.device)
+    out = torch.zeros(el.shape, dtype=col.dtype, device=col.device)
+    if emax:
+        out = torch.where((el >= 0) & (el < emax),
+                          col[rows, el.clamp(0, emax - 1)], zero)
+    if dcol is not None and dcol.shape[1]:
+        dcap = dcol.shape[1]
+        k = el - emax
+        out = torch.where((k >= 0) & (k < dcap),
+                          dcol[rows, k.clamp(0, dcap - 1)], out)
+    return out
+
+
+def predicate_mask_plain(prog, src, dst, rank, eidx, valid, cols,
+                         dcols=None):
+    """Plain version of `predicate_mask`: gather each of the program's
+    columns (cols, in prog.columns order, each (P, emax), with its delta
+    half in dcols) at eidx, run the program with torch ops, and AND with
+    the valid mask (or slot < total[p])."""
+    P, EB = src.shape
+    v = valid if valid.dtype == torch.bool else (
+        torch.arange(EB, dtype=_I32, device=src.device) < valid[:, None])
     c = {"_rank": rank, "_src": src, "_dst": dst}
-    for name, col in zip(prog.columns, cols):
-        c[name] = torch.gather(col, 1, el)
-    return valid & prog(c)
+    dcols = dcols or [None] * len(cols)
+    rows = torch.arange(P, device=src.device)[:, None]
+    for name, col, dcol in zip(prog.columns, cols, dcols):
+        c[name] = _take_pair(col, dcol, rows, eidx)
+    return v & prog(c)
 
 
-def predicate_mask(prog, src, dst, rank, eidx, total, cols):
+def predicate_mask(prog, src, dst, rank, eidx, valid, cols, dcols=None):
     """The (P, EB) bool keep mask of a WHERE predicate program
     (gpu/exprjit.py) over one block's expanded slots: True where the
-    slot is valid and the predicate is true (not false, not null)."""
+    slot is valid and the predicate is true (not false, not null).
+
+    valid: the (P,) int32 total when the valid slots are each row's
+    prefix, or merge_delta's (P, EB) bool mask.  dcols: the delta halves
+    (P, Dcap) of cols, in the same order, on a merged block."""
     if prog.error is not None:
         raise prog.error
     if src.device.type == "cpu":
-        return predicate_mask_plain(prog, src, dst, rank, eidx, total, cols)
+        return predicate_mask_plain(prog, src, dst, rank, eidx, valid, cols,
+                                    dcols)
     P, EB = src.shape
     dev = src.device
     for name, t in (("src", src), ("dst", dst), ("rank", rank),
                     ("eidx", eidx)):
         _want(t, name, _I32, (P, EB), dev)
-    _want(total, "total", _I32, (P,), dev)
+    by_mask = valid.dtype == torch.bool
+    if by_mask:
+        _want(valid, "valid", torch.bool, (P, EB), dev)
+    else:
+        _want(valid, "total", _I32, (P,), dev)
     if len(cols) != len(prog.columns):
         raise ValueError(f"the program reads {len(prog.columns)} columns, "
                          f"got {len(cols)}")
@@ -460,17 +511,34 @@ def predicate_mask(prog, src, dst, rank, eidx, total, cols):
             raise ValueError(f"column {name} is {c.dtype}; int64 or "
                              f"float64")
         _want(c, f"column {name}", c.dtype, (P, emax), dev)
+    dcap = _check_dcols(cols, dcols, P, dev)
     keep = torch.empty((P, EB), dtype=torch.bool, device=dev)
     if P * EB == 0:
         return keep
     lib = _lib()
-    img = _program_image(prog, cols)
+    img = _program_image(prog, cols, dcols)
     _check(lib.nt_predicate_mask(
         ctypes.addressof(img), src.data_ptr(), dst.data_ptr(),
-        rank.data_ptr(), eidx.data_ptr(), total.data_ptr(), P, EB, emax,
+        rank.data_ptr(), eidx.data_ptr(),
+        None if by_mask else valid.data_ptr(),
+        valid.data_ptr() if by_mask else None, P, EB, emax, dcap,
         keep.data_ptr(), _stream(src)), "predicate_mask")
     predicate_mask.launches += 1
     return keep
+
+
+def _check_dcols(cols, dcols, P: int, dev) -> int:
+    """Check the delta halves against their base columns; returns dcap
+    (0 without them)."""
+    if dcols is None:
+        return 0
+    if len(dcols) != len(cols):
+        raise ValueError(f"{len(cols)} columns but {len(dcols)} delta "
+                         f"halves")
+    dcap = dcols[0].shape[1] if dcols else 0
+    for i, (c, d) in enumerate(zip(cols, dcols)):
+        _want(d, f"delta column {i}", c.dtype, (P, dcap), dev)
+    return dcap
 
 
 # ---------------------------------------------------------------------------
@@ -479,11 +547,12 @@ def predicate_mask(prog, src, dst, rank, eidx, total, cols):
 
 
 def compact_capture_plain(src, dst, rank, eidx, keep,
-                          cols: Sequence[torch.Tensor] = ()):
+                          cols: Sequence[torch.Tensor] = (), dcols=None):
     """Plain version of `compact_capture`: per part, the kept slots of
     src/dst/rank/eidx in order at the front of the row, each yield
-    column's value at [p, eidx] beside them, kcount (P,) int32; the rest
-    of each row is padding (-1, -1, 0, 0, column words 0)."""
+    column's value at [p, eidx] beside them (its delta half at
+    eidx - emax, with dcols), kcount (P,) int32; the rest of each row is
+    padding (-1, -1, 0, 0, column words 0)."""
     P, EB = keep.shape
     kcount = keep.sum(1, dtype=_I32)
     pos = torch.cumsum(keep, 1, dtype=torch.int64) - 1
@@ -496,25 +565,25 @@ def compact_capture_plain(src, dst, rank, eidx, keep,
         return o
 
     outs = [put(src, -1), put(dst, -1), put(rank, 0), put(eidx, 0)]
-    e = eidx[pi, si].long()
+    e = eidx[pi, si]
     props = []
-    for c in cols:
-        ok = (e >= 0) & (e < c.shape[1])
+    for i, c in enumerate(cols):
+        d = None if dcols is None else dcols[i]
         o = torch.zeros((P, EB), dtype=c.dtype, device=c.device)
-        o[pi, di] = torch.where(ok, c[pi, e.clamp(0, c.shape[1] - 1)],
-                                torch.zeros((), dtype=c.dtype,
-                                            device=c.device))
+        o[pi, di] = _take_pair(c, d, pi, e)
         props.append(o)
     return (*outs, props, kcount)
 
 
 def compact_capture(src, dst, rank, eidx, keep,
-                    cols: Sequence[torch.Tensor] = ()):
+                    cols: Sequence[torch.Tensor] = (), dcols=None):
     """Compact the kept slots of each part to the front of its row and
-    gather up to four 8-byte YIELD columns at their eidx.  Returns
-    (src, dst, rank, eidx, [cols], kcount) as `compact_capture_plain`."""
+    gather up to four 8-byte YIELD columns at their eidx; on a merged
+    block, `dcols` are the columns' (P, Dcap) delta halves, in the same
+    order.  Returns (src, dst, rank, eidx, [cols], kcount) as
+    `compact_capture_plain`."""
     if keep.device.type == "cpu":
-        return compact_capture_plain(src, dst, rank, eidx, keep, cols)
+        return compact_capture_plain(src, dst, rank, eidx, keep, cols, dcols)
     P, EB = keep.shape
     dev = keep.device
     _want(keep, "keep", torch.bool, (P, EB), dev)
@@ -529,6 +598,7 @@ def compact_capture(src, dst, rank, eidx, keep,
         if c.dtype not in (torch.int64, torch.float64):
             raise ValueError(f"column {i} is {c.dtype}; int64 or float64")
         _want(c, f"column {i}", c.dtype, (P, emax), dev)
+    dcap = _check_dcols(cols, dcols, P, dev)
     lib = _lib()
     outs = [torch.empty((P, EB), dtype=_I32, device=dev) for _ in range(4)]
     props: List[torch.Tensor] = [torch.empty((P, EB), dtype=c.dtype,
@@ -536,16 +606,95 @@ def compact_capture(src, dst, rank, eidx, keep,
     kcount = torch.empty((P,), dtype=_I32, device=dev)
     sums = torch.empty((P, max(_cdiv(EB, lib.nt_scan_chunk()), 1)),
                        dtype=_I32, device=dev)
-    in_cols = [c.data_ptr() for c in cols] + [None] * (MAX_COLS - len(cols))
-    out_cols = [o.data_ptr() for o in props] + [None] * (MAX_COLS
-                                                         - len(props))
+
+    def ptrs(ts):
+        return [t.data_ptr() for t in ts] + [None] * (MAX_COLS - len(ts))
+
     _check(lib.nt_compact_capture(
         src.data_ptr(), dst.data_ptr(), rank.data_ptr(), eidx.data_ptr(),
-        keep.data_ptr(), P, EB, len(cols), emax, *in_cols,
-        *[o.data_ptr() for o in outs], *out_cols, kcount.data_ptr(),
-        sums.data_ptr(), _stream(keep)), "compact_capture")
+        keep.data_ptr(), P, EB, len(cols), emax, *ptrs(cols), dcap,
+        *ptrs(dcols or ()), *[o.data_ptr() for o in outs], *ptrs(props),
+        kcount.data_ptr(), sums.data_ptr(), _stream(keep)),
+        "compact_capture")
     compact_capture.launches += 1
     return (*outs, props, kcount)
+
+
+# ---------------------------------------------------------------------------
+# merge_delta (K9)
+# ---------------------------------------------------------------------------
+
+
+def merge_delta_plain(src, dst, rank, eidx, total, fbm, d_src, d_dst,
+                      d_rank, d_valid, d_tomb, emax: int):
+    """Plain version of `merge_delta`, the reference's `_merge_delta` for
+    all parts.  src/dst/rank/eidx are expand's (P, EB + Dcap) slots;
+    fbm the (P, vmax) frontier bitmap; d_src/d_dst/d_rank/d_valid (P,
+    Dcap), d_tomb (P, Tcap) sorted and MAXI-padded.  In place: a base
+    slot whose eidx is tombstoned gets dst = -1; column EB + k gets delta
+    row k (src = d_src*P + p, dst, rank) when it is active — d_valid set
+    and its source on the frontier — else padding (-1, -1, 0), and eidx
+    = emax + k.  Returns (valid (P, EB + Dcap) bool, total + the active
+    count (P,) int32)."""
+    P, W = src.shape
+    Dcap, Tcap = d_src.shape[1], d_tomb.shape[1]
+    EB = W - Dcap
+    dev = src.device
+    vb = torch.arange(EB, dtype=_I32, device=dev) < total[:, None]
+    if Tcap:
+        e = eidx[:, :EB].contiguous()
+        pos = torch.searchsorted(d_tomb, e).clamp(max=Tcap - 1)
+        hit = vb & (torch.gather(d_tomb, 1, pos) == e)
+        vb &= ~hit
+        dst[:, :EB] = torch.where(hit, -1, dst[:, :EB])
+    vmax = fbm.shape[1]
+    act = d_valid & torch.gather(fbm, 1, d_src.clamp(0, vmax - 1).long())
+    pid = torch.arange(P, dtype=_I32, device=dev)[:, None]
+    src[:, EB:] = torch.where(act, d_src * P + pid, -1)
+    dst[:, EB:] = torch.where(act, d_dst, -1)
+    rank[:, EB:] = torch.where(act, d_rank, 0)
+    eidx[:, EB:] = emax + torch.arange(Dcap, dtype=_I32, device=dev)
+    return (torch.cat([vb, act], 1),
+            (total + act.sum(1, dtype=_I32)).to(_I32))
+
+
+def merge_delta(src, dst, rank, eidx, total, fbm, d_src, d_dst, d_rank,
+                d_valid, d_tomb, emax: int):
+    """Merge one block's delta plane into its expanded slots, in place,
+    for all P parts in one launch (see `merge_delta_plain` for the
+    contract).  fbm may be the first vmax columns of a wider buffer
+    (rows contiguous, any row stride).  Returns (valid, total_out)."""
+    if src.device.type == "cpu":
+        return merge_delta_plain(src, dst, rank, eidx, total, fbm, d_src,
+                                 d_dst, d_rank, d_valid, d_tomb, emax)
+    P, W = src.shape
+    Dcap, Tcap = d_src.shape[1], d_tomb.shape[1]
+    dev = src.device
+    for name, t in (("src", src), ("dst", dst), ("rank", rank),
+                    ("eidx", eidx)):
+        _want(t, name, _I32, (P, W), dev)
+    _want(total, "total", _I32, (P,), dev)
+    for name, t in (("d_src", d_src), ("d_dst", d_dst),
+                    ("d_rank", d_rank)):
+        _want(t, name, _I32, (P, Dcap), dev)
+    _want(d_valid, "d_valid", torch.bool, (P, Dcap), dev)
+    _want(d_tomb, "d_tomb", _I32, (P, Tcap), dev)
+    vmax = fbm.shape[1]
+    _bitmap_view(fbm, "fbm", (P, vmax), dev)
+    if W < Dcap or P == 0 or vmax == 0:
+        raise ValueError(f"slots of width {W} cannot hold {Dcap} delta "
+                         f"rows over {P} parts of {vmax} rows")
+    valid = torch.empty((P, W), dtype=torch.bool, device=dev)
+    total_out = torch.empty((P,), dtype=_I32, device=dev)
+    _check(_lib().nt_merge_delta(
+        total.data_ptr(), fbm.data_ptr(), fbm.stride(0), vmax,
+        d_src.data_ptr(), d_dst.data_ptr(), d_rank.data_ptr(),
+        d_valid.data_ptr(), Dcap, d_tomb.data_ptr(), Tcap, P, W - Dcap,
+        int(emax), src.data_ptr(), dst.data_ptr(), rank.data_ptr(),
+        eidx.data_ptr(), valid.data_ptr(), total_out.data_ptr(),
+        _stream(src)), "merge_delta")
+    merge_delta.launches += 1
+    return valid, total_out
 
 
 # ---------------------------------------------------------------------------

@@ -6,15 +6,25 @@ Port of the solo single-device path of `nebula_tpu/tpu/runtime.py`:
 `_materialize_yields` (:2373), `_d2v`, `_cap_keys_for_yields` and
 `_cat_parts`, the supernode degree-split at pin time
 (`_maybe_degree_split`, :857), `algo_dispatch` (:1105), the algo
-plane's one dispatch per iteration, and `bfs` (:2121), the device BFS
-of FIND SHORTEST PATH.
+plane's one dispatch per iteration, `bfs` (:2121), the device BFS
+of FIND SHORTEST PATH, and the delta plane: `_arm_delta` (:639),
+`_try_delta_update` (:652), `_grab_delta` (:728), `_delta_perms` (:2241)
+and the delta decode of `_block_columns` (:2302-2337).
+
+The delta plane differs from the reference where the reference falls
+back to a full rebuild of the snapshot, which needs the store slice:
+a broken or gapped log, an overflow, a write the port cannot encode, or
+a write to a degree-split snapshot raise `GpuUnavailable` naming the
+cause (and unpin the space when the mirror may be half applied).  It
+does not compact: a plane past the reference's fill watermark serves on
+until it overflows.
 
 What this slice leaves out raises `CannotCompile`, as the reference does
 for a filter it cannot compile: GO without `yields` (Edge rows, which need
-the store's catalog), the delta plane, query lanes and the mesh.  A
-traversal runs on the runtime's one `torch.device`; `GpuRuntime()` means
-`cuda:0`, and the CPU runs only when the caller passes `device="cpu"`
-(the kernels' plain versions then run).
+the store's catalog), query lanes and the mesh.  A traversal runs on the
+runtime's one `torch.device`; `GpuRuntime()` means `cuda:0`, and the CPU
+runs only when the caller passes `device="cpu"` (the kernels' plain
+versions then run).
 """
 from __future__ import annotations
 
@@ -27,9 +37,10 @@ import torch
 from ..core import expr as E
 from ..core.value import ColumnarDataSet
 from ..graphstore.csr import DECODABLE, decode_prop_column_np, degree_split
+from ..graphstore.delta import DeltaOverflow, DeltaUnsupported, HostDelta
 from .bfs import run_bfs
 from .device import DeviceSnapshot, GpuUnavailable, pin_snapshot, \
-    resolve_device
+    put_delta_blocks, resolve_device
 from .exprjit import CannotCompile, compile_predicate, eval_yield_column_np
 from .hop import new_frontier, run_hops
 from .kernels import mark
@@ -103,6 +114,35 @@ def _cap_keys_for_yields(yields, device_props=()) -> Optional[set]:
     return need
 
 
+def _canonical_perm(ls, rk, dk, is_delta) -> np.ndarray:
+    """`np.lexsort((dk, rk, ls))` — the stable sort of one part's
+    captured rows by (local src, rank, dst key) — computed as a merge
+    when it can be: the base rows come first and are in that order
+    already, so only the few delta rows after them are sorted, and each
+    is inserted after the base rows whose key is not greater.  The three
+    keys pack into one int64 when their ranges fit in 62 bits; otherwise,
+    or when the rows are not laid out so, the lexsort itself runs."""
+    n_base = int(ls.size - is_delta.sum())
+    spans = [(int(c.min()), int(c.max())) for c in (ls, rk, dk)]
+    bits = [(hi - lo).bit_length() for lo, hi in spans]
+    if sum(bits) <= 62 and not is_delta[:n_base].any():
+        key = (((ls - spans[0][0]) << (bits[1] + bits[2]))
+               | ((rk - spans[1][0]) << bits[2]) | (dk - spans[2][0]))
+        base = key[:n_base]
+        if (base[1:] >= base[:-1]).all():
+            dkey = key[n_base:]
+            order = np.argsort(dkey, kind="stable")
+            at = np.searchsorted(base, dkey[order], side="right") \
+                + np.arange(order.size)
+            perm = np.empty(ls.size, np.int64)
+            slot = np.ones(ls.size, bool)
+            slot[at] = False
+            perm[at] = n_base + order
+            perm[slot] = np.arange(n_base)
+            return perm
+    return np.lexsort((dk, rk, ls))
+
+
 def _cat_parts(parts, dtype=None):
     """Concatenate per-part kept-prefix slices, preserving (part, slot)
     order; always returns an owned array."""
@@ -146,11 +186,18 @@ class GpuRuntime:
     degree_split_threshold: the reference's flag
     `tpu_degree_split_threshold` (utils/config.py:184; 0 = off).  When it
     is > 0, `pin_prebuilt` splits every vertex whose degree exceeds it
-    into hub rows spread over the parts (graphstore.csr.degree_split)."""
+    into hub rows spread over the parts (graphstore.csr.degree_split).
 
-    def __init__(self, device: Any = None, degree_split_threshold: int = 0):
+    delta_max_edges: the reference's flag `tpu_delta_max_edges`, the
+    per-(block, part) delta capacity (0 = the delta plane is off).  When
+    it is > 0, `pin_prebuilt` arms an empty plane on an unsplit snapshot,
+    and `pin` folds the writes a store logged since into it."""
+
+    def __init__(self, device: Any = None, degree_split_threshold: int = 0,
+                 delta_max_edges: int = 0):
         self.device = resolve_device(device)
         self.degree_split_threshold = int(degree_split_threshold)
+        self.delta_max_edges = int(delta_max_edges)
         self.snapshots: Dict[str, DeviceSnapshot] = {}
 
     # -- pinning ----------------------------------------------------------
@@ -168,19 +215,106 @@ class GpuRuntime:
                 f"P*vmax = {snap.num_parts * snap.vmax} exceeds int32")
         self.unpin(snap.space)
         dev = pin_snapshot(snap, self.device)
+        self._arm_delta(dev, snap)
         self.snapshots[snap.space] = dev
         return dev
 
+    def _arm_delta(self, dev: DeviceSnapshot, snap) -> None:
+        """Put the EMPTY delta plane at pin time, so the first write costs
+        one small apply.  Degree-split snapshots opt out: hub rows
+        re-home edges, so delta row identity breaks."""
+        if self.delta_max_edges <= 0 or snap.hub_dense is not None:
+            return
+        put_delta_blocks(dev, HostDelta(snap, self.delta_max_edges))
+
+    @staticmethod
+    def _served_epoch(dev: DeviceSnapshot) -> int:
+        """The store epoch a snapshot serves: the pin's, advanced by every
+        applied delta."""
+        return dev.delta.applied_epoch if dev.delta is not None \
+            else dev.epoch
+
     def pin(self, store, space: str) -> DeviceSnapshot:
-        """The pinned snapshot serving `space` at the store's epoch."""
+        """The pinned snapshot serving `space` at the store's epoch; with
+        a delta plane armed, the writes the store logged since are
+        folded into it first (`_try_delta_update`)."""
         dev = self.snapshots.get(space)
         epoch = store.space(space).epoch
-        if dev is None or dev.epoch != epoch:
+        if dev is not None and self._served_epoch(dev) == epoch:
+            return dev
+        if dev is not None and dev.delta is not None:
+            return self._try_delta_update(store, space, dev)
+        raise GpuUnavailable(
+            f"space {space!r} has no snapshot pinned at epoch {epoch}: "
+            f"pin one with pin_prebuilt (building one from a store "
+            f"waits for the store slice)"
+            + ("" if dev is None else
+               "; the pinned one has no delta plane"
+               + (" (degree-split)" if dev.num_hubs else "")))
+
+    def _try_delta_update(self, store, space: str,
+                          dev: DeviceSnapshot) -> DeviceSnapshot:
+        """Advance a delta-armed snapshot to the store's epoch without a
+        re-pin: read the dirty keys, apply them to the host mirror by
+        re-reading the store, put only the changed blocks, and trim the
+        consumed keys from the log.  Where the reference takes the
+        full-rebuild path, this raises GpuUnavailable naming the cause;
+        after a failed apply the mirror may be half applied, so the
+        space is unpinned."""
+        if not (hasattr(store, "delta_records")
+                and hasattr(store, "delta_reader")):
+            raise GpuUnavailable(f"space {space!r}: the store logs no "
+                                 f"writes (no delta_records)")
+        dd = dev.delta
+        rec = store.delta_records(space)
+        if rec is None:
+            raise GpuUnavailable(f"space {space!r}: the delta log is broken "
+                                 f"or not watching; a full rebuild waits "
+                                 f"for the store slice")
+        keys, target, floor = rec
+        if floor > dd.applied_epoch:
             raise GpuUnavailable(
-                f"space {space!r} has no snapshot pinned at epoch {epoch}: "
-                f"pin one with pin_prebuilt (building one from a store "
-                f"waits for the store slice)")
+                f"space {space!r}: the delta log starts at epoch {floor}, "
+                f"after the plane's {dd.applied_epoch} (a log gap)")
+        try:
+            changes = dd.host.apply(store.delta_reader(space), keys)
+        except (DeltaOverflow, DeltaUnsupported) as ex:
+            self.unpin(space)
+            raise GpuUnavailable(
+                f"space {space!r}: delta apply failed "
+                f"({type(ex).__name__}: {ex}); a full rebuild waits for "
+                f"the store slice") from ex
+        put_delta_blocks(dev, dd.host, sorted(changes.blocks))
+        if changes.num_vertices:
+            dev.num_vertices = torch.from_numpy(np.ascontiguousarray(
+                dd.host.snap.num_vertices, np.int32)).to(self.device)
+        # changes.tag_cols change only the host mirror: the port pins no
+        # tag tables on the device
+        dd.applied_epoch = target
+        store.delta_trim(space, keys)
         return dev
+
+    @staticmethod
+    def _grab_delta(dev: DeviceSnapshot, block_keys, prop_names):
+        """Grab ONE consistent delta view for a run: (view, per-block
+        tensor dicts).  `view` is the (epoch, blocks) tuple; the
+        materializer decodes this run's capture against view[1]'s numpy
+        mirrors, never against dev.delta's current state (an apply
+        replaces, never mutates, so the grabbed arrays stay coherent)."""
+        if dev.delta is None:
+            return None, [None] * len(block_keys)
+        view = dev.delta.view
+        extras = []
+        for bk in block_keys:
+            e = view[1].get(bk)
+            if e is None:
+                extras.append(None)
+                continue
+            d = {k: e[k] for k in ("d_src", "d_dst", "d_rank", "d_valid",
+                                   "d_tomb")}
+            d["d_props"] = {n: e["d_props"][n] for n in prop_names}
+            extras.append(d)
+        return view, extras
 
     def unpin(self, space: str) -> None:
         self.snapshots.pop(space, None)
@@ -304,6 +438,20 @@ class GpuRuntime:
             # reverse blocks serve src(edge) from the dst array and vice
             # versa (physical-edge orientation) — need both
             fetch_keys |= {"src", "dst"}
+        prop_names = set(yield_cols)
+        if pred is not None:
+            prop_names |= set(pred.columns)
+        dview, dextras = self._grab_delta(dev, block_keys, prop_names)
+        if dview is not None and not any(
+                dview[1][bk]["np"]["d_valid"].any() for bk in block_keys):
+            # a plane without insert rows appends no slot: the capture is
+            # in base order and decodes as without a plane
+            dview = None
+        if fetch_keys is not None and dview is not None:
+            # delta rows interleave with base rows in canonical CSR order
+            # at materialize time: the host re-sort needs every identity
+            # column whatever the yields read
+            fetch_keys |= {"src", "dst", "rank", "eidx"}
 
         tp = time.perf_counter()
         frontier = self._seed_frontier(dev, dense)
@@ -312,7 +460,7 @@ class GpuRuntime:
         t0 = time.perf_counter()
         res = run_hops(dev, [dev.blocks[bk] for bk in block_keys], frontier,
                        steps, pred=pred, capture=capture,
-                       yield_cols=yield_cols)
+                       yield_cols=yield_cols, deltas=dextras)
         hop_edges = res["hop_edges"].cpu().numpy()   # synchronises
         t1 = time.perf_counter()
         stats.device_s = t1 - t0
@@ -339,7 +487,7 @@ class GpuRuntime:
 
         t_mat = time.perf_counter()
         rows = self._materialize_yields(store, space, dev, block_keys, caps,
-                                        yields)
+                                        yields, dview)
         stats.mat_s = time.perf_counter() - t_mat
         stats.result_edges = len(rows)
         stats.total_s = time.perf_counter() - t_start
@@ -385,13 +533,18 @@ class GpuRuntime:
             return np.full((P, vmax), -1, np.int32), stats
 
         # direction-optimizing: each block's REVERSE twin rides along so
-        # dense levels can go bottom-up.  The port has no delta plane and
-        # no mesh, so the twins being pinned is the whole condition (the
-        # reference's runtime.py:2160-2171); for "both" the twins of the
-        # out and in blocks are the in and out blocks
+        # dense levels can go bottom-up (the reference's
+        # runtime.py:2160-2172); for "both" the twins of the out and in
+        # blocks are the in and out blocks.  It is OFF while a delta plane
+        # is armed: bottom-up scans the reverse adjacency with swapped
+        # endpoint semantics the merge does not model, so every level
+        # goes top-down, merged
         rev_of = {"out": "in", "in": "out"}
         rev_keys = [(et, rev_of[d]) for et, d in block_keys]
-        have_rev = all(rk in dev.blocks for rk in rev_keys)
+        have_rev = dev.delta is None \
+            and all(rk in dev.blocks for rk in rev_keys)
+        _, dextras = self._grab_delta(
+            dev, block_keys, () if pred is None else pred.columns)
         n_phantom = P * vmax - int(np.asarray(dev.host.num_vertices).sum())
 
         tp = time.perf_counter()
@@ -402,7 +555,7 @@ class GpuRuntime:
         res = run_bfs(dev, [dev.blocks[bk] for bk in block_keys],
                       [dev.blocks[rk] for rk in rev_keys] if have_rev
                       else None, seeds, max_steps, pred=pred,
-                      n_phantom=n_phantom)
+                      n_phantom=n_phantom, deltas=dextras)
         dist = res["dist"].cpu().numpy()            # synchronises
         hop_edges = res["hop_edges"].cpu().numpy()
         stats.device_s = time.perf_counter() - t0
@@ -414,28 +567,77 @@ class GpuRuntime:
 
     # -- host materialization ---------------------------------------------
 
+    @staticmethod
+    def _delta_perms(cap, pids, kc, P: int, emax: int, d2v_arr, d2v_id):
+        """Per-part permutations restoring canonical CSR slot order over
+        the merged base+delta capture: within a part, base rows sit in
+        (local_src, rank, dst_key) order and delta rows are appended —
+        the union must interleave exactly where a full rebuild would
+        have placed the new rows.  dst_key is the vid itself for int
+        vids, code-point string order otherwise.  Each permutation is the
+        stable lexsort's (`_canonical_perm`), so parallel edges keep
+        base-before-delta order.  A part that captured no delta row is
+        in that order already: its entry is None, and nothing runs."""
+        perms = []
+        for p in pids:
+            k = int(kc[p])
+            e = np.asarray(cap["eidx"][p, :k])
+            is_delta = e >= emax
+            if not is_delta.any():
+                perms.append(None)
+                continue
+            s_ = np.asarray(cap["src"][p, :k]).astype(np.int64)
+            d_ = np.asarray(cap["dst"][p, :k]).astype(np.int64)
+            r_ = np.asarray(cap["rank"][p, :k]).astype(np.int64)
+            if d2v_id:
+                dk = d_
+            else:
+                dk = d2v_arr[d_]
+                if dk.dtype == object:
+                    dk = np.unique(dk.astype("U"), return_inverse=True)[1]
+            perms.append(_canonical_perm(s_ // P, r_, dk.astype(np.int64),
+                                         is_delta))
+        return perms
+
     def _block_columns(self, store, space: str, dev: DeviceSnapshot,
-                       block_keys, caps, prop_names: Sequence[str]):
+                       block_keys, caps, prop_names: Sequence[str],
+                       dview=None):
         """Vectorized gather of the captured final-hop edge set: per-block
         dicts of flat numpy arrays — sv/dv (vids), rr (ranks), decoded
-        prop columns."""
+        prop columns.
+
+        With a delta view (`dview`, grabbed when the run started) the
+        merged rows are re-sorted per part into canonical CSR order
+        (device-gathered yield columns by the same permutation), and a
+        delta row's props decode from the view's numpy mirror at
+        eidx - emax: the base and delta halves are indexed apart."""
         host = dev.host
         d2v_arr = _d2v(host)
         d2v_id = host._d2v_identity
+        P = dev.num_parts
         etype_ids = {et: store.catalog.get_edge(space, et).edge_type
                      for et, _ in block_keys}
         for (et, dirn), cap in zip(block_keys, caps):
             hb = host.blocks[(et, dirn)]
+            de = None if dview is None else dview[1].get((et, dirn))
             # kept entries are a compacted PREFIX per part row
             kc = cap["kcount"]
             pids = [p for p in range(len(kc)) if kc[p] > 0]
             if not pids:
                 continue
             n_rows = int(sum(int(kc[p]) for p in pids))
+            emax = hb.nbr.shape[1]
+            perms = None if de is None else self._delta_perms(
+                cap, pids, kc, P, emax, d2v_arr, d2v_id)
+
+            def part(name, p, i):
+                a = cap[name][p, :kc[p]]
+                return a if perms is None or perms[i] is None \
+                    else a[perms[i]]
 
             def catp(name, dtype=None):
-                return _cat_parts([cap[name][p, :kc[p]] for p in pids],
-                                  dtype)
+                return _cat_parts([part(name, p, i)
+                                   for i, p in enumerate(pids)], dtype)
 
             ss = catp("src", np.int64) if "src" in cap else None
             dd = catp("dst", np.int64) if "dst" in cap else None
@@ -445,8 +647,18 @@ class GpuRuntime:
                 if ("prop:" + n) in cap:
                     raw = catp("prop:" + n)     # device-gathered
                 elif "eidx" in cap:
-                    raw = [hb.props[n][p][cap["eidx"][p, :kc[p]]]
-                           for p in pids]
+                    raw = []
+                    for i, p in enumerate(pids):
+                        e = part("eidx", p, i)
+                        col = hb.props[n][p]
+                        if de is None:
+                            raw.append(col[e])
+                            continue
+                        r = np.empty(e.shape, col.dtype)
+                        base = e < emax
+                        r[base] = col[e[base]]
+                        r[~base] = de["np"]["d_props"][n][p][e[~base] - emax]
+                        raw.append(r)
                     raw = np.concatenate(raw) if len(raw) > 1 else raw[0]
                 else:
                     continue
@@ -462,13 +674,14 @@ class GpuRuntime:
                    "rr": rr, "props": props}
 
     def _materialize_yields(self, store, space: str, dev: DeviceSnapshot,
-                            block_keys, caps, yields) -> ColumnarDataSet:
+                            block_keys, caps, yields,
+                            dview=None) -> ColumnarDataSet:
         """Final output as a lazy columnar DataSet (fused Project)."""
         needed = [x.name for e, _ in yields for x in E.walk(e)
                   if x.kind == "edge_prop"]
         per_block: List[List[np.ndarray]] = []
         for b in self._block_columns(store, space, dev, block_keys, caps,
-                                     prop_names=needed):
+                                     prop_names=needed, dview=dview):
             per_block.append([eval_yield_column_np(e, b)
                               for e, _ in yields])
         names = [alias for _, alias in yields]

@@ -2,8 +2,9 @@
 padded numpy arrays, the state the device plane pins.
 
 A copy of the parts of `nebula_tpu/graphstore/csr.py` the port needs:
-StringPool, the NULL sentinels, the batched prop-column decode, CsrBlock,
-TagTable, CsrSnapshot and the supernode `degree_split`.  Building a
+StringPool, the NULL sentinels, the batched prop-column decode, the
+value encode of the delta plane (`encode_prop`, `_encode_default`),
+CsrBlock, TagTable, CsrSnapshot and the supernode `degree_split`.  Building a
 snapshot from a live store waits for the store slice;
 `snapshot_from_fields` builds one from plain arrays (the fields another
 process or package exported), and `bench.datagen.snapshot_from_arrays`
@@ -270,6 +271,51 @@ def degree_split(snap: CsrSnapshot, threshold: int,
 
 def _col_dtype(pt: PropType):
     return np.float64 if pt in (PropType.FLOAT, PropType.DOUBLE) else np.int64
+
+
+# types whose values the port has no class for yet (the reference encodes
+# them from its temporal and geography values)
+_UNENCODABLE = frozenset({PropType.DATE, PropType.TIME, PropType.DATETIME,
+                          PropType.DURATION, PropType.GEOGRAPHY})
+
+
+def encode_prop(pt: PropType, v: Any, pool: StringPool) -> Any:
+    """One value as the snapshot column stores it: NULL → the column's
+    sentinel, strings → pool codes, bools → 0/1.  A type in
+    `_UNENCODABLE` raises DeltaUnsupported instead of a wrong word."""
+    from ..core.value import is_null
+    from .delta import DeltaUnsupported
+    if pt in _UNENCODABLE:
+        raise DeltaUnsupported(f"{pt.name} values do not encode in this port")
+    if is_null(v):
+        return np.nan if pt in (PropType.FLOAT, PropType.DOUBLE) else INT_NULL
+    if pt in (PropType.STRING, PropType.FIXED_STRING):
+        return pool.encode(v)
+    if pt == PropType.BOOL:
+        return int(v)
+    if pt in (PropType.FLOAT, PropType.DOUBLE):
+        return float(v)
+    return int(v)
+
+
+def _encode_default(pd, pool: StringPool):
+    """Encoded schema default for rows written before an ALTER added the
+    column, or None when there is no usable default.  The reference's
+    insert-time coercion is int → float for float columns; a malformed
+    default degrades to None (NULL) as there."""
+    from .delta import DeltaUnsupported
+    if not pd.has_default:
+        return None
+    v = pd.default
+    if pd.ptype in (PropType.FLOAT, PropType.DOUBLE) \
+            and isinstance(v, int) and not isinstance(v, bool):
+        v = float(v)
+    try:
+        return encode_prop(pd.ptype, v, pool)
+    except DeltaUnsupported:
+        raise
+    except Exception:  # noqa: BLE001 — malformed default → NULL
+        return None
 
 
 def snapshot_from_fields(fields: Dict[str, Any]) -> CsrSnapshot:

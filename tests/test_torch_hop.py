@@ -210,7 +210,7 @@ def test_wrappers_never_fall_back_off_the_cpu(monkeypatch):
     monkeypatch.setattr(K, "_lib", no_lib)
     for name in ("expand_plain", "mark_plain", "compact_capture_plain",
                  "extend_hubs_plain", "predicate_mask_plain",
-                 "bfs_probe_plain", "bfs_level_plain"):
+                 "bfs_probe_plain", "bfs_level_plain", "merge_delta_plain"):
         monkeypatch.setattr(K, name, plain_called)
     for name in ("pagerank_step_plain", "wcc_step_plain",
                  "sssp_step_plain"):
@@ -260,9 +260,15 @@ def test_wrappers_never_fall_back_off_the_cpu(monkeypatch):
     with pytest.raises(K.KernelError):
         K.bfs_level(bits, torch.empty((P, 4), dtype=torch.int32, **m), 1,
                     bits, bits)
+    d32 = torch.empty((P, 2), dtype=torch.int32, **m)
+    with pytest.raises(K.KernelError):
+        K.merge_delta(*ints, torch.empty((P,), dtype=torch.int32, **m),
+                      bits, d32, d32, d32,
+                      torch.empty((P, 2), dtype=torch.bool, **m), d32, 3)
     assert K.launch_counts() == {"expand": 0, "mark": 0, "extend_hubs": 0,
                                  "predicate_mask": 0, "compact_capture": 0,
                                  "bfs_probe": 0, "bfs_level": 0,
+                                 "merge_delta": 0,
                                  "pagerank_step": 0, "wcc_step": 0,
                                  "sssp_step": 0}
 

@@ -29,6 +29,7 @@ def test_port_modules_exist():
     for m in ("nebula_tpu_torch.core.value", "nebula_tpu_torch.core.expr",
               "nebula_tpu_torch.graphstore.schema",
               "nebula_tpu_torch.graphstore.csr",
+              "nebula_tpu_torch.graphstore.delta",
               "nebula_tpu_torch.bench.datagen",
               "nebula_tpu_torch.gpu.device", "nebula_tpu_torch.gpu.exprjit",
               "nebula_tpu_torch.gpu.hop", "nebula_tpu_torch.gpu.runtime",
