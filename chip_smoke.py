@@ -2,8 +2,9 @@
 """Start the PyTorch/CUDA port on one NVIDIA GPU and prove its paths.
 
 The paths are GO N STEPS, `CALL algo.*`, the device BFS of FIND
-SHORTEST PATH, and GO and the BFS again on a snapshot with writes
-pending in its delta plane, each through the hand-written CUDA kernels.
+SHORTEST PATH, GO and the BFS again on a snapshot with writes pending in
+its delta plane, and concurrent GO statements batched into one run of
+the lane-widened kernels, each through the hand-written CUDA kernels.
 
 Run from the repository root on a machine with a CUDA card and nvcc:
 
@@ -104,9 +105,34 @@ Phases, in order; any failure exits non-zero before the result line:
           timed behind a spin kernel with its plain version and a
           library formulation (searchsorted + gather + cat), and its
           byte bound;
-  8. the `kernels` JSON line (the split GO path's, the algo path's, the
-     split BFS path's and the delta GO path's launches), the card line,
-     and the result line {"ok": true, "device": {...}} last.
+  8. multi-lane batched GO (bench.py `config batching`): concurrent
+     GpuRuntime.traverse calls from threads with the batch former on
+     (batch_max_lanes = the statement count, batch_wait_us = 300000, two
+     dummy live statements as company so that forming is deterministic);
+     each statement first runs solo (batching off), launch counters
+     zeroed just before the first solo run and read just after it, then
+     all run at once, counters zeroed just before and read just after:
+       a. 16 statements GO 1 STEP FROM one north-star seed each YIELD
+          dst(edge) on the split snapshot;
+       b. the main path: 8 statements GO 3 STEPS FROM 2 seeds each WHERE
+          KNOWS.w > 50 YIELD dst(edge), KNOWS.w on the split snapshot,
+          with max_memory_allocated above the pin;
+       c. 4 statements GO 3 STEPS FROM 4 seeds each WHERE KNOWS.w > 50 on
+          phase 7's delta-armed snapshot, its writes pending;
+     each must form ONE batch of all its statements (one device run),
+     launch the kernels exactly as often as one solo run (merge_delta
+     among them in c), and give every statement its solo run's rows in
+     order and its hop_edges; printed: dispatches per statement, the
+     batch's device_s against the sum of the solo device_s, wall time
+     per statement batched against sequential solo;
+       d. each lane-widened kernel against its plain version at (b)'s
+          lane shapes (merge_delta at (c)'s), exact, timed with CUDA
+          events, with its byte bound (each shared CSR, column and delta
+          array counted once);
+  9. the `kernels` JSON line (the split GO path's, the algo path's, the
+     split BFS path's, the delta GO path's and the batched path's
+     launches), the card line, and the result line
+     {"ok": true, "device": {...}} last.
 Without CUDA it prints no result and exits 2.
 """
 from __future__ import annotations
@@ -144,6 +170,12 @@ ROUTE_SOURCES = {
     "merge_delta": ("nebula_tpu_torch/csrc/delta.cu",
                     "nebula_tpu/tpu/hop.py:118"),
 }
+# the lane-widened kernels of phase 8 replace K10, the reference's lanes
+# program (a vmap of the hop program over a query-lane axis)
+LANES_REPLACES = "nebula_tpu/tpu/hop.py:619"
+for _k in ("expand", "mark", "extend_hubs", "predicate_mask",
+           "compact_capture", "merge_delta"):
+    ROUTE_SOURCES[_k + " (lanes)"] = (ROUTE_SOURCES[_k][0], LANES_REPLACES)
 # the algo path: each algorithm's parameters and its step kernel
 ALGO_RUNS = {"pagerank": ({"max_iter": 20, "tol": 0.0}, "pagerank_step"),
              "wcc": ({}, "wcc_step"),
@@ -157,7 +189,7 @@ BFS_KERNELS = ("expand", "mark", "bfs_probe", "bfs_level")
 BFS_STEPS = 5                    # bench.py config 5: rt.bfs(..., "out", 5)
 BFS_RUNS = 4                     # one cold run, then the timed warm runs
 DELTA_CAP = 8192                 # GpuRuntime(delta_max_edges=...), phase 7
-DELTA_REPEATS = 3                # phase 7's timed GO runs a query and state
+DELTA_REPEATS = 2                # phase 7's timed GO runs a query and state
 # phase 7's write batch: inserts (those from the seeds), deletes, and
 # overwrites of w (each a tombstone plus an insert)
 WRITES = {"insert": 24_000, "seed_insert": 1_000, "delete": 8_000,
@@ -165,6 +197,8 @@ WRITES = {"insert": 24_000, "seed_insert": 1_000, "delete": 8_000,
 DELTA_GO_KERNELS = ("expand", "merge_delta", "mark", "predicate_mask",
                     "compact_capture")
 DELTA_BFS_KERNELS = ("expand", "merge_delta", "mark", "bfs_level")
+BATCH_WAIT_US = 300_000          # phase 8's forming window
+BATCH_JOIN_S = 600               # every phase 8 thread joins within this
 
 
 T0 = time.perf_counter()
@@ -284,9 +318,11 @@ def bound(bytes_moved: float, ops: float, ops_per_s=INT32_OPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def run_go(rt, ns, repeats: int, label: str, K):
+def run_go(rt, ns, repeats: int, label: str, K, oracle):
     """Drive the GO path of `rt` (unfiltered and filtered), each query
-    checked against the oracle; returns (results, launches)."""
+    checked against the oracle (host_csr_traverse on ns.snap, computed
+    once a filter and kept in `oracle` for the next layout); returns
+    (results, launches)."""
     import numpy as np
     import torch
     from nebula_tpu_torch.bench.datagen import host_csr_traverse
@@ -303,8 +339,10 @@ def run_go(rt, ns, repeats: int, label: str, K):
                                    yields=ns.yields)
             lat.append(time.perf_counter() - t)
             dev_lat.append(st.device_s)
-        total, kept, want_d, want_w = host_csr_traverse(
-            ns.snap, ns.seeds, 3, w_gt=w_gt, materialize=True)
+        if w_gt not in oracle:             # both layouts share the graph
+            oracle[w_gt] = host_csr_traverse(ns.snap, ns.seeds, 3,
+                                             w_gt=w_gt, materialize=True)
+        total, kept, want_d, want_w = oracle[w_gt]
         if st.edges_traversed() != total or len(rows) != kept:
             raise AssertionError(f"{label} {flabel}: edges "
                                  f"{st.edges_traversed()} vs {total}, rows "
@@ -815,10 +853,211 @@ def time_bfs(rt, store, src: int):
     return float(np.median(lat[1:])) * 1e3, dist, st
 
 
+def add_company():
+    """Two dummy statements in the port's live registry: the batch
+    former's concurrency hint is then true whatever order phase 8's
+    threads arrive in (as tests/unit/test_batch.py:67-80 does)."""
+    from nebula_tpu_torch.utils.workload import live_registry
+    for qid in (-1, -2):
+        live_registry().register(qid=qid, session=0, user="chip_smoke",
+                                 stmt="company", kind="Go")
+
+
+def rows_equal(a, b) -> bool:
+    """Two ColumnarDataSets with the same columns, equal in order."""
+    import numpy as np
+    if a.column_names != b.column_names or len(a) != len(b):
+        return False
+    return all(np.array_equal(np.asarray(a.column_array(n)),
+                              np.asarray(b.column_array(n)))
+               for n in a.column_names)
+
+
+def run_batch(label, rt, store, seed_sets, steps, filt, yields, K):
+    """Phase 8's statements: each run solo (batching off; launch counters
+    zeroed before the first and read after it), then all at once from
+    threads with the former on, counters zeroed just before and read just
+    after.  Checks one batch of all of them, the batch's launches against
+    one solo run's, and every statement's rows (in order) and hop_edges
+    against its solo run.  Returns (results, the batch's launches)."""
+    import threading
+
+    import numpy as np
+    import torch
+    from nebula_tpu_torch.utils.config import get_config
+    from nebula_tpu_torch.utils.stats import stats
+    cfg = get_config()
+    n = len(seed_sets)
+
+    def go(seeds):
+        return rt.traverse(store, "ns", seeds, ["KNOWS"], "out", steps,
+                           edge_filter=filt, yields=yields)
+
+    cfg.set_dynamic_many({"batch_max_lanes": 0})
+    go(seed_sets[0])                          # warm-up
+    torch.cuda.synchronize()
+    solo, solo_wall = [], []
+    for i, seeds in enumerate(seed_sets):
+        if i == 0:
+            K.reset_launch_counts()
+        t = time.perf_counter()
+        solo.append(go(seeds))
+        solo_wall.append(time.perf_counter() - t)
+        if i == 0:
+            torch.cuda.synchronize()
+            solo_launches = K.launch_counts()
+
+    cfg.set_dynamic_many({"batch_max_lanes": n,
+                          "batch_wait_us": BATCH_WAIT_US})
+    out, errs = {}, {}
+    start = threading.Barrier(n + 1)
+
+    def member(i):
+        try:
+            start.wait()
+            t = time.perf_counter()
+            rows, st = go(seed_sets[i])
+            out[i] = (rows, st, time.perf_counter() - t)
+        except BaseException as ex:  # noqa: BLE001 — reported below
+            errs[i] = ex
+
+    threads = [threading.Thread(target=member, args=(i,), daemon=True)
+               for i in range(n)]
+    for th in threads:
+        th.start()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    s0 = stats().snapshot()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    start.wait()
+    deadline = t0 + BATCH_JOIN_S
+    for th in threads:
+        th.join(max(deadline - time.perf_counter(), 0.0))
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    s1 = stats().snapshot()
+    cfg.set_dynamic_many({"batch_max_lanes": 0})
+    if any(th.is_alive() for th in threads):
+        raise AssertionError(f"[{label}] a batched statement did not finish "
+                             f"in {BATCH_JOIN_S} s")
+    if errs:
+        raise AssertionError(f"[{label}] batched statements failed: {errs}")
+
+    def delta(k):
+        return s1.get(k, 0) - s0.get(k, 0)
+
+    if delta("tpu_batches_formed") != 1 or delta("tpu_kernel_runs") != 1 \
+            or delta("tpu_batch_lanes.count") != 1 \
+            or delta("tpu_batch_lanes.sum") != n:
+        raise AssertionError(
+            f"[{label}] {delta('tpu_batches_formed')} batches, "
+            f"{delta('tpu_kernel_runs')} device runs, "
+            f"{delta('tpu_batch_lanes.sum')} lanes for {n} statements")
+    used = {k: v for k, v in launches.items() if v}
+    if used != {k: v for k, v in solo_launches.items() if v}:
+        raise AssertionError(f"[{label}] batch launches {used} vs one solo "
+                             f"run's {solo_launches}")
+    for i in range(n):
+        rows, st, _ = out[i]
+        srows, sst = solo[i]
+        if not rows_equal(rows, srows):
+            raise AssertionError(f"[{label}] statement {i}: rows differ, in "
+                                 f"order, from its solo run")
+        if st.hop_edges != sst.hop_edges \
+                or st.frontier_sizes != sst.frontier_sizes:
+            raise AssertionError(f"[{label}] statement {i}: hop_edges "
+                                 f"{st.hop_edges} vs {sst.hop_edges}")
+    st_b = out[0][1]
+    res = {
+        "statements": n, "steps": steps,
+        "seeds_per_statement": len(seed_sets[0]),
+        "rows": [len(out[i][0]) for i in range(n)],
+        "dispatches_per_statement": delta("tpu_kernel_runs") / n,
+        "batch_device_s": st_b.device_s,
+        "solo_device_s_sum": float(sum(s.device_s for _, s in solo)),
+        "batch_e_cap": st_b.e_cap,
+        "solo_e_cap_max": [max(s.e_cap[h] for _, s in solo)
+                           for h in range(steps)],
+        "batched_wall_s": wall, "batched_wall_per_statement_s": wall / n,
+        "batched_latency_p50_s": float(np.median(
+            [out[i][2] for i in range(n)])),
+        "solo_wall_per_statement_s": float(np.mean(solo_wall)),
+        "solo_wall_sum_s": float(sum(solo_wall)),
+        "form_wait_s": float(np.median([out[i][1].queue_s
+                                        for i in range(n)])),
+        "batch_fetch_s": st_b.fetch_s,
+        "mat_s_p50": float(np.median([out[i][1].mat_s for i in range(n)])),
+        "max_memory_allocated_above_pin": peak - base,
+        "launches_per_batch": used}
+    log(f"[{label}] {json.dumps(res)}")
+    return res, launches
+
+
+def lane_frontiers(K, dev, lane_dense, steps: int, dl=None, extra=0):
+    """Phase 8d's inputs, from the plain versions: the (L, P, vmax + H)
+    frontier stacks entering each hop (hub columns filled) and each hop's
+    (L, P, W) slots but the last's.  With a delta plane (`dl`, its
+    tensors) each hop's slots are merged first."""
+    import torch
+    from nebula_tpu_torch.gpu.hop import new_frontier
+    blk = dev.blocks[("KNOWS", "out")]
+    P, vmax = dev.num_parts, dev.vmax
+    cap = max(len(d) for d in lane_dense)
+    pad = torch.full((len(lane_dense), cap), -1, dtype=torch.int32)
+    for i, d in enumerate(lane_dense):
+        pad[i, :len(d)] = torch.tensor(sorted(set(d)), dtype=torch.int32)
+    ids = pad.to(dev.device)
+    buf = new_frontier(dev, lanes=len(lane_dense))
+    K.mark_plain(ids, P, vmax, out=buf[..., :vmax])
+    bufs, dsts = [], []
+    for hop in range(steps):
+        if dev.num_hubs:
+            K.extend_hubs_plain(buf, dev.hub_owner, dev.hub_local, vmax)
+        bufs.append(buf)
+        if hop == steps - 1:
+            break
+        sl = K.expand_plain(blk.indptr, blk.nbr, blk.rank, buf,
+                            dev.hub_dense, extra)
+        if dl is not None:
+            K.merge_delta_plain(*sl, buf[..., :vmax], dl["d_src"],
+                                dl["d_dst"], dl["d_rank"], dl["d_valid"],
+                                dl["d_tomb"], blk.nbr.shape[1])
+        dsts.append(sl[1])
+        buf = new_frontier(dev, lanes=len(lane_dense))
+        K.mark_plain(sl[1], P, vmax, out=buf[..., :vmax])
+    return ids, bufs, dsts
+
+
+def compact_bytes(slots: int, valid: int, gathered: int, ncols: int,
+                  rows: int) -> int:
+    """compact_capture's byte bound (see compact_capture.cu): keep read
+    once a slot, src/dst/rank/eidx read for each valid slot (the sectors
+    of the kept ones cover them), every output written once — the padded
+    tails too — and each column's words gathered once; kcount written and
+    the extent read once a row."""
+    return (slots + 16 * valid + (16 + 8 * ncols) * slots
+            + 8 * ncols * gathered + 8 * rows)
+
+
+def distinct_edges(eidx, mask) -> int:
+    """Distinct (part, eidx) pairs among the slots `mask` selects of an
+    (L, P, W) eidx array: the edges whose columns a lane-widened kernel
+    must read at least once."""
+    import torch
+    P = eidx.shape[-2]
+    part = torch.arange(P, device=eidx.device).view(1, P, 1)
+    key = (eidx.long() * P + part)[mask]
+    return int(torch.unique(key).numel())
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--persons", type=int, default=1_000_000)
-    ap.add_argument("--repeats", type=int, default=10)
+    ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--split", type=int, default=2048,
                     help="degree-split threshold of path 3b (0 skips it)")
     ap.add_argument("--seed", type=int, default=1,
@@ -868,7 +1107,8 @@ def main(argv=None) -> int:
     log(f"[3a] unsplit: pinned {rt.hbm_bytes()} bytes in "
         f"{time.perf_counter() - t0:.2f} s")
     torch.cuda.reset_peak_memory_stats()
-    res_u, launches_u = run_go(rt, ns, args.repeats, "unsplit", K)
+    oracle = {}
+    res_u, launches_u = run_go(rt, ns, args.repeats, "unsplit", K, oracle)
     peak_u = torch.cuda.max_memory_allocated()
     for name in UNSPLIT_KERNELS:
         if launches_u[name] <= 0:
@@ -898,7 +1138,7 @@ def main(argv=None) -> int:
             f" pinned {rts.hbm_bytes()} bytes, hub ids "
             f"{dev_s.host.hub_dense[:8].tolist()}...")
         torch.cuda.reset_peak_memory_stats()
-        res_s, launches = run_go(rts, ns, args.repeats, "split", K)
+        res_s, launches = run_go(rts, ns, args.repeats, "split", K, oracle)
         peak_s = torch.cuda.max_memory_allocated()
         for name in SPLIT_KERNELS:
             if launches[name] <= 0:
@@ -1148,7 +1388,7 @@ def main(argv=None) -> int:
     for ycols in (cargs[5], [w, fcol, city, w]):
         for out, fn in ((got, K.compact_capture),
                         (want, K.compact_capture_plain)):
-            r = fn(*cargs[:5], ycols)
+            r = fn(*cargs[:5], ycols, extent=total)
             out.extend([*r[:4], *r[4], r[5]])
     n_kept = int(want[-1].sum())
 
@@ -1160,13 +1400,11 @@ def main(argv=None) -> int:
         return outs
 
     record("compact_capture", got, want,
-           cuda_ms(lambda: K.compact_capture(*cargs), reps),
-           cuda_ms(lambda: K.compact_capture_plain(*cargs), reps),
+           cuda_ms(lambda: K.compact_capture(*cargs, extent=total), reps),
+           cuda_ms(lambda: K.compact_capture_plain(*cargs, extent=total),
+                   reps),
            cuda_ms(lib_compact, reps),
-           # every slot's 17 bytes: at about half kept, each 32-byte sector
-           # holds a kept slot (see compact_capture.cu)
-           17 * P * EB3 + 8 * n_kept + (16 + 8) * P * EB3 + 4 * P,
-           2 * P * EB3)
+           compact_bytes(P * EB3, tot3, n_kept, 1, P), 2 * tot3)
 
     # -- 5. the algo plane --------------------------------------------------
     stamp("phase 5")
@@ -1543,13 +1781,217 @@ def main(argv=None) -> int:
            note=f" (delta GO hop 3: {n_valid} valid slots, {hits} "
                 f"tombstoned, {active} of {P * Dcap} delta rows active)")
 
-    # -- 8. result ---------------------------------------------------------
+    # -- 8. multi-lane batched GO (bench.py config batching) --------------
     stamp("phase 8")
+    from nebula_tpu_torch.gpu.hop import new_frontier as nf
+    add_company()
+    brt = rts if rts is not None else rt
+    blabel = "split" if rts is not None else "unsplit"
+    seeds = ns.seeds
+    dst_only = [(E.FunctionCall("dst", [E.EdgeExpr()]), "d")]
+    batch = {"snapshot": blabel}
+    batch["8a"], _ = run_batch(
+        "8a", brt, ns.store, [[x] for x in seeds], 1, None, dst_only, K)
+    batch["8b"], launches_b = run_batch(
+        "8b", brt, ns.store, [seeds[2 * i:2 * i + 2] for i in range(8)], 3,
+        ns.w_filter, ns.yields, K)
+    batch["8c"], launches_c = run_batch(
+        "8c", rtd, dstore, [seeds[4 * i:4 * i + 4] for i in range(4)], 3,
+        ns.w_filter, ns.yields, K)
+    for name in SPLIT_KERNELS if rts is not None else UNSPLIT_KERNELS:
+        if launches_b[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched in the "
+                                 f"batched main path")
+    if launches_c["merge_delta"] <= 0:
+        raise AssertionError("merge_delta never launched in the batched "
+                             "delta path")
+    lane_counts = {k + " (lanes)": v for k, v in launches_b.items()}
+    lane_counts["merge_delta (lanes)"] = launches_c["merge_delta"]
+
+    # 8d. each lane-widened kernel against its plain version at 8b's lane
+    # shapes (merge_delta at 8c's); inputs from the plain versions
+    stamp("phase 8d")
+    bdev = brt.snapshots["ns"]
+    lane8 = [seeds[2 * i:2 * i + 2] for i in range(8)]
+    ids8, bufs8, dsts8 = lane_frontiers(K, bdev, lane8, 3)
+    blk = bdev.blocks[("KNOWS", "out")]
+    P, vmax, H = bdev.num_parts, bdev.vmax, bdev.num_hubs
+    L = len(lane8)
+    R = L * P
+    emax = blk.nbr.shape[1]
+    lreps = 10
+    k10 = {}
+
+    def lrec(name, got, want, ms, plain_ms, lib_ms, nbytes, ops, note):
+        record(name + " (lanes)", got, want, ms, plain_ms, lib_ms, nbytes,
+               ops, counts=lane_counts, tag="[8d]", note=note)
+        k10[name] = k10.get(name, 0.0) + rows_out[-1]["bound_ms"]
+
+    # expand at each hop (timed, with its bound, at hop 3)
+    for hop, f in enumerate(bufs8, 1):
+        a = (blk.indptr, blk.nbr, blk.rank, f, bdev.hub_dense)
+        got, want = K.expand(*a), K.expand_plain(*a)
+        err = max_abs_err(got, want)
+        tot, EB = int(want[4].sum()), want[0].shape[-1]
+        union = int(K.expand_plain(blk.indptr, blk.nbr, blk.rank, f.any(0),
+                                   bdev.hub_dense)[4].sum())
+        nbytes = (P * (f.shape[-1] + 1) * 4 + R * f.shape[-1] + 8 * union
+                  + 16 * R * EB + 4 * R + 4 * H)
+        ops = R * f.shape[-1] * 3 + tot
+        if hop < 3:
+            b_ms, _ = bound(nbytes, ops)
+            k10["expand"] = k10.get("expand", 0.0) + b_ms
+            log(f"[8d] expand (lanes) hop {hop}: {R}x{EB} slots, {tot} "
+                f"valid ({union} distinct edges), equal (max abs err "
+                f"{err})")
+            continue
+        lrec("expand", got, want, cuda_ms(lambda a=a: K.expand(*a), lreps),
+             cuda_ms(lambda a=a: K.expand_plain(*a), lreps), None, nbytes,
+             ops, f" (hop 3: {L} lanes x {P} parts x {EB} slots, {tot} "
+                  f"valid, {union} distinct edges)")
+
+    # mark: the lane seed build (K6) and hop 2's slots
+    for hop, d in ((0, ids8), (2, dsts8[1])):
+        got = K.mark(d, P, vmax, out=nf(bdev, L)[..., :vmax])
+        want = K.mark_plain(d, P, vmax, out=nf(bdev, L)[..., :vmax])
+        n_ids = d.numel()
+        nbytes, ops = 4 * n_ids + R * (vmax + H), 3 * n_ids
+        if hop == 0:
+            b_ms, _ = bound(nbytes, ops)
+            k10["mark"] = k10.get("mark", 0.0) + b_ms
+            log(f"[8d] mark (lanes) seeds: {tuple(d.shape)} ids, equal "
+                f"(max abs err {max_abs_err([got], [want])})")
+            continue
+        dl_ = d.reshape(L, -1).long()
+        lane_i = torch.arange(L, device=d.device)[:, None].expand_as(dl_)
+        sel = dl_ >= 0
+        li, dv = lane_i[sel], dl_[sel]
+        one = torch.ones((), dtype=torch.bool, device=d.device)
+
+        def lib_mark(li=li, dv=dv):
+            out = torch.zeros((L, P, vmax), dtype=torch.bool,
+                              device=dv.device)
+            return out.index_put_((li, dv % P, dv // P), one)
+
+        lrec("mark", [got], [want],
+             cuda_ms(lambda d=d: K.mark(d, P, vmax,
+                                        out=nf(bdev, L)[..., :vmax]), lreps),
+             cuda_ms(lambda d=d: K.mark_plain(d, P, vmax,
+                                              out=nf(bdev, L)[..., :vmax]),
+                     lreps),
+             cuda_ms(lib_mark, lreps), nbytes, ops,
+             f" (hop 2: {n_ids} slots into {L} lanes, with the zero fill)")
+        # hop 1's mark, for the K10 bound
+        b_ms, _ = bound(4 * dsts8[0].numel() + R * (vmax + H),
+                        3 * dsts8[0].numel())
+        k10["mark"] += b_ms
+
+    # extend_hubs at each hop's frontier stack
+    if H:
+        got, want = [], []
+        for f in bufs8:
+            g, w_ = f.clone(), f.clone()
+            g[..., vmax:] = False
+            w_[..., vmax:] = False
+            got.append(K.extend_hubs(g, bdev.hub_owner, bdev.hub_local, vmax))
+            want.append(K.extend_hubs_plain(w_, bdev.hub_owner,
+                                            bdev.hub_local, vmax))
+        f3 = bufs8[2].clone()
+        hb = (H * L + R * H + 8 * H, R * H)
+        k10["extend_hubs"] = len(bufs8) * bound(*hb)[0]   # every hop
+        lrec("extend_hubs", got, want,
+             cuda_ms(lambda: K.extend_hubs(f3, bdev.hub_owner,
+                                           bdev.hub_local, vmax), reps),
+             cuda_ms(lambda: K.extend_hubs_plain(f3, bdev.hub_owner,
+                                                 bdev.hub_local, vmax),
+                     reps), None, *hb, f" ({L} lanes x {P} parts x {H} hubs)")
+
+    # predicate_mask and compact_capture at the filtered hop 3
+    a3 = (blk.indptr, blk.nbr, blk.rank, bufs8[2], bdev.hub_dense)
+    src, dst, rk, eidx, total = K.expand_plain(*a3)
+    EB3 = src.shape[-1]
+    tot3 = int(total.sum())
+    valid3 = torch.arange(EB3, device=src.device) < total[..., None]
+    union3 = distinct_edges(eidx, valid3)
+    prog, _ = X.compile_predicate(ns.w_filter, blk.prop_types, bdev.pool,
+                                  vid_to_dense=ns.store.space("ns").dense_id,
+                                  device=brt.device)
+    pa = (prog, src, dst, rk, eidx, total, [blk.props["w"]])
+    keep_k, keep_p = K.predicate_mask(*pa), K.predicate_mask_plain(*pa)
+    lrec("predicate_mask", [keep_k], [keep_p],
+         cuda_ms(lambda: K.predicate_mask(*pa), lreps),
+         cuda_ms(lambda: K.predicate_mask_plain(*pa), lreps), None,
+         4 * tot3 + 8 * union3 + R * EB3 + 4 * R, tot3 * len(prog.code),
+         f" (w > 50 at hop 3: {R}x{EB3} slots, {tot3} valid, {union3} "
+         f"distinct edges)")
+    ca = (src, dst, rk, eidx, keep_p, [blk.props["w"]])
+    ck = K.compact_capture(*ca, extent=total)
+    cp = K.compact_capture_plain(*ca, extent=total)
+    n_kept = int(keep_p.sum())
+    kept_union = distinct_edges(eidx, keep_p)
+    lrec("compact_capture", [*ck[:4], *ck[4], ck[5]],
+         [*cp[:4], *cp[4], cp[5]],
+         cuda_ms(lambda: K.compact_capture(*ca, extent=total), lreps),
+         cuda_ms(lambda: K.compact_capture_plain(*ca, extent=total), lreps),
+         None, compact_bytes(R * EB3, tot3, kept_union, 1, R), 2 * tot3,
+         f" (hop 3: {R}x{EB3} slots, {n_kept} kept, {kept_union} distinct "
+         f"edges gathered)")
+
+    # merge_delta at 8c's hop 3 (4 lanes on the delta-armed snapshot)
+    lane4 = [seeds[4 * i:4 * i + 4] for i in range(4)]
+    dblk = devd.blocks[("KNOWS", "out")]
+    dl = rtd._grab_delta(devd, [("KNOWS", "out")], {"w"})[1][0]
+    Dcap, Tcap = dl["d_src"].shape[1], dl["d_tomb"].shape[1]
+    _ids4, bufs4, _ = lane_frontiers(K, devd, lane4, 3, dl=dl, extra=Dcap)
+    f4 = bufs4[2][..., :devd.vmax]
+    base4 = K.expand_plain(dblk.indptr, dblk.nbr, dblk.rank, bufs4[2], None,
+                           Dcap)
+    dargs = (dl["d_src"], dl["d_dst"], dl["d_rank"], dl["d_valid"],
+             dl["d_tomb"], dblk.nbr.shape[1])
+    gs = [t.clone() for t in base4[:4]]
+    ws = [t.clone() for t in base4[:4]]
+    gv, gt = K.merge_delta(*gs, base4[4], f4, *dargs)
+    wv, wt = K.merge_delta_plain(*ws, base4[4], f4, *dargs)
+    L4, R4 = len(lane4), len(lane4) * devd.num_parts
+    EB4 = gs[0].shape[-1] - Dcap
+    n_valid = int((torch.arange(EB4, device=rtd.device)
+                   < base4[4][..., None]).sum())
+    hits = n_valid - int(wv[..., :EB4].sum())
+    active = int(wv[..., EB4:].sum())
+    probes = max(int(Tcap).bit_length(), 1)
+    dP = devd.num_parts
+    lrec("merge_delta", [gv, gt, *gs], [wv, wt, *ws],
+         cuda_ms_fresh(lambda: K.merge_delta(*gs, base4[4], f4, *dargs),
+                       noop, lreps),
+         cuda_ms_fresh(lambda: K.merge_delta_plain(*ws, base4[4], f4,
+                                                   *dargs), noop, lreps),
+         None,
+         4 * n_valid + R4 * EB4 + 4 * hits + dP * Dcap * 13
+         + R4 * Dcap * (17 + 1) + 4 * dP * Tcap + 8 * R4,
+         n_valid * probes + 4 * R4 * Dcap,
+         f" (8c hop 3: {L4} lanes x {dP} parts x ({EB4}+{Dcap}) slots, "
+         f"{n_valid} valid, {hits} tombstoned, {active} delta rows active)")
+    batch["k10"] = {
+        "device_loop_ms": batch["8b"]["batch_device_s"] * 1e3,
+        "solo_device_loops_ms": batch["8b"]["solo_device_s_sum"] * 1e3,
+        "launches_per_batch": sum(launches_b.values()),
+        # the sum of the lane-widened kernels' bounds at 8b's shapes: every
+        # expand, mark and extend_hubs of the loop, predicate and compact
+        # at hop 3 (merge_delta is 8c's, not in 8b's loop)
+        "bound_ms": sum(v for k, v in k10.items() if k != "merge_delta"),
+        "bound_parts_ms": k10}
+    log(f"[8] K10 lanes loop at 8b: {json.dumps(batch['k10'])}")
+    for qid in (-1, -2):
+        from nebula_tpu_torch.utils.workload import live_registry
+        live_registry().deregister(qid)
+
+    # -- 9. result ---------------------------------------------------------
+    stamp("phase 9")
     log(json.dumps({"go3": results, "expand_per_hop": per_hop,
                     "unsplit_launches": launches_u,
                     "unsplit_kernels": extra, "algo": algo, "bfs": bfs,
                     "bfs_launches": bfs_launches, "delta": delta,
-                    "delta_launches": launches_d,
+                    "delta_launches": launches_d, "batch": batch,
                     "hbm_bytes": rt.hbm_bytes() + (
                         rts.hbm_bytes() if rts is not None else 0)}))
     print(json.dumps({"kernels": rows_out}))

@@ -119,7 +119,7 @@ def pagerank_step(rank, esrc, starts, out_inv_e, dmask, vmask,
         cpart.data_ptr(), dsum.data_ptr(), new.data_ptr(),
         delta.data_ptr(), active.data_ptr(), GK._stream(rank)),
         "pagerank_step")
-    pagerank_step.launches += 1
+    GK._count(pagerank_step)
     return new, delta[0], active[0]
 
 
@@ -186,7 +186,7 @@ def wcc_step(label, active, esrc, edst):
         return wcc_step_plain(label, active, esrc, edst)
     GK._want(label, "label", _I64, (label.shape[0],), label.device)
     out = _relax_launch("nt_wcc_step", label, active, esrc, edst, None)
-    wcc_step.launches += 1
+    GK._count(wcc_step)
     return out
 
 
@@ -201,7 +201,7 @@ def sssp_step(dist, frontier, esrc, edst, w: Optional[torch.Tensor] = None):
         return sssp_step_plain(dist, frontier, esrc, edst, w)
     GK._want(dist, "dist", _F64, (dist.shape[0],), dist.device)
     out = _relax_launch("nt_sssp_step", dist, frontier, esrc, edst, w)
-    sssp_step.launches += 1
+    GK._count(sssp_step)
     return out
 
 

@@ -25,6 +25,15 @@
 //                   slot also gets dst = -1, so mark (mark.cu), which sets
 //                   every id >= 0, drops it without a keep mask.
 //
+// Query lanes (Queue B K10; the reference merges per lane inside its
+// vmapped hop, hop.py:478-497): the slots, total and fbm may carry a
+// leading lane axis, (L, P, W), (L, P) and (L, P, vmax), while the delta
+// plane's d_* tensors stay (P, ...) and are shared, never copied per
+// lane.  One launch covers every lane: lane l is blockIdx.y, and its
+// blocks run the solo body on its own slot, total and frontier rows (a
+// delta row's activity depends on that lane's frontier) against the
+// shared delta and tombstone rows.
+//
 // valid (P, W) bool is the merged slot mask: it is no longer a prefix
 // (tombstones punch holes, delta rows sit past EB), so predicate.cu and
 // compact_capture.cu take it instead of total.  total_out counts what the
@@ -54,6 +63,21 @@ merge_delta_kernel(const int* __restrict__ total,
                    int* __restrict__ rk, int* __restrict__ eidx,
                    uint8_t* __restrict__ valid, int* __restrict__ total_out) {
   const long long W = (long long)EB + Dcap;
+  {
+    // query lanes: lane blockIdx.y merges its own slots against its own
+    // frontier rows; the delta plane is shared.  The body is the solo
+    // kernel's
+    const size_t l = blockIdx.y;
+    total += l * P;
+    total_out += l * P;
+    fbm += l * P * fbm_ld;
+    const size_t lo = l * P * W;
+    src += lo;
+    dst += lo;
+    rk += lo;
+    eidx += lo;
+    valid += lo;
+  }
   if ((int)blockIdx.x < P) {
     const int p = blockIdx.x;
     int count = 0;
@@ -110,23 +134,27 @@ merge_delta_kernel(const int* __restrict__ total,
 
 }  // namespace
 
-// src/dst/rk/eidx and valid are (P, EB + Dcap), row-contiguous; fbm is a
-// (P, vmax) bitmap whose rows are fbm_ld bytes apart; d_src/d_dst/d_rank/
-// d_valid are (P, Dcap), d_tomb (P, Tcap).  total is read, total_out
-// written; they may not alias.
+// src/dst/rk/eidx and valid are (L * P, EB + Dcap), row-contiguous; fbm
+// is an (L * P, vmax) bitmap whose rows are fbm_ld bytes apart; total and
+// total_out (L * P,); d_src/d_dst/d_rank/d_valid are (P, Dcap), d_tomb
+// (P, Tcap), shared by the lanes.  total is read, total_out written;
+// they may not alias.  L = 1 for a solo call.
 extern "C" int nt_merge_delta(const int* total, const uint8_t* fbm,
                               long long fbm_ld, int vmax, const int* d_src,
                               const int* d_dst, const int* d_rank,
                               const uint8_t* d_valid, int Dcap,
-                              const int* d_tomb, int Tcap, int P, int EB,
-                              int emax, int* src, int* dst, int* rk,
+                              const int* d_tomb, int Tcap, int P, int L,
+                              int EB, int emax, int* src, int* dst, int* rk,
                               int* eidx, uint8_t* valid, int* total_out,
                               void* stream) {
-  if (P <= 0 || vmax <= 0 || Dcap < 0 || Tcap < 0 || EB < 0 || total == total_out)
+  if (P <= 0 || L <= 0 || vmax <= 0 || Dcap < 0 || Tcap < 0 || EB < 0 ||
+      total == total_out)
     return (int)cudaErrorInvalidValue;
+  if (L > 65535) return (int)cudaErrorInvalidValue;
   long long nb = ((long long)P * EB + kThreads - 1) / kThreads;
   if (nb > 132 * 16) nb = 132 * 16;
-  merge_delta_kernel<<<(int)(P + nb), kThreads, 0, (cudaStream_t)stream>>>(
+  merge_delta_kernel<<<dim3((unsigned)(P + nb), L), kThreads, 0,
+                       (cudaStream_t)stream>>>(
       total, fbm, fbm_ld, vmax, d_src, d_dst, d_rank, d_valid, Dcap, d_tomb,
       Tcap, P, EB, emax, src, dst, rk, eidx, valid, total_out);
   return (int)cudaGetLastError();

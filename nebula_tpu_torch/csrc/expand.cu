@@ -23,6 +23,18 @@
 //                   here and then filled by merge_delta (delta.cu), so its
 //                   base slots are never copied.
 //
+// Query lanes (Queue B K10, nebula_tpu/tpu/hop.py:619
+// build_traverse_fn_lanes, which vmaps the hop program over a leading
+// lane axis with the CSR shared): fbm may be an (L, P, vmax) stack of L
+// statements' frontiers.  Both entry points then run over its L * P rows
+// in ONE launch each: row q = l * P + p reads the CSR of part p = q % P
+// and frontier row q, and writes starts, total and slot row q, so lane l
+// of the outputs is exactly the solo expansion of its frontier (the
+// copy kernel takes the lane from blockIdx.y and runs the solo body on
+// that lane's rows).  The host's one read is max(total) over every
+// lane: the shared slot width.
+// L = 1 is the solo call, bit for bit.
+//
 // Degree-split snapshots (nebula_tpu/tpu/hop.py:104-110): a block then has
 // vmax_local + H rows per part, the last H being hub rows, and fbm is the
 // (P, vmax_local + H) bitmap with the hub bits filled in (hubs.cu).  A
@@ -42,13 +54,14 @@
 
 namespace {
 
+// q: a frontier row (lane * P + part); the CSR row is part q % P
 struct MaskedDegree {
   const int* __restrict__ indptr;
   const uint8_t* __restrict__ fbm;
-  int vmax;
-  __device__ int operator()(int p, int i) const {
-    if (!fbm[(size_t)p * vmax + i]) return 0;
-    const int* ip = indptr + (size_t)p * (vmax + 1) + i;
+  int vmax, P;
+  __device__ int operator()(int q, int i) const {
+    if (!fbm[(size_t)q * vmax + i]) return 0;
+    const int* ip = indptr + (size_t)(q % P) * (vmax + 1) + i;
     return ip[1] - ip[0];
   }
 };
@@ -56,8 +69,8 @@ struct MaskedDegree {
 struct WriteStart {
   int* __restrict__ starts;
   int vmax;
-  __device__ void operator()(int p, int i, int excl, int) const {
-    starts[(size_t)p * vmax + i] = excl;
+  __device__ void operator()(int q, int i, int excl, int) const {
+    starts[(size_t)q * vmax + i] = excl;
   }
 };
 
@@ -71,6 +84,19 @@ expand_rows_kernel(const int* __restrict__ indptr,
                    int emax, long long ld, int* __restrict__ src,
                    int* __restrict__ dst, int* __restrict__ rk,
                    int* __restrict__ eidx) {
+  // query lanes: lane blockIdx.y reads its own frontier and starts and
+  // writes its own slot rows; the CSR is shared.  The body is the solo
+  // kernel's, so a 1-lane launch compiles and runs as the solo one did
+  {
+    const size_t l = blockIdx.y;
+    fbm += l * P * vmax;
+    starts += l * P * vmax;
+    const size_t lo = l * P * ld;
+    src += lo;
+    dst += lo;
+    rk += lo;
+    eidx += lo;
+  }
   const int lane = threadIdx.x & 31;
   const long long warp =
       ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
@@ -113,15 +139,15 @@ expand_rows_kernel(const int* __restrict__ indptr,
 }
 
 __global__ void __launch_bounds__(256)
-expand_pad_kernel(const int* __restrict__ total, int P, long long ld,
-                  int* __restrict__ src, int* __restrict__ dst,
+expand_pad_kernel(const int* __restrict__ total, long long rows,
+                  long long ld, int* __restrict__ src, int* __restrict__ dst,
                   int* __restrict__ rk, int* __restrict__ eidx) {
-  const long long n = (long long)P * ld;
+  const long long n = rows * ld;
   const long long step = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < n; i += step) {
-    const int p = (int)(i / ld);
-    if (i % ld >= total[p]) {
+    const int q = (int)(i / ld);
+    if (i % ld >= total[q]) {
       src[i] = -1;
       dst[i] = -1;
       rk[i] = 0;
@@ -140,30 +166,37 @@ int grid_for(long long work_items, int per_block) {
 
 extern "C" int nt_scan_chunk() { return nt::kChunk; }
 
+// fbm, starts (L * P, vmax), total (L * P,); indptr (P, vmax + 1)
 extern "C" int nt_expand_scan(const int* indptr, const uint8_t* fbm, int P,
-                              int vmax, int* starts, int* total,
+                              int L, int vmax, int* starts, int* total,
                               int* chunk_sums, void* stream) {
-  nt::scan_apply(MaskedDegree{indptr, fbm, vmax}, WriteStart{starts, vmax},
-                 P, vmax, chunk_sums, total, (cudaStream_t)stream);
+  if (L < 1 || (long long)L * P > 65535) return (int)cudaErrorInvalidValue;
+  nt::scan_apply(MaskedDegree{indptr, fbm, vmax, P},
+                 WriteStart{starts, vmax}, L * P, vmax, chunk_sums, total,
+                 (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 
 // vmax: rows per part (vmax_local + H); vloc: local rows (vmax when the
-// snapshot is unsplit, and then hub_dense may be null); ld: the output
-// row stride, at least max(total).
+// snapshot is unsplit, and then hub_dense may be null); L: lanes (1 for
+// a solo call); ld: the output row stride, at least max(total); the
+// outputs are (L * P, ld).
 extern "C" int nt_expand_fill(const int* indptr, const int* nbr,
                               const int* rank, const uint8_t* fbm,
                               const int* starts, const int* total, int P,
-                              int vmax, int vloc, const int* hub_dense,
+                              int L, int vmax, int vloc, const int* hub_dense,
                               int emax, long long ld, int* src, int* dst,
                               int* rk, int* eidx, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (vloc < vmax && hub_dense == nullptr) return (int)cudaErrorInvalidValue;
+  if (L < 1) return (int)cudaErrorInvalidValue;
+  if (L > 65535) return (int)cudaErrorInvalidValue;
+  const long long rows = (long long)L * P;
   const long long groups = (long long)P * ((vmax + 31) / 32);
-  expand_rows_kernel<<<grid_for(groups, 8), 256, 0, s>>>(
+  expand_rows_kernel<<<dim3(grid_for(groups, 8), L), 256, 0, s>>>(
       indptr, nbr, rank, fbm, starts, P, vmax, vloc, hub_dense, emax, ld,
       src, dst, rk, eidx);
-  expand_pad_kernel<<<grid_for((long long)P * ld, 256), 256, 0, s>>>(
-      total, P, ld, src, dst, rk, eidx);
+  expand_pad_kernel<<<grid_for(rows * ld, 256), 256, 0, s>>>(
+      total, rows, ld, src, dst, rk, eidx);
   return (int)cudaGetLastError();
 }

@@ -13,7 +13,11 @@
 // a row stride), and this kernel fills the H tail columns in place: no
 // (P, vmax) copy is made per hop.
 //
-// One thread per (part, hub) pair.  Bound: bytes — H bits read (scattered,
+// Query lanes (Queue B K10): fbm may be an (L, P, vmax + H) stack, one
+// frontier buffer a lane; one launch fills every lane's hub columns from
+// that lane's own bits.
+//
+// One thread per (lane, part, hub).  Bound: bytes — H bits read (scattered,
 // one byte each), P * H bytes written, plus the two (H,) int32 tables; at
 // the north star's H of about a hundred it is launch-bound, a few
 // microseconds whatever its design.
@@ -24,24 +28,30 @@ namespace {
 
 __global__ void __launch_bounds__(256)
 extend_hubs_kernel(uint8_t* __restrict__ fbm, const int* __restrict__ owner,
-                   const int* __restrict__ local, int P, int vmax, int H) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= P * H) return;
-  const int p = t / H, h = t % H;
-  const int ld = vmax + H;
+                   const int* __restrict__ local, int P, int vmax, int H,
+                   long long n) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n) return;
+  const long long q = t / H;                 // lane * P + part
+  const int h = (int)(t % H);
+  const size_t ld = (size_t)vmax + H;
+  uint8_t* lane = fbm + (size_t)(q / P) * P * ld;
   // reads touch columns < vmax only, writes columns >= vmax: no race
-  fbm[(size_t)p * ld + vmax + h] =
-      fbm[(size_t)owner[h] * ld + local[h]] ? 1 : 0;
+  lane[(size_t)(q % P) * ld + vmax + h] =
+      lane[(size_t)owner[h] * ld + local[h]] ? 1 : 0;
 }
 
 }  // namespace
 
+// fbm: (L, P, vmax + H) contiguous (L = 1 for a solo call)
 extern "C" int nt_extend_hubs(uint8_t* fbm, const int* owner,
-                              const int* local, int P, int vmax, int H,
-                              void* stream) {
-  const int n = P * H;
+                              const int* local, int P, int L, int vmax,
+                              int H, void* stream) {
+  if (L < 1) return (int)cudaErrorInvalidValue;
+  const long long n = (long long)L * P * H;
   if (n > 0)
-    extend_hubs_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
-        fbm, owner, local, P, vmax, H);
+    extend_hubs_kernel<<<(int)((n + 255) / 256), 256, 0,
+                         (cudaStream_t)stream>>>(fbm, owner, local, P, vmax,
+                                                 H, n);
   return (int)cudaGetLastError();
 }

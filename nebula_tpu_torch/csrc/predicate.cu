@@ -20,6 +20,11 @@
 //     [p, k] instead (the reference concatenated the halves per hop,
 //     hop.py:494) — and writes
 //     keep = value & ~null of register 0 as one byte.
+// Query lanes (Queue B K10): the slot arrays may be (L, P, EB), total
+// (L, P) or valid (L, P, EB), one lane a statement; the columns stay
+// (P, emax) and shared.  Slot row q = l * P + p reads column row
+// p = q % P; one launch covers every lane.
+//
 // The program, its constants and the column pointers travel by value as
 // one __grid_constant__ kernel parameter; every thread of a warp runs the
 // same instruction, so their loads from it are broadcast.
@@ -115,15 +120,16 @@ predicate_kernel(const __grid_constant__ Program prog,
                  const int* __restrict__ src, const int* __restrict__ dst,
                  const int* __restrict__ rank, const int* __restrict__ eidx,
                  const int* __restrict__ total,
-                 const uint8_t* __restrict__ valid, int P, int EB,
+                 const uint8_t* __restrict__ valid, int P, int R, int EB,
                  int emax, int dcap, uint8_t* __restrict__ keep) {
-  const long long n = (long long)P * EB;
+  const long long n = (long long)R * EB;
   const long long step = (long long)gridDim.x * blockDim.x;
   for (long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        s < n; s += step) {
-    const int p = (int)(s / EB);
+    const int q = (int)(s / EB);               // lane * P + part
+    const int p = q % P;
     const int i = (int)(s % EB);
-    if ((valid != nullptr ? !valid[s] : i >= total[p]) ||
+    if ((valid != nullptr ? !valid[s] : i >= total[q]) ||
         prog.always_false) {
       keep[s] = 0;
       continue;
@@ -260,24 +266,27 @@ extern "C" int nt_predicate_sizes(int* out) {
 }
 
 // prog: a host Program image (gpu/kernels.py packs it); copied into the
-// launch's parameter space, so it may be freed when this returns.  Exactly
-// one of total (P,) and valid (P, EB) is non-null; dcap > 0 only with the
-// delta halves in prog.dcols.
+// launch's parameter space, so it may be freed when this returns.  The
+// slots are (L * P, EB); exactly one of total (L * P,) and valid
+// (L * P, EB) is non-null; dcap > 0 only with the delta halves in
+// prog.dcols.  L = 1 for a solo call.
 extern "C" int nt_predicate_mask(const void* prog, const int* src,
                                  const int* dst, const int* rank,
                                  const int* eidx, const int* total,
-                                 const uint8_t* valid, int P, int EB,
+                                 const uint8_t* valid, int P, int L, int EB,
                                  int emax, int dcap, uint8_t* keep,
                                  void* stream) {
   const Program& pr = *(const Program*)prog;
   if (pr.n_insns < 0 || pr.n_insns > kMaxInsns || pr.n_cols < 0 ||
-      pr.n_cols > kMaxCols || (total == nullptr) == (valid == nullptr))
+      pr.n_cols > kMaxCols || (total == nullptr) == (valid == nullptr) ||
+      P < 1 || L < 1)
     return (int)cudaErrorInvalidValue;
-  const long long n = (long long)P * EB;
+  const int R = L * P;
+  const long long n = (long long)R * EB;
   long long g = (n + 255) / 256;
   if (g > 132 * 16) g = 132 * 16;
   if (g > 0)
     predicate_kernel<<<(int)g, 256, 0, (cudaStream_t)stream>>>(
-        pr, src, dst, rank, eidx, total, valid, P, EB, emax, dcap, keep);
+        pr, src, dst, rank, eidx, total, valid, P, R, EB, emax, dcap, keep);
   return (int)cudaGetLastError();
 }

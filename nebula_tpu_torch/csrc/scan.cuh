@@ -18,6 +18,13 @@
 // The value of element i of part p is `F(p, i)`, evaluated in phases 1 and
 // 3; no per-element scratch array is written.  No atomics: positions come
 // from the scan alone, so the result is deterministic and order-stable.
+//
+// `compact_apply` is the variant for a 0/1 keep mask (compact_capture):
+// a row's elements at and past its `extent` are known to be 0 and are
+// never read, phase 3 scans only the chunks that hold a kept element and
+// hands each kept element its position (`op.kept`), and every position at
+// and past the row's total gets the padding (`op.pad`) in striped,
+// coalesced order — a chunk with nothing kept costs only that fill.
 #pragma once
 
 #include <cstdint>
@@ -34,16 +41,23 @@ constexpr int kChunk = kThreads * kItems;   // elements one block scans
 constexpr int kScanThreads = 1024;
 constexpr unsigned kFullMask = 0xffffffffu;
 
+// extent: per row, the elements at and past it are 0 (nullptr: none).
 template <class F>
 __global__ void __launch_bounds__(kThreads)
-chunk_sums_kernel(F f, int n, int nchunks, int* __restrict__ sums) {
+chunk_sums_kernel(F f, int n, int nchunks, const int* __restrict__ extent,
+                  int* __restrict__ sums) {
   const int c = blockIdx.x, p = blockIdx.y;
   const int base = c * kChunk;
+  const int lim = extent ? min(n, extent[p]) : n;
+  if (base >= lim) {                  // uniform over the block
+    if (threadIdx.x == 0) sums[(size_t)p * nchunks + c] = 0;
+    return;
+  }
   int acc = 0;
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
     const int i = base + k * kThreads + threadIdx.x;
-    if (i < n) acc += f(p, i);
+    if (i < lim) acc += f(p, i);
   }
   using Reduce = cub::BlockReduce<int, kThreads>;
   __shared__ typename Reduce::TempStorage tmp;
@@ -104,6 +118,63 @@ chunk_apply_kernel(F f, Op op, int n, int nchunks,
   }
 }
 
+// Phase 3 of compact_apply: offsets are the exclusive chunk offsets of
+// phase 2, total each row's kept count.
+template <class F, class Op>
+__global__ void __launch_bounds__(kThreads)
+chunk_compact_kernel(F f, Op op, int n, int nchunks,
+                     const int* __restrict__ extent,
+                     const int* __restrict__ offsets,
+                     const int* __restrict__ total) {
+  const int c = blockIdx.x, p = blockIdx.y;
+  const int start = c * kChunk, end = min(n, start + kChunk);
+  const int kc = total[p];
+  const int off = offsets[(size_t)p * nchunks + c];
+  const int next = c + 1 < nchunks ? offsets[(size_t)p * nchunks + c + 1]
+                                   : kc;
+  if (next > off) {                   // uniform: the chunk keeps something
+    const int lim = extent ? min(n, extent[p]) : n;
+    const int base = start + threadIdx.x * kItems;
+    int val[kItems], pre[kItems];
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const int i = base + k;
+      val[k] = i < lim ? f(p, i) : 0;
+    }
+    using Scan = cub::BlockScan<int, kThreads>;
+    __shared__ typename Scan::TempStorage tmp;
+    Scan(tmp).ExclusiveSum(val, pre);
+#pragma unroll
+    for (int k = 0; k < kItems; ++k)
+      if (val[k]) op.kept(p, base + k, off + pre[k]);
+  }
+  for (int i = max(start, kc) + threadIdx.x; i < end; i += kThreads)
+    op.pad(p, i);
+}
+
+template <class F>
+void scan_sums(F f, int P, int n, int nchunks, const int* extent,
+               int* chunk_sums, int* total, cudaStream_t stream) {
+  if (nchunks > 0)
+    chunk_sums_kernel<<<dim3(nchunks, P), kThreads, 0, stream>>>(
+        f, n, nchunks, extent, chunk_sums);
+  chunk_offsets_kernel<<<P, kScanThreads, 0, stream>>>(nchunks, chunk_sums,
+                                                       total);
+}
+
+// The compaction variant (see the top of the file) over P rows of n
+// 0/1 elements; extent: P ints or nullptr.
+template <class F, class Op>
+void compact_apply(F f, Op op, int P, int n, const int* extent,
+                   int* chunk_sums, int* total, cudaStream_t stream) {
+  if (P <= 0) return;
+  const int nchunks = (n + kChunk - 1) / kChunk;
+  scan_sums(f, P, n, nchunks, extent, chunk_sums, total, stream);
+  if (nchunks > 0)
+    chunk_compact_kernel<<<dim3(nchunks, P), kThreads, 0, stream>>>(
+        f, op, n, nchunks, extent, chunk_sums, total);
+}
+
 // Runs the three phases over P rows of n elements on `stream`.
 // chunk_sums: scratch of P * ceil(n / kChunk) ints; total: P ints.
 template <class F, class Op>
@@ -111,11 +182,7 @@ void scan_apply(F f, Op op, int P, int n, int* chunk_sums, int* total,
                 cudaStream_t stream) {
   if (P <= 0) return;
   const int nchunks = (n + kChunk - 1) / kChunk;
-  if (nchunks > 0)
-    chunk_sums_kernel<<<dim3(nchunks, P), kThreads, 0, stream>>>(
-        f, n, nchunks, chunk_sums);
-  chunk_offsets_kernel<<<P, kScanThreads, 0, stream>>>(nchunks, chunk_sums,
-                                                       total);
+  scan_sums(f, P, n, nchunks, nullptr, chunk_sums, total, stream);
   if (nchunks > 0)
     chunk_apply_kernel<<<dim3(nchunks, P), kThreads, 0, stream>>>(
         f, op, n, nchunks, chunk_sums);

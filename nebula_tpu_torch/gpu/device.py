@@ -88,6 +88,9 @@ class DeviceSnapshot:
     hub_local: Optional[torch.Tensor] = None
     # the delta plane; None = off for this pin
     delta: Optional[DeviceDelta] = None
+    # set when a pin replaces (or unpin drops) this snapshot: a dispatch
+    # that finds it under the runtime's read gate raises GpuUnavailable
+    retired: bool = False
 
     @property
     def num_hubs(self) -> int:

@@ -25,7 +25,19 @@ configuration; here it is a host loop over the hand-written kernels of
                        valid slots, gathering its columns at eidx itself
                        (a delta slot's from the column's delta half), then
                        compact_capture (K3 + K5) moves the kept slots and
-                       their YIELD columns to the front of each part's row.
+                       their YIELD columns to the front of each part's row
+                       (reading keep only below each row's valid total).
+
+Query lanes (Queue B K10, nebula_tpu/tpu/hop.py:619
+`build_traverse_fn_lanes`, the reference's hop program vmapped over a
+leading lane axis with the CSR shared): `run_hops` also takes an (L, P,
+vmax + H) stack of L statements' frontiers (`new_frontier(dev, lanes=L)`)
+and runs the same loop once for all of them — each kernel launch covers
+every lane, the CSR, prop and delta tensors are shared, and each lane's
+results are those of its solo run.  expand's one read per hop and block
+is then the max slot count over every lane: the lanes share the slot
+width.  The delta merge runs per lane (a delta row's activity depends on
+that lane's frontier) inside merge_delta's one launch.
 
 As in the reference, the predicate applies to the final hop only (GO's
 WHERE filters the edges it yields), hop_edges counts the pre-filter
@@ -46,20 +58,23 @@ from .kernels import compact_capture, expand, extend_hubs, mark, \
     merge_delta, predicate_mask
 
 
-def new_frontier(dev: DeviceSnapshot) -> torch.Tensor:
-    """A zero (P, vmax + H) frontier buffer; its first vmax columns are
-    the (P, vmax) ownership bitmap that mark writes."""
-    return torch.zeros((dev.num_parts, dev.vmax + dev.num_hubs),
+def new_frontier(dev: DeviceSnapshot,
+                 lanes: Optional[int] = None) -> torch.Tensor:
+    """A zero (P, vmax + H) frontier buffer — or an (L, P, vmax + H)
+    stack of L lanes' buffers; the first vmax columns of each are the
+    (P, vmax) ownership bitmap that mark writes."""
+    lead = () if lanes is None else (int(lanes),)
+    return torch.zeros(lead + (dev.num_parts, dev.vmax + dev.num_hubs),
                        dtype=torch.bool, device=dev.device)
 
 
 def expand_merged(b: DeviceBlock, fbm: torch.Tensor, hub_dense=None,
                   dl: Optional[Dict[str, Any]] = None):
-    """expand (K1) one block from the frontier buffer, then, when the
-    block has a delta plane `dl` (its d_* tensors), merge_delta (K9).
-    Returns (src, dst, rank, eidx, valid, total): valid is the merged
-    (P, EB + Dcap) mask, or None when the valid slots are each row's
-    prefix below total."""
+    """expand (K1) one block from the frontier buffer (or lane stack),
+    then, when the block has a delta plane `dl` (its d_* tensors),
+    merge_delta (K9).  Returns (src, dst, rank, eidx, valid, total):
+    valid is the merged (P, EB + Dcap) mask (with the lane axis), or
+    None when the valid slots are each row's prefix below total."""
     dcap = 0 if dl is None else dl["d_src"].shape[1]
     src, dst, rk, eidx, total = expand(b.indptr, b.nbr, b.rank, fbm,
                                        hub_dense, extra=dcap)
@@ -79,19 +94,23 @@ def run_hops(dev: DeviceSnapshot, blocks: Sequence[DeviceBlock],
              deltas: Optional[Sequence[Optional[Dict[str, Any]]]] = None
              ) -> Dict[str, Any]:
     """Run a `steps`-hop GO from the seed frontier buffer (`new_frontier`
-    with the seeds marked into its first vmax columns).  `deltas`: per
+    with the seeds marked into its first vmax columns), or from an (L,
+    P, vmax + H) lane stack of L statements' seed buffers.  `deltas`: per
     block, its delta plane's tensors (d_src, d_dst, d_rank, d_valid,
     d_tomb and d_props {name: (P, Dcap)}) or None.
 
-    Returns, all on the device:
+    Returns, all on the device (every per-statement leaf with a leading
+    L when the frontier has lanes):
       hop_edges (P, steps) int32: pre-filter expansion size per hop/part
       frontier_sizes (P, steps) int32: popcount entering each hop
-      e_cap: per-hop slot width (max over blocks of max(total)) — ints
+      e_cap: per-hop slot width (max over blocks, and lanes, of
+        max(total)) — ints
       cap (if capture): one dict per block of (P, EB) arrays src, dst,
         rank, eidx, prop:<name> per yield col (kept slots compacted to a
         prefix: base slots, then delta slots) and kcount (P,) int32
     """
     P, vmax, H = dev.num_parts, dev.vmax, dev.num_hubs
+    lead = tuple(frontier.shape[:-1])         # (P,) or (L, P)
     deltas = list(deltas) if deltas is not None else [None] * len(blocks)
     fbm = frontier
     hop_edges: List[torch.Tensor] = []
@@ -99,30 +118,30 @@ def run_hops(dev: DeviceSnapshot, blocks: Sequence[DeviceBlock],
     e_cap: List[int] = []
     caps: List[Dict[str, torch.Tensor]] = []
     for hop in range(steps):
-        frontier_sizes.append(fbm[:, :vmax].sum(1, dtype=torch.int32))
+        frontier_sizes.append(fbm[..., :vmax].sum(-1, dtype=torch.int32))
         if H:
             extend_hubs(fbm, dev.hub_owner, dev.hub_local, vmax)
         last = hop == steps - 1
         nxt = None if last else torch.zeros_like(fbm)
-        edges = torch.zeros((P,), dtype=torch.int32, device=fbm.device)
+        edges = torch.zeros(lead, dtype=torch.int32, device=fbm.device)
         width = 0
         for b, dl in zip(blocks, deltas):
             src, dst, rk, eidx, valid, total = expand_merged(
                 b, fbm, dev.hub_dense, dl)
             edges += total
-            width = max(width, src.shape[1])
+            width = max(width, src.shape[-1])
             if not last:
                 # no predicate before the final hop: every valid slot is
                 # kept, and the invalid ones — expand's padding, the
                 # merge's tombstoned and inactive slots — have dst = -1
-                mark(dst, P, vmax, out=nxt[:, :vmax])
+                mark(dst, P, vmax, out=nxt[..., :vmax])
                 continue
             if not capture:
                 continue
             if pred is None:
                 keep = valid if valid is not None else (
-                    torch.arange(src.shape[1], dtype=torch.int32,
-                                 device=fbm.device) < total[:, None])
+                    torch.arange(src.shape[-1], dtype=torch.int32,
+                                 device=fbm.device) < total[..., None])
             else:
                 keep = predicate_mask(
                     pred, src, dst, rk, eidx,
@@ -133,7 +152,8 @@ def run_hops(dev: DeviceSnapshot, blocks: Sequence[DeviceBlock],
             cs, cd, cr, ce, props, kc = compact_capture(
                 src, dst, rk, eidx, keep, [b.props[n] for n in yield_cols],
                 None if dl is None
-                else [dl["d_props"][n] for n in yield_cols])
+                else [dl["d_props"][n] for n in yield_cols],
+                extent=total if valid is None else None)
             cap = {"src": cs, "dst": cd, "rank": cr, "eidx": ce,
                    "kcount": kc}
             cap.update({"prop:" + n: c for n, c in zip(yield_cols, props)})
@@ -142,8 +162,8 @@ def run_hops(dev: DeviceSnapshot, blocks: Sequence[DeviceBlock],
         e_cap.append(width)
         fbm = nxt
     res: Dict[str, Any] = {
-        "hop_edges": torch.stack(hop_edges, 1),
-        "frontier_sizes": torch.stack(frontier_sizes, 1),
+        "hop_edges": torch.stack(hop_edges, -1),
+        "frontier_sizes": torch.stack(frontier_sizes, -1),
         "e_cap": e_cap,
     }
     if capture:

@@ -40,6 +40,11 @@ predicate_mask and adds two, both in bfs.cu:
 The algo plane's three (pagerank.cu, relax.cu) are built into the same
 library; their wrappers live in `algo/kernels.py`.
 
+Query lanes (K10, nebula_tpu/tpu/hop.py:619 `build_traverse_fn_lanes`):
+every GO-path wrapper also takes its per-statement tensors with a
+leading lane axis, (L, P, ...), and runs all L lanes in the same one
+launch (see the "query lanes" section below).
+
 Each has a plain PyTorch version here (`*_plain`) with the same outputs,
 and a wrapper that runs the plain version only for CPU tensors; for CUDA
 tensors it launches the kernel or raises.  Each wrapper counts its
@@ -56,10 +61,12 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import List, Sequence, Tuple
@@ -81,6 +88,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _I32 = torch.int32
 _lib_cache: dict = {}
+_lib_lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 class KernelError(RuntimeError):
@@ -154,26 +163,36 @@ def build() -> Tuple[Path, float, str]:
 
 def _lib() -> ctypes.CDLL:
     """The loaded kernel library, built at the first call of a process
-    (the sources do not change while it runs)."""
+    (the sources do not change while it runs).  Threads that launch at
+    once wait for the one build."""
     lib = _lib_cache.get("lib")
     if lib is not None:
         return lib
+    with _lib_lock:
+        lib = _lib_cache.get("lib")
+        if lib is None:
+            lib = _load()
+            _lib_cache["lib"] = lib
+    return lib
+
+
+def _load() -> ctypes.CDLL:
     path, _, _ = build()
     lib = ctypes.CDLL(str(path))
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.nt_scan_chunk.argtypes, lib.nt_scan_chunk.restype = [], I
-    lib.nt_expand_scan.argtypes = [P, P, I, I, P, P, P, P]
-    lib.nt_expand_fill.argtypes = [P, P, P, P, P, P, I, I, I, P, I, LL,
+    lib.nt_expand_scan.argtypes = [P, P, I, I, I, P, P, P, P]
+    lib.nt_expand_fill.argtypes = [P, P, P, P, P, P, I, I, I, I, P, I, LL,
                                    P, P, P, P, P]
-    lib.nt_mark.argtypes = [P, P, LL, I, I, LL, P, P]
-    lib.nt_extend_hubs.argtypes = [P, P, P, I, I, I, P]
+    lib.nt_mark.argtypes = [P, P, LL, I, I, LL, LL, P, P]
+    lib.nt_extend_hubs.argtypes = [P, P, P, I, I, I, I, P]
     lib.nt_predicate_sizes.argtypes = [P]
-    lib.nt_predicate_mask.argtypes = [P] * 7 + [I] * 4 + [P, P]
-    lib.nt_compact_capture.argtypes = ([P] * 5 + [I] * 4 + [P] * 4 + [I]
+    lib.nt_predicate_mask.argtypes = [P] * 7 + [I] * 5 + [P, P]
+    lib.nt_compact_capture.argtypes = ([P] * 6 + [I] * 5 + [P] * 4 + [I]
                                        + [P] * 4 + [P] * 4 + [P] * 4
                                        + [P, P, P])
     lib.nt_merge_delta.argtypes = ([P, P, LL, I] + [P] * 4 + [I, P]
-                                   + [I] * 4 + [P] * 7)
+                                   + [I] * 5 + [P] * 7)
     lib.nt_bfs_probe.argtypes = [P] * 4 + [I] * 3 + [P, LL, P, LL, P]
     lib.nt_bfs_level.argtypes = [P, LL, P, I, I, I, P, LL, P, LL, P, P]
     D = ctypes.c_double
@@ -195,7 +214,6 @@ def _lib() -> ctypes.CDLL:
     if tuple(sizes) != want:
         raise KernelError(f"predicate kernel sizes {tuple(sizes)} differ "
                           f"from the lowering's {want}")
-    _lib_cache["lib"] = lib
     return lib
 
 
@@ -222,12 +240,17 @@ def _want(t: torch.Tensor, name: str, dtype, shape, device) -> None:
 
 def _bitmap_view(t, name: str, shape, device) -> None:
     """A (P, vmax) bool bitmap, or the first vmax columns of a wider one:
-    rows contiguous, any row stride."""
+    rows contiguous, any row stride.  An (L, P, vmax) stack of lanes'
+    bitmaps must have its rows uniformly strided across the lanes (the
+    first vmax columns of a contiguous (L, P, vmax + H) buffer)."""
     if t.device != device or t.dtype != torch.bool \
             or tuple(t.shape) != tuple(shape) \
-            or (t.numel() and t.stride(1) != 1):
+            or (t.numel() and t.stride(-1) != 1) \
+            or (t.dim() == 3 and t.numel()
+                and t.stride(0) != t.shape[1] * t.stride(1)):
         raise ValueError(f"{name} must be a {tuple(shape)} bool bitmap on "
-                         f"{device} with contiguous rows")
+                         f"{device} with contiguous rows (uniformly "
+                         f"strided across lanes)")
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -246,13 +269,59 @@ def _wrappers():
     return _own_wrappers() + (AK.pagerank_step, AK.wcc_step, AK.sssp_step)
 
 
+def _count(fn) -> None:
+    """Add one to a wrapper's launch count (wrappers launch from several
+    threads when batched statements run beside solo ones)."""
+    with _count_lock:
+        fn.launches += 1
+
+
 def reset_launch_counts() -> None:
-    for fn in _wrappers():
-        fn.launches = 0
+    with _count_lock:
+        for fn in _wrappers():
+            fn.launches = 0
 
 
 def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in _wrappers()}
+    with _count_lock:
+        return {fn.__name__: fn.launches for fn in _wrappers()}
+
+
+# ---------------------------------------------------------------------------
+# query lanes (K10)
+# ---------------------------------------------------------------------------
+#
+# Every wrapper of the GO path takes its per-statement tensors with an
+# optional leading lane axis: (L, P, ...) where the solo layout is (P,
+# ...), one lane a statement of a batch (nebula_tpu/tpu/hop.py:619,
+# `build_traverse_fn_lanes`, vmaps the hop over such an axis with the CSR
+# shared).  The CSR, prop and delta tensors stay (P, ...) and shared.
+# Each kernel then runs over the L * P rows in one launch: row q = l * P
+# + p reads CSR row p = q % P.  A lane's result is the solo call's on its
+# slice; L = 1 gives the solo results bit for bit.
+
+
+def _lead(t, solo_ndim: int) -> Tuple[int, ...]:
+    """The leading (P,) or (L, P) dims of a tensor whose solo layout has
+    `solo_ndim` dims, the first of them P."""
+    if t.dim() == solo_ndim:
+        return tuple(t.shape[:1])
+    if t.dim() == solo_ndim + 1:
+        return tuple(t.shape[:2])
+    raise ValueError(f"expected {solo_ndim} dims, or one more for a lane "
+                     f"axis; got shape {tuple(t.shape)}")
+
+
+def _rows(t, lead, view: bool = False) -> torch.Tensor:
+    """t with its leading `lead` dims flattened into one row axis (a view
+    when `view`, for the in-place writes)."""
+    shape = (math.prod(lead), t.shape[-1])
+    return t.view(shape) if view else t.reshape(shape)
+
+
+def _part_of_row(n_rows: int, P: int, device) -> torch.Tensor:
+    """(n_rows,) int64: the part (CSR row) of each flattened lane row."""
+    return torch.arange(n_rows, device=device) % P
 
 
 # ---------------------------------------------------------------------------
@@ -266,71 +335,87 @@ def expand_plain(indptr, nbr, rank, fbm, hub_dense=None, extra: int = 0):
     part p is edge eidx of row `row`, where row is the frontier row
     whose degree range holds j; slots past total[p] are padding (-1, -1,
     0, 0).  With hub_dense (H,) the last H of fbm's rows are hub rows
-    and their slots' src is hub_dense[row - (rows - H)]."""
-    P, nrows = fbm.shape
+    and their slots' src is hub_dense[row - (rows - H)].  With a lane
+    axis, fbm (L, P, rows) gives (L, P, EB + extra) slots and (L, P)
+    totals, EB the max over every lane."""
+    P = indptr.shape[0]
+    lead = _lead(fbm, 2)
+    nrows = fbm.shape[-1]
+    f = _rows(fbm, lead)
+    R = f.shape[0]
     H = 0 if hub_dense is None else int(hub_dense.numel())
-    deg = torch.where(fbm, indptr[:, 1:] - indptr[:, :-1], 0).to(_I32)
+    dev = fbm.device
+    pq = _part_of_row(R, P, dev)
+    deg = torch.where(f, (indptr[:, 1:] - indptr[:, :-1])[pq], 0).to(_I32)
     ends = torch.cumsum(deg, 1, dtype=_I32)
     total = ends[:, -1].contiguous()
     starts = ends - deg
-    EB = (int(total.max()) if P else 0) + int(extra)
-    dev = fbm.device
-    j = torch.arange(EB, dtype=_I32, device=dev).expand(P, EB).contiguous()
+    EB = (int(total.max()) if R else 0) + int(extra)
+    j = torch.arange(EB, dtype=_I32, device=dev).expand(R, EB).contiguous()
     valid = j < total[:, None]
     row = torch.searchsorted(ends, j, right=True)
     row = torch.where(valid, row, 0)
-    eidx = torch.gather(indptr, 1, row) + (j - torch.gather(starts, 1, row))
+    rq = pq[:, None]
+    eidx = indptr[rq, row] + (j - torch.gather(starts, 1, row))
     eidx = torch.where(valid, eidx, 0).to(_I32)
     el = eidx.long()
-    dst = torch.where(valid, torch.gather(nbr, 1, el), -1).to(_I32)
-    rk = torch.where(valid, torch.gather(rank, 1, el), 0).to(_I32)
-    pid = torch.arange(P, dtype=torch.int64, device=dev)[:, None]
-    sid = row * P + pid
+    dst = torch.where(valid, nbr[rq, el], -1).to(_I32)
+    rk = torch.where(valid, rank[rq, el], 0).to(_I32)
+    sid = row * P + rq
     if H:
         vloc = nrows - H
         hub = hub_dense.long()[(row - vloc).clamp(0, H - 1)]
         sid = torch.where(row < vloc, sid, hub)
     src = torch.where(valid, sid, -1).to(_I32)
-    return src, dst, rk, eidx, total
+    return (*(t.reshape(lead + (EB,)) for t in (src, dst, rk, eidx)),
+            total.reshape(lead))
 
 
 def expand(indptr, nbr, rank, fbm, hub_dense=None, extra: int = 0):
-    """Expand one block's CSR from the (P, rows) bool frontier bitmap.
+    """Expand one block's CSR from the (P, rows) bool frontier bitmap, or
+    from an (L, P, rows) stack of L lanes' bitmaps in the same launch.
     Returns (src, dst, rank, eidx, total) as `expand_plain` does.  An
     unsplit block has rows = vmax; a degree-split one rows = vmax + H,
     with its (H,) int32 hub ids in hub_dense.  `extra` padding columns
-    follow the EB slot columns: room for `merge_delta`'s delta rows."""
+    follow the EB slot columns: room for `merge_delta`'s delta rows.  The
+    one device-to-host read is max(total) over every lane and part."""
     if fbm.device.type == "cpu":
         return expand_plain(indptr, nbr, rank, fbm, hub_dense, extra)
-    P, nrows = fbm.shape
+    P = indptr.shape[0]
+    lead = _lead(fbm, 2)
+    if lead[-1] != P:
+        raise ValueError(f"fbm has {lead[-1]} parts, the CSR {P}")
+    L = lead[0] if len(lead) == 2 else 1
+    nrows = fbm.shape[-1]
     emax = nbr.shape[1]
     dev = fbm.device
     H = 0 if hub_dense is None else int(hub_dense.numel())
-    _want(fbm, "fbm", torch.bool, (P, nrows), dev)
+    _want(fbm, "fbm", torch.bool, lead + (nrows,), dev)
     _want(indptr, "indptr", _I32, (P, nrows + 1), dev)
     _want(nbr, "nbr", _I32, (P, emax), dev)
     _want(rank, "rank", _I32, (P, emax), dev)
     if H:
         _want(hub_dense, "hub_dense", _I32, (H,), dev)
     lib = _lib()
-    starts = torch.empty((P, nrows), dtype=_I32, device=dev)
-    total = torch.empty((P,), dtype=_I32, device=dev)
-    sums = torch.empty((P, max(_cdiv(nrows, lib.nt_scan_chunk()), 1)),
+    starts = torch.empty(lead + (nrows,), dtype=_I32, device=dev)
+    total = torch.empty(lead, dtype=_I32, device=dev)
+    sums = torch.empty((L * P, max(_cdiv(nrows, lib.nt_scan_chunk()), 1)),
                        dtype=_I32, device=dev)
     stream = _stream(fbm)
-    _check(lib.nt_expand_scan(indptr.data_ptr(), fbm.data_ptr(), P, nrows,
-                              starts.data_ptr(), total.data_ptr(),
+    _check(lib.nt_expand_scan(indptr.data_ptr(), fbm.data_ptr(), P, L,
+                              nrows, starts.data_ptr(), total.data_ptr(),
                               sums.data_ptr(), stream), "expand scan")
     EB = int(total.max()) if P else 0        # the one read per hop
     W = EB + int(extra)
-    outs = [torch.empty((P, W), dtype=_I32, device=dev) for _ in range(4)]
+    outs = [torch.empty(lead + (W,), dtype=_I32, device=dev)
+            for _ in range(4)]
     if W:
         _check(lib.nt_expand_fill(
             indptr.data_ptr(), nbr.data_ptr(), rank.data_ptr(),
-            fbm.data_ptr(), starts.data_ptr(), total.data_ptr(), P, nrows,
+            fbm.data_ptr(), starts.data_ptr(), total.data_ptr(), P, L, nrows,
             nrows - H, hub_dense.data_ptr() if H else None, emax, W,
             *[o.data_ptr() for o in outs], stream), "expand fill")
-    expand.launches += 1
+    _count(expand)
     return (*outs, total)
 
 
@@ -339,32 +424,52 @@ def expand(indptr, nbr, rank, fbm, hub_dense=None, extra: int = 0):
 # ---------------------------------------------------------------------------
 
 
+def _mark_lanes(ids, out) -> int:
+    """L when `out` is an (L, P, vmax) lane stack (ids then lane-major,
+    their first dim L), else 0."""
+    if out is None or out.dim() != 3:
+        return 0
+    L = out.shape[0]
+    if ids.dim() < 1 or ids.shape[0] != L:
+        raise ValueError(f"{L} lanes of bitmaps but ids of shape "
+                         f"{tuple(ids.shape)}")
+    return L
+
+
 def mark_plain(ids, P: int, vmax: int, keep=None, out=None):
     """Plain version of `mark`: set out[d % P, d // P] for every kept id
-    d in [0, P*vmax); ids < 0 or outside the range set nothing."""
+    d in [0, P*vmax); ids < 0 or outside the range set nothing.  With an
+    (L, P, vmax) `out`, ids[l] (and keep[l]) mark lane l."""
     if out is None:
         out = torch.zeros((P, vmax), dtype=torch.bool, device=ids.device)
-    d = ids.reshape(-1).long()
+    L = _mark_lanes(ids, out)
+    o = out if L else out[None]
+    d = ids.reshape(max(L, 1), -1).long()
     sel = (d >= 0) & (d < P * vmax)
     if keep is not None:
-        sel &= keep.reshape(-1)
-    d = d[sel]
-    out[d % P, d // P] = True
+        sel &= keep.reshape(d.shape)
+    lane = torch.arange(d.shape[0], device=d.device)[:, None].expand_as(d)
+    lane, d = lane[sel], d[sel]
+    o[lane, d % P, d // P] = True
     return out
 
 
 def mark(ids, P: int, vmax: int, keep=None, out=None):
     """OR the kept int32 dense ids into a (P, vmax) bool bitmap: `out`,
     or a fresh zero bitmap.  `out` may be the first vmax columns of a
-    wider bitmap (rows contiguous, any row stride).  keep=None keeps
-    every id >= 0."""
+    wider bitmap (rows contiguous, any row stride), or an (L, P, vmax)
+    stack of lanes' bitmaps (rows uniformly strided, as the first vmax
+    columns of a contiguous (L, P, vmax + H) buffer), and then ids[l]
+    marks lane l — a hop's (L, P, W) slots or the (L, cap) seed ids — in
+    the same launch.  keep=None keeps every id >= 0."""
     if out is None:
         out = torch.zeros((P, vmax), dtype=torch.bool, device=ids.device)
     if ids.device.type == "cpu":
         return mark_plain(ids, P, vmax, keep, out)
     dev = ids.device
+    L = _mark_lanes(ids, out)
     _want(ids, "ids", _I32, ids.shape, dev)
-    _bitmap_view(out, "out", (P, vmax), dev)
+    _bitmap_view(out, "out", ((L,) if L else ()) + (P, vmax), dev)
     if keep is not None:
         _want(keep, "keep", torch.bool, ids.shape, dev)
     n = ids.numel()
@@ -372,9 +477,9 @@ def mark(ids, P: int, vmax: int, keep=None, out=None):
         return out
     keep_ptr = None if keep is None else keep.data_ptr()
     _check(_lib().nt_mark(ids.data_ptr(), keep_ptr, n, P, vmax,
-                          out.stride(0), out.data_ptr(), _stream(ids)),
-           "mark")
-    mark.launches += 1
+                          out.stride(-2), n // L if L else n,
+                          out.data_ptr(), _stream(ids)), "mark")
+    _count(mark)
     return out
 
 
@@ -385,30 +490,34 @@ def mark(ids, P: int, vmax: int, keep=None, out=None):
 
 def extend_hubs_plain(fbm, hub_owner, hub_local, vmax: int):
     """Plain version of `extend_hubs`: fbm[:, vmax + h] =
-    fbm[hub_owner[h], hub_local[h]] for every part, in place."""
-    bits = fbm[hub_owner.long(), hub_local.long()]
-    fbm[:, vmax:] = bits[None, :]
+    fbm[hub_owner[h], hub_local[h]] for every part (of every lane), in
+    place."""
+    bits = fbm[..., hub_owner.long(), hub_local.long()]
+    fbm[..., vmax:] = bits[..., None, :]
     return fbm
 
 
 def extend_hubs(fbm, hub_owner, hub_local, vmax: int):
     """Fill the H hub columns of the (P, vmax + H) bool expansion bitmap
-    from the hub bits in the first vmax columns (their owners' rows).
-    Returns fbm, updated in place."""
+    — or of each lane of an (L, P, vmax + H) stack, in one launch — from
+    the hub bits in the first vmax columns (their owners' rows).  Returns
+    fbm, updated in place."""
     if fbm.device.type == "cpu":
         return extend_hubs_plain(fbm, hub_owner, hub_local, vmax)
-    P, width = fbm.shape
+    lead = _lead(fbm, 2)
+    P, width = lead[-1], fbm.shape[-1]
+    L = lead[0] if len(lead) == 2 else 1
     H = width - vmax
     dev = fbm.device
-    _want(fbm, "fbm", torch.bool, (P, width), dev)
+    _want(fbm, "fbm", torch.bool, lead + (width,), dev)
     _want(hub_owner, "hub_owner", _I32, (H,), dev)
     _want(hub_local, "hub_local", _I32, (H,), dev)
     if H <= 0 or P == 0:
         return fbm
     _check(_lib().nt_extend_hubs(fbm.data_ptr(), hub_owner.data_ptr(),
-                                 hub_local.data_ptr(), P, vmax, H,
+                                 hub_local.data_ptr(), P, L, vmax, H,
                                  _stream(fbm)), "extend_hubs")
-    extend_hubs.launches += 1
+    _count(extend_hubs)
     return fbm
 
 
@@ -468,40 +577,49 @@ def predicate_mask_plain(prog, src, dst, rank, eidx, valid, cols,
     columns (cols, in prog.columns order, each (P, emax), with its delta
     half in dcols) at eidx, run the program with torch ops, and AND with
     the valid mask (or slot < total[p])."""
-    P, EB = src.shape
-    v = valid if valid.dtype == torch.bool else (
-        torch.arange(EB, dtype=_I32, device=src.device) < valid[:, None])
-    c = {"_rank": rank, "_src": src, "_dst": dst}
+    lead = _lead(src, 2)
+    P, EB = lead[-1], src.shape[-1]
+    flat = [_rows(t, lead) for t in (src, dst, rank, eidx)]
+    R = flat[0].shape[0]
+    v = valid.reshape(R, EB) if valid.dtype == torch.bool else (
+        torch.arange(EB, dtype=_I32, device=src.device)
+        < valid.reshape(R)[:, None])
+    c = {"_rank": flat[2], "_src": flat[0], "_dst": flat[1]}
     dcols = dcols or [None] * len(cols)
-    rows = torch.arange(P, device=src.device)[:, None]
+    rows = _part_of_row(R, P, src.device)[:, None]
     for name, col, dcol in zip(prog.columns, cols, dcols):
-        c[name] = _take_pair(col, dcol, rows, eidx)
-    return v & prog(c)
+        c[name] = _take_pair(col, dcol, rows, flat[3])
+    return (v & prog(c)).reshape(src.shape)
 
 
 def predicate_mask(prog, src, dst, rank, eidx, valid, cols, dcols=None):
     """The (P, EB) bool keep mask of a WHERE predicate program
     (gpu/exprjit.py) over one block's expanded slots: True where the
-    slot is valid and the predicate is true (not false, not null).
+    slot is valid and the predicate is true (not false, not null).  The
+    slots may carry a lane axis, (L, P, EB), one launch for all lanes;
+    the columns stay (P, emax).
 
     valid: the (P,) int32 total when the valid slots are each row's
-    prefix, or merge_delta's (P, EB) bool mask.  dcols: the delta halves
-    (P, Dcap) of cols, in the same order, on a merged block."""
+    prefix, or merge_delta's (P, EB) bool mask (with the slots' lane
+    axis).  dcols: the delta halves (P, Dcap) of cols, in the same order,
+    on a merged block."""
     if prog.error is not None:
         raise prog.error
     if src.device.type == "cpu":
         return predicate_mask_plain(prog, src, dst, rank, eidx, valid, cols,
                                     dcols)
-    P, EB = src.shape
+    lead = _lead(src, 2)
+    P, EB = lead[-1], src.shape[-1]
+    L = lead[0] if len(lead) == 2 else 1
     dev = src.device
     for name, t in (("src", src), ("dst", dst), ("rank", rank),
                     ("eidx", eidx)):
-        _want(t, name, _I32, (P, EB), dev)
+        _want(t, name, _I32, lead + (EB,), dev)
     by_mask = valid.dtype == torch.bool
     if by_mask:
-        _want(valid, "valid", torch.bool, (P, EB), dev)
+        _want(valid, "valid", torch.bool, lead + (EB,), dev)
     else:
-        _want(valid, "total", _I32, (P,), dev)
+        _want(valid, "total", _I32, lead, dev)
     if len(cols) != len(prog.columns):
         raise ValueError(f"the program reads {len(prog.columns)} columns, "
                          f"got {len(cols)}")
@@ -512,7 +630,7 @@ def predicate_mask(prog, src, dst, rank, eidx, valid, cols, dcols=None):
                              f"float64")
         _want(c, f"column {name}", c.dtype, (P, emax), dev)
     dcap = _check_dcols(cols, dcols, P, dev)
-    keep = torch.empty((P, EB), dtype=torch.bool, device=dev)
+    keep = torch.empty(lead + (EB,), dtype=torch.bool, device=dev)
     if P * EB == 0:
         return keep
     lib = _lib()
@@ -521,9 +639,9 @@ def predicate_mask(prog, src, dst, rank, eidx, valid, cols, dcols=None):
         ctypes.addressof(img), src.data_ptr(), dst.data_ptr(),
         rank.data_ptr(), eidx.data_ptr(),
         None if by_mask else valid.data_ptr(),
-        valid.data_ptr() if by_mask else None, P, EB, emax, dcap,
+        valid.data_ptr() if by_mask else None, P, L, EB, emax, dcap,
         keep.data_ptr(), _stream(src)), "predicate_mask")
-    predicate_mask.launches += 1
+    _count(predicate_mask)
     return keep
 
 
@@ -547,49 +665,65 @@ def _check_dcols(cols, dcols, P: int, dev) -> int:
 
 
 def compact_capture_plain(src, dst, rank, eidx, keep,
-                          cols: Sequence[torch.Tensor] = (), dcols=None):
+                          cols: Sequence[torch.Tensor] = (), dcols=None,
+                          extent=None):
     """Plain version of `compact_capture`: per part, the kept slots of
     src/dst/rank/eidx in order at the front of the row, each yield
     column's value at [p, eidx] beside them (its delta half at
     eidx - emax, with dcols), kcount (P,) int32; the rest of each row is
-    padding (-1, -1, 0, 0, column words 0)."""
-    P, EB = keep.shape
-    kcount = keep.sum(1, dtype=_I32)
-    pos = torch.cumsum(keep, 1, dtype=torch.int64) - 1
-    pi, si = keep.nonzero(as_tuple=True)
+    padding (-1, -1, 0, 0, column words 0).  A slot at or past its row's
+    `extent` (P,) int32, when given, is not kept.  With a lane axis
+    every output gains it, kcount (L, P)."""
+    lead = _lead(keep, 2)
+    P, EB = lead[-1], keep.shape[-1]
+    kf = _rows(keep, lead)
+    if extent is not None:
+        kf = kf & (torch.arange(EB, device=kf.device)
+                   < extent.reshape(-1, 1))
+    kcount = kf.sum(1, dtype=_I32)
+    pos = torch.cumsum(kf, 1, dtype=torch.int64) - 1
+    pi, si = kf.nonzero(as_tuple=True)
     di = pos[pi, si]
 
     def put(a, fill):
+        a = _rows(a, lead)
         o = torch.full_like(a, fill)
         o[pi, di] = a[pi, si]
-        return o
+        return o.reshape(lead + (EB,))
 
     outs = [put(src, -1), put(dst, -1), put(rank, 0), put(eidx, 0)]
-    e = eidx[pi, si]
+    e = _rows(eidx, lead)[pi, si]
     props = []
     for i, c in enumerate(cols):
         d = None if dcols is None else dcols[i]
-        o = torch.zeros((P, EB), dtype=c.dtype, device=c.device)
-        o[pi, di] = _take_pair(c, d, pi, e)
-        props.append(o)
-    return (*outs, props, kcount)
+        o = torch.zeros(kf.shape, dtype=c.dtype, device=c.device)
+        o[pi, di] = _take_pair(c, d, pi % P, e)
+        props.append(o.reshape(lead + (EB,)))
+    return (*outs, props, kcount.reshape(lead))
 
 
 def compact_capture(src, dst, rank, eidx, keep,
-                    cols: Sequence[torch.Tensor] = (), dcols=None):
+                    cols: Sequence[torch.Tensor] = (), dcols=None,
+                    extent=None):
     """Compact the kept slots of each part to the front of its row and
     gather up to four 8-byte YIELD columns at their eidx; on a merged
     block, `dcols` are the columns' (P, Dcap) delta halves, in the same
-    order.  Returns (src, dst, rank, eidx, [cols], kcount) as
-    `compact_capture_plain`."""
+    order.  `extent`, expand's total where the valid slots are each
+    row's prefix: no slot at or past it is kept, and the kernel reads
+    keep only below it.  The slots and keep may carry a lane axis, (L, P,
+    EB), one launch for all lanes.  Returns (src, dst, rank, eidx,
+    [cols], kcount) as `compact_capture_plain`."""
     if keep.device.type == "cpu":
-        return compact_capture_plain(src, dst, rank, eidx, keep, cols, dcols)
-    P, EB = keep.shape
+        return compact_capture_plain(src, dst, rank, eidx, keep, cols, dcols,
+                                     extent)
+    lead = _lead(keep, 2)
+    P, EB = lead[-1], keep.shape[-1]
+    L = lead[0] if len(lead) == 2 else 1
     dev = keep.device
-    _want(keep, "keep", torch.bool, (P, EB), dev)
+    _want(keep, "keep", torch.bool, lead + (EB,), dev)
     for name, t in (("src", src), ("dst", dst), ("rank", rank),
                     ("eidx", eidx)):
-        _want(t, name, _I32, (P, EB), dev)
+        _want(t, name, _I32, lead + (EB,), dev)
     if len(cols) > MAX_COLS:
         raise ValueError(f"compact_capture gathers at most {MAX_COLS} "
                          f"columns, got {len(cols)}")
@@ -599,12 +733,15 @@ def compact_capture(src, dst, rank, eidx, keep,
             raise ValueError(f"column {i} is {c.dtype}; int64 or float64")
         _want(c, f"column {i}", c.dtype, (P, emax), dev)
     dcap = _check_dcols(cols, dcols, P, dev)
+    if extent is not None:
+        _want(extent, "extent", _I32, lead, dev)
     lib = _lib()
-    outs = [torch.empty((P, EB), dtype=_I32, device=dev) for _ in range(4)]
-    props: List[torch.Tensor] = [torch.empty((P, EB), dtype=c.dtype,
+    outs = [torch.empty(lead + (EB,), dtype=_I32, device=dev)
+            for _ in range(4)]
+    props: List[torch.Tensor] = [torch.empty(lead + (EB,), dtype=c.dtype,
                                              device=dev) for c in cols]
-    kcount = torch.empty((P,), dtype=_I32, device=dev)
-    sums = torch.empty((P, max(_cdiv(EB, lib.nt_scan_chunk()), 1)),
+    kcount = torch.empty(lead, dtype=_I32, device=dev)
+    sums = torch.empty((L * P, max(_cdiv(EB, lib.nt_scan_chunk()), 1)),
                        dtype=_I32, device=dev)
 
     def ptrs(ts):
@@ -612,11 +749,12 @@ def compact_capture(src, dst, rank, eidx, keep,
 
     _check(lib.nt_compact_capture(
         src.data_ptr(), dst.data_ptr(), rank.data_ptr(), eidx.data_ptr(),
-        keep.data_ptr(), P, EB, len(cols), emax, *ptrs(cols), dcap,
+        keep.data_ptr(), None if extent is None else extent.data_ptr(),
+        P, L, EB, len(cols), emax, *ptrs(cols), dcap,
         *ptrs(dcols or ()), *[o.data_ptr() for o in outs], *ptrs(props),
         kcount.data_ptr(), sums.data_ptr(), _stream(keep)),
         "compact_capture")
-    compact_capture.launches += 1
+    _count(compact_capture)
     return (*outs, props, kcount)
 
 
@@ -635,65 +773,77 @@ def merge_delta_plain(src, dst, rank, eidx, total, fbm, d_src, d_dst,
     row k (src = d_src*P + p, dst, rank) when it is active — d_valid set
     and its source on the frontier — else padding (-1, -1, 0), and eidx
     = emax + k.  Returns (valid (P, EB + Dcap) bool, total + the active
-    count (P,) int32)."""
-    P, W = src.shape
+    count (P,) int32).  With a lane axis on the slots, total and fbm,
+    each lane merges against its own frontier; the d_* stay (P, ...)."""
+    lead = _lead(src, 2)
+    P, W = lead[-1], src.shape[-1]
     Dcap, Tcap = d_src.shape[1], d_tomb.shape[1]
     EB = W - Dcap
     dev = src.device
-    vb = torch.arange(EB, dtype=_I32, device=dev) < total[:, None]
+    src, dst, rank, eidx = (_rows(t, lead, view=True)
+                            for t in (src, dst, rank, eidx))
+    R = src.shape[0]
+    pq = _part_of_row(R, P, dev)
+    tot = total.reshape(R)
+    vb = torch.arange(EB, dtype=_I32, device=dev) < tot[:, None]
     if Tcap:
         e = eidx[:, :EB].contiguous()
-        pos = torch.searchsorted(d_tomb, e).clamp(max=Tcap - 1)
-        hit = vb & (torch.gather(d_tomb, 1, pos) == e)
+        tomb = d_tomb[pq]
+        pos = torch.searchsorted(tomb, e).clamp(max=Tcap - 1)
+        hit = vb & (torch.gather(tomb, 1, pos) == e)
         vb &= ~hit
         dst[:, :EB] = torch.where(hit, -1, dst[:, :EB])
-    vmax = fbm.shape[1]
-    act = d_valid & torch.gather(fbm, 1, d_src.clamp(0, vmax - 1).long())
-    pid = torch.arange(P, dtype=_I32, device=dev)[:, None]
-    src[:, EB:] = torch.where(act, d_src * P + pid, -1)
-    dst[:, EB:] = torch.where(act, d_dst, -1)
-    rank[:, EB:] = torch.where(act, d_rank, 0)
+    vmax = fbm.shape[-1]
+    f = _rows(fbm, lead)
+    ds = d_src[pq]
+    act = d_valid[pq] & torch.gather(f, 1, ds.clamp(0, vmax - 1).long())
+    src[:, EB:] = torch.where(act, ds * P + pq[:, None].to(_I32), -1)
+    dst[:, EB:] = torch.where(act, d_dst[pq], -1)
+    rank[:, EB:] = torch.where(act, d_rank[pq], 0)
     eidx[:, EB:] = emax + torch.arange(Dcap, dtype=_I32, device=dev)
-    return (torch.cat([vb, act], 1),
-            (total + act.sum(1, dtype=_I32)).to(_I32))
+    return (torch.cat([vb, act], 1).reshape(lead + (W,)),
+            (tot + act.sum(1, dtype=_I32)).to(_I32).reshape(lead))
 
 
 def merge_delta(src, dst, rank, eidx, total, fbm, d_src, d_dst, d_rank,
                 d_valid, d_tomb, emax: int):
     """Merge one block's delta plane into its expanded slots, in place,
-    for all P parts in one launch (see `merge_delta_plain` for the
-    contract).  fbm may be the first vmax columns of a wider buffer
-    (rows contiguous, any row stride).  Returns (valid, total_out)."""
+    for all P parts — and all L lanes of (L, P, ...) slots, totals and
+    frontiers — in one launch (see `merge_delta_plain` for the
+    contract).  fbm may be the first vmax columns of a wider buffer (rows
+    uniformly strided, any row stride).  Returns (valid, total_out)."""
     if src.device.type == "cpu":
         return merge_delta_plain(src, dst, rank, eidx, total, fbm, d_src,
                                  d_dst, d_rank, d_valid, d_tomb, emax)
-    P, W = src.shape
+    lead = _lead(src, 2)
+    P, W = lead[-1], src.shape[-1]
+    L = lead[0] if len(lead) == 2 else 1
     Dcap, Tcap = d_src.shape[1], d_tomb.shape[1]
     dev = src.device
     for name, t in (("src", src), ("dst", dst), ("rank", rank),
                     ("eidx", eidx)):
-        _want(t, name, _I32, (P, W), dev)
-    _want(total, "total", _I32, (P,), dev)
+        _want(t, name, _I32, lead + (W,), dev)
+    _want(total, "total", _I32, lead, dev)
     for name, t in (("d_src", d_src), ("d_dst", d_dst),
                     ("d_rank", d_rank)):
         _want(t, name, _I32, (P, Dcap), dev)
     _want(d_valid, "d_valid", torch.bool, (P, Dcap), dev)
     _want(d_tomb, "d_tomb", _I32, (P, Tcap), dev)
-    vmax = fbm.shape[1]
-    _bitmap_view(fbm, "fbm", (P, vmax), dev)
+    vmax = fbm.shape[-1]
+    _bitmap_view(fbm, "fbm", lead + (vmax,), dev)
     if W < Dcap or P == 0 or vmax == 0:
         raise ValueError(f"slots of width {W} cannot hold {Dcap} delta "
                          f"rows over {P} parts of {vmax} rows")
-    valid = torch.empty((P, W), dtype=torch.bool, device=dev)
-    total_out = torch.empty((P,), dtype=_I32, device=dev)
+    valid = torch.empty(lead + (W,), dtype=torch.bool, device=dev)
+    total_out = torch.empty(lead, dtype=_I32, device=dev)
     _check(_lib().nt_merge_delta(
-        total.data_ptr(), fbm.data_ptr(), fbm.stride(0), vmax,
+        total.data_ptr(), fbm.data_ptr(), fbm.stride(-2), vmax,
         d_src.data_ptr(), d_dst.data_ptr(), d_rank.data_ptr(),
-        d_valid.data_ptr(), Dcap, d_tomb.data_ptr(), Tcap, P, W - Dcap,
+        d_valid.data_ptr(), Dcap, d_tomb.data_ptr(), Tcap, P, L, W - Dcap,
         int(emax), src.data_ptr(), dst.data_ptr(), rank.data_ptr(),
         eidx.data_ptr(), valid.data_ptr(), total_out.data_ptr(),
         _stream(src)), "merge_delta")
-    merge_delta.launches += 1
+    _count(merge_delta)
     return valid, total_out
 
 
@@ -745,7 +895,7 @@ def bfs_probe(src, nbr, keep, total, fbm, out):
         None if keep is None else keep.data_ptr(), total.data_ptr(), P, EB,
         vmax, fbm.data_ptr(), fbm.stride(0), out.data_ptr(), out.stride(0),
         _stream(src)), "bfs_probe")
-    bfs_probe.launches += 1
+    _count(bfs_probe)
     return out
 
 
@@ -786,7 +936,7 @@ def bfs_level(cand, dist, level: int, fbm_out, unvis_out):
         int(level), fbm_out.data_ptr(), fbm_out.stride(0),
         unvis_out.data_ptr(), unvis_out.stride(0), counts.data_ptr(),
         _stream(dist)), "bfs_level")
-    bfs_level.launches += 1
+    _count(bfs_level)
     return counts
 
 

@@ -9,7 +9,25 @@ Port of the solo single-device path of `nebula_tpu/tpu/runtime.py`:
 plane's one dispatch per iteration, `bfs` (:2121), the device BFS
 of FIND SHORTEST PATH, and the delta plane: `_arm_delta` (:639),
 `_try_delta_update` (:652), `_grab_delta` (:728), `_delta_perms` (:2241)
-and the delta decode of `_block_columns` (:2302-2337).
+and the delta decode of `_block_columns` (:2302-2337), the dispatch gate
+(`_DispatchGate` :147, `_gated_dispatch` :1052), and the multi-lane
+batched GO: `_try_batched` (:1429), the lane seed build (:1138, :976),
+`_escalate_lanes` (:1169, here `_run`, which runs a solo statement as
+its one lane) and `_lane_attribution` (:1363).
+
+The dispatch gate is a read-write lock with writer preference: every
+device dispatch (a GO run, solo or batched, a BFS, an algo iteration)
+holds the read side; `pin_prebuilt`, `unpin` and a delta apply hold the
+write side, so an apply never lands under a running kernel, and a
+snapshot a pin replaced is marked `retired` — a dispatch that finds it
+under the gate raises `GpuUnavailable`.
+
+With `batch_max_lanes` > 1 (gpu/batch.py; 0, the default, is off),
+concurrent compatible `traverse` calls enrol in one group of the batch
+former; one of them runs the hop loop once for all (an (L, P, vmax + H)
+frontier through the lane-widened kernels, one gated dispatch, one
+fetch) and each takes its own lane back out, with its own hop_edges,
+frontier_sizes and WorkCounters — those of its solo run.
 
 The delta plane differs from the reference where the reference falls
 back to a full rebuild of the snapshot, which needs the store slice:
@@ -19,16 +37,18 @@ cause (and unpin the space when the mirror may be half applied).  It
 does not compact: a plane past the reference's fill watermark serves on
 until it overflows.
 
-What this slice leaves out raises `CannotCompile`, as the reference does
+What the port leaves out raises `CannotCompile`, as the reference does
 for a filter it cannot compile: GO without `yields` (Edge rows, which need
-the store's catalog), query lanes and the mesh.  A traversal runs on the
+the store's catalog) and the mesh.  A traversal runs on the
 runtime's one `torch.device`; `GpuRuntime()` means `cuda:0`, and the CPU
 runs only when the caller passes `device="cpu"` (the kernels' plain
 versions then run).
 """
 from __future__ import annotations
 
+import threading
 import time
+from contextlib import contextmanager, nullcontext
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -38,6 +58,11 @@ from ..core import expr as E
 from ..core.value import ColumnarDataSet
 from ..graphstore.csr import DECODABLE, decode_prop_column_np, degree_split
 from ..graphstore.delta import DeltaOverflow, DeltaUnsupported, HostDelta
+from ..utils.failpoints import FailpointError, fail
+from ..utils.stats import current_cost, current_work, stats as metrics, \
+    use_cost, use_work
+from ..utils.workload import current_live, dispatch_table, use_live
+from .batch import batch_former
 from .bfs import run_bfs
 from .device import DeviceSnapshot, GpuUnavailable, pin_snapshot, \
     put_delta_blocks, resolve_device
@@ -155,10 +180,78 @@ def _cat_parts(parts, dtype=None):
     return parts[0].copy()
 
 
+@contextmanager
+def _detached():
+    """No WorkCounters, cost sink or live row on this thread: a batch's
+    shared run charges each member's lane on its own thread instead."""
+    with use_work(None), use_cost(None), use_live(None):
+        yield
+
+
+class _DispatchGate:
+    """Read-write gate serializing device dispatch against snapshot
+    re-pin and delta apply (the reference's runtime.py:147).
+
+    Dispatches are READERS — they share, so concurrent statements still
+    overlap on the card — and a pin or an apply is the WRITER: it waits
+    for in-flight dispatches to drain and excludes new ones while it
+    runs.  Writer preference (a waiting writer blocks NEW readers) so a
+    steady dispatch stream cannot starve a write.
+
+    acquire_* returns the seconds spent waiting — the dispatch side's
+    wait is the statement's queue time (tpu_dispatch_queue_us)."""
+
+    __slots__ = ("_cond", "_readers", "_writer", "_writers_waiting")
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._readers = 0
+        self._writer = False
+        self._writers_waiting = 0
+
+    def acquire_read(self) -> float:
+        t0 = time.perf_counter()
+        with self._cond:
+            while self._writer or self._writers_waiting:
+                self._cond.wait()
+            self._readers += 1
+        return time.perf_counter() - t0
+
+    def release_read(self):
+        with self._cond:
+            self._readers -= 1
+            if self._readers == 0:
+                self._cond.notify_all()
+
+    def acquire_write(self) -> float:
+        t0 = time.perf_counter()
+        with self._cond:
+            self._writers_waiting += 1
+            try:
+                while self._writer or self._readers:
+                    self._cond.wait()
+                self._writer = True
+            finally:
+                self._writers_waiting -= 1
+        return time.perf_counter() - t0
+
+    def release_write(self):
+        with self._cond:
+            self._writer = False
+            self._cond.notify_all()
+
+    def write_held(self) -> bool:
+        """True while a writer holds or waits for the gate — the batch
+        former's probe: a group whose window expires then re-arms it
+        instead of queueing behind the write."""
+        with self._cond:
+            return bool(self._writer or self._writers_waiting)
+
+
 class TraverseStats:
     __slots__ = ("hop_edges", "frontier_sizes", "result_edges", "e_cap",
                  "retries", "steps", "device_s", "pin_s", "put_s",
-                 "fetch_s", "mat_s", "total_s", "hbm_bytes")
+                 "fetch_s", "mat_s", "total_s", "hbm_bytes", "queue_s")
 
     def __init__(self):
         self.hop_edges: List[int] = []
@@ -175,6 +268,8 @@ class TraverseStats:
         self.mat_s = 0.0
         self.total_s = 0.0
         self.hbm_bytes = 0
+        # the dispatch gate's wait, plus the forming window when batched
+        self.queue_s = 0.0
 
     def edges_traversed(self) -> int:
         return int(sum(self.hop_edges))
@@ -199,24 +294,31 @@ class GpuRuntime:
         self.degree_split_threshold = int(degree_split_threshold)
         self.delta_max_edges = int(delta_max_edges)
         self.snapshots: Dict[str, DeviceSnapshot] = {}
+        self._gate = _DispatchGate()
 
     # -- pinning ----------------------------------------------------------
 
     def pin_prebuilt(self, snap) -> DeviceSnapshot:
         """Pin an externally built CsrSnapshot (bulk-ingest / bench path),
-        replacing any snapshot of the same space.  With the degree-split
-        threshold set, an unsplit snapshot is split first, and the pinned
-        copy and its host mirror share the split layout."""
+        replacing any snapshot of the same space (which is retired).  With
+        the degree-split threshold set, an unsplit snapshot is split
+        first, and the pinned copy and its host mirror share the split
+        layout.  The put runs under the write side of the dispatch gate:
+        in-flight dispatches drain first, new ones wait."""
         if self.degree_split_threshold > 0 and snap.hub_dense is None:
             snap = degree_split(snap, self.degree_split_threshold)
         if snap.num_parts * snap.vmax >= 1 << 31:
             # dense ids are int32 on the device, as in the reference
             raise GpuUnavailable(
                 f"P*vmax = {snap.num_parts * snap.vmax} exceeds int32")
-        self.unpin(snap.space)
-        dev = pin_snapshot(snap, self.device)
-        self._arm_delta(dev, snap)
-        self.snapshots[snap.space] = dev
+        self._gate.acquire_write()
+        try:
+            self._unpin_locked(snap.space)
+            dev = pin_snapshot(snap, self.device)
+            self._arm_delta(dev, snap)
+            self.snapshots[snap.space] = dev
+        finally:
+            self._gate.release_write()
         return dev
 
     def _arm_delta(self, dev: DeviceSnapshot, snap) -> None:
@@ -257,14 +359,34 @@ class GpuRuntime:
         """Advance a delta-armed snapshot to the store's epoch without a
         re-pin: read the dirty keys, apply them to the host mirror by
         re-reading the store, put only the changed blocks, and trim the
-        consumed keys from the log.  Where the reference takes the
-        full-rebuild path, this raises GpuUnavailable naming the cause;
-        after a failed apply the mirror may be half applied, so the
-        space is unpinned."""
+        consumed keys from the log.  It runs under the write side of the
+        dispatch gate and re-reads the log there: writes that landed
+        while it waited fold into this apply, and a concurrent first pin
+        that applied them already leaves nothing to do.  Where the
+        reference takes the full-rebuild path, this raises GpuUnavailable
+        naming the cause; after a failed apply the mirror may be half
+        applied, so the space is unpinned."""
         if not (hasattr(store, "delta_records")
                 and hasattr(store, "delta_reader")):
             raise GpuUnavailable(f"space {space!r}: the store logs no "
                                  f"writes (no delta_records)")
+        self._gate.acquire_write()
+        try:
+            if self.snapshots.get(space) is not dev or dev.retired:
+                replaced = True          # a concurrent pin swapped it
+            else:
+                replaced = False
+                self._apply_delta_locked(store, space, dev)
+        finally:
+            self._gate.release_write()
+        if replaced:
+            return self.pin(store, space)
+        return dev
+
+    def _apply_delta_locked(self, store, space: str,
+                            dev: DeviceSnapshot) -> None:
+        """The apply of `_try_delta_update`; the caller holds the write
+        side of the gate."""
         dd = dev.delta
         rec = store.delta_records(space)
         if rec is None:
@@ -276,10 +398,12 @@ class GpuRuntime:
             raise GpuUnavailable(
                 f"space {space!r}: the delta log starts at epoch {floor}, "
                 f"after the plane's {dd.applied_epoch} (a log gap)")
+        if target == dd.applied_epoch:
+            return                       # a concurrent update got there
         try:
             changes = dd.host.apply(store.delta_reader(space), keys)
         except (DeltaOverflow, DeltaUnsupported) as ex:
-            self.unpin(space)
+            self._unpin_locked(space)
             raise GpuUnavailable(
                 f"space {space!r}: delta apply failed "
                 f"({type(ex).__name__}: {ex}); a full rebuild waits for "
@@ -292,7 +416,6 @@ class GpuRuntime:
         # tag tables on the device
         dd.applied_epoch = target
         store.delta_trim(space, keys)
-        return dev
 
     @staticmethod
     def _grab_delta(dev: DeviceSnapshot, block_keys, prop_names):
@@ -317,22 +440,97 @@ class GpuRuntime:
         return view, extras
 
     def unpin(self, space: str) -> None:
-        self.snapshots.pop(space, None)
+        """Drop a space's snapshot (it is retired), under the write side
+        of the dispatch gate."""
+        self._gate.acquire_write()
+        try:
+            self._unpin_locked(space)
+        finally:
+            self._gate.release_write()
+
+    def _unpin_locked(self, space: str) -> None:
+        old = self.snapshots.pop(space, None)
+        if old is not None:
+            old.retired = True
 
     def hbm_bytes(self) -> int:
         return sum(s.hbm_bytes() for s in self.snapshots.values())
 
+    @contextmanager
+    def _gated_dispatch(self, kernel: str):
+        """The prologue and epilogue of every device dispatch (GO solo or
+        batched, the BFS, an algo iteration): register in the live
+        DispatchTable (queued → running → done), hit the
+        `tpu:dispatch_gate` failpoint, wait on the READ side of the
+        dispatch gate, and land the wait in
+        `tpu_dispatch_queue_us{kernel}`, the statement's cost sink and
+        its live-registry row.  Yields the queue wait in µs."""
+        tok = dispatch_table().enter(kernel)
+        acquired = False
+        try:
+            # inside the try: a `raise` action must still exit the token
+            fail.hit("tpu:dispatch_gate", key=kernel)
+            self._gate.acquire_read()
+            acquired = True
+            wait_us = dispatch_table().mark_running(tok)
+            metrics().observe("tpu_dispatch_queue_us", wait_us,
+                              {"kernel": kernel})
+            cc = current_cost()
+            if cc is not None:
+                cc.add("queue_us", wait_us)
+            lv = current_live()
+            if lv is not None:
+                lv.add("queue_us", wait_us)
+            yield wait_us
+        finally:
+            if acquired:
+                self._gate.release_read()
+            dispatch_table().exit(tok)
+
+    @staticmethod
+    def _check_live(dev: DeviceSnapshot) -> None:
+        """Under the read gate: a snapshot a pin replaced is not run."""
+        if dev.retired:
+            raise GpuUnavailable(
+                f"the snapshot of space {dev.space!r} was retired by a "
+                f"concurrent pin")
+
+    @staticmethod
+    def _charge(device_us: int, stats: Optional["TraverseStats"] = None,
+                queue_us: int = 0) -> None:
+        """Charge one dispatch to this thread's WorkCounters, cost sink
+        and live row (the reference's `_escalate_locked` and
+        `_lane_attribution`): the dispatch and its device µs, with a
+        traversal's `stats` its edges and frontier sizes, and queue µs
+        the gate did not charge already (a batched lane's)."""
+        wc = current_work()
+        if wc is not None:
+            wc.add("device_dispatches")
+            if stats is not None:
+                wc.add("edges_traversed", stats.edges_traversed())
+                wc.extend_frontier(stats.frontier_sizes)
+        for sink, field in ((current_cost(), "device_dispatches"),
+                            (current_live(), "dispatches")):
+            if sink is not None:
+                sink.add("device_us", device_us)
+                sink.add(field, 1)
+                if queue_us:
+                    sink.add("queue_us", queue_us)
+
     def algo_dispatch(self, kernel: str, fn, *args):
         """One device dispatch of the algo plane: an iteration step of
-        static full-graph shapes.  Runs fn(*args), waits for the device
-        and returns (result, wall µs).  `kernel` names the step (the
-        reference's per-kernel metric label; the gate, cost and metric
-        accounting wait for the port's utils)."""
-        t0 = time.perf_counter()
-        res = fn(*args)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return res, int((time.perf_counter() - t0) * 1e6)
+        static full-graph shapes, under the read side of the dispatch
+        gate.  Runs fn(*args), waits for the device and returns (result,
+        wall µs); the µs land in the cost sink and the live row, one
+        dispatch in the WorkCounters."""
+        with self._gated_dispatch(kernel):
+            t0 = time.perf_counter()
+            res = fn(*args)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            us = int((time.perf_counter() - t0) * 1e6)
+        self._charge(us)
+        return res, us
 
     # -- traversal --------------------------------------------------------
 
@@ -351,14 +549,28 @@ class GpuRuntime:
 
     def _seed_frontier(self, dev: DeviceSnapshot,
                        dense_ids: Sequence[int]) -> torch.Tensor:
-        """The seed frontier buffer (hop.new_frontier): the (P, vmax) bool
-        seed bitmap in its first vmax columns, scattered on the device by
-        the `mark` kernel (K6) from the seed ids alone."""
+        """The solo seed frontier buffer (hop.new_frontier): lane 0 of a
+        one-lane `_seed_frontier_lanes`."""
+        return self._seed_frontier_lanes(dev, [dense_ids])[0]
+
+    def _seed_frontier_lanes(self, dev: DeviceSnapshot,
+                             lane_dense: Sequence[Sequence[int]]
+                             ) -> torch.Tensor:
+        """The lane-batched seed build (the reference's vmapped seed
+        builder, runtime.py:976, fed by `_seed_frontier_prep_lanes`
+        :1138): every lane's seed ids padded with -1 to one (L, cap)
+        block, marked by ONE `mark` launch into an (L, P, vmax + H)
+        stack of frontier buffers.  The port sizes L exactly (no pow2
+        padding: nothing is compiled per shape)."""
         P, vmax = dev.num_parts, dev.vmax
-        d = self._seed_sorted(dense_ids, P, vmax)
-        ids = torch.tensor(d, dtype=torch.int32).to(self.device)
-        fbm = new_frontier(dev)
-        mark(ids, P, vmax, out=fbm[:, :vmax])
+        lanes = [self._seed_sorted(d, P, vmax) for d in lane_dense]
+        cap = max((len(d) for d in lanes), default=0) or 1
+        pad = np.full((len(lanes), cap), -1, np.int32)
+        for i, d in enumerate(lanes):
+            pad[i, :len(d)] = d
+        ids = torch.from_numpy(pad).to(self.device)
+        fbm = new_frontier(dev, lanes=len(lanes))
+        mark(ids, P, vmax, out=fbm[..., :vmax])
         return fbm
 
     @staticmethod
@@ -442,6 +654,7 @@ class GpuRuntime:
         if pred is not None:
             prop_names |= set(pred.columns)
         dview, dextras = self._grab_delta(dev, block_keys, prop_names)
+        delta_epoch = None if dview is None else dview[0]
         if dview is not None and not any(
                 dview[1][bk]["np"]["d_valid"].any() for bk in block_keys):
             # a plane without insert rows appends no slot: the capture is
@@ -452,38 +665,31 @@ class GpuRuntime:
             # at materialize time: the host re-sort needs every identity
             # column whatever the yields read
             fetch_keys |= {"src", "dst", "rank", "eidx"}
+        blocks = [dev.blocks[bk] for bk in block_keys]
 
-        tp = time.perf_counter()
-        frontier = self._seed_frontier(dev, dense)
-        stats.put_s = time.perf_counter() - tp
-
-        t0 = time.perf_counter()
-        res = run_hops(dev, [dev.blocks[bk] for bk in block_keys], frontier,
-                       steps, pred=pred, capture=capture,
-                       yield_cols=yield_cols, deltas=dextras)
-        hop_edges = res["hop_edges"].cpu().numpy()   # synchronises
-        t1 = time.perf_counter()
-        stats.device_s = t1 - t0
-        stats.hop_edges = [int(x) for x in hop_edges.sum(axis=0)]
-        stats.frontier_sizes = [
-            int(x) for x in res["frontier_sizes"].cpu().numpy().sum(axis=0)]
-        stats.e_cap = list(res["e_cap"])
-        stats.hbm_bytes = self.hbm_bytes()
+        caps = None
+        if capture:
+            # multi-lane batched dispatch: concurrent compatible
+            # statements share ONE run of the hop loop; None falls
+            # through to the solo path (batching off, no company, a
+            # 1-lane group, the tpu:batch_form failpoint)
+            key = ("traverse", id(dev), dev.epoch, tuple(block_keys), steps,
+                   None if edge_filter is None else E.to_text(edge_filter),
+                   yield_cols,
+                   None if fetch_keys is None else frozenset(fetch_keys),
+                   None if delta_epoch is None else ("delta", delta_epoch))
+            caps = self._try_batched(
+                key, dense, stats,
+                lambda lane_dense: self._run(
+                    dev, blocks, lane_dense, steps, pred, True, yield_cols,
+                    fetch_keys, dextras, attribute=False))
+        if caps is None:
+            res, info = self._run(dev, blocks, [dense], steps, pred, capture,
+                                  yield_cols, fetch_keys, dextras)
+            caps = self._lane_attribution(res, info, 0, stats)
         if not capture:
-            stats.fetch_s = time.perf_counter() - t1
             stats.total_s = time.perf_counter() - t_start
             return [], stats
-
-        caps = []
-        for cap in res["cap"]:
-            kc = cap["kcount"].cpu().numpy()
-            K = int(kc.max()) if kc.size else 0
-            got = {k: v[:, :K].cpu().numpy() for k, v in cap.items()
-                   if k != "kcount" and (fetch_keys is None
-                                         or k in fetch_keys)}
-            got["kcount"] = kc
-            caps.append(got)
-        stats.fetch_s = time.perf_counter() - t1
 
         t_mat = time.perf_counter()
         rows = self._materialize_yields(store, space, dev, block_keys, caps,
@@ -492,6 +698,114 @@ class GpuRuntime:
         stats.result_edges = len(rows)
         stats.total_s = time.perf_counter() - t_start
         return rows, stats
+
+    @staticmethod
+    def _fetch_cap(cap: Dict[str, torch.Tensor], fetch_keys):
+        """One block's lane-major capture to the host, as one dict per
+        lane: its kcount (P,), then its kept prefix [:, :K] of each array
+        the yields read, K the largest kept count over that lane's parts
+        — a lane never carries another lane's width.  The lanes' prefixes
+        are packed side by side on the device, so each array crosses in
+        one copy."""
+        kc = cap["kcount"].cpu().numpy()                 # (L, P)
+        ks = [int(k.max()) if k.size else 0 for k in kc]
+        lanes: List[Dict[str, np.ndarray]] = [{"kcount": k} for k in kc]
+        cuts = np.cumsum(ks)[:-1]
+        for name, v in cap.items():
+            if name == "kcount" or (fetch_keys is not None
+                                    and name not in fetch_keys):
+                continue
+            parts = [v[lane, :, :k] for lane, k in enumerate(ks)]
+            packed = (parts[0] if len(parts) == 1
+                      else torch.cat(parts, dim=1)).cpu().numpy()
+            for lane, a in enumerate(np.split(packed, cuts, axis=1)):
+                lanes[lane][name] = a
+        return lanes
+
+    def _run(self, dev: DeviceSnapshot, blocks, lane_dense, steps: int,
+             pred, capture: bool, yield_cols, fetch_keys, dextras,
+             attribute: bool = True):
+        """One run of the hop loop for the seeds of L statements (the
+        reference's `_escalate_lanes`; a solo statement is the L = 1
+        case), with no bucket ladder — the port sizes its slots exactly:
+        ONE gated dispatch, ONE seed build, ONE run of the hop loop over
+        an (L, P, vmax + H) frontier, ONE fetch.  A batch's launching
+        member runs it on its own thread (attribute=False: the gate's
+        wait is not charged to that thread, since each member charges its
+        own lane in `_lane_attribution`); batch.py fans the result out.
+        Returns (res, info): res holds lane-major host arrays —
+        hop_edges and frontier_sizes (L, P, steps) and, with capture, per
+        lane its blocks' captures — and info the launch-level facts each
+        lane's de-mux needs.  tpu_kernel_runs grows by ONE per run."""
+        info: Dict[str, Any] = {"attributed": attribute}
+        with (nullcontext() if attribute else _detached()), \
+                self._gated_dispatch("traverse") as wait_us:
+            info["gate_wait_us"] = wait_us
+            self._check_live(dev)
+            tp = time.perf_counter()
+            frontier = self._seed_frontier_lanes(dev, lane_dense)
+            info["put_s"] = time.perf_counter() - tp
+            t0 = time.perf_counter()
+            res = run_hops(dev, blocks, frontier, steps, pred=pred,
+                           capture=capture, yield_cols=yield_cols,
+                           deltas=dextras)
+            out = {"hop_edges": res["hop_edges"].cpu().numpy()}
+            t1 = time.perf_counter()                     # synchronised
+            info["device_s"] = t1 - t0
+            out["frontier_sizes"] = res["frontier_sizes"].cpu().numpy()
+            if capture:
+                caps = [self._fetch_cap(cap, fetch_keys)
+                        for cap in res["cap"]]
+                out["cap"] = [list(lane) for lane in zip(*caps)] \
+                    if caps else [[] for _ in lane_dense]
+            info["fetch_s"] = time.perf_counter() - t1
+            info["e_cap"] = list(res["e_cap"])
+            info["hbm_bytes"] = self.hbm_bytes()
+        metrics().inc("tpu_kernel_runs")
+        return out, info
+
+    def _lane_attribution(self, res, info, lane: int, stats: TraverseStats,
+                          form_wait_us: int = 0):
+        """De-mux one lane of a run: fill this statement's stats with its
+        own lane's counts (hop_edges, frontier_sizes) and the run's
+        timings, charge its thread's work, cost and live sinks exactly as
+        its solo run would, and return its lane's block captures (None
+        without capture)."""
+        stats.hop_edges = [int(x) for x in res["hop_edges"][lane].sum(axis=0)]
+        stats.frontier_sizes = [
+            int(x) for x in res["frontier_sizes"][lane].sum(axis=0)]
+        stats.device_s = info["device_s"]
+        stats.put_s = info["put_s"]
+        stats.fetch_s = info["fetch_s"]
+        stats.queue_s = (info["gate_wait_us"] + form_wait_us) / 1e6
+        stats.e_cap = list(info["e_cap"])
+        stats.hbm_bytes = info["hbm_bytes"]
+        self._charge(int(stats.device_s * 1e6), stats,
+                     0 if info["attributed"] else int(stats.queue_s * 1e6))
+        return res["cap"][lane] if "cap" in res else None
+
+    # -- multi-lane batched dispatch ---------------------------------------
+
+    def _try_batched(self, key, dense, stats: TraverseStats, launch):
+        """Submit this dispatch to the batch former under the
+        compatibility `key` (snapshot, blocks, steps, WHERE and YIELD
+        program, fetched columns and delta view: statements grabbed under
+        different delta views never share a run).  Returns this
+        statement's captures after a shared run, or None when it should
+        run solo: batching off, no concurrent company, a 1-lane group, or
+        the `tpu:batch_form` failpoint rejected enrolment."""
+        former = batch_former()
+        if not former.enabled():
+            return None
+        try:
+            tk = former.submit(key, dense, launch, kernel="traverse",
+                               gate_busy=self._gate.write_held)
+        except FailpointError:
+            return None          # batch forming rejected → solo dispatch
+        if tk is None:
+            return None
+        return self._lane_attribution(tk.res, tk.info, tk.lane, stats,
+                                      tk.form_wait_us)
 
     # -- BFS (FIND SHORTEST PATH device plane) -----------------------------
 
@@ -547,18 +861,21 @@ class GpuRuntime:
             dev, block_keys, () if pred is None else pred.columns)
         n_phantom = P * vmax - int(np.asarray(dev.host.num_vertices).sum())
 
-        tp = time.perf_counter()
-        seeds = self._seed_frontier(dev, dense)
-        stats.put_s = time.perf_counter() - tp
+        with self._gated_dispatch("bfs") as wait_us:
+            stats.queue_s = wait_us / 1e6
+            self._check_live(dev)
+            tp = time.perf_counter()
+            seeds = self._seed_frontier(dev, dense)
+            stats.put_s = time.perf_counter() - tp
 
-        t0 = time.perf_counter()
-        res = run_bfs(dev, [dev.blocks[bk] for bk in block_keys],
-                      [dev.blocks[rk] for rk in rev_keys] if have_rev
-                      else None, seeds, max_steps, pred=pred,
-                      n_phantom=n_phantom, deltas=dextras)
-        dist = res["dist"].cpu().numpy()            # synchronises
-        hop_edges = res["hop_edges"].cpu().numpy()
-        stats.device_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            res = run_bfs(dev, [dev.blocks[bk] for bk in block_keys],
+                          [dev.blocks[rk] for rk in rev_keys] if have_rev
+                          else None, seeds, max_steps, pred=pred,
+                          n_phantom=n_phantom, deltas=dextras)
+            dist = res["dist"].cpu().numpy()            # synchronises
+            hop_edges = res["hop_edges"].cpu().numpy()
+            stats.device_s = time.perf_counter() - t0
         stats.hop_edges = [int(x) for x in hop_edges.sum(axis=0)]
         stats.e_cap = list(res["e_cap"])
         stats.hbm_bytes = self.hbm_bytes()

@@ -36,7 +36,12 @@ def test_port_modules_exist():
               "nebula_tpu_torch.gpu.kernels", "nebula_tpu_torch.algo",
               "nebula_tpu_torch.algo.graph", "nebula_tpu_torch.algo.oracles",
               "nebula_tpu_torch.algo.kernels", "nebula_tpu_torch.algo.engine",
-              "nebula_tpu_torch.tools.algo_bench"):
+              "nebula_tpu_torch.tools.algo_bench",
+              "nebula_tpu_torch.utils.config",
+              "nebula_tpu_torch.utils.failpoints",
+              "nebula_tpu_torch.utils.cancel", "nebula_tpu_torch.utils.stats",
+              "nebula_tpu_torch.utils.workload",
+              "nebula_tpu_torch.gpu.batch"):
         assert m in names, m
 
 
