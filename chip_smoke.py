@@ -3,8 +3,9 @@
 
 The paths are GO N STEPS, `CALL algo.*`, the device BFS of FIND
 SHORTEST PATH, GO and the BFS again on a snapshot with writes pending in
-its delta plane, and concurrent GO statements batched into one run of
-the lane-widened kernels, each through the hand-written CUDA kernels.
+its delta plane, concurrent GO statements batched into one run of the
+lane-widened kernels, and MATCH's every-hop expansion, each through the
+hand-written CUDA kernels.
 
 Run from the repository root on a machine with a CUDA card and nvcc:
 
@@ -128,10 +129,38 @@ Phases, in order; any failure exits non-zero before the result line:
        d. each lane-widened kernel against its plain version at (b)'s
           lane shapes (merge_delta at (c)'s), exact, timed with CUDA
           events, with its byte bound (each shared CSR, column and delta
-          array counted once);
-  9. the `kernels` JSON line (the split GO path's, the algo path's, the
-     split BFS path's, the delta GO path's and the batched path's
-     launches), the card line, and the result line
+          array counted once); and the one library formulation of
+          expand, extend_hubs, compact_capture and merge_delta;
+  9. MATCH's every-hop expansion (GpuRuntime.traverse_hops: the WHERE
+     mask and the compaction at every hop, the next frontier marking
+     only the kept dsts), launch counters zeroed just before each run
+     and read just after:
+       a. bench.py config 4b: make_social_arrays(150,000 (or --persons
+          when smaller), 6, seed=11, src_hot_frac=0) with each (src, dst)
+          key's last draw kept (datagen.unique_keys, as a store's
+          overwrite keeps it), 8 parts, MATCH *1..4 from the first 1,792
+          persons with out-degree >= 3: the frames' trail count
+          (count_trails, the executor's assembly) equal to
+          host_trail_paths, each hop's frame equal to host_hop_edges as a
+          multiset, compact_capture 4 launches and mark 3 plus the seeds;
+          p50 of 3 warm runs of device_s, fetch_s, the frame build and
+          the assembly;
+       b. the north star as the main path lays it out (split at --split
+          when it ran), MATCH *1..3 WHERE KNOWS.w > 50 from the 16 seeds:
+          frames equal to host_hop_edges over the edges with w > 50,
+          predicate_mask 3 launches and extend_hubs launched; unfiltered,
+          hop_edges equal to phase 3's GO 3 STEPS;
+       c. 8 concurrent MATCH over 9a's graph, 224 seeds each, as phase 8
+          batches them: one batch, launches equal to one solo run's,
+          each statement's frames equal to its solo run's in order;
+       d. at 9b's shapes, predicate_mask and compact_capture at hops 1
+          and 2 and mark with the predicate's keep at hop 2, each against
+          its plain version (exact), timed with CUDA events beside its
+          plain version and one library formulation, with its byte
+          bound, and the every-hop loop's bound;
+ 10. the `kernels` JSON line (the split GO path's, the algo path's, the
+     split BFS path's, the delta GO path's, the batched path's and the
+     MATCH path's launches), the card line, and the result line
      {"ok": true, "device": {...}} last.
 Without CUDA it prints no result and exits 2.
 """
@@ -176,6 +205,15 @@ LANES_REPLACES = "nebula_tpu/tpu/hop.py:619"
 for _k in ("expand", "mark", "extend_hubs", "predicate_mask",
            "compact_capture", "merge_delta"):
     ROUTE_SOURCES[_k + " (lanes)"] = (ROUTE_SOURCES[_k][0], LANES_REPLACES)
+# MATCH's every-hop mode (phase 9) runs three kernels at shapes GO never
+# gives them: the WHERE mask and the compaction at every hop, the mark
+# with the mask as its keep (hop.py:_build_local_fn, capture_hops)
+ROUTE_SOURCES["predicate_mask (match)"] = (
+    ROUTE_SOURCES["predicate_mask"][0], "nebula_tpu/tpu/hop.py:522")
+ROUTE_SOURCES["compact_capture (match)"] = (
+    ROUTE_SOURCES["compact_capture"][0], "nebula_tpu/tpu/hop.py:535")
+ROUTE_SOURCES["mark (match)"] = (ROUTE_SOURCES["mark"][0],
+                                 "nebula_tpu/tpu/hop.py:553")
 # the algo path: each algorithm's parameters and its step kernel
 ALGO_RUNS = {"pagerank": ({"max_iter": 20, "tol": 0.0}, "pagerank_step"),
              "wcc": ({}, "wcc_step"),
@@ -197,8 +235,15 @@ WRITES = {"insert": 24_000, "seed_insert": 1_000, "delete": 8_000,
 DELTA_GO_KERNELS = ("expand", "merge_delta", "mark", "predicate_mask",
                     "compact_capture")
 DELTA_BFS_KERNELS = ("expand", "merge_delta", "mark", "bfs_level")
-BATCH_WAIT_US = 300_000          # phase 8's forming window
-BATCH_JOIN_S = 600               # every phase 8 thread joins within this
+BATCH_WAIT_US = 300_000          # phase 8's and 9c's forming window
+BATCH_JOIN_S = 600               # every batched thread joins within this
+# phase 9a: bench.py config 4b (bench.py:726-765), MATCH *1..4 from the
+# first 1,792 persons with out-degree >= 3 of a 150,000-person graph
+MATCH_PERSONS = 150_000
+MATCH_DEGREE = 6
+MATCH_GRAPH_SEED = 11
+MATCH_SEEDS = 1_792
+MATCH_HOPS = 4
 
 
 T0 = time.perf_counter()
@@ -873,12 +918,19 @@ def rows_equal(a, b) -> bool:
                for n in a.column_names)
 
 
-def run_batch(label, rt, store, seed_sets, steps, filt, yields, K):
-    """Phase 8's statements: each run solo (batching off; launch counters
-    zeroed before the first and read after it), then all at once from
-    threads with the former on, counters zeroed just before and read just
-    after.  Checks one batch of all of them, the batch's launches against
-    one solo run's, and every statement's rows (in order) and hop_edges
+def go_call(rt, store, steps, filt, yields):
+    """One GO statement of phase 8 on the north-star space, by seeds."""
+    return lambda seeds: rt.traverse(store, "ns", seeds, ["KNOWS"], "out",
+                                     steps, edge_filter=filt, yields=yields)
+
+
+def run_batch(label, go, seed_sets, steps, K, same=rows_equal, size=len):
+    """Phase 8's and 9c's statements, `go(seeds)` -> (result, stats): each
+    run solo (batching off; launch counters zeroed before the first and
+    read after it), then all at once from threads with the former on,
+    counters zeroed just before and read just after.  Checks one batch of
+    all of them, the batch's launches against one solo run's, and every
+    statement's result (`same`: rows in order, or frames) and hop_edges
     against its solo run.  Returns (results, the batch's launches)."""
     import threading
 
@@ -888,11 +940,6 @@ def run_batch(label, rt, store, seed_sets, steps, filt, yields, K):
     from nebula_tpu_torch.utils.stats import stats
     cfg = get_config()
     n = len(seed_sets)
-
-    def go(seeds):
-        return rt.traverse(store, "ns", seeds, ["KNOWS"], "out", steps,
-                           edge_filter=filt, yields=yields)
-
     cfg.set_dynamic_many({"batch_max_lanes": 0})
     go(seed_sets[0])                          # warm-up
     torch.cuda.synchronize()
@@ -964,9 +1011,9 @@ def run_batch(label, rt, store, seed_sets, steps, filt, yields, K):
     for i in range(n):
         rows, st, _ = out[i]
         srows, sst = solo[i]
-        if not rows_equal(rows, srows):
-            raise AssertionError(f"[{label}] statement {i}: rows differ, in "
-                                 f"order, from its solo run")
+        if not same(rows, srows):
+            raise AssertionError(f"[{label}] statement {i}: result differs, "
+                                 f"in order, from its solo run")
         if st.hop_edges != sst.hop_edges \
                 or st.frontier_sizes != sst.frontier_sizes:
             raise AssertionError(f"[{label}] statement {i}: hop_edges "
@@ -975,7 +1022,7 @@ def run_batch(label, rt, store, seed_sets, steps, filt, yields, K):
     res = {
         "statements": n, "steps": steps,
         "seeds_per_statement": len(seed_sets[0]),
-        "rows": [len(out[i][0]) for i in range(n)],
+        "rows": [size(out[i][0]) for i in range(n)],
         "dispatches_per_statement": delta("tpu_kernel_runs") / n,
         "batch_device_s": st_b.device_s,
         "solo_device_s_sum": float(sum(s.device_s for _, s in solo)),
@@ -1052,6 +1099,124 @@ def distinct_edges(eidx, mask) -> int:
     part = torch.arange(P, device=eidx.device).view(1, P, 1)
     key = (eidx.long() * P + part)[mask]
     return int(torch.unique(key).numel())
+
+
+def count_trails(frames, seeds):
+    """The MATCH executor's trail assembly (executors.py:487-500 in the
+    reference), counting: extend every trail by its last vertex's edges
+    in the next frame, drop a continuation that reuses an edge of its
+    trail.  Returns the number of trails of every length."""
+    import numpy as np
+    from nebula_tpu_torch.gpu import join_frontier_trails, \
+        trail_distinct_keep
+    last = np.asarray(sorted(set(seeds)), np.int64)
+    path, total = [], 0
+    for fr in frames:
+        if last.size == 0 or fr.n == 0:
+            break
+        parent, fidx = join_frontier_trails(fr, last)
+        keep = trail_distinct_keep(frames, path, parent, fr, fidx)
+        parent, fidx = parent[keep], fidx[keep]
+        total += int(fidx.size)
+        path = [pe[parent] for pe in path] + [fidx]
+        last = fr.dst[fidx]
+    return total
+
+
+def frames_equal(a, b) -> bool:
+    """Two runs' HopFrames with the same columns, in order."""
+    import numpy as np
+    return len(a) == len(b) and all(
+        x.n == y.n and all(np.array_equal(getattr(x, k), getattr(y, k))
+                           for k in ("src", "dst", "rank", "key_et",
+                                     "key_s", "key_d"))
+        for x, y in zip(a, b))
+
+
+def check_frames(label, frames, oracle) -> None:
+    """Each hop's frame equals the numpy every-hop expansion
+    (datagen.host_hop_edges) as a multiset of (src, dst, rank)."""
+    import numpy as np
+    if len(frames) != len(oracle):
+        raise AssertionError(f"[{label}] {len(frames)} frames, "
+                             f"{len(oracle)} oracle hops")
+    for h, (f, (s, d, r)) in enumerate(zip(frames, oracle)):
+        a, b = np.lexsort((f.rank, f.dst, f.src)), np.lexsort((r, d, s))
+        if f.n != s.size or not all(
+                np.array_equal(x[a], y[b])
+                for x, y in ((f.src, s), (f.dst, d), (f.rank, r))):
+            raise AssertionError(f"[{label}] hop {h + 1}: frame of {f.n} "
+                                 f"edges differs from the oracle's "
+                                 f"{s.size}")
+
+
+def match_inputs(K, dev, seeds, prog, steps: int):
+    """Phase 9d's inputs, from the plain versions: per hop of the
+    filtered every-hop run, the frontier buffer entering it (hub columns
+    filled), its slots (src, dst, rank, eidx, total) and the predicate's
+    keep mask; the next frontier marks only the kept dsts."""
+    import torch
+    from nebula_tpu_torch.gpu.hop import new_frontier
+    blk = dev.blocks[("KNOWS", "out")]
+    P, vmax = dev.num_parts, dev.vmax
+    ids = torch.tensor(sorted(set(seeds)), dtype=torch.int32,
+                       device=dev.device)
+    buf = new_frontier(dev)
+    K.mark_plain(ids, P, vmax, out=buf[:, :vmax])
+    hops = []
+    for hop in range(steps):
+        if dev.num_hubs:
+            K.extend_hubs_plain(buf, dev.hub_owner, dev.hub_local, vmax)
+        sl = K.expand_plain(blk.indptr, blk.nbr, blk.rank, buf,
+                            dev.hub_dense)
+        keep = K.predicate_mask_plain(prog, *sl[:4], sl[4],
+                                      [blk.props[n] for n in prog.columns])
+        hops.append((buf, sl, keep))
+        if hop < steps - 1:
+            buf = new_frontier(dev)
+            K.mark_plain(sl[1], P, vmax, keep=keep, out=buf[:, :vmax])
+    return ids, hops
+
+
+def run_match(rt, store, space, seeds, steps, filt, runs: int, K,
+              assemble: bool = True):
+    """MATCH's every-hop expansion through `rt.traverse_hops`: one warm
+    run, then `runs` runs, launch counters zeroed just before the first
+    and read just after it; with `assemble`, each run's frames counted
+    into trails by `count_trails`.  Returns (frames, stats, launches,
+    per-phase p50 seconds, trail count or None) of the first counted
+    run."""
+    import numpy as np
+    import torch
+    rt.traverse_hops(store, space, seeds, ["KNOWS"], "out", steps,
+                     edge_filter=filt)
+    torch.cuda.synchronize()
+    phases = {k: [] for k in ("total_s", "device_s", "fetch_s", "mat_s",
+                              "assembly_s")}
+    first = None
+    for i in range(runs):
+        if i == 0:
+            K.reset_launch_counts()
+        t0 = time.perf_counter()
+        frames, st = rt.traverse_hops(store, space, seeds, ["KNOWS"], "out",
+                                      steps, edge_filter=filt)
+        total = time.perf_counter() - t0
+        if i == 0:
+            torch.cuda.synchronize()
+            launches = K.launch_counts()
+        t0 = time.perf_counter()
+        trails = count_trails(frames, seeds) if assemble else None
+        asm = time.perf_counter() - t0
+        for k, v in (("total_s", total), ("device_s", st.device_s),
+                     ("fetch_s", st.fetch_s), ("mat_s", st.mat_s),
+                     ("assembly_s", asm if assemble else None)):
+            phases[k].append(v)
+        if first is None:
+            first = (frames, st, trails)
+        del frames
+    p50 = {k: None if v[0] is None else float(np.median(v))
+           for k, v in phases.items()}
+    return first[0], first[1], launches, p50, first[2]
 
 
 def main(argv=None) -> int:
@@ -1204,10 +1369,11 @@ def main(argv=None) -> int:
 
     def lib_expand_for(blk, f):
         def lib_expand():
-            # repeat_interleave of the active rows over their degrees
-            rows = f.view(-1).nonzero().view(-1)
-            nrows = f.shape[1]
-            p, r = rows // nrows, rows % nrows
+            # repeat_interleave of the active rows over their degrees; a
+            # lane stack's row q reads CSR row q mod P
+            rows = f.reshape(-1).nonzero().view(-1)
+            nrows = f.shape[-1]
+            p, r = (rows // nrows) % blk.indptr.shape[0], rows % nrows
             beg = blk.indptr[p, r].long()
             deg = blk.indptr[p, r + 1].long() - beg
             slot_row = torch.repeat_interleave(torch.arange(
@@ -1791,13 +1957,14 @@ def main(argv=None) -> int:
     dst_only = [(E.FunctionCall("dst", [E.EdgeExpr()]), "d")]
     batch = {"snapshot": blabel}
     batch["8a"], _ = run_batch(
-        "8a", brt, ns.store, [[x] for x in seeds], 1, None, dst_only, K)
+        "8a", go_call(brt, ns.store, 1, None, dst_only),
+        [[x] for x in seeds], 1, K)
     batch["8b"], launches_b = run_batch(
-        "8b", brt, ns.store, [seeds[2 * i:2 * i + 2] for i in range(8)], 3,
-        ns.w_filter, ns.yields, K)
+        "8b", go_call(brt, ns.store, 3, ns.w_filter, ns.yields),
+        [seeds[2 * i:2 * i + 2] for i in range(8)], 3, K)
     batch["8c"], launches_c = run_batch(
-        "8c", rtd, dstore, [seeds[4 * i:4 * i + 4] for i in range(4)], 3,
-        ns.w_filter, ns.yields, K)
+        "8c", go_call(rtd, dstore, 3, ns.w_filter, ns.yields),
+        [seeds[4 * i:4 * i + 4] for i in range(4)], 3, K)
     for name in SPLIT_KERNELS if rts is not None else UNSPLIT_KERNELS:
         if launches_b[name] <= 0:
             raise AssertionError(f"kernel {name} never launched in the "
@@ -1846,7 +2013,8 @@ def main(argv=None) -> int:
                 f"{err})")
             continue
         lrec("expand", got, want, cuda_ms(lambda a=a: K.expand(*a), lreps),
-             cuda_ms(lambda a=a: K.expand_plain(*a), lreps), None, nbytes,
+             cuda_ms(lambda a=a: K.expand_plain(*a), lreps),
+             cuda_ms(lib_expand_for(blk, f), lreps), nbytes,
              ops, f" (hop 3: {L} lanes x {P} parts x {EB} slots, {tot} "
                   f"valid, {union} distinct edges)")
 
@@ -1899,12 +2067,20 @@ def main(argv=None) -> int:
         f3 = bufs8[2].clone()
         hb = (H * L + R * H + 8 * H, R * H)
         k10["extend_hubs"] = len(bufs8) * bound(*hb)[0]   # every hop
+        own8, loc8 = bdev.hub_owner.long(), bdev.hub_local.long()
+
+        def lib_hubs8():
+            # one gather and one broadcast assignment, indices ready
+            f3[..., vmax:] = f3[:, own8, loc8][:, None, :]
+            return f3
+
         lrec("extend_hubs", got, want,
              cuda_ms(lambda: K.extend_hubs(f3, bdev.hub_owner,
                                            bdev.hub_local, vmax), reps),
              cuda_ms(lambda: K.extend_hubs_plain(f3, bdev.hub_owner,
                                                  bdev.hub_local, vmax),
-                     reps), None, *hb, f" ({L} lanes x {P} parts x {H} hubs)")
+                     reps), cuda_ms(lib_hubs8, reps), *hb,
+             f" ({L} lanes x {P} parts x {H} hubs)")
 
     # predicate_mask and compact_capture at the filtered hop 3
     a3 = (blk.indptr, blk.nbr, blk.rank, bufs8[2], bdev.hub_dense)
@@ -1929,11 +2105,22 @@ def main(argv=None) -> int:
     cp = K.compact_capture_plain(*ca, extent=total)
     n_kept = int(keep_p.sum())
     kept_union = distinct_edges(eidx, keep_p)
+    wcol8 = blk.props["w"]
+
+    def lib_compact8():
+        pi, si = keep_p.view(R, EB3).nonzero(as_tuple=True)
+        flat = pi * EB3 + si
+        outs = [t.reshape(-1).index_select(0, flat)
+                for t in (src, dst, rk, eidx)]
+        outs.append(wcol8[pi % P, outs[3].long()])
+        return outs
+
     lrec("compact_capture", [*ck[:4], *ck[4], ck[5]],
          [*cp[:4], *cp[4], cp[5]],
          cuda_ms(lambda: K.compact_capture(*ca, extent=total), lreps),
          cuda_ms(lambda: K.compact_capture_plain(*ca, extent=total), lreps),
-         None, compact_bytes(R * EB3, tot3, kept_union, 1, R), 2 * tot3,
+         cuda_ms(lib_compact8, lreps),
+         compact_bytes(R * EB3, tot3, kept_union, 1, R), 2 * tot3,
          f" (hop 3: {R}x{EB3} slots, {n_kept} kept, {kept_union} distinct "
          f"edges gathered)")
 
@@ -1960,12 +2147,37 @@ def main(argv=None) -> int:
     active = int(wv[..., EB4:].sum())
     probes = max(int(Tcap).bit_length(), 1)
     dP = devd.num_parts
+    pq4 = torch.arange(R4, device=rtd.device) % dP
+    col4 = torch.arange(EB4, device=rtd.device)
+    f4r = f4.reshape(R4, -1)
+    vmax4 = f4r.shape[1]
+
+    def lib_merge4(s=[t.view(R4, -1) for t in ws]):
+        # phase 7d's searchsorted + gather + cat, each lane row q reading
+        # the delta rows of part q mod P
+        e = s[3][:, :EB4].contiguous()
+        tomb = dl["d_tomb"][pq4]
+        pos = torch.searchsorted(tomb, e).clamp_(max=Tcap - 1)
+        vb = (col4 < base4[4].view(R4, 1)) \
+            & (torch.gather(tomb, 1, pos) != e)
+        ds = dl["d_src"][pq4]
+        act = dl["d_valid"][pq4] & torch.gather(
+            f4r, 1, ds.clamp(0, vmax4 - 1).long())
+        return (torch.cat([vb, act], 1),
+                torch.cat([s[0][:, :EB4],
+                           torch.where(act, ds * dP + pq4[:, None], -1)], 1),
+                torch.cat([s[1][:, :EB4],
+                           torch.where(act, dl["d_dst"][pq4], -1)], 1),
+                torch.cat([s[2][:, :EB4],
+                           torch.where(act, dl["d_rank"][pq4], 0)], 1),
+                base4[4].view(R4) + act.sum(1, dtype=torch.int32))
+
     lrec("merge_delta", [gv, gt, *gs], [wv, wt, *ws],
          cuda_ms_fresh(lambda: K.merge_delta(*gs, base4[4], f4, *dargs),
                        noop, lreps),
          cuda_ms_fresh(lambda: K.merge_delta_plain(*ws, base4[4], f4,
                                                    *dargs), noop, lreps),
-         None,
+         cuda_ms_fresh(lib_merge4, noop, lreps),
          4 * n_valid + R4 * EB4 + 4 * hits + dP * Dcap * 13
          + R4 * Dcap * (17 + 1) + 4 * dP * Tcap + 8 * R4,
          n_valid * probes + 4 * R4 * Dcap,
@@ -1981,17 +2193,221 @@ def main(argv=None) -> int:
         "bound_ms": sum(v for k, v in k10.items() if k != "merge_delta"),
         "bound_parts_ms": k10}
     log(f"[8] K10 lanes loop at 8b: {json.dumps(batch['k10'])}")
+    from nebula_tpu_torch.utils.workload import live_registry
     for qid in (-1, -2):
-        from nebula_tpu_torch.utils.workload import live_registry
         live_registry().deregister(qid)
 
-    # -- 9. result ---------------------------------------------------------
-    stamp("phase 9")
+    # -- 9. MATCH: the every-hop capture (bench.py config 4b) -------------
+    stamp("phase 9a")
+    from nebula_tpu_torch.bench.datagen import (host_hop_edges,
+                                                host_trail_paths,
+                                                make_social_arrays,
+                                                unique_keys)
+    match = {}
+    # 9a. config 4b's graph: make_social_graph's draws (uniform sources,
+    # 15% Zipf(1.6) destinations) with one edge per (src, dst) key, the
+    # last drawn, as the store's overwrite keeps it
+    t0 = time.perf_counter()
+    persons9 = min(args.persons, MATCH_PERSONS)
+    arrs9 = unique_keys(make_social_arrays(persons9, MATCH_DEGREE,
+                                           seed=MATCH_GRAPH_SEED,
+                                           src_hot_frac=0.0))
+    snap9 = snapshot_from_arrays(arrs9, parts=8, space="twb")
+    store9 = SnapshotStore(snap9)
+    deg9 = np.bincount(arrs9["src"], minlength=int(arrs9["n"]))
+    seeds9 = np.flatnonzero(deg9 >= 3)[:MATCH_SEEDS].tolist()
+    rt9 = GpuRuntime()
+    rt9.pin_prebuilt(snap9)
+    torch.cuda.synchronize()
+    match["9a"] = {"persons": persons9, "edges": int(arrs9["src"].size),
+                   "seeds": len(seeds9), "setup_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    want_trails = host_trail_paths(snap9, seeds9, MATCH_HOPS)
+    match["9a"]["host_trail_paths_s"] = time.perf_counter() - t0
+    frames9, st9, l9a, p50_9a, trails9 = run_match(
+        rt9, store9, "twb", seeds9, MATCH_HOPS, None, 3, K)
+    if trails9 != want_trails:
+        raise AssertionError(f"[9a] {trails9} trails from the frames, "
+                             f"host_trail_paths {want_trails}")
+    check_frames("9a", frames9, host_hop_edges(snap9, seeds9, MATCH_HOPS))
+    want_l = {"expand": MATCH_HOPS, "compact_capture": MATCH_HOPS,
+              "mark": MATCH_HOPS}        # MATCH_HOPS - 1 hops + the seeds
+    if {k: v for k, v in l9a.items() if v} != want_l:
+        raise AssertionError(f"[9a] launches {l9a}, want {want_l}")
+    match["9a"].update(trails=trails9, frame_edges=[f.n for f in frames9],
+                       hop_edges=st9.hop_edges, e_cap=st9.e_cap,
+                       launches={k: v for k, v in l9a.items() if v},
+                       p50_s=p50_9a)
+    log(f"[9a] {json.dumps(match['9a'])}")
+    del frames9
+
+    # 9b. the north star (split at --split as bench.py runs it), MATCH
+    # *1..3 WHERE KNOWS.w > 50 from the 16 seeds, then unfiltered
+    stamp("phase 9b")
+    mrt = rts if rts is not None else rt
+    mlabel = "split" if rts is not None else "unsplit"
+    mdev = mrt.snapshots["ns"]
+    # no trail assembly here: from vertex 0's 535,121 out-edges the walks
+    # number hundreds of millions by hop 3 (9a assembles)
+    frames9b, st9b, launches9, p50_9b, _ = run_match(
+        mrt, ns.store, "ns", ns.seeds, 3, ns.w_filter, 3, K, assemble=False)
+    check_frames("9b", frames9b, host_hop_edges(ns.snap, ns.seeds, 3,
+                                                w_gt=ns.w_gt))
+    want_l = {"expand": 3, "predicate_mask": 3, "compact_capture": 3,
+              "mark": 3}
+    if mdev.num_hubs:
+        want_l["extend_hubs"] = 3
+    if {k: v for k, v in launches9.items() if v} != want_l:
+        raise AssertionError(f"[9b] launches {launches9}, want {want_l}")
+    match["9b"] = {"snapshot": mlabel, "filter": f"w > {ns.w_gt}",
+                   "frame_edges": [f.n for f in frames9b],
+                   "hop_edges": st9b.hop_edges,
+                   "frontier_sizes": st9b.frontier_sizes, "e_cap": st9b.e_cap,
+                   "launches": {k: v for k, v in launches9.items() if v},
+                   "p50_s": p50_9b}
+    del frames9b
+    t0 = time.perf_counter()
+    frames_u, st_u = mrt.traverse_hops(ns.store, "ns", ns.seeds, ["KNOWS"],
+                                       "out", 3)
+    go_hop_edges = results[mlabel]["unfiltered"]["hop_edges"]
+    if st_u.hop_edges != go_hop_edges:
+        raise AssertionError(f"[9b] unfiltered hop_edges {st_u.hop_edges} "
+                             f"vs GO 3 STEPS {go_hop_edges}")
+    match["9b"]["unfiltered"] = {
+        "hop_edges": st_u.hop_edges, "frame_edges": [f.n for f in frames_u],
+        "total_s": time.perf_counter() - t0, "device_s": st_u.device_s,
+        "fetch_s": st_u.fetch_s, "mat_s": st_u.mat_s}
+    del frames_u
+    log(f"[9b] {json.dumps(match['9b'])}")
+
+    # 9c. eight concurrent MATCH expansions over 9a's graph share one run
+    stamp("phase 9c")
+    add_company()
+    match["9c"], _ = run_batch(
+        "9c", lambda sd: rt9.traverse_hops(store9, "twb", sd, ["KNOWS"],
+                                           "out", MATCH_HOPS),
+        [seeds9[224 * i:224 * (i + 1)] for i in range(8)], MATCH_HOPS, K,
+        same=frames_equal, size=lambda fr: sum(f.n for f in fr))
+    for qid in (-1, -2):
+        live_registry().deregister(qid)
+
+    # 9d. the kernels the every-hop mode runs at new shapes, against their
+    # plain versions at 9b's: predicate_mask and compact_capture at the
+    # narrow hops 1 and 2, mark with the predicate's keep at hop 2
+    stamp("phase 9d")
+    mblk = mdev.blocks[("KNOWS", "out")]
+    P, vmax, H = mdev.num_parts, mdev.vmax, mdev.num_hubs
+    prog9, _ = X.compile_predicate(ns.w_filter, mblk.prop_types, mdev.pool,
+                                   vid_to_dense=ns.store.space(
+                                       "ns").dense_id, device=mrt.device)
+    ids9, hops9 = match_inputs(K, mdev, ns.seeds, prog9, 3)
+    sizes = [int(b[:, :vmax].sum()) for b, _, _ in hops9]
+    if sizes != st9b.frontier_sizes:
+        raise AssertionError(f"[9d] plain frontiers {sizes} vs 9b's "
+                             f"{st9b.frontier_sizes}")
+    mcounts = {k + " (match)": v for k, v in launches9.items()}
+    wcol = [mblk.props["w"]]
+    k7 = {}                      # the every-hop loop's bounds at 9b
+
+    def mrec(name, got, want, ms, plain_ms, lib_ms, nbytes, ops, note):
+        record(name + " (match)", got, want, ms, plain_ms, lib_ms, nbytes,
+               ops, counts=mcounts, tag="[9d]", note=note)
+
+    got, want = [], []
+    for h in (0, 1):
+        _, sl, keep = hops9[h]
+        got.append(K.predicate_mask(prog9, *sl[:4], sl[4], wcol))
+        want.append(keep)
+    for h, (f, sl, keep) in enumerate(hops9):
+        EB, tot = sl[0].shape[1], int(sl[4].sum())
+        n_kept = int(keep.sum())
+        k7.setdefault("expand", 0.0)
+        k7["expand"] += bound(expand_bytes(P, f.shape[1], H, tot, EB),
+                              P * f.shape[1] * 3 + tot)[0]
+        if H:
+            k7["extend_hubs"] = k7.get("extend_hubs", 0.0) + bound(
+                H + P * H + 8 * H, P * H)[0]
+        pred_cost = (tot * (4 + 8) + P * EB + 4 * P, tot * len(prog9.code))
+        comp_cost = (compact_bytes(P * EB, tot, n_kept, 0, P), 2 * tot)
+        k7["predicate_mask"] = k7.get("predicate_mask", 0.0) \
+            + bound(*pred_cost)[0]
+        k7["compact_capture"] = k7.get("compact_capture", 0.0) \
+            + bound(*comp_cost)[0]
+        # hops 1 and 2 mark their kept dsts (ids and keep read); the
+        # seed build marks the 16 seed ids
+        n_ids, id_bytes = (sl[1].numel(), 5) if h < 2 \
+            else (ids9.numel(), 4)
+        k7["mark"] = k7.get("mark", 0.0) + bound(
+            id_bytes * n_ids + P * (vmax + H), 3 * n_ids)[0]
+        if h == 1:
+            pa = (prog9, *sl[:4], sl[4], wcol)
+            mrec("predicate_mask", got, want,
+                 cuda_ms(lambda: K.predicate_mask(*pa), reps),
+                 cuda_ms(lambda: K.predicate_mask_plain(*pa), reps), None,
+                 *pred_cost, f" (w > 50, hops 1 and 2; timed at hop 2: "
+                             f"{P}x{EB} slots, {tot} valid, {n_kept} kept)")
+    got, want = [], []
+    for h in (0, 1):
+        _, sl, keep = hops9[h]
+        for out, fn in ((got, K.compact_capture),
+                        (want, K.compact_capture_plain)):
+            r = fn(*sl[:4], keep, [], extent=sl[4])
+            out.extend([*r[:4], r[5]])
+    _, sl2, keep2 = hops9[1]
+    EB2, tot2, kept2 = sl2[0].shape[1], int(sl2[4].sum()), int(keep2.sum())
+    ca = (*sl2[:4], keep2, [])
+
+    def lib_compact_m():
+        pi, si = keep2.nonzero(as_tuple=True)
+        flat = pi * EB2 + si
+        return [t.view(-1).index_select(0, flat) for t in sl2[:4]]
+
+    mrec("compact_capture", got, want,
+         cuda_ms(lambda: K.compact_capture(*ca, extent=sl2[4]), reps),
+         cuda_ms(lambda: K.compact_capture_plain(*ca, extent=sl2[4]), reps),
+         cuda_ms(lib_compact_m, reps),
+         compact_bytes(P * EB2, tot2, kept2, 0, P), 2 * tot2,
+         f" (no yield column, hops 1 and 2; timed at hop 2: {P}x{EB2} "
+         f"slots, {tot2} valid, {kept2} kept)")
+    dst2 = sl2[1]
+    got = K.mark(dst2, P, vmax, keep=keep2, out=new_frontier(mdev)[:, :vmax])
+    want = K.mark_plain(dst2, P, vmax, keep=keep2,
+                        out=new_frontier(mdev)[:, :vmax])
+    if not torch.equal(want, hops9[2][0][:, :vmax]):
+        raise AssertionError("[9d] hop 2's kept marks are not hop 3's "
+                             "frontier")
+    kd = dst2[keep2].long()
+    one = torch.ones((), dtype=torch.bool, device=dst2.device)
+
+    def lib_mark_m():
+        out = torch.zeros((P, vmax), dtype=torch.bool, device=kd.device)
+        return out.index_put_((kd % P, kd // P), one)
+
+    n2 = dst2.numel()
+    mrec("mark", [got], [want],
+         cuda_ms(lambda: K.mark(dst2, P, vmax, keep=keep2,
+                                out=new_frontier(mdev)[:, :vmax]), reps),
+         cuda_ms(lambda: K.mark_plain(dst2, P, vmax, keep=keep2,
+                                      out=new_frontier(mdev)[:, :vmax]),
+                 reps),
+         cuda_ms(lib_mark_m, reps), 5 * n2 + P * (vmax + H), 3 * n2,
+         f" (keep = w > 50 at hop 2: {n2} slots, {kd.numel()} kept, with "
+         f"the zero fill)")
+    match["k7_every_hop"] = {
+        "device_loop_ms": p50_9b["device_s"] * 1e3,
+        "launches_per_run": sum(launches9.values()),
+        "bound_ms": sum(k7.values()), "bound_parts_ms": k7}
+    log(f"[9] K7 every-hop loop at 9b: {json.dumps(match['k7_every_hop'])}")
+    del hops9
+
+    # -- 10. result --------------------------------------------------------
+    stamp("phase 10")
     log(json.dumps({"go3": results, "expand_per_hop": per_hop,
                     "unsplit_launches": launches_u,
                     "unsplit_kernels": extra, "algo": algo, "bfs": bfs,
                     "bfs_launches": bfs_launches, "delta": delta,
                     "delta_launches": launches_d, "batch": batch,
+                    "match": match,
                     "hbm_bytes": rt.hbm_bytes() + (
                         rts.hbm_bytes() if rts is not None else 0)}))
     print(json.dumps({"kernels": rows_out}))

@@ -7,10 +7,14 @@ tails on both sides, so some sources are supernodes), and
 KNOWS blocks and w (INT64) / f (DOUBLE) / city (STRING) edge props.
 `host_csr_traverse` is the numpy GO oracle the port's device path is
 checked against, `host_bfs` (a copy of the reference's, :282) the numpy
-BFS oracle of bench.py config 5, and `SnapshotStore` the store stand-in
-the runtime's `traverse` and `bfs` read dense ids and edge-type ids
-from, with a write side for the delta plane.  `north_star` sets up
-the repo's north-star GO once for every script that runs it.
+BFS oracle of bench.py config 5, `host_trail_paths` (a copy of the
+reference's, :361) the trail-count oracle of bench.py config 4b's MATCH
+and `host_hop_edges` its every-hop edge sets.  `unique_keys` keeps one
+edge per (src, dst) key, as a store does.  `SnapshotStore` is the store
+stand-in the runtime's `traverse`, `traverse_hops` and `bfs` read dense
+ids and edge-type ids from, with a write side for the delta plane.
+`north_star` sets up the repo's north-star GO once for every script that
+runs it.
 """
 from __future__ import annotations
 
@@ -51,6 +55,21 @@ def make_social_arrays(n_persons: int, avg_degree: int, seed: int = 7,
         "f": rng.random(n_edges),
         "city": rng.integers(0, len(_NAMES), n_edges, dtype=np.int64),
     }
+
+
+def unique_keys(arrs) -> Dict[str, Any]:
+    """The edge arrays with one edge per (src, dst) key, the LAST of each
+    key's draws, in draw order: the graph a store holds after inserting
+    the draws one by one (an insert of an existing key overwrites it).
+    The generated arrays are a multigraph; a trail's edge identity is
+    its key in the frames and its slot in `host_trail_paths`, which
+    agree only when every key is unique."""
+    key = arrs["src"] * int(arrs["n"]) + arrs["dst"]
+    rev = key[::-1]
+    _, first = np.unique(rev, return_index=True)
+    keep = np.sort(key.size - 1 - first)
+    return {k: (v[keep] if isinstance(v, np.ndarray) else v)
+            for k, v in arrs.items()}
 
 
 def _coo_to_padded_csr(owner, local, nbr_dense, vmax, P):
@@ -154,6 +173,77 @@ def host_csr_traverse(snap, seeds, steps: int, w_gt=None,
             return total, int(nxt.size)
         frontier = np.unique(nxt)
     return (total, 0, None, None) if materialize else (total, 0)
+
+
+def _expand_paths(blk, P, fr):
+    """One path-expansion hop over an out-CSR block: (parent, dst, eid)
+    for EVERY edge out of fr's entries — no dedup; this is path currency,
+    not frontier currency.  eid is a globally-unique physical edge id
+    (part-major slot index), the trail-dedup key."""
+    owner = fr % P
+    local = fr // P
+    s = blk.indptr[owner, local].astype(np.int64)
+    e = blk.indptr[owner, local + 1].astype(np.int64)
+    deg = e - s
+    tot = int(deg.sum())
+    if tot == 0:
+        z = np.empty(0, np.int64)
+        return z, z, z
+    parent = np.repeat(np.arange(fr.size, dtype=np.int64), deg)
+    offs = np.arange(tot, dtype=np.int64) \
+        - np.repeat(np.cumsum(deg) - deg, deg)
+    idx = s[parent] + offs
+    emax = blk.nbr.shape[1]
+    eid = owner[parent] * emax + idx
+    dst = blk.nbr[owner[parent], idx].astype(np.int64)
+    return parent, dst, eid
+
+
+def host_trail_paths(snap, seeds_dense, max_hop):
+    """Numpy comparator for config 4: count of variable-length *1..N
+    trail paths (distinct edges within one path) from the seed set —
+    level-joins with pairwise edge-id comparison, the same algorithm
+    class the device frame assembly uses."""
+    P = snap.num_parts
+    blk = snap.block("KNOWS", "out")
+    last = np.asarray(sorted(set(int(s) for s in seeds_dense)), np.int64)
+    eids = []
+    total = 0
+    for _h in range(max_hop):
+        if last.size == 0:
+            break
+        parent, dst, eid = _expand_paths(blk, P, last)
+        if dst.size == 0:
+            break
+        keep = np.ones(dst.size, bool)
+        for pe in eids:
+            keep &= pe[parent] != eid
+        total += int(keep.sum())
+        sel = np.flatnonzero(keep)
+        last = dst[sel]
+        eids = [pe[parent[sel]] for pe in eids] + [eid[sel]]
+    return total
+
+
+def host_hop_edges(snap, seeds_dense, steps: int, w_gt=None):
+    """Numpy oracle of MATCH's every-hop capture over the out-KNOWS
+    block: per hop, the (src, dst, rank) int64 arrays of every edge out
+    of that hop's frontier (with w_gt, only those with KNOWS.w > w_gt),
+    the next frontier being the distinct dsts of those edges."""
+    P = snap.num_parts
+    blk = snap.block("KNOWS", "out")
+    fr = np.unique(np.asarray(seeds_dense, np.int64))
+    hops = []
+    for _h in range(steps):
+        parent, dst, eid = _expand_paths(blk, P, fr)
+        src = fr[parent]
+        rank = blk.rank.reshape(-1)[eid].astype(np.int64)
+        if w_gt is not None:
+            keep = blk.props["w"].reshape(-1)[eid] > w_gt
+            src, dst, rank = src[keep], dst[keep], rank[keep]
+        hops.append((src, dst, rank))
+        fr = np.unique(dst)
+    return hops
 
 
 def host_bfs(snap, src_dense, steps: int, etype: str = "KNOWS"):

@@ -1,9 +1,10 @@
-"""The single-device N-hop GO loop (Queue B K7).
+"""The single-device N-hop loop (Queue B K7): GO's and MATCH's.
 
-Port of `nebula_tpu/tpu/hop.py:_build_local_fn` (:463) in its GO final-hop
-capture mode.  The reference is one jitted XLA program per bucket
+Port of `nebula_tpu/tpu/hop.py:_build_local_fn` (:463) in both its modes:
+GO's final-hop capture and MATCH's every-hop capture (`capture_hops`,
+:522-575).  The reference is one jitted XLA program per bucket
 configuration; here it is a host loop over the hand-written kernels of
-`gpu/kernels.py`:
+`gpu/kernels.py`.  In GO's mode:
 
   per hop:             on a degree-split snapshot, extend_hubs (K8) fills
                        the H hub columns of the (P, vmax + H) frontier
@@ -45,6 +46,16 @@ expansion of each hop — with a delta plane, the base slots of frontier
 rows, tombstoned ones included, plus the active delta rows — and
 frontier_sizes counts the ownership bitmap without the hub columns
 (hop.py:511).
+
+MATCH's mode (`capture_hops=True`, the reference's hop.py:522 `want_pred
+= pred is not None and (last or capture_hops)`): the predicate and the
+compaction run at EVERY hop (a MATCH edge pattern's filter holds over
+the whole variable-length expansion), every hop's kept slots are
+captured, and the next frontier marks only the kept dsts — mark gets the
+predicate's mask as its keep (hop.py:552-553).  No yield column is
+gathered.  Each hop's capture keeps its own exact width, where the
+reference stacks them at one uniform bucket (`_norm_ebs`, :258-267):
+the frames do not depend on it, only e_cap does.
 """
 from __future__ import annotations
 
@@ -91,11 +102,12 @@ def run_hops(dev: DeviceSnapshot, blocks: Sequence[DeviceBlock],
              frontier: torch.Tensor, steps: int,
              pred: Optional[Program] = None, capture: bool = True,
              yield_cols: Sequence[str] = (),
-             deltas: Optional[Sequence[Optional[Dict[str, Any]]]] = None
-             ) -> Dict[str, Any]:
-    """Run a `steps`-hop GO from the seed frontier buffer (`new_frontier`
-    with the seeds marked into its first vmax columns), or from an (L,
-    P, vmax + H) lane stack of L statements' seed buffers.  `deltas`: per
+             deltas: Optional[Sequence[Optional[Dict[str, Any]]]] = None,
+             capture_hops: bool = False) -> Dict[str, Any]:
+    """Run a `steps`-hop GO — or with capture_hops, MATCH's every-hop
+    expansion — from the seed frontier buffer (`new_frontier` with the
+    seeds marked into its first vmax columns), or from an (L, P, vmax +
+    H) lane stack of L statements' seed buffers.  `deltas`: per
     block, its delta plane's tensors (d_src, d_dst, d_rank, d_valid,
     d_tomb and d_props {name: (P, Dcap)}) or None.
 
@@ -107,7 +119,9 @@ def run_hops(dev: DeviceSnapshot, blocks: Sequence[DeviceBlock],
         max(total)) — ints
       cap (if capture): one dict per block of (P, EB) arrays src, dst,
         rank, eidx, prop:<name> per yield col (kept slots compacted to a
-        prefix: base slots, then delta slots) and kcount (P,) int32
+        prefix: base slots, then delta slots) and kcount (P,) int32;
+        with capture_hops, one such list per hop (no yield columns),
+        each hop at its own width
     """
     P, vmax, H = dev.num_parts, dev.vmax, dev.num_hubs
     lead = tuple(frontier.shape[:-1])         # (P,) or (L, P)
@@ -116,48 +130,53 @@ def run_hops(dev: DeviceSnapshot, blocks: Sequence[DeviceBlock],
     hop_edges: List[torch.Tensor] = []
     frontier_sizes: List[torch.Tensor] = []
     e_cap: List[int] = []
-    caps: List[Dict[str, torch.Tensor]] = []
+    hop_caps: List[List[Dict[str, torch.Tensor]]] = []
     for hop in range(steps):
         frontier_sizes.append(fbm[..., :vmax].sum(-1, dtype=torch.int32))
         if H:
             extend_hubs(fbm, dev.hub_owner, dev.hub_local, vmax)
         last = hop == steps - 1
+        captured = capture and (last or capture_hops)
         nxt = None if last else torch.zeros_like(fbm)
         edges = torch.zeros(lead, dtype=torch.int32, device=fbm.device)
         width = 0
+        caps: List[Dict[str, torch.Tensor]] = []
         for b, dl in zip(blocks, deltas):
             src, dst, rk, eidx, valid, total = expand_merged(
                 b, fbm, dev.hub_dense, dl)
             edges += total
             width = max(width, src.shape[-1])
-            if not last:
-                # no predicate before the final hop: every valid slot is
-                # kept, and the invalid ones — expand's padding, the
-                # merge's tombstoned and inactive slots — have dst = -1
-                mark(dst, P, vmax, out=nxt[..., :vmax])
-                continue
-            if not capture:
-                continue
-            if pred is None:
-                keep = valid if valid is not None else (
-                    torch.arange(src.shape[-1], dtype=torch.int32,
-                                 device=fbm.device) < total[..., None])
-            else:
+            keep = None
+            if pred is not None and (last or capture_hops):
                 keep = predicate_mask(
                     pred, src, dst, rk, eidx,
                     valid if valid is not None else total,
                     [b.props[n] for n in pred.columns],
                     None if dl is None
                     else [dl["d_props"][n] for n in pred.columns])
+            if not last:
+                # without a predicate every valid slot is kept, and the
+                # invalid ones — expand's padding, the merge's tombstoned
+                # and inactive slots — have dst = -1
+                mark(dst, P, vmax, keep=keep, out=nxt[..., :vmax])
+            if not captured:
+                continue
+            if keep is None:
+                keep = valid if valid is not None else (
+                    torch.arange(src.shape[-1], dtype=torch.int32,
+                                 device=fbm.device) < total[..., None])
+            ycols = () if capture_hops else yield_cols
             cs, cd, cr, ce, props, kc = compact_capture(
-                src, dst, rk, eidx, keep, [b.props[n] for n in yield_cols],
+                src, dst, rk, eidx, keep, [b.props[n] for n in ycols],
                 None if dl is None
-                else [dl["d_props"][n] for n in yield_cols],
+                else [dl["d_props"][n] for n in ycols],
                 extent=total if valid is None else None)
             cap = {"src": cs, "dst": cd, "rank": cr, "eidx": ce,
                    "kcount": kc}
-            cap.update({"prop:" + n: c for n, c in zip(yield_cols, props)})
+            cap.update({"prop:" + n: c for n, c in zip(ycols, props)})
             caps.append(cap)
+        if captured:
+            hop_caps.append(caps)
         hop_edges.append(edges)
         e_cap.append(width)
         fbm = nxt
@@ -167,5 +186,5 @@ def run_hops(dev: DeviceSnapshot, blocks: Sequence[DeviceBlock],
         "e_cap": e_cap,
     }
     if capture:
-        res["cap"] = caps
+        res["cap"] = hop_caps if capture_hops else hop_caps[-1]
     return res

@@ -13,7 +13,12 @@ and the delta decode of `_block_columns` (:2302-2337), the dispatch gate
 (`_DispatchGate` :147, `_gated_dispatch` :1052), and the multi-lane
 batched GO: `_try_batched` (:1429), the lane seed build (:1138, :976),
 `_escalate_lanes` (:1169, here `_run`, which runs a solo statement as
-its one lane) and `_lane_attribution` (:1363).
+its one lane) and `_lane_attribution` (:1363); GO without yields, whose
+rows are `(src_vid, Edge, dst_vid)` triples (`_materialize`, :2354); and
+MATCH's device half: `traverse_hops` (:1901), the every-hop capture of
+the hop loop, `_build_frames` (:2006), and the frame types and trail
+helpers the assembly above it reads, `HopFrame`, `join_frontier_trails`
+and `trail_distinct_keep` (:254-405).
 
 The dispatch gate is a read-write lock with writer preference: every
 device dispatch (a GO run, solo or batched, a BFS, an algo iteration)
@@ -38,8 +43,9 @@ does not compact: a plane past the reference's fill watermark serves on
 until it overflows.
 
 What the port leaves out raises `CannotCompile`, as the reference does
-for a filter it cannot compile: GO without `yields` (Edge rows, which need
-the store's catalog) and the mesh.  A traversal runs on the
+for a filter it cannot compile: a result column of a type this slice
+does not decode (temporal, geography).  The mesh is not ported.  A
+traversal runs on the
 runtime's one `torch.device`; `GpuRuntime()` means `cuda:0`, and the CPU
 runs only when the caller passes `device="cpu"` (the kernels' plain
 versions then run).
@@ -55,8 +61,9 @@ import numpy as np
 import torch
 
 from ..core import expr as E
-from ..core.value import ColumnarDataSet
-from ..graphstore.csr import DECODABLE, decode_prop_column_np, degree_split
+from ..core.value import ColumnarDataSet, Edge
+from ..graphstore.csr import DECODABLE, decode_prop_column, \
+    decode_prop_column_np, degree_split
 from ..graphstore.delta import DeltaOverflow, DeltaUnsupported, HostDelta
 from ..utils.failpoints import FailpointError, fail
 from ..utils.stats import current_cost, current_work, stats as metrics, \
@@ -180,6 +187,41 @@ def _cat_parts(parts, dtype=None):
     return parts[0].copy()
 
 
+def _kept_parts(cap, name: str, pids, perms=None) -> List[np.ndarray]:
+    """One block's kept prefix of capture array `name` for each part in
+    `pids`, re-ordered by its canonical permutation where `perms` (from
+    `_delta_perms`) has one."""
+    kc = cap["kcount"]
+    parts = [cap[name][p, :kc[p]] for p in pids]
+    if perms is not None:
+        parts = [a if pm is None else a[pm] for a, pm in zip(parts, perms)]
+    return parts
+
+
+def _cat_kept(cap, name: str, pids, perms=None, dtype=None) -> np.ndarray:
+    """`_kept_parts` concatenated, part after part."""
+    return _cat_parts(_kept_parts(cap, name, pids, perms), dtype)
+
+
+def _take_pair_np(col, dcol, rows, e) -> np.ndarray:
+    """A prop column's values at [rows, e]: the base column col (P, emax)
+    below emax, the delta plane's numpy mirror dcol (P, Dcap) at
+    e - emax above it (dcol None: no plane).  rows is a part or an array
+    of parts aligned with e."""
+    if dcol is None:
+        return col[rows, e]
+    emax = col.shape[1]
+    base = e < emax
+    out = np.empty(e.shape, col.dtype)
+    if np.ndim(rows) == 0:           # one part: gathers along its rows
+        out[base] = col[rows][e[base]]
+        out[~base] = dcol[rows][e[~base] - emax]
+    else:
+        out[base] = col[rows[base], e[base]]
+        out[~base] = dcol[rows[~base], e[~base] - emax]
+    return out
+
+
 @contextmanager
 def _detached():
     """No WorkCounters, cost sink or live row on this thread: a batch's
@@ -273,6 +315,160 @@ class TraverseStats:
 
     def edges_traversed(self) -> int:
         return int(sum(self.hop_edges))
+
+
+class HopFrame:
+    """One hop's captured edge set, columnar, indexed for path assembly.
+
+    src/dst: (n,) int64 dense vertex ids in capture order (block-major,
+    then part, then per-src CSR slot order — matching the host
+    get_neighbors iteration).  Edge OBJECTS are decoded lazily: the
+    vectorized trail assembly touches only the entries that land on an
+    emitted path, and the full `.edges` object array is built only for
+    the DFS consumers (the reference's exec/algorithms.py) that ask for
+    it.
+
+    Trail-dedup identity is columnar too: (key_et, key_s, key_d, rank)
+    is the canonical physical-edge key (reverse-direction copies of one
+    logical edge canonicalize equal), compared component-wise — no
+    per-edge Python hashing.
+    """
+    __slots__ = ("src", "dst", "rank", "n", "order", "_us", "_ustart",
+                 "_ucnt", "key_et", "key_s", "key_d",
+                 "_segs", "_decode_seg", "_eobjs", "_edone", "_all_done")
+
+    @classmethod
+    def empty(cls) -> "HopFrame":
+        f = cls()
+        f.src = np.empty((0,), np.int64)
+        f.dst = np.empty((0,), np.int64)
+        f.rank = np.empty((0,), np.int64)
+        f.key_et = np.empty((0,), np.int64)
+        f.key_s = np.empty((0,), np.int64)
+        f.key_d = np.empty((0,), np.int64)
+        f.n = 0
+        f.order = np.empty((0,), np.int64)
+        f._us = np.empty((0,), np.int64)
+        f._ustart = np.empty((0,), np.int64)
+        f._ucnt = np.empty((0,), np.int64)
+        f._segs = []
+        f._decode_seg = None
+        f._eobjs = np.empty((0,), object)
+        f._edone = None
+        f._all_done = True
+        return f
+
+    @classmethod
+    def build(cls, src, dst, rank, key_et, key_s, key_d, segs,
+              decode_seg) -> "HopFrame":
+        """segs: list of (seg_start, seg_end, payload); decode_seg(
+        payload, offsets) -> list[Edge] decodes a segment's entries at
+        `offsets` (segment-relative)."""
+        if src is None or src.size == 0:
+            return cls.empty()
+        f = cls()
+        f.src, f.dst, f.rank = src, dst, rank
+        f.key_et, f.key_s, f.key_d = key_et, key_s, key_d
+        f.n = src.size
+        f.order = np.argsort(src, kind="stable")
+        ss = src[f.order]
+        starts = np.flatnonzero(np.concatenate(
+            [[True], ss[1:] != ss[:-1]]))
+        f._us = ss[starts]
+        f._ustart = starts
+        f._ucnt = np.diff(np.concatenate([starts, [ss.size]]))
+        f._segs = segs
+        f._decode_seg = decode_seg
+        f._eobjs = None
+        f._edone = None
+        f._all_done = False
+        return f
+
+    def out_edges(self, dense_id: int):
+        """Indices (into src/dst/edges) of this hop's edges out of
+        dense_id, in CSR order."""
+        p = np.searchsorted(self._us, dense_id)
+        if p >= self._us.size or self._us[p] != dense_id:
+            return ()
+        return self.order[self._ustart[p]:self._ustart[p]
+                          + self._ucnt[p]]
+
+    def src_slices(self):
+        """(us, ustart, ucnt): sorted unique srcs with their slice into
+        `order` — the vectorized join's lookup table."""
+        return self._us, self._ustart, self._ucnt
+
+    def decode(self, idx: np.ndarray) -> np.ndarray:
+        """Edge objects for frame indices `idx` (object array, aligned
+        with idx).  Decodes each entry at most once across calls."""
+        if self._eobjs is None:
+            self._eobjs = np.full((self.n,), None, dtype=object)
+            self._edone = np.zeros((self.n,), bool)
+        eo = self._eobjs
+        if idx.size:
+            uniq = np.unique(idx)
+            need = uniq[~self._edone[uniq]]
+            for (s0, s1, payload) in self._segs:
+                m = need[(need >= s0) & (need < s1)]
+                if m.size == 0:
+                    continue
+                eo[m] = self._decode_seg(payload, m - s0)
+                self._edone[m] = True
+        return eo[idx]
+
+    @property
+    def edges(self) -> np.ndarray:
+        """All Edge objects (decodes the whole frame once) — the DFS
+        consumers' contract.  O(1) once fully decoded (a per-access
+        `_edone.all()` would make a DFS replay O(n²))."""
+        if not self._all_done:
+            self.decode(np.arange(self.n, dtype=np.int64))
+            self._all_done = True
+        return self._eobjs
+
+
+def join_frontier_trails(fr: "HopFrame", last: np.ndarray
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+    """One searchsorted join of per-trail endpoints against a frame's
+    src index.  Returns (parent, fidx): for every (trail, edge)
+    continuation, the trail's index into `last` and the frame entry —
+    in frame CSR order within each trail.  Shared by the MATCH
+    executor's assembly and the fused MATCH aggregation (the reference's
+    executors.py and tpu/match_agg.py: one source for the join's edge
+    cases).  A caller stops at an empty frame: joining a non-empty
+    `last` against one raises IndexError, as in the reference."""
+    us, ustart, ucnt = fr.src_slices()
+    p = np.searchsorted(us, last)
+    p = np.minimum(p, max(us.size - 1, 0))
+    hit = us[p] == last
+    cnt = np.where(hit, ucnt[p], 0)
+    start = np.where(hit, ustart[p], 0)
+    ends = np.cumsum(cnt)
+    total = int(ends[-1]) if cnt.size else 0
+    if total == 0:
+        return (np.empty(0, np.int64), np.empty(0, np.int64))
+    k = np.arange(total, dtype=np.int64)
+    parent = np.searchsorted(ends, k, side="right")
+    within = k - (ends[parent] - cnt[parent])
+    fidx = fr.order[start[parent] + within]
+    return parent, fidx
+
+
+def trail_distinct_keep(frames: List["HopFrame"], path: List[np.ndarray],
+                        parent: np.ndarray, fr: "HopFrame",
+                        fidx: np.ndarray) -> np.ndarray:
+    """Relationship-uniqueness mask: for each candidate continuation,
+    compare the new edge's canonical key against every earlier hop of
+    its trail (componentwise over the frames' key columns)."""
+    keep = np.ones(fidx.size, bool)
+    for eh, pe in enumerate(path):
+        pf = frames[eh]
+        pidx = pe[parent]
+        keep &= ~((pf.key_et[pidx] == fr.key_et[fidx])
+                  & (pf.key_s[pidx] == fr.key_s[fidx])
+                  & (pf.key_d[pidx] == fr.key_d[fidx])
+                  & (pf.rank[pidx] == fr.rank[fidx]))
+    return keep
 
 
 class GpuRuntime:
@@ -439,6 +635,17 @@ class GpuRuntime:
             extras.append(d)
         return view, extras
 
+    @staticmethod
+    def _insert_view(dview, block_keys):
+        """The delta view the capture decodes against: None when the
+        blocks' planes hold no insert row — a plane without one appends
+        no slot, so the capture is in base order and decodes as without a
+        plane."""
+        if dview is None or not any(
+                dview[1][bk]["np"]["d_valid"].any() for bk in block_keys):
+            return None
+        return dview
+
     def unpin(self, space: str) -> None:
         """Drop a space's snapshot (it is retired), under the write side
         of the dispatch gate."""
@@ -583,6 +790,22 @@ class GpuRuntime:
                 keys.append((et, "in"))
         return keys
 
+    def _compile_filter(self, dev: DeviceSnapshot, sd, block_keys,
+                        edge_filter: Optional[E.Expr]):
+        """The WHERE program, compiled against the first block's prop
+        types (the optimizer rule allows one edge type under a filter),
+        or None without a filter; raises CannotCompile as the program
+        would."""
+        if edge_filter is None:
+            return None
+        bl = dev.blocks[block_keys[0]]
+        pred, _ = compile_predicate(
+            edge_filter, bl.prop_types, dev.pool,
+            vid_to_dense=sd.dense_id, device=self.device)
+        if pred.error is not None:
+            raise pred.error
+        return pred
+
     def traverse(self, store, space: str, vids: Sequence[Any],
                  etypes: Sequence[str], direction: str, steps: int,
                  edge_filter: Optional[E.Expr] = None,
@@ -591,10 +814,12 @@ class GpuRuntime:
                  ) -> Tuple[Any, TraverseStats]:
         """Run an N-step GO expansion on the device.
 
-        Returns (rows, stats).  With `yields` — (Expr, name) pairs that
-        evaluate columnar-side — rows is a ColumnarDataSet holding the
-        final output as numpy columns; with capture=False only the stats
-        are computed.  Raises CannotCompile for a filter that does not
+        Returns (rows, stats).  Without `yields`, rows are (src_vid,
+        Edge, dst_vid) triples for every final-hop edge passing the
+        predicate.  With `yields` — (Expr, name) pairs that evaluate
+        columnar-side — rows is a ColumnarDataSet holding the final
+        output as numpy columns; with capture=False only the stats are
+        computed.  Raises CannotCompile for a filter that does not
         vectorize and for what this slice does not port (see module
         docstring)."""
         t_start = time.perf_counter()
@@ -603,20 +828,9 @@ class GpuRuntime:
         stats = TraverseStats()
         stats.steps = steps
         stats.pin_s = time.perf_counter() - t_start
-        if capture and yields is None:
-            raise CannotCompile(
-                "GO without yields (Edge rows) is not ported yet")
 
         block_keys = self._blocks_for(etypes, direction)
-        pred = None
-        if edge_filter is not None:
-            # single-etype constraint is enforced by the optimizer rule
-            bl = dev.blocks[block_keys[0]]
-            pred, _ = compile_predicate(
-                edge_filter, bl.prop_types, dev.pool,
-                vid_to_dense=sd.dense_id, device=self.device)
-            if pred.error is not None:
-                raise pred.error
+        pred = self._compile_filter(dev, sd, block_keys, edge_filter)
 
         dense = [sd.dense_id(v) for v in vids]
         dense = [d for d in dense if d >= 0]
@@ -625,22 +839,26 @@ class GpuRuntime:
 
         # edge props the yields read and every block carries are gathered
         # on the device at the compacted final-hop slots (at most 4); the
-        # rest decode on the host via the captured eidx
+        # rest decode on the host via the captured eidx.  Edge rows (no
+        # yields) decode every prop of the block.
         yield_cols: tuple = ()
         if capture:
-            wanted = {x.name for e, _ in yields for x in E.walk(e)
-                      if x.kind == "edge_prop"
-                      and not x.name.startswith("_")}
+            wanted = None if yields is None else {
+                x.name for e, _ in yields for x in E.walk(e)
+                if x.kind == "edge_prop" and not x.name.startswith("_")}
             for bk in block_keys:
                 hb = dev.blocks[bk]
-                bad = [n for n in wanted if n in hb.prop_types
+                bad = [n for n in (hb.prop_types if wanted is None
+                                   else wanted)
+                       if n in hb.prop_types
                        and hb.prop_types[n] not in DECODABLE]
                 if bad:
+                    what = "Edge row" if yields is None else "yield"
                     raise CannotCompile(
-                        f"yield of {bad[0]} ({hb.prop_types[bad[0]].name}) "
+                        f"{what} of {bad[0]} ({hb.prop_types[bad[0]].name}) "
                         f"is not ported yet")
             yield_cols = tuple(sorted(
-                n for n in wanted
+                n for n in wanted or ()
                 if all(n in dev.blocks[bk].props for bk in block_keys))
             )[:_MAX_YIELD_COLS]
         fetch_keys = _cap_keys_for_yields(yields, yield_cols) \
@@ -655,11 +873,7 @@ class GpuRuntime:
             prop_names |= set(pred.columns)
         dview, dextras = self._grab_delta(dev, block_keys, prop_names)
         delta_epoch = None if dview is None else dview[0]
-        if dview is not None and not any(
-                dview[1][bk]["np"]["d_valid"].any() for bk in block_keys):
-            # a plane without insert rows appends no slot: the capture is
-            # in base order and decodes as without a plane
-            dview = None
+        dview = self._insert_view(dview, block_keys)
         if fetch_keys is not None and dview is not None:
             # delta rows interleave with base rows in canonical CSR order
             # at materialize time: the host re-sort needs every identity
@@ -692,12 +906,77 @@ class GpuRuntime:
             return [], stats
 
         t_mat = time.perf_counter()
-        rows = self._materialize_yields(store, space, dev, block_keys, caps,
-                                        yields, dview)
+        if yields is None:
+            rows = self._materialize(store, space, dev, block_keys, caps,
+                                     dview)
+        else:
+            rows = self._materialize_yields(store, space, dev, block_keys,
+                                            caps, yields, dview)
         stats.mat_s = time.perf_counter() - t_mat
         stats.result_edges = len(rows)
         stats.total_s = time.perf_counter() - t_start
         return rows, stats
+
+    # -- MATCH device plane: layered hop frames ----------------------------
+
+    def traverse_hops(self, store, space: str, vids: Sequence[Any],
+                      etypes: Sequence[str], direction: str, max_hop: int,
+                      edge_filter: Optional[E.Expr] = None
+                      ) -> Tuple[List[HopFrame], TraverseStats]:
+        """Device expansion for MATCH's Traverse: `max_hop` expansions
+        with the WHERE program applied at EVERY hop (a MATCH edge filter
+        holds over the whole variable-length pattern), capturing each
+        hop's kept edges.  Returns one HopFrame per hop — every
+        predicate-passing edge out of a vertex reachable at the depth
+        before it — and the stats.  The caller assembles trail paths from
+        the layered frames on the host (`join_frontier_trails`,
+        `trail_distinct_keep`).  Raises CannotCompile for a filter that
+        does not vectorize."""
+        t_start = time.perf_counter()
+        dev = self.pin(store, space)
+        sd = store.space(space)
+        stats = TraverseStats()
+        stats.steps = max_hop
+        stats.pin_s = time.perf_counter() - t_start
+
+        block_keys = self._blocks_for(etypes, direction)
+        pred = self._compile_filter(dev, sd, block_keys, edge_filter)
+        dense = [sd.dense_id(v) for v in vids]
+        dense = [d for d in dense if d >= 0]
+        if not dense:
+            return [HopFrame.empty() for _ in range(max_hop)], stats
+
+        dview, dextras = self._grab_delta(
+            dev, block_keys, () if pred is None else pred.columns)
+        delta_epoch = None if dview is None else dview[0]
+        dview = self._insert_view(dview, block_keys)
+        blocks = [dev.blocks[bk] for bk in block_keys]
+        fetch_keys = {"src", "dst", "rank", "eidx"}
+
+        def run(lane_dense, attribute=True):
+            return self._run(dev, blocks, lane_dense, max_hop, pred, True,
+                             (), fetch_keys, dextras, attribute=attribute,
+                             capture_hops=True)
+
+        # concurrent MATCH expansions of one program share ONE run; the
+        # "hops" key keeps a MATCH and a GO apart
+        key = ("hops", id(dev), dev.epoch, tuple(block_keys), max_hop,
+               None if edge_filter is None else E.to_text(edge_filter),
+               None if delta_epoch is None else ("delta", delta_epoch))
+        caps = self._try_batched(
+            key, dense, stats, lambda ld: run(ld, attribute=False),
+            kernel="hops")
+        if caps is None:
+            res, info = run([dense])
+            caps = self._lane_attribution(res, info, 0, stats)
+
+        t_mat = time.perf_counter()
+        frames = self._build_frames(store, space, dev, block_keys, caps,
+                                    dview)
+        stats.mat_s = time.perf_counter() - t_mat
+        stats.result_edges = sum(f.n for f in frames)
+        stats.total_s = time.perf_counter() - t_start
+        return frames, stats
 
     @staticmethod
     def _fetch_cap(cap: Dict[str, torch.Tensor], fetch_keys):
@@ -724,7 +1003,7 @@ class GpuRuntime:
 
     def _run(self, dev: DeviceSnapshot, blocks, lane_dense, steps: int,
              pred, capture: bool, yield_cols, fetch_keys, dextras,
-             attribute: bool = True):
+             attribute: bool = True, capture_hops: bool = False):
         """One run of the hop loop for the seeds of L statements (the
         reference's `_escalate_lanes`; a solo statement is the L = 1
         case), with no bucket ladder — the port sizes its slots exactly:
@@ -735,11 +1014,14 @@ class GpuRuntime:
         own lane in `_lane_attribution`); batch.py fans the result out.
         Returns (res, info): res holds lane-major host arrays —
         hop_edges and frontier_sizes (L, P, steps) and, with capture, per
-        lane its blocks' captures — and info the launch-level facts each
-        lane's de-mux needs.  tpu_kernel_runs grows by ONE per run."""
+        lane its blocks' captures (with capture_hops, MATCH's every-hop
+        mode, per lane one such list per hop, the dispatch's kernel name
+        "hops") — and info the launch-level facts each lane's de-mux
+        needs.  tpu_kernel_runs grows by ONE per run."""
         info: Dict[str, Any] = {"attributed": attribute}
+        kernel = "hops" if capture_hops else "traverse"
         with (nullcontext() if attribute else _detached()), \
-                self._gated_dispatch("traverse") as wait_us:
+                self._gated_dispatch(kernel) as wait_us:
             info["gate_wait_us"] = wait_us
             self._check_live(dev)
             tp = time.perf_counter()
@@ -748,16 +1030,23 @@ class GpuRuntime:
             t0 = time.perf_counter()
             res = run_hops(dev, blocks, frontier, steps, pred=pred,
                            capture=capture, yield_cols=yield_cols,
-                           deltas=dextras)
+                           deltas=dextras, capture_hops=capture_hops)
             out = {"hop_edges": res["hop_edges"].cpu().numpy()}
             t1 = time.perf_counter()                     # synchronised
             info["device_s"] = t1 - t0
             out["frontier_sizes"] = res["frontier_sizes"].cpu().numpy()
             if capture:
-                caps = [self._fetch_cap(cap, fetch_keys)
-                        for cap in res["cap"]]
-                out["cap"] = [list(lane) for lane in zip(*caps)] \
-                    if caps else [[] for _ in lane_dense]
+                # per lane, its blocks' captures — of each hop with
+                # capture_hops
+                by_hop = []
+                for blocks_cap in (res["cap"] if capture_hops
+                                   else [res["cap"]]):
+                    caps = [self._fetch_cap(c, fetch_keys)
+                            for c in blocks_cap]
+                    by_hop.append([list(lane) for lane in zip(*caps)]
+                                  if caps else [[] for _ in lane_dense])
+                out["cap"] = [list(lane) for lane in zip(*by_hop)] \
+                    if capture_hops else by_hop[0]
             info["fetch_s"] = time.perf_counter() - t1
             info["e_cap"] = list(res["e_cap"])
             info["hbm_bytes"] = self.hbm_bytes()
@@ -786,10 +1075,12 @@ class GpuRuntime:
 
     # -- multi-lane batched dispatch ---------------------------------------
 
-    def _try_batched(self, key, dense, stats: TraverseStats, launch):
+    def _try_batched(self, key, dense, stats: TraverseStats, launch,
+                     kernel: str = "traverse"):
         """Submit this dispatch to the batch former under the
-        compatibility `key` (snapshot, blocks, steps, WHERE and YIELD
-        program, fetched columns and delta view: statements grabbed under
+        compatibility `key` (the mode — GO's "traverse" or MATCH's
+        "hops" —, snapshot, blocks, steps, WHERE and YIELD program,
+        fetched columns and delta view: statements grabbed under
         different delta views never share a run).  Returns this
         statement's captures after a shared run, or None when it should
         run solo: batching off, no concurrent company, a 1-lane group, or
@@ -798,7 +1089,7 @@ class GpuRuntime:
         if not former.enabled():
             return None
         try:
-            tk = former.submit(key, dense, launch, kernel="traverse",
+            tk = former.submit(key, dense, launch, kernel=kernel,
                                gate_busy=self._gate.write_held)
         except FailpointError:
             return None          # batch forming rejected → solo dispatch
@@ -832,14 +1123,7 @@ class GpuRuntime:
         stats.pin_s = time.perf_counter() - t_start
 
         block_keys = self._blocks_for(etypes, direction)
-        pred = None
-        if edge_filter is not None:
-            bl = dev.blocks[block_keys[0]]
-            pred, _ = compile_predicate(
-                edge_filter, bl.prop_types, dev.pool,
-                vid_to_dense=sd.dense_id, device=self.device)
-            if pred.error is not None:
-                raise pred.error
+        pred = self._compile_filter(dev, sd, block_keys, edge_filter)
         P, vmax = dev.num_parts, dev.vmax
         dense = [sd.dense_id(v) for v in srcs]
         dense = [d for d in dense if d >= 0]
@@ -916,12 +1200,105 @@ class GpuRuntime:
                                          is_delta))
         return perms
 
+    def _build_frames(self, store, space: str, dev: DeviceSnapshot,
+                      block_keys, caps, dview=None) -> List[HopFrame]:
+        """One columnar HopFrame per hop from the every-hop captures
+        (`caps`: per hop, one host dict per block).  A frame holds its
+        hop's kept edges block after block, then part after part in CSR
+        slot order — with a delta view, each part's rows re-sorted into
+        canonical order (`_delta_perms`) — as dense-id and canonical-key
+        columns.  No Edge object is built here: each block's segment
+        decodes only the entries the assembly asks for, its props from
+        the base column or, for a delta row, the view's numpy mirror at
+        eidx - emax."""
+        host = dev.host
+        d2v_arr = _d2v(host)
+        d2v_id = host._d2v_identity
+        P = dev.num_parts
+        etype_ids = {et: store.catalog.get_edge(space, et).edge_type
+                     for et, _ in block_keys}
+
+        def make_decode(et, dirn, sgn):
+            hb = host.blocks[(et, dirn)]
+            de = None if dview is None else dview[1].get((et, dirn))
+
+            def decode_seg(payload, offs):
+                ss, dd, rr, ee, sp = (a[offs] for a in payload)
+                props = {n: decode_prop_column(
+                    hb.prop_types[n], _take_pair_np(
+                        hb.props[n],
+                        None if de is None else de["np"]["d_props"][n],
+                        sp, ee), host.pool)
+                    for n in hb.props}
+                sv = ss if d2v_id else d2v_arr[ss]
+                dvv = dd if d2v_id else d2v_arr[dd]
+                names = list(props)
+                cols = [props[n] for n in names]
+                rrl = rr.tolist()
+                return [Edge(s, d, et, rrl[i],
+                             {n: c[i] for n, c in zip(names, cols)},
+                             etype=sgn)
+                        for i, (s, d) in enumerate(zip(sv.tolist(),
+                                                       dvv.tolist()))]
+            return decode_seg
+
+        def decode_seg(payload_dec, offs):
+            payload, dec = payload_dec
+            return dec(payload, offs)
+
+        frames = []
+        for hop_caps in caps:
+            srcs, dsts, rks = [], [], []
+            ket, ks, kd = [], [], []
+            segs = []
+            pos = 0
+            for (et, dirn), cap in zip(block_keys, hop_caps):
+                kc = cap["kcount"]
+                pids = [p for p in range(len(kc)) if kc[p] > 0]
+                if not pids:
+                    continue
+                perms = None
+                if dview is not None and dview[1].get((et, dirn)) is not None:
+                    perms = self._delta_perms(
+                        cap, pids, kc, P, host.blocks[(et, dirn)].nbr.shape[1],
+                        d2v_arr, d2v_id)
+                ss, dd, rr = (_cat_kept(cap, n, pids, perms, np.int64)
+                              for n in ("src", "dst", "rank"))
+                ee = _cat_kept(cap, "eidx", pids, perms)
+                sel_p = np.repeat(np.asarray(pids, np.int64),
+                                  [int(kc[p]) for p in pids])
+                eid = etype_ids[et]
+                sgn = eid if dirn == "out" else -eid
+                srcs.append(ss)
+                dsts.append(dd)
+                rks.append(rr)
+                # canonical physical-edge key: the out and in copies of
+                # one logical edge compare equal (the trail dedup's)
+                ket.append(np.full(ss.size, eid, np.int64))
+                ks.append(ss if dirn == "out" else dd)
+                kd.append(dd if dirn == "out" else ss)
+                segs.append((pos, pos + ss.size,
+                             ((ss, dd, rr, ee, sel_p),
+                              make_decode(et, dirn, sgn))))
+                pos += ss.size
+            if not srcs:
+                frames.append(HopFrame.empty())
+                continue
+            frames.append(HopFrame.build(
+                np.concatenate(srcs), np.concatenate(dsts),
+                np.concatenate(rks), np.concatenate(ket),
+                np.concatenate(ks), np.concatenate(kd),
+                segs, decode_seg))
+        return frames
+
     def _block_columns(self, store, space: str, dev: DeviceSnapshot,
-                       block_keys, caps, prop_names: Sequence[str],
-                       dview=None):
+                       block_keys, caps,
+                       prop_names: Optional[Sequence[str]] = None,
+                       dview=None, as_np: bool = True):
         """Vectorized gather of the captured final-hop edge set: per-block
         dicts of flat numpy arrays — sv/dv (vids), rr (ranks), decoded
-        prop columns.
+        prop columns (`prop_names`, or every prop of the block; numpy
+        columns, or lists of values with as_np=False).
 
         With a delta view (`dview`, grabbed when the run started) the
         merged rows are re-sorted per part into canonical CSR order
@@ -943,44 +1320,32 @@ class GpuRuntime:
             if not pids:
                 continue
             n_rows = int(sum(int(kc[p]) for p in pids))
-            emax = hb.nbr.shape[1]
             perms = None if de is None else self._delta_perms(
-                cap, pids, kc, P, emax, d2v_arr, d2v_id)
-
-            def part(name, p, i):
-                a = cap[name][p, :kc[p]]
-                return a if perms is None or perms[i] is None \
-                    else a[perms[i]]
+                cap, pids, kc, P, hb.nbr.shape[1], d2v_arr, d2v_id)
 
             def catp(name, dtype=None):
-                return _cat_parts([part(name, p, i)
-                                   for i, p in enumerate(pids)], dtype)
+                return _cat_kept(cap, name, pids, perms, dtype)
 
             ss = catp("src", np.int64) if "src" in cap else None
             dd = catp("dst", np.int64) if "dst" in cap else None
             rr = catp("rank") if "rank" in cap else None
             props = {}
-            for n in [x for x in prop_names if x in hb.props]:
+            dec = decode_prop_column_np if as_np else decode_prop_column
+            ee_parts = None
+            for n in (hb.props if prop_names is None
+                      else [x for x in prop_names if x in hb.props]):
                 if ("prop:" + n) in cap:
                     raw = catp("prop:" + n)     # device-gathered
                 elif "eidx" in cap:
-                    raw = []
-                    for i, p in enumerate(pids):
-                        e = part("eidx", p, i)
-                        col = hb.props[n][p]
-                        if de is None:
-                            raw.append(col[e])
-                            continue
-                        r = np.empty(e.shape, col.dtype)
-                        base = e < emax
-                        r[base] = col[e[base]]
-                        r[~base] = de["np"]["d_props"][n][p][e[~base] - emax]
-                        raw.append(r)
+                    if ee_parts is None:
+                        ee_parts = _kept_parts(cap, "eidx", pids, perms)
+                    dcol = None if de is None else de["np"]["d_props"][n]
+                    raw = [_take_pair_np(hb.props[n], dcol, p, e)
+                           for p, e in zip(pids, ee_parts)]
                     raw = np.concatenate(raw) if len(raw) > 1 else raw[0]
                 else:
                     continue
-                props[n] = decode_prop_column_np(hb.prop_types[n], raw,
-                                                 host.pool)
+                props[n] = dec(hb.prop_types[n], raw, host.pool)
             eid = etype_ids[et]
             yield {"et": et, "dirn": dirn,
                    "etype": eid if dirn == "out" else -eid, "n": n_rows,
@@ -989,6 +1354,25 @@ class GpuRuntime:
                    "dv": (dd if d2v_id else d2v_arr[dd])
                    if dd is not None else None,
                    "rr": rr, "props": props}
+
+    def _materialize(self, store, space: str, dev: DeviceSnapshot,
+                     block_keys, caps, dview=None
+                     ) -> List[Tuple[Any, Edge, Any]]:
+        """GO's rows without yields: (src_vid, Edge, dst_vid) triples, the
+        Edge objects built in one zip loop over the decoded columns."""
+        rows: List[Tuple[Any, Edge, Any]] = []
+        for b in self._block_columns(store, space, dev, block_keys, caps,
+                                     dview=dview, as_np=False):
+            et, etype = b["et"], b["etype"]
+            names = list(b["props"])
+            cols = [b["props"][n] for n in names]
+            rr = b["rr"].tolist()
+            for i, (sv, dv) in enumerate(zip(b["sv"].tolist(),
+                                             b["dv"].tolist())):
+                props = {n: c[i] for n, c in zip(names, cols)}
+                rows.append((sv, Edge(sv, dv, et, rr[i], props,
+                                      etype=etype), dv))
+        return rows
 
     def _materialize_yields(self, store, space: str, dev: DeviceSnapshot,
                             block_keys, caps, yields,

@@ -176,8 +176,11 @@ def test_capture_off_counts_only(graph):
 
 def test_out_of_slice_paths_raise(graph):
     rt, store = graph["port_rt"], graph["port_store"]
-    with pytest.raises(CannotCompile):
-        rt.traverse(store, "snb", graph["seeds"], ["KNOWS"], "out", 2)
+    # GO without yields is ported: (src_vid, Edge, dst_vid) rows, held
+    # against the reference in tests/test_torch_match.py
+    rows, st = rt.traverse(store, "snb", graph["seeds"], ["KNOWS"], "out", 2)
+    assert len(rows) == st.result_edges > 0
+    assert rows[0][1].src == rows[0][0] and rows[0][1].dst == rows[0][2]
     with pytest.raises(CannotCompile):
         rt.traverse(store, "snb", graph["seeds"], ["KNOWS"], "out", 2,
                     edge_filter=PE.Binary("<", PE.EdgeProp("KNOWS", "city"),
