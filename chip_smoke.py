@@ -4,7 +4,8 @@
 The paths are GO N STEPS, `CALL algo.*`, the device BFS of FIND
 SHORTEST PATH, GO and the BFS again on a snapshot with writes pending in
 its delta plane, concurrent GO statements batched into one run of the
-lane-widened kernels, and MATCH's every-hop expansion, each through the
+lane-widened kernels, MATCH's every-hop expansion, and GO, the BFS and
+MATCH again over a mesh of eight shard slots, each through the
 hand-written CUDA kernels.
 
 Run from the repository root on a machine with a CUDA card and nvcc:
@@ -158,10 +159,45 @@ Phases, in order; any failure exits non-zero before the result line:
           its plain version (exact), timed with CUDA events beside its
           plain version and one library formulation, with its byte
           bound, and the every-hop loop's bound;
- 10. the `kernels` JSON line (the split GO path's, the algo path's, the
-     split BFS path's, the delta GO path's, the batched path's and the
-     MATCH path's launches), the card line, and the result line
-     {"ok": true, "device": {...}} last.
+ 10. the sharded mesh (GpuRuntime(mesh=make_mesh(8)): eight shard slots,
+     all on the one card, each holding only its own part's rows; one
+     bit-packed exchange a hop through the in-process transport), launch
+     counters zeroed just before each run and read just after:
+       a. the main path's snapshot (split at --split) pinned slot by slot,
+          each slot's bytes exactly its part's and the hub tables; GO 3
+          STEPS from the 16 seeds, unfiltered and WHERE KNOWS.w > 50, p50
+          of 3 runs of device, fetch and materialize: rows equal in order
+          to phase 3's, hop_edges and frontier_sizes too, exchange_bytes
+          2 * a2a_payload_bytes(8, vmax); pack_bits, unpack_or and (split)
+          owned_hub_bits and fill_hub_columns launched;
+       b. config 5's BFS on that mesh, top-down at every level: depths
+          equal to host_bfs, hop_edges to each level's frontier's
+          out-degrees, exchange_bytes bfs_exchange_bytes(8, vmax, 5);
+       c. GO 3 STEPS through phase 7's 40,000 writes (a twin store's log)
+          on an 8-slot pin of the unsplit delta-armed snapshot: rows equal
+          in order to phase 7's; merge_delta (mesh), every slot's merge
+          at hop 3 (parts = 8, pid = p) against its plain version and
+          row p of the local merge, timed;
+       d. config 4b (9a's graph and seeds, *1..4) on an 8-slot mesh: the
+          trail count equal to host_trail_paths;
+       e. 8 concurrent GO 3 STEPS WHERE w > 50 on (a)'s mesh, as 8b
+          batches them: one batch, one solo run's launches, solo rows;
+       f. the four exchange kernels against their plain versions at (a)'s
+          hop-2 shapes (each slot's unpacked frontier equal to hop 3's
+          local frontier, each slot's hub columns to extend_hubs'),
+          timed with their plain versions and one library formulation,
+          with their byte bounds; the exchange copy timed; the (mesh)
+          rows: expand (parts = 8, pid = p) and mark at hop 2,
+          predicate_mask and compact_capture at hop 3, at every slot's
+          shapes against their plain versions (the expansion against
+          row p of the local one), timed at the widest slot;
+       g. (a)'s filtered GO through the process-group transport, a
+          one-rank NCCL group holding all eight slots: rows equal to
+          (a)'s, the bytes sent equal to (a)'s exchange_bytes;
+ 11. the `kernels` JSON line (the split GO path's, the algo path's, the
+     split BFS path's, the delta GO path's, the batched path's, the
+     MATCH path's and the mesh GO path's launches), the card line, and
+     the result line {"ok": true, "device": {...}} last.
 Without CUDA it prints no result and exits 2.
 """
 from __future__ import annotations
@@ -198,6 +234,15 @@ ROUTE_SOURCES = {
                   "nebula_tpu/tpu/bfs.py:170"),
     "merge_delta": ("nebula_tpu_torch/csrc/delta.cu",
                     "nebula_tpu/tpu/hop.py:118"),
+    # the sharded mesh's exchange (K15) and hub bits (K16), phase 10
+    "pack_bits": ("nebula_tpu_torch/csrc/exchange.cu",
+                  "nebula_tpu/tpu/hop.py:179"),
+    "unpack_or": ("nebula_tpu_torch/csrc/exchange.cu",
+                  "nebula_tpu/tpu/hop.py:193"),
+    "owned_hub_bits": ("nebula_tpu_torch/csrc/exchange.cu",
+                       "nebula_tpu/tpu/hop.py:292"),
+    "fill_hub_columns": ("nebula_tpu_torch/csrc/exchange.cu",
+                         "nebula_tpu/tpu/hop.py:292"),
 }
 # the lane-widened kernels of phase 8 replace K10, the reference's lanes
 # program (a vmap of the hop program over a query-lane axis)
@@ -214,6 +259,14 @@ ROUTE_SOURCES["compact_capture (match)"] = (
     ROUTE_SOURCES["compact_capture"][0], "nebula_tpu/tpu/hop.py:535")
 ROUTE_SOURCES["mark (match)"] = (ROUTE_SOURCES["mark"][0],
                                  "nebula_tpu/tpu/hop.py:553")
+# the sharded mesh (phase 10) runs the hop kernels once a slot, on one
+# part's row with the part offset (parts = 8, pid = p): the reference's
+# sharded programs, its delta merge at :382-389
+for _k in ("expand", "mark", "predicate_mask", "compact_capture"):
+    ROUTE_SOURCES[_k + " (mesh)"] = (ROUTE_SOURCES[_k][0],
+                                     "nebula_tpu/tpu/hop.py:653")
+ROUTE_SOURCES["merge_delta (mesh)"] = (ROUTE_SOURCES["merge_delta"][0],
+                                       "nebula_tpu/tpu/hop.py:382")
 # the algo path: each algorithm's parameters and its step kernel
 ALGO_RUNS = {"pagerank": ({"max_iter": 20, "tol": 0.0}, "pagerank_step"),
              "wcc": ({}, "wcc_step"),
@@ -244,6 +297,11 @@ MATCH_DEGREE = 6
 MATCH_GRAPH_SEED = 11
 MATCH_SEEDS = 1_792
 MATCH_HOPS = 4
+MESH_SLOTS = 8                   # phase 10: make_mesh(8), every slot on
+#                                  the one card
+MESH_RUNS = 3                    # phase 10's timed runs of a query
+MESH_KERNELS = ("pack_bits", "unpack_or")
+MESH_HUB_KERNELS = ("owned_hub_bits", "fill_hub_columns")
 
 
 T0 = time.perf_counter()
@@ -363,11 +421,12 @@ def bound(bytes_moved: float, ops: float, ops_per_s=INT32_OPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def run_go(rt, ns, repeats: int, label: str, K, oracle):
+def run_go(rt, ns, repeats: int, label: str, K, oracle, keep_rows=None):
     """Drive the GO path of `rt` (unfiltered and filtered), each query
     checked against the oracle (host_csr_traverse on ns.snap, computed
     once a filter and kept in `oracle` for the next layout); returns
-    (results, launches)."""
+    (results, launches).  `keep_rows`, a dict, gets each filter's last
+    rows and stats."""
     import numpy as np
     import torch
     from nebula_tpu_torch.bench.datagen import host_csr_traverse
@@ -399,6 +458,8 @@ def run_go(rt, ns, repeats: int, label: str, K, oracle):
                 and np.array_equal(w[a], want_w[b])):
             raise AssertionError(f"{label} {flabel}: rows differ from the "
                                  f"oracle")
+        if keep_rows is not None:
+            keep_rows[flabel] = (rows, st)
         p50 = float(np.median(lat[1:]))
         results[flabel] = {
             "rows": len(rows), "edges": total,
@@ -622,11 +683,12 @@ def bfs_branches(dist, steps: int):
             for level in range(1, steps + 1)]
 
 
-def bfs_level_edges(snap, dist, steps: int):
+def bfs_level_edges(snap, dist, steps: int, switch: bool = True):
     """The pre-filter slots each level of the direction-optimizing BFS
     expands, from a dense-id depth array and the unsplit snapshot's
     degrees: the frontier's out-degrees on a top-down level, the
-    unvisited vertices' in-degrees on a bottom-up one."""
+    unvisited vertices' in-degrees on a bottom-up one.  switch=False:
+    every level top-down (the sharded BFS)."""
     import numpy as np
     P = snap.num_parts
     vv = np.arange(len(snap.dense_to_vid))
@@ -637,7 +699,8 @@ def bfs_level_edges(snap, dist, steps: int):
 
     out_deg, in_deg = degrees("out"), degrees("in")
     edges = []
-    for level, bu in enumerate(bfs_branches(dist, steps), 1):
+    branches = bfs_branches(dist, steps) if switch else [False] * steps
+    for level, bu in enumerate(branches, 1):
         front = dist == level - 1
         if not front.any():
             edges.append(0)
@@ -648,7 +711,7 @@ def bfs_level_edges(snap, dist, steps: int):
     return edges
 
 
-def run_bfs_path(rt, ns, seed, label, K, filt=None):
+def run_bfs_path(rt, ns, seed, label, K, filt=None, tag="[6a]"):
     """Drive GpuRuntime.bfs as bench.py config 5 does (one cold run, then
     warm runs), launch counters zeroed just before and read just after.
     Returns (dist as dense-id order, stats of the last run, results,
@@ -685,7 +748,7 @@ def run_bfs_path(rt, ns, seed, label, K, filt=None):
            "pinned_bytes": rt.hbm_bytes(), "samples": BFS_RUNS - 1,
            "launches_per_run": {k: v / BFS_RUNS for k, v in launches.items()
                                 if v}}
-    log(f"[6a] BFS {label}: {json.dumps(res)}")
+    log(f"{tag} BFS {label}: {json.dumps(res)}")
     return d, st, res, launches
 
 
@@ -1273,7 +1336,9 @@ def main(argv=None) -> int:
         f"{time.perf_counter() - t0:.2f} s")
     torch.cuda.reset_peak_memory_stats()
     oracle = {}
-    res_u, launches_u = run_go(rt, ns, args.repeats, "unsplit", K, oracle)
+    rows_u = {}
+    res_u, launches_u = run_go(rt, ns, args.repeats, "unsplit", K, oracle,
+                               keep_rows=rows_u)
     peak_u = torch.cuda.max_memory_allocated()
     for name in UNSPLIT_KERNELS:
         if launches_u[name] <= 0:
@@ -1281,6 +1346,9 @@ def main(argv=None) -> int:
                                  f"unsplit path")
     results = {"unsplit": res_u}
     launches = launches_u
+    # the main path's last rows and stats per filter (3b's, or 3a's with
+    # --split 0), which phase 10's mesh must reproduce
+    main_rows = dict(rows_u)
 
     # -- 3b. the north-star GO, degree-split as bench.py runs it -----------
     stamp("phase 3b")
@@ -1303,7 +1371,8 @@ def main(argv=None) -> int:
             f" pinned {rts.hbm_bytes()} bytes, hub ids "
             f"{dev_s.host.hub_dense[:8].tolist()}...")
         torch.cuda.reset_peak_memory_stats()
-        res_s, launches = run_go(rts, ns, args.repeats, "split", K, oracle)
+        res_s, launches = run_go(rts, ns, args.repeats, "split", K, oracle,
+                                 keep_rows=main_rows)
         peak_s = torch.cuda.max_memory_allocated()
         for name in SPLIT_KERNELS:
             if launches[name] <= 0:
@@ -1606,6 +1675,7 @@ def main(argv=None) -> int:
     seed = ns.seeds[0]
     t0 = time.perf_counter()
     want = host_bfs(ns.snap, [seed], BFS_STEPS)
+    bfs_depths = want                       # phase 10b's oracle too
     host_bfs_s = time.perf_counter() - t0
     bu_levels = [lv for lv, b in enumerate(bfs_branches(want, BFS_STEPS), 1)
                  if b]
@@ -1734,6 +1804,10 @@ def main(argv=None) -> int:
     rtd = GpuRuntime(delta_max_edges=DELTA_CAP)
     dstore = SnapshotStore(ns.snap, ns.arrs)
     dstore.delta_watch("ns")
+    # the same writes logged into a second store for phase 10c's mesh (a
+    # delta log has one consumer)
+    dstore8 = SnapshotStore(ns.snap, ns.arrs)
+    dstore8.delta_watch("ns")
     t0 = time.perf_counter()
     rtd.pin_prebuilt(ns.snap)
     torch.cuda.synchronize()
@@ -1752,6 +1826,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     apply_writes(dstore, ops)
     delta["store_writes_s"] = time.perf_counter() - t0
+    apply_writes(dstore8, ops)
     # 7a. one pin folds the whole batch in
     t0 = time.perf_counter()
     if rtd.pin(dstore, "ns") is not devd:
@@ -1879,6 +1954,7 @@ def main(argv=None) -> int:
         K.merge_delta_plain(*sl, fbm, *dargs)
         fbm = new_frontier(devd)
         K.mark_plain(sl[1], P, vmax, out=fbm)
+    delta_f3 = fbm                       # 10c's slots merge from it too
     a3 = (blk.indptr, blk.nbr, blk.rank, fbm, None, Dcap)
     base3 = K.expand_plain(*a3)
     err_e = max_abs_err(K.expand(*a3), base3)
@@ -2400,14 +2476,598 @@ def main(argv=None) -> int:
     log(f"[9] K7 every-hop loop at 9b: {json.dumps(match['k7_every_hop'])}")
     del hops9
 
-    # -- 10. result --------------------------------------------------------
-    stamp("phase 10")
+    # -- 10. the sharded mesh: GO, the BFS, writes, MATCH, batching -------
+    stamp("phase 10a")
+    import tempfile
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from nebula_tpu_torch.gpu.bfs import bfs_exchange_bytes
+    from nebula_tpu_torch.gpu.device import make_mesh
+    from nebula_tpu_torch.gpu.hop import (a2a_payload_bytes,
+                                          run_hops_sharded,
+                                          seed_slot_frontiers)
+    from nebula_tpu_torch.gpu.mesh import process_group_mesh
+    mesh = {}
+    # 10a. the main path's snapshot (split at --split when it ran) pinned
+    # slot by slot on make_mesh(8): every slot on the one card
+    lrt = rts if rts is not None else rt
+    mlabel = "split" if rts is not None else "unsplit"
+    ldev = lrt.snapshots["ns"]
+    mesh8 = make_mesh(MESH_SLOTS)
+    rt8 = GpuRuntime(mesh=mesh8, degree_split_threshold=ns.split_threshold)
+    t0 = time.perf_counter()
+    dev8 = rt8.pin_prebuilt(ns.snap)
+    torch.cuda.synchronize()
+    pin8_s = time.perf_counter() - t0
+    H = dev8.num_hubs
+    host8 = dev8.host
+    per = dev8.shard_hbm_bytes()
+    for sh in dev8.shards:
+        # only part p's rows (and the hub tables) are on slot p
+        mine = 4 + 12 * H + sum(
+            getattr(b, n)[sh.part].nbytes
+            for b in host8.blocks.values() for n in ("indptr", "nbr", "rank"))
+        mine += sum(c[sh.part].nbytes for b in host8.blocks.values()
+                    for c in b.props.values())
+        if per[sh.part] != mine or sh.device != mesh8.devices[0]:
+            raise AssertionError(f"[10a] slot {sh.part} holds {per[sh.part]}"
+                                 f" bytes on {sh.device}, its part {mine}")
+    # each slot keeps its own copy of the (H,) hub tables
+    if sum(per.values()) != ldev.hbm_bytes() + (MESH_SLOTS - 1) * 12 * H:
+        raise AssertionError(f"[10a] slots hold {sum(per.values())} bytes,"
+                             f" the local pin {ldev.hbm_bytes()} with "
+                             f"{H} hubs")
+    mesh["10a"] = {"snapshot": mlabel, "slots": MESH_SLOTS,
+                   "devices": sorted({str(d) for d in mesh8.devices}),
+                   "pin_s": pin8_s, "hubs": H,
+                   "slot_bytes": [per[p] for p in sorted(per)],
+                   "local_pin_bytes": ldev.hbm_bytes()}
+    want_x = 2 * a2a_payload_bytes(MESH_SLOTS, dev8.vmax)
+    mesh_rows = {}
+    K.reset_launch_counts()
+    for flabel, filt in (("unfiltered", None),
+                         (f"w>{ns.w_gt}", ns.w_filter)):
+        ph = {k: [] for k in ("total_s", "device_s", "fetch_s", "mat_s")}
+        for i in range(MESH_RUNS + 1):          # the first is warm-up
+            t = time.perf_counter()
+            rows, st = rt8.traverse(ns.store, "ns", ns.seeds, ["KNOWS"],
+                                    "out", 3, edge_filter=filt,
+                                    yields=ns.yields)
+            total = time.perf_counter() - t
+            if i:
+                for k, v in (("total_s", total), ("device_s", st.device_s),
+                             ("fetch_s", st.fetch_s), ("mat_s", st.mat_s)):
+                    ph[k].append(v)
+        want_rows, want_st = main_rows[flabel]
+        if not rows_equal(rows, want_rows):
+            raise AssertionError(f"[10a] {flabel}: rows differ, in order, "
+                                 f"from phase 3's {mlabel} rows")
+        if (st.hop_edges, st.frontier_sizes) != (want_st.hop_edges,
+                                                 want_st.frontier_sizes):
+            raise AssertionError(f"[10a] {flabel}: hop_edges "
+                                 f"{st.hop_edges} frontier_sizes "
+                                 f"{st.frontier_sizes} vs {mlabel}'s")
+        if st.exchange_bytes != want_x or st.shards != MESH_SLOTS:
+            raise AssertionError(f"[10a] {flabel}: exchange_bytes "
+                                 f"{st.exchange_bytes} vs {want_x}")
+        mesh_rows[flabel] = rows
+        mesh["10a"][flabel] = {
+            "rows": len(rows), "hop_edges": st.hop_edges,
+            "frontier_sizes": st.frontier_sizes, "e_cap": st.e_cap,
+            "local_e_cap": want_st.e_cap,
+            "exchange_bytes": st.exchange_bytes,
+            **{k.replace("_s", "_p50_ms"): float(np.median(v)) * 1e3
+               for k, v in ph.items()},
+            "local_p50_ms": results[mlabel][flabel]["p50_ms"],
+            "local_device_p50_ms": results[mlabel][flabel]["device_p50_ms"],
+            "samples": MESH_RUNS}
+        log(f"[10a] mesh x{MESH_SLOTS} GO 3 STEPS {flabel}: "
+            f"{json.dumps(mesh['10a'][flabel])}")
+    torch.cuda.synchronize()
+    launches10 = K.launch_counts()
+    # K16's pair takes K8's place on the mesh
+    for name in UNSPLIT_KERNELS + MESH_KERNELS + (
+            MESH_HUB_KERNELS if H else ()):
+        if launches10[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"mesh GO path")
+    mesh["10a"]["launches"] = {k: v for k, v in launches10.items() if v}
+    log(f"[10a] pin and launches over {2 * (MESH_RUNS + 1)} queries: "
+        + json.dumps({k: v for k, v in mesh["10a"].items()
+                      if not isinstance(v, dict) or k == "launches"}))
+
+    # 10b. config 5's BFS on the mesh: top-down at every level
+    stamp("phase 10b")
+    d8, st8, res8, bl8 = run_bfs_path(rt8, ns, ns.seeds[0],
+                                      f"mesh x{MESH_SLOTS} {mlabel}", K,
+                                      tag="[10b]")
+    if not np.array_equal(d8, bfs_depths):
+        raise AssertionError("[10b] depths differ from host_bfs (and "
+                             "phase 6's)")
+    want_lv = bfs_level_edges(ns.snap, bfs_depths, BFS_STEPS, switch=False)
+    if st8.hop_edges != want_lv:
+        raise AssertionError(f"[10b] hop_edges {st8.hop_edges} vs the "
+                             f"top-down count {want_lv}")
+    want_bx = bfs_exchange_bytes(MESH_SLOTS, dev8.vmax, BFS_STEPS)
+    if st8.exchange_bytes != want_bx:
+        raise AssertionError(f"[10b] exchange_bytes {st8.exchange_bytes} "
+                             f"vs {want_bx}")
+    for name in MESH_KERNELS + ("expand", "mark", "bfs_level"):
+        if bl8[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"mesh BFS path")
+    if bl8["bfs_probe"]:
+        raise AssertionError("[10b] a bottom-up level ran on the mesh")
+    mesh["10b"] = dict(res8, exchange_bytes=st8.exchange_bytes,
+                       local_p50_ms=bfs[mlabel]["p50_ms"])
+
+    # 10c. GO through phase 7's 40,000 pending writes on an 8-slot pin of
+    # the unsplit delta-armed snapshot (the writes' twin log)
+    stamp("phase 10c")
+    rt8d = GpuRuntime(mesh=make_mesh(MESH_SLOTS), delta_max_edges=DELTA_CAP)
+    dev8d = rt8d.pin_prebuilt(ns.snap)
+    t0 = time.perf_counter()
+    if rt8d.pin(dstore8, "ns") is not dev8d or dev8d.delta is None:
+        raise AssertionError("[10c] the writes re-pinned the mesh snapshot")
+    torch.cuda.synchronize()
+    mesh["10c"] = {"apply_s": time.perf_counter() - t0,
+                   "bytes_put": dev8d.delta.last_put_bytes,
+                   "insert_rows": dev8d.delta.host.total_edges()}
+    K.reset_launch_counts()
+    for flabel, filt in (("unfiltered", None),
+                         (f"w>{ns.w_gt}", ns.w_filter)):
+        lat = []
+        for _ in range(DELTA_REPEATS + 1):
+            t = time.perf_counter()
+            rows, st = rt8d.traverse(dstore8, "ns", ns.seeds, ["KNOWS"],
+                                     "out", 3, edge_filter=filt,
+                                     yields=ns.yields)
+            lat.append(time.perf_counter() - t)
+        want_rows, want_st = go_last[flabel]
+        if not rows_equal(rows, want_rows) \
+                or st.hop_edges != want_st.hop_edges:
+            raise AssertionError(f"[10c] {flabel}: rows or hop_edges differ "
+                                 f"from phase 7's")
+        mesh["10c"][flabel] = {"rows": len(rows), "hop_edges": st.hop_edges,
+                               "p50_ms": float(np.median(lat[1:])) * 1e3,
+                               "device_ms": st.device_s * 1e3,
+                               "local_p50_ms": p50_after[flabel]}
+    torch.cuda.synchronize()
+    l10c = K.launch_counts()
+    for name in MESH_KERNELS + ("merge_delta",):
+        if l10c[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"mesh delta path")
+    mesh["10c"]["launches"] = {k: v for k, v in l10c.items() if v}
+    log(f"[10c] {json.dumps(mesh['10c'])}")
+
+    # merge_delta (mesh): every slot's merge at hop 3 — 7d's frontier
+    # row, the slot's own delta rows, parts = 8 and pid = p — against its
+    # plain version, and the slot's merged slots against row p of the
+    # local merge; timed at the slot with the most merged slots
+    bk8 = ("KNOWS", "out")
+    m8 = []
+    err_m8 = 0.0
+    blk7 = devd.blocks[bk8]
+    dl7 = rtd._grab_delta(devd, [bk8], {"w"})[1][0]
+    loc3 = K.expand_plain(blk7.indptr, blk7.nbr, blk7.rank, delta_f3, None,
+                          dl7["d_src"].shape[1])
+    loc_v, loc_t = K.merge_delta_plain(
+        *loc3, delta_f3, dl7["d_src"], dl7["d_dst"], dl7["d_rank"],
+        dl7["d_valid"], dl7["d_tomb"], blk7.nbr.shape[1])
+
+    def slot_keys(cols, keep):
+        # the kept (src, dst, rank, eidx) slots, in one canonical order
+        a = torch.stack([c[keep] for c in cols], 1).cpu().numpy()
+        return a[np.lexsort(a.T[::-1])]
+    for sh, dls in zip(dev8d.shards, rt8d._grab_delta(dev8d, [bk8],
+                                                      {"w"})[1]):
+        b8, d8l, q = sh.blocks[bk8], dls[0], sh.part
+        f8 = delta_f3[q:q + 1][None]
+        dc8 = d8l["d_src"].shape[1]
+        da8 = (d8l["d_src"], d8l["d_dst"], d8l["d_rank"], d8l["d_valid"],
+               d8l["d_tomb"], b8.nbr.shape[1])
+        base8 = K.expand_plain(b8.indptr, b8.nbr, b8.rank, f8, None, dc8,
+                               parts=MESH_SLOTS, pid=q)
+        g8 = [t.clone() for t in base8[:4]]
+        w8 = [t.clone() for t in base8[:4]]
+        gvt = K.merge_delta(*g8, base8[4], f8, *da8, parts=MESH_SLOTS,
+                            pid=q)
+        wvt = K.merge_delta_plain(*w8, base8[4], f8, *da8,
+                                  parts=MESH_SLOTS, pid=q)
+        err_m8 = max(err_m8, max_abs_err([*gvt, *g8], [*wvt, *w8]))
+        if int(wvt[1]) != int(loc_t[q]) or not np.array_equal(
+                slot_keys([t[0, 0] for t in w8], wvt[0][0, 0]),
+                slot_keys([t[q] for t in loc3[:4]], loc_v[q])):
+            raise AssertionError(f"[10c] slot {q}'s merged slots are not "
+                                 f"row {q} of the local merge")
+        m8.append((int(wvt[1]), q, f8, base8, g8, w8, da8, dc8, wvt[0]))
+    tot8, q, f8, base8, g8, w8, da8, dc8, wv8 = max(m8, key=lambda m: m[0])
+    del m8
+    EB8 = base8[0].shape[-1] - dc8
+    nv8 = int(base8[4])
+    hits8 = nv8 - int(wv8[..., :EB8].sum())
+    act8 = int(wv8[..., EB8:].sum())
+    T8 = da8[4].shape[1]
+    col8 = torch.arange(EB8, dtype=torch.int32, device=f8.device)
+
+    def lib_merge8(s=[t[0] for t in w8], tq=base8[4][0], fq=f8[0],
+                   d=[t for t in da8[:5]]):
+        # 7d's formulation on the slot's row, its ids from the part offset
+        e = s[3][:, :EB8].contiguous()
+        pos = torch.searchsorted(d[4], e).clamp_(max=T8 - 1)
+        vb = (col8 < tq[:, None]) & (torch.gather(d[4], 1, pos) != e)
+        act = d[3] & torch.gather(fq, 1, d[0].clamp(0, fq.shape[1] - 1)
+                                  .long())
+        return (torch.cat([vb, act], 1),
+                torch.cat([s[0][:, :EB8],
+                           torch.where(act, d[0] * MESH_SLOTS + q, -1)], 1),
+                torch.cat([s[1][:, :EB8], torch.where(act, d[1], -1)], 1),
+                torch.cat([s[2][:, :EB8], torch.where(act, d[2], 0)], 1),
+                tq + act.sum(1, dtype=torch.int32))
+
+    record("merge_delta (mesh)", None, None,
+           cuda_ms_fresh(lambda: K.merge_delta(
+               *g8, base8[4], f8, *da8, parts=MESH_SLOTS, pid=q), noop, reps),
+           cuda_ms_fresh(lambda: K.merge_delta_plain(
+               *w8, base8[4], f8, *da8, parts=MESH_SLOTS, pid=q), noop, reps),
+           cuda_ms_fresh(lib_merge8, noop, reps),
+           4 * nv8 + EB8 + 4 * hits8 + dc8 * (13 + 17 + 1) + 4 * T8 + 8,
+           nv8 * max(int(T8).bit_length(), 1) + 4 * dc8,
+           counts={"merge_delta (mesh)": l10c["merge_delta"]}, err=err_m8,
+           tag="[10c]",
+           note=f" (every slot at hop 3, equal to the local merge's row; "
+                f"timed at slot {q}: {nv8} valid slots, {hits8} "
+                f"tombstoned, {act8} of {dc8} delta rows active, "
+                f"{tot8} merged)")
+    del rt8d, dev8d, g8, w8, base8, loc3, loc_v
+
+    # 10d. config 4b's MATCH on an 8-slot mesh
+    stamp("phase 10d")
+    rt9m = GpuRuntime(mesh=make_mesh(MESH_SLOTS))
+    rt9m.pin_prebuilt(snap9)
+    frames_m, st_m, l10d, p50_10d, trails_m = run_match(
+        rt9m, store9, "twb", seeds9, MATCH_HOPS, None, MESH_RUNS, K)
+    if trails_m != want_trails:
+        raise AssertionError(f"[10d] {trails_m} trails, host_trail_paths "
+                             f"{want_trails}")
+    for name in MESH_KERNELS:
+        if l10d[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"mesh MATCH path")
+    mesh["10d"] = {"trails": trails_m, "hop_edges": st_m.hop_edges,
+                   "exchange_bytes": st_m.exchange_bytes, "p50_s": p50_10d,
+                   "local_p50_s": match["9a"]["p50_s"],
+                   "launches": {k: v for k, v in l10d.items() if v}}
+    log(f"[10d] {json.dumps(mesh['10d'])}")
+    del frames_m, rt9m
+
+    # 10e. eight concurrent GO 3 STEPS WHERE w > 50 on 10a's mesh
+    stamp("phase 10e")
+    add_company()
+    mesh["10e"], _ = run_batch(
+        "10e", go_call(rt8, ns.store, 3, ns.w_filter, ns.yields),
+        [ns.seeds[2 * i:2 * i + 2] for i in range(8)], 3, K)
+    for qid in (-1, -2):
+        live_registry().deregister(qid)
+
+    # 10f. K15 and K16 against their plain versions at 10a's hop-2
+    # shapes: each slot's (1, 8, vmax) marks of hop 2, their words, what
+    # each slot receives, and the hub bits of the frontier entering hop 2
+    stamp("phase 10f")
+    P, vmax = MESH_SLOTS, dev8.vmax
+    W = -(-vmax // 32)
+    _blk, _ids, bufs_l, dsts_l = hop_inputs(ldev)
+    dev0 = mesh8.devices[0]
+    marks8 = [K.mark_plain(dsts_l[1][p:p + 1][None], P, vmax,
+                           out=torch.zeros((1, P, vmax), dtype=torch.bool,
+                                           device=dev0))
+              for p in range(P)]
+    words = [K.pack_bits_plain(m) for m in marks8]
+    err_pack = max_abs_err([K.pack_bits(m) for m in marks8], words)
+    recv = mesh8.transport.all_to_all(mesh8, words)
+
+    def slot_buf():
+        return torch.zeros((1, 1, vmax + H), dtype=torch.bool, device=dev0)
+
+    got_u, want_u = [], []
+    for p in range(P):
+        for out, fn in ((got_u, K.unpack_or), (want_u, K.unpack_or_plain)):
+            b = slot_buf()
+            fn(recv[p], vmax, b[:, 0, :vmax])
+            out.append(b)
+        if not torch.equal(want_u[-1][0, 0, :vmax], bufs_l[2][p, :vmax]):
+            raise AssertionError(f"[10f] slot {p}'s exchanged frontier is "
+                                 f"not hop 3's")
+    err_unpack = max_abs_err(got_u, want_u)
+    shifts = torch.arange(32, dtype=torch.int32, device=dev0)
+    m0, r0 = marks8[0], recv[0]
+    u_t = slot_buf()
+
+    def lib_pack():
+        x = torch.nn.functional.pad(m0.to(torch.int32), (0, W * 32 - vmax))
+        return (x.view(1, P, W, 32) << shifts).sum(-1, dtype=torch.int32)
+
+    def lib_unpack():
+        bits = ((r0[..., None] >> shifts) & 1).amax(1)
+        u_t[:, 0, :vmax] = bits.view(1, W * 32)[:, :vmax].bool()
+        return u_t
+
+    if not torch.equal(lib_pack(), words[0]) \
+            or not torch.equal(lib_unpack(), want_u[0]):
+        raise AssertionError("[10f] a library formulation differs")
+    n_set = int(m0.sum())
+    record("pack_bits", None, None,
+           cuda_ms(lambda: K.pack_bits(m0), reps),
+           cuda_ms(lambda: K.pack_bits_plain(m0), reps),
+           cuda_ms(lib_pack, reps), P * vmax + 4 * P * W, P * vmax,
+           counts=launches10, err=err_pack, tag="[10f]",
+           note=f" (hop 2, one slot's (1, {P}, {vmax}) marks, {n_set} set, "
+                f"-> (1, {P}, {W}) words; {P} launches a hop)")
+    record("unpack_or", None, None,
+           cuda_ms(lambda: K.unpack_or(r0, vmax, u_t[:, 0, :vmax]), reps),
+           cuda_ms(lambda: K.unpack_or_plain(r0, vmax, u_t[:, 0, :vmax]),
+                   reps),
+           cuda_ms(lib_unpack, reps), 4 * P * W + vmax, P * vmax,
+           counts=launches10, err=err_unpack, tag="[10f]",
+           note=f" (hop 2, one slot's (1, {P}, {W}) received words -> "
+                f"{vmax} columns)")
+    exchange_ms = cuda_ms(lambda: mesh8.transport.all_to_all(mesh8, words),
+                          reps)
+    mesh["10f"] = {"exchange_copy_ms": exchange_ms,
+                   "exchange_bytes": P * P * W * 4}
+    log(f"[10f] the exchange copy (in-process, {P} slots on one card, "
+        f"{P * P * W * 4} bytes of words): {exchange_ms:.4f} ms")
+    if H:
+        fbm8 = [bufs_l[1][p:p + 1].clone()[None] for p in range(P)]
+        owned = [K.owned_hub_bits_plain(f, sh.part, sh.hub_owner,
+                                        sh.hub_local)
+                 for f, sh in zip(fbm8, dev8.shards)]
+        err_own = max_abs_err(
+            [K.owned_hub_bits(f, sh.part, sh.hub_owner, sh.hub_local)
+             for f, sh in zip(fbm8, dev8.shards)], owned)
+        summed = sum(owned)
+        got_f, want_f = [], []
+        for p, f in enumerate(fbm8):
+            for out, fn in ((got_f, K.fill_hub_columns),
+                            (want_f, K.fill_hub_columns_plain)):
+                b = f.clone()
+                b[:, 0, vmax:] = False
+                out.append(fn(b, summed))
+            if not torch.equal(want_f[-1][0, 0], bufs_l[1][p]):
+                raise AssertionError(f"[10f] slot {p}'s hub columns differ "
+                                     f"from extend_hubs'")
+        err_fill = max_abs_err(got_f, want_f)
+        sh0, f0 = dev8.shards[0], fbm8[0]
+        fb_t = f0.clone()
+
+        def lib_owned():
+            return (f0[:, 0, sh0.hub_local.long()]
+                    & (sh0.hub_owner == sh0.part)).to(torch.int32)
+
+        def lib_fill():
+            fb_t[:, 0, vmax:] = summed > 0
+            return fb_t
+
+        record("owned_hub_bits", None, None,
+               cuda_ms(lambda: K.owned_hub_bits(f0, sh0.part, sh0.hub_owner,
+                                                sh0.hub_local), reps),
+               cuda_ms(lambda: K.owned_hub_bits_plain(
+                   f0, sh0.part, sh0.hub_owner, sh0.hub_local), reps),
+               cuda_ms(lib_owned, reps), H + 8 * H + 4 * H, H,
+               counts=launches10, err=err_own, tag="[10f]",
+               note=f" (hop 2, {H} hubs, slot 0)")
+        record("fill_hub_columns", None, None,
+               cuda_ms(lambda: K.fill_hub_columns(fb_t, summed), reps),
+               cuda_ms(lambda: K.fill_hub_columns_plain(fb_t, summed), reps),
+               cuda_ms(lib_fill, reps), 4 * H + H, H,
+               counts=launches10, err=err_fill, tag="[10f]",
+               note=f" (hop 2, {H} hub columns, slot 0)")
+    # the hop kernels at a slot's shapes (one part's CSR row, parts = 8,
+    # pid = p), for every slot: expand and mark into the slot's (1, 8,
+    # vmax) mark matrix at hop 2, expand, predicate_mask and
+    # compact_capture at the filtered hop 3, each against its plain
+    # version, the expansion against row p of the local one; each timed
+    # at the slot with the most edges
+    sd8 = ns.store.space("ns")
+    prog8 = rt8._compile_filter(dev8, sd8, [("KNOWS", "out")], ns.w_filter)
+    blk8 = ldev.blocks[("KNOWS", "out")]
+    mcount = {k + " (mesh)": v for k, v in launches10.items()}
+    err8 = dict.fromkeys(("expand", "mark", "predicate_mask",
+                          "compact_capture"), 0.0)
+    big = {}
+    for hop in (1, 2):
+        loc = K.expand_plain(blk8.indptr, blk8.nbr, blk8.rank, bufs_l[hop],
+                             ldev.hub_dense)
+        for sh in dev8.shards:
+            b8, q = sh.blocks[("KNOWS", "out")], sh.part
+            a8 = (b8.indptr, b8.nbr, b8.rank, bufs_l[hop][q:q + 1][None],
+                  sh.hub_dense)
+            want = K.expand_plain(*a8, parts=P, pid=q)
+            err8["expand"] = max(err8["expand"], max_abs_err(
+                K.expand(*a8, parts=P, pid=q), want))
+            eb = want[0].shape[-1]
+            if int(want[4]) != int(loc[4][q]) or not all(
+                    torch.equal(w[0, 0], lc[q, :eb])
+                    for w, lc in zip(want[:4], loc[:4])):
+                raise AssertionError(f"[10f] slot {q}'s hop {hop + 1} "
+                                     f"slots are not row {q} of the "
+                                     f"local expansion")
+            if hop == 1:
+                got_m, want_m = (
+                    fn(want[1], P, vmax, out=torch.zeros(
+                        (1, P, vmax), dtype=torch.bool, device=dev0))
+                    for fn in (K.mark, K.mark_plain))
+                err8["mark"] = max(err8["mark"],
+                                   max_abs_err([got_m], [want_m]))
+                if not torch.equal(want_m, marks8[q]):
+                    raise AssertionError(f"[10f] slot {q}'s hop-2 mark "
+                                         f"matrix is not its marks")
+                extra8 = ()
+            else:
+                pa8 = (prog8, *want[:4], want[4], [b8.props["w"]])
+                keep8 = K.predicate_mask_plain(*pa8)
+                err8["predicate_mask"] = max(err8["predicate_mask"],
+                                             max_abs_err(
+                    [K.predicate_mask(*pa8)], [keep8]))
+                ca8 = (*want[:4], keep8, [b8.props["w"]])
+                cg = K.compact_capture(*ca8, extent=want[4])
+                cw = K.compact_capture_plain(*ca8, extent=want[4])
+                err8["compact_capture"] = max(err8["compact_capture"],
+                                              max_abs_err(
+                    [*cg[:4], *cg[4], cg[5]], [*cw[:4], *cw[4], cw[5]]))
+                extra8 = (pa8, ca8, int(keep8.sum()))
+            if hop not in big or int(want[4]) > big[hop][0]:
+                big[hop] = (int(want[4]), q, a8, b8, want, extra8)
+        del loc
+
+    def mrec8(name, ms, plain_ms, lib_ms, nbytes, ops, note):
+        record(name + " (mesh)", None, None, ms, plain_ms, lib_ms, nbytes,
+               ops, counts=mcount, err=err8[name], tag="[10f]",
+               note=f" (every slot; timed at {note})")
+
+    tot, q, a8, b8, sl8, _ = big[1]
+    rows8, eb8 = a8[3].shape[-1], sl8[0].shape[-1]
+    mrec8("expand",
+          cuda_ms(lambda: K.expand(*a8, parts=P, pid=q), reps),
+          cuda_ms(lambda: K.expand_plain(*a8, parts=P, pid=q), reps),
+          cuda_ms(lib_expand_for(b8, a8[3]), reps),
+          expand_bytes(1, rows8, H, tot, eb8), rows8 * 3 + tot,
+          f"hop 2, slot {q}: {rows8} rows, {tot} edges")
+    d8 = sl8[1]
+    one8 = torch.ones((), dtype=torch.bool, device=dev0)
+
+    def lib_mark8():
+        out = torch.zeros((1, P, vmax), dtype=torch.bool, device=dev0)
+        dl8 = d8.view(-1).long()
+        dl8 = dl8[dl8 >= 0]
+        return out.index_put_((torch.zeros_like(dl8), dl8 % P, dl8 // P),
+                              one8)
+
+    def mark8(fn):
+        return lambda: fn(d8, P, vmax, out=torch.zeros(
+            (1, P, vmax), dtype=torch.bool, device=dev0))
+
+    mrec8("mark", cuda_ms(mark8(K.mark), reps),
+          cuda_ms(mark8(K.mark_plain), reps), cuda_ms(lib_mark8, reps),
+          4 * d8.numel() + P * vmax, 3 * d8.numel(),
+          f"hop 2, slot {q}: {d8.numel()} ids into (1, {P}, {vmax}), with "
+          f"the zero fill")
+    tot, q, a8, b8, sl8, (pa8, ca8, kept8) = big[2]
+    eb8 = sl8[0].shape[-1]
+    mrec8("predicate_mask",
+          cuda_ms(lambda: K.predicate_mask(*pa8), reps),
+          cuda_ms(lambda: K.predicate_mask_plain(*pa8), reps), None,
+          12 * tot + eb8 + 4, tot * len(prog8.code),
+          f"hop 3, slot {q}: {eb8} slots, {tot} valid, {kept8} kept")
+
+    def lib_compact8(a=ca8):
+        si = a[4][0, 0].nonzero().view(-1)
+        outs = [t[0, 0].index_select(0, si) for t in a[:4]]
+        outs.append(a[5][0][0, a[3][0, 0, si].long()])
+        return outs
+
+    mrec8("compact_capture",
+          cuda_ms(lambda: K.compact_capture(*ca8, extent=sl8[4]), reps),
+          cuda_ms(lambda: K.compact_capture_plain(*ca8, extent=sl8[4]),
+                  reps),
+          cuda_ms(lib_compact8, reps),
+          compact_bytes(eb8, tot, kept8, 1, 1), 2 * tot,
+          f"hop 3, slot {q}: {eb8} slots, {tot} valid, {kept8} kept, the "
+          f"w yield column")
+    del big, sl8, pa8, ca8
+
+    # K17's bound at 10a's filtered query: every slot's kernels' byte
+    # bounds (the formulas of phases 4 and 9d, one slot at a time: a slot
+    # is one part's row of the local layout) summed over the hops, with
+    # the two exchanges' pack and unpack
+    k17 = {}
+
+    def add17(name, nbytes, ops):
+        k17[name] = k17.get(name, 0.0) + bound(nbytes, ops)[0]
+
+    for hop, f in enumerate(bufs_l):
+        sl = K.expand_plain(blk8.indptr, blk8.nbr, blk8.rank, f,
+                            ldev.hub_dense)
+        tots = [int(t) for t in sl[4].tolist()]
+        kept = (K.predicate_mask_plain(prog8, *sl[:4], sl[4],
+                                       [blk8.props["w"]]).sum(1).tolist()
+                if hop == 2 else None)
+        for p, tot in enumerate(tots):
+            add17("expand", expand_bytes(1, f.shape[-1], H, tot, tot),
+                  f.shape[-1] * 3 + tot)
+            if H:
+                add17("owned_hub_bits", 13 * H, H)
+                add17("fill_hub_columns", 5 * H, H)
+            if hop < 2:
+                add17("mark", 4 * tot + P * vmax, 3 * tot)
+                add17("pack_bits", P * vmax + 4 * P * W, P * vmax)
+                add17("unpack_or", 4 * P * W + vmax, P * vmax)
+            else:
+                add17("predicate_mask", 13 * tot + 4,
+                      tot * len(prog8.code))
+                add17("compact_capture",
+                      compact_bytes(tot, tot, int(kept[p]), 1, 1), 2 * tot)
+        del sl
+    mesh["k17"] = {"device_loop_ms": mesh["10a"][f"w>{ns.w_gt}"][
+        "device_p50_ms"], "local_device_loop_ms": results[mlabel][
+        f"w>{ns.w_gt}"]["device_p50_ms"],
+        "bound_ms": sum(k17.values()), "bound_parts_ms": k17,
+        "launches_per_go3": {k: v / (2 * (MESH_RUNS + 1))
+                             for k, v in launches10.items() if v},
+        "launches_per_bfs": res8["launches_per_run"]}
+    log(f"[10] K17 mesh loop: {json.dumps(mesh['k17'])}")
+
+    # 10g. 10a's filtered GO once more through the process-group
+    # transport: a one-rank NCCL group holding all eight slots
+    stamp("phase 10g")
+    torch.cuda.set_device(dev0)
+    store_dir = tempfile.mkdtemp(prefix="nccl_store_")
+    dist.init_process_group("nccl", init_method=f"file://{store_dir}/store",
+                            world_size=1, rank=0,
+                            timeout=timedelta(seconds=120))
+    try:
+        pg_mesh = process_group_mesh(MESH_SLOTS, dev0)
+        fl = f"w>{ns.w_gt}"
+        bks = [("KNOWS", "out")]
+        dense = sorted({sd8.dense_id(v) for v in ns.seeds})
+        t0 = time.perf_counter()
+        res_pg = run_hops_sharded(
+            pg_mesh, dev8.shards, rt8._run_blocks(dev8, bks),
+            seed_slot_frontiers(dev8, [dense]), 3, pred=prog8,
+            yield_cols=("w",))
+        caps = [rt8._fetch_cap(c, None)[0] for c in res_pg["cap"]]
+        pg_s = time.perf_counter() - t0
+        rows = rt8._materialize_yields(ns.store, "ns", dev8, bks, caps,
+                                       ns.yields)
+        if not rows_equal(rows, mesh_rows[fl]):
+            raise AssertionError("[10g] the NCCL group's rows differ from "
+                                 "10a's")
+        pg_edges = [int(x) for x in res_pg["hop_edges"][0].sum(0).tolist()]
+        if pg_edges != mesh["10a"][fl]["hop_edges"] \
+                or pg_mesh.transport.sent_bytes != want_x:
+            raise AssertionError(f"[10g] hop_edges {pg_edges}, "
+                                 f"{pg_mesh.transport.sent_bytes} bytes "
+                                 f"sent")
+        mesh["10g"] = {"backend": dist.get_backend(), "world_size": 1,
+                       "slots": MESH_SLOTS, "rows": len(rows),
+                       "hop_edges": pg_edges,
+                       "sent_bytes": pg_mesh.transport.sent_bytes,
+                       "device_and_fetch_s": pg_s}
+        log(f"[10g] {json.dumps(mesh['10g'])}")
+    finally:
+        dist.destroy_process_group()
+    del mesh_rows, rows, caps, res_pg
+
+    # -- 11. result --------------------------------------------------------
+    stamp("phase 11")
     log(json.dumps({"go3": results, "expand_per_hop": per_hop,
                     "unsplit_launches": launches_u,
                     "unsplit_kernels": extra, "algo": algo, "bfs": bfs,
                     "bfs_launches": bfs_launches, "delta": delta,
                     "delta_launches": launches_d, "batch": batch,
-                    "match": match,
+                    "match": match, "mesh": mesh,
                     "hbm_bytes": rt.hbm_bytes() + (
                         rts.hbm_bytes() if rts is not None else 0)}))
     print(json.dumps({"kernels": rows_out}))

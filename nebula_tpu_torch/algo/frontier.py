@@ -15,13 +15,18 @@ Port of the single-device half of `nebula_tpu/algo/frontier.py`:
                        when an in-neighbour is on the frontier
                        (`bfs_probe`, :110).
 
+  * `sharded_level_step` — the mesh's level body (:145): `top_down_step`
+                       for one shard slot, from its own (1, 1, vmax + H)
+                       frontier buffer with its part's ids, into its
+                       (1, P, vmax) mark matrix, row d bound for slot d
+                       (gpu/bfs.py ships it).
+
 The reference vmaps each over the parts; the port's kernels take all P
 parts in one launch.  Each step marks its candidates into the caller's
 bitmap in place and returns (edges (P,) int32, width): edges is the
 pre-filter slot count per part (the level's hop_edges), width the
 level's slot width (the largest block's EB).  The reference's
 `ovf` has no counterpart: `expand` sizes its slots exactly.
-`sharded_level_step` (:145) comes with the mesh.
 """
 from __future__ import annotations
 
@@ -34,13 +39,15 @@ from ..gpu.exprjit import Program
 from ..gpu.hop import expand_merged
 from ..gpu.kernels import bfs_probe, mark, predicate_mask
 
-__all__ = ["expand_part", "top_down_step", "bottom_up_step"]
+__all__ = ["expand_part", "top_down_step", "bottom_up_step",
+           "sharded_level_step"]
 
 
 def expand_part(block: DeviceBlock, fbm: torch.Tensor,
                 hub_dense: Optional[torch.Tensor] = None,
                 pred: Optional[Program] = None, swap_ends: bool = False,
-                delta: Optional[Dict[str, Any]] = None):
+                delta: Optional[Dict[str, Any]] = None, parts=None,
+                pid: int = 0):
     """Expand one block from the (P, rows) bitmap `fbm` (rows = vmax, or
     vmax + H with the hub columns filled) for every part, and apply the
     compiled edge predicate.
@@ -56,13 +63,16 @@ def expand_part(block: DeviceBlock, fbm: torch.Tensor,
     reverse adjacency's delta rows would need the swapped endpoints the
     merge does not model.
 
+    `parts` and `pid`: a shard slot's part count and part (see
+    `kernels.expand`).
+
     Returns (src, dst, keep, total) per `kernels.expand`'s slot contract;
     keep is the predicate's (P, EB) mask (valid slots only), the merged
     valid mask without a predicate, or None without either, meaning
     every slot below total."""
     dl = None if swap_ends else delta
     src, dst, rk, eidx, valid, total = expand_merged(block, fbm, hub_dense,
-                                                     dl)
+                                                     dl, parts, pid)
     keep = valid
     if pred is not None:
         ps, pd = (dst, src) if swap_ends else (src, dst)
@@ -77,22 +87,26 @@ def expand_part(block: DeviceBlock, fbm: torch.Tensor,
 def top_down_step(blocks: Sequence[DeviceBlock], efbm: torch.Tensor,
                   cand: torch.Tensor, hub_dense=None, pred=None,
                   deltas: Optional[Sequence[Optional[Dict[str, Any]]]]
-                  = None) -> Tuple[torch.Tensor, int]:
+                  = None, pid: int = 0) -> Tuple[torch.Tensor, int]:
     """Forward level body: expand every block from the frontier buffer
     `efbm` (hub columns filled by the caller), merged with its delta
     plane (`deltas`, per block, or None), and mark each kept destination
     into the (P, vmax) candidate bitmap `cand` (zeroed by the caller; it
-    may be the first vmax columns of a wider buffer).
+    may be the first vmax columns of a wider buffer).  On a mesh, `efbm`
+    is one shard slot's (1, 1, vmax + H) buffer, `pid` its part, and
+    `cand` its (1, P, vmax) mark matrix: row d holds the candidates owned
+    by slot d.
 
-    -> (edges (P,) int32, width)."""
-    P, vmax = cand.shape
-    edges = torch.zeros((P,), dtype=torch.int32, device=cand.device)
+    -> (edges (P,) int32, or (1, 1) for a slot; width)."""
+    P, vmax = cand.shape[-2:]
+    edges = torch.zeros(efbm.shape[:-1], dtype=torch.int32,
+                        device=cand.device)
     width = 0
     for b, dl in zip(blocks, deltas or [None] * len(blocks)):
         _s, dst, keep, total = expand_part(b, efbm, hub_dense, pred,
-                                           delta=dl)
+                                           delta=dl, parts=P, pid=pid)
         edges += total
-        width = max(width, dst.shape[1])
+        width = max(width, dst.shape[-1])
         # without a predicate every valid slot is kept, and expand and
         # merge_delta give the invalid ones dst = -1, which mark drops
         mark(dst, P, vmax, keep=keep, out=cand)
@@ -121,3 +135,14 @@ def bottom_up_step(rev_blocks: Sequence[DeviceBlock], fbm: torch.Tensor,
         width = max(width, src.shape[1])
         bfs_probe(src, nb, keep, total, fbm, cand)
     return edges, width
+
+
+def sharded_level_step(blocks: Sequence[DeviceBlock], efbm: torch.Tensor,
+                       marks: torch.Tensor, pid: int, hub_dense=None,
+                       pred=None,
+                       deltas: Optional[Sequence[Optional[Dict[str, Any]]]]
+                       = None) -> Tuple[torch.Tensor, int]:
+    """The mesh's level body for the shard slot of part `pid` (the
+    reference's `sharded_level_step`, frontier.py:145): `top_down_step`
+    on the slot's buffer and (1, P, vmax) mark matrix `marks`."""
+    return top_down_step(blocks, efbm, marks, hub_dense, pred, deltas, pid)

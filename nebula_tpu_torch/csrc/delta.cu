@@ -34,6 +34,12 @@
 // delta row's activity depends on that lane's frontier) against the
 // shared delta and tombstone rows.
 //
+// Shard slots (Queue B K17, the merge inside nebula_tpu/tpu/hop.py's
+// shard program, :382-389): a slot holds only its own part's delta rows,
+// so a delta row's source vertex is d_src * parts + pid + p, `parts` the
+// mesh's part count and `pid` the slot's part (parts = P, pid = 0 when all
+// P parts are given).
+//
 // valid (P, W) bool is the merged slot mask: it is no longer a prefix
 // (tombstones punch holes, delta rows sit past EB), so predicate.cu and
 // compact_capture.cu take it instead of total.  total_out counts what the
@@ -59,8 +65,9 @@ merge_delta_kernel(const int* __restrict__ total,
                    const int* __restrict__ d_rank,
                    const uint8_t* __restrict__ d_valid, int Dcap,
                    const int* __restrict__ d_tomb, int Tcap, int P, int EB,
-                   int emax, int* __restrict__ src, int* __restrict__ dst,
-                   int* __restrict__ rk, int* __restrict__ eidx,
+                   int emax, int parts, int pid, int* __restrict__ src,
+                   int* __restrict__ dst, int* __restrict__ rk,
+                   int* __restrict__ eidx,
                    uint8_t* __restrict__ valid, int* __restrict__ total_out) {
   const long long W = (long long)EB + Dcap;
   {
@@ -87,7 +94,7 @@ merge_delta_kernel(const int* __restrict__ total,
       const int sc = s < 0 ? 0 : (s > vmax - 1 ? vmax - 1 : s);
       const bool act = d_valid[in] && fbm[(size_t)p * fbm_ld + sc];
       const size_t o = (size_t)p * W + EB + k;
-      src[o] = act ? s * P + p : -1;
+      src[o] = act ? s * parts + pid + p : -1;
       dst[o] = act ? d_dst[in] : -1;
       rk[o] = act ? d_rank[in] : 0;
       eidx[o] = emax + k;
@@ -138,15 +145,16 @@ merge_delta_kernel(const int* __restrict__ total,
 // is an (L * P, vmax) bitmap whose rows are fbm_ld bytes apart; total and
 // total_out (L * P,); d_src/d_dst/d_rank/d_valid are (P, Dcap), d_tomb
 // (P, Tcap), shared by the lanes.  total is read, total_out written;
-// they may not alias.  L = 1 for a solo call.
+// they may not alias.  L = 1 for a solo call.  parts, pid: see "Shard
+// slots" above.
 extern "C" int nt_merge_delta(const int* total, const uint8_t* fbm,
                               long long fbm_ld, int vmax, const int* d_src,
                               const int* d_dst, const int* d_rank,
                               const uint8_t* d_valid, int Dcap,
                               const int* d_tomb, int Tcap, int P, int L,
-                              int EB, int emax, int* src, int* dst, int* rk,
-                              int* eidx, uint8_t* valid, int* total_out,
-                              void* stream) {
+                              int EB, int emax, int parts, int pid,
+                              int* src, int* dst, int* rk, int* eidx,
+                              uint8_t* valid, int* total_out, void* stream) {
   if (P <= 0 || L <= 0 || vmax <= 0 || Dcap < 0 || Tcap < 0 || EB < 0 ||
       total == total_out)
     return (int)cudaErrorInvalidValue;
@@ -156,6 +164,6 @@ extern "C" int nt_merge_delta(const int* total, const uint8_t* fbm,
   merge_delta_kernel<<<dim3((unsigned)(P + nb), L), kThreads, 0,
                        (cudaStream_t)stream>>>(
       total, fbm, fbm_ld, vmax, d_src, d_dst, d_rank, d_valid, Dcap, d_tomb,
-      Tcap, P, EB, emax, src, dst, rk, eidx, valid, total_out);
+      Tcap, P, EB, emax, parts, pid, src, dst, rk, eidx, valid, total_out);
   return (int)cudaGetLastError();
 }

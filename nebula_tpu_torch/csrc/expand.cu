@@ -43,6 +43,11 @@
 // copied like any other row, after the local rows, so slots stay in
 // ascending row, then eidx, order.
 //
+// Shard slots (Queue B K17, nebula_tpu/tpu/hop.py:_expand_block's `pid`):
+// on the sharded mesh a slot holds only its own part's CSR row, so the
+// vertex of a local row is r * parts + pid (the mesh's part count and the
+// slot's part), where the rows' own index would give r * 1 + 0.
+//
 // Bound: bytes.  It reads indptr and fbm once (5 bytes a row), nbr and
 // rank of the expanded edges (8 bytes an edge) and writes 16 bytes a slot,
 // at 3.35 TB/s; it does no arithmetic worth counting.  The design keeps
@@ -80,7 +85,8 @@ expand_rows_kernel(const int* __restrict__ indptr,
                    const int* __restrict__ rank,
                    const uint8_t* __restrict__ fbm,
                    const int* __restrict__ starts, int P, int vmax,
-                   int vloc, const int* __restrict__ hub_dense,
+                   int vloc, const int* __restrict__ hub_dense, int parts,
+                   int pid,
                    int emax, long long ld, int* __restrict__ src,
                    int* __restrict__ dst, int* __restrict__ rk,
                    int* __restrict__ eidx) {
@@ -125,7 +131,8 @@ expand_rows_kernel(const int* __restrict__ indptr,
       const int rd = __shfl_sync(nt::kFullMask, deg, b);
       const size_t o = orow + __shfl_sync(nt::kFullMask, st, b);
       const int row = row0 + b;
-      const int sid = row < vloc ? row * P + p : hub_dense[row - vloc];
+      const int sid =
+          row < vloc ? row * parts + pid + p : hub_dense[row - vloc];
 #pragma unroll 4
       for (int j = lane; j < rd; j += 32) {
         const int e = rb + j;
@@ -179,14 +186,17 @@ extern "C" int nt_expand_scan(const int* indptr, const uint8_t* fbm, int P,
 
 // vmax: rows per part (vmax_local + H); vloc: local rows (vmax when the
 // snapshot is unsplit, and then hub_dense may be null); L: lanes (1 for
-// a solo call); ld: the output row stride, at least max(total); the
-// outputs are (L * P, ld).
+// a solo call); parts, pid: local row r of CSR row p is vertex
+// r * parts + pid + p (parts = P and pid = 0 when every part's rows are
+// given; a shard slot passes the mesh's P and its own part); ld: the
+// output row stride, at least max(total); the outputs are (L * P, ld).
 extern "C" int nt_expand_fill(const int* indptr, const int* nbr,
                               const int* rank, const uint8_t* fbm,
                               const int* starts, const int* total, int P,
                               int L, int vmax, int vloc, const int* hub_dense,
-                              int emax, long long ld, int* src, int* dst,
-                              int* rk, int* eidx, void* stream) {
+                              int parts, int pid, int emax, long long ld,
+                              int* src, int* dst, int* rk, int* eidx,
+                              void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (vloc < vmax && hub_dense == nullptr) return (int)cudaErrorInvalidValue;
   if (L < 1) return (int)cudaErrorInvalidValue;
@@ -194,8 +204,8 @@ extern "C" int nt_expand_fill(const int* indptr, const int* nbr,
   const long long rows = (long long)L * P;
   const long long groups = (long long)P * ((vmax + 31) / 32);
   expand_rows_kernel<<<dim3(grid_for(groups, 8), L), 256, 0, s>>>(
-      indptr, nbr, rank, fbm, starts, P, vmax, vloc, hub_dense, emax, ld,
-      src, dst, rk, eidx);
+      indptr, nbr, rank, fbm, starts, P, vmax, vloc, hub_dense, parts, pid,
+      emax, ld, src, dst, rk, eidx);
   expand_pad_kernel<<<grid_for(rows * ld, 256), 256, 0, s>>>(
       total, rows, ld, src, dst, rk, eidx);
   return (int)cudaGetLastError();

@@ -25,6 +25,13 @@ expands nothing, so its launches are skipped and it reports 0 edges, as
 the reference's fixed program computes.  The frontier, unvisited and
 candidate bitmaps are the first vmax columns of (P, vmax + H) buffers
 (`hop.new_frontier`), so extend_hubs fills their hub columns in place.
+
+`run_bfs_sharded` is the mesh's BFS (Queue B K17, the reference's
+`build_bfs_fn`, bfs.py:54): top-down at every level — the reference's
+sharded runtime pins no reverse twins (runtime.py:2169) — each shard slot
+expanding its own part (`frontier.sharded_level_step`), one bit-packed
+exchange a level, the last one included (`bfs_exchange_bytes`, :42),
+then `bfs_level` per slot on what it received: new = cand & (dist < 0).
 """
 from __future__ import annotations
 
@@ -32,11 +39,22 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
-from ..algo.frontier import bottom_up_step, top_down_step
-from .device import DeviceBlock, DeviceSnapshot
+from ..algo.frontier import bottom_up_step, sharded_level_step, \
+    top_down_step
+from .device import DeviceBlock, DeviceShard, DeviceSnapshot
 from .exprjit import Program
-from .hop import new_frontier
+from .hop import a2a_payload_bytes, exchange_marks_lanes, \
+    extend_fbm_sharded_lanes, new_frontier
 from .kernels import bfs_level, extend_hubs
+from .mesh import Mesh
+
+
+def bfs_exchange_bytes(P: int, vmax: int, max_steps: int,
+                       lanes: int = 1) -> int:
+    """Bytes the bit-packed exchanges of one sharded BFS run move
+    (nebula_tpu/tpu/bfs.py:42): one exchange every level, the last
+    included (its candidates still update dist); 0 on a 1-slot mesh."""
+    return max_steps * a2a_payload_bytes(P, vmax, lanes)
 
 
 def run_bfs(dev: DeviceSnapshot, blocks: Sequence[DeviceBlock],
@@ -96,3 +114,60 @@ def run_bfs(dev: DeviceSnapshot, blocks: Sequence[DeviceBlock],
         n_front, n_unvis = bfs_level(cand, dist, level, fbm, unvis).tolist()
     return {"dist": dist, "hop_edges": torch.stack(hop_edges, 1),
             "e_cap": e_cap, "bottom_up": bottom_up}
+
+
+def run_bfs_sharded(mesh: Mesh, shards: Sequence[DeviceShard],
+                    blocks_by_slot: Sequence[Sequence[DeviceBlock]],
+                    seeds_by_slot: Sequence[torch.Tensor], max_steps: int,
+                    pred: Optional[Program] = None,
+                    deltas_by_slot: Optional[Sequence[Sequence[Optional[
+                        Dict[str, Any]]]]] = None) -> Dict[str, Any]:
+    """A `max_steps`-level top-down BFS over a mesh of shard slots.  Per
+    slot this process holds: shards[i], its blocks, its (1, 1, vmax + H)
+    seed buffer (`hop.new_slot_frontiers` with the slot's seeds marked;
+    it becomes the candidate buffer) and, per block, its delta rows or
+    None.
+
+    Returns, for the parts this process holds, in part order on
+    mesh.devices[0]: dist (P, vmax) int32, hop_edges (P, max_steps)
+    int32 (every level's out-edges of the frontier), e_cap (per level,
+    the widest slot's width) and bottom_up (all False)."""
+    P = mesh.size
+    H = shards[0].num_hubs
+    vmax = seeds_by_slot[0].shape[-1] - H
+    n_slots = len(shards)
+    deltas_by_slot = deltas_by_slot if deltas_by_slot is not None else [
+        None] * n_slots
+    cands = list(seeds_by_slot)
+    fbufs = [torch.zeros_like(c) for c in cands]
+    unvis = [torch.zeros((1, vmax), dtype=torch.bool, device=c.device)
+             for c in cands]
+    dist = [torch.full((1, vmax), -1, dtype=torch.int32, device=c.device)
+            for c in cands]
+    for i in range(n_slots):
+        bfs_level(cands[i][:, 0, :vmax], dist[i], 0, fbufs[i][:, 0, :vmax],
+                  unvis[i])
+    hop_edges: List[List[torch.Tensor]] = [[] for _ in range(n_slots)]
+    e_cap: List[int] = []
+    for level in range(1, max_steps + 1):
+        if H:
+            extend_fbm_sharded_lanes(mesh, shards, fbufs)
+        marks = [torch.zeros((1, P, vmax), dtype=torch.bool,
+                             device=c.device) for c in cands]
+        width = 0
+        for i, sh in enumerate(shards):
+            edges, w = sharded_level_step(blocks_by_slot[i], fbufs[i],
+                                          marks[i], sh.part, sh.hub_dense,
+                                          pred, deltas_by_slot[i])
+            hop_edges[i].append(edges[0])
+            width = max(width, w)
+        e_cap.append(width)
+        exchange_marks_lanes(mesh, marks, [c[:, 0, :vmax] for c in cands])
+        for i in range(n_slots):
+            bfs_level(cands[i][:, 0, :vmax], dist[i], level,
+                      fbufs[i][:, 0, :vmax], unvis[i])
+    out_dev = mesh.devices[0]
+    return {"dist": torch.cat([d.to(out_dev) for d in dist], 0),
+            "hop_edges": torch.cat([torch.stack(h, -1).to(out_dev)
+                                    for h in hop_edges], 0),
+            "e_cap": e_cap, "bottom_up": [False] * max_steps}

@@ -1,9 +1,18 @@
-"""Pinning a CsrSnapshot into device memory.
+"""Pinning a CsrSnapshot into device memory, whole or over a mesh.
 
-Port of `nebula_tpu/tpu/device.py` for one device: every partition of
-every block is resident on the one `torch.device` as a (P, ...) tensor
-stack, so the per-hop exchange of the reference's mesh becomes writes
-into one shared (P, vmax) bitmap.  There is no mesh and no sharding.
+Port of `nebula_tpu/tpu/device.py`.  In local mode (a 1-slot mesh, or a
+runtime given one `device`) every partition of every block is resident
+on the one `torch.device` as a (P, ...) tensor stack, so the per-hop
+exchange of the reference's mesh becomes writes into one shared (P,
+vmax) bitmap (`pin_snapshot`).
+
+On a P-slot mesh (`make_mesh`, gpu/mesh.py) a snapshot with P parts is
+pinned slot by slot (`pin_sharded`, the sharded branch of the
+reference's `make_putter`, :299-313): slot p holds only part p's rows —
+indptr, nbr, rank and props as (1, ...) tensors, and its delta rows when
+the plane is armed — plus the (H,) hub tables, on its own device.
+`shard_hbm_bytes` gives each slot's bytes (:255).  A part count that
+differs from the mesh raises GpuUnavailable (:315).
 
 The delta plane (`DeviceDelta`, `put_delta_blocks`, the reference's
 device.py:178/319) keeps each block's padded insert rows and sorted
@@ -12,13 +21,14 @@ tombstones on the device beside the immutable base arrays.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..graphstore.csr import CsrSnapshot, StringPool
 from ..graphstore.schema import PropType
+from .mesh import InProcess, Mesh
 
 
 class GpuUnavailable(Exception):
@@ -47,7 +57,9 @@ class DeviceDelta:
     host: Any
     # bk → {"d_src", "d_dst", "d_rank", "d_valid", "d_tomb": tensors,
     #        "d_props": {name: tensor},
-    #        "np": the numpy block_arrays dict these were put from}
+    #        "np": the numpy block_arrays dict these were put from};
+    # on a sharded pin the tensors are per slot instead: bk → {"np": ...,
+    # "slots": [one such dict of (1, ...) rows a slot]}
     blocks: Dict[Tuple[str, str], Dict[str, Any]] = field(
         default_factory=dict)
     applied_epoch: int = 0            # store epoch the delta covers
@@ -59,13 +71,60 @@ class DeviceDelta:
         (0, None)
     last_put_bytes: int = 0           # bytes the last apply uploaded
 
-    def _leaves(self):
+    def _leaves(self, slot: Optional[int] = None):
+        """Every delta tensor, or on a sharded pin those of slot index
+        `slot` (None: every slot's)."""
         for arrs in self.blocks.values():
-            for k, v in arrs.items():
-                if k == "d_props":
-                    yield from v.values()
-                elif k != "np":
-                    yield v
+            dicts = arrs.get("slots", [arrs])
+            if slot is not None and "slots" in arrs:
+                dicts = [dicts[slot]]
+            for d in dicts:
+                for k, v in d.items():
+                    if k == "d_props":
+                        yield from v.values()
+                    elif k not in ("np", "slots"):
+                        yield v
+
+
+@dataclass
+class DeviceShard:
+    """One shard slot's part of a snapshot pinned on a mesh: part
+    `part`'s rows of every block, (1, ...) tensors on `device`, and the
+    (H,) hub tables of a degree-split snapshot."""
+    part: int
+    device: torch.device
+    num_vertices: torch.Tensor        # (1,) i32
+    blocks: Dict[Tuple[str, str], DeviceBlock] = field(default_factory=dict)
+    hub_dense: Optional[torch.Tensor] = None
+    hub_owner: Optional[torch.Tensor] = None
+    hub_local: Optional[torch.Tensor] = None
+
+    @property
+    def num_hubs(self) -> int:
+        return 0 if self.hub_dense is None else int(self.hub_dense.numel())
+
+    def _leaves(self):
+        return _pinned_leaves(self)
+
+
+def _pinned_leaves(t):
+    """The pinned tensors of a snapshot or shard: num_vertices, the hub
+    tables, every block's arrays."""
+    if t.num_vertices is not None:
+        yield t.num_vertices
+    if t.hub_dense is not None:
+        yield t.hub_dense
+        yield t.hub_owner
+        yield t.hub_local
+    for b in t.blocks.values():
+        yield b.indptr
+        yield b.nbr
+        yield b.rank
+        yield from b.props.values()
+
+
+def _nbytes(leaves) -> int:
+    return sum(t.numel() * t.element_size() for t in leaves)
 
 
 @dataclass
@@ -76,7 +135,7 @@ class DeviceSnapshot:
     num_parts: int
     vmax: int
     device: torch.device
-    num_vertices: torch.Tensor        # (P,) i32
+    num_vertices: Optional[torch.Tensor]  # (P,) i32; None when sharded
     blocks: Dict[Tuple[str, str], DeviceBlock] = field(default_factory=dict)
     pool: StringPool = field(default_factory=StringPool)
     host: Optional[CsrSnapshot] = None   # kept for vid and prop decode
@@ -91,55 +150,169 @@ class DeviceSnapshot:
     # set when a pin replaces (or unpin drops) this snapshot: a dispatch
     # that finds it under the runtime's read gate raises GpuUnavailable
     retired: bool = False
+    # a sharded pin: its mesh and one DeviceShard per slot this process
+    # holds; the snapshot's own blocks and tensors are then empty
+    mesh: Optional[Mesh] = None
+    shards: List[DeviceShard] = field(default_factory=list)
 
     @property
     def num_hubs(self) -> int:
+        if self.shards:
+            return self.shards[0].num_hubs
         return 0 if self.hub_dense is None else int(self.hub_dense.numel())
 
     def _leaves(self):
-        yield self.num_vertices
-        if self.hub_dense is not None:
-            yield self.hub_dense
-            yield self.hub_owner
-            yield self.hub_local
-        for b in self.blocks.values():
-            yield b.indptr
-            yield b.nbr
-            yield b.rank
-            yield from b.props.values()
+        for sh in self.shards:
+            yield from sh._leaves()
+        yield from _pinned_leaves(self)
         if self.delta is not None:
             yield from self.delta._leaves()
 
     def hbm_bytes(self) -> int:
-        return sum(t.numel() * t.element_size() for t in self._leaves())
+        return _nbytes(self._leaves())
+
+    def shard_hbm_bytes(self) -> Dict[int, int]:
+        """Per-slot ledger: the bytes resident for each part this process
+        holds (the delta rows included); {0: hbm_bytes()} in local mode.
+        The slots sum to hbm_bytes()."""
+        if not self.shards:
+            return {0: self.hbm_bytes()}
+        dd = self.delta
+        return {sh.part: _nbytes(sh._leaves()) + (
+            0 if dd is None else _nbytes(dd._leaves(i)))
+            for i, sh in enumerate(self.shards)}
+
+
+def make_mesh(n: Optional[int] = None,
+              devices: Optional[Sequence[Any]] = None) -> Mesh:
+    """An n-slot in-process mesh laid over `devices` (default: every
+    CUDA card; n defaults to their count): slot s on devices[s *
+    len(devices) // n], so on one card every slot shares it.  Tests pass
+    devices=[torch.device("cpu")] (or [cpu] * n: n entries are n devices
+    to the memory budget, as the reference's virtual CPU mesh has).
+    Unlike the reference's make_mesh, which raises when n exceeds the
+    real devices, several slots may share a device."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise GpuUnavailable("make_mesh: no CUDA device (pass devices= "
+                                 "to lay the slots elsewhere)")
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devices = [torch.device(d) for d in devices]
+    if not devices:
+        raise ValueError("make_mesh: no devices")
+    n = len(devices) if n is None else int(n)
+    if n < 1:
+        raise ValueError(f"make_mesh: {n} slots")
+    homes = [s * len(devices) // n for s in range(n)]
+    return Mesh(n, [devices[h] for h in homes], InProcess(), homes=homes)
+
+
+def mesh_parts(mesh: Mesh) -> int:
+    return mesh.size
+
+
+def mesh_lanes(mesh: Mesh) -> int:
+    """Lane-axis size: 1 (the two-axis mesh is not ported)."""
+    return 1
+
+
+def _hub_tables(snap: CsrSnapshot):
+    """(dense ids, owner part, owner-local row) as int32 numpy arrays,
+    or None for an unsplit snapshot (the caller's P*vmax check bounds
+    them)."""
+    hubs = snap.hub_dense
+    if hubs is None or not len(hubs):
+        return None
+    hubs = np.asarray(hubs, np.int64)
+    if hubs.min() < 0 or hubs.max() >= snap.num_parts * snap.vmax:
+        raise GpuUnavailable("hub_dense holds ids outside [0, P*vmax)")
+    P = snap.num_parts
+    return tuple(a.astype(np.int32) for a in (hubs, hubs % P, hubs // P))
+
+
+def _put_blocks(snap: CsrSnapshot, put) -> Dict[Tuple[str, str],
+                                                DeviceBlock]:
+    return {key: DeviceBlock(
+        etype=b.etype, direction=b.direction,
+        indptr=put(b.indptr), nbr=put(b.nbr), rank=put(b.rank),
+        props={k: put(v) for k, v in b.props.items()},
+        prop_types=dict(b.prop_types)) for key, b in snap.blocks.items()}
+
+
+def _putter(device, rows: Optional[int] = None):
+    """Copy a numpy array (its row `rows` only, as a (1, ...) array, when
+    given) to `device`, contiguous, same dtype."""
+    def put(a: np.ndarray) -> torch.Tensor:
+        if rows is not None:
+            a = a[rows:rows + 1]
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return put
 
 
 def pin_snapshot(snap: CsrSnapshot, device: torch.device) -> DeviceSnapshot:
     """Copy every snapshot array to `device` (contiguous, same dtypes;
-    the hub tables as int32, which the caller's P*vmax check bounds)."""
-
-    def put(a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
+    the hub tables as int32)."""
+    put = _putter(device)
     dev = DeviceSnapshot(space=snap.space, epoch=snap.epoch,
                          num_parts=snap.num_parts, vmax=snap.vmax,
                          device=device, num_vertices=put(snap.num_vertices),
                          pool=snap.pool, host=snap)
-    hubs = snap.hub_dense
-    if hubs is not None and len(hubs):
-        hubs = np.asarray(hubs, np.int64)
-        if hubs.min() < 0 or hubs.max() >= snap.num_parts * snap.vmax:
-            raise GpuUnavailable("hub_dense holds ids outside [0, P*vmax)")
-        P = snap.num_parts
-        dev.hub_dense = put(hubs.astype(np.int32))
-        dev.hub_owner = put((hubs % P).astype(np.int32))
-        dev.hub_local = put((hubs // P).astype(np.int32))
-    for key, b in snap.blocks.items():
-        dev.blocks[key] = DeviceBlock(
-            etype=b.etype, direction=b.direction,
-            indptr=put(b.indptr), nbr=put(b.nbr), rank=put(b.rank),
-            props={k: put(v) for k, v in b.props.items()},
-            prop_types=dict(b.prop_types))
+    hubs = _hub_tables(snap)
+    if hubs is not None:
+        dev.hub_dense, dev.hub_owner, dev.hub_local = map(put, hubs)
+    dev.blocks = _put_blocks(snap, put)
+    return dev
+
+
+def _check_mesh_parts(snap: CsrSnapshot, mesh: Mesh) -> None:
+    if snap.num_parts != mesh.size:
+        raise GpuUnavailable(
+            f"snapshot has {snap.num_parts} parts but the mesh has "
+            f"{mesh.size} slots; create the space with partition_num == "
+            f"mesh size to pin it")
+
+
+def pin_bytes(snap: CsrSnapshot, mesh: Mesh,
+              delta_bytes: int = 0) -> Dict[int, int]:
+    """What pinning `snap` on `mesh` puts on each slot this process
+    holds — the `shard_hbm_bytes()` of that pin — counted from the host
+    arrays before anything is put: on a 1-slot mesh the whole snapshot
+    (`pin_snapshot`), else part p's rows and the hub tables on slot p
+    (`pin_sharded`).  `delta_bytes`: the delta plane armed at pin time,
+    every part's rows (each slot holds its 1/P)."""
+    hubs = _hub_tables(snap)
+    fixed = 0 if hubs is None else sum(a.nbytes for a in hubs)
+    arrays = [a for b in snap.blocks.values()
+              for a in (b.indptr, b.nbr, b.rank, *b.props.values())]
+    if mesh.size == 1:
+        return {mesh.first: np.asarray(snap.num_vertices).nbytes + fixed
+                + sum(a.nbytes for a in arrays) + delta_bytes}
+    _check_mesh_parts(snap, mesh)
+    # a slot's num_vertices is its part's one int32
+    return {p: 4 + fixed + sum(a[p].nbytes for a in arrays)
+            + delta_bytes // mesh.size for p in mesh.parts}
+
+
+def pin_sharded(snap: CsrSnapshot, mesh: Mesh) -> DeviceSnapshot:
+    """Pin a P-part snapshot on a P-slot mesh, slot by slot: each slot
+    this process holds gets only its own part's rows, on its own device,
+    and the hub tables.  A part count other than the mesh's raises
+    GpuUnavailable."""
+    _check_mesh_parts(snap, mesh)
+    dev = DeviceSnapshot(space=snap.space, epoch=snap.epoch,
+                         num_parts=snap.num_parts, vmax=snap.vmax,
+                         device=mesh.devices[0], num_vertices=None,
+                         pool=snap.pool, host=snap, mesh=mesh)
+    hubs = _hub_tables(snap)
+    for p, d in zip(mesh.parts, mesh.devices):
+        put = _putter(d, rows=p)
+        sh = DeviceShard(part=p, device=d, num_vertices=put(
+            np.asarray(snap.num_vertices, np.int32)))
+        if hubs is not None:
+            sh.hub_dense, sh.hub_owner, sh.hub_local = map(_putter(d), hubs)
+        sh.blocks = _put_blocks(snap, put)
+        dev.shards.append(sh)
     return dev
 
 
@@ -149,28 +322,41 @@ def put_delta_blocks(dev: DeviceSnapshot, host_delta,
     of a pinned snapshot from the mirror `host_delta`; returns the bytes
     uploaded.  Copy-on-write: every block gets new tensors in a new
     blocks dict, published with a new (epoch, blocks) view, so tensors a
-    grabbed view holds are never written."""
+    grabbed view holds are never written.  On a sharded pin each slot
+    gets only its own part's rows (the reference's per-part put)."""
     if dev.delta is None:
         dev.delta = DeviceDelta(host=host_delta, applied_epoch=dev.epoch)
     dd = dev.delta
 
-    def put(a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev.device)
+    def place(arrs, put) -> Tuple[Dict[str, Any], int]:
+        out: Dict[str, Any] = {}
+        nbytes = 0
+        for k, v in arrs.items():
+            if k == "d_props":
+                out[k] = {n: put(a) for n, a in v.items()}
+                nbytes += sum(t.numel() * t.element_size()
+                              for t in out[k].values())
+            else:
+                out[k] = put(v)
+                nbytes += out[k].numel() * out[k].element_size()
+        return out, nbytes
 
-    keys = list(dev.blocks if block_keys is None else block_keys)
+    keys = list(dev.host.blocks if block_keys is None else block_keys)
     new_blocks = dict(dd.blocks)
     moved = 0
     for bk in keys:
         arrs = host_delta.block_arrays(bk)
-        placed: Dict[str, Any] = {"np": arrs}
-        for k, v in arrs.items():
-            if k == "d_props":
-                placed[k] = {n: put(a) for n, a in v.items()}
-                moved += sum(a.nbytes for a in v.values())
-            else:
-                placed[k] = put(v)
-                moved += v.nbytes
-        new_blocks[bk] = placed
+        if dev.shards:                 # per-part placement, slot by slot
+            slots = []
+            for sh in dev.shards:
+                d, n = place(arrs, _putter(sh.device, rows=sh.part))
+                slots.append(d)
+                moved += n
+            new_blocks[bk] = {"np": arrs, "slots": slots}
+        else:
+            d, n = place(arrs, _putter(dev.device))
+            new_blocks[bk] = dict(d, np=arrs)
+            moved += n
     dd.epoch += 1
     dd.blocks = new_blocks
     dd.view = (dd.epoch, new_blocks)

@@ -56,6 +56,16 @@ predicate's mask as its keep (hop.py:552-553).  No yield column is
 gathered.  Each hop's capture keeps its own exact width, where the
 reference stacks them at one uniform bucket (`_norm_ebs`, :258-267):
 the frames do not depend on it, only e_cap does.
+
+The sharded mesh (Queue B K15-K17; nebula_tpu/tpu/hop.py:179-312, :653):
+`run_hops_sharded` runs the same per-block hop (`_hop_block`) in every
+shard slot on the slot's own (Ll, 1, vmax + H) frontier and its part's
+CSR row, with expand and the merge told the slot's part; each slot marks
+into an (Ll, P, vmax) matrix whose row d is bound for slot d, and one
+`exchange_marks_lanes` a hop (K15: pack_bits, the transport's
+all_to_all, unpack_or) gives every slot its next frontier.  On a
+degree-split snapshot `extend_fbm_sharded_lanes` (K16: owned_hub_bits,
+the transport's sum, fill_hub_columns) takes K8's place.
 """
 from __future__ import annotations
 
@@ -63,10 +73,12 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
-from .device import DeviceBlock, DeviceSnapshot
+from .device import DeviceBlock, DeviceShard, DeviceSnapshot
 from .exprjit import Program
-from .kernels import compact_capture, expand, extend_hubs, mark, \
-    merge_delta, predicate_mask
+from .kernels import compact_capture, expand, extend_hubs, \
+    fill_hub_columns, mark, merge_delta, owned_hub_bits, pack_bits, \
+    predicate_mask, unpack_or
+from .mesh import Mesh
 
 
 def new_frontier(dev: DeviceSnapshot,
@@ -80,22 +92,64 @@ def new_frontier(dev: DeviceSnapshot,
 
 
 def expand_merged(b: DeviceBlock, fbm: torch.Tensor, hub_dense=None,
-                  dl: Optional[Dict[str, Any]] = None):
+                  dl: Optional[Dict[str, Any]] = None, parts=None,
+                  pid: int = 0):
     """expand (K1) one block from the frontier buffer (or lane stack),
     then, when the block has a delta plane `dl` (its d_* tensors),
-    merge_delta (K9).  Returns (src, dst, rank, eidx, valid, total):
-    valid is the merged (P, EB + Dcap) mask (with the lane axis), or
-    None when the valid slots are each row's prefix below total."""
+    merge_delta (K9).  `parts` and `pid`: a shard slot's part count and
+    part (see `kernels.expand`).  Returns (src, dst, rank, eidx, valid,
+    total): valid is the merged (P, EB + Dcap) mask (with the lane axis),
+    or None when the valid slots are each row's prefix below total."""
     dcap = 0 if dl is None else dl["d_src"].shape[1]
     src, dst, rk, eidx, total = expand(b.indptr, b.nbr, b.rank, fbm,
-                                       hub_dense, extra=dcap)
+                                       hub_dense, extra=dcap, parts=parts,
+                                       pid=pid)
     if dl is None:
         return src, dst, rk, eidx, None, total
     # a delta snapshot is never degree-split: fbm is the (P, vmax) bitmap
     valid, total = merge_delta(
         src, dst, rk, eidx, total, fbm, dl["d_src"], dl["d_dst"],
-        dl["d_rank"], dl["d_valid"], dl["d_tomb"], b.nbr.shape[1])
+        dl["d_rank"], dl["d_valid"], dl["d_tomb"], b.nbr.shape[1],
+        parts=parts, pid=pid)
     return src, dst, rk, eidx, valid, total
+
+
+def _hop_block(b: DeviceBlock, dl, fbm: torch.Tensor, hub_dense,
+               pred: Optional[Program], want_pred: bool, captured: bool,
+               ycols: Sequence[str], mark_out, P: int, vmax: int,
+               parts=None, pid: int = 0):
+    """One hop of one block: expand (merged with its delta plane), the
+    WHERE mask where `want_pred`, mark the kept dsts into `mark_out` (a
+    (P, vmax) bitmap view or an (L, P, vmax) stack; None on the last hop)
+    and, when `captured`, compact the kept slots with the `ycols` yield
+    columns.  Returns (total, slot width, capture dict or None)."""
+    src, dst, rk, eidx, valid, total = expand_merged(b, fbm, hub_dense, dl,
+                                                     parts, pid)
+    keep = None
+    if want_pred:
+        keep = predicate_mask(
+            pred, src, dst, rk, eidx,
+            valid if valid is not None else total,
+            [b.props[n] for n in pred.columns],
+            None if dl is None else [dl["d_props"][n] for n in pred.columns])
+    if mark_out is not None:
+        # without a predicate every valid slot is kept, and the invalid
+        # ones — expand's padding, the merge's tombstoned and inactive
+        # slots — have dst = -1
+        mark(dst, P, vmax, keep=keep, out=mark_out)
+    if not captured:
+        return total, src.shape[-1], None
+    if keep is None:
+        keep = valid if valid is not None else (
+            torch.arange(src.shape[-1], dtype=torch.int32,
+                         device=fbm.device) < total[..., None])
+    cs, cd, cr, ce, props, kc = compact_capture(
+        src, dst, rk, eidx, keep, [b.props[n] for n in ycols],
+        None if dl is None else [dl["d_props"][n] for n in ycols],
+        extent=total if valid is None else None)
+    cap = {"src": cs, "dst": cd, "rank": cr, "eidx": ce, "kcount": kc}
+    cap.update({"prop:" + n: c for n, c in zip(ycols, props)})
+    return total, src.shape[-1], cap
 
 
 def run_hops(dev: DeviceSnapshot, blocks: Sequence[DeviceBlock],
@@ -142,39 +196,15 @@ def run_hops(dev: DeviceSnapshot, blocks: Sequence[DeviceBlock],
         width = 0
         caps: List[Dict[str, torch.Tensor]] = []
         for b, dl in zip(blocks, deltas):
-            src, dst, rk, eidx, valid, total = expand_merged(
-                b, fbm, dev.hub_dense, dl)
+            total, w, cap = _hop_block(
+                b, dl, fbm, dev.hub_dense, pred,
+                pred is not None and (last or capture_hops), captured,
+                () if capture_hops else yield_cols,
+                None if last else nxt[..., :vmax], P, vmax)
             edges += total
-            width = max(width, src.shape[-1])
-            keep = None
-            if pred is not None and (last or capture_hops):
-                keep = predicate_mask(
-                    pred, src, dst, rk, eidx,
-                    valid if valid is not None else total,
-                    [b.props[n] for n in pred.columns],
-                    None if dl is None
-                    else [dl["d_props"][n] for n in pred.columns])
-            if not last:
-                # without a predicate every valid slot is kept, and the
-                # invalid ones — expand's padding, the merge's tombstoned
-                # and inactive slots — have dst = -1
-                mark(dst, P, vmax, keep=keep, out=nxt[..., :vmax])
-            if not captured:
-                continue
-            if keep is None:
-                keep = valid if valid is not None else (
-                    torch.arange(src.shape[-1], dtype=torch.int32,
-                                 device=fbm.device) < total[..., None])
-            ycols = () if capture_hops else yield_cols
-            cs, cd, cr, ce, props, kc = compact_capture(
-                src, dst, rk, eidx, keep, [b.props[n] for n in ycols],
-                None if dl is None
-                else [dl["d_props"][n] for n in ycols],
-                extent=total if valid is None else None)
-            cap = {"src": cs, "dst": cd, "rank": cr, "eidx": ce,
-                   "kcount": kc}
-            cap.update({"prop:" + n: c for n, c in zip(ycols, props)})
-            caps.append(cap)
+            width = max(width, w)
+            if cap is not None:
+                caps.append(cap)
         if captured:
             hop_caps.append(caps)
         hop_edges.append(edges)
@@ -183,6 +213,192 @@ def run_hops(dev: DeviceSnapshot, blocks: Sequence[DeviceBlock],
     res: Dict[str, Any] = {
         "hop_edges": torch.stack(hop_edges, -1),
         "frontier_sizes": torch.stack(frontier_sizes, -1),
+        "e_cap": e_cap,
+    }
+    if capture:
+        res["cap"] = hop_caps if capture_hops else hop_caps[-1]
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the sharded mesh (Queue B K15-K17)
+# ---------------------------------------------------------------------------
+
+
+def a2a_payload_bytes(P: int, vmax: int, lanes: int = 1) -> int:
+    """Bytes moved by ONE bit-packed frontier exchange over the whole
+    mesh (nebula_tpu/tpu/hop.py:227): each of the P slots ships P rows of
+    ceil(vmax / 32) 4-byte words a lane.  0 when P == 1: local mode has
+    no exchange."""
+    if P <= 1:
+        return 0
+    return int(lanes) * P * P * (-(-int(vmax) // 32)) * 4
+
+
+def new_slot_frontiers(dev: DeviceSnapshot,
+                       lanes: int = 1) -> List[torch.Tensor]:
+    """One zero (L, 1, vmax + H) frontier buffer for each slot of a
+    sharded pin, on the slot's device: the slot's own row of `new_frontier`
+    for each lane."""
+    return [torch.zeros((int(lanes), 1, dev.vmax + dev.num_hubs),
+                        dtype=torch.bool, device=sh.device)
+            for sh in dev.shards]
+
+
+def seed_slot_frontiers(dev: DeviceSnapshot,
+                        lane_dense: Sequence[Sequence[int]]
+                        ) -> List[torch.Tensor]:
+    """The seed build of a sharded pin (the sharded half of the
+    reference's seed builder, runtime.py:941-987): each slot's (L, 1,
+    vmax + H) buffers (`new_slot_frontiers`) with the seeds it owns —
+    dense id d with d % P == its part, at row d // P — marked by one
+    `mark` launch a slot for every lane.  `lane_dense`: each lane's seed
+    ids, checked to lie in [0, P * vmax) by the caller."""
+    P, vmax = dev.num_parts, dev.vmax
+    lanes = [torch.as_tensor(list(d), dtype=torch.int64) for d in lane_dense]
+    bufs = new_slot_frontiers(dev, lanes=len(lanes))
+    for sh, fbm in zip(dev.shards, bufs):
+        mine = [d[d % P == sh.part] // P for d in lanes]
+        cap = max((len(d) for d in mine), default=0) or 1
+        ids = torch.full((len(mine), cap), -1, dtype=torch.int32)
+        for i, d in enumerate(mine):
+            ids[i, :len(d)] = d
+        mark(ids.to(sh.device), 1, vmax, out=fbm[..., :vmax])
+    return bufs
+
+
+def exchange_marks_lanes(mesh: Mesh, marks_by_slot: Sequence[torch.Tensor],
+                         outs: Sequence[torch.Tensor]) -> None:
+    """The per-hop frontier exchange (K15, the reference's
+    `_exchange_marks_lanes`, hop.py:213): each slot's (Ll, P, vmax) mark
+    matrix — row d the candidates bound for slot d — is packed to (Ll, P,
+    W) words (pack_bits), the transport ships row d to slot d, and each
+    slot ORs what it received and unpacks it (unpack_or) into outs[i],
+    its (Ll, vmax) next-frontier bitmap (the first vmax columns of its
+    buffer).  One exchange carries every lane; a solo statement is the
+    L = 1 case."""
+    packed = [pack_bits(m) for m in marks_by_slot]
+    recv = mesh.transport.all_to_all(mesh, packed)
+    vmax = marks_by_slot[0].shape[-1]
+    for r, out in zip(recv, outs):
+        unpack_or(r, vmax, out)
+
+
+def extend_fbm_sharded_lanes(mesh: Mesh, shards: Sequence[DeviceShard],
+                             fbm_by_slot: Sequence[torch.Tensor]) -> None:
+    """Fill the H hub columns of every slot's (Ll, 1, vmax + H) frontier
+    buffer (K16, the reference's `_extend_fbm_sharded_lanes`, hop.py:292):
+    each slot takes the bits of the hubs it owns (owned_hub_bits), the
+    transport sums them over the slots, and each slot sets the hub
+    columns where the sum is > 0 (fill_hub_columns)."""
+    owned = [owned_hub_bits(f, sh.part, sh.hub_owner, sh.hub_local)
+             for f, sh in zip(fbm_by_slot, shards)]
+    for f, summed in zip(fbm_by_slot,
+                         mesh.transport.all_reduce_sum(mesh, owned)):
+        fill_hub_columns(f, summed)
+
+
+def _gather_parts(per_slot: Sequence[torch.Tensor], device,
+                  fill=None) -> torch.Tensor:
+    """Each slot's (Ll, 1, ...) leaf on `device`, concatenated in part
+    order along the part axis; with `fill`, the last axis padded to the
+    widest slot's width with that value first."""
+    ts = [t.to(device) for t in per_slot]
+    if fill is not None:
+        width = max(t.shape[-1] for t in ts)
+        ts = [torch.nn.functional.pad(t, (0, width - t.shape[-1]),
+                                      value=fill) for t in ts]
+    return torch.cat(ts, 1)
+
+
+_CAP_FILL = {"src": -1, "dst": -1}       # every other leaf pads with 0
+
+
+def run_hops_sharded(mesh: Mesh, shards: Sequence[DeviceShard],
+                     blocks_by_slot: Sequence[Sequence[DeviceBlock]],
+                     frontier_by_slot: Sequence[torch.Tensor], steps: int,
+                     pred: Optional[Program] = None, capture: bool = True,
+                     yield_cols: Sequence[str] = (),
+                     deltas_by_slot: Optional[Sequence[Sequence[Optional[
+                         Dict[str, Any]]]]] = None,
+                     capture_hops: bool = False) -> Dict[str, Any]:
+    """`run_hops` over a mesh of shard slots (Queue B K17, the
+    reference's `build_traverse_fn_lanes_sharded`, hop.py:653, in both of
+    its modes, with the delta merge of :382-389).  Per slot this process
+    holds: `shards[i]` (its part and hub tables), its blocks, its (Ll, 1,
+    vmax + H) seed buffer (`new_slot_frontiers` with the slot's seeds
+    marked) and, per block, its delta plane's (1, ...) rows or None.
+
+    Per hop: on a degree-split snapshot, `extend_fbm_sharded_lanes` (K16);
+    then in each slot, per block, expand with the slot's part (K1), the
+    merge (K9), the WHERE mask (K4) and the compaction (K3 + K5) where GO
+    or MATCH asks for them, and mark (K2) into the slot's (Ll, P, vmax)
+    mark matrix; then one `exchange_marks_lanes` (K15) for every slot and
+    lane.  The last hop ships nothing.
+
+    Returns the `run_hops` contract for the parts this process holds,
+    every per-part leaf reassembled in part order on mesh.devices[0]:
+    hop_edges and frontier_sizes (Ll, P, steps), the captures (Ll, P, EB)
+    per block (and per hop) with kcount (Ll, P), EB the widest slot's,
+    and e_cap, each hop's widest slot width."""
+    P = mesh.size
+    H = shards[0].num_hubs
+    vmax = frontier_by_slot[0].shape[-1] - H
+    out_dev = mesh.devices[0]
+    n_slots = len(shards)
+    deltas_by_slot = deltas_by_slot if deltas_by_slot is not None else [
+        [None] * len(blocks_by_slot[0])] * n_slots
+    fbm = list(frontier_by_slot)
+    hop_edges: List[List[torch.Tensor]] = [[] for _ in range(n_slots)]
+    frontier_sizes: List[List[torch.Tensor]] = [[] for _ in range(n_slots)]
+    e_cap: List[int] = []
+    hop_caps: List[List[Dict[str, torch.Tensor]]] = []
+    for hop in range(steps):
+        for i, f in enumerate(fbm):
+            frontier_sizes[i].append(f[..., :vmax].sum(-1,
+                                                       dtype=torch.int32))
+        if H:
+            extend_fbm_sharded_lanes(mesh, shards, fbm)
+        last = hop == steps - 1
+        captured = capture and (last or capture_hops)
+        width = 0
+        marks = None if last else [
+            torch.zeros((f.shape[0], P, vmax), dtype=torch.bool,
+                        device=f.device) for f in fbm]
+        slot_caps = []                   # [slot][block] capture dicts
+        for i, (sh, f) in enumerate(zip(shards, fbm)):
+            edges = torch.zeros(f.shape[:-1], dtype=torch.int32,
+                                device=f.device)
+            caps = []
+            for b, dl in zip(blocks_by_slot[i], deltas_by_slot[i]):
+                total, w, cap = _hop_block(
+                    b, dl, f, sh.hub_dense, pred,
+                    pred is not None and (last or capture_hops), captured,
+                    () if capture_hops else yield_cols,
+                    None if last else marks[i], P, vmax, parts=P,
+                    pid=sh.part)
+                edges += total
+                width = max(width, w)
+                caps.append(cap)
+            hop_edges[i].append(edges)
+            slot_caps.append(caps)
+        if captured:
+            hop_caps.append([
+                {k: _gather_parts([sc[bi][k] for sc in slot_caps], out_dev,
+                                  None if k == "kcount"
+                                  else _CAP_FILL.get(k, 0))
+                 for k in slot_caps[0][bi]}
+                for bi in range(len(slot_caps[0]))])
+        e_cap.append(width)
+        if not last:
+            nxt = [torch.zeros_like(f) for f in fbm]
+            exchange_marks_lanes(mesh, marks, [n[:, 0, :vmax] for n in nxt])
+            fbm = nxt
+    res: Dict[str, Any] = {
+        "hop_edges": _gather_parts([torch.stack(h, -1) for h in hop_edges],
+                                   out_dev),
+        "frontier_sizes": _gather_parts(
+            [torch.stack(fs, -1) for fs in frontier_sizes], out_dev),
         "e_cap": e_cap,
     }
     if capture:

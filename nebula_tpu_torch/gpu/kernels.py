@@ -37,6 +37,22 @@ predicate_mask and adds two, both in bfs.cu:
   bfs_level         K11 — the level update and the switch's popcounts
                     (nebula_tpu/tpu/bfs.py:153-159, 170-172)
 
+The sharded mesh (gpu/hop.py's run_hops_sharded, gpu/bfs.py's
+run_bfs_sharded) adds four, all in exchange.cu, each side of the
+transport's data movement:
+
+  pack_bits         K15 — a slot's (Ll, P, vmax) mark matrix packed into
+                    (Ll, P, W) 32-bit words (hop.py:_pack_bits :179)
+  unpack_or         K15 — the OR of the P rows a slot received, unpacked
+                    into its next frontier (hop.py:_unpack_or :193)
+  owned_hub_bits    K16 — the hub bits a slot owns, (Ll, H) int32
+                    (hop.py:_extend_fbm_sharded_lanes :292)
+  fill_hub_columns  K16 — the hub columns set from their sum over the
+                    slots (the same function, after its psum)
+
+and expand and merge_delta take the slot's part offset (`parts`,
+`pid`): a slot holds one part's CSR row.
+
 The algo plane's three (pagerank.cu, relax.cu) are built into the same
 library; their wrappers live in `algo/kernels.py`.
 
@@ -80,7 +96,7 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("expand.cu", "mark.cu", "hubs.cu", "predicate.cu",
            "compact_capture.cu", "bfs.cu", "pagerank.cu", "relax.cu",
-           "delta.cu")
+           "delta.cu", "exchange.cu")
 HEADERS = ("scan.cuh",)
 MAX_COLS = 4                  # yield columns compact_capture gathers
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -182,8 +198,8 @@ def _load() -> ctypes.CDLL:
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.nt_scan_chunk.argtypes, lib.nt_scan_chunk.restype = [], I
     lib.nt_expand_scan.argtypes = [P, P, I, I, I, P, P, P, P]
-    lib.nt_expand_fill.argtypes = [P, P, P, P, P, P, I, I, I, I, P, I, LL,
-                                   P, P, P, P, P]
+    lib.nt_expand_fill.argtypes = ([P] * 6 + [I] * 4 + [P, I, I, I, LL]
+                                   + [P] * 5)
     lib.nt_mark.argtypes = [P, P, LL, I, I, LL, LL, P, P]
     lib.nt_extend_hubs.argtypes = [P, P, P, I, I, I, I, P]
     lib.nt_predicate_sizes.argtypes = [P]
@@ -192,7 +208,11 @@ def _load() -> ctypes.CDLL:
                                        + [P] * 4 + [P] * 4 + [P] * 4
                                        + [P, P, P])
     lib.nt_merge_delta.argtypes = ([P, P, LL, I] + [P] * 4 + [I, P]
-                                   + [I] * 5 + [P] * 7)
+                                   + [I] * 7 + [P] * 7)
+    lib.nt_pack_bits.argtypes = [P, LL, I, LL, I, P, P]
+    lib.nt_unpack_or.argtypes = [P, I, I, I, I, LL, P, P]
+    lib.nt_owned_hub_bits.argtypes = [P, I, LL, I, P, P, I, P, P]
+    lib.nt_fill_hub_columns.argtypes = [P, I, LL, I, P, I, P]
     lib.nt_bfs_probe.argtypes = [P] * 4 + [I] * 3 + [P, LL, P, LL, P]
     lib.nt_bfs_level.argtypes = [P, LL, P, I, I, I, P, LL, P, LL, P, P]
     D = ctypes.c_double
@@ -205,7 +225,9 @@ def _load() -> ctypes.CDLL:
                lib.nt_predicate_mask, lib.nt_compact_capture,
                lib.nt_bfs_probe, lib.nt_bfs_level, lib.nt_merge_delta,
                lib.nt_pagerank_tile, lib.nt_pagerank_vblock,
-               lib.nt_pagerank_step, lib.nt_wcc_step, lib.nt_sssp_step):
+               lib.nt_pagerank_step, lib.nt_wcc_step, lib.nt_sssp_step,
+               lib.nt_pack_bits, lib.nt_unpack_or, lib.nt_owned_hub_bits,
+               lib.nt_fill_hub_columns):
         fn.restype = I
     sizes = (I * 5)()
     lib.nt_predicate_sizes(sizes)
@@ -259,7 +281,8 @@ def _cdiv(a: int, b: int) -> int:
 
 def _own_wrappers():
     return (expand, mark, extend_hubs, predicate_mask, compact_capture,
-            bfs_probe, bfs_level, merge_delta)
+            bfs_probe, bfs_level, merge_delta, pack_bits, unpack_or,
+            owned_hub_bits, fill_hub_columns)
 
 
 def _wrappers():
@@ -329,16 +352,19 @@ def _part_of_row(n_rows: int, P: int, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def expand_plain(indptr, nbr, rank, fbm, hub_dense=None, extra: int = 0):
+def expand_plain(indptr, nbr, rank, fbm, hub_dense=None, extra: int = 0,
+                 parts=None, pid: int = 0):
     """Plain version of `expand`: (src, dst, rank, eidx) (P, EB + extra)
     int32 and total (P,) int32, EB = max(total).  Slot j < total[p] of
     part p is edge eidx of row `row`, where row is the frontier row
     whose degree range holds j; slots past total[p] are padding (-1, -1,
-    0, 0).  With hub_dense (H,) the last H of fbm's rows are hub rows
-    and their slots' src is hub_dense[row - (rows - H)].  With a lane
-    axis, fbm (L, P, rows) gives (L, P, EB + extra) slots and (L, P)
-    totals, EB the max over every lane."""
+    0, 0).  A local row's src is row * parts + pid + p (parts defaults to
+    P).  With hub_dense (H,) the last H of fbm's rows are hub rows and
+    their slots' src is hub_dense[row - (rows - H)].  With a lane axis,
+    fbm (L, P, rows) gives (L, P, EB + extra) slots and (L, P) totals, EB
+    the max over every lane."""
     P = indptr.shape[0]
+    parts = P if parts is None else int(parts)
     lead = _lead(fbm, 2)
     nrows = fbm.shape[-1]
     f = _rows(fbm, lead)
@@ -361,7 +387,7 @@ def expand_plain(indptr, nbr, rank, fbm, hub_dense=None, extra: int = 0):
     el = eidx.long()
     dst = torch.where(valid, nbr[rq, el], -1).to(_I32)
     rk = torch.where(valid, rank[rq, el], 0).to(_I32)
-    sid = row * P + rq
+    sid = row * parts + pid + rq
     if H:
         vloc = nrows - H
         hub = hub_dense.long()[(row - vloc).clamp(0, H - 1)]
@@ -371,17 +397,23 @@ def expand_plain(indptr, nbr, rank, fbm, hub_dense=None, extra: int = 0):
             total.reshape(lead))
 
 
-def expand(indptr, nbr, rank, fbm, hub_dense=None, extra: int = 0):
+def expand(indptr, nbr, rank, fbm, hub_dense=None, extra: int = 0,
+           parts=None, pid: int = 0):
     """Expand one block's CSR from the (P, rows) bool frontier bitmap, or
     from an (L, P, rows) stack of L lanes' bitmaps in the same launch.
     Returns (src, dst, rank, eidx, total) as `expand_plain` does.  An
     unsplit block has rows = vmax; a degree-split one rows = vmax + H,
     with its (H,) int32 hub ids in hub_dense.  `extra` padding columns
-    follow the EB slot columns: room for `merge_delta`'s delta rows.  The
-    one device-to-host read is max(total) over every lane and part."""
+    follow the EB slot columns: room for `merge_delta`'s delta rows.
+    `parts` and `pid`: the CSR rows given are parts pid .. pid + P - 1 of
+    a `parts`-part snapshot (a shard slot gives its one part; the
+    defaults, P and 0, are the whole snapshot).  The one device-to-host
+    read is max(total) over every lane and part."""
     if fbm.device.type == "cpu":
-        return expand_plain(indptr, nbr, rank, fbm, hub_dense, extra)
+        return expand_plain(indptr, nbr, rank, fbm, hub_dense, extra,
+                            parts, pid)
     P = indptr.shape[0]
+    parts = P if parts is None else int(parts)
     lead = _lead(fbm, 2)
     if lead[-1] != P:
         raise ValueError(f"fbm has {lead[-1]} parts, the CSR {P}")
@@ -413,7 +445,8 @@ def expand(indptr, nbr, rank, fbm, hub_dense=None, extra: int = 0):
         _check(lib.nt_expand_fill(
             indptr.data_ptr(), nbr.data_ptr(), rank.data_ptr(),
             fbm.data_ptr(), starts.data_ptr(), total.data_ptr(), P, L, nrows,
-            nrows - H, hub_dense.data_ptr() if H else None, emax, W,
+            nrows - H, hub_dense.data_ptr() if H else None, parts, int(pid),
+            emax, W,
             *[o.data_ptr() for o in outs], stream), "expand fill")
     _count(expand)
     return (*outs, total)
@@ -764,19 +797,22 @@ def compact_capture(src, dst, rank, eidx, keep,
 
 
 def merge_delta_plain(src, dst, rank, eidx, total, fbm, d_src, d_dst,
-                      d_rank, d_valid, d_tomb, emax: int):
+                      d_rank, d_valid, d_tomb, emax: int, parts=None,
+                      pid: int = 0):
     """Plain version of `merge_delta`, the reference's `_merge_delta` for
     all parts.  src/dst/rank/eidx are expand's (P, EB + Dcap) slots;
     fbm the (P, vmax) frontier bitmap; d_src/d_dst/d_rank/d_valid (P,
     Dcap), d_tomb (P, Tcap) sorted and MAXI-padded.  In place: a base
     slot whose eidx is tombstoned gets dst = -1; column EB + k gets delta
-    row k (src = d_src*P + p, dst, rank) when it is active — d_valid set
-    and its source on the frontier — else padding (-1, -1, 0), and eidx
-    = emax + k.  Returns (valid (P, EB + Dcap) bool, total + the active
-    count (P,) int32).  With a lane axis on the slots, total and fbm,
-    each lane merges against its own frontier; the d_* stay (P, ...)."""
+    row k (src = d_src*parts + pid + p, dst, rank; parts defaults to P)
+    when it is active — d_valid set and its source on the frontier — else
+    padding (-1, -1, 0), and eidx = emax + k.  Returns (valid (P, EB +
+    Dcap) bool, total + the active count (P,) int32).  With a lane axis
+    on the slots, total and fbm, each lane merges against its own
+    frontier; the d_* stay (P, ...)."""
     lead = _lead(src, 2)
     P, W = lead[-1], src.shape[-1]
+    parts = P if parts is None else int(parts)
     Dcap, Tcap = d_src.shape[1], d_tomb.shape[1]
     EB = W - Dcap
     dev = src.device
@@ -797,7 +833,8 @@ def merge_delta_plain(src, dst, rank, eidx, total, fbm, d_src, d_dst,
     f = _rows(fbm, lead)
     ds = d_src[pq]
     act = d_valid[pq] & torch.gather(f, 1, ds.clamp(0, vmax - 1).long())
-    src[:, EB:] = torch.where(act, ds * P + pq[:, None].to(_I32), -1)
+    src[:, EB:] = torch.where(act, ds * parts + pid + pq[:, None].to(_I32),
+                              -1)
     dst[:, EB:] = torch.where(act, d_dst[pq], -1)
     rank[:, EB:] = torch.where(act, d_rank[pq], 0)
     eidx[:, EB:] = emax + torch.arange(Dcap, dtype=_I32, device=dev)
@@ -806,17 +843,21 @@ def merge_delta_plain(src, dst, rank, eidx, total, fbm, d_src, d_dst,
 
 
 def merge_delta(src, dst, rank, eidx, total, fbm, d_src, d_dst, d_rank,
-                d_valid, d_tomb, emax: int):
+                d_valid, d_tomb, emax: int, parts=None, pid: int = 0):
     """Merge one block's delta plane into its expanded slots, in place,
     for all P parts — and all L lanes of (L, P, ...) slots, totals and
     frontiers — in one launch (see `merge_delta_plain` for the
     contract).  fbm may be the first vmax columns of a wider buffer (rows
-    uniformly strided, any row stride).  Returns (valid, total_out)."""
+    uniformly strided, any row stride).  `parts` and `pid` as `expand`'s:
+    the rows given are parts pid .. pid + P - 1 of a `parts`-part
+    snapshot.  Returns (valid, total_out)."""
     if src.device.type == "cpu":
         return merge_delta_plain(src, dst, rank, eidx, total, fbm, d_src,
-                                 d_dst, d_rank, d_valid, d_tomb, emax)
+                                 d_dst, d_rank, d_valid, d_tomb, emax,
+                                 parts, pid)
     lead = _lead(src, 2)
     P, W = lead[-1], src.shape[-1]
+    parts = P if parts is None else int(parts)
     L = lead[0] if len(lead) == 2 else 1
     Dcap, Tcap = d_src.shape[1], d_tomb.shape[1]
     dev = src.device
@@ -840,7 +881,8 @@ def merge_delta(src, dst, rank, eidx, total, fbm, d_src, d_dst, d_rank,
         total.data_ptr(), fbm.data_ptr(), fbm.stride(-2), vmax,
         d_src.data_ptr(), d_dst.data_ptr(), d_rank.data_ptr(),
         d_valid.data_ptr(), Dcap, d_tomb.data_ptr(), Tcap, P, L, W - Dcap,
-        int(emax), src.data_ptr(), dst.data_ptr(), rank.data_ptr(),
+        int(emax), parts, int(pid), src.data_ptr(), dst.data_ptr(),
+        rank.data_ptr(),
         eidx.data_ptr(), valid.data_ptr(), total_out.data_ptr(),
         _stream(src)), "merge_delta")
     _count(merge_delta)
@@ -938,6 +980,155 @@ def bfs_level(cand, dist, level: int, fbm_out, unvis_out):
         _stream(dist)), "bfs_level")
     _count(bfs_level)
     return counts
+
+
+# ---------------------------------------------------------------------------
+# pack_bits, unpack_or (K15); owned_hub_bits, fill_hub_columns (K16)
+# ---------------------------------------------------------------------------
+#
+# The sharded mesh's exchange (csrc/exchange.cu): a shard slot's (Ll, P,
+# vmax) mark matrix is packed into (Ll, P, W) 32-bit words, W =
+# ceil(vmax / 32), bit i of word w = column 32w + i; the transport ships
+# row d to slot d; the slot ORs its P received rows and unpacks them into
+# its next frontier.  The words are an int32 tensor holding the
+# reference's uint32 bits (torch's uint32 has no CPU shifts, and the
+# collectives carry int32).
+
+
+def _words(vmax: int) -> int:
+    return -(-int(vmax) // 32)
+
+
+def pack_bits_plain(marks):
+    """Plain version of `pack_bits`: (Ll, P, vmax) bool → (Ll, P, W)
+    int32, bit i of word w = marks[..., 32w + i], padding bits 0 (the
+    reference's shift-weighted sum over disjoint bits)."""
+    vmax = marks.shape[-1]
+    W = _words(vmax)
+    m = torch.nn.functional.pad(marks.to(torch.int64), (0, W * 32 - vmax))
+    m = m.reshape(marks.shape[:-1] + (W, 32))
+    weights = torch.ones((), dtype=torch.int64, device=marks.device) \
+        << torch.arange(32, device=marks.device)
+    v = (m * weights).sum(-1)
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(_I32)
+
+
+def pack_bits(marks):
+    """Pack each slot's (Ll, P, vmax) bool mark matrix — rows contiguous,
+    uniformly strided — into (Ll, P, W) int32 words, one launch."""
+    if marks.device.type == "cpu":
+        return pack_bits_plain(marks)
+    dev = marks.device
+    if marks.dim() != 3:
+        raise ValueError(f"marks must be (Ll, P, vmax), got "
+                         f"{tuple(marks.shape)}")
+    L, P, vmax = marks.shape
+    _bitmap_view(marks, "marks", (L, P, vmax), dev)
+    W = _words(vmax)
+    out = torch.empty((L, P, W), dtype=_I32, device=dev)
+    if L * P * W == 0:
+        return out
+    _check(_lib().nt_pack_bits(marks.data_ptr(), L * P, vmax,
+                               marks.stride(-2), W, out.data_ptr(),
+                               _stream(marks)), "pack_bits")
+    _count(pack_bits)
+    return out
+
+
+def unpack_or_plain(recv, vmax: int, out):
+    """Plain version of `unpack_or`: out[l, c] = bit c of the OR over p
+    of recv[l, p], for c < vmax; in place."""
+    ored = recv[:, 0]
+    for p in range(1, recv.shape[1]):
+        ored = ored | recv[:, p]
+    bits = (ored[..., None] >> torch.arange(32, device=recv.device)) & 1
+    out.copy_(bits.reshape(recv.shape[0], -1)[:, :vmax].bool())
+    return out
+
+
+def unpack_or(recv, vmax: int, out):
+    """OR the P received (Ll, P, W) int32 word rows of a slot and unpack
+    them into `out`, its (Ll, vmax) next-frontier bitmap — the first vmax
+    columns of the slot's (Ll, 1, vmax + H) buffer, any row stride — one
+    launch.  Returns out."""
+    if recv.device.type == "cpu":
+        return unpack_or_plain(recv, vmax, out)
+    dev = recv.device
+    L, P, W = recv.shape
+    _want(recv, "recv", _I32, (L, P, W), dev)
+    if W != _words(vmax) or P < 1:
+        raise ValueError(f"{P} rows of {W} words cannot hold {vmax} "
+                         f"columns")
+    _bitmap_view(out, "out", (L, vmax), dev)
+    if L * vmax == 0:
+        return out
+    _check(_lib().nt_unpack_or(recv.data_ptr(), L, P, W, vmax,
+                               out.stride(0), out.data_ptr(),
+                               _stream(recv)), "unpack_or")
+    _count(unpack_or)
+    return out
+
+
+def owned_hub_bits_plain(fbm, pid: int, hub_owner, hub_local):
+    """Plain version of `owned_hub_bits`: (Ll, H) int32, 1 where hub h is
+    owned by slot `pid` and its bit fbm[l, 0, hub_local[h]] is set (the
+    reference's `where(hub_owner == pid, fbm[hub_local], False)`)."""
+    bits = fbm[:, 0, hub_local.long()]
+    return (bits & (hub_owner == int(pid))).to(_I32)
+
+
+def owned_hub_bits(fbm, pid: int, hub_owner, hub_local):
+    """The hub bits a shard slot owns, from its (Ll, 1, vmax + H)
+    frontier buffer: (Ll, H) int32, one launch; the transport sums them
+    over the slots (`fill_hub_columns` then sets the hub columns)."""
+    if fbm.device.type == "cpu":
+        return owned_hub_bits_plain(fbm, pid, hub_owner, hub_local)
+    dev = fbm.device
+    L, rows, width = fbm.shape
+    H = int(hub_owner.numel())
+    _want(fbm, "fbm", torch.bool, (L, 1, width), dev)
+    _want(hub_owner, "hub_owner", _I32, (H,), dev)
+    _want(hub_local, "hub_local", _I32, (H,), dev)
+    out = torch.empty((L, H), dtype=_I32, device=dev)
+    if L * H == 0:
+        return out
+    _check(_lib().nt_owned_hub_bits(fbm.data_ptr(), L, width, int(pid),
+                                    hub_owner.data_ptr(),
+                                    hub_local.data_ptr(), H,
+                                    out.data_ptr(), _stream(fbm)),
+           "owned_hub_bits")
+    _count(owned_hub_bits)
+    return out
+
+
+def fill_hub_columns_plain(fbm, summed):
+    """Plain version of `fill_hub_columns`: fbm[l, 0, vmax + h] =
+    summed[l, h] > 0, in place."""
+    H = summed.shape[1]
+    fbm[:, 0, fbm.shape[2] - H:] = summed > 0
+    return fbm
+
+
+def fill_hub_columns(fbm, summed):
+    """Set the H hub columns of a shard slot's (Ll, 1, vmax + H) frontier
+    buffer from the (Ll, H) int32 hub bits summed over the slots, one
+    launch.  Returns fbm, updated in place."""
+    if fbm.device.type == "cpu":
+        return fill_hub_columns_plain(fbm, summed)
+    dev = fbm.device
+    L, rows, width = fbm.shape
+    H = summed.shape[1] if summed.dim() == 2 else -1
+    _want(fbm, "fbm", torch.bool, (L, 1, width), dev)
+    _want(summed, "summed", _I32, (L, H), dev)
+    if H > width:
+        raise ValueError(f"{H} hub columns in a buffer {width} wide")
+    if L * H == 0:
+        return fbm
+    _check(_lib().nt_fill_hub_columns(fbm.data_ptr(), L, width, width - H,
+                                      summed.data_ptr(), H, _stream(fbm)),
+           "fill_hub_columns")
+    _count(fill_hub_columns)
+    return fbm
 
 
 for _fn in _own_wrappers():

@@ -7,7 +7,8 @@ Port of the solo single-device path of `nebula_tpu/tpu/runtime.py`:
 `_cat_parts`, the supernode degree-split at pin time
 (`_maybe_degree_split`, :857), `algo_dispatch` (:1105), the algo
 plane's one dispatch per iteration, `bfs` (:2121), the device BFS
-of FIND SHORTEST PATH, and the delta plane: `_arm_delta` (:639),
+of FIND SHORTEST PATH, and the delta plane: its arming in
+`pin_prebuilt` (the reference's `_arm_delta`, :639),
 `_try_delta_update` (:652), `_grab_delta` (:728), `_delta_perms` (:2241)
 and the delta decode of `_block_columns` (:2302-2337), the dispatch gate
 (`_DispatchGate` :147, `_gated_dispatch` :1052), and the multi-lane
@@ -42,18 +43,31 @@ cause (and unpin the space when the mirror may be half applied).  It
 does not compact: a plane past the reference's fill watermark serves on
 until it overflows.
 
+The sharded mesh (`GpuRuntime(mesh=make_mesh(P))`, the reference's
+`TpuRuntime(mesh)`, :408-416): a P-part snapshot is pinned slot by slot
+(`device.pin_sharded`), and GO, MATCH (batched lanes included) and the
+BFS run over the slots (`hop.run_hops_sharded`, `bfs.run_bfs_sharded`),
+one bit-packed exchange a hop, under the collective-launch mutex
+(:1091-1104).  `TraverseStats.shards` and `.exchange_bytes`, the
+per-device budget `hbm_limit_bytes` (the reference's flag
+`tpu_hbm_limit_bytes`, `_check_hbm_budget` :829), the gauges `tpu_shards`
+and `tpu_shard_hbm_bytes{shard}` (:500-530) and the metric
+`tpu_all_to_all_bytes` (:1337-1355, :1720-1748) come with it.  A mesh
+over a process group is refused: each rank would hold only its own
+parts' captures.
+
 What the port leaves out raises `CannotCompile`, as the reference does
 for a filter it cannot compile: a result column of a type this slice
-does not decode (temporal, geography).  The mesh is not ported.  A
-traversal runs on the
-runtime's one `torch.device`; `GpuRuntime()` means `cuda:0`, and the CPU
-runs only when the caller passes `device="cpu"` (the kernels' plain
+does not decode (temporal, geography).  `GpuRuntime()` runs on `cuda:0`
+(a 1-slot mesh, local mode), and the CPU runs only when the caller
+passes `device="cpu"` or a mesh laid over the CPU (the kernels' plain
 versions then run).
 """
 from __future__ import annotations
 
 import threading
 import time
+from collections import Counter
 from contextlib import contextmanager, nullcontext
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -70,12 +84,15 @@ from ..utils.stats import current_cost, current_work, stats as metrics, \
     use_cost, use_work
 from ..utils.workload import current_live, dispatch_table, use_live
 from .batch import batch_former
-from .bfs import run_bfs
-from .device import DeviceSnapshot, GpuUnavailable, pin_snapshot, \
-    put_delta_blocks, resolve_device
+from .bfs import run_bfs, run_bfs_sharded
+from .device import DeviceSnapshot, GpuUnavailable, mesh_lanes, \
+    mesh_parts, pin_bytes, pin_sharded, pin_snapshot, put_delta_blocks, \
+    resolve_device
 from .exprjit import CannotCompile, compile_predicate, eval_yield_column_np
-from .hop import new_frontier, run_hops
+from .hop import new_frontier, run_hops, \
+    run_hops_sharded, seed_slot_frontiers
 from .kernels import mark
+from .mesh import InProcess, Mesh
 
 _MAX_YIELD_COLS = 4     # device-gathered yield columns (runtime.py:1812)
 
@@ -293,7 +310,8 @@ class _DispatchGate:
 class TraverseStats:
     __slots__ = ("hop_edges", "frontier_sizes", "result_edges", "e_cap",
                  "retries", "steps", "device_s", "pin_s", "put_s",
-                 "fetch_s", "mat_s", "total_s", "hbm_bytes", "queue_s")
+                 "fetch_s", "mat_s", "total_s", "hbm_bytes", "queue_s",
+                 "shards", "exchange_bytes")
 
     def __init__(self):
         self.hop_edges: List[int] = []
@@ -312,6 +330,10 @@ class TraverseStats:
         self.hbm_bytes = 0
         # the dispatch gate's wait, plus the forming window when batched
         self.queue_s = 0.0
+        # mesh facts: the shard slots the dispatch spanned and the bytes
+        # its bit-packed exchanges moved (0 in local mode)
+        self.shards = 1
+        self.exchange_bytes = 0
 
     def edges_traversed(self) -> int:
         return int(sum(self.hop_edges))
@@ -472,7 +494,18 @@ def trail_distinct_keep(frames: List["HopFrame"], path: List[np.ndarray],
 
 
 class GpuRuntime:
-    """Holds the pinned spaces of one device and runs GO on them.
+    """Holds the pinned spaces of one device, or of a mesh of shard
+    slots, and runs GO, MATCH and the BFS on them.
+
+    device: the one device of local mode (None: cuda:0).  mesh: an
+    in-process mesh (`device.make_mesh`) instead; a 1-slot mesh is local
+    mode.
+
+    hbm_limit_bytes: the reference's flag `tpu_hbm_limit_bytes` (0, the
+    default here, is off): a pin that would put more bytes than this on
+    one device, the snapshots already pinned included, raises
+    GpuUnavailable.  Each entry of the mesh's device list is one device:
+    slots laid on the same entry sum on it.
 
     degree_split_threshold: the reference's flag
     `tpu_degree_split_threshold` (utils/config.py:184; 0 = off).  When it
@@ -485,12 +518,57 @@ class GpuRuntime:
     and `pin` folds the writes a store logged since into it."""
 
     def __init__(self, device: Any = None, degree_split_threshold: int = 0,
-                 delta_max_edges: int = 0):
-        self.device = resolve_device(device)
+                 delta_max_edges: int = 0, mesh: Optional[Mesh] = None,
+                 hbm_limit_bytes: int = 0):
+        if mesh is None:
+            self.device = resolve_device(device)
+            mesh = Mesh(1, [self.device], InProcess())
+        else:
+            if device is not None:
+                raise ValueError("pass a device or a mesh, not both")
+            if not mesh.in_process:
+                raise GpuUnavailable(
+                    "a runtime over a process-group mesh is not ported: "
+                    "each rank holds only its own parts' captures (run "
+                    "hop.run_hops_sharded on it directly)")
+            for d in mesh.devices:
+                resolve_device(d)
+            self.device = mesh.devices[0]
+        self.mesh = mesh
+        self.mesh_size = mesh_parts(mesh)
+        self.mesh_lanes = mesh_lanes(mesh)
+        self.local_mode = self.mesh_size == 1
         self.degree_split_threshold = int(degree_split_threshold)
         self.delta_max_edges = int(delta_max_edges)
+        self.hbm_limit_bytes = int(hbm_limit_bytes)
         self.snapshots: Dict[str, DeviceSnapshot] = {}
         self._gate = _DispatchGate()
+
+    def _mesh_key(self) -> Tuple[int, int, int]:
+        """(lanes, parts, mesh id): the launch-grid identity every batch
+        compatibility key carries (the reference's runtime.py:471)."""
+        return (self.mesh_lanes, self.mesh_size, id(self.mesh))
+
+    @contextmanager
+    def _collective_launch(self):
+        """The collective-launch mutex (the reference's
+        runtime.py:1091-1104): a sharded run exchanges between its slots
+        every hop; two runs over one mesh must not interleave their
+        collectives, so every sharded dispatch holds the mesh's lock.
+        Local mode has no exchange and keeps full dispatch concurrency.
+        Yields a one-entry list that holds, once the block ends, the bytes
+        the mesh's transport shipped inside it (0 in local mode)."""
+        sent = [0]
+        if self.local_mode:
+            yield sent
+            return
+        transport = self.mesh.transport
+        with self.mesh.launch_lock:
+            before = transport.sent_bytes
+            try:
+                yield sent
+            finally:
+                sent[0] = transport.sent_bytes - before
 
     # -- pinning ----------------------------------------------------------
 
@@ -507,23 +585,68 @@ class GpuRuntime:
             # dense ids are int32 on the device, as in the reference
             raise GpuUnavailable(
                 f"P*vmax = {snap.num_parts * snap.vmax} exceeds int32")
+        # the EMPTY delta plane is put at pin time, so the first write
+        # costs one small apply.  Degree-split snapshots opt out: hub
+        # rows re-home edges, so delta row identity breaks
+        hd = HostDelta(snap, self.delta_max_edges) \
+            if self.delta_max_edges > 0 and snap.hub_dense is None else None
         self._gate.acquire_write()
         try:
+            self._check_hbm_budget(snap, snap.space,
+                                   0 if hd is None else hd.nbytes())
             self._unpin_locked(snap.space)
-            dev = pin_snapshot(snap, self.device)
-            self._arm_delta(dev, snap)
+            dev = (pin_snapshot(snap, self.device) if self.local_mode
+                   else pin_sharded(snap, self.mesh))
+            if hd is not None:
+                put_delta_blocks(dev, hd)
             self.snapshots[snap.space] = dev
         finally:
             self._gate.release_write()
+        self._emit_hbm_gauges()
         return dev
 
-    def _arm_delta(self, dev: DeviceSnapshot, snap) -> None:
-        """Put the EMPTY delta plane at pin time, so the first write costs
-        one small apply.  Degree-split snapshots opt out: hub rows
-        re-home edges, so delta row identity breaks."""
-        if self.delta_max_edges <= 0 or snap.hub_dense is not None:
+    def _home_bytes(self, per_slot: Dict[int, int]) -> Counter:
+        """Bytes per slot, summed per device of the mesh (the index of
+        its entry in the device list)."""
+        out: Counter = Counter()
+        for part, b in per_slot.items():
+            out[self.mesh.homes[part - self.mesh.first]] += b
+        return out
+
+    def _check_hbm_budget(self, snap, space: str, delta_bytes: int) -> None:
+        """Refuse a pin that would put more than `hbm_limit_bytes` on one
+        device (the reference's `_check_hbm_budget`, runtime.py:829): each
+        slot takes what `pin_bytes` counts for it (its part's rows, the
+        hub tables, its share of the delta plane armed at pin time), the
+        slots that share a device sum on it, and the other spaces' pinned
+        bytes add to it."""
+        if not self.hbm_limit_bytes:
             return
-        put_delta_blocks(dev, HostDelta(snap, self.delta_max_edges))
+        need = self._home_bytes(pin_bytes(snap, self.mesh, delta_bytes))
+        for sp, other in self.snapshots.items():
+            if sp != space:
+                need.update(self._home_bytes(other.shard_hbm_bytes()))
+        home, worst = max(need.items(), key=lambda kv: kv[1])
+        if worst > self.hbm_limit_bytes:
+            raise GpuUnavailable(
+                f"pinning space {space!r} needs {worst:,} bytes on device "
+                f"{home} ({self.mesh_size} shard slot(s), other spaces "
+                f"included), past the limit of {self.hbm_limit_bytes:,} "
+                f"(hbm_limit_bytes)")
+
+    def _emit_hbm_gauges(self) -> None:
+        """The residency gauges (the reference's runtime.py:500-530): the
+        total, the per-slot ledger `tpu_shard_hbm_bytes{shard}` summed over
+        the pinned spaces, and the mesh width `tpu_shards`."""
+        per: Counter = Counter()
+        for dev in list(self.snapshots.values()):
+            per.update(dev.shard_hbm_bytes())
+        st = metrics()
+        st.gauge("tpu_hbm_bytes_pinned", float(sum(per.values())))
+        st.gauge("tpu_shards", float(self.mesh_size))
+        for p in self.mesh.parts:
+            st.gauge_labeled("tpu_shard_hbm_bytes", {"shard": p},
+                             float(per.get(p, 0)))
 
     @staticmethod
     def _served_epoch(dev: DeviceSnapshot) -> int:
@@ -606,34 +729,44 @@ class GpuRuntime:
                 f"the store slice") from ex
         put_delta_blocks(dev, dd.host, sorted(changes.blocks))
         if changes.num_vertices:
-            dev.num_vertices = torch.from_numpy(np.ascontiguousarray(
-                dd.host.snap.num_vertices, np.int32)).to(self.device)
+            nv = np.ascontiguousarray(dd.host.snap.num_vertices, np.int32)
+            if dev.shards:
+                for sh in dev.shards:
+                    sh.num_vertices = torch.from_numpy(
+                        nv[sh.part:sh.part + 1].copy()).to(sh.device)
+            else:
+                dev.num_vertices = torch.from_numpy(nv).to(self.device)
         # changes.tag_cols change only the host mirror: the port pins no
         # tag tables on the device
         dd.applied_epoch = target
         store.delta_trim(space, keys)
+        self._emit_hbm_gauges()
 
     @staticmethod
     def _grab_delta(dev: DeviceSnapshot, block_keys, prop_names):
         """Grab ONE consistent delta view for a run: (view, per-block
-        tensor dicts).  `view` is the (epoch, blocks) tuple; the
-        materializer decodes this run's capture against view[1]'s numpy
-        mirrors, never against dev.delta's current state (an apply
-        replaces, never mutates, so the grabbed arrays stay coherent)."""
-        if dev.delta is None:
-            return None, [None] * len(block_keys)
-        view = dev.delta.view
-        extras = []
-        for bk in block_keys:
-            e = view[1].get(bk)
-            if e is None:
-                extras.append(None)
-                continue
+        tensor dicts — on a sharded pin, one such list a slot).  `view` is
+        the (epoch, blocks) tuple; the materializer decodes this run's
+        capture against view[1]'s numpy mirrors, never against dev.delta's
+        current state (an apply replaces, never mutates, so the grabbed
+        arrays stay coherent)."""
+
+        def tensors(e):
             d = {k: e[k] for k in ("d_src", "d_dst", "d_rank", "d_valid",
                                    "d_tomb")}
             d["d_props"] = {n: e["d_props"][n] for n in prop_names}
-            extras.append(d)
-        return view, extras
+            return d
+
+        if dev.delta is None:
+            none = [None] * len(block_keys)
+            return None, ([none] * len(dev.shards) if dev.shards else none)
+        view = dev.delta.view
+        entries = [view[1].get(bk) for bk in block_keys]
+        if dev.shards:
+            return view, [[None if e is None else tensors(e["slots"][i])
+                           for e in entries]
+                          for i in range(len(dev.shards))]
+        return view, [None if e is None else tensors(e) for e in entries]
 
     @staticmethod
     def _insert_view(dview, block_keys):
@@ -659,6 +792,7 @@ class GpuRuntime:
         old = self.snapshots.pop(space, None)
         if old is not None:
             old.retired = True
+        self._emit_hbm_gauges()
 
     def hbm_bytes(self) -> int:
         return sum(s.hbm_bytes() for s in self.snapshots.values())
@@ -798,7 +932,7 @@ class GpuRuntime:
         would."""
         if edge_filter is None:
             return None
-        bl = dev.blocks[block_keys[0]]
+        bl = dev.host.blocks[block_keys[0]]
         pred, _ = compile_predicate(
             edge_filter, bl.prop_types, dev.pool,
             vid_to_dense=sd.dense_id, device=self.device)
@@ -847,7 +981,7 @@ class GpuRuntime:
                 x.name for e, _ in yields for x in E.walk(e)
                 if x.kind == "edge_prop" and not x.name.startswith("_")}
             for bk in block_keys:
-                hb = dev.blocks[bk]
+                hb = dev.host.blocks[bk]
                 bad = [n for n in (hb.prop_types if wanted is None
                                    else wanted)
                        if n in hb.prop_types
@@ -859,7 +993,7 @@ class GpuRuntime:
                         f"is not ported yet")
             yield_cols = tuple(sorted(
                 n for n in wanted or ()
-                if all(n in dev.blocks[bk].props for bk in block_keys))
+                if all(n in dev.host.blocks[bk].props for bk in block_keys))
             )[:_MAX_YIELD_COLS]
         fetch_keys = _cap_keys_for_yields(yields, yield_cols) \
             if capture else None
@@ -879,7 +1013,7 @@ class GpuRuntime:
             # at materialize time: the host re-sort needs every identity
             # column whatever the yields read
             fetch_keys |= {"src", "dst", "rank", "eidx"}
-        blocks = [dev.blocks[bk] for bk in block_keys]
+        blocks = self._run_blocks(dev, block_keys)
 
         caps = None
         if capture:
@@ -891,7 +1025,8 @@ class GpuRuntime:
                    None if edge_filter is None else E.to_text(edge_filter),
                    yield_cols,
                    None if fetch_keys is None else frozenset(fetch_keys),
-                   None if delta_epoch is None else ("delta", delta_epoch))
+                   None if delta_epoch is None else ("delta", delta_epoch),
+                   self._mesh_key())
             caps = self._try_batched(
                 key, dense, stats,
                 lambda lane_dense: self._run(
@@ -950,7 +1085,7 @@ class GpuRuntime:
             dev, block_keys, () if pred is None else pred.columns)
         delta_epoch = None if dview is None else dview[0]
         dview = self._insert_view(dview, block_keys)
-        blocks = [dev.blocks[bk] for bk in block_keys]
+        blocks = self._run_blocks(dev, block_keys)
         fetch_keys = {"src", "dst", "rank", "eidx"}
 
         def run(lane_dense, attribute=True):
@@ -962,7 +1097,8 @@ class GpuRuntime:
         # "hops" key keeps a MATCH and a GO apart
         key = ("hops", id(dev), dev.epoch, tuple(block_keys), max_hop,
                None if edge_filter is None else E.to_text(edge_filter),
-               None if delta_epoch is None else ("delta", delta_epoch))
+               None if delta_epoch is None else ("delta", delta_epoch),
+               self._mesh_key())
         caps = self._try_batched(
             key, dense, stats, lambda ld: run(ld, attribute=False),
             kernel="hops")
@@ -1001,6 +1137,15 @@ class GpuRuntime:
                 lanes[lane][name] = a
         return lanes
 
+    @staticmethod
+    def _run_blocks(dev: DeviceSnapshot, block_keys):
+        """The blocks a run reads: the pin's, or on a sharded pin one
+        such list a slot."""
+        if dev.shards:
+            return [[sh.blocks[bk] for bk in block_keys]
+                    for sh in dev.shards]
+        return [dev.blocks[bk] for bk in block_keys]
+
     def _run(self, dev: DeviceSnapshot, blocks, lane_dense, steps: int,
              pred, capture: bool, yield_cols, fetch_keys, dextras,
              attribute: bool = True, capture_hops: bool = False):
@@ -1017,20 +1162,35 @@ class GpuRuntime:
         lane its blocks' captures (with capture_hops, MATCH's every-hop
         mode, per lane one such list per hop, the dispatch's kernel name
         "hops") — and info the launch-level facts each lane's de-mux
-        needs.  tpu_kernel_runs grows by ONE per run."""
+        needs.  tpu_kernel_runs grows by ONE per run.  On a sharded pin
+        the same run goes over the mesh's slots (`hop.run_hops_sharded`,
+        under the collective-launch mutex), and its captures come back in
+        the local layout."""
         info: Dict[str, Any] = {"attributed": attribute}
         kernel = "hops" if capture_hops else "traverse"
         with (nullcontext() if attribute else _detached()), \
-                self._gated_dispatch(kernel) as wait_us:
+                self._gated_dispatch(kernel) as wait_us, \
+                self._collective_launch() as sent:
             info["gate_wait_us"] = wait_us
             self._check_live(dev)
             tp = time.perf_counter()
-            frontier = self._seed_frontier_lanes(dev, lane_dense)
+            if dev.shards:
+                frontier = seed_slot_frontiers(dev, [
+                    self._seed_sorted(d, dev.num_parts, dev.vmax)
+                    for d in lane_dense])
+            else:
+                frontier = self._seed_frontier_lanes(dev, lane_dense)
             info["put_s"] = time.perf_counter() - tp
             t0 = time.perf_counter()
-            res = run_hops(dev, blocks, frontier, steps, pred=pred,
-                           capture=capture, yield_cols=yield_cols,
-                           deltas=dextras, capture_hops=capture_hops)
+            if dev.shards:
+                res = run_hops_sharded(
+                    self.mesh, dev.shards, blocks, frontier, steps,
+                    pred=pred, capture=capture, yield_cols=yield_cols,
+                    deltas_by_slot=dextras, capture_hops=capture_hops)
+            else:
+                res = run_hops(dev, blocks, frontier, steps, pred=pred,
+                               capture=capture, yield_cols=yield_cols,
+                               deltas=dextras, capture_hops=capture_hops)
             out = {"hop_edges": res["hop_edges"].cpu().numpy()}
             t1 = time.perf_counter()                     # synchronised
             info["device_s"] = t1 - t0
@@ -1050,8 +1210,21 @@ class GpuRuntime:
             info["fetch_s"] = time.perf_counter() - t1
             info["e_cap"] = list(res["e_cap"])
             info["hbm_bytes"] = self.hbm_bytes()
+        info.update(self._exchange_facts(sent[0]))
         metrics().inc("tpu_kernel_runs")
         return out, info
+
+    def _exchange_facts(self, xbytes: int) -> Dict[str, int]:
+        """A dispatch's mesh facts (the reference's runtime.py:1337-1355,
+        :1720-1748): the slots it spanned and `xbytes`, the bytes its
+        bit-packed exchanges moved as the transport counted them (every
+        hop of GO and MATCH but the last, every level of the BFS: the
+        reference's `a2a_payload_bytes` formula times the exchanges),
+        counted into `tpu_all_to_all_bytes`."""
+        metrics().gauge("tpu_shards", float(self.mesh_size))
+        if xbytes:
+            metrics().inc("tpu_all_to_all_bytes", xbytes)
+        return {"shards": self.mesh_size, "exchange_bytes": xbytes}
 
     def _lane_attribution(self, res, info, lane: int, stats: TraverseStats,
                           form_wait_us: int = 0):
@@ -1069,6 +1242,8 @@ class GpuRuntime:
         stats.queue_s = (info["gate_wait_us"] + form_wait_us) / 1e6
         stats.e_cap = list(info["e_cap"])
         stats.hbm_bytes = info["hbm_bytes"]
+        stats.shards = info["shards"]
+        stats.exchange_bytes = info["exchange_bytes"]
         self._charge(int(stats.device_s * 1e6), stats,
                      0 if info["attributed"] else int(stats.queue_s * 1e6))
         return res["cap"][lane] if "cap" in res else None
@@ -1136,30 +1311,46 @@ class GpuRuntime:
         # blocks are the in and out blocks.  It is OFF while a delta plane
         # is armed: bottom-up scans the reverse adjacency with swapped
         # endpoint semantics the merge does not model, so every level
-        # goes top-down, merged
+        # goes top-down, merged.  A sharded pin is top-down at every level
+        # too, as the reference's sharded runtime (runtime.py:2169)
         rev_of = {"out": "in", "in": "out"}
         rev_keys = [(et, rev_of[d]) for et, d in block_keys]
-        have_rev = dev.delta is None \
+        have_rev = self.local_mode and dev.delta is None \
             and all(rk in dev.blocks for rk in rev_keys)
         _, dextras = self._grab_delta(
             dev, block_keys, () if pred is None else pred.columns)
         n_phantom = P * vmax - int(np.asarray(dev.host.num_vertices).sum())
 
-        with self._gated_dispatch("bfs") as wait_us:
+        with self._gated_dispatch("bfs") as wait_us, \
+                self._collective_launch() as sent:
             stats.queue_s = wait_us / 1e6
             self._check_live(dev)
             tp = time.perf_counter()
-            seeds = self._seed_frontier(dev, dense)
+            if dev.shards:
+                seeds = seed_slot_frontiers(
+                    dev, [self._seed_sorted(dense, P, vmax)])
+            else:
+                seeds = self._seed_frontier(dev, dense)
             stats.put_s = time.perf_counter() - tp
 
             t0 = time.perf_counter()
-            res = run_bfs(dev, [dev.blocks[bk] for bk in block_keys],
-                          [dev.blocks[rk] for rk in rev_keys] if have_rev
-                          else None, seeds, max_steps, pred=pred,
-                          n_phantom=n_phantom, deltas=dextras)
+            if dev.shards:
+                res = run_bfs_sharded(
+                    self.mesh, dev.shards,
+                    self._run_blocks(dev, block_keys), seeds, max_steps,
+                    pred=pred, deltas_by_slot=dextras)
+            else:
+                res = run_bfs(dev, [dev.blocks[bk] for bk in block_keys],
+                              [dev.blocks[rk] for rk in rev_keys]
+                              if have_rev else None, seeds, max_steps,
+                              pred=pred, n_phantom=n_phantom,
+                              deltas=dextras)
             dist = res["dist"].cpu().numpy()            # synchronises
             hop_edges = res["hop_edges"].cpu().numpy()
             stats.device_s = time.perf_counter() - t0
+        facts = self._exchange_facts(sent[0])
+        stats.shards = facts["shards"]
+        stats.exchange_bytes = facts["exchange_bytes"]
         stats.hop_edges = [int(x) for x in hop_edges.sum(axis=0)]
         stats.e_cap = list(res["e_cap"])
         stats.hbm_bytes = self.hbm_bytes()

@@ -210,7 +210,9 @@ def test_wrappers_never_fall_back_off_the_cpu(monkeypatch):
     monkeypatch.setattr(K, "_lib", no_lib)
     for name in ("expand_plain", "mark_plain", "compact_capture_plain",
                  "extend_hubs_plain", "predicate_mask_plain",
-                 "bfs_probe_plain", "bfs_level_plain", "merge_delta_plain"):
+                 "bfs_probe_plain", "bfs_level_plain", "merge_delta_plain",
+                 "pack_bits_plain", "unpack_or_plain",
+                 "owned_hub_bits_plain", "fill_hub_columns_plain"):
         monkeypatch.setattr(K, name, plain_called)
     for name in ("pagerank_step_plain", "wcc_step_plain",
                  "sssp_step_plain"):
@@ -265,10 +267,23 @@ def test_wrappers_never_fall_back_off_the_cpu(monkeypatch):
         K.merge_delta(*ints, torch.empty((P,), dtype=torch.int32, **m),
                       bits, d32, d32, d32,
                       torch.empty((P, 2), dtype=torch.bool, **m), d32, 3)
+    marks = torch.empty((1, P, 40), dtype=torch.bool, **m)
+    with pytest.raises(K.KernelError):
+        K.pack_bits(marks)
+    with pytest.raises(K.KernelError):
+        K.unpack_or(torch.empty((1, P, 2), dtype=torch.int32, **m), 40,
+                    marks[:, 0])
+    slot = torch.empty((1, 1, 42), dtype=torch.bool, **m)
+    with pytest.raises(K.KernelError):
+        K.owned_hub_bits(slot, 0, hubs, hubs)
+    with pytest.raises(K.KernelError):
+        K.fill_hub_columns(slot, torch.empty((1, 2), dtype=torch.int32, **m))
     assert K.launch_counts() == {"expand": 0, "mark": 0, "extend_hubs": 0,
                                  "predicate_mask": 0, "compact_capture": 0,
                                  "bfs_probe": 0, "bfs_level": 0,
-                                 "merge_delta": 0,
+                                 "merge_delta": 0, "pack_bits": 0,
+                                 "unpack_or": 0, "owned_hub_bits": 0,
+                                 "fill_hub_columns": 0,
                                  "pagerank_step": 0, "wcc_step": 0,
                                  "sssp_step": 0}
 

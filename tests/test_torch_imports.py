@@ -41,7 +41,7 @@ def test_port_modules_exist():
               "nebula_tpu_torch.utils.failpoints",
               "nebula_tpu_torch.utils.cancel", "nebula_tpu_torch.utils.stats",
               "nebula_tpu_torch.utils.workload",
-              "nebula_tpu_torch.gpu.batch"):
+              "nebula_tpu_torch.gpu.batch", "nebula_tpu_torch.gpu.mesh"):
         assert m in names, m
 
 
