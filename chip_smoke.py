@@ -41,7 +41,12 @@ Phases, in order; any failure exits non-zero before the result line:
      kernel / plain / one-library-call times from CUDA events, and each
      kernel's bound (bytes at 3.35 TB/s or int32 operations at
      33.5 TOP/s, whichever is larger); the seed bitmap (K6, mark with
-     its zero fill) is timed apart;
+     its zero fill) is timed apart; then ([4e]) expand and
+     compact_capture against their plain versions, bit for bit, on
+     bench/kernel_cases.py's edge cases of their single-pass scan and
+     edge-balanced fill (empty rows and outputs, widths around a scan
+     tile and off 16-byte alignment, a hub row longer than a fill
+     block, lanes, delta halves, shard slots, rows of hundreds of tiles);
   5. the algo plane (`CALL algo.*`, algo/engine.run_algorithm on
      GpuRuntime()):
        a. on the north-star snapshot of phase 3 (30M KNOWS edges, 60M
@@ -77,7 +82,8 @@ Phases, in order; any failure exits non-zero before the result line:
           inputs of every level of (a) and (b) on the main path (exact),
           timed at the widest bottom-up level with their plain versions
           and one library formulation (the gather plus index_put_; the
-          three torch ops plus two sums), and their byte bounds;
+          three torch ops plus two sums), and their byte bounds; expand
+          at the widest level's shapes the same way (`expand (bfs)`);
   7. the delta plane: GpuRuntime(delta_max_edges=8192).pin_prebuilt of
      the unsplit north-star snapshot (an empty plane armed), a
      SnapshotStore over its arrays watching writes, and a write batch made
@@ -207,6 +213,7 @@ import json
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 INT32_OPS_PER_S = 33.5e12        # half the 67 TFLOP/s float32 CUDA-core rate
@@ -259,6 +266,10 @@ ROUTE_SOURCES["compact_capture (match)"] = (
     ROUTE_SOURCES["compact_capture"][0], "nebula_tpu/tpu/hop.py:535")
 ROUTE_SOURCES["mark (match)"] = (ROUTE_SOURCES["mark"][0],
                                  "nebula_tpu/tpu/hop.py:553")
+# the BFS expands the reverse blocks at its bottom-up levels
+# (algo/frontier.py:bottom_up_step), its widest call timed in phase 6c
+ROUTE_SOURCES["expand (bfs)"] = (ROUTE_SOURCES["expand"][0],
+                                 "nebula_tpu/algo/frontier.py:110")
 # the sharded mesh (phase 10) runs the hop kernels once a slot, on one
 # part's row with the part offset (parts = 8, pid = p): the reference's
 # sharded programs, its delta merge at :382-389
@@ -763,11 +774,16 @@ def strided_copy(v):
 
 
 def capture_bfs_calls(rt, ns, seed, FR, GB, filt=None):
-    """One more run of a BFS path with bfs_probe and bfs_level wrapped
-    to keep each call's inputs (the buffers they update in place copied
-    with their row stride), for phase 6c."""
-    calls = {"bfs_probe": [], "bfs_level": []}
-    kernels = FR.bfs_probe, GB.bfs_level
+    """One more run of a BFS path with bfs_probe, bfs_level and expand
+    wrapped to keep each call's inputs (the buffers they update in place
+    copied with their row stride), for phase 6c."""
+    from nebula_tpu_torch.gpu import hop as GH
+    calls = {"bfs_probe": [], "bfs_level": [], "expand": []}
+    kernels = FR.bfs_probe, GB.bfs_level, GH.expand
+
+    def expand(indptr, nbr, rank, fbm, *a, **kw):
+        calls["expand"].append(((indptr, nbr, rank, fbm.clone(), *a), kw))
+        return kernels[2](indptr, nbr, rank, fbm, *a, **kw)
 
     def probe(src, nbr, keep, total, fbm, out):
         calls["bfs_probe"].append((src, nbr, keep, total,
@@ -780,12 +796,12 @@ def capture_bfs_calls(rt, ns, seed, FR, GB, filt=None):
                                    strided_copy(unvis_out)))
         return kernels[1](cand, dist, lv, fbm_out, unvis_out)
 
-    FR.bfs_probe, GB.bfs_level = probe, level
+    FR.bfs_probe, GB.bfs_level, GH.expand = probe, level, expand
     try:
         rt.bfs(ns.store, "ns", [seed], ["KNOWS"], "out", BFS_STEPS,
                edge_filter=filt)
     finally:
-        FR.bfs_probe, GB.bfs_level = kernels
+        FR.bfs_probe, GB.bfs_level, GH.expand = kernels
     return calls
 
 
@@ -1151,6 +1167,33 @@ def compact_bytes(slots: int, valid: int, gathered: int, ncols: int,
     the extent read once a row."""
     return (slots + 16 * valid + (16 + 8 * ncols) * slots
             + 8 * ncols * gathered + 8 * rows)
+
+
+def edge_cases(K, device) -> None:
+    """[4e]: expand and compact_capture against their plain versions on
+    bench/kernel_cases.py's edge cases at their card sizes, bit for bit
+    (every output, padding included); raises on the first difference."""
+    import torch
+    from nebula_tpu_torch.bench.kernel_cases import (compact_cases,
+                                                     expand_cases)
+    t0 = time.perf_counter()
+    for kname, cases in (("expand", expand_cases(device, big=True)),
+                         ("compact_capture",
+                          compact_cases(device, big=True))):
+        kern, plain = getattr(K, kname), getattr(K, kname + "_plain")
+        for name, args, kw in cases:
+            got, want = kern(*args, **kw), plain(*args, **kw)
+            torch.cuda.synchronize()
+            if kname == "compact_capture":
+                got = [*got[:4], *got[4], got[5]]
+                want = [*want[:4], *want[4], want[5]]
+            try:
+                max_abs_err(got, want)
+            except AssertionError as e:
+                raise AssertionError(f"[4e] {kname}, {name}: {e}") from None
+            shape = tuple(args[4 if kname == "compact_capture" else 3].shape)
+            log(f"[4e] {kname}, {name} {shape}: equal")
+    log(f"[4e] edge cases done in {time.perf_counter() - t0:.1f} s")
 
 
 def distinct_edges(eidx, mask) -> int:
@@ -1641,6 +1684,9 @@ def main(argv=None) -> int:
            cuda_ms(lib_compact, reps),
            compact_bytes(P * EB3, tot3, n_kept, 1, P), 2 * tot3)
 
+    # the edge cases of the two scan kernels, bit for bit
+    edge_cases(K, rt.device)
+
     # -- 5. the algo plane --------------------------------------------------
     stamp("phase 5")
     algo, algo_launches = run_algo(rt, ns, K, AE, AK)
@@ -1794,6 +1840,25 @@ def main(argv=None) -> int:
            cuda_ms_fresh(lib_level, reset, reps), 7 * n + 4 * fresh + 16,
            4 * n, counts=bfs_launches[mlabel], err=level_err, tag="[6c]",
            note=f" ({mlabel}, level {lv}, {n} slots, {fresh} fresh)")
+
+    # expand at the BFS's widest level (level 2, bottom-up over the
+    # reverse blocks on the split path), against its plain version
+    ea, ekw = max(calls["expand"],
+                  key=lambda c: int(K.expand_plain(*c[0], **c[1])[4].sum()))
+    got, want_e = K.expand(*ea, **ekw), K.expand_plain(*ea, **ekw)
+    etot, eEB = int(want_e[4].sum()), want_e[0].shape[-1]
+    ef = ea[3]
+    eH = 0 if ea[4] is None else int(ea[4].numel())
+    record("expand (bfs)", got, want_e,
+           cuda_ms(lambda: K.expand(*ea, **ekw), reps),
+           cuda_ms(lambda: K.expand_plain(*ea, **ekw), reps),
+           cuda_ms(lib_expand_for(SimpleNamespace(
+               indptr=ea[0], nbr=ea[1], rank=ea[2]), ef), reps),
+           expand_bytes(ef.shape[-2], ef.shape[-1], eH, etot, eEB),
+           ef.shape[-2] * ef.shape[-1] * 3 + etot,
+           counts={"expand (bfs)": bfs_launches[mlabel]["expand"]},
+           tag="[6c]", note=f" ({mlabel}, widest level: {etot} slots, "
+                f"{ef.shape[-2]} x {eEB})")
 
     # -- 7. the delta plane: GO and the BFS through pending writes --------
     stamp("phase 7")

@@ -1,194 +1,189 @@
-// Per-part exclusive scan in three launches, shared by `expand` (scan of
-// the masked degrees) and `compact_capture` (scan of the keep mask).
+// Single-pass chained scan of many rows (decoupled look-back), shared by
+// `expand` (the masked degrees → slot starts) and `compact_capture` (the
+// keep mask → each kept slot's position).
 //
 // The reference computes both with one `jnp.cumsum` per part row that XLA
 // lowers for the TPU.  On Hopper a row of up to a few million elements is
-// scanned by many blocks at once, and blocks cannot carry a sum from one
-// to the next, so the scan is split the usual way:
-//   1. chunk_sums:    grid (chunks, P) — each block sums one chunk of
-//                     kChunk elements of one part (striped loads,
-//                     coalesced);
-//   2. chunk_offsets: grid (P) — one block per part turns its chunk sums
-//                     into exclusive offsets in place and writes the
-//                     part's total;
-//   3. chunk_apply:   grid (chunks, P) — each block scans its chunk
-//                     (cub::BlockScan over a blocked arrangement, so
-//                     element order is kept) and hands every element its
-//                     exclusive prefix to the caller's `Op`.
-// The value of element i of part p is `F(p, i)`, evaluated in phases 1 and
-// 3; no per-element scratch array is written.  No atomics: positions come
-// from the scan alone, so the result is deterministic and order-stable.
-//
-// `compact_apply` is the variant for a 0/1 keep mask (compact_capture):
-// a row's elements at and past its `extent` are known to be 0 and are
-// never read, phase 3 scans only the chunks that hold a kept element and
-// hands each kept element its position (`op.kept`), and every position at
-// and past the row's total gets the padding (`op.pad`) in striped,
-// coalesced order — a chunk with nothing kept costs only that fill.
+// scanned by many blocks at once, and a block cannot carry a sum to the
+// next one, so each tile publishes its sum for the tiles after it:
+//   * A flat grid of tiles of kTile elements over every row (a lane stack's
+//     L * P rows included).  A block takes its tile from an atomic ticket,
+//     not from blockIdx, so tiles run in ticket order: a tile waits only on
+//     tiles that hold earlier tickets, which are resident or done, and the
+//     look-back cannot deadlock.
+//   * The block loads its tile striped (element k * kThreads + t to thread
+//     t: every warp-wide load is coalesced), scans it in registers and
+//     shared memory (warp shuffles, then the 128 warp sums), and publishes
+//     the tile's sum in an 8-byte status word: flag in the high half,
+//     value in the low half, so one load reads both.  The first warp then
+//     walks back over its predecessors 32 at a time, adding their sums
+//     until it meets one that has published its inclusive prefix, and
+//     publishes its own.
+//   * The status words and the ticket live in scratch the caller's entry
+//     point clears on the stream before every launch
+//     (`status_words(rows, n)` of them).
+// Positions come from the scan alone, never from atomics on positions, so
+// the result is deterministic and order-stable.
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
-#include <cub/block/block_reduce.cuh>
-#include <cub/block/block_scan.cuh>
 
 namespace nt {
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kItems = 16;
-constexpr int kChunk = kThreads * kItems;   // elements one block scans
-constexpr int kScanThreads = 1024;
+constexpr int kTile = kThreads * kItems;   // elements a tile scans
+constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFullMask = 0xffffffffu;
 
-// extent: per row, the elements at and past it are 0 (nullptr: none).
-template <class F>
-__global__ void __launch_bounds__(kThreads)
-chunk_sums_kernel(F f, int n, int nchunks, const int* __restrict__ extent,
-                  int* __restrict__ sums) {
-  const int c = blockIdx.x, p = blockIdx.y;
-  const int base = c * kChunk;
-  const int lim = extent ? min(n, extent[p]) : n;
-  if (base >= lim) {                  // uniform over the block
-    if (threadIdx.x == 0) sums[(size_t)p * nchunks + c] = 0;
-    return;
-  }
-  int acc = 0;
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int i = base + k * kThreads + threadIdx.x;
-    if (i < lim) acc += f(p, i);
-  }
-  using Reduce = cub::BlockReduce<int, kThreads>;
-  __shared__ typename Reduce::TempStorage tmp;
-  const int s = Reduce(tmp).Sum(acc);
-  if (threadIdx.x == 0) sums[(size_t)p * nchunks + c] = s;
+// status word: the flag in the high 32 bits, the value in the low 32
+constexpr unsigned long long kAggregate = 1ull << 32;  // the tile's sum
+constexpr unsigned long long kInclusive = 2ull << 32;  // the prefix through it
+
+__device__ __forceinline__ unsigned long long load_acquire(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
 }
 
-// The block-prefix callback of cub::BlockScan: called by the first warp
-// with the tile's aggregate, returns the prefix of everything before it.
-struct RunningPrefix {
+__device__ __forceinline__ void store_release(unsigned long long* p,
+                                              unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;"
+               :: "l"(p), "l"(v) : "memory");
+}
+
+struct TileScan {
+  int warp_sums[kItems * kWarps];   // (item, warp) order: the tile's order
   int total;
-  __device__ int operator()(int tile_aggregate) {
-    const int before = total;
-    total += tile_aggregate;
-    return before;
-  }
+  int prefix;
+  int ticket;
 };
 
-__global__ void __launch_bounds__(kScanThreads)
-chunk_offsets_kernel(int nchunks, int* __restrict__ sums,
-                     int* __restrict__ total) {
-  const int p = blockIdx.x;
-  int* row = sums + (size_t)p * nchunks;
-  using Scan = cub::BlockScan<int, kScanThreads>;
-  __shared__ typename Scan::TempStorage tmp;
-  RunningPrefix prefix{0};
-  for (int base = 0; base < nchunks; base += kScanThreads) {
-    const int i = base + threadIdx.x;
-    int v = i < nchunks ? row[i] : 0;
-    Scan(tmp).ExclusiveSum(v, v, prefix);
-    __syncthreads();   // tmp is reused by the next tile
-    if (i < nchunks) row[i] = v;
-  }
-  // the callback's state lives in the first warp; thread 0 holds the sum
-  if (threadIdx.x == 0) total[p] = prefix.total;
+// Tiles a row of n elements takes: at least one, so that every row's
+// tile 0 runs and can write the row's total even when the row is empty.
+inline int tiles_per_row(int n) {
+  return n > kTile ? (n + kTile - 1) / kTile : 1;
 }
 
-template <class F, class Op>
-__global__ void __launch_bounds__(kThreads)
-chunk_apply_kernel(F f, Op op, int n, int nchunks,
-                   const int* __restrict__ offsets) {
-  const int c = blockIdx.x, p = blockIdx.y;
-  const int base = c * kChunk + threadIdx.x * kItems;
-  int val[kItems], pre[kItems];
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int i = base + k;
-    val[k] = i < n ? f(p, i) : 0;
-  }
-  using Scan = cub::BlockScan<int, kThreads>;
-  __shared__ typename Scan::TempStorage tmp;
-  Scan(tmp).ExclusiveSum(val, pre);
-  const int off = offsets[(size_t)p * nchunks + c];
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int i = base + k;
-    if (i < n) op(p, i, off + pre[k], val[k]);
-  }
+// Status words a launch needs for `rows` rows of n elements, the ticket
+// last.
+inline size_t status_words(long long rows, int n) {
+  return (size_t)rows * tiles_per_row(n) + 1;
 }
 
-// Phase 3 of compact_apply: offsets are the exclusive chunk offsets of
-// phase 2, total each row's kept count.
-template <class F, class Op>
-__global__ void __launch_bounds__(kThreads)
-chunk_compact_kernel(F f, Op op, int n, int nchunks,
-                     const int* __restrict__ extent,
-                     const int* __restrict__ offsets,
-                     const int* __restrict__ total) {
-  const int c = blockIdx.x, p = blockIdx.y;
-  const int start = c * kChunk, end = min(n, start + kChunk);
-  const int kc = total[p];
-  const int off = offsets[(size_t)p * nchunks + c];
-  const int next = c + 1 < nchunks ? offsets[(size_t)p * nchunks + c + 1]
-                                   : kc;
-  if (next > off) {                   // uniform: the chunk keeps something
-    const int lim = extent ? min(n, extent[p]) : n;
-    const int base = start + threadIdx.x * kItems;
-    int val[kItems], pre[kItems];
+// The block's ticket: the index of its tile in launch order.
+__device__ __forceinline__ int take_ticket(unsigned long long* ticket,
+                                           TileScan& s) {
+  if (threadIdx.x == 0)
+    s.ticket = (int)atomicAdd(ticket, 1ull);
+  __syncthreads();
+  return s.ticket;
+}
+
+// v[k] holds the value of tile element k * kThreads + threadIdx.x.  On
+// return it holds that element's exclusive prefix within the tile, and
+// the tile's sum is returned to every thread.
+__device__ __forceinline__ int scan_tile(int (&v)[kItems], TileScan& s) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
 #pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      const int i = base + k;
-      val[k] = i < lim ? f(p, i) : 0;
+  for (int k = 0; k < kItems; ++k) {
+    int x = v[k];
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(kFullMask, x, d);
+      if (lane >= d) x += y;
     }
-    using Scan = cub::BlockScan<int, kThreads>;
-    __shared__ typename Scan::TempStorage tmp;
-    Scan(tmp).ExclusiveSum(val, pre);
-#pragma unroll
-    for (int k = 0; k < kItems; ++k)
-      if (val[k]) op.kept(p, base + k, off + pre[k]);
+    if (lane == 31) s.warp_sums[k * kWarps + w] = x;
+    v[k] = x - v[k];
   }
-  for (int i = max(start, kc) + threadIdx.x; i < end; i += kThreads)
-    op.pad(p, i);
+  __syncthreads();
+  if (w == 0) {                       // 128 sums, four a lane, in order
+    int* a = s.warp_sums + 4 * lane;
+    const int x0 = a[0], x1 = a[1], x2 = a[2], x3 = a[3];
+    const int sum = x0 + x1 + x2 + x3;
+    int incl = sum;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(kFullMask, incl, d);
+      if (lane >= d) incl += y;
+    }
+    const int excl = incl - sum;
+    a[0] = excl;
+    a[1] = excl + x0;
+    a[2] = excl + x0 + x1;
+    a[3] = excl + x0 + x1 + x2;
+    if (lane == 31) s.total = incl;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) v[k] += s.warp_sums[k * kWarps + w];
+  return s.total;
 }
 
-template <class F>
-void scan_sums(F f, int P, int n, int nchunks, const int* extent,
-               int* chunk_sums, int* total, cudaStream_t stream) {
-  if (nchunks > 0)
-    chunk_sums_kernel<<<dim3(nchunks, P), kThreads, 0, stream>>>(
-        f, n, nchunks, extent, chunk_sums);
-  chunk_offsets_kernel<<<P, kScanThreads, 0, stream>>>(nchunks, chunk_sums,
-                                                       total);
+// The exclusive prefix of tile c of a row, given the tile's sum; `st` is
+// the row's status words, one a tile.  Returned to every thread (the call
+// ends in a barrier).
+__device__ __forceinline__ int tile_prefix(unsigned long long* st, int c,
+                                           int sum, TileScan& s) {
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    int excl = 0;
+    if (c == 0) {
+      if (lane == 0) store_release(st, kInclusive | (unsigned)sum);
+    } else {
+      if (lane == 0) store_release(st + c, kAggregate | (unsigned)sum);
+      for (int end = c - 1;; end -= 32) {
+        const int i = end - lane;        // lane 0 the nearest predecessor
+        unsigned long long word;
+        unsigned ready, incl;
+        for (;;) {
+          word = i >= 0 ? load_acquire(st + i) : kInclusive;
+          ready = __ballot_sync(kFullMask, (word >> 32) != 0);
+          incl = __ballot_sync(kFullMask, (word >> 32) == 2);
+          // the lanes up to the nearest inclusive prefix must be ready
+          const unsigned need =
+              incl ? (incl & (0u - incl)) * 2u - 1u : kFullMask;
+          if ((ready & need) == need) break;
+          __nanosleep(32);
+        }
+        const int stop = incl ? __ffs(incl) - 1 : 31;
+        int x = lane <= stop ? (int)(unsigned)word : 0;
+#pragma unroll
+        for (int d = 16; d > 0; d >>= 1)
+          x += __shfl_xor_sync(kFullMask, x, d);
+        excl += x;
+        if (incl) break;
+      }
+      if (lane == 0)
+        store_release(st + c, kInclusive | (unsigned)(excl + sum));
+    }
+    if (lane == 0) s.prefix = excl;
+  }
+  __syncthreads();
+  return s.prefix;
 }
 
-// The compaction variant (see the top of the file) over P rows of n
-// 0/1 elements; extent: P ints or nullptr.
-template <class F, class Op>
-void compact_apply(F f, Op op, int P, int n, const int* extent,
-                   int* chunk_sums, int* total, cudaStream_t stream) {
-  if (P <= 0) return;
-  const int nchunks = (n + kChunk - 1) / kChunk;
-  scan_sums(f, P, n, nchunks, extent, chunk_sums, total, stream);
-  if (nchunks > 0)
-    chunk_compact_kernel<<<dim3(nchunks, P), kThreads, 0, stream>>>(
-        f, op, n, nchunks, extent, chunk_sums, total);
-}
-
-// Runs the three phases over P rows of n elements on `stream`.
-// chunk_sums: scratch of P * ceil(n / kChunk) ints; total: P ints.
-template <class F, class Op>
-void scan_apply(F f, Op op, int P, int n, int* chunk_sums, int* total,
-                cudaStream_t stream) {
-  if (P <= 0) return;
-  const int nchunks = (n + kChunk - 1) / kChunk;
-  scan_sums(f, P, n, nchunks, nullptr, chunk_sums, total, stream);
-  if (nchunks > 0)
-    chunk_apply_kernel<<<dim3(nchunks, P), kThreads, 0, stream>>>(
-        f, op, n, nchunks, chunk_sums);
+// Fill p[0, nbytes) with the byte `pattern` (0x00 or 0xff: the padding
+// values 0 and -1 of any word width) using the whole block: 16-byte
+// stores over the aligned middle, single bytes at the ragged ends.
+__device__ __forceinline__ void block_fill(void* p, size_t nbytes,
+                                           int pattern) {
+  char* b = static_cast<char*>(p);
+  const size_t lead = (16 - ((uintptr_t)b & 15)) & 15;
+  const size_t head = lead < nbytes ? lead : nbytes;
+  const size_t body = (nbytes - head) / 16;
+  const unsigned u = pattern ? 0xffffffffu : 0u;
+  const uint4 w = make_uint4(u, u, u, u);
+  uint4* v = reinterpret_cast<uint4*>(b + head);
+  for (size_t i = threadIdx.x; i < body; i += kThreads) v[i] = w;
+  const size_t tail = head + body * 16;
+  if (threadIdx.x < head) b[threadIdx.x] = (char)pattern;
+  if (threadIdx.x < nbytes - tail) b[tail + threadIdx.x] = (char)pattern;
 }
 
 }  // namespace
 }  // namespace nt
-
-extern "C" int nt_scan_chunk();

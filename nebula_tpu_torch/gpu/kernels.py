@@ -99,6 +99,7 @@ SOURCES = ("expand.cu", "mark.cu", "hubs.cu", "predicate.cu",
            "delta.cu", "exchange.cu")
 HEADERS = ("scan.cuh",)
 MAX_COLS = 4                  # yield columns compact_capture gathers
+SCAN_TILE = 4096              # elements a tile of csrc/scan.cuh's scan takes
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -196,9 +197,9 @@ def _load() -> ctypes.CDLL:
     path, _, _ = build()
     lib = ctypes.CDLL(str(path))
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.nt_scan_chunk.argtypes, lib.nt_scan_chunk.restype = [], I
+    lib.nt_scan_tile.argtypes, lib.nt_scan_tile.restype = [], I
     lib.nt_expand_scan.argtypes = [P, P, I, I, I, P, P, P, P]
-    lib.nt_expand_fill.argtypes = ([P] * 6 + [I] * 4 + [P, I, I, I, LL]
+    lib.nt_expand_fill.argtypes = ([P] * 5 + [I] * 4 + [P, I, I, I, LL]
                                    + [P] * 5)
     lib.nt_mark.argtypes = [P, P, LL, I, I, LL, LL, P, P]
     lib.nt_extend_hubs.argtypes = [P, P, P, I, I, I, I, P]
@@ -229,6 +230,9 @@ def _load() -> ctypes.CDLL:
                lib.nt_pack_bits, lib.nt_unpack_or, lib.nt_owned_hub_bits,
                lib.nt_fill_hub_columns):
         fn.restype = I
+    if lib.nt_scan_tile() != SCAN_TILE:
+        raise KernelError(f"scan tile {lib.nt_scan_tile()} differs from "
+                          f"SCAN_TILE {SCAN_TILE}")
     sizes = (I * 5)()
     lib.nt_predicate_sizes(sizes)
     want = (X.MAX_REGS, X.MAX_INSNS, X.MAX_CONSTS, X.MAX_COLS,
@@ -277,6 +281,20 @@ def _bitmap_view(t, name: str, shape, device) -> None:
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def scan_status_words(rows: int, n: int) -> int:
+    """The 8-byte scratch words one launch of csrc/scan.cuh's single-pass
+    scan needs over `rows` rows of n elements: a status word for each
+    tile of SCAN_TILE elements (at least one tile a row, so that an empty
+    row still writes its total), then the tile ticket.  The kernel's entry
+    point clears them on the stream."""
+    return rows * max(_cdiv(n, SCAN_TILE), 1) + 1
+
+
+def _scan_scratch(rows: int, n: int, dev) -> torch.Tensor:
+    return torch.empty(scan_status_words(rows, n), dtype=torch.int64,
+                       device=dev)
 
 
 def _own_wrappers():
@@ -431,12 +449,11 @@ def expand(indptr, nbr, rank, fbm, hub_dense=None, extra: int = 0,
     lib = _lib()
     starts = torch.empty(lead + (nrows,), dtype=_I32, device=dev)
     total = torch.empty(lead, dtype=_I32, device=dev)
-    sums = torch.empty((L * P, max(_cdiv(nrows, lib.nt_scan_chunk()), 1)),
-                       dtype=_I32, device=dev)
+    status = _scan_scratch(L * P, nrows, dev)
     stream = _stream(fbm)
     _check(lib.nt_expand_scan(indptr.data_ptr(), fbm.data_ptr(), P, L,
                               nrows, starts.data_ptr(), total.data_ptr(),
-                              sums.data_ptr(), stream), "expand scan")
+                              status.data_ptr(), stream), "expand scan")
     EB = int(total.max()) if P else 0        # the one read per hop
     W = EB + int(extra)
     outs = [torch.empty(lead + (W,), dtype=_I32, device=dev)
@@ -444,7 +461,7 @@ def expand(indptr, nbr, rank, fbm, hub_dense=None, extra: int = 0,
     if W:
         _check(lib.nt_expand_fill(
             indptr.data_ptr(), nbr.data_ptr(), rank.data_ptr(),
-            fbm.data_ptr(), starts.data_ptr(), total.data_ptr(), P, L, nrows,
+            starts.data_ptr(), total.data_ptr(), P, L, nrows,
             nrows - H, hub_dense.data_ptr() if H else None, parts, int(pid),
             emax, W,
             *[o.data_ptr() for o in outs], stream), "expand fill")
@@ -774,8 +791,7 @@ def compact_capture(src, dst, rank, eidx, keep,
     props: List[torch.Tensor] = [torch.empty(lead + (EB,), dtype=c.dtype,
                                              device=dev) for c in cols]
     kcount = torch.empty(lead, dtype=_I32, device=dev)
-    sums = torch.empty((L * P, max(_cdiv(EB, lib.nt_scan_chunk()), 1)),
-                       dtype=_I32, device=dev)
+    status = _scan_scratch(L * P, EB, dev)
 
     def ptrs(ts):
         return [t.data_ptr() for t in ts] + [None] * (MAX_COLS - len(ts))
@@ -785,7 +801,7 @@ def compact_capture(src, dst, rank, eidx, keep,
         keep.data_ptr(), None if extent is None else extent.data_ptr(),
         P, L, EB, len(cols), emax, *ptrs(cols), dcap,
         *ptrs(dcols or ()), *[o.data_ptr() for o in outs], *ptrs(props),
-        kcount.data_ptr(), sums.data_ptr(), _stream(keep)),
+        kcount.data_ptr(), status.data_ptr(), _stream(keep)),
         "compact_capture")
     _count(compact_capture)
     return (*outs, props, kcount)
