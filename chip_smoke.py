@@ -41,12 +41,22 @@ Phases, in order; any failure exits non-zero before the result line:
      kernel / plain / one-library-call times from CUDA events, and each
      kernel's bound (bytes at 3.35 TB/s or int32 operations at
      33.5 TOP/s, whichever is larger); the seed bitmap (K6, mark with
-     its zero fill) is timed apart; then ([4e]) expand and
-     compact_capture against their plain versions, bit for bit, on
-     bench/kernel_cases.py's edge cases of their single-pass scan and
-     edge-balanced fill (empty rows and outputs, widths around a scan
-     tile and off 16-byte alignment, a hub row longer than a fill
-     block, lanes, delta halves, shard slots, rows of hundreds of tiles);
+     its zero fill) is timed apart; mark's two kernels (staged and
+     direct, gpu/kernels.py:mark_path) are each held bit for bit and
+     timed at hop 2 beside the wrapper's choice (and at [8d], [9d],
+     [10f]); then ([4e]) expand and compact_capture against their plain
+     versions, bit for bit, on bench/kernel_cases.py's edge cases of
+     their single-pass scan and edge-balanced fill (empty rows and
+     outputs, widths around a scan tile and off 16-byte alignment, a hub
+     row longer than a fill block, lanes, delta halves, shard slots, rows
+     of hundreds of tiles), mark bit for bit through each kernel that
+     fits and through the wrapper's choice (no ids, none kept, ids out of
+     range, one id repeated, counts and lanes off 16-byte alignment, an
+     odd row stride, ones already set, P = 1, 3, 7, a bitmap too wide to
+     stage), and pagerank_step within 1e-12 with two runs bit-identical
+     (no edges, one vertex, one vertex holding every edge, edgeless rows
+     across a block's edge, segments ending on one, every vertex
+     dangling, vmask holes, 30M Zipf edges);
   5. the algo plane (`CALL algo.*`, algo/engine.run_algorithm on
      GpuRuntime()):
        a. on the north-star snapshot of phase 3 (30M KNOWS edges, 60M
@@ -65,7 +75,9 @@ Phases, in order; any failure exits non-zero before the result line:
           within 1e-12, the kernel's moved count exact over its own
           ranks and equal to the plain version's vertex by vertex
           wherever rounding cannot flip `> tol`), timed with its plain version
-          and one library call (index_add_, scatter_reduce_ amin);
+          and one library call (index_add_, scatter_reduce_ amin); beside
+          pagerank_step, its gather floor: one rank.index_select over
+          esrc at the same shape, a yardstick the port never calls;
   6. the device BFS of FIND SHORTEST PATH, as bench.py config 5 runs it:
      GpuRuntime.bfs(store, "ns", [seeds[0]], ["KNOWS"], "out", 5) on the
      north-star snapshot, one cold and three warm runs per path, launch
@@ -805,6 +817,83 @@ def capture_bfs_calls(rt, ns, seed, FR, GB, filt=None):
     return calls
 
 
+def loop_bound(K, run):
+    """Run `run()` once with every kernel wrapper the host loops call
+    (through gpu/hop.py, gpu/bfs.py, algo/frontier.py, gpu/runtime.py)
+    wrapped to add its call's bound to a tally: each input read once and
+    each output written once, from the call's own shapes and counts, by
+    the formulas of the kernel rows (terms a call does not return, as a
+    probe's reached count, are left out, so the sum stays a lower bound).
+    Returns {kernel: summed bound ms}."""
+    import importlib
+    import math as _m
+    mods = [importlib.import_module("nebula_tpu_torch." + m) for m in
+            ("gpu.hop", "gpu.bfs", "algo.frontier", "gpu.runtime")]
+    tally = {}
+
+    def rows(t):
+        return _m.prod(t.shape[:-1])
+
+    def cost(name, a, kw, r):
+        if name == "expand":
+            fbm = a[3]
+            hd = a[4] if len(a) > 4 else kw.get("hub_dense")
+            tot, EB = int(r[4].sum()), r[0].shape[-1]
+            H = 0 if hd is None else hd.numel()
+            return (expand_bytes(rows(fbm), fbm.shape[-1], H, tot, EB),
+                    rows(fbm) * fbm.shape[-1] * 3 + tot)
+        if name == "mark":
+            n = a[0].numel()
+            keep = a[3] if len(a) > 3 else kw.get("keep")
+            return (4 + (keep is not None)) * n + r.numel(), 3 * n
+        if name == "extend_hubs":
+            H = a[1].numel()
+            return H + rows(a[0]) * H + 8 * H, rows(a[0]) * H
+        if name == "bfs_probe":
+            tot = int(a[3].sum())
+            return 4 * tot + a[4].numel() + 4 * rows(a[0]), 2 * tot
+        if name == "bfs_level":
+            return 7 * a[0].numel() + 16, 4 * a[0].numel()
+        if name == "predicate_mask":
+            tot = int(a[5].sum())        # a valid mask or row totals
+            return 13 * tot + 4 * rows(a[1]), tot * len(a[0].code)
+        if name == "compact_capture":
+            ext = kw.get("extent")
+            valid = a[0].numel() if ext is None else int(ext.sum())
+            return (compact_bytes(a[0].numel(), valid, int(r[5].sum()),
+                                  len(a[5]), rows(a[0])), 2 * valid)
+        if name == "pack_bits":
+            return a[0].numel() + 4 * r.numel(), a[0].numel()
+        if name == "unpack_or":
+            return 4 * a[0].numel() + a[1], a[0].numel() * 32
+        if name in ("owned_hub_bits", "fill_hub_columns"):
+            H = a[2].numel() if name == "owned_hub_bits" else a[1].numel()
+            return (13 if name == "owned_hub_bits" else 5) * H, H
+        raise AssertionError(f"no bound formula for {name}")
+
+    def wrap(name, fn):
+        def counted(*a, **kw):
+            r = fn(*a, **kw)
+            b = bound(*cost(name, a, kw, r))[0]
+            tally[name] = tally.get(name, 0.0) + b
+            return r
+        return counted
+
+    wrappers = {id(w): w.__name__ for w in K._own_wrappers()}
+    saved = []
+    for mod in mods:
+        for attr, val in list(vars(mod).items()):
+            if id(val) in wrappers:
+                saved.append((mod, attr, val))
+                setattr(mod, attr, wrap(wrappers[id(val)], val))
+    try:
+        run()
+    finally:
+        for mod, attr, val in saved:
+            setattr(mod, attr, val)
+    return tally
+
+
 def predicates(E, NULL):
     """WHERE KNOWS.w > 50 and eleven predicates over the w/f/city columns
     and the nullable wn (int), fn (float), bn (bool), cn (string-code)
@@ -1158,6 +1247,14 @@ def lane_frontiers(K, dev, lane_dense, steps: int, dl=None, extra=0):
     return ids, bufs, dsts
 
 
+def expand_bytes(P, nrows, H, tot, EB):
+    """expand's bytes: the P CSR rows' offsets and the frontier read once,
+    each traversed edge's neighbour and rank, the four (P, EB) slot
+    arrays and the totals written, the hub ids read."""
+    return (P * (nrows + 1) * 4 + P * nrows + 8 * tot + 16 * P * EB
+            + 4 * P + 4 * H)
+
+
 def compact_bytes(slots: int, valid: int, gathered: int, ncols: int,
                   rows: int) -> int:
     """compact_capture's byte bound (see compact_capture.cu): keep read
@@ -1169,13 +1266,19 @@ def compact_bytes(slots: int, valid: int, gathered: int, ncols: int,
             + 8 * ncols * gathered + 8 * rows)
 
 
-def edge_cases(K, device) -> None:
-    """[4e]: expand and compact_capture against their plain versions on
-    bench/kernel_cases.py's edge cases at their card sizes, bit for bit
-    (every output, padding included); raises on the first difference."""
+def edge_cases(K, AK, device) -> None:
+    """[4e]: expand, compact_capture, mark and pagerank_step against their
+    plain versions on bench/kernel_cases.py's edge cases at their card
+    sizes: the first three bit for bit (every output, padding included;
+    mark through each of its two kernels that fits, and the wrapper's own
+    choice, with the whole buffer around a bitmap view compared), a
+    PageRank step within PAGERANK_STEP_TOL and two runs bit-identical;
+    raises on the first difference."""
     import torch
     from nebula_tpu_torch.bench.kernel_cases import (compact_cases,
-                                                     expand_cases)
+                                                     copy_view, expand_cases,
+                                                     mark_cases,
+                                                     pagerank_cases)
     t0 = time.perf_counter()
     for kname, cases in (("expand", expand_cases(device, big=True)),
                          ("compact_capture",
@@ -1193,7 +1296,52 @@ def edge_cases(K, device) -> None:
                 raise AssertionError(f"[4e] {kname}, {name}: {e}") from None
             shape = tuple(args[4 if kname == "compact_capture" else 3].shape)
             log(f"[4e] {kname}, {name} {shape}: equal")
+    for name, (ids, P, vmax), kw in mark_cases(device, big=True):
+        want = copy_view(kw["out"])
+        K.mark_plain(ids, P, vmax, keep=kw.get("keep"), out=want)
+        paths = [None] + [p for p in K.MARK_PATHS if p == "direct"
+                          or K.mark_stage_bytes(P, vmax) <= K.MARK_SMEM_BYTES]
+        for path in paths:
+            got = copy_view(kw["out"])
+            K.mark(ids, P, vmax, keep=kw.get("keep"), out=got, path=path)
+            torch.cuda.synchronize()
+            if not torch.equal(got._base, want._base):
+                raise AssertionError(f"[4e] mark ({path or 'chosen'}), "
+                                     f"{name}: differs from mark_plain")
+        log(f"[4e] mark, {name} {tuple(ids.shape)} into "
+            f"{tuple(kw['out'].shape)}: equal through "
+            f"{[p or 'chosen' for p in paths]}")
+    for name, args, _ in pagerank_cases(device, big=True):
+        got, want = AK.pagerank_step(*args), AK.pagerank_step_plain(*args)
+        again = AK.pagerank_step(*args)
+        torch.cuda.synchronize()
+        err = pagerank_step_err(f"[4e] {name}", args, got, want)
+        if not (torch.equal(got[0].view(torch.int64),
+                            again[0].view(torch.int64))
+                and torch.equal(got[1].view(torch.int64),
+                                again[1].view(torch.int64))
+                and int(got[2]) == int(again[2])):
+            raise AssertionError(f"[4e] pagerank_step, {name}: two runs "
+                                 f"differ")
+        log(f"[4e] pagerank_step, {name} (n {args[0].numel()}, E "
+            f"{args[1].numel()}): max abs err {err}, rerun bit-identical")
     log(f"[4e] edge cases done in {time.perf_counter() - t0:.1f} s")
+
+
+def mark_paths(K, tag, label, call, want, chosen, reps):
+    """Time each of mark's two kernels at one shape — call(path) marks
+    into a fresh bitmap — after holding each bit for bit against `want`;
+    logs {path: ms} beside the wrapper's choice `chosen`."""
+    import torch
+    res = {}
+    for path in K.MARK_PATHS:
+        if not torch.equal(call(path), want):
+            raise AssertionError(f"{tag} mark ({path}) at {label}: differs "
+                                 f"from mark_plain")
+        res[path + "_ms"] = cuda_ms(lambda p=path: call(p), reps)
+    res["chosen"] = chosen
+    log(f"{tag} mark paths ({label}): {json.dumps(res)}")
+    return res
 
 
 def distinct_edges(eidx, mask) -> int:
@@ -1475,10 +1623,6 @@ def main(argv=None) -> int:
             K.mark_plain(dst, P, vmax, out=buf[:, :vmax])
         return blk, ids, bufs, dsts
 
-    def expand_bytes(P, nrows, H, tot, EB):
-        return (P * (nrows + 1) * 4 + P * nrows + 8 * tot + 16 * P * EB
-                + 4 * P + 4 * H)
-
     def lib_expand_for(blk, f):
         def lib_expand():
             # repeat_interleave of the active rows over their degrees; a
@@ -1566,6 +1710,10 @@ def main(argv=None) -> int:
                                         out=new_frontier(dev)[:, :vmax]),
                    reps),
            cuda_ms(lib_mark, reps), 4 * n2 + P * (vmax + H), 3 * n2)
+    mark_paths(K, "[4]", f"hop 2, {n2} slots",
+               lambda p: K.mark(dst2, P, vmax,
+                                out=new_frontier(dev)[:, :vmax], path=p),
+               want[0], K.mark_path(n2, P, vmax), reps)
 
     # K6, the seed bitmap as _seed_frontier builds it: a fresh frontier
     # buffer (its zero fill) and the 16 seed ids marked into it
@@ -1586,6 +1734,14 @@ def main(argv=None) -> int:
                                            3 * ids.numel())
     log(f"[4] mark (K6 seed bitmap, {ids.numel()} seeds, with the zero "
         f"fill): {json.dumps(k6)}")
+    main_rt = rts if rts is not None else rt
+    k7go = loop_bound(K, lambda: main_rt.traverse(
+        ns.store, "ns", ns.seeds, ["KNOWS"], "out", 3,
+        edge_filter=ns.w_filter, yields=ns.yields))
+    k7go = {"device_loop_ms": results[lname][f"w>{ns.w_gt}"][
+        "device_p50_ms"], "bound_ms": sum(k7go.values()),
+        "bound_parts_ms": k7go}
+    log(f"[4] K7 GO loop ({lname}, w > {ns.w_gt}): {json.dumps(k7go)}")
 
     # extend_hubs at the frontiers entering hops 2 and 3
     if H:
@@ -1685,7 +1841,7 @@ def main(argv=None) -> int:
            compact_bytes(P * EB3, tot3, n_kept, 1, P), 2 * tot3)
 
     # the edge cases of the two scan kernels, bit for bit
-    edge_cases(K, rt.device)
+    edge_cases(K, AK, rt.device)
 
     # -- 5. the algo plane --------------------------------------------------
     stamp("phase 5")
@@ -1712,6 +1868,19 @@ def main(argv=None) -> int:
                nbytes, ops, counts=algo_launches, err=max(errs),
                ops_per_s=rate, tag="[5c]",
                note=f" ({func}, iterations {[lb for lb, _ in checks]})")
+        if kname == "pagerank_step":
+            # a yardstick only: the rank gather alone, one index_select
+            # of the 8 MB rank array at the same shape (the port never
+            # calls it); its own bytes are the indices and the output
+            rank_m, idx = mid_args[0], mid_args[1].long()
+            floor = {"ms": cuda_ms(lambda: rank_m.index_select(0, idx),
+                                   reps),
+                     "bound_ms": bound(16 * idx.numel()
+                                       + 8 * rank_m.numel(), 0)[0],
+                     "kernel_ms": rows_out[-1]["ms"],
+                     "kernel_bound_ms": rows_out[-1]["bound_ms"]}
+            log(f"[5c] pagerank_step gather floor (rank.index_select(0, "
+                f"esrc.long()), {idx.numel()} edges): {json.dumps(floor)}")
 
     # -- 6. the device BFS of FIND SHORTEST PATH (bench.py config 5) -------
     stamp("phase 6")
@@ -1779,6 +1948,11 @@ def main(argv=None) -> int:
             o = [a[1].clone(), strided_copy(a[3]), strided_copy(a[4])]
             out.extend([fn(a[0], o[0], a[2], o[1], o[2])] + o)
     level_err = max_abs_err(got, want_k)
+    k11 = loop_bound(K, lambda: mrt.bfs(ns.store, "ns", [seed], ["KNOWS"],
+                                        "out", BFS_STEPS))
+    k11 = {"device_loop_ms": bfs[mlabel]["device_p50_ms"],
+           "bound_ms": sum(k11.values()), "bound_parts_ms": k11}
+    log(f"[6c] K11 BFS loop ({mlabel}): {json.dumps(k11)}")
     log(f"[6c] bfs_probe checked at {len(calls['bfs_probe'])} + "
         f"{len(calls_f['bfs_probe'])} bottom-up calls, bfs_level at "
         f"{len(calls['bfs_level'])} + {len(calls_f['bfs_level'])} levels "
@@ -2190,6 +2364,11 @@ def main(argv=None) -> int:
                      lreps),
              cuda_ms(lib_mark, lreps), nbytes, ops,
              f" (hop 2: {n_ids} slots into {L} lanes, with the zero fill)")
+        mark_paths(K, "[8d]", f"hop 2, {n_ids} slots into {L} lanes",
+                   lambda p, d=d: K.mark(d, P, vmax,
+                                         out=nf(bdev, L)[..., :vmax],
+                                         path=p),
+                   want, K.mark_path(n_ids // L, P, vmax), lreps)
         # hop 1's mark, for the K10 bound
         b_ms, _ = bound(4 * dsts8[0].numel() + R * (vmax + H),
                         3 * dsts8[0].numel())
@@ -2534,6 +2713,10 @@ def main(argv=None) -> int:
          cuda_ms(lib_mark_m, reps), 5 * n2 + P * (vmax + H), 3 * n2,
          f" (keep = w > 50 at hop 2: {n2} slots, {kd.numel()} kept, with "
          f"the zero fill)")
+    mark_paths(K, "[9d]", f"keep at hop 2, {n2} slots",
+               lambda p: K.mark(dst2, P, vmax, keep=keep2,
+                                out=new_frontier(mdev)[:, :vmax], path=p),
+               want, K.mark_path(n2, P, vmax), reps)
     match["k7_every_hop"] = {
         "device_loop_ms": p50_9b["device_s"] * 1e3,
         "launches_per_run": sum(launches9.values()),
@@ -2654,6 +2837,11 @@ def main(argv=None) -> int:
     if st8.hop_edges != want_lv:
         raise AssertionError(f"[10b] hop_edges {st8.hop_edges} vs the "
                              f"top-down count {want_lv}")
+    k17b = loop_bound(K, lambda: rt8.bfs(ns.store, "ns", [ns.seeds[0]],
+                                         ["KNOWS"], "out", BFS_STEPS))
+    k17b = {"device_loop_ms": res8["device_p50_ms"],
+            "bound_ms": sum(k17b.values()), "bound_parts_ms": k17b}
+    log(f"[10b] K17 BFS loop: {json.dumps(k17b)}")
     want_bx = bfs_exchange_bytes(MESH_SLOTS, dev8.vmax, BFS_STEPS)
     if st8.exchange_bytes != want_bx:
         raise AssertionError(f"[10b] exchange_bytes {st8.exchange_bytes} "
@@ -3019,6 +3207,11 @@ def main(argv=None) -> int:
           4 * d8.numel() + P * vmax, 3 * d8.numel(),
           f"hop 2, slot {q}: {d8.numel()} ids into (1, {P}, {vmax}), with "
           f"the zero fill")
+    mark_paths(K, "[10f]", f"slot {q}, {d8.numel()} ids",
+               lambda p: K.mark(d8, P, vmax, out=torch.zeros(
+                   (1, P, vmax), dtype=torch.bool, device=dev0), path=p),
+               mark8(K.mark_plain)(), K.mark_path(d8.numel(), P, vmax),
+               reps)
     tot, q, a8, b8, sl8, (pa8, ca8, kept8) = big[2]
     eb8 = sl8[0].shape[-1]
     mrec8("predicate_mask",

@@ -3,8 +3,9 @@
 Each algorithm's edge-propagate/combine/apply step is one wrapper here:
 
   pagerank_step   K12 — contributions over destination-sorted edges, a
-                  deterministic segment sum per vertex, dangling mass,
-                  damping, the L1 delta and the moved count
+                  deterministic segment sum per vertex (a merge-path
+                  CSR SpMV, two launches), dangling mass, damping, the
+                  L1 delta and the moved count
                   (nebula_tpu/algo/kernels.py:pagerank_step :49;
                   csrc/pagerank.cu)
   wcc_step        K13 — min-label hooking: masked gather, scatter-min
@@ -80,6 +81,31 @@ def pagerank_step_plain(rank, esrc, starts, out_inv_e, dmask, vmask,
     return new, moved.sum(), (moved > tol).sum(dtype=_I64)
 
 
+PAGERANK_BLOCK = 2560     # merge items (rows + edges) a block of the sums
+PAGERANK_VBLOCK = 1024    # vertices a block of the apply pass
+
+
+def pagerank_blocks(n: int, E: int):
+    """(blocks of csrc/pagerank.cu's sums launch, blocks of its apply
+    launch) for n vertices and E edges: the merged list of n row ends and
+    E edges cut into PAGERANK_BLOCK items a block, the vertices into
+    PAGERANK_VBLOCK (no launch at all when n == 0)."""
+    if n <= 0:
+        return 0, 0
+    return GK._cdiv(n + E, PAGERANK_BLOCK), GK._cdiv(n, PAGERANK_VBLOCK)
+
+
+def pagerank_scratch(n: int, E: int, device):
+    """The kernel's scratch, (float64, int64): per sums block its carry
+    value and dangling partial, per apply block its moved sum, then the
+    dangling sum and the L1 delta; per sums block its carry row, per
+    apply block its moved count, then the active count and one word of
+    two 32-bit tickets (cleared by the entry point on the stream)."""
+    nb, nvb = pagerank_blocks(n, E)
+    return (torch.empty((2 * nb + nvb + 2,), dtype=_F64, device=device),
+            torch.empty((nb + nvb + 2,), dtype=_I64, device=device))
+
+
 def pagerank_step(rank, esrc, starts, out_inv_e, dmask, vmask,
                   n: float, damping: float, tol: float):
     """One PageRank iteration over destination-sorted edges: rank (n,)
@@ -101,24 +127,21 @@ def pagerank_step(rank, esrc, starts, out_inv_e, dmask, vmask,
     GK._want(out_inv_e, "out_inv_e", _F64, (E,), dev)
     GK._want(starts, "starts", _I64, (N + 1,), dev)
     lib = GK._lib()
-    ntiles = GK._cdiv(E, lib.nt_pagerank_tile())
-    nvb = GK._cdiv(N, lib.nt_pagerank_vblock())
-    fscr = torch.empty((ntiles + 2 * nvb + 2,), dtype=_F64, device=dev)
-    iscr = torch.empty((ntiles + 1 + nvb + 1,), dtype=_I64, device=dev)
+    fscr, iscr = pagerank_scratch(N, E, dev)
+    nb, nvb = pagerank_blocks(N, E)
     new = torch.empty((N,), dtype=_F64, device=dev)
-    part_first, dpart = fscr[:ntiles], fscr[ntiles:ntiles + nvb]
-    mpart = fscr[ntiles + nvb:ntiles + 2 * nvb]
-    dsum, delta = fscr[-2:-1], fscr[-1:]
-    tile_lo, cpart, active = (iscr[:ntiles + 1],
-                              iscr[ntiles + 1:ntiles + 1 + nvb], iscr[-1:])
+    cval, dpart = fscr[:nb], fscr[nb:2 * nb]
+    mpart, dsum, delta = fscr[2 * nb:2 * nb + nvb], fscr[-2:-1], fscr[-1:]
+    crow, cpart = iscr[:nb], iscr[nb:nb + nvb]
+    active, tickets = iscr[-2:-1], iscr[-1:]
     GK._check(lib.nt_pagerank_step(
         rank.data_ptr(), esrc.data_ptr(), starts.data_ptr(),
         out_inv_e.data_ptr(), dmask.data_ptr(), vmask.data_ptr(), N, E,
-        float(n), float(damping), float(tol), tile_lo.data_ptr(),
-        part_first.data_ptr(), dpart.data_ptr(), mpart.data_ptr(),
-        cpart.data_ptr(), dsum.data_ptr(), new.data_ptr(),
-        delta.data_ptr(), active.data_ptr(), GK._stream(rank)),
-        "pagerank_step")
+        float(n), float(damping), float(tol), crow.data_ptr(),
+        cval.data_ptr(), dpart.data_ptr(), mpart.data_ptr(),
+        cpart.data_ptr(), dsum.data_ptr(), tickets.data_ptr(),
+        new.data_ptr(), delta.data_ptr(), active.data_ptr(),
+        GK._stream(rank)), "pagerank_step")
     GK._count(pagerank_step)
     return new, delta[0], active[0]
 

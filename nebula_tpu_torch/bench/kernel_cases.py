@@ -1,5 +1,6 @@
 """Edge cases of the scan kernels, `expand` (K1) and `compact_capture`
-(K3 + K5), made from a numpy seed.
+(K3 + K5), of `mark` (K2 / K6) and of `pagerank_step` (K12), made from a
+numpy seed.
 
 Each case is (name, args, kwargs) for `gpu.kernels.expand` /
 `gpu.kernels.compact_capture` and their plain versions, on a given
@@ -13,9 +14,20 @@ blocks, shard slots.  `big=True` adds rows of hundreds of tiles, whose
 look-back walks long chains: sizes for the card; the CPU tests take the
 small set.
 
+`mark_cases` sit where the staged and direct mark kernels can go wrong:
+no ids, no id kept, ids out of range, one id repeated, counts and lane
+widths off a 16-byte boundary, an odd row stride (the split layout's
+view), a bitmap already holding ones, part counts that are not a power
+of two, and a bitmap too wide to stage.  `pagerank_cases` sit where a
+merge-path segmented sum can: no edges, one vertex, one vertex holding
+every edge (a row over many blocks), runs of edgeless rows across a
+block's edge, segments ending exactly on a block's edge, every vertex
+dangling, and `vmask` holes.
+
 chip_smoke.py holds each kernel against its plain version on these
-cases on the card; tests/test_torch_compact.py holds the plain versions
-against the reference's functions on the CPU.
+cases on the card; tests/test_torch_compact.py and
+tests/test_torch_kernel_cases.py hold the plain versions against the
+reference's functions on the CPU.
 """
 from __future__ import annotations
 
@@ -24,7 +36,8 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from ..gpu.kernels import SCAN_TILE
+from ..algo.kernels import PAGERANK_BLOCK
+from ..gpu.kernels import MARK_SMEM_BYTES, MARK_STAGE_MIN_IDS, SCAN_TILE
 
 Case = Tuple[str, tuple, dict]
 
@@ -196,4 +209,140 @@ def expand_cases(device, seed: int = 0, big: bool = False) -> List[Case]:
             f, parts=8, pid=3)
         ip, nb, rk, f = _csr(rng, P, 40 * T, deg_hi=4, active=0.5)
         add("8 rows of 40 tiles", ip, nb, rk, f, extra=4)
+    return cases
+
+
+def copy_view(t):
+    """A copy of bitmap view `t` in a new buffer with t's layout (shape,
+    strides, offset into its base), so that a kernel writing into the
+    copy sees the same row stride."""
+    base = t if t._base is None else t._base
+    return base.clone().as_strided(t.shape, t.stride(), t.storage_offset())
+
+
+def mark_cases(device, seed: int = 0, big: bool = False) -> List[Case]:
+    """mark(ids, P, vmax, keep=, out=) cases; `out` is always given (a
+    view into a buffer of its own; take `copy_view(out)` for each call)."""
+    rng = np.random.default_rng(seed + 2)
+    cases: List[Case] = []
+    S = MARK_STAGE_MIN_IDS
+
+    def add(name, ids, P, vmax, keep=None, lanes=0, H=0, ones=0.0):
+        buf = np.zeros(((lanes,) if lanes else ()) + (P, vmax + H), bool)
+        if ones:
+            buf |= rng.random(buf.shape) < ones
+        out = _t(buf, device)[..., :vmax]
+        kw = {"out": out}
+        if keep is not None:
+            kw["keep"] = _t(np.asarray(keep, bool), device)
+        cases.append((name, (_t(np.asarray(ids, np.int32), device), P,
+                             vmax), kw))
+
+    def ids_for(shape, P, vmax, lo=-1):
+        return rng.integers(lo, P * vmax, shape, dtype=np.int64)
+
+    P, vmax = 8, 3000
+    add("n 0", np.zeros(0, np.int32), P, vmax)
+    add("every id -1", np.full(5000, -1), P, vmax)
+    odd = np.array([-1, -7, -(1 << 31), P * vmax, P * vmax + 3,
+                    (1 << 31) - 1, 0, P * vmax - 1, 5])
+    add("ids out of range", np.concatenate([odd, ids_for(S, P, vmax)]),
+        P, vmax)
+    add("keep all False", ids_for(S + 8, P, vmax), P, vmax,
+        keep=np.zeros(S + 8, bool))
+    add("one id repeated n times", np.full(S + 4, 12_345), P, vmax)
+    n = S + 4001
+    add("n = 65,536 + 4,001, not a multiple of 4", ids_for(n, P, vmax),
+        P, vmax, keep=rng.random(n) < 0.5)
+    add("3 lanes of 4,099 ids (per_lane % 4 = 3)",
+        ids_for((3, 4099), P, vmax), P, vmax,
+        keep=rng.random((3, 4099)) < 0.7, lanes=3)
+    add("4 lanes of 16,385, lanes' bitmaps strided (ld 3,073)",
+        ids_for((4, 16_385), P, vmax), P, vmax, lanes=4, H=73)
+    add("split layout view: ld = vmax + 7, odd",
+        ids_for(S + 2, P, vmax), P, vmax, keep=rng.random(S + 2) < 0.6,
+        H=7)
+    add("out already holding ones", ids_for(S, P, vmax), P, vmax,
+        ones=0.3)
+    for p in (1, 3, 7):
+        add(f"P = {p}", ids_for(S + 1, p, 3001), p, 3001)
+    wide = MARK_SMEM_BYTES * 8 // P + 64      # columns past the staged bits
+    add(f"a bitmap too wide to stage: ({P}, {wide})",
+        ids_for(S, P, wide), P, wide, keep=rng.random(S) < 0.9)
+    add("16 seed ids", rng.choice(P * vmax, 16, replace=False), P, vmax)
+    if big:
+        V = 125_000
+        n = 12_000_003
+        zipf = np.minimum(rng.zipf(1.3, n), P * V) - 1
+        add("12,000,003 ids into (8, 125,000), Zipf, ld 125,073",
+            zipf, P, V, keep=rng.random(n) < 0.5, H=73)
+        add("8 lanes x 1,500,001 ids, (8, 8, 125,000)",
+            ids_for((8, 1_500_001), P, V), P, V, lanes=8)
+        add("one slot: 1,559,801 ids into (1, 8, 125,000)",
+            ids_for((1, 1_559_801), P, V), P, V, lanes=1)
+        add("P = 1, 2,000,000 ids, vmax 1,000,000",
+            ids_for(2_000_000, 1, 1_000_000), 1, 1_000_000)
+    return cases
+
+
+def _pagerank(rng, n, edst, device, vmask=None, tol=1e-4):
+    """pagerank_step args for n vertices and the given destination of
+    each edge (sorted), sources random over the real vertices."""
+    edst = np.sort(np.asarray(edst, np.int64))
+    E = edst.size
+    if vmask is None:
+        vmask = np.ones(n, bool)
+    real = np.flatnonzero(vmask)
+    esrc = real[rng.integers(0, real.size, E)] if E else np.zeros(0, int)
+    starts = np.searchsorted(edst, np.arange(n + 1, dtype=np.int64))
+    outdeg = np.bincount(esrc, minlength=n).astype(np.float64)
+    out_inv = np.where(outdeg > 0, 1.0 / np.maximum(outdeg, 1), 0.0)
+    dmask = vmask & (outdeg == 0)
+    rank = np.where(vmask, rng.random(n), 0.0)
+    rank /= max(rank.sum(), 1e-300)
+    return (_t(rank, device), _t(esrc.astype(np.int32), device),
+            _t(starts, device), _t(out_inv[esrc], device),
+            _t(dmask, device), _t(vmask, device), float(vmask.sum()), 0.85,
+            tol)
+
+
+def pagerank_cases(device, seed: int = 0, big: bool = False
+                   ) -> List[Case]:
+    """pagerank_step(rank, esrc, starts, out_inv_e, dmask, vmask, n,
+    damping, tol) cases, as positional args; the sums launch cuts the n +
+    E merge items into PAGERANK_BLOCK a block."""
+    rng = np.random.default_rng(seed + 3)
+    B = PAGERANK_BLOCK
+    cases: List[Case] = []
+
+    def add(name, n, edst, **kw):
+        cases.append((name, _pagerank(rng, n, edst, device, **kw), {}))
+
+    add("E 0", 50, [])
+    add("n 1", 1, [0] * 5)
+    hub = 3 * B + 11 if not big else 3_000_000
+    add(f"one vertex holding all {hub} edges", 300, [117] * hub)
+    # vertices 1,500-6,499 have no in-edge: blocks of rows alone
+    n = 9000
+    d = rng.integers(0, n, 20_000)
+    d = d[(d < 1500) | (d >= 6500)]
+    add("a run of 5,000 edgeless rows across block edges", n, d)
+    # every row 2,047 edges: row v's end is the last item of block v
+    add("every segment ending on a block's edge", 6,
+        np.repeat(np.arange(6), B - 1))
+    add("every vertex dangling (no edges)", 700, [],)
+    vm = rng.random(5000) < 0.7
+    real = np.flatnonzero(vm)
+    add("vmask holes", 5000, real[rng.integers(0, real.size, 30_000)],
+        vmask=vm)
+    n = 4000
+    zipf = np.minimum(rng.zipf(1.5, 50_000), n) - 1
+    add("Zipf in-degrees", n, zipf)
+    if big:
+        n = 1_000_000
+        zipf = np.minimum(rng.zipf(1.2, 30_000_000), n) - 1
+        add("1,000,000 vertices, 30,000,000 Zipf edges", n, zipf,
+            vmask=rng.random(n) < 0.99)
+        add("every segment ending on a block's edge, 3,000 rows", 3000,
+            np.repeat(np.arange(3000), B - 1))
     return cases

@@ -7,7 +7,10 @@ The GO path's five kernels, sources in `nebula_tpu_torch/csrc/`:
                     hub rows of a degree-split snapshot
                     (nebula_tpu/tpu/hop.py:_expand_block :58, :104-110)
   mark              K2 / K6 — kept dst ids into the (P, vmax) bitmap
-                    (hop.py:_mark :168, runtime.py:_seed_builder :969)
+                    (hop.py:_mark :168, runtime.py:_seed_builder :969):
+                    two kernels chosen by shape (`mark_path`), the
+                    bitmap staged as bits in shared memory or a direct
+                    test-before-set scatter
   extend_hubs       K8 — hub-active bits appended to the expansion
                     bitmap (hop.py:_hub_consts :271, _extend_fbm_local
                     :303)
@@ -201,7 +204,7 @@ def _load() -> ctypes.CDLL:
     lib.nt_expand_scan.argtypes = [P, P, I, I, I, P, P, P, P]
     lib.nt_expand_fill.argtypes = ([P] * 5 + [I] * 4 + [P, I, I, I, LL]
                                    + [P] * 5)
-    lib.nt_mark.argtypes = [P, P, LL, I, I, LL, LL, P, P]
+    lib.nt_mark.argtypes = [P, P, LL, I, I, LL, LL, I, P, P]
     lib.nt_extend_hubs.argtypes = [P, P, P, I, I, I, I, P]
     lib.nt_predicate_sizes.argtypes = [P]
     lib.nt_predicate_mask.argtypes = [P] * 7 + [I] * 5 + [P, P]
@@ -217,15 +220,17 @@ def _load() -> ctypes.CDLL:
     lib.nt_bfs_probe.argtypes = [P] * 4 + [I] * 3 + [P, LL, P, LL, P]
     lib.nt_bfs_level.argtypes = [P, LL, P, I, I, I, P, LL, P, LL, P, P]
     D = ctypes.c_double
-    lib.nt_pagerank_tile.argtypes = lib.nt_pagerank_vblock.argtypes = []
-    lib.nt_pagerank_step.argtypes = [P] * 6 + [LL, LL, D, D, D] + [P] * 10
+    lib.nt_pagerank_block.argtypes = lib.nt_pagerank_vblock.argtypes = []
+    lib.nt_pagerank_step.argtypes = [P] * 6 + [LL, LL, D, D, D] + [P] * 11
+    lib.nt_mark_stage_bytes.argtypes = [I, I]
+    lib.nt_mark_stage_bytes.restype = LL
     lib.nt_wcc_step.argtypes = [P] * 4 + [LL, LL] + [P] * 4
     lib.nt_sssp_step.argtypes = [P] * 5 + [LL, LL] + [P] * 4
     for fn in (lib.nt_expand_scan, lib.nt_expand_fill, lib.nt_mark,
                lib.nt_extend_hubs, lib.nt_predicate_sizes,
                lib.nt_predicate_mask, lib.nt_compact_capture,
                lib.nt_bfs_probe, lib.nt_bfs_level, lib.nt_merge_delta,
-               lib.nt_pagerank_tile, lib.nt_pagerank_vblock,
+               lib.nt_pagerank_block, lib.nt_pagerank_vblock,
                lib.nt_pagerank_step, lib.nt_wcc_step, lib.nt_sssp_step,
                lib.nt_pack_bits, lib.nt_unpack_or, lib.nt_owned_hub_bits,
                lib.nt_fill_hub_columns):
@@ -233,6 +238,15 @@ def _load() -> ctypes.CDLL:
     if lib.nt_scan_tile() != SCAN_TILE:
         raise KernelError(f"scan tile {lib.nt_scan_tile()} differs from "
                           f"SCAN_TILE {SCAN_TILE}")
+    from ..algo import kernels as AK
+    if (lib.nt_pagerank_block(), lib.nt_pagerank_vblock()) != (
+            AK.PAGERANK_BLOCK, AK.PAGERANK_VBLOCK):
+        raise KernelError("pagerank.cu's block sizes differ from "
+                          "algo/kernels.py's")
+    for P, vmax in ((8, 125_000), (3, 33), (1, 1)):
+        if lib.nt_mark_stage_bytes(P, vmax) != mark_stage_bytes(P, vmax):
+            raise KernelError("mark.cu's staged bytes differ from "
+                              "mark_stage_bytes")
     sizes = (I * 5)()
     lib.nt_predicate_sizes(sizes)
     want = (X.MAX_REGS, X.MAX_INSNS, X.MAX_CONSTS, X.MAX_COLS,
@@ -249,7 +263,10 @@ def _check(rc: int, what: str) -> None:
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream of t's card (the call
+    torch.cuda.current_stream makes, without building a Stream object:
+    a seed mark's launch is host-bound)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def _want(t: torch.Tensor, name: str, dtype, shape, device) -> None:
@@ -504,30 +521,64 @@ def mark_plain(ids, P: int, vmax: int, keep=None, out=None):
     return out
 
 
-def mark(ids, P: int, vmax: int, keep=None, out=None):
+MARK_SMEM_BYTES = 232_448   # shared memory a block may take on an H100
+MARK_STAGE_MIN_IDS = 65_536  # a lane's ids below which mark goes direct
+MARK_PATHS = ("staged", "direct")
+
+
+def mark_stage_bytes(P: int, vmax: int) -> int:
+    """Shared-memory bytes of mark's staged kernel for a (P, vmax) bitmap:
+    P rows of ceil(vmax / 32) 32-bit words, rounded up to 16 bytes."""
+    return _cdiv(P * _cdiv(vmax, 32) * 4, 16) * 16
+
+
+def mark_path(per_lane: int, P: int, vmax: int) -> str:
+    """The kernel `mark` launches for `per_lane` ids a lane into (P, vmax)
+    bitmaps: "staged" (the bitmap as bits in a block's shared memory,
+    flushed in address order) where the bits fit MARK_SMEM_BYTES and a
+    lane has at least MARK_STAGE_MIN_IDS ids, else "direct" (one thread a
+    slot, test-before-set)."""
+    if (per_lane < MARK_STAGE_MIN_IDS
+            or mark_stage_bytes(P, vmax) > MARK_SMEM_BYTES):
+        return "direct"
+    return "staged"
+
+
+def mark(ids, P: int, vmax: int, keep=None, out=None, path=None):
     """OR the kept int32 dense ids into a (P, vmax) bool bitmap: `out`,
     or a fresh zero bitmap.  `out` may be the first vmax columns of a
     wider bitmap (rows contiguous, any row stride), or an (L, P, vmax)
     stack of lanes' bitmaps (rows uniformly strided, as the first vmax
     columns of a contiguous (L, P, vmax + H) buffer), and then ids[l]
     marks lane l — a hop's (L, P, W) slots or the (L, cap) seed ids — in
-    the same launch.  keep=None keeps every id >= 0."""
+    the same launch.  keep=None keeps every id >= 0.  `path` forces one
+    of MARK_PATHS on the card (None: `mark_path`'s choice); the result
+    is the same bitmap either way."""
     if out is None:
         out = torch.zeros((P, vmax), dtype=torch.bool, device=ids.device)
+    if path is not None and path not in MARK_PATHS:
+        raise ValueError(f"path must be one of {MARK_PATHS}, got {path!r}")
     if ids.device.type == "cpu":
         return mark_plain(ids, P, vmax, keep, out)
     dev = ids.device
     L = _mark_lanes(ids, out)
-    _want(ids, "ids", _I32, ids.shape, dev)
+    if ids.dtype != _I32 or not ids.is_contiguous():
+        _want(ids, "ids", _I32, ids.shape, dev)          # raises
     _bitmap_view(out, "out", ((L,) if L else ()) + (P, vmax), dev)
     if keep is not None:
         _want(keep, "keep", torch.bool, ids.shape, dev)
     n = ids.numel()
     if n == 0:
         return out
+    per_lane = n // L if L else n
+    if path is None:
+        path = mark_path(per_lane, P, vmax)
+    elif path == "staged" and mark_stage_bytes(P, vmax) > MARK_SMEM_BYTES:
+        raise ValueError(f"a ({P}, {vmax}) bitmap does not fit a block's "
+                         f"shared memory as bits")
     keep_ptr = None if keep is None else keep.data_ptr()
     _check(_lib().nt_mark(ids.data_ptr(), keep_ptr, n, P, vmax,
-                          out.stride(-2), n // L if L else n,
+                          out.stride(-2), per_lane, path == "staged",
                           out.data_ptr(), _stream(ids)), "mark")
     _count(mark)
     return out
