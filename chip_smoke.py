@@ -17,7 +17,9 @@ Run from the repository root on a machine with a CUDA card and nvcc:
 
 Phases, in order; any failure exits non-zero before the result line:
   1. the card's name and power limit (nvidia-smi) and torch's name for it;
-  2. build the kernels from nebula_tpu_torch/csrc (nvcc, sm_90a);
+  2. build the kernels from nebula_tpu_torch/csrc (nvcc, sm_90a), and
+     log ptxas's registers, stack frame and spills of every instance of
+     predicate_kernel and of merge_delta_kernel;
   3. the north-star GO (datagen.north_star): make_social_arrays(persons,
      30, seed=7) → snapshot_from_arrays(parts=8), then GO 3 STEPS from 16
      seeds YIELD dst(edge) AS d, KNOWS.w AS w, unfiltered and WHERE
@@ -44,9 +46,13 @@ Phases, in order; any failure exits non-zero before the result line:
      its zero fill) is timed apart; mark's two kernels (staged and
      direct, gpu/kernels.py:mark_path) are each held bit for bit and
      timed at hop 2 beside the wrapper's choice (and at [8d], [9d],
-     [10f]); then ([4e]) expand and compact_capture against their plain
-     versions, bit for bit, on bench/kernel_cases.py's edge cases of
-     their single-pass scan and edge-balanced fill (empty rows and
+     [10f]); so are predicate_mask's two routes for w > 50 (the
+     one-comparison instance and the interpreter,
+     gpu/kernels.py:predicate_path), beside the torch formulation of
+     w > 50 in three calls (a yardstick); then ([4e]) expand and
+     compact_capture against their plain versions, bit for bit, on
+     bench/kernel_cases.py's edge cases of their single-pass scan and
+     edge-balanced fill (empty rows and
      outputs, widths around a scan tile and off 16-byte alignment, a hub
      row longer than a fill block, lanes, delta halves, shard slots, rows
      of hundreds of tiles), mark bit for bit through each kernel that
@@ -56,7 +62,15 @@ Phases, in order; any failure exits non-zero before the result line:
      stage), and pagerank_step within 1e-12 with two runs bit-identical
      (no edges, one vertex, one vertex holding every edge, edgeless rows
      across a block's edge, segments ending on one, every vertex
-     dangling, vmask holes, 30M Zipf edges);
+     dangling, vmask holes, 30M Zipf edges), predicate_mask bit for bit
+     through every route its program has and the wrapper's choice
+     (widths 1, 3, 4, 5 and past a tile, total 0 and total = EB, a valid
+     mask with holes, delta halves, lanes, every opcode family, 64
+     instructions, 8 registers, 128 constants, an always-false
+     program), and merge_delta bit for bit in every output (Tcap 0,
+     Dcap 0, MAXI rows, tombstones on a tile's first and last eidx and
+     past its staged slice, eidx in no order, lanes, shard slots, a
+     strided frontier, widths not a multiple of 4);
   5. the algo plane (`CALL algo.*`, algo/engine.run_algorithm on
      GpuRuntime()):
        a. on the north-star snapshot of phase 3 (30M KNOWS edges, 60M
@@ -222,6 +236,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -1267,18 +1282,20 @@ def compact_bytes(slots: int, valid: int, gathered: int, ncols: int,
 
 
 def edge_cases(K, AK, device) -> None:
-    """[4e]: expand, compact_capture, mark and pagerank_step against their
-    plain versions on bench/kernel_cases.py's edge cases at their card
-    sizes: the first three bit for bit (every output, padding included;
-    mark through each of its two kernels that fits, and the wrapper's own
-    choice, with the whole buffer around a bitmap view compared), a
-    PageRank step within PAGERANK_STEP_TOL and two runs bit-identical;
-    raises on the first difference."""
+    """[4e]: expand, compact_capture, mark, predicate_mask, merge_delta and
+    pagerank_step against their plain versions on bench/kernel_cases.py's
+    edge cases at their card sizes: all but the last bit for bit (every
+    output, padding included; mark through each of its two kernels that
+    fits, and the wrapper's own choice, with the whole buffer around a
+    bitmap view compared; predicate_mask through each route its program
+    has and the wrapper's choice; merge_delta's mask, totals and every
+    slot array it merges in place), a PageRank step within
+    PAGERANK_STEP_TOL and two runs bit-identical; raises on the first
+    difference."""
     import torch
-    from nebula_tpu_torch.bench.kernel_cases import (compact_cases,
-                                                     copy_view, expand_cases,
-                                                     mark_cases,
-                                                     pagerank_cases)
+    from nebula_tpu_torch.bench.kernel_cases import (
+        compact_cases, copy_view, expand_cases, fresh_merge_args,
+        mark_cases, merge_delta_cases, pagerank_cases, predicate_cases)
     t0 = time.perf_counter()
     for kname, cases in (("expand", expand_cases(device, big=True)),
                          ("compact_capture",
@@ -1311,6 +1328,31 @@ def edge_cases(K, AK, device) -> None:
         log(f"[4e] mark, {name} {tuple(ids.shape)} into "
             f"{tuple(kw['out'].shape)}: equal through "
             f"{[p or 'chosen' for p in paths]}")
+    for name, args, kw in predicate_cases(device, big=True):
+        want = K.predicate_mask_plain(*args, **kw)
+        paths = [None] + [p for p in K.PREDICATE_PATHS
+                          if p == "interpreter"
+                          or K.predicate_path(args[0]) == p]
+        for path in paths:
+            got = K.predicate_mask(*args, **kw, path=path)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"[4e] predicate_mask "
+                                     f"({path or 'chosen'}), {name}: "
+                                     f"differs from the plain version")
+        log(f"[4e] predicate_mask, {name} {tuple(args[1].shape)}: equal "
+            f"through {[p or 'chosen' for p in paths]}")
+    for name, args, kw in merge_delta_cases(device, big=True):
+        g, w = fresh_merge_args(args), fresh_merge_args(args)
+        got = [*K.merge_delta(*g, **kw), *g[:4]]
+        want = [*K.merge_delta_plain(*w, **kw), *w[:4]]
+        torch.cuda.synchronize()
+        try:
+            max_abs_err(got, want)
+        except AssertionError as e:
+            raise AssertionError(f"[4e] merge_delta, {name}: {e}") from None
+        log(f"[4e] merge_delta, {name} {tuple(args[0].shape)}, Tcap "
+            f"{args[10].shape[1]}: equal ({int(want[0].sum())} valid)")
     for name, args, _ in pagerank_cases(device, big=True):
         got, want = AK.pagerank_step(*args), AK.pagerank_step_plain(*args)
         again = AK.pagerank_step(*args)
@@ -1342,6 +1384,75 @@ def mark_paths(K, tag, label, call, want, chosen, reps):
     res["chosen"] = chosen
     log(f"{tag} mark paths ({label}): {json.dumps(res)}")
     return res
+
+
+def w_gt_50_torch(w, eidx, total):
+    """The main path's WHERE w > 50 in three PyTorch calls, over the
+    (P, emax) column and (..., P, EB) slots with the prefix `total`: a
+    yardstick beside predicate_mask, not a library call of the same
+    function."""
+    import torch
+    e = eidx.long()
+    return (torch.arange(e.shape[-1], device=e.device) < total[..., None]) \
+        & (w.expand(*e.shape[:-1], w.shape[-1]).gather(-1, e) > 50)
+
+
+def predicate_paths(K, tag, label, pa, want, reps):
+    """Where a program has two routes (gpu/kernels.py:predicate_path),
+    time each of predicate_mask's kernels at one shape after holding it
+    bit for bit against `want` — back to back (`_ms`, as the kernel rows
+    are timed: the wrapper's host time shows where it exceeds the
+    kernel's) and each launch alone on the device (`_device_ms`,
+    cuda_ms_fresh) — and the torch formulation of w > 50 (w_gt_50_torch,
+    three calls); logs {path: ms} beside the wrapper's choice."""
+    import torch
+    chosen = K.predicate_path(pa[0])
+    if chosen == "interpreter":
+        return None
+    res = {}
+    for path in K.PREDICATE_PATHS:
+        if not torch.equal(K.predicate_mask(*pa, path=path), want):
+            raise AssertionError(f"{tag} predicate_mask ({path}) at "
+                                 f"{label}: differs from the plain version")
+        res[path + "_ms"] = cuda_ms(
+            lambda p=path: K.predicate_mask(*pa, path=p), reps)
+        res[path + "_device_ms"] = cuda_ms_fresh(
+            lambda p=path: K.predicate_mask(*pa, path=p), lambda: None,
+            reps)
+    def yard():
+        return w_gt_50_torch(pa[6][0], pa[4], pa[5])
+
+    if not torch.equal(yard(), want):
+        raise AssertionError(f"{tag} w > 50 in torch at {label}: differs")
+    res["torch_3_calls_ms"] = cuda_ms(yard, reps)
+    res["chosen"] = chosen
+    log(f"{tag} predicate paths ({label}): {json.dumps(res)}")
+    return res
+
+
+def ptxas_lines(report: str, kernels) -> list:
+    """Registers, stack frame and spills of each compiled entry whose name
+    holds one of `kernels`, from nvcc -Xptxas -v's report: one line an
+    entry (a template's instances each)."""
+    out, entry, props = [], None, ""
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry, props = m.group(1), ""
+            continue
+        if entry is None:
+            continue
+        if "stack frame" in line:
+            props = line.split(":", 1)[-1].strip() if ":" in line \
+                else line.strip()
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            name = next((k for k in kernels if k in entry), None)
+            if name is not None:
+                out.append(f"{name} [{entry}]: {m.group(1)} registers, "
+                           f"{props}")
+            entry = None
+    return out
 
 
 def distinct_edges(eidx, mask) -> int:
@@ -1512,6 +1623,9 @@ def main(argv=None) -> int:
     for line in report.splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             log("    " + line.strip())
+    for line in ptxas_lines(report, ("predicate_kernel",
+                                     "merge_delta_kernel")):
+        log(f"[2] ptxas {line}")
 
     # -- 3a. the north-star GO, unsplit ------------------------------------
     stamp("phase 3a")
@@ -1813,6 +1927,8 @@ def main(argv=None) -> int:
            cuda_ms(lambda: K.predicate_mask_plain(*base), reps),
            None, tot3 * (4 + 8) + P * EB3 + 4 * P,
            tot3 * n_insns)
+    predicate_paths(K, "[4]", f"w > 50 at split hop 3, {P}x{EB3} slots",
+                    base, want[0], reps)
 
     # compact_capture at the filtered hop 3 with the w yield column (the
     # main path's call), then with four columns of both word types
@@ -2420,6 +2536,8 @@ def main(argv=None) -> int:
          4 * tot3 + 8 * union3 + R * EB3 + 4 * R, tot3 * len(prog.code),
          f" (w > 50 at hop 3: {R}x{EB3} slots, {tot3} valid, {union3} "
          f"distinct edges)")
+    predicate_paths(K, "[8d]", f"w > 50 at hop 3, {R}x{EB3} slots", pa,
+                    keep_p, lreps)
     ca = (src, dst, rk, eidx, keep_p, [blk.props["w"]])
     ck = K.compact_capture(*ca, extent=total)
     cp = K.compact_capture_plain(*ca, extent=total)
@@ -2666,6 +2784,8 @@ def main(argv=None) -> int:
                  cuda_ms(lambda: K.predicate_mask_plain(*pa), reps), None,
                  *pred_cost, f" (w > 50, hops 1 and 2; timed at hop 2: "
                              f"{P}x{EB} slots, {tot} valid, {n_kept} kept)")
+            predicate_paths(K, "[9d]", f"w > 50 at hop 2, {P}x{EB} slots",
+                            pa, keep, reps)
     got, want = [], []
     for h in (0, 1):
         _, sl, keep = hops9[h]
@@ -3219,6 +3339,8 @@ def main(argv=None) -> int:
           cuda_ms(lambda: K.predicate_mask_plain(*pa8), reps), None,
           12 * tot + eb8 + 4, tot * len(prog8.code),
           f"hop 3, slot {q}: {eb8} slots, {tot} valid, {kept8} kept")
+    predicate_paths(K, "[10f]", f"w > 50 at hop 3, slot {q}, {eb8} slots",
+                    pa8, K.predicate_mask_plain(*pa8), reps)
 
     def lib_compact8(a=ca8):
         si = a[4][0, 0].nonzero().view(-1)

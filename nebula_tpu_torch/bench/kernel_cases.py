@@ -1,6 +1,6 @@
 """Edge cases of the scan kernels, `expand` (K1) and `compact_capture`
-(K3 + K5), of `mark` (K2 / K6) and of `pagerank_step` (K12), made from a
-numpy seed.
+(K3 + K5), of `mark` (K2 / K6), `pagerank_step` (K12), `predicate_mask`
+(K4) and `merge_delta` (K9), made from a numpy seed.
 
 Each case is (name, args, kwargs) for `gpu.kernels.expand` /
 `gpu.kernels.compact_capture` and their plain versions, on a given
@@ -22,7 +22,9 @@ of two, and a bitmap too wide to stage.  `pagerank_cases` sit where a
 merge-path segmented sum can: no edges, one vertex, one vertex holding
 every edge (a row over many blocks), runs of edgeless rows across a
 block's edge, segments ending exactly on a block's edge, every vertex
-dangling, and `vmask` holes.
+dangling, and `vmask` holes.  `predicate_cases` and `merge_delta_cases`
+sit where row tiles of four-slot groups can go wrong (their docstrings
+list the shapes).
 
 chip_smoke.py holds each kernel against its plain version on these
 cases on the card; tests/test_torch_compact.py and
@@ -37,7 +39,14 @@ import numpy as np
 import torch
 
 from ..algo.kernels import PAGERANK_BLOCK
-from ..gpu.kernels import MARK_SMEM_BYTES, MARK_STAGE_MIN_IDS, SCAN_TILE
+from ..core import expr as E
+from ..core.value import NULL
+from ..gpu import exprjit as X
+from ..gpu.kernels import (MARK_SMEM_BYTES, MARK_STAGE_MIN_IDS,
+                           MERGE_DELTA_STAGE, MERGE_DELTA_TILE,
+                           PREDICATE_TILES, SCAN_TILE)
+from ..graphstore.csr import StringPool
+from ..graphstore.schema import PropType
 
 Case = Tuple[str, tuple, dict]
 
@@ -346,3 +355,388 @@ def pagerank_cases(device, seed: int = 0, big: bool = False
         add("every segment ending on a block's edge, 3,000 rows", 3000,
             np.repeat(np.arange(3000), B - 1))
     return cases
+
+
+# ---------------------------------------------------------------------------
+# predicate_mask (K4)
+# ---------------------------------------------------------------------------
+
+PREDICATE_TYPES = {"w": "INT64", "f": "DOUBLE", "b": "BOOL", "tag": "STRING"}
+PREDICATE_NAMES = ("ann", "bob", "cid", "dee")   # the string pool, in order
+I64_MAX = (1 << 63) - 1
+
+
+def _pred_builders():
+    """WHERE trees by name, each a function of an expression module M
+    (the port's `core.expr` or the reference's: the classes share names)
+    and its NULL.  Together they run every opcode of gpu/exprjit.py."""
+    def col(M, n):
+        return M.EdgeProp("KNOWS", n)
+
+    def lit(M, v):
+        return M.Literal(v)
+
+    def b(M, op, x, y):
+        return M.Binary(op, x, y)
+
+    def lst(M, *vs):
+        return M.ListExpr([lit(M, v) for v in vs])
+
+    def cmp(op, name, v):
+        return lambda M, N: b(M, op, col(M, name), lit(M, v))
+
+    def int_min(M):
+        # w - I64_MAX - 2 wraps to INT64_MIN at w = 1
+        return b(M, "-", b(M, "-", col(M, "w"), lit(M, I64_MAX)), lit(M, 2))
+
+    def chain(M, op, terms):
+        out = terms[-1]
+        for t in reversed(terms[:-1]):
+            out = b(M, op, t, out)
+        return out
+
+    return {
+        "w > 50": cmp(">", "w", 50),
+        "f < 0.5": cmp("<", "f", 0.5),
+        "tag == ann": cmp("==", "tag", "ann"),
+        "w <= 3": cmp("<=", "w", 3),
+        "f >= 0.25": cmp(">=", "f", 0.25),
+        "b": lambda M, N: col(M, "b"),
+        "rank, id($^), id($$)": lambda M, N: b(
+            M, "AND", b(M, ">=", M.FunctionCall("rank", [M.EdgeExpr()]),
+                        lit(M, 1)),
+            b(M, "OR", b(M, "==", M.FunctionCall("id", [M.VertexExpr("$^")]),
+                         lit(M, 3)),
+              b(M, "NOT IN", M.FunctionCall("id", [M.VertexExpr("$$")]),
+                lst(M, 5, 9)))),
+        "w + NULL > 1 OR w IS NULL": lambda M, N: b(
+            M, "OR", b(M, ">", b(M, "+", col(M, "w"), lit(M, N)), lit(M, 1)),
+            M.Unary("IS_NULL", col(M, "w"))),
+        "f IS NOT NULL AND NOT b": lambda M, N: b(
+            M, "AND", M.Unary("IS_NOT_NULL", col(M, "f")),
+            M.Unary("NOT", col(M, "b"))),
+        "-w < -40 XOR -f > -0.5": lambda M, N: b(
+            M, "XOR", b(M, "<", M.Unary("-", col(M, "w")), lit(M, -40)),
+            b(M, ">", M.Unary("-", col(M, "f")), lit(M, -0.5))),
+        "w >= f * 100 OR f + 0.25 <= 0.75": lambda M, N: b(
+            M, "OR", b(M, ">=", col(M, "w"),
+                       b(M, "*", col(M, "f"), lit(M, 100))),
+            b(M, "<=", b(M, "+", col(M, "f"), lit(M, 0.25)), lit(M, 0.75))),
+        "w != 7 AND w < 60 OR f == 0.5 OR f != 0.25": lambda M, N: b(
+            M, "OR", b(M, "AND", b(M, "!=", col(M, "w"), lit(M, 7)),
+                       b(M, "<", col(M, "w"), lit(M, 60))),
+            b(M, "OR", b(M, "==", col(M, "f"), lit(M, 0.5)),
+              b(M, "!=", col(M, "f"), lit(M, 0.25)))),
+        "(w-50)/7 < -2 OR (w-50)%7 == -3 OR w*2+1 > 21": lambda M, N: chain(
+            M, "OR", [
+                b(M, "<", b(M, "/", b(M, "-", col(M, "w"), lit(M, 50)),
+                            lit(M, 7)), lit(M, -2)),
+                b(M, "==", b(M, "%", b(M, "-", col(M, "w"), lit(M, 50)),
+                             lit(M, 7)), lit(M, -3)),
+                b(M, ">", b(M, "+", b(M, "*", col(M, "w"), lit(M, 2)),
+                            lit(M, 1)), lit(M, 21))]),
+        "w / (w - 10) > 0 OR (w % (w - 10)) IS NULL": lambda M, N: b(
+            M, "OR", b(M, ">", b(M, "/", col(M, "w"),
+                                 b(M, "-", col(M, "w"), lit(M, 10))),
+                       lit(M, 0)),
+            M.Unary("IS_NULL", b(M, "%", col(M, "w"),
+                                 b(M, "-", col(M, "w"), lit(M, 10))))),
+        "INT64_MIN / -7 > 0 OR INT64_MIN % 5 == -3 OR w % -4 == 1":
+            lambda M, N: chain(M, "OR", [
+                b(M, ">", b(M, "/", int_min(M), lit(M, -7)), lit(M, 0)),
+                b(M, "==", b(M, "%", int_min(M), lit(M, 5)), lit(M, -3)),
+                b(M, "==", b(M, "%", col(M, "w"), lit(M, -4)), lit(M, 1))]),
+        "f / (f - 0.5) > 1.0 OR (f - 0.5) % 0.3 < -0.1": lambda M, N: b(
+            M, "OR", b(M, ">", b(M, "/", col(M, "f"),
+                                 b(M, "-", col(M, "f"), lit(M, 0.5))),
+                       lit(M, 1.0)),
+            b(M, "<", b(M, "%", b(M, "-", col(M, "f"), lit(M, 0.5)),
+                        lit(M, 0.3)), lit(M, -0.1))),
+        "(w & 1) == 0 OR (w | 8) < 60 OR (w ^ 3) > 40": lambda M, N: chain(
+            M, "OR", [b(M, "==", b(M, "&", col(M, "w"), lit(M, 1)),
+                        lit(M, 0)),
+                      b(M, "<", b(M, "|", col(M, "w"), lit(M, 8)),
+                        lit(M, 60)),
+                      b(M, ">", b(M, "^", col(M, "w"), lit(M, 3)),
+                        lit(M, 40))]),
+        "w IN [3, 7.0, NULL] OR tag IN [cid, zzz, NULL] OR b IN [true]":
+            lambda M, N: chain(M, "OR", [
+                b(M, "IN", col(M, "w"), lst(M, 3, 7.0, N)),
+                b(M, "IN", col(M, "tag"), lst(M, "cid", "zzz", N)),
+                b(M, "IN", col(M, "b"), lst(M, True))]),
+        "f NOT IN [0.5, 1] AND w NOT IN [1, 2, NULL]": lambda M, N: b(
+            M, "AND", b(M, "NOT IN", col(M, "f"), lst(M, 0.5, 1)),
+            b(M, "NOT IN", col(M, "w"), lst(M, 1, 2, N))),
+        "w IN [128 constants]": lambda M, N: b(
+            M, "IN", col(M, "w"),
+            lst(M, *range(0, 252, 2), 7.5, N, 200.0)),
+        "NOT (w == 0 OR ... OR w == 15): 64 instructions": lambda M, N:
+            M.Unary("NOT", chain(M, "OR", [b(M, "==", col(M, "w"),
+                                              lit(M, i))
+                                            for i in range(16)])),
+        "w > 0 AND (w > 10 AND (... w > 60)): 8 registers": lambda M, N:
+            chain(M, "AND", [b(M, ">", col(M, "w"), lit(M, 10 * i))
+                             for i in range(7)]),
+        "w + 1: not a bool, always false": lambda M, N: b(
+            M, "+", col(M, "w"), lit(M, 1)),
+    }
+
+
+PREDICATE_BUILDERS = _pred_builders()
+PREDICATE_8_REGS = "w > 0 AND (w > 10 AND (... w > 60)): 8 registers"
+
+
+def predicate_program(key: str, device="cpu"):
+    """The port's program for PREDICATE_BUILDERS[key], compiled against
+    PREDICATE_TYPES and a pool of PREDICATE_NAMES.  The 8-register case is
+    lowered by hand, evaluating each AND's left operand first (the
+    compiler's heavier-first order needs 2 registers for it): the same
+    mask, through every register of the file."""
+    if key == PREDICATE_8_REGS:
+        code, consts = [], []
+        for i in range(7):
+            code += [(X.OP_LOAD_I, i, 0, 0, 0, 0, 0, 0),
+                     (X.OP_CONST, i + 1, 0, 0, len(consts), 0, 0,
+                      X.CONST_INT),
+                     (X.OP_GT_I, i, i, i + 1, 0, 0, 0, 0)]
+            consts.append(10 * i)
+        for i in range(5, -1, -1):
+            code.append((X.OP_AND3, i, i, i + 1, 0, 0, 0, 0))
+        return X.Program(code, consts, ["w"], 8, False, device)
+    prog, _ = X.compile_predicate(
+        PREDICATE_BUILDERS[key](E, NULL),
+        {n: PropType[t] for n, t in PREDICATE_TYPES.items()},
+        StringPool(list(PREDICATE_NAMES)),
+        vid_to_dense=lambda v: v if isinstance(v, int) and 0 <= v < 20
+        else -1, device=device)
+    return prog
+
+
+def _pred_cols(rng, P, n):
+    """(P, n) columns w, f, b, tag with nulls (INT64_MIN, NaN)."""
+    w = rng.integers(-5, 100, (P, n)).astype(np.int64)
+    w[rng.random((P, n)) < 0.1] = np.iinfo(np.int64).min
+    f = rng.random((P, n))
+    f[rng.random((P, n)) < 0.1] = np.nan
+    f[rng.random((P, n)) < 0.05] = 0.5
+    bb = rng.integers(0, 2, (P, n)).astype(np.int64)
+    bb[rng.random((P, n)) < 0.1] = np.iinfo(np.int64).min
+    tag = rng.integers(0, len(PREDICATE_NAMES), (P, n)).astype(np.int64)
+    tag[rng.random((P, n)) < 0.1] = np.iinfo(np.int64).min
+    return {"w": w, "f": f, "b": bb, "tag": tag}
+
+
+def predicate_cases(device, seed: int = 0, big: bool = False
+                    ) -> List[Case]:
+    """predicate_mask(prog, src, dst, rank, eidx, valid, cols, dcols=)
+    cases, as positional args; each name is "<PREDICATE_BUILDERS key> ::
+    <shape>".  The shapes sit where row tiles of kV-slot groups can go
+    wrong: row widths of 1, 3, 4, 5 and one past a tile of either kernel
+    (rows off a 16-byte boundary, partial head and tail groups), total 0
+    and total = EB, a valid mask with holes with and without delta
+    halves (eidx >= emax in the tail reads the (P, dcap) half), lanes
+    over shared columns.  The programs run every opcode (an IN over 128
+    constants, a 64-instruction and an 8-register program, a program
+    that is not a bool, INT64_MIN through / and %); the main path's
+    w > 50 and the one-comparison form run on every shape."""
+    rng = np.random.default_rng(seed + 4)
+    T, TI = PREDICATE_TILES["compare"], PREDICATE_TILES["interpreter"]
+    P, emax, dcap = 4, 300, 37
+    base = _pred_cols(rng, P, emax)
+    delta = _pred_cols(rng, P, dcap)
+    cases: List[Case] = []
+
+    def slots(lead, EB, valid, dc):
+        shape = tuple(lead) + (EB,)
+        R = int(np.prod(lead))
+        eidx = np.sort(rng.integers(0, emax, (R, EB)), axis=1)
+        if dc:
+            eidx[:, EB - dc:] = emax + np.arange(dc)
+        if valid == "mask":
+            v = rng.random((R, EB)) < 0.6
+            v[:, ::7] = False
+            vt = _t(v.reshape(shape), device)
+        else:
+            tot = {"prefix": rng.integers(0, EB + 1, R),
+                   "zero": np.zeros(R, int),
+                   "full": np.full(R, EB)}[valid]
+            tot[0] = {"zero": 0}.get(valid, EB)
+            v = np.arange(EB)[None, :] < tot[:, None]
+            vt = _t(tot.astype(np.int32).reshape(lead), device)
+        arrs = [np.where(v, rng.integers(0, 20, (R, EB)), -1),
+                np.where(v, rng.integers(0, 20, (R, EB)), -1),
+                np.where(v, rng.integers(0, 3, (R, EB)), 0),
+                np.where(v, eidx, 0)]
+        return [_t(a.astype(np.int32).reshape(shape), device)
+                for a in arrs] + [vt]
+
+    def add(key, label, lead, EB, valid="prefix", dc=0):
+        prog = predicate_program(key, device)
+        sl = slots(lead, EB, valid, dc)
+        cols = [_t(base[n], device) for n in prog.columns]
+        kw = {}
+        if dc:
+            kw["dcols"] = [_t(delta[n][:, :dc], device)
+                           for n in prog.columns]
+        cases.append((f"{key} :: {label}", (prog, *sl, cols), kw))
+
+    shapes = [("width 1", (P,), 1, "prefix", 0),
+              ("width 3", (P,), 3, "prefix", 0),
+              ("width 4", (P,), 4, "prefix", 0),
+              ("width 5", (P,), 5, "prefix", 0),
+              ("one past a tile", (P,), T + 1, "prefix", 0),
+              ("one past an interpreter tile", (P,), TI + 1, "prefix", 0),
+              ("total 0", (P,), 700, "zero", 0),
+              ("total = EB", (P,), 701, "full", 0),
+              ("a valid mask with holes", (P,), 1203, "mask", 0),
+              ("a mask with holes, delta halves", (P,), 1203, "mask", dcap),
+              ("3 lanes", (3, P), 901, "prefix", 0),
+              ("3 lanes, a mask, delta halves", (3, P), 611, "mask", dcap)]
+    keys = list(PREDICATE_BUILDERS)
+    for label, lead, EB, valid, dc in shapes:
+        for key in ("w > 50", "f < 0.5"):
+            add(key, label, lead, EB, valid, dc)
+    # every program on a width off a 16-byte boundary and past an
+    # interpreter tile's edge, and each on one more shape in turn
+    for i, key in enumerate(keys[2:]):
+        add(key, f"width {TI + 3}, two tiles", (P,), TI + 3)
+        label, lead, EB, valid, dc = shapes[i % len(shapes)]
+        add(key, label, lead, EB, valid, dc)
+    if big:
+        add("w > 50", "2 lanes x 4 rows of 1,000,003", (2, P), 1_000_003)
+        add("w IN [128 constants]", "4 rows of 1,000,003", (P,), 1_000_003)
+        add("(w-50)/7 < -2 OR (w-50)%7 == -3 OR w*2+1 > 21",
+            "8 lanes x 4 rows of 100,003, a mask, delta halves", (8, P),
+            100_003, "mask", dcap)
+        add(PREDICATE_8_REGS, "4 rows of 500,001", (P,), 500_001)
+    return cases
+
+
+# ---------------------------------------------------------------------------
+# merge_delta (K9)
+# ---------------------------------------------------------------------------
+
+MAXI = np.iinfo(np.int32).max
+
+
+def merge_delta_cases(device, seed: int = 0, big: bool = False
+                      ) -> List[Case]:
+    """merge_delta(src, dst, rank, eidx, total, fbm, d_src, d_dst, d_rank,
+    d_valid, d_tomb, emax, parts=, pid=) cases, as positional args and
+    kwargs.  The kernel merges in place: take `fresh_merge_args(args)` for
+    each call.  The shapes sit where one tombstone search a tile can go
+    wrong: no tombstone row (Tcap 0), no delta rows (Dcap 0), rows all
+    MAXI padding, tombstones on a tile's first and last eidx, a tile whose
+    tombstone range exceeds the staged slice (MERGE_DELTA_STAGE), eidx in
+    no order, total 0 and total = EB, base widths and row widths that are
+    not a multiple of 4, query lanes, a shard slot, and a strided frontier
+    view."""
+    rng = np.random.default_rng(seed + 5)
+    T = MERGE_DELTA_TILE
+    cases: List[Case] = []
+
+    def add(name, lead, EB, Dcap, Tcap, vmax=64, emax=None, eidx="sorted",
+            tomb="mixed", total="random", ld_extra=0, parts=None, pid=0):
+        P = lead[-1]
+        R = int(np.prod(lead))
+        emax = 3 * EB + 1 if emax is None else emax
+        tot = {"random": rng.integers(0, EB + 1, R),
+               "full": np.full(R, EB), "zero": np.zeros(R, int)}[total]
+        if total == "random" and R:
+            tot[0] = EB
+        j = np.arange(EB)
+        ve = j[None, :] < tot[:, None]
+        if eidx == "sorted":
+            e = np.sort(rng.integers(0, emax, (R, EB)), axis=1)
+        elif eidx == "unique":                 # eidx = 3 j + 1
+            e = np.broadcast_to(3 * j + 1, (R, EB)).copy()
+        else:
+            e = rng.integers(0, emax, (R, EB))
+        W = EB + Dcap
+
+        def wide(a, fill):
+            return np.concatenate([np.where(ve, a, fill),
+                                   np.full((R, Dcap), fill)], 1)
+
+        s = [wide(rng.integers(0, P * vmax, (R, EB)), -1),
+             wide(rng.integers(0, P * vmax, (R, EB)), -1),
+             wide(rng.integers(0, 3, (R, EB)), 0), wide(e, 0)]
+        s = [_t(a.astype(np.int32).reshape(tuple(lead) + (W,)), device)
+             for a in s]
+        fbuf = rng.random((R, vmax + ld_extra)) < 0.5
+        d_src = rng.integers(-3, vmax + 3, (P, Dcap)).astype(np.int32)
+        d_valid = rng.random((P, Dcap)) < 0.7
+        if Dcap:
+            d_valid[:, 0] = True
+            fbuf[np.arange(R), np.clip(d_src[np.arange(R) % P, 0], 0,
+                                       vmax - 1)] = True
+        d_tomb = np.full((P, Tcap), MAXI, np.int32)
+        for p in range(P if tomb != "maxi" else 0):
+            rows = e[p::P][ve[p::P]]
+            if tomb == "edges":              # a tile's first and last eidx
+                pick = 3 * np.array([0, T - 1, T, 2 * T - 1, EB - 1]) + 1
+            elif tomb == "dense":   # tile 0's range past the staged slice
+                pick = 3 * rng.choice(min(EB, T), min(Tcap, T) * 3 // 4,
+                                      replace=False) + 1
+                assert pick.size > MERGE_DELTA_STAGE
+            else:
+                live = np.unique(rows)
+                pick = np.concatenate([
+                    rng.choice(live, min(live.size, Tcap // 2),
+                               replace=False),
+                    rng.integers(0, emax, Tcap // 4)])
+            pick = np.unique(pick)[:Tcap]
+            d_tomb[p, :pick.size] = np.sort(pick)
+        fbm = _t(fbuf.reshape(tuple(lead) + (vmax + ld_extra,)),
+                 device)[..., :vmax]
+        args = (*s, _t(tot.astype(np.int32).reshape(lead), device), fbm,
+                _t(d_src, device),
+                _t(rng.integers(0, P * vmax, (P, Dcap)).astype(np.int32),
+                   device),
+                _t(rng.integers(0, 3, (P, Dcap)).astype(np.int32), device),
+                _t(d_valid, device), _t(d_tomb, device), emax)
+        kw = {} if parts is None else {"parts": parts, "pid": pid}
+        cases.append((name, args, kw))
+
+    P = 4
+    add("EB 4,099, Dcap 6: rows of 4,105 off 16 bytes", (P,), 2 * T + 3, 6,
+        64)
+    add("EB 4,099, Dcap 5: a row width of 4,104", (P,), 2 * T + 3, 5, 64)
+    add("Tcap 0", (P,), 3001, 8, 0)
+    add("Dcap 0", (P,), 3001, 0, 40)
+    add("Tcap 0 and Dcap 0", (P,), 3001, 0, 0)
+    add("every tombstone MAXI", (P,), 3001, 8, 64, tomb="maxi")
+    add("tombstones on tiles' first and last eidx", (P,), 3 * T + 2, 8, 16,
+        eidx="unique", total="full", tomb="edges")
+    add("a tile's tombstones past the staged slice", (P,), 2 * T + 9, 8,
+        3000, eidx="unique", total="full", tomb="dense")
+    add("eidx in no order", (P,), 2 * T + 1, 8, 200, eidx="random")
+    add("total 0", (P,), 2 * T, 8, 64, total="zero")
+    add("total = EB", (P,), 2 * T, 8, 64, total="full")
+    add("EB 0", (P,), 0, 8, 16)
+    add("EB 1, 3, 5", (P,), 5, 3, 4)
+    add("3 lanes", (3, P), T + 5, 7, 64)
+    add("a shard slot: parts 8, pid 5", (1,), 2 * T + 7, 9, 64, parts=8,
+        pid=5)
+    add("a strided frontier view (ld vmax + 7)", (P,), T + 1, 8, 64,
+        ld_extra=7)
+    add("2 lanes, strided frontier, Dcap 0", (2, P), 999, 0, 32,
+        ld_extra=3)
+    if big:
+        add("8 rows of 4,157,885 + 8,192, 2,000 tombstones a row", (8,),
+            4_157_885, 8192, 8192, vmax=125_000, emax=4_157_885)
+        add("4 lanes x 8 rows of 500,001 + 8,192", (4, 8), 500_001, 8192,
+            8192, vmax=125_000, emax=500_001)
+        add("a shard slot of 1,559,801 + 8,192: parts 8, pid 7", (1,),
+            1_559_801, 8192, 8192, vmax=125_000, emax=1_559_801, parts=8,
+            pid=7)
+        add("tiles' tombstones past the staged slice, 4 rows of 400,003",
+            (P,), 400_003, 64, 8192, eidx="unique", total="full",
+            tomb="dense")
+    return cases
+
+
+def fresh_merge_args(args):
+    """merge_delta args with fresh copies of the slot arrays it merges
+    in place (src, dst, rank, eidx)."""
+    return (*(a.clone() for a in args[:4]), *args[4:])

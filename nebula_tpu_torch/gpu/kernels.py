@@ -15,15 +15,17 @@ The GO path's five kernels, sources in `nebula_tpu_torch/csrc/`:
                     bitmap (hop.py:_hub_consts :271, _extend_fbm_local
                     :303)
   predicate_mask    K4 — the WHERE keep mask, a register program from
-                    gpu/exprjit.py run per slot with the column gathers
-                    fused (nebula_tpu/tpu/exprjit.py:201/289)
+                    gpu/exprjit.py run over row tiles, four slots a
+                    thread, with the column gathers fused; a program of
+                    the one-comparison form runs a compiled-in instance
+                    (`predicate_path`) (nebula_tpu/tpu/exprjit.py:201/289)
   compact_capture   K3 + K5 — stable compaction of the final hop and
                     the YIELD column gather (hop.py:_compact_cap :238,
                     _build_local_fn :543-550)
   merge_delta       K9 — the delta plane merged into a block's expanded
-                    slots: tombstoned base slots masked, frontier-active
-                    delta rows appended at columns EB + k
-                    (hop.py:_merge_delta :118)
+                    slots: tombstoned base slots masked (one tombstone
+                    search a row tile), frontier-active delta rows
+                    appended at columns EB + k (hop.py:_merge_delta :118)
 
 On a block with a delta plane, expand writes its slots (P, EB + Dcap)
 wide, merge_delta fills the tail in place and returns the merged valid
@@ -100,7 +102,7 @@ BUILD_ROOT = _PKG / "_build"
 SOURCES = ("expand.cu", "mark.cu", "hubs.cu", "predicate.cu",
            "compact_capture.cu", "bfs.cu", "pagerank.cu", "relax.cu",
            "delta.cu", "exchange.cu")
-HEADERS = ("scan.cuh",)
+HEADERS = ("scan.cuh", "rowtile.cuh")
 MAX_COLS = 4                  # yield columns compact_capture gathers
 SCAN_TILE = 4096              # elements a tile of csrc/scan.cuh's scan takes
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -207,7 +209,8 @@ def _load() -> ctypes.CDLL:
     lib.nt_mark.argtypes = [P, P, LL, I, I, LL, LL, I, P, P]
     lib.nt_extend_hubs.argtypes = [P, P, P, I, I, I, I, P]
     lib.nt_predicate_sizes.argtypes = [P]
-    lib.nt_predicate_mask.argtypes = [P] * 7 + [I] * 5 + [P, P]
+    lib.nt_merge_delta_sizes.argtypes = [P]
+    lib.nt_predicate_mask.argtypes = [P] * 7 + [I] * 5 + [P, I, P]
     lib.nt_compact_capture.argtypes = ([P] * 6 + [I] * 5 + [P] * 4 + [I]
                                        + [P] * 4 + [P] * 4 + [P] * 4
                                        + [P, P, P])
@@ -228,6 +231,7 @@ def _load() -> ctypes.CDLL:
     lib.nt_sssp_step.argtypes = [P] * 5 + [LL, LL] + [P] * 4
     for fn in (lib.nt_expand_scan, lib.nt_expand_fill, lib.nt_mark,
                lib.nt_extend_hubs, lib.nt_predicate_sizes,
+               lib.nt_merge_delta_sizes,
                lib.nt_predicate_mask, lib.nt_compact_capture,
                lib.nt_bfs_probe, lib.nt_bfs_level, lib.nt_merge_delta,
                lib.nt_pagerank_block, lib.nt_pagerank_vblock,
@@ -247,10 +251,15 @@ def _load() -> ctypes.CDLL:
         if lib.nt_mark_stage_bytes(P, vmax) != mark_stage_bytes(P, vmax):
             raise KernelError("mark.cu's staged bytes differ from "
                               "mark_stage_bytes")
-    sizes = (I * 5)()
+    sizes = (I * 2)()
+    lib.nt_merge_delta_sizes(sizes)
+    if tuple(sizes) != (MERGE_DELTA_TILE, MERGE_DELTA_STAGE):
+        raise KernelError(f"delta.cu's tile and stage {tuple(sizes)} differ "
+                          f"from gpu/kernels.py's")
+    sizes = (I * 7)()
     lib.nt_predicate_sizes(sizes)
     want = (X.MAX_REGS, X.MAX_INSNS, X.MAX_CONSTS, X.MAX_COLS,
-            ctypes.sizeof(_ProgramImage))
+            ctypes.sizeof(_ProgramImage), *PREDICATE_TILES.values())
     if tuple(sizes) != want:
         raise KernelError(f"predicate kernel sizes {tuple(sizes)} differ "
                           f"from the lowering's {want}")
@@ -630,7 +639,7 @@ def extend_hubs(fbm, hub_owner, hub_local, vmax: int):
 class _ProgramImage(ctypes.Structure):
     """The kernel's `Program` parameter (csrc/predicate.cu)."""
     _fields_ = [("n_insns", ctypes.c_int), ("n_cols", ctypes.c_int),
-                ("always_false", ctypes.c_int), ("pad", ctypes.c_int),
+                ("always_false", ctypes.c_int), ("n_regs", ctypes.c_int),
                 ("code", ctypes.c_int * (8 * X.MAX_INSNS)),
                 ("consts", ctypes.c_longlong * X.MAX_CONSTS),
                 ("cols", ctypes.c_void_p * X.MAX_COLS),
@@ -641,6 +650,7 @@ def _program_image(prog, cols, dcols=None) -> _ProgramImage:
     img = _ProgramImage()
     img.n_insns, img.n_cols = len(prog.code), len(cols)
     img.always_false = int(prog.always_false)
+    img.n_regs = prog.n_regs
     for i, insn in enumerate(prog.code):
         img.code[8 * i:8 * i + 8] = list(insn)
     for i, w in enumerate(prog.consts):
@@ -693,7 +703,30 @@ def predicate_mask_plain(prog, src, dst, rank, eidx, valid, cols,
     return (v & prog(c)).reshape(src.shape)
 
 
-def predicate_mask(prog, src, dst, rank, eidx, valid, cols, dcols=None):
+# slots of one row a block of each predicate kernel takes
+PREDICATE_TILES = {"compare": 2048, "interpreter": 8192}
+PREDICATE_PATHS = tuple(PREDICATE_TILES)
+
+
+def predicate_path(prog) -> str:
+    """The kernel `predicate_mask` runs for `prog`: "compare" for a
+    program of the one-comparison form `LOAD col; CONST; CMP` — an int
+    or float column against a constant, one of the six comparisons,
+    compiled into one of twelve kernel instances — else "interpreter"
+    (csrc/predicate.cu)."""
+    c = prog.code
+    if (len(c) == 3 and not prog.always_false
+            and c[0][0] in (X.OP_LOAD_I, X.OP_LOAD_F) and c[0][1] == 0
+            and c[1][0] == X.OP_CONST and c[1][1] == 1
+            and c[2][1:4] == (0, 0, 1)):
+        base = X.OP_EQ_F if c[0][0] == X.OP_LOAD_F else X.OP_EQ_I
+        if base <= c[2][0] <= base + 5:
+            return "compare"
+    return "interpreter"
+
+
+def predicate_mask(prog, src, dst, rank, eidx, valid, cols, dcols=None,
+                   path=None):
     """The (P, EB) bool keep mask of a WHERE predicate program
     (gpu/exprjit.py) over one block's expanded slots: True where the
     slot is valid and the predicate is true (not false, not null).  The
@@ -703,9 +736,16 @@ def predicate_mask(prog, src, dst, rank, eidx, valid, cols, dcols=None):
     valid: the (P,) int32 total when the valid slots are each row's
     prefix, or merge_delta's (P, EB) bool mask (with the slots' lane
     axis).  dcols: the delta halves (P, Dcap) of cols, in the same order,
-    on a merged block."""
+    on a merged block.  `path` forces one of PREDICATE_PATHS on the card
+    (None: `predicate_path`'s choice; "compare" only for a program of
+    that form); the mask is the same either way."""
     if prog.error is not None:
         raise prog.error
+    if path is not None and path not in PREDICATE_PATHS:
+        raise ValueError(f"path must be one of {PREDICATE_PATHS}, got "
+                         f"{path!r}")
+    if path == "compare" and predicate_path(prog) != "compare":
+        raise ValueError("the program is not of the one-comparison form")
     if src.device.type == "cpu":
         return predicate_mask_plain(prog, src, dst, rank, eidx, valid, cols,
                                     dcols)
@@ -741,7 +781,8 @@ def predicate_mask(prog, src, dst, rank, eidx, valid, cols, dcols=None):
         rank.data_ptr(), eidx.data_ptr(),
         None if by_mask else valid.data_ptr(),
         valid.data_ptr() if by_mask else None, P, L, EB, emax, dcap,
-        keep.data_ptr(), _stream(src)), "predicate_mask")
+        keep.data_ptr(), (path or predicate_path(prog)) == "compare",
+        _stream(src)), "predicate_mask")
     _count(predicate_mask)
     return keep
 
@@ -861,6 +902,10 @@ def compact_capture(src, dst, rank, eidx, keep,
 # ---------------------------------------------------------------------------
 # merge_delta (K9)
 # ---------------------------------------------------------------------------
+
+
+MERGE_DELTA_TILE = 2048      # base slots of one row a block takes
+MERGE_DELTA_STAGE = 1024     # tombstones a block stages in shared memory
 
 
 def merge_delta_plain(src, dst, rank, eidx, total, fbm, d_src, d_dst,

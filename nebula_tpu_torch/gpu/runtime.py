@@ -163,6 +163,21 @@ def _cap_keys_for_yields(yields, device_props=()) -> Optional[set]:
     return need
 
 
+def _refuse_undecodable(dev, block_keys, wanted, what: str) -> None:
+    """Raise CannotCompile, before any device run, when a block the
+    statement reads carries a prop outside DECODABLE among `wanted` (None:
+    every prop of the block, as Edge rows and MATCH frames decode them),
+    so that the caller can fall back (divergence 9: temporal and
+    geography props)."""
+    for bk in block_keys:
+        types = dev.host.blocks[bk].prop_types
+        bad = [n for n in (types if wanted is None else wanted)
+               if n in types and types[n] not in DECODABLE]
+        if bad:
+            raise CannotCompile(f"{what} of {bad[0]} ({types[bad[0]].name}) "
+                                f"is not ported yet")
+
+
 def _canonical_perm(ls, rk, dk, is_delta) -> np.ndarray:
     """`np.lexsort((dk, rk, ls))` — the stable sort of one part's
     captured rows by (local src, rank, dst key) — computed as a merge
@@ -980,17 +995,8 @@ class GpuRuntime:
             wanted = None if yields is None else {
                 x.name for e, _ in yields for x in E.walk(e)
                 if x.kind == "edge_prop" and not x.name.startswith("_")}
-            for bk in block_keys:
-                hb = dev.host.blocks[bk]
-                bad = [n for n in (hb.prop_types if wanted is None
-                                   else wanted)
-                       if n in hb.prop_types
-                       and hb.prop_types[n] not in DECODABLE]
-                if bad:
-                    what = "Edge row" if yields is None else "yield"
-                    raise CannotCompile(
-                        f"{what} of {bad[0]} ({hb.prop_types[bad[0]].name}) "
-                        f"is not ported yet")
+            _refuse_undecodable(dev, block_keys, wanted,
+                                "Edge row" if yields is None else "yield")
             yield_cols = tuple(sorted(
                 n for n in wanted or ()
                 if all(n in dev.host.blocks[bk].props for bk in block_keys))
@@ -1080,6 +1086,7 @@ class GpuRuntime:
         dense = [d for d in dense if d >= 0]
         if not dense:
             return [HopFrame.empty() for _ in range(max_hop)], stats
+        _refuse_undecodable(dev, block_keys, None, "MATCH frame")
 
         dview, dextras = self._grab_delta(
             dev, block_keys, () if pred is None else pred.columns)

@@ -16,22 +16,45 @@ sizes.  Tolerances: mark exact (boolean scatter); a PageRank step within
 1e-12 (the port sums each segment directly, the reference differences
 one cumsum), its moved count equal wherever rounding cannot move a
 vertex across tol.
+
+`predicate_mask_plain` ↔ the reference's `compile_predicate`
+(nebula_tpu/tpu/exprjit.py:201) over the columns gathered at eidx (its
+delta half past emax), as tests/test_torch_predicate.py's `_ref_mask`
+holds it, on the cases of `predicate_cases`: widths 1, 3, 4, 5 and past
+a tile, total 0 and total = EB, masks with holes, delta halves, lanes,
+every opcode family, 64 instructions, 8 registers, 128 constants, an
+always-false program.  `merge_delta_plain` ↔ hop._merge_delta
+(nebula_tpu/tpu/hop.py:118) per part, as tests/test_torch_delta.py holds
+it, on `merge_delta_cases`: Tcap 0, Dcap 0, MAXI rows, tombstones on a
+tile's edges and past its staged slice, eidx in no order, lanes, a shard
+slot, a strided frontier.  Both exact.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from nebula_tpu.algo import kernels as ref_kernels
+from nebula_tpu.core import expr as RE
+from nebula_tpu.core.value import NULL as REF_NULL
+from nebula_tpu.graphstore.csr import StringPool as RefPool
+from nebula_tpu.graphstore.schema import PropType as RefPropType
+from nebula_tpu.tpu import exprjit as ref_jit
 from nebula_tpu.tpu import hop as ref_hop
 
 from nebula_tpu_torch.algo import kernels as AK
-from nebula_tpu_torch.bench.kernel_cases import (copy_view, mark_cases,
-                                                 pagerank_cases)
+from nebula_tpu_torch.bench.kernel_cases import (
+    PREDICATE_BUILDERS, PREDICATE_NAMES, PREDICATE_TYPES, copy_view,
+    fresh_merge_args, mark_cases, merge_delta_cases, pagerank_cases,
+    predicate_cases, predicate_program)
+from nebula_tpu_torch.gpu import exprjit as X
 from nebula_tpu_torch.gpu import kernels as K
 
 MARK = mark_cases("cpu")
 PAGERANK = pagerank_cases("cpu")
+PREDICATE = predicate_cases("cpu")
+MERGE = merge_delta_cases("cpu")
 STEP_TOL = 1e-12
 
 
@@ -135,3 +158,156 @@ def test_copy_view_keeps_layout():
     assert c.stride() == v.stride() and c.shape == v.shape
     c[1, 2, 3] = True
     assert not buf.any() and c._base.sum() == 1
+
+
+# ---------------------------------------------------------------------------
+# predicate_mask (K4)
+# ---------------------------------------------------------------------------
+
+
+def _ref_keep(key, prog, src, dst, rank, eidx, valid, cols, dcols=None):
+    """The reference's mask of PREDICATE_BUILDERS[key] over the columns
+    gathered at each slot's eidx (row q reads part q % P; the delta half
+    at eidx - emax), ANDed with the valid prefix or mask."""
+    P, EB = src.shape[-2], src.shape[-1]
+    R = int(np.prod(src.shape[:-1]))
+    pool = RefPool()
+    for s in PREDICATE_NAMES:
+        pool.encode(s)
+    ref_fn, _ = ref_jit.compile_predicate(
+        PREDICATE_BUILDERS[key](RE, REF_NULL),
+        {n: RefPropType[t] for n, t in PREDICATE_TYPES.items()}, pool,
+        vid_to_dense=lambda v: v if isinstance(v, int) and 0 <= v < 20
+        else -1)
+    e = eidx.reshape(R, EB).numpy().astype(np.int64)
+    p = (np.arange(R) % P)[:, None]
+    c = {"_rank": jnp.asarray(rank.reshape(R, EB).numpy()),
+         "_src": jnp.asarray(src.reshape(R, EB).numpy()),
+         "_dst": jnp.asarray(dst.reshape(R, EB).numpy())}
+    for i, name in enumerate(prog.columns):
+        col = cols[i].numpy()
+        emax = col.shape[1]
+        g = col[p, np.clip(e, 0, emax - 1)]
+        if dcols is not None:
+            d = dcols[i].numpy()
+            g = np.where(e >= emax, d[p, np.clip(e - emax, 0,
+                                                  d.shape[1] - 1)], g)
+        c[name] = jnp.asarray(g)
+    if valid.dtype == torch.bool:
+        v = valid.reshape(R, EB).numpy()
+    else:
+        v = np.arange(EB)[None, :] < valid.reshape(R, 1).numpy()
+    return (v & np.broadcast_to(np.asarray(ref_fn(c)), v.shape)).reshape(
+        src.shape)
+
+
+@pytest.mark.parametrize("case", PREDICATE, ids=[c[0] for c in PREDICATE])
+def test_predicate_edge_case_matches_reference(case):
+    name, args, kw = case
+    key = name.split(" :: ")[0]
+    got = K.predicate_mask(*args, **kw)
+    assert got.dtype == torch.bool and got.shape == args[1].shape
+    want = _ref_keep(key, *args, **kw)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the wrapper's other route is the same plain version on the CPU
+    np.testing.assert_array_equal(
+        K.predicate_mask(*args, **kw, path="interpreter").numpy(), want)
+    if "always false" in key:
+        assert not want.any()
+
+
+def test_predicate_cases_reach_every_opcode_and_limit():
+    progs = {c[0].split(" :: ")[0]: c[1][0] for c in PREDICATE}
+    used = {insn[0] for p in progs.values() for insn in p.code}
+    assert used == set(range(X.OP_IN + 1))
+    assert max(len(p.code) for p in progs.values()) == X.MAX_INSNS
+    assert max(p.n_regs for p in progs.values()) == X.MAX_REGS
+    assert max(len(p.consts) for p in progs.values()) == X.MAX_CONSTS
+    assert any(p.always_false for p in progs.values())
+
+
+@pytest.mark.parametrize("key, path", [
+    ("w > 50", "compare"), ("f < 0.5", "compare"),
+    ("tag == ann", "compare"), ("w <= 3", "compare"),
+    ("f >= 0.25", "compare"), ("b", "interpreter"),
+    ("w IN [128 constants]", "interpreter"),
+    ("w + 1: not a bool, always false", "interpreter"),
+    ("w >= f * 100 OR f + 0.25 <= 0.75", "interpreter")])
+def test_predicate_path(key, path):
+    """Only `LOAD col; CONST; CMP` of an int or float column goes to the
+    compiled-in comparisons."""
+    assert K.predicate_path(predicate_program(key)) == path
+
+
+def test_predicate_path_argument_checked():
+    name, args, kw = PREDICATE[0]
+    assert K.predicate_path(args[0]) == "compare"
+    for path in K.PREDICATE_PATHS:
+        assert torch.equal(K.predicate_mask(*args, path=path),
+                           K.predicate_mask(*args))
+    with pytest.raises(ValueError, match="path"):
+        K.predicate_mask(*args, path="jit")
+    other = predicate_program("b")
+    with pytest.raises(ValueError, match="one-comparison"):
+        K.predicate_mask(other, *args[1:], path="compare")
+
+
+# ---------------------------------------------------------------------------
+# merge_delta (K9)
+# ---------------------------------------------------------------------------
+
+
+def _ref_merge_rows(args, parts, pid):
+    """hop._merge_delta per part (vmapped over the P rows of each lane),
+    with the reference's base-width slots; returns (src, dst, rk, eidx,
+    ve, total) of shape (R, EB + Dcap), (R,)."""
+    (src, dst, rk, eidx, total, fbm, d_src, d_dst, d_rank, d_valid, d_tomb,
+     emax) = args
+    P, W = src.shape[-2], src.shape[-1]
+    Dcap = d_src.shape[1]
+    EB = W - Dcap
+    L = src.numel() // max(P * W, 1) if W else 1
+    fn = jax.jit(jax.vmap(
+        lambda dl, f, a, b, c, e, v, t, q: ref_hop._merge_delta(
+            dl, f, a, b, c, e, v, t, parts, q, emax)))
+    dl = {"d_src": d_src.numpy(), "d_dst": d_dst.numpy(),
+          "d_rank": d_rank.numpy(), "d_valid": d_valid.numpy(),
+          "d_tomb": d_tomb.numpy()}
+    outs = []
+    for lane in range(L):
+        s = [t.reshape(L, P, W)[lane, :, :EB].numpy()
+             for t in (src, dst, rk, eidx)]
+        tot = total.reshape(L, P)[lane].numpy()
+        ve = np.arange(EB)[None, :] < tot[:, None]
+        f = fbm.reshape(L, P, -1)[lane].numpy()
+        outs.append([np.asarray(x) for x in fn(
+            {k: jnp.asarray(v) for k, v in dl.items()}, jnp.asarray(f),
+            *[jnp.asarray(a) for a in s], jnp.asarray(ve),
+            jnp.asarray(tot), jnp.arange(pid, pid + P, dtype=jnp.int32))])
+    return [np.concatenate([o[i] for o in outs]) for i in range(6)], EB
+
+
+@pytest.mark.parametrize("case", MERGE, ids=[c[0] for c in MERGE])
+def test_merge_delta_edge_case_matches_reference(case):
+    name, args, kw = case
+    P = args[0].shape[-2]
+    parts, pid = kw.get("parts", P), kw.get("pid", 0)
+    a = fresh_merge_args(args)
+    valid, tot = K.merge_delta(*a, **kw)
+    (r_src, r_dst, r_rk, r_eidx, r_ve, r_tot), EB = _ref_merge_rows(
+        args, parts, pid)
+    R = r_ve.shape[0]
+    got = [t.reshape(R, -1).numpy() for t in (a[0], a[2], a[3], valid)]
+    for g, w in zip(got, (r_src, r_rk, r_eidx, r_ve)):
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(tot.reshape(R).numpy(), r_tot)
+    # a tombstoned base slot's dst is -1 (the pinned difference)
+    base_valid = np.arange(EB)[None, :] < args[4].reshape(R, 1).numpy()
+    hit = np.zeros_like(r_ve)
+    hit[:, :EB] = base_valid & ~r_ve[:, :EB]
+    np.testing.assert_array_equal(a[1].reshape(R, -1).numpy(),
+                                  np.where(hit, -1, r_dst))
+    if "MAXI" in name or "Tcap 0" in name:
+        assert not hit.any()
+    if "edges" in name or "staged" in name or name.startswith("EB 4,099"):
+        assert hit.any()

@@ -17,6 +17,9 @@ path moves integers and copies float64 values):
     frames against `host_trail_paths` (both packages') where every
     (src, dst) key is unique, and the parallel-edge rule where it is not;
   * GO's Edge rows (`traverse` without yields) against the reference's;
+  * a DATE prop, which the reference decodes and the port cannot yet:
+    `traverse_hops` and `traverse` both refuse it with `CannotCompile`
+    before any device run;
   * batching: concurrent MATCH expansions share one run, each equal to
     its solo run, and a GO never shares a MATCH's run.
 
@@ -43,7 +46,7 @@ from nebula_tpu.utils.config import get_config as ref_get_config
 
 from nebula_tpu_torch.bench import datagen as D
 from nebula_tpu_torch.core import expr as PE
-from nebula_tpu_torch.gpu import GpuRuntime, HopFrame, \
+from nebula_tpu_torch.gpu import CannotCompile, GpuRuntime, HopFrame, \
     join_frontier_trails, trail_distinct_keep
 from nebula_tpu_torch.gpu.exprjit import compile_predicate
 from nebula_tpu_torch.gpu.hop import run_hops
@@ -539,6 +542,61 @@ def test_edge_rows_through_writes_match_reference(delta_cfg):
     rows, _ = port_rt.traverse(port_st, "g", SEEDS, ["knows"], "out", 1)
     assert [repr(r) for r in rows] == [repr(r) for r in want]
     assert any(r[1].ranking >= 50 for r in rows)   # the inserted rows
+
+
+# ---------------------------------------------------------------------------
+# a temporal prop the port cannot decode yet (divergence 9): both entry
+# points refuse it before any device run
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def dated():
+    """make_social_arrays(300, 4), P = 4, with an int64 DATE column `d`
+    (days since the epoch) added to the reference snapshot's blocks
+    before it is carried."""
+    arrs = ref_datagen.make_social_arrays(300, 4)
+    ref_snap = ref_datagen.snapshot_from_arrays(arrs, parts=4)
+    for b in ref_snap.blocks.values():
+        b.props["d"] = (np.arange(b.nbr.size, dtype=np.int64) % 400
+                        ).reshape(b.nbr.shape) + 50
+        b.prop_types["d"] = RefPropType.DATE
+    carried = snapshot_from_fields(_fields(ref_snap))
+    rt = GpuRuntime(device="cpu")
+    rt.pin_prebuilt(carried)
+    ran = []
+    rt._run = lambda *a, **kw: ran.append(a)        # any device run
+    return dict(ref_rt=_ref_rt(ref_snap),
+                ref_store=ref_datagen.SnapshotStore(ref_snap), rt=rt,
+                store=D.SnapshotStore(carried), ran=ran,
+                seeds=np.unique(arrs["src"][:32])[:8].tolist())
+
+
+def test_match_frames_refuse_a_date_prop(dated):
+    want, _ = dated["ref_rt"].traverse_hops(
+        dated["ref_store"], "snb", dated["seeds"], ["KNOWS"], "out", 2)
+    dates = [e.props["d"] for e in want[0].edges]
+    assert dates and all(type(v).__name__ == "Date" for v in dates)
+    with pytest.raises(CannotCompile, match="MATCH frame of d \\(DATE\\)"):
+        dated["rt"].traverse_hops(dated["store"], "snb", dated["seeds"],
+                                  ["KNOWS"], "out", 2)
+    assert dated["ran"] == []
+
+
+@pytest.mark.parametrize("yields", ["edge rows", "date yield"])
+def test_go_refuses_a_date_prop(dated, yields):
+    def ys(M):
+        return None if yields == "edge rows" else \
+            [(M.EdgeProp("KNOWS", "d"), "d")]
+
+    want, _ = dated["ref_rt"].traverse(
+        dated["ref_store"], "snb", dated["seeds"], ["KNOWS"], "out", 1,
+        yields=ys(RE))
+    assert len(want) > 0
+    with pytest.raises(CannotCompile, match=" of d \\(DATE\\)"):
+        dated["rt"].traverse(dated["store"], "snb", dated["seeds"],
+                             ["KNOWS"], "out", 1, yields=ys(PE))
+    assert dated["ran"] == []
 
 
 # ---------------------------------------------------------------------------
