@@ -19,7 +19,8 @@ Phases, in order; any failure exits non-zero before the result line:
   1. the card's name and power limit (nvidia-smi) and torch's name for it;
   2. build the kernels from nebula_tpu_torch/csrc (nvcc, sm_90a), and
      log ptxas's registers, stack frame and spills of every instance of
-     predicate_kernel and of merge_delta_kernel;
+     predicate_kernel, merge_delta_kernel and relax.cu's relax_kernel,
+     prologue_kernel and finish_kernel;
   3. the north-star GO (datagen.north_star): make_social_arrays(persons,
      30, seed=7) → snapshot_from_arrays(parts=8), then GO 3 STEPS from 16
      seeds YIELD dst(edge) AS d, KNOWS.w AS w, unfiltered and WHERE
@@ -70,7 +71,14 @@ Phases, in order; any failure exits non-zero before the result line:
      program), and merge_delta bit for bit in every output (Tcap 0,
      Dcap 0, MAXI rows, tombstones on a tile's first and last eidx and
      past its staged slice, eidx in no order, lanes, shard slots, a
-     strided frontier, widths not a multiple of 4);
+     strided frontier, widths not a multiple of 4), and wcc_step and
+     sssp_step (unweighted and weighted) bit for bit through each route
+     that fits and the wrapper's choice (no edges, one vertex, n off a
+     32-bit word, every source off or on, one destination holding
+     3,000,000 edges, runs of one destination ending on a lane's, a
+     warp's and a block's edge, sentinels in the mask, weights 0.0 and
+     0.5, n at the staged route's capacity and one past it, 30M Zipf
+     edges, and those edges again in a random order);
   5. the algo plane (`CALL algo.*`, algo/engine.run_algorithm on
      GpuRuntime()):
        a. on the north-star snapshot of phase 3 (30M KNOWS edges, 60M
@@ -91,7 +99,19 @@ Phases, in order; any failure exits non-zero before the result line:
           wherever rounding cannot flip `> tol`), timed with its plain version
           and one library call (index_add_, scatter_reduce_ amin); beside
           pagerank_step, its gather floor: one rank.index_select over
-          esrc at the same shape, a yardstick the port never calls;
+          esrc at the same shape, a yardstick the port never calls; and
+          for wcc_step and sssp_step (one row each, named by the route
+          the wrapper chose, algo/kernels.py:relax_route): both routes
+          forced at the middle iteration (`relax paths`), the step at
+          every iteration's inputs of (a), each held against its plain
+          version, timed and summed beside the summed bounds (`whole
+          run`), and WCC's gather floor (label.index_select over esrc);
+       d. WCC and SSSP past the staged route's capacity: a social graph
+          of GLOBAL_PERSONS (2,000,000) persons of degree 4 in 8 parts,
+          through run_algorithm, counters zeroed first: every step on
+          the global route, launches equal to iterations, state equal
+          to the plain steps' bit for bit; each kernel's global row
+          timed at the middle iteration;
   6. the device BFS of FIND SHORTEST PATH, as bench.py config 5 runs it:
      GpuRuntime.bfs(store, "ns", [seeds[0]], ["KNOWS"], "out", 5) on the
      north-star snapshot, one cold and three warm runs per path, launch
@@ -258,10 +278,15 @@ ROUTE_SOURCES = {
                         "nebula_tpu/tpu/hop.py:238"),
     "pagerank_step": ("nebula_tpu_torch/csrc/pagerank.cu",
                       "nebula_tpu/algo/kernels.py:49"),
-    "wcc_step": ("nebula_tpu_torch/csrc/relax.cu",
-                 "nebula_tpu/algo/kernels.py:79"),
-    "sssp_step": ("nebula_tpu_torch/csrc/relax.cu",
-                  "nebula_tpu/algo/kernels.py:95"),
+    # csrc/relax.cu's two routes (algo/kernels.py:relax_route), a row each
+    "wcc_step (staged)": ("nebula_tpu_torch/csrc/relax.cu",
+                          "nebula_tpu/algo/kernels.py:79"),
+    "wcc_step (global)": ("nebula_tpu_torch/csrc/relax.cu",
+                          "nebula_tpu/algo/kernels.py:79"),
+    "sssp_step (staged)": ("nebula_tpu_torch/csrc/relax.cu",
+                           "nebula_tpu/algo/kernels.py:95"),
+    "sssp_step (global)": ("nebula_tpu_torch/csrc/relax.cu",
+                           "nebula_tpu/algo/kernels.py:95"),
     "bfs_probe": ("nebula_tpu_torch/csrc/bfs.cu",
                   "nebula_tpu/algo/frontier.py:136"),
     "bfs_level": ("nebula_tpu_torch/csrc/bfs.cu",
@@ -309,6 +334,14 @@ ROUTE_SOURCES["merge_delta (mesh)"] = (ROUTE_SOURCES["merge_delta"][0],
 ALGO_RUNS = {"pagerank": ({"max_iter": 20, "tol": 0.0}, "pagerank_step"),
              "wcc": ({}, "wcc_step"),
              "sssp": ({"src": 0, "weight": "w"}, "sssp_step")}
+RELAX_RUNS = ("wcc", "sssp")      # the algorithms of csrc/relax.cu
+# phase 5d: a social graph with more vertices than the staged route's
+# shared memory holds as bits (1,859,584), so that WCC and SSSP run the
+# global route: make_social_arrays(GLOBAL_PERSONS, GLOBAL_DEGREE) in 8
+# parts
+GLOBAL_PERSONS = 2_000_000
+GLOBAL_DEGREE = 4
+GLOBAL_SEED = 13
 PAGERANK_RUN_TOL = 1e-8          # the reference's rank parity bar
 PAGERANK_STEP_TOL = 1e-12
 # kernels each path must launch
@@ -554,11 +587,17 @@ def run_algo(rt, ns, K, AE, AK):
         if func == "wcc":
             res[func]["components"] = len({r[1] for r in rows})
     torch.cuda.synchronize()
-    launches = K.launch_counts()
+    launches = {**K.launch_counts(), **K.route_launch_counts()}
+    route = AK.relax_route(snap.num_parts * snap.vmax)
     for func, (params, kname) in ALGO_RUNS.items():
-        if launches[kname] <= 0 or launches[kname] != res[func]["iterations"]:
-            raise AssertionError(f"{kname} launched {launches[kname]} times "
-                                 f"in {res[func]['iterations']} iterations")
+        names = [kname] + ([f"{kname} ({route})"] if func in RELAX_RUNS
+                           else [])
+        for name in names:
+            if launches[name] <= 0 \
+                    or launches[name] != res[func]["iterations"]:
+                raise AssertionError(f"{name} launched {launches[name]} "
+                                     f"times in {res[func]['iterations']} "
+                                     f"iterations")
     loops = {"pagerank": AE._device_pagerank, "wcc": AE._device_wcc,
                "sssp": AE._device_sssp}
     for func, (params, kname) in ALGO_RUNS.items():
@@ -600,7 +639,132 @@ def run_algo(rt, ns, K, AE, AK):
         log(f"[5a] algo.{func}: {json.dumps(res[func])}")
         res[func]["check_args"] = [(1, calls[0])] + (
             [(mid, calls[mid - 1])] if mid > 1 else [])
+        if func in RELAX_RUNS:
+            res[func]["all_args"] = calls
     return res, launches
+
+
+def run_algo_global(rt, K, AE, AK):
+    """Phase 5d: WCC and SSSP through run_algorithm on a graph past the
+    staged route's capacity (GLOBAL_PERSONS persons in 8 parts, so every
+    step takes csrc/relax.cu's global route), launch counters zeroed
+    just before and read just after: each step's launches, all on the
+    global route, must equal the iterations run; the same iterations
+    through the plain steps must give the same state bit for bit.  The
+    algo caches are restored after.  Returns (results, launch counts,
+    {func: the middle iteration's step inputs})."""
+    import numpy as np
+    import torch
+    from nebula_tpu_torch.bench.datagen import (
+        SnapshotStore, make_social_arrays, snapshot_from_arrays)
+    t = time.perf_counter()
+    arrs = make_social_arrays(GLOBAL_PERSONS, GLOBAL_DEGREE,
+                              seed=GLOBAL_SEED)
+    snap = snapshot_from_arrays(arrs, parts=8, space="g")
+    sd = SnapshotStore(snap).space("g")
+    n = snap.num_parts * snap.vmax
+    res = {"persons": GLOBAL_PERSONS, "degree": GLOBAL_DEGREE,
+           "n_slots": n, "route": AK.relax_route(n),
+           "build_s": time.perf_counter() - t}
+    if res["route"] != "global":
+        raise AssertionError(f"[5d] {n} slots take the {res['route']} "
+                             f"route")
+    caches = (AE._graph_cache, AE._dev_cache)
+    saved = [dict(c) for c in caches]
+    mids = {}
+    try:
+        K.reset_launch_counts()
+        for func in RELAX_RUNS:
+            params, kname = ALGO_RUNS[func]
+            us = []
+            t = time.perf_counter()
+            rows, info = AE.run_algorithm(func, {**params, "mode": "device"},
+                                          snap, sd, rt=rt, iter_us=us)
+            res[func] = {"iterations": info["iterations"],
+                         "iter_ms_p50": float(np.median(us)) / 1e3,
+                         "e2e_cold_s": time.perf_counter() - t,
+                         "rows": len(rows), "n_edges": info["n_edges"]}
+            if not rows or len(rows) > info["n_vertices"]:
+                raise AssertionError(f"[5d] algo.{func}: malformed rows")
+        torch.cuda.synchronize()
+        launches = {**K.launch_counts(), **K.route_launch_counts()}
+        loops = {"wcc": AE._device_wcc, "sssp": AE._device_sssp}
+        for func in RELAX_RUNS:
+            params, kname = ALGO_RUNS[func]
+            it = res[func]["iterations"]
+            if (launches[kname] != it or launches[f"{kname} (global)"] != it
+                    or launches[f"{kname} (staged)"] != 0):
+                raise AssertionError(f"[5d] {kname}: {launches} in {it} "
+                                     f"iterations")
+            p, keys, g, src = AE.prepare(func, {**params, "mode": "device"},
+                                         snap, sd)
+            extra = (src,) if func == "sssp" else ()
+            calls = []
+
+            def plain(*a, fn=getattr(AK, kname + "_plain")):
+                calls.append(a)
+                return fn(*a)
+
+            state_k, _ = loops[func](rt, snap, keys, g, p, None, *extra)
+            state_p, it_p = loops[func](rt, snap, keys, g, p, None, *extra,
+                                        step=plain)
+            if it_p != it or not np.array_equal(state_k.view(np.int64),
+                                                state_p.view(np.int64)):
+                raise AssertionError(f"[5d] algo.{func}: kernel state "
+                                     f"differs from the plain steps'")
+            mid = it // 2 + 1
+            mids[func] = (mid, calls[mid - 1])
+            log(f"[5d] algo.{func} past the staged capacity: "
+                f"{json.dumps(res[func])}")
+    finally:
+        for c, old in zip(caches, saved):
+            c.clear()
+            c.update(old)
+    graph = {k: v for k, v in res.items() if k not in RELAX_RUNS}
+    log(f"[5d] graph: {json.dumps(graph)}")
+    return res, launches, mids
+
+
+def relax_timings(AK, func, kname, mid, mid_args, every, row, reps):
+    """[5c] beside a relax row (`row`, timed at iteration `mid`): each
+    route forced at that iteration's inputs, held bit for bit against the
+    plain version and timed (`relax paths`); the step at every
+    iteration's inputs of the [5a] run, each held against the plain
+    version, timed through the wrapper's choice and summed beside the
+    summed bounds (`whole run`: launches x ms measured, not
+    extrapolated); for WCC the gather floor, one label.index_select over
+    esrc at the middle iteration's shape (a yardstick the port never
+    calls; its own bytes are the indices and the output)."""
+    kern, plain = getattr(AK, kname), getattr(AK, kname + "_plain")
+    want = plain(*mid_args)
+    paths = {}
+    for route in AK.RELAX_ROUTES:
+        max_abs_err(kern(*mid_args, route=route), want)
+        paths[route + "_ms"] = cuda_ms(
+            lambda r=route: kern(*mid_args, route=r), reps)
+    paths["chosen"] = AK.relax_route(mid_args[0].numel())
+    log(f"[5c] relax paths ({kname}, {func} iteration {mid}): "
+        f"{json.dumps(paths)}")
+    per, bounds, active = [], [], []
+    for a in every:
+        max_abs_err(kern(*a), plain(*a))
+        per.append(cuda_ms(lambda a=a: kern(*a), reps))
+        nbytes, ops, rate, _ = algo_work(kname, a)
+        bounds.append(bound(nbytes, ops, rate)[0])
+        active.append(int(a[1].sum()))
+    run = {"iterations": len(every), "sum_ms": sum(per),
+           "bound_sum_ms": sum(bounds), "ms": per, "bound_ms": bounds,
+           "frontier": active}
+    log(f"[5c] {kname} whole run ({func}, every iteration's inputs): "
+        f"{json.dumps(run)}")
+    if kname == "wcc_step":
+        label, idx = mid_args[0], mid_args[2].long()
+        floor = {"ms": cuda_ms(lambda: label.index_select(0, idx), reps),
+                 "bound_ms": bound(16 * idx.numel() + 8 * label.numel(),
+                                   0)[0],
+                 "kernel_ms": row["ms"], "kernel_bound_ms": row["bound_ms"]}
+        log(f"[5c] wcc_step gather floor (label.index_select(0, "
+            f"esrc.long()), {idx.numel()} edges): {json.dumps(floor)}")
 
 
 def cold_parts(AE, rt, snap, sd, func, params, g, state):
@@ -1367,7 +1531,40 @@ def edge_cases(K, AK, device) -> None:
                                  f"differ")
         log(f"[4e] pagerank_step, {name} (n {args[0].numel()}, E "
             f"{args[1].numel()}): max abs err {err}, rerun bit-identical")
+    relax_edge_cases(AK, device)
     log(f"[4e] edge cases done in {time.perf_counter() - t0:.1f} s")
+
+
+def relax_edge_cases(AK, device) -> None:
+    """[4e]: wcc_step and sssp_step against their plain versions, bit for
+    bit in every output, on bench/kernel_cases.py's relax cases at card
+    sizes, through each route that fits (forced) and the wrapper's own
+    choice; then the largest case again with its edges in a random order
+    (the kernel needs no sort to be exact)."""
+    import torch
+    from nebula_tpu_torch.bench.kernel_cases import relax_cases
+    cases = relax_cases(device, big=True)
+    name, kname, args = max(cases, key=lambda c: c[2][2].numel())
+    perm = torch.randperm(args[2].numel(), device=device)
+    shuffled = (*args[:2], args[2][perm], args[3][perm],
+                *(a[perm] for a in args[4:]))
+    cases.append((f"{name}, edges in a random order", kname, shuffled))
+    for name, kname, args in cases:
+        kern, plain = getattr(AK, kname), getattr(AK, kname + "_plain")
+        want = plain(*args)
+        routes = [None] + [r for r in AK.RELAX_ROUTES if r == "global"
+                           or AK.relax_route(args[0].numel()) == r]
+        for route in routes:
+            got = kern(*args, route=route)
+            torch.cuda.synchronize()
+            try:
+                max_abs_err(got, want)
+            except AssertionError as e:
+                raise AssertionError(f"[4e] {kname} ({route or 'chosen'}), "
+                                     f"{name}: {e}") from None
+        log(f"[4e] {kname}, {name} (n {args[0].numel()}, E "
+            f"{args[2].numel()}, {int(want[2])} changed): equal through "
+            f"{[r or 'chosen' for r in routes]}")
 
 
 def mark_paths(K, tag, label, call, want, chosen, reps):
@@ -1624,7 +1821,8 @@ def main(argv=None) -> int:
         if "registers" in line or "spill" in line or line.startswith("=="):
             log("    " + line.strip())
     for line in ptxas_lines(report, ("predicate_kernel",
-                                     "merge_delta_kernel")):
+                                     "merge_delta_kernel", "relax_kernel",
+                                     "prologue_kernel", "finish_kernel")):
         log(f"[2] ptxas {line}")
 
     # -- 3a. the north-star GO, unsplit ------------------------------------
@@ -1978,12 +2176,18 @@ def main(argv=None) -> int:
         # timed at the middle iteration's inputs (the last checked)
         mid_args = checks[-1][1]
         nbytes, ops, rate, lib = algo_work(kname, mid_args)
-        record(kname, None, None,
+        rname = kname
+        if func in RELAX_RUNS:
+            rname = f"{kname} ({AK.relax_route(mid_args[0].numel())})"
+        record(rname, None, None,
                cuda_ms(lambda: kern(*mid_args), reps),
                cuda_ms(lambda: plain(*mid_args), reps), cuda_ms(lib, reps),
                nbytes, ops, counts=algo_launches, err=max(errs),
                ops_per_s=rate, tag="[5c]",
                note=f" ({func}, iterations {[lb for lb, _ in checks]})")
+        if func in RELAX_RUNS:
+            relax_timings(AK, func, kname, checks[-1][0], mid_args,
+                          algo[func].pop("all_args"), rows_out[-1], reps)
         if kname == "pagerank_step":
             # a yardstick only: the rank gather alone, one index_select
             # of the 8 MB rank array at the same shape (the port never
@@ -1997,6 +2201,23 @@ def main(argv=None) -> int:
                      "kernel_bound_ms": rows_out[-1]["bound_ms"]}
             log(f"[5c] pagerank_step gather floor (rank.index_select(0, "
                 f"esrc.long()), {idx.numel()} edges): {json.dumps(floor)}")
+
+    # 5d. WCC and SSSP past the staged capacity: the global route's rows
+    stamp("phase 5d")
+    algo["global"], launches_g, mids_g = run_algo_global(rt, K, AE, AK)
+    for func in RELAX_RUNS:
+        kname = ALGO_RUNS[func][1]
+        kern, plain = getattr(AK, kname), getattr(AK, kname + "_plain")
+        mid, ga = mids_g[func]
+        err = max_abs_err(kern(*ga), plain(*ga))
+        nbytes, ops, rate, lib = algo_work(kname, ga)
+        record(f"{kname} (global)", None, None,
+               cuda_ms(lambda: kern(*ga), reps),
+               cuda_ms(lambda: plain(*ga), reps), cuda_ms(lib, reps),
+               nbytes, ops, counts=launches_g, err=err, ops_per_s=rate,
+               tag="[5d]", note=f" ({func}, iteration {mid}, "
+               f"{ga[0].numel()} slots, {ga[2].numel()} edges)")
+    del mids_g
 
     # -- 6. the device BFS of FIND SHORTEST PATH (bench.py config 5) -------
     stamp("phase 6")

@@ -14,6 +14,12 @@ Each algorithm's edge-propagate/combine/apply step is one wrapper here:
                   (or + 1.0) by destination (kernels.py:sssp_step :95;
                   csrc/relax.cu)
 
+K13 and K14 have two routes, one kernel each, chosen by `relax_route`
+from the vertex count: "staged" (the frontier as bits in each block's
+shared memory) and "global" (the same bits read from device memory).
+Each wrapper also counts its launches a route
+(`wcc_step.route_launches`).
+
 Each has a plain PyTorch version (`*_plain`) that computes what the
 reference's jitted step computes, with the same outputs and dtypes, and
 a wrapper that runs the plain version only for CPU tensors; for a CUDA
@@ -177,7 +183,33 @@ def sssp_step_plain(dist, frontier, esrc, edst, w: Optional[torch.Tensor]
                         1.0 if w is None else w, float("inf"))
 
 
-def _relax_launch(fn_name, val, mask, esrc, edst, w):
+RELAX_SMEM_BYTES = GK.MARK_SMEM_BYTES   # shared memory a block may take
+RELAX_ROUTES = ("staged", "global")
+
+
+def relax_stage_bytes(n: int) -> int:
+    """Bytes of the frontier as bits for n vertices: ceil(n / 32) 32-bit
+    words, rounded up to 16 bytes.  The size of the scratch the wrappers
+    pass csrc/relax.cu, and the shared memory its staged route takes."""
+    return GK._cdiv(n, 128) * 16
+
+
+def relax_route(n: int, smem_bytes: int = RELAX_SMEM_BYTES) -> str:
+    """The kernel `wcc_step` and `sssp_step` launch for n vertices:
+    "staged" (each block copies the frontier bits into its shared memory
+    and tests every edge's source there) where relax_stage_bytes(n) fits
+    `smem_bytes`, else "global" (the same kernel reading the bits from
+    device memory, where they sit in L2)."""
+    return "staged" if relax_stage_bytes(n) <= smem_bytes else "global"
+
+
+def _check_route(route) -> None:
+    if route is not None and route not in RELAX_ROUTES:
+        raise ValueError(f"route must be one of {RELAX_ROUTES}, got "
+                         f"{route!r}")
+
+
+def _relax_launch(fn, val, mask, esrc, edst, w, route):
     dev = val.device
     N, E = val.shape[0], esrc.shape[0]
     GK._want(mask, "mask", torch.bool, (N,), dev)
@@ -185,48 +217,62 @@ def _relax_launch(fn_name, val, mask, esrc, edst, w):
     GK._want(edst, "edst", _I32, (E,), dev)
     if w is not None:
         GK._want(w, "w", _F64, (E,), dev)
+    if route is None:
+        route = relax_route(N)
+    elif route == "staged" and relax_route(N) != "staged":
+        raise ValueError(f"{N} vertices as bits do not fit a block's "
+                         f"shared memory")
     lib = GK._lib()
     new = torch.empty_like(val)
     changed = torch.empty((N,), dtype=torch.bool, device=dev)
     count = torch.empty((1,), dtype=_I64, device=dev)
+    words = torch.empty((relax_stage_bytes(N) // 4,), dtype=_I32,
+                        device=dev)
     args = [val.data_ptr(), mask.data_ptr(), esrc.data_ptr(),
             edst.data_ptr()]
-    if fn_name == "nt_sssp_step":
+    if fn is sssp_step:
         args.append(None if w is None else w.data_ptr())
-    GK._check(getattr(lib, fn_name)(
-        *args, E, N, new.data_ptr(), changed.data_ptr(), count.data_ptr(),
-        GK._stream(val)), fn_name[3:])
+    name = fn.__name__
+    GK._check(getattr(lib, "nt_" + name)(
+        *args, E, N, words.data_ptr(), route == "staged", new.data_ptr(),
+        changed.data_ptr(), count.data_ptr(), GK._stream(val)), name)
+    GK._count(fn, route)
     return new, changed, count[0]
 
 
-def wcc_step(label, active, esrc, edst):
+def wcc_step(label, active, esrc, edst, *, route=None):
     """One min-label hooking iteration: every active vertex sends its
     label along its edges; a vertex whose label drops joins the next
     active set.  label (n,) int64, active (n,) bool, esrc/edst (E,)
-    int32.  Returns (new label, changed, count) as `wcc_step_plain`."""
+    int32, in any order (sorted by destination it is fastest).  Returns
+    (new label, changed, count) as `wcc_step_plain`.  `route` forces one
+    of RELAX_ROUTES on the card (None: `relax_route`'s choice); the
+    result is the same bit for bit."""
+    _check_route(route)
     if label.device.type == "cpu":
         _check_edges(label.shape[0], esrc, edst)
         return wcc_step_plain(label, active, esrc, edst)
     GK._want(label, "label", _I64, (label.shape[0],), label.device)
-    out = _relax_launch("nt_wcc_step", label, active, esrc, edst, None)
-    GK._count(wcc_step)
-    return out
+    return _relax_launch(wcc_step, label, active, esrc, edst, None, route)
 
 
-def sssp_step(dist, frontier, esrc, edst, w: Optional[torch.Tensor] = None):
+def sssp_step(dist, frontier, esrc, edst, w: Optional[torch.Tensor] = None,
+              *, route=None):
     """One frontier relaxation (Bellman-Ford over the active set):
     frontier vertices send dist + w (w=None: + 1.0) along their edges;
     strictly improved vertices form the next frontier.  dist (n,)
-    float64, frontier (n,) bool, esrc/edst (E,) int32, w (E,) float64.
-    Returns (new dist, next frontier, its size) as `sssp_step_plain`."""
+    float64, frontier (n,) bool, esrc/edst (E,) int32 in any order, w
+    (E,) float64.  Returns (new dist, next frontier, its size) as
+    `sssp_step_plain`; `route` as for `wcc_step`."""
+    _check_route(route)
     if dist.device.type == "cpu":
         _check_edges(dist.shape[0], esrc, edst)
         return sssp_step_plain(dist, frontier, esrc, edst, w)
     GK._want(dist, "dist", _F64, (dist.shape[0],), dist.device)
-    out = _relax_launch("nt_sssp_step", dist, frontier, esrc, edst, w)
-    GK._count(sssp_step)
-    return out
+    return _relax_launch(sssp_step, dist, frontier, esrc, edst, w, route)
 
 
 for _fn in (pagerank_step, wcc_step, sssp_step):
     _fn.launches = 0
+for _fn in (wcc_step, sssp_step):
+    _fn.route_launches = dict.fromkeys(RELAX_ROUTES, 0)

@@ -740,3 +740,93 @@ def fresh_merge_args(args):
     """merge_delta args with fresh copies of the slot arrays it merges
     in place (src, dst, rank, eidx)."""
     return (*(a.clone() for a in args[:4]), *args[4:])
+
+
+# ---------------------------------------------------------------------------
+# wcc_step (K13) and sssp_step (K14)
+# ---------------------------------------------------------------------------
+
+RELAX_CHUNK = 128         # edges a warp of csrc/relax.cu takes a step
+RELAX_BLOCK = 32 * 128    # edges a staged block's 32 warps take a step
+RelaxCase = Tuple[str, str, tuple]
+
+
+def relax_cases(device, seed: int = 0, big: bool = False
+                ) -> List[RelaxCase]:
+    """(name, kernel, args) cases of `wcc_step` (args: label, active,
+    esrc, edst) and `sssp_step` (dist, frontier, esrc, edst and, weighted,
+    w): each graph below once for WCC, once for unweighted and once for
+    weighted SSSP.  Edges come sorted by destination, as the engine
+    uploads them and the reference declares them.  The graphs sit where
+    the frontier bits and the reduction by destination run can go wrong:
+    no edges, one vertex, n not a multiple of 32 (the bitmap's last word),
+    every source masked off, every source on, one destination holding
+    every edge (a run over many warps and blocks), runs of one destination
+    ending on a lane's 4 edges, on a warp's step of RELAX_CHUNK (and so
+    on every warp's and block's range edge, which fall between steps) and
+    on a staged block's step of RELAX_BLOCK, and one past and one short
+    of each, sentinel values in the mask
+    (label INT64_MAX, dist +inf), weights 0.0 and 0.5.  `big=True` adds
+    card sizes: n at the staged route's capacity and just past it, one
+    destination holding 3,000,000 edges."""
+    rng = np.random.default_rng(seed + 6)
+    cases: List[RelaxCase] = []
+
+    def add(name, n, edst, on=0.5, sentinel=0.1, esrc=None, wts=None):
+        edst = np.sort(np.asarray(edst, np.int64))
+        E = edst.size
+        if esrc is None:
+            esrc = rng.integers(0, max(n, 1), E)
+        mask = rng.random(n) < on
+        label = rng.permutation(n).astype(np.int64)
+        label[rng.random(n) < sentinel] = I64_MAX
+        dist = rng.integers(0, 40, n).astype(np.float64)
+        dist[rng.random(n) < sentinel] = np.inf
+        if wts is None:
+            wts = np.where(rng.random(E) < 0.2, 0.5,
+                           rng.integers(0, 5, E).astype(np.float64))
+        e = (_t(np.asarray(esrc, np.int32), device),
+             _t(edst.astype(np.int32), device))
+        m = _t(mask, device)
+        cases.append((f"wcc: {name}", "wcc_step", (_t(label, device), m,
+                                                   *e)))
+        cases.append((f"sssp: {name}", "sssp_step", (_t(dist, device), m,
+                                                     *e)))
+        cases.append((f"sssp weighted: {name}", "sssp_step",
+                      (_t(dist, device), m, *e,
+                       _t(np.asarray(wts, np.float64), device))))
+
+    n = 3000
+    add("E 0", 50, [])
+    add("n 1", 1, [0] * 7, on=1.0, sentinel=0.0)
+    add("n 1,001 (the last word holds 9 bits)", 1001,
+        rng.integers(0, 1001, 9000))
+    add("n 33, sources 32 and 0 only", 33, rng.integers(0, 33, 600),
+        esrc=rng.choice([0, 32], 600), on=1.0, sentinel=0.0)
+    add("every source masked off", n, rng.integers(0, n, 20_000), on=0.0)
+    add("every source on", n, rng.integers(0, n, 20_000), on=1.0)
+    hub = 5 * RELAX_BLOCK + 77 if not big else 3_000_000
+    add(f"one destination holding all {hub:,} edges", n,
+        np.full(hub, 1234), on=0.7)
+    for run in (4, RELAX_CHUNK, RELAX_BLOCK):
+        for r in (run - 1, run, run + 1):
+            k = min(max(6 * RELAX_BLOCK // r, 3), n)
+            add(f"runs of {r:,} edges a destination", n,
+                np.repeat(rng.choice(n, k, replace=False), r))
+    add("sentinels in the mask (label INT64_MAX, dist +inf)", 400,
+        rng.integers(0, 400, 8000), on=0.8, sentinel=0.5)
+    add("weights 0.0 and 0.5 only", n, rng.integers(0, n, 20_000),
+        wts=rng.choice([0.0, 0.5], 20_000))
+    add("sparse frontier (1%), Zipf in-degrees", n,
+        np.minimum(rng.zipf(1.5, 30_000), n) - 1, on=0.01)
+    if big:
+        from ..algo.kernels import RELAX_SMEM_BYTES
+        cap = RELAX_SMEM_BYTES * 8
+        for nv in (cap, cap + 1):
+            add(f"n {nv:,} ({'at' if nv == cap else 'just past'} the "
+                f"staged capacity), 8,000,000 edges", nv,
+                rng.integers(0, nv, 8_000_000), on=0.3)
+        add("1,000,000 vertices, 30,000,000 Zipf edges, frontier 2%",
+            1_000_000, np.minimum(rng.zipf(1.2, 30_000_000),
+                                  1_000_000) - 1, on=0.02)
+    return cases

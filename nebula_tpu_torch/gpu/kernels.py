@@ -227,8 +227,10 @@ def _load() -> ctypes.CDLL:
     lib.nt_pagerank_step.argtypes = [P] * 6 + [LL, LL, D, D, D] + [P] * 11
     lib.nt_mark_stage_bytes.argtypes = [I, I]
     lib.nt_mark_stage_bytes.restype = LL
-    lib.nt_wcc_step.argtypes = [P] * 4 + [LL, LL] + [P] * 4
-    lib.nt_sssp_step.argtypes = [P] * 5 + [LL, LL] + [P] * 4
+    lib.nt_wcc_step.argtypes = [P] * 4 + [LL, LL, P, I] + [P] * 4
+    lib.nt_sssp_step.argtypes = [P] * 5 + [LL, LL, P, I] + [P] * 4
+    lib.nt_relax_stage_bytes.argtypes = [LL]
+    lib.nt_relax_stage_bytes.restype = LL
     for fn in (lib.nt_expand_scan, lib.nt_expand_fill, lib.nt_mark,
                lib.nt_extend_hubs, lib.nt_predicate_sizes,
                lib.nt_merge_delta_sizes,
@@ -251,6 +253,10 @@ def _load() -> ctypes.CDLL:
         if lib.nt_mark_stage_bytes(P, vmax) != mark_stage_bytes(P, vmax):
             raise KernelError("mark.cu's staged bytes differ from "
                               "mark_stage_bytes")
+    for n in (0, 1, 33, 1_000_000, 1_859_585):
+        if lib.nt_relax_stage_bytes(n) != AK.relax_stage_bytes(n):
+            raise KernelError("relax.cu's staged bytes differ from "
+                              "relax_stage_bytes")
     sizes = (I * 2)()
     lib.nt_merge_delta_sizes(sizes)
     if tuple(sizes) != (MERGE_DELTA_TILE, MERGE_DELTA_STAGE):
@@ -336,17 +342,30 @@ def _wrappers():
     return _own_wrappers() + (AK.pagerank_step, AK.wcc_step, AK.sssp_step)
 
 
-def _count(fn) -> None:
-    """Add one to a wrapper's launch count (wrappers launch from several
-    threads when batched statements run beside solo ones)."""
+def _count(fn, route=None) -> None:
+    """Add one to a wrapper's launch count, and to its route's where it
+    has two kernels (wrappers launch from several threads when batched
+    statements run beside solo ones)."""
     with _count_lock:
         fn.launches += 1
+        if route is not None:
+            fn.route_launches[route] += 1
 
 
 def reset_launch_counts() -> None:
     with _count_lock:
         for fn in _wrappers():
             fn.launches = 0
+            for route in getattr(fn, "route_launches", ()):
+                fn.route_launches[route] = 0
+
+
+def route_launch_counts() -> dict:
+    """Launches of each route of the wrappers that have two kernels
+    (wcc_step, sssp_step), as {"wcc_step (staged)": n, ...}."""
+    with _count_lock:
+        return {f"{fn.__name__} ({route})": n for fn in _wrappers()
+                for route, n in getattr(fn, "route_launches", {}).items()}
 
 
 def launch_counts() -> dict:

@@ -28,6 +28,16 @@ always-false program.  `merge_delta_plain` ↔ hop._merge_delta
 it, on `merge_delta_cases`: Tcap 0, Dcap 0, MAXI rows, tombstones on a
 tile's edges and past its staged slice, eidx in no order, lanes, a shard
 slot, a strided frontier.  Both exact.
+
+`wcc_step_plain` and `sssp_step_plain` (unweighted and weighted), and
+the wrappers' CPU branch with each route forced, ↔ the reference's jitted
+`wcc_step` / `sssp_step` (nebula_tpu/algo/kernels.py:79/95) on
+`relax_cases`, fed destination-sorted edges as the reference declares
+them: no edges, one vertex, n off a 32-bit word, every source off or on,
+one destination holding every edge, runs of one destination ending on a
+lane's, a warp's and a block's edge, sentinels in the mask, weights 0.0
+and 0.5.  Exact, bit for bit.  Then the host-side sizing of the two
+routes (`relax_stage_bytes`, `relax_route`) and the launch count a route.
 """
 import jax
 import jax.numpy as jnp
@@ -47,7 +57,7 @@ from nebula_tpu_torch.algo import kernels as AK
 from nebula_tpu_torch.bench.kernel_cases import (
     PREDICATE_BUILDERS, PREDICATE_NAMES, PREDICATE_TYPES, copy_view,
     fresh_merge_args, mark_cases, merge_delta_cases, pagerank_cases,
-    predicate_cases, predicate_program)
+    predicate_cases, predicate_program, relax_cases)
 from nebula_tpu_torch.gpu import exprjit as X
 from nebula_tpu_torch.gpu import kernels as K
 
@@ -55,6 +65,7 @@ MARK = mark_cases("cpu")
 PAGERANK = pagerank_cases("cpu")
 PREDICATE = predicate_cases("cpu")
 MERGE = merge_delta_cases("cpu")
+RELAX = relax_cases("cpu")
 STEP_TOL = 1e-12
 
 
@@ -311,3 +322,98 @@ def test_merge_delta_edge_case_matches_reference(case):
         assert not hit.any()
     if "edges" in name or "staged" in name or name.startswith("EB 4,099"):
         assert hit.any()
+
+
+# ---------------------------------------------------------------------------
+# wcc_step (K13) and sssp_step (K14)
+# ---------------------------------------------------------------------------
+
+
+def _bits(a):
+    a = np.asarray(a)
+    return a.view(np.int64) if a.dtype == np.float64 else a
+
+
+@pytest.mark.parametrize("case", RELAX, ids=[c[0] for c in RELAX])
+def test_relax_edge_case_matches_reference(case):
+    """The plain step, and the wrapper's CPU branch with and without a
+    route forced, against the reference's jitted step, bit for bit."""
+    name, kname, args = case
+    n = args[0].shape[0]
+    jargs = [jnp.asarray(a.numpy()) for a in args]
+    if kname == "wcc_step":
+        want = ref_kernels.wcc_step(n)(*jargs)
+    else:
+        want = ref_kernels.sssp_step(n, len(args) == 5)(*jargs)
+    fn = getattr(AK, kname)
+    outs = [getattr(AK, kname + "_plain")(*args), fn(*args)]
+    outs += [fn(*args, route=r) for r in AK.RELAX_ROUTES]
+    for new, changed, count in outs:
+        assert new.dtype == args[0].dtype and count.dtype == torch.int64
+        np.testing.assert_array_equal(_bits(new.numpy()), _bits(want[0]))
+        np.testing.assert_array_equal(changed.numpy(), np.asarray(want[1]))
+        assert int(count) == int(want[2])
+    if "masked off" in name:
+        assert int(want[2]) == 0
+
+
+def test_relax_cases_cover_each_kernel():
+    kinds = {(k, len(a)) for _, k, a in RELAX}
+    assert kinds == {("wcc_step", 4), ("sssp_step", 4), ("sssp_step", 5)}
+    assert any(a[2].numel() == 0 for _, _, a in RELAX)
+    assert any(a[0].shape[0] % 32 for _, _, a in RELAX)
+
+
+@pytest.mark.parametrize("n, nbytes", [
+    (0, 0), (1, 16), (32, 16), (128, 16), (129, 32), (1001, 128),
+    (1_000_000, 125_008), (1_859_584, 232_448), (1_859_585, 232_464)])
+def test_relax_stage_bytes(n, nbytes):
+    """ceil(n / 32) 32-bit words, rounded up to 16 bytes."""
+    assert AK.relax_stage_bytes(n) == nbytes
+
+
+@pytest.mark.parametrize("n, smem, route", [
+    (1_000_000, 232_448, "staged"),          # the north star's WCC, SSSP
+    (300_000, 232_448, "staged"),            # bench.py's algo size
+    (1_859_584, 232_448, "staged"),          # the widest staged frontier
+    (1_859_585, 232_448, "global"),          # one vertex past it
+    (2_000_000, 232_448, "global"),
+    (0, 232_448, "staged"), (1, 16, "staged"), (1, 15, "global"),
+    (1_000_000, 125_008, "staged"), (1_000_000, 125_007, "global")])
+def test_relax_route(n, smem, route):
+    assert AK.relax_route(n, smem) == route
+
+
+def test_relax_route_default_is_a_blocks_shared_memory():
+    assert AK.RELAX_SMEM_BYTES == 232_448
+    assert AK.relax_route(1_859_584) == "staged"
+    assert AK.relax_route(1_859_585) == "global"
+
+
+def test_relax_route_argument_checked():
+    _, _, args = RELAX[3]
+    for fn in (AK.wcc_step, AK.sssp_step):
+        a = args if fn is AK.wcc_step else (args[0].double(), *args[1:])
+        for route in AK.RELAX_ROUTES:
+            got = fn(*a, route=route)
+            want = fn(*a)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+        with pytest.raises(ValueError, match="route"):
+            fn(*a, route="bits")
+
+
+def test_route_launch_counts():
+    """A two-route wrapper counts each launch once in its total and once
+    in its route's count; a reset clears both."""
+    K.reset_launch_counts()
+    K._count(AK.wcc_step, "global")
+    K._count(AK.sssp_step, "staged")
+    K._count(AK.sssp_step, "staged")
+    assert K.route_launch_counts() == {
+        "wcc_step (staged)": 0, "wcc_step (global)": 1,
+        "sssp_step (staged)": 2, "sssp_step (global)": 0}
+    assert K.launch_counts()["wcc_step"] == 1
+    assert K.launch_counts()["sssp_step"] == 2
+    K.reset_launch_counts()
+    assert set(K.route_launch_counts().values()) == {0}
+    assert K.launch_counts()["sssp_step"] == 0
