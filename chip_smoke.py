@@ -19,8 +19,9 @@ Phases, in order; any failure exits non-zero before the result line:
   1. the card's name and power limit (nvidia-smi) and torch's name for it;
   2. build the kernels from nebula_tpu_torch/csrc (nvcc, sm_90a), and
      log ptxas's registers, stack frame and spills of every instance of
-     predicate_kernel, merge_delta_kernel and relax.cu's relax_kernel,
-     prologue_kernel and finish_kernel;
+     predicate_kernel, merge_delta_kernel, relax.cu's relax_kernel,
+     prologue_kernel and finish_kernel, and bfs.cu's bfs_probe_kernel
+     and bfs_level_kernel;
   3. the north-star GO (datagen.north_star): make_social_arrays(persons,
      30, seed=7) → snapshot_from_arrays(parts=8), then GO 3 STEPS from 16
      seeds YIELD dst(edge) AS d, KNOWS.w AS w, unfiltered and WHERE
@@ -78,7 +79,14 @@ Phases, in order; any failure exits non-zero before the result line:
      3,000,000 edges, runs of one destination ending on a lane's, a
      warp's and a block's edge, sentinels in the mask, weights 0.0 and
      0.5, n at the staged route's capacity and one past it, 30M Zipf
-     edges, and those edges again in a random order);
+     edges, and those edges again in a random order), and bfs_probe
+     through each route that fits and the wrapper's choice, and
+     bfs_level in every output, bit for bit (P = 1 and 8, vmax off a
+     32-bit word, strided views, EB off 4, totals 0 and EB, every
+     neighbour on the frontier and none, ids out of range, keep all
+     False and None, hub rows, the BFS's widest level, the widest
+     frontier that stages and one column past it; a level with no fresh
+     vertex, phantom slots, counts as a row of a larger buffer);
   5. the algo plane (`CALL algo.*`, algo/engine.run_algorithm on
      GpuRuntime()):
        a. on the north-star snapshot of phase 3 (30M KNOWS edges, 60M
@@ -121,15 +129,28 @@ Phases, in order; any failure exits non-zero before the result line:
           reference's switch (the frontier's out-degrees top-down, the
           unvisited vertices' in-degrees bottom-up; so equal between the
           layouts), at least one level bottom-up; expand, mark,
-          bfs_probe, bfs_level (and extend_hubs split) launched;
+          bfs_probe, bfs_level (and extend_hubs split) launched, every
+          probe on its staged route, pack_bits never (bfs_level writes
+          the frontier's words);
        b. WHERE KNOWS.w > 50 on the split path against a numpy level BFS
           over the edges with w > 50; predicate_mask launched too;
        c. bfs_probe and bfs_level against their plain versions on the
-          inputs of every level of (a) and (b) on the main path (exact),
-          timed at the widest bottom-up level with their plain versions
-          and one library formulation (the gather plus index_put_; the
-          three torch ops plus two sums), and their byte bounds; expand
-          at the widest level's shapes the same way (`expand (bfs)`);
+          inputs of every level of (a) and (b) on the main path (exact;
+          the probe's words equal to pack_bits of its frontier), timed at
+          the widest bottom-up level with their plain versions and one
+          library formulation (the gather plus index_put_; the three
+          torch ops plus two sums), and their byte bounds; both probe
+          routes forced there (`probe paths`); the probe's gather floor
+          (the frontier's bytes at every slot's neighbour, one
+          index_select: what the parent kernel's gathers cost); both
+          kernels at every level's inputs of the split and the filtered
+          run, summed (`K11 kernels whole run`); expand at the widest
+          level's shapes the same way (`expand (bfs)`);
+       d. the BFS past the probe's staged capacity: (5d)'s graph pinned
+          alone, config 5's BFS from vertex 0: dist equal to host_bfs,
+          hop_edges to the numpy count, every probe on the global route;
+          the global row timed at its widest bottom-up level, its whole
+          run, paths and gather floor as in (c);
   7. the delta plane: GpuRuntime(delta_max_edges=8192).pin_prebuilt of
      the unsplit north-star snapshot (an empty plane armed), a
      SnapshotStore over its arrays watching writes, and a write batch made
@@ -247,9 +268,10 @@ Phases, in order; any failure exits non-zero before the result line:
           one-rank NCCL group holding all eight slots: rows equal to
           (a)'s, the bytes sent equal to (a)'s exchange_bytes;
  11. the `kernels` JSON line (the split GO path's, the algo path's, the
-     split BFS path's, the delta GO path's, the batched path's, the
-     MATCH path's and the mesh GO path's launches), the card line, and
-     the result line {"ok": true, "device": {...}} last.
+     split BFS path's (6d's for the global probe), the delta GO path's,
+     the batched path's, the MATCH path's and the mesh GO path's
+     launches), the card line, and the result line {"ok": true,
+     "device": {...}} last.
 Without CUDA it prints no result and exits 2.
 """
 from __future__ import annotations
@@ -287,8 +309,12 @@ ROUTE_SOURCES = {
                            "nebula_tpu/algo/kernels.py:95"),
     "sssp_step (global)": ("nebula_tpu_torch/csrc/relax.cu",
                            "nebula_tpu/algo/kernels.py:95"),
-    "bfs_probe": ("nebula_tpu_torch/csrc/bfs.cu",
-                  "nebula_tpu/algo/frontier.py:136"),
+    # csrc/bfs.cu's two probe routes (gpu/kernels.py:probe_route), a row
+    # each
+    "bfs_probe (staged)": ("nebula_tpu_torch/csrc/bfs.cu",
+                           "nebula_tpu/algo/frontier.py:136"),
+    "bfs_probe (global)": ("nebula_tpu_torch/csrc/bfs.cu",
+                           "nebula_tpu/algo/frontier.py:136"),
     "bfs_level": ("nebula_tpu_torch/csrc/bfs.cu",
                   "nebula_tpu/tpu/bfs.py:170"),
     "merge_delta": ("nebula_tpu_torch/csrc/delta.cu",
@@ -652,7 +678,8 @@ def run_algo_global(rt, K, AE, AK):
     global route, must equal the iterations run; the same iterations
     through the plain steps must give the same state bit for bit.  The
     algo caches are restored after.  Returns (results, launch counts,
-    {func: the middle iteration's step inputs})."""
+    {func: the middle iteration's step inputs}, the snapshot, which
+    phase 6d's BFS reuses)."""
     import numpy as np
     import torch
     from nebula_tpu_torch.bench.datagen import (
@@ -722,7 +749,7 @@ def run_algo_global(rt, K, AE, AK):
             c.update(old)
     graph = {k: v for k, v in res.items() if k not in RELAX_RUNS}
     log(f"[5d] graph: {json.dumps(graph)}")
-    return res, launches, mids
+    return res, launches, mids, snap
 
 
 def relax_timings(AK, func, kname, mid, mid_args, every, row, reps):
@@ -913,9 +940,11 @@ def bfs_level_edges(snap, dist, steps: int, switch: bool = True):
     return edges
 
 
-def run_bfs_path(rt, ns, seed, label, K, filt=None, tag="[6a]"):
+def run_bfs_path(rt, ns, seed, label, K, filt=None, tag="[6a]",
+                 space="ns"):
     """Drive GpuRuntime.bfs as bench.py config 5 does (one cold run, then
-    warm runs), launch counters zeroed just before and read just after.
+    warm runs) on ns.store's `space` (ns.snap its snapshot), launch
+    counters zeroed just before and read just after (each route's too).
     Returns (dist as dense-id order, stats of the last run, results,
     launches)."""
     import numpy as np
@@ -929,18 +958,19 @@ def run_bfs_path(rt, ns, seed, label, K, filt=None, tag="[6a]"):
     lat, dev_lat = [], []
     for _ in range(BFS_RUNS):
         t = time.perf_counter()
-        dist, st = rt.bfs(ns.store, "ns", [seed], ["KNOWS"], "out",
+        dist, st = rt.bfs(ns.store, space, [seed], ["KNOWS"], "out",
                           BFS_STEPS, edge_filter=filt)
         lat.append(time.perf_counter() - t)
         dev_lat.append(st.device_s)
     torch.cuda.synchronize()
-    launches = K.launch_counts()
+    launches = {**K.launch_counts(), **K.route_launch_counts()}
     peak = torch.cuda.max_memory_allocated()
     d = dist[vv % P, vv // P]
     res = {"hop_edges": st.hop_edges, "e_cap": st.e_cap,
            "edges_per_run": st.edges_traversed(),
            "reached": int((d >= 0).sum()),
-           "per_level": [int((d == lv).sum()) for lv in range(BFS_STEPS + 1)],
+           "per_level": [int((d == lv).sum())
+                         for lv in range(BFS_STEPS + 1)],
            "p50_ms": float(np.median(lat[1:])) * 1e3,
            "min_ms": min(lat[1:]) * 1e3, "max_ms": max(lat[1:]) * 1e3,
            "cold_ms": lat[0] * 1e3,
@@ -949,9 +979,25 @@ def run_bfs_path(rt, ns, seed, label, K, filt=None, tag="[6a]"):
            "working_set_bytes": peak - base,
            "pinned_bytes": rt.hbm_bytes(), "samples": BFS_RUNS - 1,
            "launches_per_run": {k: v / BFS_RUNS for k, v in launches.items()
-                                if v}}
+                                if v},
+           "pack_bits_launches": launches["pack_bits"]}
     log(f"{tag} BFS {label}: {json.dumps(res)}")
     return d, st, res, launches
+
+
+def check_probe_routes(launches, label, route) -> None:
+    """A local BFS run's probes all took `route` (the main path's
+    frontier fits a block's shared memory as bits; phase 6d's does
+    not), and it packed no frontier with pack_bits: bfs_level wrote the
+    probe's words."""
+    other = next(r for r in ("staged", "global") if r != route)
+    if (launches[f"bfs_probe ({route})"] != launches["bfs_probe"]
+            or launches[f"bfs_probe ({other})"] != 0
+            or launches["pack_bits"] != 0):
+        raise AssertionError(f"BFS {label}: bfs_probe routes "
+                             f"{launches['bfs_probe (staged)']} staged, "
+                             f"{launches['bfs_probe (global)']} global, "
+                             f"pack_bits {launches['pack_bits']}")
 
 
 def strided_copy(v):
@@ -964,10 +1010,14 @@ def strided_copy(v):
     return buf[:, :v.shape[1]]
 
 
-def capture_bfs_calls(rt, ns, seed, FR, GB, filt=None):
+def capture_bfs_calls(rt, store, space, seed, FR, GB, filt=None):
     """One more run of a BFS path with bfs_probe, bfs_level and expand
     wrapped to keep each call's inputs (the buffers they update in place
-    copied with their row stride), for phase 6c."""
+    copied with their row stride; bfs_probe's frontier words and
+    bfs_level's counts row as the main path passes them), for phases 6c
+    and 6d: probe calls are (src, nbr, keep, total, fbm, out, fbits),
+    level calls (cand, dist, level, fbm_out, unvis_out, fbits_out or
+    None)."""
     from nebula_tpu_torch.gpu import hop as GH
     calls = {"bfs_probe": [], "bfs_level": [], "expand": []}
     kernels = FR.bfs_probe, GB.bfs_level, GH.expand
@@ -976,24 +1026,209 @@ def capture_bfs_calls(rt, ns, seed, FR, GB, filt=None):
         calls["expand"].append(((indptr, nbr, rank, fbm.clone(), *a), kw))
         return kernels[2](indptr, nbr, rank, fbm, *a, **kw)
 
-    def probe(src, nbr, keep, total, fbm, out):
+    def probe(src, nbr, keep, total, fbm, out, fbits=None):
         calls["bfs_probe"].append((src, nbr, keep, total,
-                                   strided_copy(fbm), strided_copy(out)))
-        return kernels[0](src, nbr, keep, total, fbm, out)
+                                   strided_copy(fbm), strided_copy(out),
+                                   fbits.clone()))
+        return kernels[0](src, nbr, keep, total, fbm, out, fbits)
 
-    def level(cand, dist, lv, fbm_out, unvis_out):
+    def level(cand, dist, lv, fbm_out, unvis_out, fbits_out=None,
+              counts=None):
         calls["bfs_level"].append((strided_copy(cand), dist.clone(), lv,
                                    strided_copy(fbm_out),
-                                   strided_copy(unvis_out)))
-        return kernels[1](cand, dist, lv, fbm_out, unvis_out)
+                                   strided_copy(unvis_out),
+                                   None if fbits_out is None
+                                   else fbits_out.clone()))
+        return kernels[1](cand, dist, lv, fbm_out, unvis_out, fbits_out,
+                          counts)
 
     FR.bfs_probe, GB.bfs_level, GH.expand = probe, level, expand
     try:
-        rt.bfs(ns.store, "ns", [seed], ["KNOWS"], "out", BFS_STEPS,
+        rt.bfs(store, space, [seed], ["KNOWS"], "out", BFS_STEPS,
                edge_filter=filt)
     finally:
         FR.bfs_probe, GB.bfs_level, GH.expand = kernels
     return calls
+
+
+def level_args(a):
+    """Fresh outputs for a captured bfs_level call `a`: (cand, dist,
+    level, fbm_out, unvis_out) with copies of what it writes, and the
+    keyword arguments the main path passes (fbits_out where it gave one,
+    a zeroed counts row)."""
+    import torch
+    kw = {"counts": torch.zeros((2,), dtype=torch.int64,
+                                device=a[1].device)}
+    if a[5] is not None:
+        kw["fbits_out"] = torch.empty_like(a[5])
+    return ((strided_copy(a[0]), a[1].clone(), a[2], strided_copy(a[3]),
+             strided_copy(a[4])), kw)
+
+
+def check_bfs_calls(K, calls) -> float:
+    """Hold every captured bfs_probe call (kernel, reading the words)
+    against the plain version reading the frontier's bitmap, and every
+    bfs_level call against its plain version in every output; also that
+    each probe's words equal pack_bits of its bitmap (the previous
+    level's fbits_out).  Returns the max abs err (0; raises otherwise)."""
+    import torch
+    got, want = [], []
+    for a in calls["bfs_probe"]:
+        if not torch.equal(a[6], K.pack_bits_plain(a[4][None])[0]):
+            raise AssertionError("bfs_level's words differ from pack_bits "
+                                 "of its frontier")
+        got.append(K.bfs_probe(*a[:5], strided_copy(a[5]), a[6]))
+        want.append(K.bfs_probe_plain(*a[:5], strided_copy(a[5])))
+    for a in calls["bfs_level"]:
+        for out, fn in ((got, K.bfs_level), (want, K.bfs_level_plain)):
+            la, kw = level_args(a)
+            out.append(fn(*la, **kw))
+            out.extend([la[0], la[1], la[3], la[4], *kw.values()])
+    return max_abs_err(got, want)
+
+
+def probe_measure(K, pa, reps, route=None):
+    """A bfs_probe row's numbers at one captured call pa = (src, nbr,
+    keep, total, fbm, out, fbits): the kernel (through `route`; None the
+    wrapper's choice), its plain version and one library formulation
+    (the frontier gather plus index_put_), timed with CUDA events; the
+    bytes of its bound (nbr, and keep where given, of each valid slot,
+    the frontier's words once, src of each slot whose neighbour is on
+    the frontier, total, and a byte for each vertex it reaches; ops two
+    a slot).  Also each route that fits forced at the same call, held
+    bit for bit against the plain version (`probe paths`), and the
+    gather floor: the frontier's bytes gathered at every valid slot's
+    neighbour, one index_select over precomputed indices (a yardstick
+    the port never calls: what the parent kernel's byte gathers cost)."""
+    import torch
+    src, nbr, keep, total, fbm, out0, fbits = pa
+    P, EB = src.shape
+    vmax = fbm.shape[1]
+    nb = nbr.long()
+    ok = (torch.arange(EB, device=src.device) < total[:, None]) \
+        & (nb >= 0) & (nb < P * vmax)
+    if keep is not None:
+        ok &= keep
+    nbl = torch.where(ok, nb, 0)
+    members = int((ok & fbm[nbl % P, nbl // P]).sum())
+    want = K.bfs_probe_plain(*pa[:5], strided_copy(out0))
+    reached = int((want & ~out0).sum())
+    out_t = strided_copy(out0)
+
+    def lib_probe():
+        sel = ok & fbm[nbl % P, nbl // P]
+        sl = src[sel].long()
+        out_t.index_put_((sl % P, sl // P),
+                         torch.ones((), dtype=torch.bool, device=sl.device))
+        return out_t
+
+    slots = int(total.clamp(0, EB).sum())
+    W = -(-vmax // 32)
+    res = {"ms": cuda_ms(lambda: K.bfs_probe(*pa[:5], out_t, fbits,
+                                             route=route), reps),
+           "plain_ms": cuda_ms(lambda: K.bfs_probe_plain(*pa[:5], out_t),
+                               reps),
+           "lib_ms": cuda_ms(lib_probe, reps),
+           "nbytes": (4 * slots + (slots if keep is not None else 0)
+                      + 4 * P * W + 4 * members + 4 * P + reached),
+           "ops": 2 * slots, "slots": slots, "members": members,
+           "reached": reached}
+    paths = {}
+    for r in K.PROBE_ROUTES:
+        if r == "staged" and K.probe_route(P, vmax) != "staged":
+            continue
+        got = K.bfs_probe(*pa[:5], strided_copy(out0), fbits, route=r)
+        if not torch.equal(got, want):
+            raise AssertionError(f"bfs_probe ({r}) differs from the plain "
+                                 f"version")
+        paths[r + "_ms"] = cuda_ms(
+            lambda r=r: K.bfs_probe(*pa[:5], out_t, fbits, route=r), reps)
+    paths["chosen"] = K.probe_route(P, vmax)
+    flat = torch.as_strided(fbm, (P * fbm.stride(0),), (1,), 0)
+    idx = ((nbl % P) * fbm.stride(0) + nbl // P)[ok]
+    floor = {"ms": cuda_ms(lambda: flat.index_select(0, idx), reps),
+             "gathers": idx.numel(),
+             "bound_ms": bound(9 * idx.numel(), 0)[0]}
+    return res, paths, floor
+
+
+def level_measure(K, la, reps):
+    """A bfs_level row's numbers at one captured call: the kernel, its
+    plain version and one library formulation (three torch ops and two
+    sums), each timed alone on the device on fresh copies of the depth
+    array, the candidates and the counts row (cuda_ms_fresh), as the
+    main path calls it (fbits_out and a zeroed counts row); the bytes of
+    its bound (cand, dist, fbm and unvis once each, dist at the fresh
+    vertices, the cleared candidates, the words, the counts)."""
+    import torch
+    a, kw = level_args(la)
+    cand0, dist0 = la[0], la[1]
+    cand, d_t, lv = a[0], a[1], a[2]
+
+    def reset():
+        d_t.copy_(dist0)
+        cand.copy_(cand0)
+        kw["counts"].zero_()
+
+    def lib_level():
+        new = cand & (d_t < 0)
+        nd = torch.where(new, lv, d_t)
+        return nd, torch.stack([new.sum(), (nd < 0).sum()])
+
+    n = cand0.numel()
+    fresh = int((cand0 & (dist0 < 0)).sum())
+    words = 0 if la[5] is None else 4 * la[5].numel()
+    return {"ms": cuda_ms_fresh(lambda: K.bfs_level(*a, **kw), reset, reps),
+            "plain_ms": cuda_ms_fresh(lambda: K.bfs_level_plain(*a, **kw),
+                                      reset, reps),
+            "lib_ms": cuda_ms_fresh(lib_level, reset, reps),
+            "nbytes": 7 * n + 4 * fresh + int(cand0.sum()) + words + 16,
+            "ops": 4 * n, "slots": n, "fresh": fresh}
+
+
+def bfs_whole_run(K, calls, reps):
+    """Every bfs_probe and bfs_level call of one captured BFS run timed
+    at its own inputs as the main path makes them (the probe reading the
+    words, the level with fbits_out and a zeroed counts row, each alone
+    on the device on fresh copies of what it writes), summed beside the
+    summed bounds (loop_bound's formulas): launches x ms measured, not
+    extrapolated from one level.  A probe call with no slot launches
+    nothing and is left out."""
+    import torch
+    run = {}
+    for name in ("bfs_probe", "bfs_level"):
+        ms, bounds = [], []
+        for a in calls[name]:
+            if name == "bfs_probe" and a[0].numel() == 0:
+                continue                 # no slot: the wrapper launches none
+            if name == "bfs_probe":
+                o = strided_copy(a[5])
+                ms.append(cuda_ms_fresh(
+                    lambda a=a, o=o: K.bfs_probe(*a[:5], o, a[6]),
+                    lambda: None, reps))
+                P, EB = a[0].shape
+                slots = int(a[3].clamp(0, EB).sum())
+                nbytes = (4 * slots + (slots if a[2] is not None else 0)
+                          + 4 * a[6].numel() + 4 * P)
+                bounds.append(bound(nbytes, 2 * slots)[0])
+                continue
+            la, kw = level_args(a)
+
+            def reset(a=a, la=la, kw=kw):
+                la[1].copy_(a[1])
+                la[0].copy_(a[0])
+                kw["counts"].zero_()
+
+            ms.append(cuda_ms_fresh(lambda la=la, kw=kw: K.bfs_level(
+                *la, **kw), reset, reps))
+            n = a[0].numel()
+            words = 0 if a[5] is None else 4 * a[5].numel()
+            bounds.append(bound(7 * n + words + 16, 4 * n)[0])
+        run[name] = {"calls": len(ms), "sum_ms": sum(ms),
+                     "bound_sum_ms": sum(bounds), "ms": ms,
+                     "bound_ms": bounds}
+    torch.cuda.synchronize()
+    return run
 
 
 def loop_bound(K, run):
@@ -1029,10 +1264,15 @@ def loop_bound(K, run):
             H = a[1].numel()
             return H + rows(a[0]) * H + 8 * H, rows(a[0]) * H
         if name == "bfs_probe":
-            tot = int(a[3].sum())
-            return 4 * tot + a[4].numel() + 4 * rows(a[0]), 2 * tot
+            tot = int(a[3].clamp(0, a[0].shape[1]).sum())
+            keep = (a[2] is not None) * tot
+            words = 4 * rows(a[4]) * -(-a[4].shape[1] // 32)
+            return 4 * tot + keep + words + 4 * rows(a[0]), 2 * tot
         if name == "bfs_level":
-            return 7 * a[0].numel() + 16, 4 * a[0].numel()
+            n = a[0].numel()
+            words = 4 * rows(a[0]) * -(-a[0].shape[1] // 32)
+            return 7 * n + (words if len(a) > 5 and a[5] is not None
+                            else 0) + 16, 4 * n
         if name == "predicate_mask":
             tot = int(a[5].sum())        # a valid mask or row totals
             return 13 * tot + 4 * rows(a[1]), tot * len(a[0].code)
@@ -1532,7 +1772,56 @@ def edge_cases(K, AK, device) -> None:
         log(f"[4e] pagerank_step, {name} (n {args[0].numel()}, E "
             f"{args[1].numel()}): max abs err {err}, rerun bit-identical")
     relax_edge_cases(AK, device)
+    bfs_edge_cases(K, device)
     log(f"[4e] edge cases done in {time.perf_counter() - t0:.1f} s")
+
+
+def bfs_edge_cases(K, device) -> None:
+    """[4e]: bfs_probe and bfs_level against their plain versions, bit for
+    bit, on bench/kernel_cases.py's BFS cases at card sizes: the probe
+    through each route that fits (forced) and the wrapper's own choice,
+    the whole buffer around its bitmap view compared, against the plain
+    version reading the frontier's bitmap (not its words); the level
+    update in every output (dist, the next frontier and unvisited
+    buffers, the cleared candidates, the frontier's words and the counts'
+    whole buffer)."""
+    import torch
+    from nebula_tpu_torch.bench.kernel_cases import bfs_cases, fresh_bfs_args
+    for name, kname, args, kw in bfs_cases(device, big=True):
+        a, k = fresh_bfs_args(kname, args, kw)
+        if kname == "bfs_probe":
+            P, vmax = args[4].shape
+            want = K.bfs_probe_plain(*a)._base
+            routes = [None] + [r for r in K.PROBE_ROUTES if r == "global"
+                               or K.probe_route(P, vmax) == r]
+            for route in routes:
+                g, gk = fresh_bfs_args(kname, args, kw)
+                K.bfs_probe(*g, **gk, route=route)
+                torch.cuda.synchronize()
+                if not torch.equal(g[5]._base, want):
+                    raise AssertionError(f"[4e] bfs_probe "
+                                         f"({route or 'chosen'}), {name}: "
+                                         f"differs from the plain version")
+            log(f"[4e] bfs_probe, {name} ({P}, {vmax}), "
+                f"{int(args[3].clamp(0, args[0].shape[1]).sum())} slots, "
+                f"{int((want & ~args[5]._base).sum())} reached: equal "
+                f"through {[r or 'chosen' for r in routes]}")
+            continue
+        want = K.bfs_level_plain(*a, **k)
+        g, gk = fresh_bfs_args(kname, args, kw)
+        got = K.bfs_level(*g, **gk)
+        torch.cuda.synchronize()
+        outs = [(got, want), (g[1], a[1])] + [
+            (x._base, y._base) for x, y in zip((g[0], g[3], g[4]),
+                                               (a[0], a[3], a[4]))]
+        outs += [(gk[n] if n == "fbits_out" else gk[n]._base,
+                  k[n] if n == "fbits_out" else k[n]._base) for n in gk]
+        for x, y in outs:
+            if not torch.equal(x, y):
+                raise AssertionError(f"[4e] bfs_level, {name}: differs "
+                                     f"from the plain version")
+        log(f"[4e] bfs_level, {name} {tuple(args[1].shape)}: equal in "
+            f"every output, counts {want.tolist()}")
 
 
 def relax_edge_cases(AK, device) -> None:
@@ -1822,7 +2111,9 @@ def main(argv=None) -> int:
             log("    " + line.strip())
     for line in ptxas_lines(report, ("predicate_kernel",
                                      "merge_delta_kernel", "relax_kernel",
-                                     "prologue_kernel", "finish_kernel")):
+                                     "prologue_kernel", "finish_kernel",
+                                     "bfs_probe_kernel",
+                                     "bfs_level_kernel")):
         log(f"[2] ptxas {line}")
 
     # -- 3a. the north-star GO, unsplit ------------------------------------
@@ -2204,7 +2495,8 @@ def main(argv=None) -> int:
 
     # 5d. WCC and SSSP past the staged capacity: the global route's rows
     stamp("phase 5d")
-    algo["global"], launches_g, mids_g = run_algo_global(rt, K, AE, AK)
+    algo["global"], launches_g, mids_g, snap_g = run_algo_global(rt, K, AE,
+                                                                 AK)
     for func in RELAX_RUNS:
         kname = ALGO_RUNS[func][1]
         kern, plain = getattr(AK, kname), getattr(AK, kname + "_plain")
@@ -2251,6 +2543,7 @@ def main(argv=None) -> int:
             if bl[name] <= 0:
                 raise AssertionError(f"kernel {name} never launched on the "
                                      f"{blabel} BFS path")
+        check_probe_routes(bl, blabel, "staged")
         bfs[blabel], bfs_launches[blabel] = res, bl
     # the main BFS path: split as bench.py runs it, when it ran
     mlabel, mrt = bfs_paths[-1]
@@ -2265,92 +2558,56 @@ def main(argv=None) -> int:
         if bl[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"filtered BFS path")
+    check_probe_routes(bl, fw, "staged")
     bfs[fw] = dict(res, bottom_up_levels=[
         lv for lv, b in enumerate(bfs_branches(want_f, BFS_STEPS), 1) if b])
     bfs_launches[fw] = bl
 
     # 6c. each new kernel against its plain version on the inputs of every
     # level of the main path, unfiltered and filtered
-    calls = capture_bfs_calls(mrt, ns, seed, FR, GB)
-    calls_f = capture_bfs_calls(mrt, ns, seed, FR, GB, filt=ns.w_filter)
-
-    got, want_k = [], []
-    for a in calls["bfs_probe"] + calls_f["bfs_probe"]:
-        for out, fn in ((got, K.bfs_probe), (want_k, K.bfs_probe_plain)):
-            out.append(fn(*a[:5], strided_copy(a[5])))
-    probe_err = max_abs_err(got, want_k)
-    got, want_k = [], []
-    for a in calls["bfs_level"] + calls_f["bfs_level"]:
-        for out, fn in ((got, K.bfs_level), (want_k, K.bfs_level_plain)):
-            o = [a[1].clone(), strided_copy(a[3]), strided_copy(a[4])]
-            out.extend([fn(a[0], o[0], a[2], o[1], o[2])] + o)
-    level_err = max_abs_err(got, want_k)
+    calls = capture_bfs_calls(mrt, ns.store, "ns", seed, FR, GB)
+    calls_f = capture_bfs_calls(mrt, ns.store, "ns", seed, FR, GB,
+                                filt=ns.w_filter)
+    bfs_err = max(check_bfs_calls(K, calls), check_bfs_calls(K, calls_f))
     k11 = loop_bound(K, lambda: mrt.bfs(ns.store, "ns", [seed], ["KNOWS"],
                                         "out", BFS_STEPS))
     k11 = {"device_loop_ms": bfs[mlabel]["device_p50_ms"],
            "bound_ms": sum(k11.values()), "bound_parts_ms": k11}
     log(f"[6c] K11 BFS loop ({mlabel}): {json.dumps(k11)}")
     log(f"[6c] bfs_probe checked at {len(calls['bfs_probe'])} + "
-        f"{len(calls_f['bfs_probe'])} bottom-up calls, bfs_level at "
+        f"{len(calls_f['bfs_probe'])} bottom-up calls (its words equal "
+        f"pack_bits of the frontier), bfs_level at "
         f"{len(calls['bfs_level'])} + {len(calls_f['bfs_level'])} levels "
         f"(level 0 included): equal")
+    for run, rcalls in ((mlabel, calls), (fw, calls_f)):
+        log(f"[6c] K11 kernels whole run ({run}, every level's inputs): "
+            f"{json.dumps(bfs_whole_run(K, rcalls, reps))}")
 
     # timed at the widest bottom-up probe of the unfiltered run, and at
     # the level update after it, each call on a fresh copy of that
-    # level's depth array, so that every call writes the level's new
-    # vertices as the main path does
+    # level's depth array and candidates, so that every call writes the
+    # level's new vertices as the main path does
     pa = max(calls["bfs_probe"], key=lambda a: int(a[3].sum()))
-    src, nbr, keep, total, fbm, out0 = pa
-    Pp, EBp = src.shape
-    vmax = fbm.shape[1]
-    ok = torch.arange(EBp, device=src.device) < total[:, None]
-    nbl = torch.where(ok, nbr.long(), 0)
-    members = int((ok & fbm[nbl % Pp, nbl // Pp]).sum())
-    out_t = strided_copy(out0)
-    reached = int((K.bfs_probe(*pa[:5], strided_copy(out0)) & ~out0).sum())
-
-    def lib_probe():
-        sel = ok & fbm[nbl % Pp, nbl // Pp]
-        sl = src[sel].long()
-        out_t.index_put_((sl % Pp, sl // Pp),
-                         torch.ones((), dtype=torch.bool, device=sl.device))
-        return out_t
-
-    tot = int(total.sum())
-    record("bfs_probe", None, None,
-           cuda_ms(lambda: K.bfs_probe(*pa[:5], out_t), reps),
-           cuda_ms(lambda: K.bfs_probe_plain(*pa[:5], out_t), reps),
-           cuda_ms(lib_probe, reps),
-           4 * tot + Pp * vmax + 4 * members + 4 * Pp + reached, 2 * tot,
-           counts=bfs_launches[mlabel], err=probe_err, tag="[6c]",
-           note=f" ({mlabel}, widest bottom-up level: {tot} slots, "
-                f"{members} on the frontier, {reached} reached)")
+    pm, paths, floor = probe_measure(K, pa, reps)
+    rname = f"bfs_probe ({paths['chosen']})"
+    record(rname, None, None, pm["ms"], pm["plain_ms"], pm["lib_ms"],
+           pm["nbytes"], pm["ops"], counts=bfs_launches[mlabel],
+           err=bfs_err, tag="[6c]", note=f" ({mlabel}, widest bottom-up "
+           f"level: {pm['slots']} slots, {pm['members']} on the frontier, "
+           f"{pm['reached']} reached)")
+    log(f"[6c] probe paths ({mlabel}, widest bottom-up level): "
+        f"{json.dumps(paths)}")
+    floor.update(kernel_ms=rows_out[-1]["ms"],
+                 kernel_bound_ms=rows_out[-1]["bound_ms"])
+    log(f"[6c] bfs_probe gather floor (the frontier's bytes at every valid "
+        f"slot's neighbour, one index_select): {json.dumps(floor)}")
     la = calls["bfs_level"][[a[2] for a in calls["bfs_level"]].index(
         bu_levels[0])]
-    cand, dist0, lv = la[0], la[1], la[2]
-    f_t, u_t = strided_copy(la[3]), strided_copy(la[4])
-    n = cand.numel()
-    fresh = int((cand & (dist0 < 0)).sum())
-    d_t = dist0.clone()
-
-    def reset():
-        d_t.copy_(dist0)
-
-    def lib_level():
-        new = cand & (d_t < 0)
-        nd = torch.where(new, lv, d_t)
-        return nd, torch.stack([new.sum(), (nd < 0).sum()])
-
-    # bytes: cand, dist, fbm and unvis once each (1 + 4 + 1 + 1), dist
-    # written at the fresh vertices only, and the two counts
-    record("bfs_level", None, None,
-           cuda_ms_fresh(lambda: K.bfs_level(cand, d_t, lv, f_t, u_t),
-                         reset, reps),
-           cuda_ms_fresh(lambda: K.bfs_level_plain(cand, d_t, lv, f_t, u_t),
-                         reset, reps),
-           cuda_ms_fresh(lib_level, reset, reps), 7 * n + 4 * fresh + 16,
-           4 * n, counts=bfs_launches[mlabel], err=level_err, tag="[6c]",
-           note=f" ({mlabel}, level {lv}, {n} slots, {fresh} fresh)")
+    lm = level_measure(K, la, reps)
+    record("bfs_level", None, None, lm["ms"], lm["plain_ms"], lm["lib_ms"],
+           lm["nbytes"], lm["ops"], counts=bfs_launches[mlabel],
+           err=bfs_err, tag="[6c]", note=f" ({mlabel}, level {la[2]}, "
+           f"{lm['slots']} slots, {lm['fresh']} fresh)")
 
     # expand at the BFS's widest level (level 2, bottom-up over the
     # reverse blocks on the split path), against its plain version
@@ -2370,6 +2627,53 @@ def main(argv=None) -> int:
            counts={"expand (bfs)": bfs_launches[mlabel]["expand"]},
            tag="[6c]", note=f" ({mlabel}, widest level: {etot} slots, "
                 f"{ef.shape[-2]} x {eEB})")
+
+    # 6d. the BFS past the staged route's capacity: phase 5d's graph
+    # (GLOBAL_PERSONS persons in 8 parts), config 5's BFS from vertex 0;
+    # its frontier's words do not fit a block's shared memory, so every
+    # bottom-up probe takes the global route
+    stamp("phase 6d")
+    from nebula_tpu_torch.bench.datagen import SnapshotStore
+    gns = SimpleNamespace(snap=snap_g, store=SnapshotStore(snap_g))
+    rtg = GpuRuntime()
+    rtg.pin_prebuilt(snap_g)
+    want_g = host_bfs(snap_g, [0], BFS_STEPS)
+    glabel = f"{GLOBAL_PERSONS} persons"
+    d, st, res, bl_g = run_bfs_path(rtg, gns, 0, glabel, K, tag="[6d]",
+                                    space="g")
+    if not np.array_equal(d, want_g):
+        raise AssertionError(f"BFS {glabel}: dist differs from host_bfs")
+    if st.hop_edges != bfs_level_edges(snap_g, want_g, BFS_STEPS):
+        raise AssertionError(f"BFS {glabel}: hop_edges {st.hop_edges}")
+    if K.probe_route(snap_g.num_parts, snap_g.vmax) != "global":
+        raise AssertionError(f"[6d] ({snap_g.num_parts}, {snap_g.vmax}) "
+                             f"stages")
+    for name in BFS_KERNELS:
+        if bl_g[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"{glabel} BFS path")
+    check_probe_routes(bl_g, glabel, "global")
+    bfs[glabel] = dict(res, bottom_up_levels=[
+        lv for lv, b in enumerate(bfs_branches(want_g, BFS_STEPS), 1) if b])
+    calls_g = capture_bfs_calls(rtg, gns.store, "g", 0, FR, GB)
+    err_g = check_bfs_calls(K, calls_g)
+    log(f"[6d] K11 kernels whole run ({glabel}, every level's inputs): "
+        f"{json.dumps(bfs_whole_run(K, calls_g, reps))}")
+    pa = max(calls_g["bfs_probe"], key=lambda a: int(a[3].sum()))
+    pm, paths, floor = probe_measure(K, pa, reps)
+    record(f"bfs_probe ({paths['chosen']})", None, None, pm["ms"],
+           pm["plain_ms"], pm["lib_ms"], pm["nbytes"], pm["ops"],
+           counts=bl_g, err=err_g, tag="[6d]", note=f" ({glabel}, widest "
+           f"bottom-up level: {pm['slots']} slots, {pm['members']} on the "
+           f"frontier, {pm['reached']} reached)")
+    log(f"[6d] probe paths ({glabel}, widest bottom-up level): "
+        f"{json.dumps(paths)}")
+    floor.update(kernel_ms=rows_out[-1]["ms"],
+                 kernel_bound_ms=rows_out[-1]["bound_ms"])
+    log(f"[6d] bfs_probe gather floor: {json.dumps(floor)}")
+    rtg.unpin("g")
+    del rtg, gns, snap_g, calls_g, pa
+    torch.cuda.empty_cache()
 
     # -- 7. the delta plane: GO and the BFS through pending writes --------
     stamp("phase 7")

@@ -115,14 +115,15 @@ def top_down_step(blocks: Sequence[DeviceBlock], efbm: torch.Tensor,
 
 def bottom_up_step(rev_blocks: Sequence[DeviceBlock], fbm: torch.Tensor,
                    eunvis: torch.Tensor, cand: torch.Tensor,
-                   hub_dense=None, pred=None
+                   hub_dense=None, pred=None, fbits=None
                    ) -> Tuple[torch.Tensor, int]:
     """Direction-optimizing level body: expand the REVERSE adjacency of
     the unvisited vertices (`eunvis`, hub columns filled by the caller);
     a vertex joins `cand` when an in-neighbour's bit is set in the
-    (P, vmax) frontier bitmap `fbm`.  A degree-split hub row's vertex is
-    owned by another part, so `bfs_probe` routes every reached vertex to
-    its owner row.
+    (P, vmax) frontier bitmap `fbm`, read from `fbits`, its (P, W) int32
+    words (bfs_level's fbits_out; required on the card).  A degree-split
+    hub row's vertex is owned by another part, so `bfs_probe` routes
+    every reached vertex to its owner row.
 
     -> (edges (P,) int32, width)."""
     P, vmax = cand.shape
@@ -133,7 +134,7 @@ def bottom_up_step(rev_blocks: Sequence[DeviceBlock], fbm: torch.Tensor,
                                            swap_ends=True)
         edges += total
         width = max(width, src.shape[1])
-        bfs_probe(src, nb, keep, total, fbm, cand)
+        bfs_probe(src, nb, keep, total, fbm, cand, fbits)
     return edges, width
 
 

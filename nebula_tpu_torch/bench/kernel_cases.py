@@ -44,7 +44,7 @@ from ..core.value import NULL
 from ..gpu import exprjit as X
 from ..gpu.kernels import (MARK_SMEM_BYTES, MARK_STAGE_MIN_IDS,
                            MERGE_DELTA_STAGE, MERGE_DELTA_TILE,
-                           PREDICATE_TILES, SCAN_TILE)
+                           PREDICATE_TILES, SCAN_TILE, pack_bits_plain)
 from ..graphstore.csr import StringPool
 from ..graphstore.schema import PropType
 
@@ -830,3 +830,154 @@ def relax_cases(device, seed: int = 0, big: bool = False
             1_000_000, np.minimum(rng.zipf(1.2, 30_000_000),
                                   1_000_000) - 1, on=0.02)
     return cases
+
+
+# ---------------------------------------------------------------------------
+# bfs_probe and bfs_level (K11)
+# ---------------------------------------------------------------------------
+
+BfsCase = Tuple[str, str, tuple, dict]
+
+
+def bfs_cases(device, seed: int = 0, big: bool = False) -> List[BfsCase]:
+    """(name, kernel, args, kwargs) cases of `bfs_probe` (args: src, nbr,
+    keep, total, fbm, out; kwargs: fbits, fbm's words) and `bfs_level`
+    (args: cand, dist, level, fbm_out, unvis_out; kwargs: fbits_out,
+    counts).  Bitmaps are the first vmax columns of wider buffers where a
+    case says so, the rest of the buffer set; take `fresh_bfs_args` for
+    each call.  Probe slots come as expand makes them from a reverse
+    block: a row's src ids grouped (sorted local vertices of the row's
+    part, runs of one vertex), hub rows' src owned by other parts, and,
+    past total[p], ids that would be reached if read.  The cases sit
+    where the staged and global probe and the one-warp-a-word level
+    update can go wrong: P = 1 and P = 8, vmax not a multiple of 32 (the
+    last word's padding bits), strided views, EB not a multiple of 4 (a
+    row's vector tail), a row with total 0 beside one with total EB,
+    every neighbour on the frontier and none, nbr -1 and >= P * vmax, src
+    out of range, keep all False and keep=None, hub rows; a level with
+    no fresh vertex, phantom slots, counts as a row of a larger buffer
+    and none given.  `big=True` adds card sizes: the BFS's widest
+    bottom-up level (8 x 1,928,999 slots of a (8, 125,000) frontier),
+    the widest frontier that stages and one column past it (the global
+    route)."""
+    rng = np.random.default_rng(seed + 7)
+    cases: List[BfsCase] = []
+
+    def probe(name, P, vmax, EB, H=0, front=0.3, keep="random", hubs=0.0,
+              totals=None, odd=False, ones=0.0):
+        lim = P * vmax
+        total = rng.integers(0, EB + 1, P).astype(np.int32)
+        total[0] = EB
+        if P > 1:
+            total[1] = 0
+        if totals is not None:
+            total[:] = totals
+        local = np.sort(rng.integers(0, vmax, (P, EB)), axis=1)
+        src = local * P + np.arange(P)[:, None]
+        hub = rng.random((P, EB)) < hubs
+        src[hub] = rng.integers(0, lim, int(hub.sum()))
+        nbr = rng.integers(0, lim, (P, EB))
+        if odd:
+            bad = np.array([-1, lim, lim + 3, -(1 << 31), (1 << 31) - 1])
+            at = rng.random((P, EB)) < 0.05
+            nbr[at] = rng.choice(bad, int(at.sum()))
+            at = rng.random((P, EB)) < 0.05
+            src[at] = rng.choice(bad, int(at.sum()))
+        fbuf = np.ones((P, vmax + H), bool)
+        fbuf[:, :vmax] = rng.random((P, vmax)) < front
+        obuf = np.ones((P, vmax + H), bool)
+        obuf[:, :vmax] = rng.random((P, vmax)) < ones
+        k = {"random": rng.random((P, EB)) < 0.7, "none": None,
+             "all False": np.zeros((P, EB), bool)}[keep]
+        args = (_t(src.astype(np.int32), device),
+                _t(nbr.astype(np.int32), device),
+                None if k is None else _t(k, device), _t(total, device),
+                _t(fbuf, device)[:, :vmax], _t(obuf, device)[:, :vmax])
+        words = pack_bits_plain(torch.from_numpy(
+            np.ascontiguousarray(fbuf[:, :vmax]))[None])[0]
+        cases.append((name, "bfs_probe", args, {"fbits": words.to(device)}))
+
+    def level(name, P, vmax, lv, H=0, cand=0.3, visited=0.4, phantom=0,
+              stale_only=False, fbits=True, counts=True):
+        dist = np.where(rng.random((P, vmax)) < visited,
+                        rng.integers(0, max(lv, 1), (P, vmax)), -1)
+        c = np.ones((P, vmax + H), bool)
+        c[:, :vmax] = rng.random((P, vmax)) < cand
+        if stale_only:
+            c[:, :vmax] &= dist >= 0
+        if phantom:
+            nv = vmax - rng.integers(0, phantom + 1, P)
+            cols = np.arange(vmax)[None, :] >= nv[:, None]
+            dist[cols] = -1
+            c[:, :vmax][cols] = False
+        bufs = [_t(np.ones((P, vmax + H), bool), device)[:, :vmax]
+                for _ in range(2)]
+        kw = {}
+        if fbits:
+            kw["fbits_out"] = _t(np.full((P, -(-vmax // 32)), -1,
+                                         np.int32), device)
+        if counts:
+            kw["counts"] = _t(np.zeros((lv + 2, 2), np.int64), device)[lv]
+        cases.append((name, "bfs_level",
+                      (_t(c, device)[:, :vmax],
+                       _t(dist.astype(np.int32), device), lv, *bufs), kw))
+
+    probe("P 8, vmax 3,001 (a last word of 25 bits), EB 4,099 (rows off "
+          "16 bytes), views of ld 3,008, totals EB and 0", 8, 3001, 4099,
+          H=7)
+    probe("P 1, vmax 4,000, EB 10,000, keep None", 1, 4000, 10_000,
+          keep="none")
+    probe("vmax 2,048 (whole words), EB 4,096, out holding ones", 8, 2048,
+          4096, ones=0.3)
+    probe("every neighbour on the frontier", 8, 1000, 2001, front=1.0)
+    probe("no neighbour on the frontier", 8, 1000, 2001, front=0.0)
+    probe("nbr -1, >= P * vmax, -2^31, 2^31 - 1; src out of range", 8,
+          1500, 3003, H=5, odd=True)
+    probe("keep all False", 8, 1000, 2000, keep="all False")
+    probe("hub rows: 30% of the slots' src owned by other parts", 8, 1200,
+          3000, H=11, hubs=0.3)
+    probe("EB 3, P 3", 3, 700, 3)
+    probe("every total 0", 8, 500, 1000, totals=0)
+    probe("totals past EB and negative", 4, 800, 1001,
+          totals=[2000, -5, 1001, 7])
+    level("level 0: the seeds, every dist -1, views of ld 3,008", 8, 3001,
+          0, H=7, cand=0.01, visited=0.0)
+    level("level 3, vmax 3,001, views of ld 3,010", 8, 3001, 3, H=9)
+    level("no fresh vertex: every candidate already visited", 8, 2000, 2,
+          stale_only=True)
+    level("phantom slots: up to 90 padding columns a part", 8, 3001, 2,
+          phantom=90)
+    level("P 1, vmax 64 (two whole words), no fbits_out or counts", 1, 64,
+          1, fbits=False, counts=False)
+    level("vmax 1 (31 padding bits a word)", 8, 1, 1, visited=0.0,
+          cand=0.5)
+    level("counts None, fbits_out given", 3, 1000, 4, counts=False)
+    if big:
+        V = 125_000
+        probe("the widest bottom-up level: 8 x 1,928,999 slots into "
+              "(8, 125,000), ld 125,073, keep None", 8, V, 1_928_999,
+              H=73, front=0.05, keep="none", hubs=0.01,
+              totals=1_928_999)
+        probe("the same, filtered (keep 70%)", 8, V, 1_928_999, H=73,
+              front=0.05, hubs=0.01)
+        wide = MARK_SMEM_BYTES * 8 // 8       # 232,448 columns a part
+        probe(f"(8, {wide:,}): the widest frontier that stages", 8, wide,
+              100_003, H=3)
+        probe(f"(8, {wide + 1:,}): one column past it (global)", 8,
+              wide + 1, 200_001, H=3, odd=True)
+        probe("P 1, vmax 1,859,585 (global)", 1, wide * 8 + 1, 1_000_001)
+        level("level 2 at (8, 125,000), ld 125,073", 8, V, 2, H=73,
+              cand=0.6)
+        level(f"level 5 at (8, {wide + 1:,})", 8, wide + 1, 5)
+    return cases
+
+
+def fresh_bfs_args(kname, args, kw):
+    """A case's args and kwargs with fresh copies (same layout) of
+    everything the kernel writes: probe's out; the level's cand, dist,
+    fbm_out, unvis_out, fbits_out and counts."""
+    if kname == "bfs_probe":
+        return (*args[:5], copy_view(args[5])), dict(kw)
+    cand, dist, lv, f, u = args
+    return ((copy_view(cand), dist.clone(), lv, copy_view(f), copy_view(u)),
+            {k: copy_view(v) for k, v in kw.items()})

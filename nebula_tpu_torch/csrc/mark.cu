@@ -66,6 +66,9 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "fastdiv.cuh"
+#include "launch.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -75,28 +78,6 @@ constexpr int kDirectThreads = 256;
 constexpr long long kStageMinChunk = 16384;   // ids a staged block takes
 constexpr long long kDirectChunk = 4096;      // ids a direct block takes
 constexpr int kCluster = 8;                   // staged blocks sharing a flush
-
-// q = n / d for 0 <= n < 2^31 by a multiply-high and a shift (the
-// round-up method; d = 1 keeps n).
-struct FastDiv {
-  unsigned d, mul, shr;
-};
-
-FastDiv make_div(unsigned d) {
-  FastDiv f{d, 0u, 0u};
-  if (d > 1) {
-    unsigned l = 0;
-    while ((1u << l) < d) ++l;                  // ceil(log2 d)
-    const unsigned p = 31 + l;
-    f.mul = (unsigned)(((1ull << p) + d - 1) / d);
-    f.shr = p - 32;
-  }
-  return f;
-}
-
-__device__ __forceinline__ unsigned div_of(unsigned n, const FastDiv& f) {
-  return f.d == 1 ? n : __umulhi(n, f.mul) >> f.shr;
-}
 
 // Call fn(d) for each kept id of ids[beg, end) (keep may be null),
 // threads striped over 16-byte vectors of ids with scalars at the ends.
@@ -242,19 +223,6 @@ mark_direct_kernel(const int* __restrict__ ids,
                   if (*a == 0) *a = 1;
                 });
 }
-
-int num_sms() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0, v = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
-    sms = v > 0 ? v : 132;
-  }
-  return sms;
-}
-
-long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
 
 // A card's opt-in shared memory and the staged kernel's resident clusters
 // at the last (bytes, cluster size) it launched with: host queries kept

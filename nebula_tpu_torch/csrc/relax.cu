@@ -69,6 +69,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int kVThreads = 256;       // per-vertex passes
@@ -300,28 +302,6 @@ finish_kernel(const typename Ops::T* __restrict__ old, long long n,
   if (threadIdx.x == 0 && c > 0) atomicAdd(count, (unsigned long long)c);
 }
 
-long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
-
-int num_sms() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0, v = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
-    sms = v > 0 ? v : 132;
-  }
-  return sms;
-}
-
-// Resident blocks an SM of relax_kernel<Ops, kStaged> at the last stage
-// size it launched with, and the card's opt-in shared memory: host
-// queries kept off the launch path.
-struct Resident {
-  int optin = 0;
-  long long bytes = -1;
-  int blocks = 1;
-};
-
 template <class Ops, bool kStaged>
 int relax_launch(const typename Ops::T* old, const unsigned* words,
                  long long nwords, const int* esrc, const int* edst,
@@ -330,26 +310,10 @@ int relax_launch(const typename Ops::T* old, const unsigned* words,
   static Resident res;
   auto kern = relax_kernel<Ops, kStaged>;
   const long long bytes = kStaged ? nwords * 4 : 0;
-  if (kStaged && res.optin == 0) {
-    int dev = 0, optin = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                           dev);
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
-    if (e != cudaSuccess) return (int)e;
-    res.optin = optin;
-  }
-  if (kStaged && bytes > res.optin) return (int)cudaErrorInvalidValue;
   constexpr int kT = Block<kStaged>::kT;
-  if (res.bytes != bytes) {
-    int b = 0;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, kern, kT,
-                                                  (size_t)bytes);
-    res.blocks = b > 0 ? b : 1;
-    res.bytes = bytes;
-  }
-  long long grid = (long long)num_sms() * res.blocks;
+  long long grid = 0;
+  const int rc = resident_grid(kern, kT, bytes, res, &grid);
+  if (rc != 0) return rc;
   const long long need = cdiv(cdiv(E, kChunk), kT / 32);
   if (grid > need) grid = need;
   const int vec = (((uintptr_t)esrc | (uintptr_t)edst) & 15) == 0;

@@ -6,17 +6,20 @@ of FIND SHORTEST PATH.  The reference is one jitted XLA program with a
 as `gpu/hop.py:run_hops` is for GO:
 
   level 0:    bfs_level turns the seed bitmap into dist (0 at the seeds,
-              -1 elsewhere), the first frontier and the unvisited bitmap,
-              and counts both;
+              -1 elsewhere), the first frontier (as bytes, and as bits
+              when the reverse blocks ride along) and the unvisited
+              bitmap, counts both and clears the seed bitmap, which
+              becomes the candidate bitmap;
   per level:  the dense-level switch `|frontier| * 8 > |unvisited| -
               n_phantom` (bfs.py:159) from the two counts of the previous
-              update — one (2,) int64 read to the host per level; then
-              top-down (frontier.top_down_step: extend_hubs, expand,
-              merge_delta on a block with a delta plane, predicate_mask,
-              mark) or, with the reverse blocks, bottom-up
-              (frontier.bottom_up_step: extend_hubs on the unvisited
-              buffer, expand of the reverse blocks, predicate_mask with
-              the endpoints swapped, bfs_probe); then bfs_level.
+              update — one (2,) int64 row of a zeroed (max_steps + 1, 2)
+              buffer read to the host per level; then top-down
+              (frontier.top_down_step: extend_hubs, expand, merge_delta
+              on a block with a delta plane, predicate_mask, mark) or,
+              with the reverse blocks, bottom-up (frontier.bottom_up_step:
+              extend_hubs on the unvisited buffer, expand of the reverse
+              blocks, predicate_mask with the endpoints swapped,
+              bfs_probe on the frontier's bits); then bfs_level.
 
 Unlike GO (`run_hops`, which filters the final hop only), the WHERE mask
 applies at every level, as in the reference (frontier.py:67-76).  All
@@ -85,7 +88,14 @@ def run_bfs(dev: DeviceSnapshot, blocks: Sequence[DeviceBlock],
     fbuf, ubuf = new_frontier(dev), new_frontier(dev)
     cand, fbm, unvis = seeds[:, :vmax], fbuf[:, :vmax], ubuf[:, :vmax]
     dist = torch.full((P, vmax), -1, dtype=torch.int32, device=seeds.device)
-    n_front, n_unvis = bfs_level(cand, dist, 0, fbm, unvis).tolist()
+    # the frontier's words for the bottom-up probe, rewritten each level;
+    # each level's counts are added into its own zeroed row
+    fbits = None if rev_blocks is None else torch.empty(
+        (P, -(-vmax // 32)), dtype=torch.int32, device=seeds.device)
+    counts = torch.zeros((max_steps + 1, 2), dtype=torch.int64,
+                         device=seeds.device)
+    n_front, n_unvis = bfs_level(cand, dist, 0, fbm, unvis, fbits,
+                                 counts[0]).tolist()
     no_edges = torch.zeros((P,), dtype=torch.int32, device=seeds.device)
     hop_edges: List[torch.Tensor] = []
     e_cap: List[int] = []
@@ -98,12 +108,11 @@ def run_bfs(dev: DeviceSnapshot, blocks: Sequence[DeviceBlock],
             hop_edges.append(no_edges)
             e_cap.append(0)
             continue
-        cand.zero_()
         if use_bu:
             if H:
                 extend_hubs(ubuf, dev.hub_owner, dev.hub_local, vmax)
             edges, width = bottom_up_step(rev_blocks, fbm, ubuf, cand,
-                                          dev.hub_dense, pred)
+                                          dev.hub_dense, pred, fbits)
         else:
             if H:
                 extend_hubs(fbuf, dev.hub_owner, dev.hub_local, vmax)
@@ -111,7 +120,8 @@ def run_bfs(dev: DeviceSnapshot, blocks: Sequence[DeviceBlock],
                                          dev.hub_dense, pred, deltas)
         hop_edges.append(edges)
         e_cap.append(width)
-        n_front, n_unvis = bfs_level(cand, dist, level, fbm, unvis).tolist()
+        n_front, n_unvis = bfs_level(cand, dist, level, fbm, unvis, fbits,
+                                     counts[level]).tolist()
     return {"dist": dist, "hop_edges": torch.stack(hop_edges, 1),
             "e_cap": e_cap, "bottom_up": bottom_up}
 
@@ -144,9 +154,11 @@ def run_bfs_sharded(mesh: Mesh, shards: Sequence[DeviceShard],
              for c in cands]
     dist = [torch.full((1, vmax), -1, dtype=torch.int32, device=c.device)
             for c in cands]
+    counts = [torch.zeros((max_steps + 1, 2), dtype=torch.int64,
+                          device=c.device) for c in cands]
     for i in range(n_slots):
         bfs_level(cands[i][:, 0, :vmax], dist[i], 0, fbufs[i][:, 0, :vmax],
-                  unvis[i])
+                  unvis[i], counts=counts[i][0])
     hop_edges: List[List[torch.Tensor]] = [[] for _ in range(n_slots)]
     e_cap: List[int] = []
     for level in range(1, max_steps + 1):
@@ -165,7 +177,8 @@ def run_bfs_sharded(mesh: Mesh, shards: Sequence[DeviceShard],
         exchange_marks_lanes(mesh, marks, [c[:, 0, :vmax] for c in cands])
         for i in range(n_slots):
             bfs_level(cands[i][:, 0, :vmax], dist[i], level,
-                      fbufs[i][:, 0, :vmax], unvis[i])
+                      fbufs[i][:, 0, :vmax], unvis[i],
+                      counts=counts[i][level])
     out_dev = mesh.devices[0]
     return {"dist": torch.cat([d.to(out_dev) for d in dist], 0),
             "hop_edges": torch.cat([torch.stack(h, -1).to(out_dev)

@@ -38,9 +38,13 @@ predicate_mask and adds two, both in bfs.cu:
 
   bfs_probe         K11 — the bottom-up membership test: a reverse slot's
                     unvisited src is reached when its in-neighbour is on
-                    the frontier (nebula_tpu/algo/frontier.py:136-141)
+                    the frontier (nebula_tpu/algo/frontier.py:136-141),
+                    read from the frontier's bits: two kernels chosen by
+                    size (`probe_route`), the bits staged in each block's
+                    shared memory or read from device memory
   bfs_level         K11 — the level update and the switch's popcounts
-                    (nebula_tpu/tpu/bfs.py:153-159, 170-172)
+                    (nebula_tpu/tpu/bfs.py:153-159, 170-172), one launch
+                    that also writes the next frontier as bits
 
 The sharded mesh (gpu/hop.py's run_hops_sharded, gpu/bfs.py's
 run_bfs_sharded) adds four, all in exchange.cu, each side of the
@@ -102,7 +106,7 @@ BUILD_ROOT = _PKG / "_build"
 SOURCES = ("expand.cu", "mark.cu", "hubs.cu", "predicate.cu",
            "compact_capture.cu", "bfs.cu", "pagerank.cu", "relax.cu",
            "delta.cu", "exchange.cu")
-HEADERS = ("scan.cuh", "rowtile.cuh")
+HEADERS = ("scan.cuh", "rowtile.cuh", "fastdiv.cuh", "launch.cuh")
 MAX_COLS = 4                  # yield columns compact_capture gathers
 SCAN_TILE = 4096              # elements a tile of csrc/scan.cuh's scan takes
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -220,8 +224,8 @@ def _load() -> ctypes.CDLL:
     lib.nt_unpack_or.argtypes = [P, I, I, I, I, LL, P, P]
     lib.nt_owned_hub_bits.argtypes = [P, I, LL, I, P, P, I, P, P]
     lib.nt_fill_hub_columns.argtypes = [P, I, LL, I, P, I, P]
-    lib.nt_bfs_probe.argtypes = [P] * 4 + [I] * 3 + [P, LL, P, LL, P]
-    lib.nt_bfs_level.argtypes = [P, LL, P, I, I, I, P, LL, P, LL, P, P]
+    lib.nt_bfs_probe.argtypes = [P] * 4 + [I] * 3 + [P, I, P, LL, P]
+    lib.nt_bfs_level.argtypes = [P, LL, P, I, I, I, P, LL, P, LL, P, P, P]
     D = ctypes.c_double
     lib.nt_pagerank_block.argtypes = lib.nt_pagerank_vblock.argtypes = []
     lib.nt_pagerank_step.argtypes = [P] * 6 + [LL, LL, D, D, D] + [P] * 11
@@ -362,7 +366,7 @@ def reset_launch_counts() -> None:
 
 def route_launch_counts() -> dict:
     """Launches of each route of the wrappers that have two kernels
-    (wcc_step, sssp_step), as {"wcc_step (staged)": n, ...}."""
+    (bfs_probe, wcc_step, sssp_step), as {"wcc_step (staged)": n, ...}."""
     with _count_lock:
         return {f"{fn.__name__} ({route})": n for fn in _wrappers()
                 for route, n in getattr(fn, "route_launches", {}).items()}
@@ -1025,11 +1029,32 @@ def merge_delta(src, dst, rank, eidx, total, fbm, d_src, d_dst, d_rank,
 # ---------------------------------------------------------------------------
 
 
-def bfs_probe_plain(src, nbr, keep, total, fbm, out):
+PROBE_ROUTES = ("staged", "global")
+
+
+def probe_stage_bytes(P: int, vmax: int) -> int:
+    """Bytes of a (P, vmax) frontier as bits, the shared memory
+    bfs_probe's staged route takes: mark's staged bitmap, the same
+    bits."""
+    return mark_stage_bytes(P, vmax)
+
+
+def probe_route(P: int, vmax: int, smem_bytes: int = MARK_SMEM_BYTES) -> str:
+    """The kernel `bfs_probe` launches for a (P, vmax) frontier: "staged"
+    (each block copies the frontier's words into its shared memory and
+    tests every slot there) where probe_stage_bytes(P, vmax) fits
+    `smem_bytes`, else "global" (the same kernel reading the words from
+    device memory, where they sit in L2)."""
+    return "staged" if probe_stage_bytes(P, vmax) <= smem_bytes \
+        else "global"
+
+
+def bfs_probe_plain(src, nbr, keep, total, fbm, out, fbits=None):
     """Plain version of `bfs_probe`: for every slot j < total[p] whose
-    nbr id is on the frontier fbm (and kept, when keep is given), set
-    out[src % P, src // P]; ids < 0 or outside [0, P*vmax) set
-    nothing."""
+    nbr id is on the frontier (and kept, when keep is given), set
+    out[src % P, src // P]; ids < 0 or outside [0, P*vmax) set nothing.
+    Membership is read from fbm, or, given fbits, from its (P, W) words
+    (bit i of word w = column 32w + i)."""
     P, EB = src.shape
     vmax = fbm.shape[1]
     nb = nbr.long()
@@ -1038,19 +1063,31 @@ def bfs_probe_plain(src, nbr, keep, total, fbm, out):
     if keep is not None:
         ok &= keep
     nb = torch.where(ok, nb, 0)
-    member = ok & fbm[nb % P, nb // P]
-    return mark_plain(src, P, vmax, keep=member, out=out)
+    if fbits is None:
+        on = fbm[nb % P, nb // P]
+    else:
+        col = nb // P
+        on = ((fbits[nb % P, col >> 5] >> (col & 31)) & 1).bool()
+    return mark_plain(src, P, vmax, keep=ok & on, out=out)
 
 
-def bfs_probe(src, nbr, keep, total, fbm, out):
+def bfs_probe(src, nbr, keep, total, fbm, out, fbits=None, route=None):
     """The bottom-up membership test over one reverse block's expanded
     slots (src the unvisited vertex, nbr its in-neighbour): OR into the
     (P, vmax) candidate bitmap `out` every src with a valid, kept slot
     whose nbr is set in the (P, vmax) frontier bitmap `fbm`.  fbm and out
     may each be the first vmax columns of a wider buffer.  keep=None
-    keeps every valid slot.  Returns out, updated in place."""
+    keeps every valid slot.  fbits: fbm's (P, ceil(vmax / 32)) int32
+    words (`bfs_level`'s fbits_out, or pack_bits(fbm[None])[0]); the
+    kernel reads the frontier only there, so on the card it is required.
+    `route` forces one of PROBE_ROUTES on the card (None: `probe_route`'s
+    choice); the result is the same bit for bit.  Returns out, updated
+    in place."""
+    if route is not None and route not in PROBE_ROUTES:
+        raise ValueError(f"route must be one of {PROBE_ROUTES}, got "
+                         f"{route!r}")
     if src.device.type == "cpu":
-        return bfs_probe_plain(src, nbr, keep, total, fbm, out)
+        return bfs_probe_plain(src, nbr, keep, total, fbm, out, fbits)
     P, EB = src.shape
     vmax = fbm.shape[1]
     dev = src.device
@@ -1061,54 +1098,82 @@ def bfs_probe(src, nbr, keep, total, fbm, out):
         _want(keep, "keep", torch.bool, (P, EB), dev)
     _bitmap_view(fbm, "fbm", (P, vmax), dev)
     _bitmap_view(out, "out", (P, vmax), dev)
+    if fbits is None:
+        raise ValueError("bfs_probe on the card reads the frontier as "
+                         "bits: pass fbits, fbm's (P, W) int32 words")
+    _want(fbits, "fbits", _I32, (P, _words(vmax)), dev)
+    if route is None:
+        route = probe_route(P, vmax)
+    elif route == "staged" and probe_route(P, vmax) != "staged":
+        raise ValueError(f"a ({P}, {vmax}) frontier as bits does not fit "
+                         f"a block's shared memory")
     if P * EB == 0:
         return out
     _check(_lib().nt_bfs_probe(
         src.data_ptr(), nbr.data_ptr(),
         None if keep is None else keep.data_ptr(), total.data_ptr(), P, EB,
-        vmax, fbm.data_ptr(), fbm.stride(0), out.data_ptr(), out.stride(0),
-        _stream(src)), "bfs_probe")
-    _count(bfs_probe)
+        vmax, fbits.data_ptr(), route == "staged", out.data_ptr(),
+        out.stride(0), _stream(src)), "bfs_probe")
+    _count(bfs_probe, route)
     return out
 
 
-def bfs_level_plain(cand, dist, level: int, fbm_out, unvis_out):
+def bfs_level_plain(cand, dist, level: int, fbm_out, unvis_out,
+                    fbits_out=None, counts=None):
     """Plain version of `bfs_level`: new = cand & (dist < 0); dist =
-    where(new, level, dist); fbm_out = new; unvis_out = dist < 0, all in
-    place.  Returns (|new|, |unvis|) as a (2,) int64 tensor."""
+    where(new, level, dist); fbm_out = new; unvis_out = dist < 0; given
+    fbits_out, the (P, W) int32 words of new (pack_bits); cand cleared;
+    all in place.  Returns (|new|, |unvis|) as a (2,) int64 tensor:
+    `counts` with them added, when given, else a fresh one."""
     new = cand & (dist < 0)
     dist.copy_(torch.where(new, level, dist))
     unvis = dist < 0
     fbm_out.copy_(new)
     unvis_out.copy_(unvis)
-    return torch.stack([new.sum(), unvis.sum()]).to(torch.int64)
+    if fbits_out is not None:
+        fbits_out.copy_(pack_bits_plain(new[None])[0])
+    cand.zero_()
+    found = torch.stack([new.sum(), unvis.sum()]).to(torch.int64)
+    return found if counts is None else counts.add_(found)
 
 
-def bfs_level(cand, dist, level: int, fbm_out, unvis_out):
+def bfs_level(cand, dist, level: int, fbm_out, unvis_out, fbits_out=None,
+              counts=None):
     """One BFS level update over the (P, vmax) int32 depth array `dist`,
-    in place: the candidates `cand` not yet visited become the next
-    frontier `fbm_out` at depth `level`, and `unvis_out` is the next
-    unvisited bitmap.  cand, fbm_out and unvis_out are (P, vmax) bool
-    bitmaps (or the first vmax columns of wider buffers); cand must not
-    share memory with the two outputs.  Returns the (2,) int64 counts
-    (|new frontier|, |unvisited|) on the device; phantom slots count as
-    unvisited."""
+    in place, one launch: the candidates `cand` not yet visited become
+    the next frontier `fbm_out` at depth `level`, `unvis_out` is the
+    next unvisited bitmap, and cand is cleared (its last reader in a
+    level), ready for the next level's marks.  cand, fbm_out and
+    unvis_out are (P, vmax) bool bitmaps (or the first vmax columns of
+    wider buffers); cand must not share memory with the outputs.
+    fbits_out, a (P, ceil(vmax / 32)) int32 tensor, gets the next
+    frontier as words, the bits `bfs_probe` reads.  counts: a zeroed
+    (2,) int64 tensor on the device (a row of a larger buffer) that
+    (|new frontier|, |unvisited|) are added to; None zeroes a fresh one.
+    Returns the counts; phantom slots count as unvisited."""
     if dist.device.type == "cpu":
-        return bfs_level_plain(cand, dist, level, fbm_out, unvis_out)
+        return bfs_level_plain(cand, dist, level, fbm_out, unvis_out,
+                               fbits_out, counts)
     P, vmax = dist.shape
     dev = dist.device
     _want(dist, "dist", _I32, (P, vmax), dev)
     for name, t in (("cand", cand), ("fbm_out", fbm_out),
                     ("unvis_out", unvis_out)):
         _bitmap_view(t, name, (P, vmax), dev)
+    if fbits_out is not None:
+        _want(fbits_out, "fbits_out", _I32, (P, _words(vmax)), dev)
+    if counts is None:
+        counts = torch.zeros((2,), dtype=torch.int64, device=dev)
+    else:
+        _want(counts, "counts", torch.int64, (2,), dev)
     if P * vmax == 0:
-        return torch.zeros((2,), dtype=torch.int64, device=dev)
-    counts = torch.empty((2,), dtype=torch.int64, device=dev)
+        return counts
     _check(_lib().nt_bfs_level(
         cand.data_ptr(), cand.stride(0), dist.data_ptr(), P, vmax,
         int(level), fbm_out.data_ptr(), fbm_out.stride(0),
-        unvis_out.data_ptr(), unvis_out.stride(0), counts.data_ptr(),
-        _stream(dist)), "bfs_level")
+        unvis_out.data_ptr(), unvis_out.stride(0),
+        None if fbits_out is None else fbits_out.data_ptr(),
+        counts.data_ptr(), _stream(dist)), "bfs_level")
     _count(bfs_level)
     return counts
 
@@ -1264,3 +1329,4 @@ def fill_hub_columns(fbm, summed):
 
 for _fn in _own_wrappers():
     _fn.launches = 0
+bfs_probe.route_launches = dict.fromkeys(PROBE_ROUTES, 0)

@@ -258,7 +258,8 @@ def test_wrappers_never_fall_back_off_the_cpu(monkeypatch):
     bits = torch.empty((P, 6), dtype=torch.bool, **m)[:, :4]
     with pytest.raises(K.KernelError):
         K.bfs_probe(*ints[:2], torch.empty((P, 4), dtype=torch.bool, **m),
-                    torch.empty((P,), dtype=torch.int32, **m), bits, bits)
+                    torch.empty((P,), dtype=torch.int32, **m), bits, bits,
+                    torch.empty((P, 1), dtype=torch.int32, **m))
     with pytest.raises(K.KernelError):
         K.bfs_level(bits, torch.empty((P, 4), dtype=torch.int32, **m), 1,
                     bits, bits)

@@ -38,6 +38,19 @@ one destination holding every edge, runs of one destination ending on a
 lane's, a warp's and a block's edge, sentinels in the mask, weights 0.0
 and 0.5.  Exact, bit for bit.  Then the host-side sizing of the two
 routes (`relax_stage_bytes`, `relax_route`) and the launch count a route.
+
+`bfs_probe_plain` (reading the frontier from its bitmap, and from its
+words) and the wrapper's CPU branch with each route forced ↔ the
+reference's membership and `_mark` expression
+(nebula_tpu/algo/frontier.py:136-141); `bfs_level_plain` and the
+wrapper's CPU branch ↔ the reference's level update and the switch's
+two counts (nebula_tpu/tpu/bfs.py:153-159, 170-172), its frontier words
+↔ hop._pack_bits (nebula_tpu/tpu/hop.py:179), uint32 viewed as int32;
+on `bfs_cases`: P = 1 and 8, vmax off a 32-bit word, strided views, EB
+off 4, totals 0 and EB, every neighbour on the frontier and none, ids
+out of range, keep all False and None, hub rows; a level with no fresh
+vertex, phantom slots, counts as a row of a larger buffer.  Exact.  Then
+the probe's route sizing (`probe_stage_bytes`, `probe_route`).
 """
 import jax
 import jax.numpy as jnp
@@ -55,9 +68,10 @@ from nebula_tpu.tpu import hop as ref_hop
 
 from nebula_tpu_torch.algo import kernels as AK
 from nebula_tpu_torch.bench.kernel_cases import (
-    PREDICATE_BUILDERS, PREDICATE_NAMES, PREDICATE_TYPES, copy_view,
-    fresh_merge_args, mark_cases, merge_delta_cases, pagerank_cases,
-    predicate_cases, predicate_program, relax_cases)
+    PREDICATE_BUILDERS, PREDICATE_NAMES, PREDICATE_TYPES, bfs_cases,
+    copy_view, fresh_bfs_args, fresh_merge_args, mark_cases,
+    merge_delta_cases, pagerank_cases, predicate_cases, predicate_program,
+    relax_cases)
 from nebula_tpu_torch.gpu import exprjit as X
 from nebula_tpu_torch.gpu import kernels as K
 
@@ -66,6 +80,7 @@ PAGERANK = pagerank_cases("cpu")
 PREDICATE = predicate_cases("cpu")
 MERGE = merge_delta_cases("cpu")
 RELAX = relax_cases("cpu")
+BFS = bfs_cases("cpu")
 STEP_TOL = 1e-12
 
 
@@ -409,11 +424,186 @@ def test_route_launch_counts():
     K._count(AK.wcc_step, "global")
     K._count(AK.sssp_step, "staged")
     K._count(AK.sssp_step, "staged")
+    K._count(K.bfs_probe, "global")
     assert K.route_launch_counts() == {
+        "bfs_probe (staged)": 0, "bfs_probe (global)": 1,
         "wcc_step (staged)": 0, "wcc_step (global)": 1,
         "sssp_step (staged)": 2, "sssp_step (global)": 0}
+    assert K.launch_counts()["bfs_probe"] == 1
     assert K.launch_counts()["wcc_step"] == 1
     assert K.launch_counts()["sssp_step"] == 2
     K.reset_launch_counts()
     assert set(K.route_launch_counts().values()) == {0}
     assert K.launch_counts()["sssp_step"] == 0
+
+
+# ---------------------------------------------------------------------------
+# bfs_probe and bfs_level (K11)
+# ---------------------------------------------------------------------------
+
+
+def _untouched_outside(view, before):
+    """Nothing of `view`'s buffer outside the view was written."""
+    mask = torch.ones_like(before)
+    mask.as_strided(view.shape, view.stride(), view.storage_offset()) \
+        .fill_(0)
+    return torch.equal(view._base[mask], before[mask])
+
+
+def _ref_probe(args):
+    """frontier.py:136-141 on the reference's (P, vmax) frontier, ORed
+    into the prior candidates.  The port drops ids out of range, which
+    the reference's gather clamps and its scatter wraps (ids < 0): its
+    callers keep only valid slots, so the reference is given those."""
+    src, nbr, keep, total, fbm, out = (
+        None if a is None else a.numpy() for a in args)
+    P, EB = src.shape
+    vmax = fbm.shape[1]
+    k = np.arange(EB)[None, :] < total[:, None]
+    if keep is not None:
+        k &= keep
+    k &= (nbr >= 0) & (nbr < P * vmax) & (src >= 0)
+    nb = jnp.asarray(nbr)
+    member = jnp.asarray(fbm)[nb % P, nb // P] & jnp.asarray(k)
+    blk = jax.vmap(lambda s, m: ref_hop._mark(s, m, P, vmax))(
+        jnp.asarray(src), member)
+    return out | np.asarray(blk.any(axis=0))
+
+
+def _ref_level(args):
+    """tpu/bfs.py:153-159 and 170-172, and hop._pack_bits of the new
+    frontier as int32: (dist, new, unvis, words, counts)."""
+    cand, dist, lv = args[0].numpy(), args[1].numpy(), args[2]
+    jd = jnp.asarray(dist)
+    new = jnp.asarray(cand) & (jd < 0)
+    nd = jnp.where(new, lv, jd)
+    unvis = nd < 0
+    words = np.asarray(ref_hop._pack_bits(new)).view(np.int32)
+    return (np.asarray(nd), np.asarray(new), np.asarray(unvis), words,
+            [int(new.sum()), int(unvis.sum())])
+
+
+@pytest.mark.parametrize("case", BFS, ids=[c[0] for c in BFS])
+def test_bfs_edge_case_matches_reference(case):
+    """The plain probe (frontier from fbm, and from fbits) and the
+    wrapper's CPU branch with each route, and the plain level update and
+    the wrapper's CPU branch, against the reference, bit for bit; no
+    write outside a view."""
+    name, kname, args, kw = case
+    if kname == "bfs_probe":
+        fbm = args[4].numpy()
+        np.testing.assert_array_equal(
+            kw["fbits"].numpy(),
+            np.asarray(ref_hop._pack_bits(jnp.asarray(fbm))).view(np.int32))
+        want = _ref_probe(args)
+        calls = [lambda a, k: K.bfs_probe_plain(*a),
+                 lambda a, k: K.bfs_probe_plain(*a, **k),
+                 lambda a, k: K.bfs_probe(*a, **k)]
+        calls += [lambda a, k, r=r: K.bfs_probe(*a, **k, route=r)
+                  for r in K.PROBE_ROUTES]
+        for call in calls:
+            a, k = fresh_bfs_args(kname, args, kw)
+            before = a[5]._base.clone()
+            assert call(a, k) is a[5]
+            np.testing.assert_array_equal(a[5].numpy(), want)
+            assert _untouched_outside(a[5], before)
+        if "none on" in name or "all False" in name or "total 0" in name:
+            assert np.array_equal(want, args[5].numpy())
+        elif "P 1" in name or "hub rows" in name or "EB 4,099" in name:
+            assert (want & ~args[5].numpy()).any()
+        return
+    nd, new, unvis, words, counts = _ref_level(args)
+    for fn in (K.bfs_level_plain, K.bfs_level):
+        a, k = fresh_bfs_args(kname, args, kw)
+        befores = [t._base.clone() for t in (a[0], a[3], a[4])]
+        got = fn(*a, **k)
+        assert got.dtype == torch.int64 and got.tolist() == counts
+        np.testing.assert_array_equal(a[1].numpy(), nd)
+        np.testing.assert_array_equal(a[3].numpy(), new)
+        np.testing.assert_array_equal(a[4].numpy(), unvis)
+        assert not a[0].any()                   # cand cleared
+        for t, b in zip((a[0], a[3], a[4]), befores):
+            assert _untouched_outside(t, b)
+        if "fbits_out" in k:
+            np.testing.assert_array_equal(k["fbits_out"].numpy(), words)
+        if "counts" in k:
+            assert got is k["counts"]
+            rest = got._base.clone()
+            rest[args[2]] = 0
+            assert not rest.any()
+    if "no fresh" in name:
+        assert counts[0] == 0
+    else:
+        assert counts[0] > 0
+
+
+def test_bfs_cases_cover_each_kernel():
+    kinds = {k for _, k, _, _ in BFS}
+    assert kinds == {"bfs_probe", "bfs_level"}
+    probes = [a for _, k, a, _ in BFS if k == "bfs_probe"]
+    assert {a[0].shape[0] for a in probes} >= {1, 8}
+    assert any(a[0].shape[1] % 4 for a in probes)
+    assert any(a[4].shape[1] % 32 for a in probes)
+    assert any(a[4].stride(0) != a[4].shape[1] for a in probes)
+    assert any(a[2] is None for a in probes)
+
+
+@pytest.mark.parametrize("P, vmax, nbytes", [
+    (8, 125_000, 125_024), (1, 1, 16), (3, 33, 32), (8, 232_448, 232_448),
+    (8, 232_449, 232_480), (1, 1_859_584, 232_448),
+    (1, 1_859_585, 232_464), (7, 3001, 2640)])
+def test_probe_stage_bytes(P, vmax, nbytes):
+    """P rows of ceil(vmax / 32) words, rounded up to 16 bytes."""
+    assert K.probe_stage_bytes(P, vmax) == nbytes
+
+
+@pytest.mark.parametrize("P, vmax, smem, route", [
+    (8, 125_000, 232_448, "staged"),         # the north star's BFS
+    (8, 232_448, 232_448, "staged"),         # the widest staged frontier
+    (8, 232_449, 232_448, "global"),         # one column past it
+    (8, 250_000, 232_448, "global"),         # 2M vertices in 8 parts
+    (1, 1_859_584, 232_448, "staged"),
+    (1, 1_859_585, 232_448, "global"),
+    (1, 1, 16, "staged"), (1, 1, 15, "global"),
+    (8, 125_000, 125_024, "staged"), (8, 125_000, 125_023, "global")])
+def test_probe_route(P, vmax, smem, route):
+    assert K.probe_route(P, vmax, smem) == route
+
+
+def test_probe_route_default_is_a_blocks_shared_memory():
+    assert K.probe_route(8, 232_448) == "staged"
+    assert K.probe_route(8, 232_449) == "global"
+
+
+def test_probe_route_argument_checked():
+    _, _, args, kw = BFS[0]
+    a, k = fresh_bfs_args("bfs_probe", args, kw)
+    with pytest.raises(ValueError, match="route"):
+        K.bfs_probe(*a, **k, route="bits")
+
+
+def test_bfs_wrappers_check_the_new_arguments_off_the_cpu():
+    """On a device tensor the probe reads only the words, so it raises
+    without them (or with the wrong width, or a forced staged route that
+    does not fit); the level's counts must be a (2,) int64 row."""
+    m = dict(device="meta")
+    ints = torch.empty((8, 4), dtype=torch.int32, **m)
+    total = torch.empty((8,), dtype=torch.int32, **m)
+    bits = torch.empty((8, 40), dtype=torch.bool, **m)
+    with pytest.raises(ValueError, match="fbits"):
+        K.bfs_probe(ints, ints, None, total, bits, bits)
+    with pytest.raises(ValueError, match="fbits"):
+        K.bfs_probe(ints, ints, None, total, bits, bits,
+                    torch.empty((8, 1), dtype=torch.int32, **m))
+    wide = torch.empty((8, 232_449), dtype=torch.bool, **m)
+    with pytest.raises(ValueError, match="shared memory"):
+        K.bfs_probe(ints, ints, None, total, wide, wide,
+                    torch.empty((8, 7265), dtype=torch.int32, **m),
+                    route="staged")
+    dist = torch.empty((8, 40), dtype=torch.int32, **m)
+    with pytest.raises(ValueError, match="counts"):
+        K.bfs_level(bits, dist, 1, bits, bits,
+                    counts=torch.empty((3,), dtype=torch.int64, **m))
+    with pytest.raises(ValueError, match="fbits_out"):
+        K.bfs_level(bits, dist, 1, bits, bits,
+                    fbits_out=torch.empty((8, 1), dtype=torch.int32, **m))
