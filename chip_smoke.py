@@ -86,7 +86,12 @@ Phases, in order; any failure exits non-zero before the result line:
      neighbour on the frontier and none, ids out of range, keep all
      False and None, hub rows, the BFS's widest level, the widest
      frontier that stages and one column past it; a level with no fresh
-     vertex, phantom slots, counts as a row of a larger buffer);
+     vertex, phantom slots, counts as a row of a larger buffer), and the
+     mesh's exchange kernels bit for bit, one slot and slot groups (vmax
+     off a 32-bit word, mark rows and bases off 16 bytes, the
+     transports' strided views of the received words, destination rows
+     of odd stride, groups whose first part is not 0, the north star's
+     hop-2 shapes);
   5. the algo plane (`CALL algo.*`, algo/engine.run_algorithm on
      GpuRuntime()):
        a. on the north-star snapshot of phase 3 (30M KNOWS edges, 60M
@@ -233,19 +238,22 @@ Phases, in order; any failure exits non-zero before the result line:
           plain version and one library formulation, with its byte
           bound, and the every-hop loop's bound;
  10. the sharded mesh (GpuRuntime(mesh=make_mesh(8)): eight shard slots,
-     all on the one card, each holding only its own part's rows; one
-     bit-packed exchange a hop through the in-process transport), launch
+     all on the one card, each holding only its own part's rows, one slot
+     group; one bit-packed exchange a hop through the in-process
+     transport, each exchange kernel one launch for the group), launch
      counters zeroed just before each run and read just after:
        a. the main path's snapshot (split at --split) pinned slot by slot,
           each slot's bytes exactly its part's and the hub tables; GO 3
           STEPS from the 16 seeds, unfiltered and WHERE KNOWS.w > 50, p50
           of 3 runs of device, fetch and materialize: rows equal in order
           to phase 3's, hop_edges and frontier_sizes too, exchange_bytes
-          2 * a2a_payload_bytes(8, vmax); pack_bits, unpack_or and (split)
-          owned_hub_bits and fill_hub_columns launched;
+          2 * a2a_payload_bytes(8, vmax); exactly 2 pack_bits, 2
+          unpack_or and (split) 3 owned_hub_bits and 3 fill_hub_columns
+          launches a query;
        b. config 5's BFS on that mesh, top-down at every level: depths
           equal to host_bfs, hop_edges to each level's frontier's
           out-degrees, exchange_bytes bfs_exchange_bytes(8, vmax, 5);
+          exactly 5 launches of each exchange kernel a run;
        c. GO 3 STEPS through phase 7's 40,000 writes (a twin store's log)
           on an 8-slot pin of the unsplit delta-armed snapshot: rows equal
           in order to phase 7's; merge_delta (mesh), every slot's merge
@@ -255,11 +263,13 @@ Phases, in order; any failure exits non-zero before the result line:
           trail count equal to host_trail_paths;
        e. 8 concurrent GO 3 STEPS WHERE w > 50 on (a)'s mesh, as 8b
           batches them: one batch, one solo run's launches, solo rows;
-       f. the four exchange kernels against their plain versions at (a)'s
-          hop-2 shapes (each slot's unpacked frontier equal to hop 3's
-          local frontier, each slot's hub columns to extend_hubs'),
-          timed with their plain versions and one library formulation,
-          with their byte bounds; the exchange copy timed; the (mesh)
+       f. the four exchange kernels over the group of eight against
+          their plain versions at (a)'s hop-2 shapes (each slot's
+          unpacked frontier equal to hop 3's local frontier, each slot's
+          hub columns to extend_hubs'), timed with their plain versions
+          and one library formulation over the group, with their byte
+          bounds; the transport's receive a view (no copy); one whole
+          exchange_marks_lanes and extend_fbm_sharded_lanes timed; the (mesh)
           rows: expand (parts = 8, pid = p) and mark at hop 2,
           predicate_mask and compact_capture at hop 3, at every slot's
           shapes against their plain versions (the expansion against
@@ -323,7 +333,7 @@ ROUTE_SOURCES = {
     "pack_bits": ("nebula_tpu_torch/csrc/exchange.cu",
                   "nebula_tpu/tpu/hop.py:179"),
     "unpack_or": ("nebula_tpu_torch/csrc/exchange.cu",
-                  "nebula_tpu/tpu/hop.py:193"),
+                  "nebula_tpu/tpu/hop.py:195"),
     "owned_hub_bits": ("nebula_tpu_torch/csrc/exchange.cu",
                        "nebula_tpu/tpu/hop.py:292"),
     "fill_hub_columns": ("nebula_tpu_torch/csrc/exchange.cu",
@@ -1284,10 +1294,13 @@ def loop_bound(K, run):
         if name == "pack_bits":
             return a[0].numel() + 4 * r.numel(), a[0].numel()
         if name == "unpack_or":
-            return 4 * a[0].numel() + a[1], a[0].numel() * 32
-        if name in ("owned_hub_bits", "fill_hub_columns"):
-            H = a[2].numel() if name == "owned_hub_bits" else a[1].numel()
-            return (13 if name == "owned_hub_bits" else 5) * H, H
+            return 4 * a[0].numel() + a[2].numel(), a[0].numel()
+        if name == "owned_hub_bits":          # a slot's or a group's bits
+            lh = a[0].shape[-3] * a[2].numel()
+            return 8 * a[2].numel() + 5 * lh, lh
+        if name == "fill_hub_columns":        # every slot's hub columns
+            lh = a[1].numel()
+            return 4 * lh + rows(a[0]) // a[0].shape[-3] * lh, lh
         raise AssertionError(f"no bound formula for {name}")
 
     def wrap(name, fn):
@@ -1773,7 +1786,35 @@ def edge_cases(K, AK, device) -> None:
             f"{args[1].numel()}): max abs err {err}, rerun bit-identical")
     relax_edge_cases(AK, device)
     bfs_edge_cases(K, device)
+    exchange_edge_cases(K, device)
     log(f"[4e] edge cases done in {time.perf_counter() - t0:.1f} s")
+
+
+def exchange_edge_cases(K, device) -> None:
+    """[4e]: the mesh's exchange kernels (pack_bits, unpack_or,
+    owned_hub_bits, fill_hub_columns) against their plain versions, bit
+    for bit, on bench/kernel_cases.py's exchange cases at card sizes, one
+    slot and slot groups: every load and store width, the transports'
+    strided views; the whole buffer around a view written in place
+    compared."""
+    import torch
+    from nebula_tpu_torch.bench.kernel_cases import copy_view, exchange_cases
+    for name, kname, args in exchange_cases(device, big=True):
+        outs = []
+        for fn in (getattr(K, kname), getattr(K, kname + "_plain")):
+            a = list(args)
+            if kname == "unpack_or":
+                a[2] = copy_view(a[2])
+            elif kname == "fill_hub_columns":
+                a[0] = a[0].clone()
+            r = fn(*a)
+            outs.append(r._base if kname == "unpack_or" else r)
+        torch.cuda.synchronize()
+        try:
+            max_abs_err(outs[:1], outs[1:])
+        except AssertionError as e:
+            raise AssertionError(f"[4e] {kname}, {name}: {e}") from None
+        log(f"[4e] {kname}, {name}: equal")
 
 
 def bfs_edge_cases(K, device) -> None:
@@ -2113,7 +2154,10 @@ def main(argv=None) -> int:
                                      "merge_delta_kernel", "relax_kernel",
                                      "prologue_kernel", "finish_kernel",
                                      "bfs_probe_kernel",
-                                     "bfs_level_kernel")):
+                                     "bfs_level_kernel", "pack_bits_kernel",
+                                     "unpack_or_kernel",
+                                     "owned_hub_bits_kernel",
+                                     "fill_hub_columns_kernel")):
         log(f"[2] ptxas {line}")
 
     # -- 3a. the north-star GO, unsplit ------------------------------------
@@ -3378,6 +3422,9 @@ def main(argv=None) -> int:
     from nebula_tpu_torch.gpu.bfs import bfs_exchange_bytes
     from nebula_tpu_torch.gpu.device import make_mesh
     from nebula_tpu_torch.gpu.hop import (a2a_payload_bytes,
+                                          exchange_marks_lanes,
+                                          extend_fbm_sharded_lanes,
+                                          new_group_marks,
                                           run_hops_sharded,
                                           seed_slot_frontiers)
     from nebula_tpu_torch.gpu.mesh import process_group_mesh
@@ -3465,6 +3512,20 @@ def main(argv=None) -> int:
         if launches10[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"mesh GO path")
+    # the card's eight slots are one slot group, and each exchange kernel
+    # runs once a group a step: a GO-3 query packs and unpacks twice and
+    # extends the hub columns three times
+    if len(mesh8.groups) != 1:
+        raise AssertionError(f"[10a] {len(mesh8.groups)} slot groups on one "
+                             f"card")
+    n_go = 2 * (MESH_RUNS + 1)
+    want10 = {"pack_bits": 2 * n_go, "unpack_or": 2 * n_go,
+              "owned_hub_bits": 3 * n_go if H else 0,
+              "fill_hub_columns": 3 * n_go if H else 0}
+    if {k: launches10[k] for k in want10} != want10:
+        raise AssertionError(f"[10a] exchange launches "
+                             f"{ {k: launches10[k] for k in want10} } over "
+                             f"{n_go} queries, want {want10}")
     mesh["10a"]["launches"] = {k: v for k, v in launches10.items() if v}
     log(f"[10a] pin and launches over {2 * (MESH_RUNS + 1)} queries: "
         + json.dumps({k: v for k, v in mesh["10a"].items()
@@ -3495,6 +3556,15 @@ def main(argv=None) -> int:
         if bl8[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"mesh BFS path")
+    # one exchange and (split) one hub extension a level, each kernel once
+    # for the one group
+    want10b = {k: (BFS_STEPS * BFS_RUNS
+                   if k in MESH_KERNELS or H else 0)
+               for k in MESH_KERNELS + MESH_HUB_KERNELS}
+    if {k: bl8[k] for k in want10b} != want10b:
+        raise AssertionError(f"[10b] exchange launches "
+                             f"{ {k: bl8[k] for k in want10b} } over "
+                             f"{BFS_RUNS} runs, want {want10b}")
     if bl8["bfs_probe"]:
         raise AssertionError("[10b] a bottom-up level ran on the mesh")
     mesh["10b"] = dict(res8, exchange_bytes=st8.exchange_bytes,
@@ -3650,118 +3720,147 @@ def main(argv=None) -> int:
     for qid in (-1, -2):
         live_registry().deregister(qid)
 
-    # 10f. K15 and K16 against their plain versions at 10a's hop-2
-    # shapes: each slot's (1, 8, vmax) marks of hop 2, their words, what
-    # each slot receives, and the hub bits of the frontier entering hop 2
+    # 10f. K15 and K16 over the slot group — all eight slots on the one
+    # card, one launch of each kernel — against their plain versions at
+    # 10a's hop-2 shapes: every slot's (1, 8, vmax) marks of hop 2 in the
+    # group's (8, 1, 8, vmax) matrix, their words, what each slot receives
+    # (a view of the words, no copy), and the hub bits of the frontier
+    # entering hop 2
     stamp("phase 10f")
     P, vmax = MESH_SLOTS, dev8.vmax
     W = -(-vmax // 32)
     _blk, _ids, bufs_l, dsts_l = hop_inputs(ldev)
     dev0 = mesh8.devices[0]
-    marks8 = [K.mark_plain(dsts_l[1][p:p + 1][None], P, vmax,
-                           out=torch.zeros((1, P, vmax), dtype=torch.bool,
-                                           device=dev0))
-              for p in range(P)]
-    words = [K.pack_bits_plain(m) for m in marks8]
-    err_pack = max_abs_err([K.pack_bits(m) for m in marks8], words)
-    recv = mesh8.transport.all_to_all(mesh8, words)
 
-    def slot_buf():
-        return torch.zeros((1, 1, vmax + H), dtype=torch.bool, device=dev0)
+    def group_buf():
+        return torch.zeros((P, 1, 1, vmax + H), dtype=torch.bool,
+                           device=dev0)
 
-    got_u, want_u = [], []
+    marks_g = new_group_marks([group_buf()], P, vmax)[0]
     for p in range(P):
-        for out, fn in ((got_u, K.unpack_or), (want_u, K.unpack_or_plain)):
-            b = slot_buf()
-            fn(recv[p], vmax, b[:, 0, :vmax])
-            out.append(b)
-        if not torch.equal(want_u[-1][0, 0, :vmax], bufs_l[2][p, :vmax]):
+        K.mark_plain(dsts_l[1][p:p + 1][None], P, vmax, out=marks_g[p])
+    words = K.pack_bits_plain(marks_g)
+    err_pack = max_abs_err([K.pack_bits(marks_g)], [words])
+    recv = mesh8.transport.all_to_all(mesh8, [words])[0]
+    if recv.untyped_storage().data_ptr() != \
+            words.untyped_storage().data_ptr():
+        raise AssertionError("[10f] the in-process transport copied the "
+                             "group's words")
+    got_u, want_u = group_buf(), group_buf()
+    K.unpack_or(recv, vmax, got_u[:, :, 0, :vmax])
+    K.unpack_or_plain(recv, vmax, want_u[:, :, 0, :vmax])
+    for p in range(P):
+        if not torch.equal(want_u[p, 0, 0, :vmax], bufs_l[2][p, :vmax]):
             raise AssertionError(f"[10f] slot {p}'s exchanged frontier is "
                                  f"not hop 3's")
-    err_unpack = max_abs_err(got_u, want_u)
+    err_unpack = max_abs_err([got_u], [want_u])
     shifts = torch.arange(32, dtype=torch.int32, device=dev0)
-    m0, r0 = marks8[0], recv[0]
-    u_t = slot_buf()
+    u_t = group_buf()
 
     def lib_pack():
-        x = torch.nn.functional.pad(m0.to(torch.int32), (0, W * 32 - vmax))
-        return (x.view(1, P, W, 32) << shifts).sum(-1, dtype=torch.int32)
+        x = torch.nn.functional.pad(marks_g.to(torch.int32),
+                                    (0, W * 32 - vmax))
+        return (x.view(P, 1, P, W, 32) << shifts).sum(-1, dtype=torch.int32)
 
     def lib_unpack():
-        bits = ((r0[..., None] >> shifts) & 1).amax(1)
-        u_t[:, 0, :vmax] = bits.view(1, W * 32)[:, :vmax].bool()
+        bits = ((recv[..., None] >> shifts) & 1).amax(2)
+        u_t[:, :, 0, :vmax] = bits.view(P, 1, W * 32)[..., :vmax].bool()
         return u_t
 
-    if not torch.equal(lib_pack(), words[0]) \
-            or not torch.equal(lib_unpack(), want_u[0]):
+    if not torch.equal(lib_pack(), words) \
+            or not torch.equal(lib_unpack(), want_u):
         raise AssertionError("[10f] a library formulation differs")
-    n_set = int(m0.sum())
+    n_set = int(marks_g.sum())
     record("pack_bits", None, None,
-           cuda_ms(lambda: K.pack_bits(m0), reps),
-           cuda_ms(lambda: K.pack_bits_plain(m0), reps),
-           cuda_ms(lib_pack, reps), P * vmax + 4 * P * W, P * vmax,
-           counts=launches10, err=err_pack, tag="[10f]",
-           note=f" (hop 2, one slot's (1, {P}, {vmax}) marks, {n_set} set, "
-                f"-> (1, {P}, {W}) words; {P} launches a hop)")
+           cuda_ms(lambda: K.pack_bits(marks_g), reps),
+           cuda_ms(lambda: K.pack_bits_plain(marks_g), reps),
+           cuda_ms(lib_pack, reps), P * P * vmax + 4 * P * P * W,
+           P * P * vmax, counts=launches10, err=err_pack, tag="[10f]",
+           note=f" (hop 2, the group's ({P}, 1, {P}, {vmax}) marks, {n_set}"
+                f" set, -> ({P}, 1, {P}, {W}) words; one launch a hop)")
     record("unpack_or", None, None,
-           cuda_ms(lambda: K.unpack_or(r0, vmax, u_t[:, 0, :vmax]), reps),
-           cuda_ms(lambda: K.unpack_or_plain(r0, vmax, u_t[:, 0, :vmax]),
+           cuda_ms(lambda: K.unpack_or(recv, vmax, u_t[:, :, 0, :vmax]),
                    reps),
-           cuda_ms(lib_unpack, reps), 4 * P * W + vmax, P * vmax,
+           cuda_ms(lambda: K.unpack_or_plain(recv, vmax,
+                                             u_t[:, :, 0, :vmax]), reps),
+           cuda_ms(lib_unpack, reps), 4 * P * P * W + P * vmax, P * P * W,
            counts=launches10, err=err_unpack, tag="[10f]",
-           note=f" (hop 2, one slot's (1, {P}, {W}) received words -> "
-                f"{vmax} columns)")
-    exchange_ms = cuda_ms(lambda: mesh8.transport.all_to_all(mesh8, words),
-                          reps)
-    mesh["10f"] = {"exchange_copy_ms": exchange_ms,
+           note=f" (hop 2, the group's ({P}, 1, {P}, {W}) received words, "
+                f"a permuted view, -> {P} x {vmax} columns)")
+    exchange_ms = cuda_ms(lambda: exchange_marks_lanes(
+        mesh8, [marks_g], [u_t[:, :, 0, :vmax]]), reps)
+    mesh["10f"] = {"groups": len(mesh8.groups), "transport_copy_bytes": 0,
+                   "exchange_ms": exchange_ms,
                    "exchange_bytes": P * P * W * 4}
-    log(f"[10f] the exchange copy (in-process, {P} slots on one card, "
-        f"{P * P * W * 4} bytes of words): {exchange_ms:.4f} ms")
+    log(f"[10f] the transport (in-process, one group of {P} slots on one "
+        f"card): no copy within a group, each slot's received words a "
+        f"permuted view of the group's {P * P * W * 4} bytes of words; one "
+        f"whole exchange_marks_lanes (pack_bits, all_to_all, unpack_or): "
+        f"{exchange_ms:.4f} ms")
     if H:
-        fbm8 = [bufs_l[1][p:p + 1].clone()[None] for p in range(P)]
-        owned = [K.owned_hub_bits_plain(f, sh.part, sh.hub_owner,
-                                        sh.hub_local)
-                 for f, sh in zip(fbm8, dev8.shards)]
-        err_own = max_abs_err(
-            [K.owned_hub_bits(f, sh.part, sh.hub_owner, sh.hub_local)
-             for f, sh in zip(fbm8, dev8.shards)], owned)
-        summed = sum(owned)
-        got_f, want_f = [], []
-        for p, f in enumerate(fbm8):
-            for out, fn in ((got_f, K.fill_hub_columns),
-                            (want_f, K.fill_hub_columns_plain)):
-                b = f.clone()
-                b[:, 0, vmax:] = False
-                out.append(fn(b, summed))
-            if not torch.equal(want_f[-1][0, 0], bufs_l[1][p]):
+        sh0 = dev8.shards[0]
+        fb_g = group_buf()
+        fb_g[:, 0, 0, :vmax] = bufs_l[1][:, :vmax]
+        owned = K.owned_hub_bits_plain(fb_g, sh0.part, sh0.hub_owner,
+                                       sh0.hub_local)
+        err_own = max_abs_err([K.owned_hub_bits(
+            fb_g, sh0.part, sh0.hub_owner, sh0.hub_local)], [owned])
+        got_f, want_f = fb_g.clone(), fb_g.clone()
+        K.fill_hub_columns(got_f, owned)
+        K.fill_hub_columns_plain(want_f, owned)
+        for p in range(P):
+            if not torch.equal(want_f[p, 0, 0], bufs_l[1][p]):
                 raise AssertionError(f"[10f] slot {p}'s hub columns differ "
                                      f"from extend_hubs'")
-        err_fill = max_abs_err(got_f, want_f)
-        sh0, f0 = dev8.shards[0], fbm8[0]
-        fb_t = f0.clone()
+        err_fill = max_abs_err([got_f], [want_f])
+        fb_t = fb_g.clone()
+        own_l, loc_l = sh0.hub_owner.long(), sh0.hub_local.long()
 
         def lib_owned():
-            return (f0[:, 0, sh0.hub_local.long()]
-                    & (sh0.hub_owner == sh0.part)).to(torch.int32)
+            # every hub's owner is a slot of the one group
+            return fb_g[own_l, :, 0, loc_l].T.to(torch.int32)
 
         def lib_fill():
-            fb_t[:, 0, vmax:] = summed > 0
+            fb_t[..., 0, vmax:] = owned > 0
             return fb_t
 
+        if not torch.equal(lib_owned(), owned):
+            raise AssertionError("[10f] the owned-bits gather differs")
         record("owned_hub_bits", None, None,
-               cuda_ms(lambda: K.owned_hub_bits(f0, sh0.part, sh0.hub_owner,
+               cuda_ms(lambda: K.owned_hub_bits(fb_g, sh0.part, sh0.hub_owner,
                                                 sh0.hub_local), reps),
                cuda_ms(lambda: K.owned_hub_bits_plain(
-                   f0, sh0.part, sh0.hub_owner, sh0.hub_local), reps),
-               cuda_ms(lib_owned, reps), H + 8 * H + 4 * H, H,
+                   fb_g, sh0.part, sh0.hub_owner, sh0.hub_local), reps),
+               cuda_ms(lib_owned, reps), 8 * H + H + 4 * H, H,
                counts=launches10, err=err_own, tag="[10f]",
-               note=f" (hop 2, {H} hubs, slot 0)")
+               note=f" (hop 2, {H} hubs over the group's {P} slots)")
         record("fill_hub_columns", None, None,
-               cuda_ms(lambda: K.fill_hub_columns(fb_t, summed), reps),
-               cuda_ms(lambda: K.fill_hub_columns_plain(fb_t, summed), reps),
-               cuda_ms(lib_fill, reps), 4 * H + H, H,
+               cuda_ms(lambda: K.fill_hub_columns(fb_t, owned), reps),
+               cuda_ms(lambda: K.fill_hub_columns_plain(fb_t, owned), reps),
+               cuda_ms(lib_fill, reps), 4 * H + P * H, P * H,
                counts=launches10, err=err_fill, tag="[10f]",
-               note=f" (hop 2, {H} hub columns, slot 0)")
+               note=f" (hop 2, {H} hub columns of each of {P} slots)")
+        hub_ms = cuda_ms(lambda: extend_fbm_sharded_lanes(
+            mesh8, dev8.shards, [fb_t]), reps)
+        mesh["10f"]["hub_extension_ms"] = hub_ms
+        log(f"[10f] one whole extend_fbm_sharded_lanes (owned_hub_bits, "
+            f"the sum, fill_hub_columns) over {P} slots and {H} hubs: "
+            f"{hub_ms:.4f} ms")
+    # back to back, the rows above time the wrappers' host work as much as
+    # the kernels; a span around each call with no host gap in it times
+    # the device alone
+    dev_ms = {"pack_bits": cuda_ms_fresh(lambda: K.pack_bits(marks_g), noop,
+                                         reps),
+              "unpack_or": cuda_ms_fresh(lambda: K.unpack_or(
+                  recv, vmax, u_t[:, :, 0, :vmax]), noop, reps)}
+    if H:
+        dev_ms["owned_hub_bits"] = cuda_ms_fresh(lambda: K.owned_hub_bits(
+            fb_g, sh0.part, sh0.hub_owner, sh0.hub_local), noop, reps)
+        dev_ms["fill_hub_columns"] = cuda_ms_fresh(
+            lambda: K.fill_hub_columns(fb_t, owned), noop, reps)
+    mesh["10f"]["device_ms"] = dev_ms
+    log(f"[10f] the group kernels' device time a launch (a span around each "
+        f"call, no host gap in it): {json.dumps(dev_ms)}")
     # the hop kernels at a slot's shapes (one part's CSR row, parts = 8,
     # pid = p), for every slot: expand and mark into the slot's (1, 8,
     # vmax) mark matrix at hop 2, expand, predicate_mask and
@@ -3799,7 +3898,7 @@ def main(argv=None) -> int:
                     for fn in (K.mark, K.mark_plain))
                 err8["mark"] = max(err8["mark"],
                                    max_abs_err([got_m], [want_m]))
-                if not torch.equal(want_m, marks8[q]):
+                if not torch.equal(want_m, marks_g[q]):
                     raise AssertionError(f"[10f] slot {q}'s hop-2 mark "
                                          f"matrix is not its marks")
                 extra8 = ()
@@ -3899,16 +3998,17 @@ def main(argv=None) -> int:
         kept = (K.predicate_mask_plain(prog8, *sl[:4], sl[4],
                                        [blk8.props["w"]]).sum(1).tolist()
                 if hop == 2 else None)
+        if H:
+            # one launch each a hop over the group of eight
+            add17("owned_hub_bits", 13 * H, H)
+            add17("fill_hub_columns", 4 * H + P * H, P * H)
         for p, tot in enumerate(tots):
             add17("expand", expand_bytes(1, f.shape[-1], H, tot, tot),
                   f.shape[-1] * 3 + tot)
-            if H:
-                add17("owned_hub_bits", 13 * H, H)
-                add17("fill_hub_columns", 5 * H, H)
             if hop < 2:
                 add17("mark", 4 * tot + P * vmax, 3 * tot)
                 add17("pack_bits", P * vmax + 4 * P * W, P * vmax)
-                add17("unpack_or", 4 * P * W + vmax, P * vmax)
+                add17("unpack_or", 4 * P * W + vmax, P * W)
             else:
                 add17("predicate_mask", 13 * tot + 4,
                       tot * len(prog8.code))

@@ -981,3 +981,109 @@ def fresh_bfs_args(kname, args, kw):
     cand, dist, lv, f, u = args
     return ((copy_view(cand), dist.clone(), lv, copy_view(f), copy_view(u)),
             {k: copy_view(v) for k, v in kw.items()})
+
+
+ExchangeCase = Tuple[str, str, tuple]
+
+
+def _bool_view(rng, device, lead, width, ld, offset=0, density=0.4):
+    """A random (*lead, width) bool view into a buffer of rows `ld` bytes
+    apart, starting `offset` bytes into its first row (the bytes around
+    the view random too)."""
+    rows = int(np.prod(lead)) if lead else 1
+    buf = _t(rng.random(rows * ld + offset + ld) < density, device)
+    strides, span = [1], ld
+    for n in reversed(lead):
+        strides.insert(0, span)
+        span *= n
+    return buf.as_strided(tuple(lead) + (width,), tuple(strides), offset)
+
+
+def exchange_cases(device, seed: int = 0, big: bool = False
+                   ) -> List[ExchangeCase]:
+    """(name, kernel, args) cases of the mesh's exchange kernels,
+    `pack_bits`, `unpack_or`, `owned_hub_bits` and `fill_hub_columns`,
+    in their one-slot and slot-group forms.  The shapes sit where a
+    word-per-thread pack with wide loads and an unpack with stores as
+    wide as their alignment allows can go wrong: vmax 1, 31, 32, 33
+    (a partial last word) and off 16 bytes; row strides a multiple of 16
+    (the group marks' 32 * W rows), of 8, 4 and 1 byte, and a view
+    starting off a 16-byte boundary; received words through the
+    in-process transport's permuted view and the process-group one's
+    merged axes; destination rows of odd stride (the split layout's vmax
+    + H) and a view starting one byte in.  The hub pair: one slot and
+    groups of 1, 2 and 4 slots whose first part is not 0 (hubs owned
+    outside the group give 0), no hubs, lanes.  Outputs written in place
+    (unpack_or's out, fill_hub_columns' fbm) are views: take
+    `copy_view` of them for each call."""
+    rng = np.random.default_rng(seed + 11)
+    cases: List[ExchangeCase] = []
+    P = 4
+    for vmax in (1, 31, 32, 33, 1000):
+        w32 = 32 * -(-vmax // 32)
+        for ld, off, what in ((w32, 0, "rows 32 * W apart"),
+                              (vmax + 8 if vmax % 8 == 0 else w32 + 8, 0,
+                               "rows 8 bytes off 16"),
+                              (w32 + 4, 4, "rows and base 4 off"),
+                              (vmax + 3, 1, "odd rows, base 1 byte in")):
+            cases.append((f"pack (2, 3, {P}, {vmax}), {what}", "pack_bits",
+                          (_bool_view(rng, device, (2, 3, P), vmax, ld,
+                                      off),)))
+        cases.append((f"pack one slot (3, {P}, {vmax})", "pack_bits",
+                      (_bool_view(rng, device, (3, P), vmax, vmax + 5),)))
+        W = -(-vmax // 32)
+        words = rng.integers(-(1 << 31), 1 << 31, (P, 3, P, W),
+                             dtype=np.int64).astype(np.int32)
+        t = _t(words, device)
+        # what all_to_all_single gives a rank of 2 slots out of 4:
+        # y[r, i, l, j], rank r's slot i to local slot j
+        y = t[:2].reshape(2, 2, 3, 2, W)
+        recvs = (("the in-process view", t.permute(2, 1, 0, 3)),
+                 ("the process-group view",
+                  y.permute(3, 2, 0, 1, 4).reshape(2, 3, P, W)),
+                 ("contiguous", t))
+        for name, r in recvs:
+            S = r.shape[0]
+            for H, off in ((0, 0), (73, 0), (6, 1)):
+                out = _bool_view(rng, device, (S, 3), vmax, vmax + H + off,
+                                 off, density=0.5)
+                cases.append((f"unpack {name} ({S}, 3, {P}, {W}) -> vmax "
+                              f"{vmax}, ld {vmax + H + off}, base {off} in",
+                              "unpack_or", (r, vmax, out)))
+        cases.append((f"unpack one slot (3, {P}, {W})", "unpack_or",
+                      (t[0], vmax, _bool_view(rng, device, (3,), vmax,
+                                              vmax + 7))))
+    for S, p0, L, H, vmax in ((1, 0, 1, 5, 40), (2, 2, 3, 9, 33),
+                              (4, 0, 2, 17, 100), (2, 0, 1, 0, 10),
+                              (1, 3, 2, 12, 64)):
+        Pm = 4
+        dense = rng.choice(Pm * vmax, H, replace=False).astype(np.int32)
+        owner, local = _t(dense % Pm, device), _t(dense // Pm, device)
+        fbm = _t(rng.random((S, L, 1, vmax + H)) < 0.5, device)
+        grp = f"group of {S} from part {p0}, {L} lanes, {H} hubs"
+        cases.append((f"owned {grp}", "owned_hub_bits",
+                      (fbm, p0, owner, local)))
+        if S == 1:
+            cases.append((f"owned one slot, part {p0}", "owned_hub_bits",
+                          (fbm[0], p0, owner, local)))
+        summed = _t(rng.integers(0, 3, (L, H)).astype(np.int32), device)
+        cases.append((f"fill {grp}", "fill_hub_columns", (fbm, summed)))
+        cases.append((f"fill one slot, {grp}", "fill_hub_columns",
+                      (fbm[0], summed)))
+    if big:
+        V = 125_000
+        W = -(-V // 32)
+        cases.append(("pack the north star's hop 2: (8, 1, 8, 125,000), "
+                      "rows 125,024 apart", "pack_bits",
+                      (_bool_view(rng, device, (8, 1, 8), V, 32 * W),)))
+        cases.append(("pack (8, 8, 8, 125,000), rows 125,073 apart",
+                      "pack_bits",
+                      (_bool_view(rng, device, (8, 8, 8), V, V + 73),)))
+        t = _t(rng.integers(-(1 << 31), 1 << 31, (8, 8, 8, W),
+                            dtype=np.int64).astype(np.int32), device)
+        for ld, off in ((V + 73, 0), (V, 0), (V + 16, 2)):
+            cases.append((f"unpack (8, 8, 8, {W}) permuted -> ld {ld}, "
+                          f"base {off} in", "unpack_or",
+                          (t.permute(2, 1, 0, 3), V,
+                           _bool_view(rng, device, (8, 8), V, ld, off))))
+    return cases

@@ -33,8 +33,9 @@ candidate bitmaps are the first vmax columns of (P, vmax + H) buffers
 `build_bfs_fn`, bfs.py:54): top-down at every level — the reference's
 sharded runtime pins no reverse twins (runtime.py:2169) — each shard slot
 expanding its own part (`frontier.sharded_level_step`), one bit-packed
-exchange a level, the last one included (`bfs_exchange_bytes`, :42),
-then `bfs_level` per slot on what it received: new = cand & (dist < 0).
+exchange a level, the last one included (`bfs_exchange_bytes`, :42), each
+of its kernels one launch a slot group (`Mesh.groups`), then `bfs_level`
+per slot on what it received: new = cand & (dist < 0).
 """
 from __future__ import annotations
 
@@ -47,7 +48,7 @@ from ..algo.frontier import bottom_up_step, sharded_level_step, \
 from .device import DeviceBlock, DeviceShard, DeviceSnapshot
 from .exprjit import Program
 from .hop import a2a_payload_bytes, exchange_marks_lanes, \
-    extend_fbm_sharded_lanes, new_frontier
+    extend_fbm_sharded_lanes, new_frontier, new_group_marks, slot_groups
 from .kernels import bfs_level, extend_hubs
 from .mesh import Mesh
 
@@ -134,9 +135,13 @@ def run_bfs_sharded(mesh: Mesh, shards: Sequence[DeviceShard],
                         Dict[str, Any]]]]] = None) -> Dict[str, Any]:
     """A `max_steps`-level top-down BFS over a mesh of shard slots.  Per
     slot this process holds: shards[i], its blocks, its (1, 1, vmax + H)
-    seed buffer (`hop.new_slot_frontiers` with the slot's seeds marked;
-    it becomes the candidate buffer) and, per block, its delta rows or
-    None.
+    seed buffer (`hop.new_slot_frontiers` with the slot's seeds marked, a
+    view of its group's buffer; it becomes the candidate buffer) and,
+    per block, its delta rows or None.  The frontier, unvisited,
+    candidate, dist and count buffers and each level's mark matrices are
+    one allocation a slot group (`Mesh.groups`), so that the exchange's
+    kernels run once a group a level; each slot's expansion and
+    `bfs_level` run on its views.
 
     Returns, for the parts this process holds, in part order on
     mesh.devices[0]: dist (P, vmax) int32, hop_edges (P, max_steps)
@@ -145,42 +150,44 @@ def run_bfs_sharded(mesh: Mesh, shards: Sequence[DeviceShard],
     P = mesh.size
     H = shards[0].num_hubs
     vmax = seeds_by_slot[0].shape[-1] - H
-    n_slots = len(shards)
     deltas_by_slot = deltas_by_slot if deltas_by_slot is not None else [
-        None] * n_slots
-    cands = list(seeds_by_slot)
+        None] * len(shards)
+    cands = slot_groups(mesh, seeds_by_slot)      # (S, 1, 1, vmax + H)
     fbufs = [torch.zeros_like(c) for c in cands]
-    unvis = [torch.zeros((1, vmax), dtype=torch.bool, device=c.device)
-             for c in cands]
-    dist = [torch.full((1, vmax), -1, dtype=torch.int32, device=c.device)
-            for c in cands]
-    counts = [torch.zeros((max_steps + 1, 2), dtype=torch.int64,
+    unvis = [torch.zeros((c.shape[0], 1, vmax), dtype=torch.bool,
+                         device=c.device) for c in cands]
+    dist = [torch.full((c.shape[0], 1, vmax), -1, dtype=torch.int32,
+                       device=c.device) for c in cands]
+    counts = [torch.zeros((c.shape[0], max_steps + 1, 2), dtype=torch.int64,
                           device=c.device) for c in cands]
-    for i in range(n_slots):
-        bfs_level(cands[i][:, 0, :vmax], dist[i], 0, fbufs[i][:, 0, :vmax],
-                  unvis[i], counts=counts[i][0])
-    hop_edges: List[List[torch.Tensor]] = [[] for _ in range(n_slots)]
+
+    def update(level: int) -> None:
+        for c, f, u, d, n in zip(cands, fbufs, unvis, dist, counts):
+            for s in range(c.shape[0]):
+                bfs_level(c[s, :, 0, :vmax], d[s], level, f[s, :, 0, :vmax],
+                          u[s], counts=n[s, level])
+
+    update(0)
+    hop_edges: List[List[torch.Tensor]] = [[] for _ in shards]
     e_cap: List[int] = []
     for level in range(1, max_steps + 1):
         if H:
             extend_fbm_sharded_lanes(mesh, shards, fbufs)
-        marks = [torch.zeros((1, P, vmax), dtype=torch.bool,
-                             device=c.device) for c in cands]
+        marks = new_group_marks(cands, P, vmax)
         width = 0
-        for i, sh in enumerate(shards):
-            edges, w = sharded_level_step(blocks_by_slot[i], fbufs[i],
-                                          marks[i], sh.part, sh.hub_dense,
-                                          pred, deltas_by_slot[i])
-            hop_edges[i].append(edges[0])
-            width = max(width, w)
+        for grp, f, m in zip(mesh.groups, fbufs, marks):
+            for s, i in enumerate(grp):
+                edges, w = sharded_level_step(blocks_by_slot[i], f[s], m[s],
+                                              shards[i].part,
+                                              shards[i].hub_dense, pred,
+                                              deltas_by_slot[i])
+                hop_edges[i].append(edges[0])
+                width = max(width, w)
         e_cap.append(width)
-        exchange_marks_lanes(mesh, marks, [c[:, 0, :vmax] for c in cands])
-        for i in range(n_slots):
-            bfs_level(cands[i][:, 0, :vmax], dist[i], level,
-                      fbufs[i][:, 0, :vmax], unvis[i],
-                      counts=counts[i][level])
+        exchange_marks_lanes(mesh, marks, [c[:, :, 0, :vmax] for c in cands])
+        update(level)
     out_dev = mesh.devices[0]
-    return {"dist": torch.cat([d.to(out_dev) for d in dist], 0),
+    return {"dist": torch.cat([d[:, 0].to(out_dev) for d in dist], 0),
             "hop_edges": torch.cat([torch.stack(h, -1).to(out_dev)
                                     for h in hop_edges], 0),
             "e_cap": e_cap, "bottom_up": [False] * max_steps}

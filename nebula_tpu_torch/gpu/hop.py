@@ -65,7 +65,14 @@ into an (Ll, P, vmax) matrix whose row d is bound for slot d, and one
 `exchange_marks_lanes` a hop (K15: pack_bits, the transport's
 all_to_all, unpack_or) gives every slot its next frontier.  On a
 degree-split snapshot `extend_fbm_sharded_lanes` (K16: owned_hub_bits,
-the transport's sum, fill_hub_columns) takes K8's place.
+the transport's sum, fill_hub_columns) takes K8's place.  The exchange
+works a slot group at a time (`Mesh.groups`, the slots that share a
+device; on one card, all of them): the frontier buffers, each hop's mark
+matrices and next frontiers are one allocation a group with a leading
+slot axis, each slot's buffer a view of it, so that each of K15's and
+K16's kernels is one launch a group a hop, and the hop's zero fills and
+frontier popcount one op a group.  The per-block kernels still run once
+a slot.
 """
 from __future__ import annotations
 
@@ -239,10 +246,17 @@ def new_slot_frontiers(dev: DeviceSnapshot,
                        lanes: int = 1) -> List[torch.Tensor]:
     """One zero (L, 1, vmax + H) frontier buffer for each slot of a
     sharded pin, on the slot's device: the slot's own row of `new_frontier`
-    for each lane."""
-    return [torch.zeros((int(lanes), 1, dev.vmax + dev.num_hubs),
-                        dtype=torch.bool, device=sh.device)
-            for sh in dev.shards]
+    for each lane.  The slots of a group (`Mesh.groups`) are views of one
+    (S, L, 1, vmax + H) allocation, slot s at index s (`slot_groups`
+    gives it back)."""
+    width = dev.vmax + dev.num_hubs
+    bufs: List[torch.Tensor] = []
+    for grp in dev.mesh.groups:
+        bufs.extend(torch.zeros((len(grp), int(lanes), 1, width),
+                                dtype=torch.bool,
+                                device=dev.shards[grp.start].device
+                                ).unbind(0))
+    return bufs
 
 
 def seed_slot_frontiers(dev: DeviceSnapshot,
@@ -267,33 +281,68 @@ def seed_slot_frontiers(dev: DeviceSnapshot,
     return bufs
 
 
-def exchange_marks_lanes(mesh: Mesh, marks_by_slot: Sequence[torch.Tensor],
+def slot_groups(mesh: Mesh, per_slot: Sequence[torch.Tensor]
+                ) -> List[torch.Tensor]:
+    """Each slot group's buffer, (S, ...) with slot s at index s, from
+    its slots' (...) views of it (`new_slot_frontiers`'); raises where a
+    group's slots are not those views."""
+    out = []
+    for grp in mesh.groups:
+        slots = per_slot[grp.start:grp.stop]
+        g = slots[0]._base
+        if g is None or g.shape[0] != len(slots) or any(
+                (t.data_ptr(), t.shape, t.stride())
+                != (g[s].data_ptr(), g.shape[1:], g.stride()[1:])
+                for s, t in enumerate(slots)):
+            raise ValueError(f"slots {grp.start}..{grp.stop - 1} are not "
+                             f"views of one group buffer (make them with "
+                             f"new_slot_frontiers or seed_slot_frontiers)")
+        out.append(g)
+    return out
+
+
+def new_group_marks(fbm_groups: Sequence[torch.Tensor], P: int,
+                    vmax: int) -> List[torch.Tensor]:
+    """A hop's zero mark matrices, one (S, Ll, P, vmax) view a group
+    (the first vmax columns of an (S, Ll, P, 32 * W) allocation, so that
+    every row starts 32-byte aligned for pack_bits' vector loads), sized
+    after the groups' (S, Ll, ...) frontier buffers."""
+    w32 = 32 * -(-vmax // 32)
+    return [torch.zeros((f.shape[0], f.shape[1], P, w32), dtype=torch.bool,
+                        device=f.device)[..., :vmax] for f in fbm_groups]
+
+
+def exchange_marks_lanes(mesh: Mesh, marks_by_group: Sequence[torch.Tensor],
                          outs: Sequence[torch.Tensor]) -> None:
     """The per-hop frontier exchange (K15, the reference's
-    `_exchange_marks_lanes`, hop.py:213): each slot's (Ll, P, vmax) mark
-    matrix — row d the candidates bound for slot d — is packed to (Ll, P,
-    W) words (pack_bits), the transport ships row d to slot d, and each
-    slot ORs what it received and unpacks it (unpack_or) into outs[i],
-    its (Ll, vmax) next-frontier bitmap (the first vmax columns of its
-    buffer).  One exchange carries every lane; a solo statement is the
-    L = 1 case."""
-    packed = [pack_bits(m) for m in marks_by_slot]
+    `_exchange_marks_lanes`, hop.py:214): each group's (S, Ll, P, vmax)
+    mark matrices — row d of slot s the candidates bound for slot d — are
+    packed to (S, Ll, P, W) words (one pack_bits), the transport ships
+    row d to slot d, and each group ORs what its slots received and
+    unpacks it (one unpack_or) into outs[g], its slots' (S, Ll, vmax)
+    next-frontier bitmaps (the first vmax columns of their buffers).
+    One exchange carries every lane; a solo statement is the L = 1
+    case."""
+    packed = [pack_bits(m) for m in marks_by_group]
     recv = mesh.transport.all_to_all(mesh, packed)
-    vmax = marks_by_slot[0].shape[-1]
+    vmax = marks_by_group[0].shape[-1]
     for r, out in zip(recv, outs):
         unpack_or(r, vmax, out)
 
 
 def extend_fbm_sharded_lanes(mesh: Mesh, shards: Sequence[DeviceShard],
-                             fbm_by_slot: Sequence[torch.Tensor]) -> None:
+                             fbm_by_group: Sequence[torch.Tensor]) -> None:
     """Fill the H hub columns of every slot's (Ll, 1, vmax + H) frontier
-    buffer (K16, the reference's `_extend_fbm_sharded_lanes`, hop.py:292):
-    each slot takes the bits of the hubs it owns (owned_hub_bits), the
-    transport sums them over the slots, and each slot sets the hub
-    columns where the sum is > 0 (fill_hub_columns)."""
+    buffer, a group's (S, Ll, 1, vmax + H) at a time (K16, the
+    reference's `_extend_fbm_sharded_lanes`, hop.py:292): each group
+    takes the bits of the hubs its slots own (one owned_hub_bits, with
+    the first slot's hub tables: every slot holds the same), the
+    transport sums them over the groups, and each group sets its slots'
+    hub columns where the sum is > 0 (one fill_hub_columns)."""
+    heads = [shards[grp.start] for grp in mesh.groups]
     owned = [owned_hub_bits(f, sh.part, sh.hub_owner, sh.hub_local)
-             for f, sh in zip(fbm_by_slot, shards)]
-    for f, summed in zip(fbm_by_slot,
+             for f, sh in zip(fbm_by_group, heads)]
+    for f, summed in zip(fbm_by_group,
                          mesh.transport.all_reduce_sum(mesh, owned)):
         fill_hub_columns(f, summed)
 
@@ -309,6 +358,14 @@ def _gather_parts(per_slot: Sequence[torch.Tensor], device,
         ts = [torch.nn.functional.pad(t, (0, width - t.shape[-1]),
                                       value=fill) for t in ts]
     return torch.cat(ts, 1)
+
+
+def _parts_by_hop(per_group: Sequence[List[torch.Tensor]],
+                  device) -> torch.Tensor:
+    """Each group's per-hop (S, Ll, 1) counts as one (Ll, P, steps)
+    tensor on `device`, the parts in order."""
+    return torch.cat([torch.stack(h, -1)[:, :, 0].transpose(0, 1).to(device)
+                      for h in per_group], 1)
 
 
 _CAP_FILL = {"src": -1, "dst": -1}       # every other leaf pads with 0
@@ -327,14 +384,17 @@ def run_hops_sharded(mesh: Mesh, shards: Sequence[DeviceShard],
     its modes, with the delta merge of :382-389).  Per slot this process
     holds: `shards[i]` (its part and hub tables), its blocks, its (Ll, 1,
     vmax + H) seed buffer (`new_slot_frontiers` with the slot's seeds
-    marked) and, per block, its delta plane's (1, ...) rows or None.
+    marked: a view of its group's buffer) and, per block, its delta
+    plane's (1, ...) rows or None.
 
-    Per hop: on a degree-split snapshot, `extend_fbm_sharded_lanes` (K16);
-    then in each slot, per block, expand with the slot's part (K1), the
-    merge (K9), the WHERE mask (K4) and the compaction (K3 + K5) where GO
-    or MATCH asks for them, and mark (K2) into the slot's (Ll, P, vmax)
-    mark matrix; then one `exchange_marks_lanes` (K15) for every slot and
-    lane.  The last hop ships nothing.
+    Per hop, once a slot group: the frontier popcount, the zero mark
+    matrices and next frontiers, and on a degree-split snapshot
+    `extend_fbm_sharded_lanes` (K16); then in each slot, per block,
+    expand with the slot's part (K1), the merge (K9), the WHERE mask (K4)
+    and the compaction (K3 + K5) where GO or MATCH asks for them, and
+    mark (K2) into the slot's (Ll, P, vmax) mark matrix; then one
+    `exchange_marks_lanes` (K15) for every slot and lane.  The last hop
+    ships nothing.
 
     Returns the `run_hops` contract for the parts this process holds,
     every per-part leaf reassembled in part order on mesh.devices[0]:
@@ -348,40 +408,40 @@ def run_hops_sharded(mesh: Mesh, shards: Sequence[DeviceShard],
     n_slots = len(shards)
     deltas_by_slot = deltas_by_slot if deltas_by_slot is not None else [
         [None] * len(blocks_by_slot[0])] * n_slots
-    fbm = list(frontier_by_slot)
-    hop_edges: List[List[torch.Tensor]] = [[] for _ in range(n_slots)]
-    frontier_sizes: List[List[torch.Tensor]] = [[] for _ in range(n_slots)]
+    fbm = slot_groups(mesh, frontier_by_slot)
+    hop_edges: List[List[torch.Tensor]] = [[] for _ in fbm]
+    frontier_sizes: List[List[torch.Tensor]] = [[] for _ in fbm]
     e_cap: List[int] = []
     hop_caps: List[List[Dict[str, torch.Tensor]]] = []
     for hop in range(steps):
-        for i, f in enumerate(fbm):
-            frontier_sizes[i].append(f[..., :vmax].sum(-1,
+        for g, f in enumerate(fbm):
+            frontier_sizes[g].append(f[..., :vmax].sum(-1,
                                                        dtype=torch.int32))
         if H:
             extend_fbm_sharded_lanes(mesh, shards, fbm)
         last = hop == steps - 1
         captured = capture and (last or capture_hops)
         width = 0
-        marks = None if last else [
-            torch.zeros((f.shape[0], P, vmax), dtype=torch.bool,
-                        device=f.device) for f in fbm]
+        marks = None if last else new_group_marks(fbm, P, vmax)
         slot_caps = []                   # [slot][block] capture dicts
-        for i, (sh, f) in enumerate(zip(shards, fbm)):
+        for g, (grp, f) in enumerate(zip(mesh.groups, fbm)):
             edges = torch.zeros(f.shape[:-1], dtype=torch.int32,
                                 device=f.device)
-            caps = []
-            for b, dl in zip(blocks_by_slot[i], deltas_by_slot[i]):
-                total, w, cap = _hop_block(
-                    b, dl, f, sh.hub_dense, pred,
-                    pred is not None and (last or capture_hops), captured,
-                    () if capture_hops else yield_cols,
-                    None if last else marks[i], P, vmax, parts=P,
-                    pid=sh.part)
-                edges += total
-                width = max(width, w)
-                caps.append(cap)
-            hop_edges[i].append(edges)
-            slot_caps.append(caps)
+            for s, i in enumerate(grp):
+                sh = shards[i]
+                caps = []
+                for b, dl in zip(blocks_by_slot[i], deltas_by_slot[i]):
+                    total, w, cap = _hop_block(
+                        b, dl, f[s], sh.hub_dense, pred,
+                        pred is not None and (last or capture_hops),
+                        captured, () if capture_hops else yield_cols,
+                        None if last else marks[g][s], P, vmax, parts=P,
+                        pid=sh.part)
+                    edges[s] += total
+                    width = max(width, w)
+                    caps.append(cap)
+                slot_caps.append(caps)
+            hop_edges[g].append(edges)
         if captured:
             hop_caps.append([
                 {k: _gather_parts([sc[bi][k] for sc in slot_caps], out_dev,
@@ -392,13 +452,12 @@ def run_hops_sharded(mesh: Mesh, shards: Sequence[DeviceShard],
         e_cap.append(width)
         if not last:
             nxt = [torch.zeros_like(f) for f in fbm]
-            exchange_marks_lanes(mesh, marks, [n[:, 0, :vmax] for n in nxt])
+            exchange_marks_lanes(mesh, marks,
+                                 [n[:, :, 0, :vmax] for n in nxt])
             fbm = nxt
     res: Dict[str, Any] = {
-        "hop_edges": _gather_parts([torch.stack(h, -1) for h in hop_edges],
-                                   out_dev),
-        "frontier_sizes": _gather_parts(
-            [torch.stack(fs, -1) for fs in frontier_sizes], out_dev),
+        "hop_edges": _parts_by_hop(hop_edges, out_dev),
+        "frontier_sizes": _parts_by_hop(frontier_sizes, out_dev),
         "e_cap": e_cap,
     }
     if capture:

@@ -48,16 +48,19 @@ predicate_mask and adds two, both in bfs.cu:
 
 The sharded mesh (gpu/hop.py's run_hops_sharded, gpu/bfs.py's
 run_bfs_sharded) adds four, all in exchange.cu, each side of the
-transport's data movement:
+transport's data movement, each one launch over a slot group (the slots
+that share a device, `Mesh.groups`: on one card, all of them):
 
-  pack_bits         K15 — a slot's (Ll, P, vmax) mark matrix packed into
-                    (Ll, P, W) 32-bit words (hop.py:_pack_bits :179)
-  unpack_or         K15 — the OR of the P rows a slot received, unpacked
-                    into its next frontier (hop.py:_unpack_or :193)
-  owned_hub_bits    K16 — the hub bits a slot owns, (Ll, H) int32
-                    (hop.py:_extend_fbm_sharded_lanes :292)
-  fill_hub_columns  K16 — the hub columns set from their sum over the
-                    slots (the same function, after its psum)
+  pack_bits         K15 — the group's (S, Ll, P, vmax) mark matrices
+                    packed into (S, Ll, P, W) 32-bit words
+                    (hop.py:_pack_bits :179)
+  unpack_or         K15 — the OR of the P rows each slot received,
+                    unpacked into its next frontier (hop.py:_unpack_or
+                    :195)
+  owned_hub_bits    K16 — the hub bits the group's slots own, (Ll, H)
+                    int32 (hop.py:_extend_fbm_sharded_lanes :292)
+  fill_hub_columns  K16 — every slot's hub columns set from their sum
+                    over the groups (the same function, after its psum)
 
 and expand and merge_delta take the slot's part offset (`parts`,
 `pid`): a slot holds one part's CSR row.
@@ -221,9 +224,10 @@ def _load() -> ctypes.CDLL:
     lib.nt_merge_delta.argtypes = ([P, P, LL, I] + [P] * 4 + [I, P]
                                    + [I] * 7 + [P] * 7)
     lib.nt_pack_bits.argtypes = [P, LL, I, LL, I, P, P]
-    lib.nt_unpack_or.argtypes = [P, I, I, I, I, LL, P, P]
-    lib.nt_owned_hub_bits.argtypes = [P, I, LL, I, P, P, I, P, P]
-    lib.nt_fill_hub_columns.argtypes = [P, I, LL, I, P, I, P]
+    lib.nt_unpack_or.argtypes = ([P] + [I] * 4 + [LL] * 3
+                                 + [I, LL, LL, P, P])
+    lib.nt_owned_hub_bits.argtypes = [P, I, I, LL, LL, I, P, P, I, P, P]
+    lib.nt_fill_hub_columns.argtypes = [P, LL, I, LL, I, P, I, P]
     lib.nt_bfs_probe.argtypes = [P] * 4 + [I] * 3 + [P, I, P, LL, P]
     lib.nt_bfs_level.argtypes = [P, LL, P, I, I, I, P, LL, P, LL, P, P, P]
     D = ctypes.c_double
@@ -1188,15 +1192,45 @@ def bfs_level(cand, dist, level: int, fbm_out, unvis_out, fbits_out=None,
 # row d to slot d; the slot ORs its P received rows and unpacks them into
 # its next frontier.  The words are an int32 tensor holding the
 # reference's uint32 bits (torch's uint32 has no CPU shifts, and the
-# collectives carry int32).
+# collectives carry int32).  Each wrapper takes a slot group's tensors
+# with a leading slot axis (S, ...) and covers every slot in one launch
+# (gpu/mesh.py `Mesh.groups`); the forms without it are the one-slot case.
 
 
 def _words(vmax: int) -> int:
     return -(-int(vmax) // 32)
 
 
+def _row_stride(t):
+    """The one stride between consecutive rows of t, read as
+    prod(shape[:-1]) rows of shape[-1] elements, or None where its
+    leading axes do not step by whole rows uniformly."""
+    shape, stride = t.shape, t.stride()
+    ld, span = None, 1
+    for i in range(len(shape) - 2, -1, -1):
+        n = shape[i]
+        if n > 1:
+            if ld is None:
+                ld = stride[i]
+            elif stride[i] != ld * span:
+                return None
+        span *= n
+    return shape[-1] if ld is None else ld
+
+
+def _slot_axis(t, solo_ndim: int, name: str):
+    """t with its leading slot axis: t itself in the group form, t[None]
+    in the one-slot form."""
+    if t.dim() == solo_ndim + 1:
+        return t
+    if t.dim() == solo_ndim:
+        return t[None]
+    raise ValueError(f"{name} must have {solo_ndim} axes, or {solo_ndim + 1}"
+                     f" with a leading slot axis; got {tuple(t.shape)}")
+
+
 def pack_bits_plain(marks):
-    """Plain version of `pack_bits`: (Ll, P, vmax) bool → (Ll, P, W)
+    """Plain version of `pack_bits`: (..., P, vmax) bool → (..., P, W)
     int32, bit i of word w = marks[..., 32w + i], padding bits 0 (the
     reference's shift-weighted sum over disjoint bits)."""
     vmax = marks.shape[-1]
@@ -1210,86 +1244,112 @@ def pack_bits_plain(marks):
 
 
 def pack_bits(marks):
-    """Pack each slot's (Ll, P, vmax) bool mark matrix — rows contiguous,
-    uniformly strided — into (Ll, P, W) int32 words, one launch."""
+    """Pack a slot's (Ll, P, vmax) bool mark matrix, or a slot group's
+    (S, Ll, P, vmax) stack of them — rows contiguous, uniformly strided —
+    into (..., W) int32 words, one launch."""
     if marks.device.type == "cpu":
         return pack_bits_plain(marks)
     dev = marks.device
-    if marks.dim() != 3:
-        raise ValueError(f"marks must be (Ll, P, vmax), got "
-                         f"{tuple(marks.shape)}")
-    L, P, vmax = marks.shape
-    _bitmap_view(marks, "marks", (L, P, vmax), dev)
+    m = _slot_axis(marks, 3, "marks")
+    ld = _row_stride(m)
+    if m.dtype != torch.bool or (m.numel() and (
+            m.stride(-1) != 1 or ld is None or ld < m.shape[-1])):
+        raise ValueError(f"marks must be a bool bitmap with contiguous rows,"
+                         f" uniformly strided; got {m.dtype} "
+                         f"{tuple(m.shape)} strides {m.stride()}")
+    vmax = m.shape[-1]
     W = _words(vmax)
-    out = torch.empty((L, P, W), dtype=_I32, device=dev)
-    if L * P * W == 0:
+    out = torch.empty(marks.shape[:-1] + (W,), dtype=_I32, device=dev)
+    if out.numel() == 0:
         return out
-    _check(_lib().nt_pack_bits(marks.data_ptr(), L * P, vmax,
-                               marks.stride(-2), W, out.data_ptr(),
-                               _stream(marks)), "pack_bits")
+    rows = m.numel() // vmax
+    _check(_lib().nt_pack_bits(m.data_ptr(), rows, vmax, ld, W,
+                               out.data_ptr(), _stream(marks)), "pack_bits")
     _count(pack_bits)
     return out
 
 
 def unpack_or_plain(recv, vmax: int, out):
-    """Plain version of `unpack_or`: out[l, c] = bit c of the OR over p
-    of recv[l, p], for c < vmax; in place."""
-    ored = recv[:, 0]
-    for p in range(1, recv.shape[1]):
-        ored = ored | recv[:, p]
+    """Plain version of `unpack_or`: out[..., l, c] = bit c of the OR
+    over p of recv[..., l, p, :], for c < vmax; in place."""
+    ored = recv[..., 0, :]
+    for p in range(1, recv.shape[-2]):
+        ored = ored | recv[..., p, :]
     bits = (ored[..., None] >> torch.arange(32, device=recv.device)) & 1
-    out.copy_(bits.reshape(recv.shape[0], -1)[:, :vmax].bool())
+    out.copy_(bits.reshape(ored.shape[:-1] + (-1,))[..., :vmax].bool())
     return out
 
 
 def unpack_or(recv, vmax: int, out):
-    """OR the P received (Ll, P, W) int32 word rows of a slot and unpack
-    them into `out`, its (Ll, vmax) next-frontier bitmap — the first vmax
-    columns of the slot's (Ll, 1, vmax + H) buffer, any row stride — one
-    launch.  Returns out."""
+    """OR the P received word rows of a slot, (Ll, P, W) int32, and unpack
+    them into `out`, its (Ll, vmax) next-frontier bitmap — or do so for
+    every slot of a group at once: recv (S, Ll, P, W), out (S, Ll, vmax).
+    recv may have any strides but a unit-stride word axis (the
+    transport's view); out is the first vmax columns of the slots'
+    buffers, any row strides.  One launch.  Returns out."""
     if recv.device.type == "cpu":
         return unpack_or_plain(recv, vmax, out)
     dev = recv.device
-    L, P, W = recv.shape
-    _want(recv, "recv", _I32, (L, P, W), dev)
+    r = _slot_axis(recv, 3, "recv")
+    o = _slot_axis(out, 2, "out")
+    S, L, P, W = r.shape
+    if r.dtype != _I32 or (r.numel() and r.stride(-1) != 1):
+        raise ValueError(f"recv must be int32 words with a unit-stride word "
+                         f"axis; got {r.dtype} strides {r.stride()}")
     if W != _words(vmax) or P < 1:
         raise ValueError(f"{P} rows of {W} words cannot hold {vmax} "
                          f"columns")
-    _bitmap_view(out, "out", (L, vmax), dev)
-    if L * vmax == 0:
+    if o.device != dev or o.dtype != torch.bool \
+            or tuple(o.shape) != (S, L, vmax) \
+            or (o.numel() and o.stride(-1) != 1):
+        raise ValueError(f"out must be a {(S, L, vmax)} bool bitmap on "
+                         f"{dev} with contiguous rows; got {o.dtype} "
+                         f"{tuple(o.shape)} on {o.device}")
+    if S * L * vmax == 0:
         return out
-    _check(_lib().nt_unpack_or(recv.data_ptr(), L, P, W, vmax,
-                               out.stride(0), out.data_ptr(),
-                               _stream(recv)), "unpack_or")
+    _check(_lib().nt_unpack_or(r.data_ptr(), S, L, P, W, r.stride(0),
+                               r.stride(1), r.stride(2), vmax, o.stride(0),
+                               o.stride(1), o.data_ptr(), _stream(recv)),
+           "unpack_or")
     _count(unpack_or)
     return out
 
 
 def owned_hub_bits_plain(fbm, pid: int, hub_owner, hub_local):
     """Plain version of `owned_hub_bits`: (Ll, H) int32, 1 where hub h is
-    owned by slot `pid` and its bit fbm[l, 0, hub_local[h]] is set (the
-    reference's `where(hub_owner == pid, fbm[hub_local], False)`)."""
-    bits = fbm[:, 0, hub_local.long()]
-    return (bits & (hub_owner == int(pid))).to(_I32)
+    owned by slot s of the group (part pid + s) and its bit
+    fbm[s, l, 0, hub_local[h]] is set (the reference's
+    `where(hub_owner == pid, fbm[hub_local], False)`, over the group)."""
+    f = _slot_axis(fbm, 3, "fbm")
+    slot = hub_owner.long() - int(pid)
+    mine = (slot >= 0) & (slot < f.shape[0])
+    bits = f[slot.clamp(0, f.shape[0] - 1), :, 0, hub_local.long()]
+    return (bits.T & mine).to(_I32)
 
 
 def owned_hub_bits(fbm, pid: int, hub_owner, hub_local):
-    """The hub bits a shard slot owns, from its (Ll, 1, vmax + H)
-    frontier buffer: (Ll, H) int32, one launch; the transport sums them
-    over the slots (`fill_hub_columns` then sets the hub columns)."""
+    """The hub bits a shard slot owns, from its (Ll, 1, vmax + H) frontier
+    buffer (`pid` its part) — or a slot group's, from the group's (S, Ll,
+    1, vmax + H) buffers (`pid` the first slot's part; the group's slots
+    hold consecutive parts): (Ll, H) int32, one launch.  The transport
+    sums them over the groups (`fill_hub_columns` then sets the hub
+    columns)."""
     if fbm.device.type == "cpu":
         return owned_hub_bits_plain(fbm, pid, hub_owner, hub_local)
     dev = fbm.device
-    L, rows, width = fbm.shape
+    f = _slot_axis(fbm, 3, "fbm")
+    S, L, rows, width = f.shape
     H = int(hub_owner.numel())
-    _want(fbm, "fbm", torch.bool, (L, 1, width), dev)
+    _want(f, "fbm", torch.bool, (S, L, 1, width), dev)
     _want(hub_owner, "hub_owner", _I32, (H,), dev)
     _want(hub_local, "hub_local", _I32, (H,), dev)
+    if S < 1:
+        raise ValueError("fbm holds no slot")
     out = torch.empty((L, H), dtype=_I32, device=dev)
     if L * H == 0:
         return out
-    _check(_lib().nt_owned_hub_bits(fbm.data_ptr(), L, width, int(pid),
-                                    hub_owner.data_ptr(),
+    _check(_lib().nt_owned_hub_bits(f.data_ptr(), S, L, L * width, width,
+                                    int(pid), hub_owner.data_ptr(),
                                     hub_local.data_ptr(), H,
                                     out.data_ptr(), _stream(fbm)),
            "owned_hub_bits")
@@ -1298,31 +1358,33 @@ def owned_hub_bits(fbm, pid: int, hub_owner, hub_local):
 
 
 def fill_hub_columns_plain(fbm, summed):
-    """Plain version of `fill_hub_columns`: fbm[l, 0, vmax + h] =
-    summed[l, h] > 0, in place."""
+    """Plain version of `fill_hub_columns`: fbm[..., l, 0, vmax + h] =
+    summed[l, h] > 0 for every slot, in place."""
     H = summed.shape[1]
-    fbm[:, 0, fbm.shape[2] - H:] = summed > 0
+    fbm[..., 0, fbm.shape[-1] - H:] = summed > 0
     return fbm
 
 
 def fill_hub_columns(fbm, summed):
     """Set the H hub columns of a shard slot's (Ll, 1, vmax + H) frontier
-    buffer from the (Ll, H) int32 hub bits summed over the slots, one
-    launch.  Returns fbm, updated in place."""
+    buffer — or of every slot's in a group's (S, Ll, 1, vmax + H) — from
+    the (Ll, H) int32 hub bits summed over the slots, one launch.
+    Returns fbm, updated in place."""
     if fbm.device.type == "cpu":
         return fill_hub_columns_plain(fbm, summed)
     dev = fbm.device
-    L, rows, width = fbm.shape
+    f = _slot_axis(fbm, 3, "fbm")
+    S, L, rows, width = f.shape
     H = summed.shape[1] if summed.dim() == 2 else -1
-    _want(fbm, "fbm", torch.bool, (L, 1, width), dev)
+    _want(f, "fbm", torch.bool, (S, L, 1, width), dev)
     _want(summed, "summed", _I32, (L, H), dev)
     if H > width:
         raise ValueError(f"{H} hub columns in a buffer {width} wide")
-    if L * H == 0:
+    if S * L * H == 0:
         return fbm
-    _check(_lib().nt_fill_hub_columns(fbm.data_ptr(), L, width, width - H,
-                                      summed.data_ptr(), H, _stream(fbm)),
-           "fill_hub_columns")
+    _check(_lib().nt_fill_hub_columns(f.data_ptr(), S * L, L, width,
+                                      width - H, summed.data_ptr(), H,
+                                      _stream(fbm)), "fill_hub_columns")
     _count(fill_hub_columns)
     return fbm
 

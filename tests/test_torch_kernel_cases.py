@@ -51,6 +51,17 @@ off 4, totals 0 and EB, every neighbour on the frontier and none, ids
 out of range, keep all False and None, hub rows; a level with no fresh
 vertex, phantom slots, counts as a row of a larger buffer.  Exact.  Then
 the probe's route sizing (`probe_stage_bytes`, `probe_route`).
+
+The mesh's exchange kernels on `exchange_cases`, one slot and slot
+groups: `pack_bits_plain` ↔ hop._pack_bits (nebula_tpu/tpu/hop.py:179)
+on every (P, vmax) matrix, `unpack_or_plain` ↔ hop._unpack_or (:195) on
+every (slot, lane)'s received rows, the bytes around the written view
+untouched; `owned_hub_bits_plain` ↔ the owned-bits expression of
+hop._extend_fbm_sharded_lanes (:292) summed over the group's slots, and
+`fill_hub_columns_plain` ↔ its `> 0` and concatenation; the wrappers'
+CPU branch the same; vmax off a 32-bit word, row strides and bases off
+16 bytes, the transports' strided views, groups whose first part is not
+0.  Exact.  Then the group forms' input checks off the CPU.
 """
 import jax
 import jax.numpy as jnp
@@ -69,9 +80,9 @@ from nebula_tpu.tpu import hop as ref_hop
 from nebula_tpu_torch.algo import kernels as AK
 from nebula_tpu_torch.bench.kernel_cases import (
     PREDICATE_BUILDERS, PREDICATE_NAMES, PREDICATE_TYPES, bfs_cases,
-    copy_view, fresh_bfs_args, fresh_merge_args, mark_cases,
-    merge_delta_cases, pagerank_cases, predicate_cases, predicate_program,
-    relax_cases)
+    copy_view, exchange_cases, fresh_bfs_args, fresh_merge_args,
+    mark_cases, merge_delta_cases, pagerank_cases, predicate_cases,
+    predicate_program, relax_cases)
 from nebula_tpu_torch.gpu import exprjit as X
 from nebula_tpu_torch.gpu import kernels as K
 
@@ -81,6 +92,7 @@ PREDICATE = predicate_cases("cpu")
 MERGE = merge_delta_cases("cpu")
 RELAX = relax_cases("cpu")
 BFS = bfs_cases("cpu")
+EXCHANGE = exchange_cases("cpu")
 STEP_TOL = 1e-12
 
 
@@ -607,3 +619,115 @@ def test_bfs_wrappers_check_the_new_arguments_off_the_cpu():
     with pytest.raises(ValueError, match="fbits_out"):
         K.bfs_level(bits, dist, 1, bits, bits,
                     fbits_out=torch.empty((8, 1), dtype=torch.int32, **m))
+
+
+# ---------------------------------------------------------------------------
+# the mesh's exchange kernels (K15, K16), one slot and slot groups
+# ---------------------------------------------------------------------------
+
+
+def _exchange_call(kname, args, plain):
+    """Run one exchange case through the plain version (or the wrapper's
+    CPU branch) on fresh copies of what it writes; returns (result, the
+    args it ran on)."""
+    a = list(args)
+    if kname == "unpack_or":
+        a[2] = copy_view(a[2])
+    elif kname == "fill_hub_columns":
+        a[0] = a[0].clone()
+    fn = getattr(K, kname + "_plain") if plain else getattr(K, kname)
+    return fn(*a), a
+
+
+@pytest.mark.parametrize("case", EXCHANGE, ids=[c[0] for c in EXCHANGE])
+def test_exchange_edge_case_matches_reference(case):
+    name, kname, args = case
+    got, a = _exchange_call(kname, args, plain=True)
+    again, _ = _exchange_call(kname, args, plain=False)
+    assert torch.equal(got, again)
+    if kname == "pack_bits":
+        m = args[0].numpy()
+        P, vmax = m.shape[-2:]
+        for i, mat in enumerate(m.reshape(-1, P, vmax)):
+            want = np.asarray(ref_hop._pack_bits(jnp.asarray(mat)))
+            np.testing.assert_array_equal(
+                got.reshape(-1, P, want.shape[-1])[i].numpy()
+                .view(np.uint32), want, err_msg=f"{name}, matrix {i}")
+    elif kname == "unpack_or":
+        recv, vmax, out = args
+        assert got is a[2]
+        r = recv.reshape((-1,) + tuple(recv.shape[-2:])).numpy()
+        for i, rows in enumerate(r):
+            want = np.asarray(ref_hop._unpack_or(
+                jnp.asarray(rows.view(np.uint32)), vmax))
+            np.testing.assert_array_equal(
+                got.reshape(-1, vmax)[i].numpy(), want,
+                err_msg=f"{name}, row {i}")
+        # nothing around the view is written
+        keep = torch.ones_like(out._base)
+        keep.as_strided(out.shape, out.stride(),
+                        out.storage_offset()).fill_(False)
+        assert torch.equal(a[2]._base[keep], out._base[keep])
+    elif kname == "owned_hub_bits":
+        fbm, p0, owner, local = args
+        f = fbm.numpy().reshape((-1,) + tuple(fbm.shape[-3:]))
+        want = np.zeros((f.shape[1], owner.numel()), np.int32)
+        for s in range(f.shape[0]):
+            # the reference's owned bits of the slot of part p0 + s
+            mine = np.asarray(owner) == p0 + s
+            want += np.asarray(jnp.where(
+                jnp.asarray(mine)[None, :],
+                jnp.asarray(f[s, :, 0])[:, np.asarray(local)],
+                False)).astype(np.int32)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=name)
+    else:
+        fbm, summed = args
+        H = summed.shape[1]
+        want = fbm.numpy().copy()
+        want[..., 0, want.shape[-1] - H:] = summed.numpy() > 0
+        assert got is a[0]
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=name)
+
+
+def test_exchange_group_wrappers_check_their_inputs_off_the_cpu(
+        monkeypatch):
+    """The group forms reach the kernel library for a device tensor (here
+    none: KernelError, no launch counted) and raise ValueError first on
+    what the kernels do not take: mark rows not uniformly strided, words
+    with a strided word axis, an out of the wrong shape, a non-contiguous
+    group buffer, summed bits of the wrong shape."""
+    m = dict(device="meta")
+    marks = torch.empty((2, 1, 4, 64), dtype=torch.bool, **m)[..., :40]
+    recv = torch.empty((2, 1, 4, 2), dtype=torch.int32, **m)
+    out = torch.empty((2, 1, 1, 45), dtype=torch.bool, **m)[:, :, 0, :40]
+    fbm = torch.empty((2, 1, 1, 45), dtype=torch.bool, **m)
+    hubs = torch.empty((5,), dtype=torch.int32, **m)
+    summed = torch.empty((1, 5), dtype=torch.int32, **m)
+    with pytest.raises(ValueError, match="uniformly strided"):
+        K.pack_bits(torch.empty((2, 1, 4, 64), dtype=torch.bool,
+                                **m)[:, :, :3, :40])
+    with pytest.raises(ValueError, match="unit-stride"):
+        K.unpack_or(torch.empty((2, 1, 4, 4), dtype=torch.int32,
+                                **m)[..., ::2], 40, out)
+    with pytest.raises(ValueError, match="out must be"):
+        K.unpack_or(recv, 40, out[:1])
+    with pytest.raises(ValueError, match="contiguous"):
+        K.owned_hub_bits(torch.empty((2, 1, 1, 90), dtype=torch.bool,
+                                     **m)[..., ::2], 0, hubs, hubs)
+    with pytest.raises(ValueError, match="summed"):
+        K.fill_hub_columns(fbm, torch.empty((2, 5), dtype=torch.int32,
+                                            **m))
+
+    def no_lib():
+        raise K.KernelError("no kernel library")
+
+    monkeypatch.setattr(K, "_lib", no_lib)
+    K.reset_launch_counts()
+    for call in (lambda: K.pack_bits(marks),
+                 lambda: K.unpack_or(recv, 40, out),
+                 lambda: K.owned_hub_bits(fbm, 2, hubs, hubs),
+                 lambda: K.fill_hub_columns(fbm, summed)):
+        with pytest.raises(K.KernelError):
+            call()
+    assert all(v == 0 for v in K.launch_counts().values())

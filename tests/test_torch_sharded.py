@@ -7,11 +7,13 @@ the kernels' plain versions running) and held against the reference's
 tests/conftest.py forces, on one snapshot carried across with
 `snapshot_from_fields`: GO 3 STEPS (unsplit and degree-split, with and
 without a WHERE), MATCH's frames, the BFS, GO through a delta plane with
-writes pending, and batched lanes; then the shard ledger, the
-per-device budget, the part/mesh check, K15's and K16's plain versions
-against the reference's functions, the part offset of expand and
-merge_delta, and a two-process gloo run of the process-group transport
-against the in-process one.  Tolerance: exact — the path moves integers
+writes pending, batched lanes, and the split GO and the BFS under three
+layouts of slot groups (one group of four, four of one, two of two:
+tests/test_torch_exchange.py holds the exchange itself); then the shard
+ledger, the per-device budget, the part/mesh check, K15's and K16's
+plain versions against the reference's functions, the part offset of
+expand and merge_delta, and a two-process gloo run of the process-group
+transport against the in-process one.  Tolerance: exact — the path moves integers
 and copies float64 values.
 """
 import json
@@ -130,7 +132,7 @@ def graphs():
             hubs = dev.host.hub_dense
             seeds = sorted(set(seeds) | {int(hubs[0]), int(hubs[-1])})
         cache[(P, layout)] = dict(
-            ref_rt=ref_rt, rt=rt, local=local, seeds=seeds,
+            ref_rt=ref_rt, rt=rt, local=local, seeds=seeds, carried=carried,
             ref_store=ref_datagen.SnapshotStore(ref_snap),
             store=D.SnapshotStore(carried))
         return cache[(P, layout)]
@@ -217,6 +219,54 @@ def test_bfs_matches_reference_mesh(graphs, P):
     # per-level slot counts
     loc, _ = g["local"].bfs(g["store"], "snb", src, ["KNOWS"], "out", 5)
     np.testing.assert_array_equal(got, loc)
+
+
+# the slot groups of a 4-slot mesh: one group of four, four of one, two
+# of two (gpu/mesh.py Mesh.groups); the graphs fixture's mesh is the first
+GROUPINGS = {"one_group": [CPU], "four_groups": [CPU] * 4,
+             "two_groups": [CPU, CPU]}
+
+
+@pytest.mark.parametrize("grouping", sorted(GROUPINGS))
+def test_go_and_bfs_match_under_slot_groupings(graphs, grouping):
+    """The split GO 3 STEPS WHERE w > 50 and the BFS on a 4-slot mesh
+    laid out as `grouping`: rows, hop_edges, frontier_sizes, depths and
+    exchange_bytes equal to the one-group run's and the reference's."""
+    g = graphs(4, "split")
+    rt = GpuRuntime(mesh=make_mesh(4, devices=GROUPINGS[grouping]),
+                    degree_split_threshold=THRESHOLD)
+    rt.pin_prebuilt(g["carried"])
+    assert len(rt.mesh.groups) == {"one_group": 1, "four_groups": 4,
+                                   "two_groups": 2}[grouping]
+    want, wst = g["ref_rt"].traverse(
+        g["ref_store"], "snb", g["seeds"], ["KNOWS"], "out", STEPS,
+        edge_filter=_where(RE), yields=_yields(RE))
+    one, ost = g["rt"].traverse(
+        g["store"], "snb", g["seeds"], ["KNOWS"], "out", STEPS,
+        edge_filter=_where(PE), yields=_yields(PE))
+    got, st = rt.traverse(
+        g["store"], "snb", g["seeds"], ["KNOWS"], "out", STEPS,
+        edge_filter=_where(PE), yields=_yields(PE))
+    assert len(got) == len(want) > 0
+    _assert_cols_equal(_cols(got), _cols(want), grouping)
+    _assert_cols_equal(_cols(got), _cols(one), grouping)
+    for s in (wst, ost):
+        assert (st.hop_edges, st.frontier_sizes, st.exchange_bytes) == \
+            (s.hop_edges, s.frontier_sizes, s.exchange_bytes)
+    vmax = rt.snapshots["snb"].vmax
+    assert st.exchange_bytes == 2 * a2a_payload_bytes(4, vmax)
+    src = g["seeds"][:1]
+    want, wst = g["ref_rt"].bfs(g["ref_store"], "snb", src, ["KNOWS"],
+                                "out", 5)
+    one, ost = g["rt"].bfs(g["store"], "snb", src, ["KNOWS"], "out", 5)
+    got, st = rt.bfs(g["store"], "snb", src, ["KNOWS"], "out", 5)
+    assert (got >= 0).sum() > 1
+    np.testing.assert_array_equal(got, np.asarray(want))
+    np.testing.assert_array_equal(got, one)
+    for s in (wst, ost):
+        assert (st.hop_edges, st.exchange_bytes) == \
+            (s.hop_edges, s.exchange_bytes)
+    assert st.exchange_bytes == bfs_exchange_bytes(4, vmax, 5)
 
 
 def test_go_through_writes_matches_reference_mesh(delta_cfg):  # noqa: F811
