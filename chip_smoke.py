@@ -33,12 +33,19 @@ Phases, in order; any failure exits non-zero before the result line:
           --split, 2048 by default).pin_prebuilt of the same arrays; its
           per-hop hop_edges must equal the unsplit run's.
      Launch counters are zeroed just before each path and read just
-     after; every kernel of the path must have launched;
+     after; every kernel of the path must have launched, and on the
+     split path every expand through its "hub owners" route (each hub's
+     bit read from its owner's row: K8 folded into the scan) and no
+     hub-column pass;
   4. each kernel against its plain PyTorch version on the card, on the
      inputs the main path gives it: expand at each hop of both layouts
-     (the hub-row branch at split hops 1-3), mark at hop 2 (into the
-     split frontier buffer's strided view too) and for the seeds,
-     extend_hubs at split hops 2 and 3, predicate_mask for w > 50 and
+     (split: the owner route on the buffer as the main path leaves it,
+     its tail columns zero, against expand_plain over the buffer that
+     extend_hubs_plain fills), mark at hop 2 (into the split frontier
+     buffer's strided view too) and for the seeds, the fused scan at
+     split hop 3 beside the parent's pair (the hub bits by their
+     library gather, then the tail-reading scan), predicate_mask for
+     w > 50 and
      eleven predicates over int, float-with-NaN, bool and string-code
      columns with nulls at the filtered split hop 3, compact_capture
      there with the w column and with four columns; exact equality,
@@ -57,7 +64,9 @@ Phases, in order; any failure exits non-zero before the result line:
      edge-balanced fill (empty rows and
      outputs, widths around a scan tile and off 16-byte alignment, a hub
      row longer than a fill block, lanes, delta halves, shard slots, rows
-     of hundreds of tiles), mark bit for bit through each kernel that
+     of hundreds of tiles; expand's owner route with hubs owned by the
+     first, a middle and the last part, an inactive hub, junk tail
+     columns, 1, 2 and 8 lanes, H = 1, 73 and 300), mark bit for bit through each kernel that
      fits and through the wrapper's choice (no ids, none kept, ids out of
      range, one id repeated, counts and lanes off 16-byte alignment, an
      odd row stride, ones already set, P = 1, 3, 7, a bitmap too wide to
@@ -134,9 +143,9 @@ Phases, in order; any failure exits non-zero before the result line:
           reference's switch (the frontier's out-degrees top-down, the
           unvisited vertices' in-degrees bottom-up; so equal between the
           layouts), at least one level bottom-up; expand, mark,
-          bfs_probe, bfs_level (and extend_hubs split) launched, every
-          probe on its staged route, pack_bits never (bfs_level writes
-          the frontier's words);
+          bfs_probe, bfs_level launched (split: every expand through the
+          owner route), every probe on its staged route, pack_bits
+          never (bfs_level writes the frontier's words);
        b. WHERE KNOWS.w > 50 on the split path against a numpy level BFS
           over the edges with w > 50; predicate_mask launched too;
        c. bfs_probe and bfs_level against their plain versions on the
@@ -209,7 +218,9 @@ Phases, in order; any failure exits non-zero before the result line:
           lane shapes (merge_delta at (c)'s), exact, timed with CUDA
           events, with its byte bound (each shared CSR, column and delta
           array counted once); and the one library formulation of
-          expand, extend_hubs, compact_capture and merge_delta;
+          expand (with the hub gather), compact_capture and merge_delta;
+          the owner route at every hop against expand_plain over the
+          filled lane stack;
   9. MATCH's every-hop expansion (GpuRuntime.traverse_hops: the WHERE
      mask and the compaction at every hop, the next frontier marking
      only the kept dsts), launch counters zeroed just before each run
@@ -227,8 +238,9 @@ Phases, in order; any failure exits non-zero before the result line:
        b. the north star as the main path lays it out (split at --split
           when it ran), MATCH *1..3 WHERE KNOWS.w > 50 from the 16 seeds:
           frames equal to host_hop_edges over the edges with w > 50,
-          predicate_mask 3 launches and extend_hubs launched; unfiltered,
-          hop_edges equal to phase 3's GO 3 STEPS;
+          predicate_mask 3 launches, split every expand through the
+          owner route; unfiltered, hop_edges equal to phase 3's GO 3
+          STEPS;
        c. 8 concurrent MATCH over 9a's graph, 224 seeds each, as phase 8
           batches them: one batch, launches equal to one solo run's,
           each statement's frames equal to its solo run's in order;
@@ -266,7 +278,8 @@ Phases, in order; any failure exits non-zero before the result line:
        f. the four exchange kernels over the group of eight against
           their plain versions at (a)'s hop-2 shapes (each slot's
           unpacked frontier equal to hop 3's local frontier, each slot's
-          hub columns to extend_hubs'), timed with their plain versions
+          hub columns to extend_hubs_plain's), timed with their plain
+          versions
           and one library formulation over the group, with their byte
           bounds; the transport's receive a view (no copy); one whole
           exchange_marks_lanes and extend_fbm_sharded_lanes timed; the (mesh)
@@ -302,8 +315,10 @@ ROUTE_SOURCES = {
                "nebula_tpu/tpu/hop.py:58"),
     "mark": ("nebula_tpu_torch/csrc/mark.cu",
              "nebula_tpu/tpu/hop.py:168"),
-    "extend_hubs": ("nebula_tpu_torch/csrc/hubs.cu",
-                    "nebula_tpu/tpu/hop.py:303"),
+    # K8's hub bits, read by expand's scan from the owners' rows (its
+    # "hub owners" route): no kernel of their own
+    "extend_hubs (fused into expand)": ("nebula_tpu_torch/csrc/expand.cu",
+                                        "nebula_tpu/tpu/hop.py:303"),
     "predicate_mask": ("nebula_tpu_torch/csrc/predicate.cu",
                        "nebula_tpu/tpu/exprjit.py:201"),
     "compact_capture": ("nebula_tpu_torch/csrc/compact_capture.cu",
@@ -342,9 +357,11 @@ ROUTE_SOURCES = {
 # the lane-widened kernels of phase 8 replace K10, the reference's lanes
 # program (a vmap of the hop program over a query-lane axis)
 LANES_REPLACES = "nebula_tpu/tpu/hop.py:619"
-for _k in ("expand", "mark", "extend_hubs", "predicate_mask",
-           "compact_capture", "merge_delta"):
+for _k in ("expand", "mark", "predicate_mask", "compact_capture",
+           "merge_delta"):
     ROUTE_SOURCES[_k + " (lanes)"] = (ROUTE_SOURCES[_k][0], LANES_REPLACES)
+ROUTE_SOURCES["extend_hubs (fused into expand, lanes)"] = (
+    ROUTE_SOURCES["expand"][0], LANES_REPLACES)
 # MATCH's every-hop mode (phase 9) runs three kernels at shapes GO never
 # gives them: the WHERE mask and the compaction at every hop, the mark
 # with the mask as its keep (hop.py:_build_local_fn, capture_hops)
@@ -382,7 +399,8 @@ PAGERANK_RUN_TOL = 1e-8          # the reference's rank parity bar
 PAGERANK_STEP_TOL = 1e-12
 # kernels each path must launch
 UNSPLIT_KERNELS = ("expand", "mark", "predicate_mask", "compact_capture")
-SPLIT_KERNELS = UNSPLIT_KERNELS + ("extend_hubs",)
+HUB_ROUTE = "expand (hub owners)"   # K8 folded into expand's scan
+SPLIT_KERNELS = UNSPLIT_KERNELS + (HUB_ROUTE,)
 BFS_KERNELS = ("expand", "mark", "bfs_probe", "bfs_level")
 BFS_STEPS = 5                    # bench.py config 5: rt.bfs(..., "out", 5)
 BFS_RUNS = 4                     # one cold run, then the timed warm runs
@@ -528,6 +546,70 @@ def bound(bytes_moved: float, ops: float, ops_per_s=INT32_OPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def counts(K) -> dict:
+    """Every wrapper's launches and every route's ({"expand (hub owners)":
+    n, ...}), as the counters stand."""
+    return {**K.launch_counts(), **K.route_launch_counts()}
+
+
+def kernel_launches(launches: dict) -> int:
+    """The launches of a `counts` dict, each kernel once (its routes'
+    counts, named "kernel (route)", are parts of its own)."""
+    return sum(v for k, v in launches.items() if "(" not in k)
+
+
+def check_hub_route(launches: dict, label: str, split: bool) -> None:
+    """On a single-device path of a degree-split snapshot every expand
+    reads the hub bits from their owners' rows (the "hub owners" route)
+    and no hub-column pass runs (K8 has no kernel; K16's pair is the
+    mesh's); an unsplit path never takes the route."""
+    owners = launches[HUB_ROUTE]
+    hub_passes = launches["owned_hub_bits"] + launches["fill_hub_columns"]
+    if (owners != (launches["expand"] if split else 0) or hub_passes
+            or (split and owners <= 0)):
+        raise AssertionError(f"{label}: {owners} owner-route expands of "
+                             f"{launches['expand']}, {hub_passes} "
+                             f"hub-column passes")
+
+
+def lib_expand_for(blk, f, hubs=None):
+    """One library formulation of expand over bitmap (or lane stack) f:
+    repeat_interleave of the active rows over their degrees; a lane
+    stack's row q reads CSR row q mod P.  With `hubs` = (hub_owner,
+    hub_local) the hub bits are first gathered from their owners' rows
+    into the tail columns of a private copy of f (one gather and one
+    broadcast assignment, as extend_hubs_plain does)."""
+    import torch
+    if hubs is not None:
+        f = f.clone()
+        own, loc = (t.long() for t in hubs)
+        vloc = f.shape[-1] - own.numel()
+
+    def lib_expand():
+        if hubs is not None:
+            f[..., vloc:] = f[..., own, loc][..., None, :]
+        rows = f.reshape(-1).nonzero().view(-1)
+        nrows = f.shape[-1]
+        p, r = (rows // nrows) % blk.indptr.shape[0], rows % nrows
+        beg = blk.indptr[p, r].long()
+        deg = blk.indptr[p, r + 1].long() - beg
+        slot_row = torch.repeat_interleave(torch.arange(
+            rows.numel(), device=f.device), deg)
+        off = torch.arange(slot_row.numel(), device=f.device) \
+            - torch.repeat_interleave(torch.cumsum(deg, 0) - deg, deg)
+        e = beg[slot_row] + off
+        return blk.nbr[p[slot_row], e], blk.rank[p[slot_row], e]
+    return lib_expand
+
+
+def zero_tail(f, vmax: int):
+    """A copy of frontier buffer (or lane stack) f with its hub columns
+    cleared, as the single-device loops leave them."""
+    g = f.clone()
+    g[..., vmax:] = False
+    return g
+
+
 def run_go(rt, ns, repeats: int, label: str, K, oracle, keep_rows=None):
     """Drive the GO path of `rt` (unfiltered and filtered), each query
     checked against the oracle (host_csr_traverse on ns.snap, computed
@@ -579,7 +661,7 @@ def run_go(rt, ns, repeats: int, label: str, K, oracle, keep_rows=None):
         log(f"    GO 3 STEPS {label} {flabel}: "
             f"{json.dumps(results[flabel])}")
     torch.cuda.synchronize()
-    launches = K.launch_counts()
+    launches = counts(K)
     log(f"    {label} launches over {2 * (repeats + 1)} queries: "
         f"{launches}")
     return results, launches
@@ -1264,15 +1346,13 @@ def loop_bound(K, run):
             hd = a[4] if len(a) > 4 else kw.get("hub_dense")
             tot, EB = int(r[4].sum()), r[0].shape[-1]
             H = 0 if hd is None else hd.numel()
-            return (expand_bytes(rows(fbm), fbm.shape[-1], H, tot, EB),
+            return (expand_bytes(rows(fbm), fbm.shape[-1], H, tot, EB,
+                                 kw.get("hub_owner") is not None),
                     rows(fbm) * fbm.shape[-1] * 3 + tot)
         if name == "mark":
             n = a[0].numel()
             keep = a[3] if len(a) > 3 else kw.get("keep")
             return (4 + (keep is not None)) * n + r.numel(), 3 * n
-        if name == "extend_hubs":
-            H = a[1].numel()
-            return H + rows(a[0]) * H + 8 * H, rows(a[0]) * H
         if name == "bfs_probe":
             tot = int(a[3].clamp(0, a[0].shape[1]).sum())
             keep = (a[2] is not None) * tot
@@ -1552,7 +1632,7 @@ def run_batch(label, go, seed_sets, steps, K, same=rows_equal, size=len):
         solo_wall.append(time.perf_counter() - t)
         if i == 0:
             torch.cuda.synchronize()
-            solo_launches = K.launch_counts()
+            solo_launches = counts(K)
 
     cfg.set_dynamic_many({"batch_max_lanes": n,
                           "batch_wait_us": BATCH_WAIT_US})
@@ -1584,7 +1664,7 @@ def run_batch(label, go, seed_sets, steps, K, same=rows_equal, size=len):
         th.join(max(deadline - time.perf_counter(), 0.0))
     wall = time.perf_counter() - t0
     torch.cuda.synchronize()
-    launches = K.launch_counts()
+    launches = counts(K)
     peak = torch.cuda.max_memory_allocated()
     s1 = stats().snapshot()
     cfg.set_dynamic_many({"batch_max_lanes": 0})
@@ -1679,11 +1759,15 @@ def lane_frontiers(K, dev, lane_dense, steps: int, dl=None, extra=0):
     return ids, bufs, dsts
 
 
-def expand_bytes(P, nrows, H, tot, EB):
+def expand_bytes(P, nrows, H, tot, EB, owners: bool = False):
     """expand's bytes: the P CSR rows' offsets and the frontier read once,
     each traversed edge's neighbour and rank, the four (P, EB) slot
-    arrays and the totals written, the hub ids read."""
-    return (P * (nrows + 1) * 4 + P * nrows + 8 * tot + 16 * P * EB
+    arrays and the totals written, the hub ids read.  Through the owner
+    tables (`owners`) the frontier is its (P, nrows - H) ownership
+    columns, whose bytes hold every hub's bit, and the two (H,) tables
+    are read; the H tail columns are not."""
+    front = P * (nrows - H) + 8 * H if owners else P * nrows
+    return (P * (nrows + 1) * 4 + front + 8 * tot + 16 * P * EB
             + 4 * P + 4 * H)
 
 
@@ -1702,7 +1786,8 @@ def edge_cases(K, AK, device) -> None:
     """[4e]: expand, compact_capture, mark, predicate_mask, merge_delta and
     pagerank_step against their plain versions on bench/kernel_cases.py's
     edge cases at their card sizes: all but the last bit for bit (every
-    output, padding included; mark through each of its two kernels that
+    output, padding included; expand's owner route too, the hub bits
+    from their owners' rows past junk tail columns; mark through each of its two kernels that
     fits, and the wrapper's own choice, with the whole buffer around a
     bitmap view compared; predicate_mask through each route its program
     has and the wrapper's choice; merge_delta's mask, totals and every
@@ -1711,10 +1796,12 @@ def edge_cases(K, AK, device) -> None:
     difference."""
     import torch
     from nebula_tpu_torch.bench.kernel_cases import (
-        compact_cases, copy_view, expand_cases, fresh_merge_args,
-        mark_cases, merge_delta_cases, pagerank_cases, predicate_cases)
+        compact_cases, copy_view, expand_cases, expand_owner_cases,
+        fresh_merge_args, mark_cases, merge_delta_cases, pagerank_cases,
+        predicate_cases)
     t0 = time.perf_counter()
-    for kname, cases in (("expand", expand_cases(device, big=True)),
+    for kname, cases in (("expand", expand_cases(device, big=True)
+                          + expand_owner_cases(device, big=True)),
                          ("compact_capture",
                           compact_cases(device, big=True))):
         kern, plain = getattr(K, kname), getattr(K, kname + "_plain")
@@ -2095,7 +2182,7 @@ def run_match(rt, store, space, seeds, steps, filt, runs: int, K,
         total = time.perf_counter() - t0
         if i == 0:
             torch.cuda.synchronize()
-            launches = K.launch_counts()
+            launches = counts(K)
         t0 = time.perf_counter()
         trails = count_trails(frames, seeds) if assemble else None
         asm = time.perf_counter() - t0
@@ -2182,6 +2269,7 @@ def main(argv=None) -> int:
         if launches_u[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"unsplit path")
+    check_hub_route(launches_u, "unsplit GO", split=False)
     results = {"unsplit": res_u}
     launches = launches_u
     # the main path's last rows and stats per filter (3b's, or 3a's with
@@ -2216,6 +2304,7 @@ def main(argv=None) -> int:
             if launches[name] <= 0:
                 raise AssertionError(f"kernel {name} never launched on "
                                      f"the split path")
+        check_hub_route(launches, "split GO", split=True)
         for flabel, r in res_s.items():
             if r["hop_edges"] != res_u[flabel]["hop_edges"]:
                 raise AssertionError(
@@ -2270,23 +2359,6 @@ def main(argv=None) -> int:
             K.mark_plain(dst, P, vmax, out=buf[:, :vmax])
         return blk, ids, bufs, dsts
 
-    def lib_expand_for(blk, f):
-        def lib_expand():
-            # repeat_interleave of the active rows over their degrees; a
-            # lane stack's row q reads CSR row q mod P
-            rows = f.reshape(-1).nonzero().view(-1)
-            nrows = f.shape[-1]
-            p, r = (rows // nrows) % blk.indptr.shape[0], rows % nrows
-            beg = blk.indptr[p, r].long()
-            deg = blk.indptr[p, r + 1].long() - beg
-            slot_row = torch.repeat_interleave(torch.arange(
-                rows.numel(), device=f.device), deg)
-            off = torch.arange(slot_row.numel(), device=f.device) \
-                - torch.repeat_interleave(torch.cumsum(deg, 0) - deg, deg)
-            e = beg[slot_row] + off
-            return blk.nbr[p[slot_row], e], blk.rank[p[slot_row], e]
-        return lib_expand
-
     per_hop = {}
     layouts = [("unsplit", rt.snapshots["ns"])]
     if rts is not None:
@@ -2297,30 +2369,32 @@ def main(argv=None) -> int:
         inputs[lname] = (blk, ids, bufs, dsts)
         P, H = dev.num_parts, dev.num_hubs
         hd = dev.hub_dense
+        # split: the owner route on the buffer as the loop leaves it (hub
+        # columns zero), against the tail route over the filled buffer
+        hubs = (dev.hub_owner, dev.hub_local) if H else None
+        okw = dict(zip(("hub_owner", "hub_local"), hubs)) if H else {}
         for hop, f in enumerate(bufs, 1):
-            a = (blk.indptr, blk.nbr, blk.rank, f, hd)
-            got = K.expand(*a)
-            want = K.expand_plain(*a)
+            a = (blk.indptr, blk.nbr, blk.rank,
+                 zero_tail(f, dev.vmax) if H else f, hd)
+            got = K.expand(*a, **okw)
+            want = K.expand_plain(blk.indptr, blk.nbr, blk.rank, f, hd)
             max_abs_err(got, want)
             tot, EB = int(want[4].sum()), want[0].shape[1]
-            ms = cuda_ms(lambda a=a: K.expand(*a), reps)
-            b_ms, _ = bound(expand_bytes(P, f.shape[1], H, tot, EB),
-                            P * f.shape[1] * 3 + tot)
+            ms = cuda_ms(lambda a=a: K.expand(*a, **okw), reps)
+            nbytes = expand_bytes(P, f.shape[1], H, tot, EB, bool(H))
+            b_ms, _ = bound(nbytes, P * f.shape[1] * 3 + tot)
             per_hop[f"{lname} hop {hop}"] = {
                 "ms": ms, "edges": tot, "EB": EB, "bound_ms": b_ms}
-            log(f"[4] expand {lname} hop {hop}: "
+            log(f"[4] expand {lname} hop {hop}"
+                f"{' (hub owners)' if H else ''}: "
                 f"{json.dumps(per_hop[f'{lname} hop {hop}'])}")
             if hop == 3:
-                rec = dict(
-                    got=got, want=want, ms=ms,
-                    plain_ms=cuda_ms(lambda a=a: K.expand_plain(*a), reps),
-                    lib_ms=cuda_ms(lib_expand_for(blk, f), reps),
-                    nbytes=expand_bytes(P, f.shape[1], H, tot, EB),
-                    ops=P * f.shape[1] * 3 + tot)
                 main = lname == layouts[-1][0]
-                record("expand", rec["got"], rec["want"], rec["ms"],
-                       rec["plain_ms"], rec["lib_ms"], rec["nbytes"],
-                       rec["ops"], into=rows_out if main else extra,
+                record("expand", got, want, ms,
+                       cuda_ms(lambda a=a: K.expand_plain(*a, **okw), reps),
+                       cuda_ms(lib_expand_for(blk, a[3], hubs), reps),
+                       nbytes, P * f.shape[1] * 3 + tot,
+                       into=rows_out if main else extra,
                        note=f" ({lname} hop 3)",
                        counts=launches if main else launches_u)
 
@@ -2390,31 +2464,56 @@ def main(argv=None) -> int:
         "bound_parts_ms": k7go}
     log(f"[4] K7 GO loop ({lname}, w > {ns.w_gt}): {json.dumps(k7go)}")
 
-    # extend_hubs at the frontiers entering hops 2 and 3
+    # K8, folded into expand's scan: the fused pass at split hop 3 (its
+    # library formulation the hub gather, then the expansion) beside the
+    # parent's pair in turns (fused, pair, pair, fused) — the hub bits
+    # by their library gather (one gather and one broadcast assignment),
+    # then the scan reading them from the tail columns
     if H:
-        got, want = [], []
-        for f in bufs[1:]:
-            g, w = f.clone(), f.clone()
-            g[:, vmax:] = False
-            w[:, vmax:] = False
-            got.append(K.extend_hubs(g, dev.hub_owner, dev.hub_local, vmax))
-            want.append(K.extend_hubs_plain(w, dev.hub_owner, dev.hub_local,
-                                            vmax))
-        f3 = bufs[2].clone()
+        f3 = bufs[2]
+        okw = dict(hub_owner=dev.hub_owner, hub_local=dev.hub_local)
+        a3z = (blk.indptr, blk.nbr, blk.rank, zero_tail(f3, vmax),
+               dev.hub_dense)
+        ft = f3.clone()
+        at = (blk.indptr, blk.nbr, blk.rank, ft, dev.hub_dense)
         own_l, loc_l = dev.hub_owner.long(), dev.hub_local.long()
 
         def lib_hubs():
-            # one gather and one broadcast assignment, indices ready
-            f3[:, vmax:] = f3[own_l, loc_l][None, :]
-            return f3
+            ft[:, vmax:] = ft[own_l, loc_l][None, :]
+            return ft
 
-        record("extend_hubs", got, want,
-               cuda_ms(lambda: K.extend_hubs(f3, dev.hub_owner,
-                                             dev.hub_local, vmax), reps),
-               cuda_ms(lambda: K.extend_hubs_plain(f3, dev.hub_owner,
-                                                   dev.hub_local, vmax),
-                       reps),
-               cuda_ms(lib_hubs, reps), H + P * H + 8 * H, P * H)
+        def parent_pair():
+            lib_hubs()
+            return K.expand(*at)
+
+        want = K.expand_plain(blk.indptr, blk.nbr, blk.rank, f3,
+                              dev.hub_dense)
+        got = K.expand(*a3z, **okw)
+        max_abs_err(parent_pair(), want)
+        turns = [cuda_ms(lambda: K.expand(*a3z, **okw), reps),
+                 cuda_ms(parent_pair, reps), cuda_ms(parent_pair, reps),
+                 cuda_ms(lambda: K.expand(*a3z, **okw), reps)]
+        tot3, EB3 = int(want[4].sum()), want[0].shape[1]
+        record("extend_hubs (fused into expand)", got, want,
+               (turns[0] + turns[3]) / 2,
+               cuda_ms(lambda: K.expand_plain(*a3z, **okw), reps),
+               cuda_ms(lib_expand_for(blk, a3z[3], (dev.hub_owner,
+                                                    dev.hub_local)), reps),
+               expand_bytes(P, vmax + H, H, tot3, EB3, True),
+               P * (vmax + H) * 3 + tot3,
+               counts={"extend_hubs (fused into expand)":
+                       launches[HUB_ROUTE]},
+               note=f" (split hop 3, {H} hubs: the owner route)")
+        k8 = {"fused_ms": [turns[0], turns[3]],
+              "parent_pair_ms": [turns[1], turns[2]],
+              "parent_gather_ms": cuda_ms(lib_hubs, reps),
+              "tail_scan_ms": cuda_ms(lambda: K.expand(*at), reps),
+              "fused_launches_per_go3": launches[HUB_ROUTE]
+              / (2 * (args.repeats + 1)),
+              "hub_column_passes": launches["owned_hub_bits"]
+              + launches["fill_hub_columns"]}
+        log(f"[4] K8 fused vs the parent's pair (split hop 3, in turns): "
+            f"{json.dumps(k8)}")
 
     # predicate_mask at the filtered hop 3: w > 50 (the main path's
     # program) and eleven more over nullable columns made from a seed
@@ -2583,10 +2682,11 @@ def main(argv=None) -> int:
         if st.hop_edges != want_edges:
             raise AssertionError(f"BFS {blabel}: hop_edges {st.hop_edges} vs "
                                  f"{want_edges} for the switch's branches")
-        for name in BFS_KERNELS + (("extend_hubs",) if brt is rts else ()):
+        for name in BFS_KERNELS:
             if bl[name] <= 0:
                 raise AssertionError(f"kernel {name} never launched on the "
                                      f"{blabel} BFS path")
+        check_hub_route(bl, f"BFS {blabel}", split=brt is rts)
         check_probe_routes(bl, blabel, "staged")
         bfs[blabel], bfs_launches[blabel] = res, bl
     # the main BFS path: split as bench.py runs it, when it ran
@@ -2602,6 +2702,7 @@ def main(argv=None) -> int:
         if bl[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"filtered BFS path")
+    check_hub_route(bl, f"BFS {fw}", split=mrt is rts)
     check_probe_routes(bl, fw, "staged")
     bfs[fw] = dict(res, bottom_up_levels=[
         lv for lv, b in enumerate(bfs_branches(want_f, BFS_STEPS), 1) if b])
@@ -2653,20 +2754,43 @@ def main(argv=None) -> int:
            err=bfs_err, tag="[6c]", note=f" ({mlabel}, level {la[2]}, "
            f"{lm['slots']} slots, {lm['fresh']} fresh)")
 
-    # expand at the BFS's widest level (level 2, bottom-up over the
-    # reverse blocks on the split path), against its plain version
+    # expand at every level's inputs of both runs (split: the owner
+    # route, against the tail route over the buffer extend_hubs_plain
+    # fills), timed at the widest (level 2, bottom-up over the reverse
+    # blocks on the split path) against its plain version
+    n_owner = 0
+    for ca, ckw in calls["expand"] + calls_f["expand"]:
+        if ckw.get("hub_owner") is None:
+            continue
+        tkw = {k: v for k, v in ckw.items()
+               if k not in ("hub_owner", "hub_local")}
+        filled = K.extend_hubs_plain(ca[3].clone(), ckw["hub_owner"],
+                                     ckw["hub_local"],
+                                     ca[3].shape[-1] - ca[4].numel())
+        max_abs_err(K.expand(*ca, **ckw),
+                    K.expand_plain(*ca[:3], filled, *ca[4:], **tkw))
+        n_owner += 1
+    if (mrt is rts) != (n_owner == len(calls["expand"])
+                        + len(calls_f["expand"])):
+        raise AssertionError(f"[6c] {n_owner} of the BFS's expands took "
+                             f"the owner route")
+    log(f"[6c] expand (hub owners) at {n_owner} levels of the two runs: "
+        f"equal to the tail route over extend_hubs_plain's buffer")
     ea, ekw = max(calls["expand"],
                   key=lambda c: int(K.expand_plain(*c[0], **c[1])[4].sum()))
     got, want_e = K.expand(*ea, **ekw), K.expand_plain(*ea, **ekw)
     etot, eEB = int(want_e[4].sum()), want_e[0].shape[-1]
     ef = ea[3]
     eH = 0 if ea[4] is None else int(ea[4].numel())
+    ehubs = (None if ekw.get("hub_owner") is None
+             else (ekw["hub_owner"], ekw["hub_local"]))
     record("expand (bfs)", got, want_e,
            cuda_ms(lambda: K.expand(*ea, **ekw), reps),
            cuda_ms(lambda: K.expand_plain(*ea, **ekw), reps),
            cuda_ms(lib_expand_for(SimpleNamespace(
-               indptr=ea[0], nbr=ea[1], rank=ea[2]), ef), reps),
-           expand_bytes(ef.shape[-2], ef.shape[-1], eH, etot, eEB),
+               indptr=ea[0], nbr=ea[1], rank=ea[2]), ef, ehubs), reps),
+           expand_bytes(ef.shape[-2], ef.shape[-1], eH, etot, eEB,
+                        ehubs is not None),
            ef.shape[-2] * ef.shape[-1] * 3 + etot,
            counts={"expand (bfs)": bfs_launches[mlabel]["expand"]},
            tag="[6c]", note=f" ({mlabel}, widest level: {etot} slots, "
@@ -2969,11 +3093,14 @@ def main(argv=None) -> int:
         if launches_b[name] <= 0:
             raise AssertionError(f"kernel {name} never launched in the "
                                  f"batched main path")
+    check_hub_route(launches_b, "[8b]", split=rts is not None)
     if launches_c["merge_delta"] <= 0:
         raise AssertionError("merge_delta never launched in the batched "
                              "delta path")
     lane_counts = {k + " (lanes)": v for k, v in launches_b.items()}
     lane_counts["merge_delta (lanes)"] = launches_c["merge_delta"]
+    lane_counts["extend_hubs (fused into expand, lanes)"] = launches_b[
+        HUB_ROUTE]
 
     # 8d. each lane-widened kernel against its plain version at 8b's lane
     # shapes (merge_delta at 8c's); inputs from the plain versions
@@ -2994,15 +3121,25 @@ def main(argv=None) -> int:
                ops, counts=lane_counts, tag="[8d]", note=note)
         k10[name] = k10.get(name, 0.0) + rows_out[-1]["bound_ms"]
 
-    # expand at each hop (timed, with its bound, at hop 3)
+    # expand at each hop (timed, with its bound, at hop 3); split: the
+    # owner route on the lane stack as the loop leaves it (hub columns
+    # zero), against the tail route over the stack extend_hubs_plain fills
+    hubs8 = (bdev.hub_owner, bdev.hub_local) if H else None
+    okw8 = dict(zip(("hub_owner", "hub_local"), hubs8)) if H else {}
     for hop, f in enumerate(bufs8, 1):
-        a = (blk.indptr, blk.nbr, blk.rank, f, bdev.hub_dense)
-        got, want = K.expand(*a), K.expand_plain(*a)
+        a = (blk.indptr, blk.nbr, blk.rank, zero_tail(f, vmax) if H else f,
+             bdev.hub_dense)
+        got = K.expand(*a, **okw8)
+        want = K.expand_plain(blk.indptr, blk.nbr, blk.rank, f,
+                              bdev.hub_dense)
         err = max_abs_err(got, want)
         tot, EB = int(want[4].sum()), want[0].shape[-1]
         union = int(K.expand_plain(blk.indptr, blk.nbr, blk.rank, f.any(0),
                                    bdev.hub_dense)[4].sum())
-        nbytes = (P * (f.shape[-1] + 1) * 4 + R * f.shape[-1] + 8 * union
+        # the lanes' frontiers (their ownership columns with the owner
+        # tables, every column without) read once
+        front = R * vmax + 8 * H if H else R * f.shape[-1]
+        nbytes = (P * (f.shape[-1] + 1) * 4 + front + 8 * union
                   + 16 * R * EB + 4 * R + 4 * H)
         ops = R * f.shape[-1] * 3 + tot
         if hop < 3:
@@ -3012,9 +3149,11 @@ def main(argv=None) -> int:
                 f"valid ({union} distinct edges), equal (max abs err "
                 f"{err})")
             continue
-        lrec("expand", got, want, cuda_ms(lambda a=a: K.expand(*a), lreps),
-             cuda_ms(lambda a=a: K.expand_plain(*a), lreps),
-             cuda_ms(lib_expand_for(blk, f), lreps), nbytes,
+        x3 = (nbytes, ops)
+        lrec("expand", got, want,
+             cuda_ms(lambda a=a: K.expand(*a, **okw8), lreps),
+             cuda_ms(lambda a=a: K.expand_plain(*a, **okw8), lreps),
+             cuda_ms(lib_expand_for(blk, a[3], hubs8), lreps), nbytes,
              ops, f" (hop 3: {L} lanes x {P} parts x {EB} slots, {tot} "
                   f"valid, {union} distinct edges)")
 
@@ -3059,33 +3198,34 @@ def main(argv=None) -> int:
                         3 * dsts8[0].numel())
         k10["mark"] += b_ms
 
-    # extend_hubs at each hop's frontier stack
+    # K8 in the lanes, folded into expand's scan: each lane's hub bits
+    # from its own owner rows, the fused pass at hop 3 (the expand lanes
+    # row's launch) held against the tail route over the filled stack,
+    # beside the parent's hub gather over the stack
     if H:
-        got, want = [], []
-        for f in bufs8:
-            g, w_ = f.clone(), f.clone()
-            g[..., vmax:] = False
-            w_[..., vmax:] = False
-            got.append(K.extend_hubs(g, bdev.hub_owner, bdev.hub_local, vmax))
-            want.append(K.extend_hubs_plain(w_, bdev.hub_owner,
-                                            bdev.hub_local, vmax))
-        f3 = bufs8[2].clone()
-        hb = (H * L + R * H + 8 * H, R * H)
-        k10["extend_hubs"] = len(bufs8) * bound(*hb)[0]   # every hop
+        f3 = bufs8[2]
+        a3z = (blk.indptr, blk.nbr, blk.rank, zero_tail(f3, vmax),
+               bdev.hub_dense)
+        ft8 = f3.clone()
         own8, loc8 = bdev.hub_owner.long(), bdev.hub_local.long()
 
         def lib_hubs8():
             # one gather and one broadcast assignment, indices ready
-            f3[..., vmax:] = f3[:, own8, loc8][:, None, :]
-            return f3
+            ft8[..., vmax:] = ft8[:, own8, loc8][:, None, :]
+            return ft8
 
-        lrec("extend_hubs", got, want,
-             cuda_ms(lambda: K.extend_hubs(f3, bdev.hub_owner,
-                                           bdev.hub_local, vmax), reps),
-             cuda_ms(lambda: K.extend_hubs_plain(f3, bdev.hub_owner,
-                                                 bdev.hub_local, vmax),
-                     reps), cuda_ms(lib_hubs8, reps), *hb,
-             f" ({L} lanes x {P} parts x {H} hubs)")
+        want = K.expand_plain(blk.indptr, blk.nbr, blk.rank, f3,
+                              bdev.hub_dense)
+        record("extend_hubs (fused into expand, lanes)",
+               K.expand(*a3z, **okw8), want,
+               cuda_ms(lambda: K.expand(*a3z, **okw8), lreps),
+               cuda_ms(lambda: K.expand_plain(*a3z, **okw8), lreps),
+               cuda_ms(lib_expand_for(blk, a3z[3], hubs8), lreps), *x3,
+               counts=lane_counts, tag="[8d]",
+               note=f" (hop 3: {L} lanes x {P} parts, {H} hubs: the "
+                    f"owner route)")
+        log(f"[8d] K8 (lanes): the parent's library gather over the "
+            f"stack {cuda_ms(lib_hubs8, lreps)} ms")
 
     # predicate_mask and compact_capture at the filtered hop 3
     a3 = (blk.indptr, blk.nbr, blk.rank, bufs8[2], bdev.hub_dense)
@@ -3193,10 +3333,11 @@ def main(argv=None) -> int:
     batch["k10"] = {
         "device_loop_ms": batch["8b"]["batch_device_s"] * 1e3,
         "solo_device_loops_ms": batch["8b"]["solo_device_s_sum"] * 1e3,
-        "launches_per_batch": sum(launches_b.values()),
+        "launches_per_batch": kernel_launches(launches_b),
         # the sum of the lane-widened kernels' bounds at 8b's shapes: every
-        # expand, mark and extend_hubs of the loop, predicate and compact
-        # at hop 3 (merge_delta is 8c's, not in 8b's loop)
+        # expand (the hub bits read in its scan) and mark of the loop,
+        # predicate and compact at hop 3 (merge_delta is 8c's, not in 8b's
+        # loop)
         "bound_ms": sum(v for k, v in k10.items() if k != "merge_delta"),
         "bound_parts_ms": k10}
     log(f"[8] K10 lanes loop at 8b: {json.dumps(batch['k10'])}")
@@ -3263,7 +3404,7 @@ def main(argv=None) -> int:
     want_l = {"expand": 3, "predicate_mask": 3, "compact_capture": 3,
               "mark": 3}
     if mdev.num_hubs:
-        want_l["extend_hubs"] = 3
+        want_l[HUB_ROUTE] = 3
     if {k: v for k, v in launches9.items() if v} != want_l:
         raise AssertionError(f"[9b] launches {launches9}, want {want_l}")
     match["9b"] = {"snapshot": mlabel, "filter": f"w > {ns.w_gt}",
@@ -3328,12 +3469,20 @@ def main(argv=None) -> int:
     for h, (f, sl, keep) in enumerate(hops9):
         EB, tot = sl[0].shape[1], int(sl[4].sum())
         n_kept = int(keep.sum())
-        k7.setdefault("expand", 0.0)
-        k7["expand"] += bound(expand_bytes(P, f.shape[1], H, tot, EB),
-                              P * f.shape[1] * 3 + tot)[0]
         if H:
-            k7["extend_hubs"] = k7.get("extend_hubs", 0.0) + bound(
-                H + P * H + 8 * H, P * H)[0]
+            # the owner route on the buffer as the loop leaves it, against
+            # the tail route over the buffer extend_hubs_plain filled
+            max_abs_err(K.expand(mblk.indptr, mblk.nbr, mblk.rank,
+                                 zero_tail(f, vmax), mdev.hub_dense,
+                                 hub_owner=mdev.hub_owner,
+                                 hub_local=mdev.hub_local), sl)
+            log(f"[9d] expand (hub owners) at hop {h + 1}: {P}x{EB} slots, "
+                f"{tot} valid, equal to the tail route over "
+                f"extend_hubs_plain's buffer")
+        k7.setdefault("expand", 0.0)
+        k7["expand"] += bound(expand_bytes(P, f.shape[1], H, tot, EB,
+                                           bool(H)),
+                              P * f.shape[1] * 3 + tot)[0]
         pred_cost = (tot * (4 + 8) + P * EB + 4 * P, tot * len(prog9.code))
         comp_cost = (compact_bytes(P * EB, tot, n_kept, 0, P), 2 * tot)
         k7["predicate_mask"] = k7.get("predicate_mask", 0.0) \
@@ -3408,7 +3557,7 @@ def main(argv=None) -> int:
                want, K.mark_path(n2, P, vmax), reps)
     match["k7_every_hop"] = {
         "device_loop_ms": p50_9b["device_s"] * 1e3,
-        "launches_per_run": sum(launches9.values()),
+        "launches_per_run": kernel_launches(launches9),
         "bound_ms": sum(k7.values()), "bound_parts_ms": k7}
     log(f"[9] K7 every-hop loop at 9b: {json.dumps(match['k7_every_hop'])}")
     del hops9
@@ -3505,8 +3654,12 @@ def main(argv=None) -> int:
         log(f"[10a] mesh x{MESH_SLOTS} GO 3 STEPS {flabel}: "
             f"{json.dumps(mesh['10a'][flabel])}")
     torch.cuda.synchronize()
-    launches10 = K.launch_counts()
-    # K16's pair takes K8's place on the mesh
+    launches10 = counts(K)
+    # K16's pair fills the slots' hub columns, which expand reads: a slot
+    # holds no owner row, so no expand takes the owner route
+    if launches10[HUB_ROUTE]:
+        raise AssertionError(f"[10a] {launches10[HUB_ROUTE]} owner-route "
+                             f"expands on the mesh")
     for name in UNSPLIT_KERNELS + MESH_KERNELS + (
             MESH_HUB_KERNELS if H else ()):
         if launches10[name] <= 0:
@@ -3811,7 +3964,7 @@ def main(argv=None) -> int:
         for p in range(P):
             if not torch.equal(want_f[p, 0, 0], bufs_l[1][p]):
                 raise AssertionError(f"[10f] slot {p}'s hub columns differ "
-                                     f"from extend_hubs'")
+                                     f"from extend_hubs_plain's")
         err_fill = max_abs_err([got_f], [want_f])
         fb_t = fb_g.clone()
         own_l, loc_l = sh0.hub_owner.long(), sh0.hub_local.long()

@@ -47,10 +47,12 @@ def expand_part(block: DeviceBlock, fbm: torch.Tensor,
                 hub_dense: Optional[torch.Tensor] = None,
                 pred: Optional[Program] = None, swap_ends: bool = False,
                 delta: Optional[Dict[str, Any]] = None, parts=None,
-                pid: int = 0):
+                pid: int = 0, owners=None):
     """Expand one block from the (P, rows) bitmap `fbm` (rows = vmax, or
-    vmax + H with the hub columns filled) for every part, and apply the
-    compiled edge predicate.
+    vmax + H on a degree-split snapshot: each hub's bit read from its
+    owner's row through `owners`, the (hub_owner, hub_local) tables, or
+    on a shard slot, with none, from the hub columns the mesh filled)
+    for every part, and apply the compiled edge predicate.
 
     `swap_ends` is the bottom-up contract: $^/$$ are TRAVERSAL source
     and destination, and bottom-up expands the REVERSE adjacency, so the
@@ -64,7 +66,7 @@ def expand_part(block: DeviceBlock, fbm: torch.Tensor,
     merge does not model.
 
     `parts` and `pid`: a shard slot's part count and part (see
-    `kernels.expand`).
+    `kernels.expand`).  `owners`: see `gpu.hop.expand_merged`.
 
     Returns (src, dst, keep, total) per `kernels.expand`'s slot contract;
     keep is the predicate's (P, EB) mask (valid slots only), the merged
@@ -72,7 +74,7 @@ def expand_part(block: DeviceBlock, fbm: torch.Tensor,
     every slot below total."""
     dl = None if swap_ends else delta
     src, dst, rk, eidx, valid, total = expand_merged(block, fbm, hub_dense,
-                                                     dl, parts, pid)
+                                                     dl, parts, pid, owners)
     keep = valid
     if pred is not None:
         ps, pd = (dst, src) if swap_ends else (src, dst)
@@ -87,9 +89,11 @@ def expand_part(block: DeviceBlock, fbm: torch.Tensor,
 def top_down_step(blocks: Sequence[DeviceBlock], efbm: torch.Tensor,
                   cand: torch.Tensor, hub_dense=None, pred=None,
                   deltas: Optional[Sequence[Optional[Dict[str, Any]]]]
-                  = None, pid: int = 0) -> Tuple[torch.Tensor, int]:
+                  = None, pid: int = 0, owners=None
+                  ) -> Tuple[torch.Tensor, int]:
     """Forward level body: expand every block from the frontier buffer
-    `efbm` (hub columns filled by the caller), merged with its delta
+    `efbm` (hub bits through `owners`, or a shard slot's hub columns
+    filled by the caller), merged with its delta
     plane (`deltas`, per block, or None), and mark each kept destination
     into the (P, vmax) candidate bitmap `cand` (zeroed by the caller; it
     may be the first vmax columns of a wider buffer).  On a mesh, `efbm`
@@ -104,7 +108,8 @@ def top_down_step(blocks: Sequence[DeviceBlock], efbm: torch.Tensor,
     width = 0
     for b, dl in zip(blocks, deltas or [None] * len(blocks)):
         _s, dst, keep, total = expand_part(b, efbm, hub_dense, pred,
-                                           delta=dl, parts=P, pid=pid)
+                                           delta=dl, parts=P, pid=pid,
+                                           owners=owners)
         edges += total
         width = max(width, dst.shape[-1])
         # without a predicate every valid slot is kept, and expand and
@@ -115,10 +120,11 @@ def top_down_step(blocks: Sequence[DeviceBlock], efbm: torch.Tensor,
 
 def bottom_up_step(rev_blocks: Sequence[DeviceBlock], fbm: torch.Tensor,
                    eunvis: torch.Tensor, cand: torch.Tensor,
-                   hub_dense=None, pred=None, fbits=None
+                   hub_dense=None, pred=None, fbits=None, owners=None
                    ) -> Tuple[torch.Tensor, int]:
     """Direction-optimizing level body: expand the REVERSE adjacency of
-    the unvisited vertices (`eunvis`, hub columns filled by the caller);
+    the unvisited vertices (`eunvis`, each hub's bit read from its
+    owner's row through `owners`);
     a vertex joins `cand` when an in-neighbour's bit is set in the
     (P, vmax) frontier bitmap `fbm`, read from `fbits`, its (P, W) int32
     words (bfs_level's fbits_out; required on the card).  A degree-split
@@ -131,7 +137,7 @@ def bottom_up_step(rev_blocks: Sequence[DeviceBlock], fbm: torch.Tensor,
     width = 0
     for b in rev_blocks:
         src, nb, keep, total = expand_part(b, eunvis, hub_dense, pred,
-                                           swap_ends=True)
+                                           swap_ends=True, owners=owners)
         edges += total
         width = max(width, src.shape[1])
         bfs_probe(src, nb, keep, total, fbm, cand, fbits)

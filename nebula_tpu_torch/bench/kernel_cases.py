@@ -10,7 +10,9 @@ widths one short of and one past a scan tile (`SCAN_TILE`), widths that
 are not a multiple of 4 (rows that start off a 16-byte boundary), a
 kept slot only at the end of each tile, a hub row longer than a fill
 block's span, runs of zero-degree rows, query lanes, delta-merged
-blocks, shard slots.  `big=True` adds rows of hundreds of tiles, whose
+blocks, shard slots; `expand_owner_cases` hold expand's owner route
+(each hub row's bit read from its owner's row, the tail columns zero or
+junk).  `big=True` adds rows of hundreds of tiles, whose
 look-back walks long chains: sizes for the card; the CPU tests take the
 small set.
 
@@ -218,6 +220,69 @@ def expand_cases(device, seed: int = 0, big: bool = False) -> List[Case]:
             f, parts=8, pid=3)
         ip, nb, rk, f = _csr(rng, P, 40 * T, deg_hi=4, active=0.5)
         add("8 rows of 40 tiles", ip, nb, rk, f, extra=4)
+    return cases
+
+
+def expand_owner_cases(device, seed: int = 0,
+                       big: bool = False) -> List[Case]:
+    """expand's owner route: the same positional args as `expand_cases`,
+    with kwargs hub_owner and hub_local (H,) int32, so that each hub row's
+    bit comes from its owner's row of the same lane.  Hubs owned by the
+    first, a middle and the last part; an inactive hub; tail columns
+    zero, or junk (each the opposite of the hub's bit, or random in
+    lanes), which a scan reading them would expand; 1, 2 and 8 lanes
+    whose lanes activate different hubs; H = 1, 73 and 300, the hub rows
+    inside one scan tile, across a tile's edge and starting a tile."""
+    rng = np.random.default_rng(seed + 7)
+    T = SCAN_TILE
+    P = 8
+    cases: List[Case] = []
+
+    def add(name, vloc, H, lanes=0, owners=None, tail="junk",
+            inactive=0, deg_hi=8, extra=0):
+        ip, nb, rk, _ = _csr(rng, P, vloc + H, deg_hi=deg_hi)
+        own = (np.resize(np.asarray(owners), H) if owners is not None
+               else rng.integers(0, P, H)).astype(np.int32)
+        loc = np.zeros(H, np.int32)
+        for p in range(P):        # distinct rows within each owner part
+            mine = np.flatnonzero(own == p)
+            loc[mine] = rng.choice(vloc, mine.size, replace=False)
+        lead = (lanes,) if lanes else ()
+        fbm = rng.random(lead + (P, vloc + H)) < 0.3
+        # lane l activates the hubs h with h % L == l (solo: all), but
+        # the first `inactive` hubs, which no lane activates
+        n_l = max(lanes, 1)
+        on = (np.arange(H)[None, :] % n_l == np.arange(n_l)[:, None])
+        on[:, :inactive] = False
+        fbm[..., own, loc] = on if lanes else on[0]
+        bits = fbm[..., own, loc]                   # (lead..., H)
+        if tail == "zero":
+            fbm[..., vloc:] = False
+        elif lanes:
+            fbm[..., vloc:] = rng.random(fbm[..., vloc:].shape) < 0.5
+        else:
+            fbm[..., vloc:] = ~bits[..., None, :]
+        hub = (loc.astype(np.int64) * P + own).astype(np.int32)
+        args = (_t(ip, device), _t(nb, device), _t(rk, device),
+                _t(fbm, device), _t(hub, device), extra, None, 0)
+        cases.append((name, args, {"hub_owner": _t(own, device),
+                                   "hub_local": _t(loc, device)}))
+
+    add("H 1 owned by the first part, tail zero", 3000, 1, owners=[0],
+        tail="zero")
+    add("H 73 owned by the first, a middle and the last part, one "
+        "inactive, junk tail", 5000, 73, owners=[0, P // 2, P - 1],
+        inactive=1)
+    add("H 300 across a scan tile's edge, junk tail", T - 100, 300,
+        deg_hi=3)
+    add("H 73 starting a scan tile, extra 5", T, 73, inactive=3, extra=5)
+    add("2 lanes, different hubs, junk tails", 3000, 73, lanes=2)
+    add("8 lanes, different hubs, one inactive, junk tails", 2000, 73,
+        lanes=8, inactive=1)
+    if big:
+        add("8 lanes of 125,000 rows, H 73, junk tails", 125_000, 73,
+            lanes=8, deg_hi=6)
+        add("H 300 at 125,000 rows, junk tail", 125_000, 300, deg_hi=6)
     return cases
 
 

@@ -1,8 +1,9 @@
 // bfs_probe and bfs_level — the two device programs of the single-device
 // direction-optimizing BFS that the GO kernels do not already cover
-// (Queue B K11).  The BFS's expansion, WHERE mask, top-down marks and hub
-// bits reuse expand (K1), predicate_mask (K4), mark (K2) and extend_hubs
-// (K8); gpu/bfs.py:run_bfs drives them level by level.
+// (Queue B K11).  The BFS's expansion (hub bits read from their owners'
+// rows, K8 folded in), WHERE mask and top-down marks reuse expand (K1),
+// predicate_mask (K4) and mark (K2); gpu/bfs.py:run_bfs drives them level
+// by level.
 //
 // bfs_probe replaces the bottom-up membership test of
 // nebula_tpu/algo/frontier.py:bottom_up_step (:136-141):

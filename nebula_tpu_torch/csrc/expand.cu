@@ -50,12 +50,23 @@
 // L = 1 is the solo call, bit for bit.
 //
 // Degree-split snapshots (nebula_tpu/tpu/hop.py:104-110): a block then has
-// vmax_local + H rows per part, the last H being hub rows, and fbm is the
-// (P, vmax_local + H) bitmap with the hub bits filled in (hubs.cu).  A
-// local row r of part p is vertex r * P + p; hub row vmax_local + h is
-// vertex hub_dense[h].  Nothing else changes: hub rows are scanned and
-// copied like any other row, after the local rows, so slots stay in
-// ascending row, then eidx, order.
+// vmax_local + H rows per part, the last H being hub rows.  A local row r
+// of part p is vertex r * P + p; hub row vmax_local + h is vertex
+// hub_dense[h].  Hub rows are scanned and copied like any other row,
+// after the local rows, so slots stay in ascending row, then eidx, order.
+// A hub's frontier bit lives in its owner part's row, and every part
+// expands the hub's chunk, so the scan reads hub row vmax_local + h of
+// row q from the same lane's owner row:
+//     fbm[((q / P) * P + hub_owner[h]) * vmax + hub_local[h]]
+// That is the reference's _extend_fbm_local (hop.py:303) gather, done
+// where its one reader needs it: the hub-bits pass (Queue B K8,
+// hop.py:_hub_consts :271) is folded into this scan and has no launch
+// of its own, and the frontier buffer's H tail columns are never read.
+// The non-hub rows keep their coalesced byte loads; only the tiles that
+// hold hub rows (the last one or two of a row) make the H scattered
+// loads.  Without the owner tables the scan reads the tail columns as
+// any other row: the mesh fills them (exchange.cu's fill_hub_columns),
+// since a shard slot holds no other part's row.
 //
 // Shard slots (Queue B K17, nebula_tpu/tpu/hop.py:_expand_block's `pid`):
 // on the sharded mesh a slot holds only its own part's CSR row, so the
@@ -67,7 +78,10 @@
 // at 3.35 TB/s; it does no arithmetic worth counting.  The scan also
 // writes and the fill reads starts (8 bytes a row), and each fill block
 // reads a few hundred starts in its two searches (four rounds of 32
-// probes at 125,000 rows); every other load and store is coalesced.
+// probes at 125,000 rows); every other load and store is coalesced.  With
+// the owner tables the scan reads the two (H,) int32 tables (8 * H bytes)
+// and H scattered bytes a row in place of the H tail columns, and the
+// hub-bits pass's P * H byte writes, and its launch, are gone.
 #include "scan.cuh"
 
 namespace {
@@ -77,10 +91,13 @@ constexpr int kSpan = nt::kThreads * kFillItems;   // row, slot and padding
                                                    // items a fill block takes
 
 // Exclusive scan of the masked degrees: tile c of row q covers frontier
-// rows [c * kTile, (c + 1) * kTile) of q.
+// rows [c * kTile, (c + 1) * kTile) of q.  With hub_owner (and hub_local)
+// a row i >= vloc reads its bit from its owner's row of q's lane.
 __global__ void __launch_bounds__(nt::kThreads)
 expand_scan_kernel(const int* __restrict__ indptr,
                    const uint8_t* __restrict__ fbm, int P, int vmax,
+                   int vloc, const int* __restrict__ hub_owner,
+                   const int* __restrict__ hub_local,
                    int* __restrict__ starts, int* __restrict__ total,
                    unsigned long long* __restrict__ status, int ntiles,
                    long long tiles) {
@@ -95,11 +112,29 @@ expand_scan_kernel(const int* __restrict__ indptr,
   const int n = min(nt::kTile, vmax - start);
   const uint8_t* f = fbm + (size_t)q * vmax + start;
   const int* ip = indptr + (size_t)(q % P) * (vmax + 1) + start;
+  // the tile's first hub row read through the tables (n: none)
+  const int hub0 = hub_owner != nullptr ? max(vloc - start, 0) : n;
   int v[nt::kItems];
+  if (hub0 >= n) {                    // uniform over the block
 #pragma unroll
-  for (int k = 0; k < nt::kItems; ++k) {
-    const int i = k * nt::kThreads + threadIdx.x;
-    v[k] = i < n && f[i] ? ip[i + 1] - ip[i] : 0;
+    for (int k = 0; k < nt::kItems; ++k) {
+      const int i = k * nt::kThreads + threadIdx.x;
+      v[k] = i < n && f[i] ? ip[i + 1] - ip[i] : 0;
+    }
+  } else {
+    const uint8_t* lane = fbm + (size_t)(q / P) * P * vmax;
+#pragma unroll
+    for (int k = 0; k < nt::kItems; ++k) {
+      const int i = k * nt::kThreads + threadIdx.x;
+      bool on = false;
+      if (i < hub0) {
+        on = f[i];
+      } else if (i < n) {
+        const int h = start + i - vloc;
+        on = lane[(size_t)hub_owner[h] * vmax + hub_local[h]];
+      }
+      v[k] = on ? ip[i + 1] - ip[i] : 0;
+    }
   }
   const int sum = nt::scan_tile(v, s);
   const int off = nt::tile_prefix(status + (size_t)q * ntiles, c, sum, s);
@@ -215,11 +250,19 @@ expand_fill_kernel(const int* __restrict__ indptr,
 
 // fbm, starts (L * P, vmax), total (L * P,); indptr (P, vmax + 1);
 // status: nt::status_words(L * P, vmax) 8-byte words of scratch, cleared
-// here on the stream.
+// here on the stream.  hub_owner, hub_local: (vmax - vloc,) owner part
+// and owner row of each hub row, or both null (the hub rows' bits then
+// come from fbm's tail columns); the owner rows are fbm's rows of the
+// same lane, so every part of the snapshot must be given (P parts).
 extern "C" int nt_expand_scan(const int* indptr, const uint8_t* fbm, int P,
-                              int L, int vmax, int* starts, int* total,
+                              int L, int vmax, int vloc,
+                              const int* hub_owner, const int* hub_local,
+                              int* starts, int* total,
                               unsigned long long* status, void* stream) {
   if (L < 1 || P < 1 || vmax < 0) return (int)cudaErrorInvalidValue;
+  if ((hub_owner == nullptr) != (hub_local == nullptr)
+      || (hub_owner != nullptr && (vloc < 0 || vloc > vmax)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const long long rows = (long long)L * P;
   const int ntiles = nt::tiles_per_row(vmax);
@@ -229,7 +272,8 @@ extern "C" int nt_expand_scan(const int* indptr, const uint8_t* fbm, int P,
       status, 0, nt::status_words(rows, vmax) * sizeof(*status), s);
   if (rc != cudaSuccess) return (int)rc;
   expand_scan_kernel<<<(unsigned)tiles, nt::kThreads, 0, s>>>(
-      indptr, fbm, P, vmax, starts, total, status, ntiles, tiles);
+      indptr, fbm, P, vmax, vloc, hub_owner, hub_local, starts, total,
+      status, ntiles, tiles);
   return (int)cudaGetLastError();
 }
 

@@ -10,8 +10,8 @@
 //
 // The bitmap's rows are `ld` bytes apart: ld = vmax for a plain (P, vmax)
 // bitmap, vmax + H when it is the first vmax columns of a degree-split
-// snapshot's (P, vmax + H) expansion bitmap (see hubs.cu), so a row need
-// not start on any alignment.
+// snapshot's (P, vmax + H) frontier buffer (see gpu/hop.py:new_frontier),
+// so a row need not start on any alignment.
 //
 // Query lanes (Queue B K10, nebula_tpu/tpu/hop.py:619; the lanes seed
 // builder, nebula_tpu/tpu/runtime.py:976): `out` may be an (L, P, vmax)

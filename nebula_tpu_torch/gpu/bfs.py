@@ -14,12 +14,14 @@ as `gpu/hop.py:run_hops` is for GO:
               n_phantom` (bfs.py:159) from the two counts of the previous
               update — one (2,) int64 row of a zeroed (max_steps + 1, 2)
               buffer read to the host per level; then top-down
-              (frontier.top_down_step: extend_hubs, expand, merge_delta
-              on a block with a delta plane, predicate_mask, mark) or,
-              with the reverse blocks, bottom-up (frontier.bottom_up_step:
-              extend_hubs on the unvisited buffer, expand of the reverse
-              blocks, predicate_mask with the endpoints swapped,
-              bfs_probe on the frontier's bits); then bfs_level.
+              (frontier.top_down_step: expand, merge_delta on a block
+              with a delta plane, predicate_mask, mark) or, with the
+              reverse blocks, bottom-up (frontier.bottom_up_step: expand
+              of the reverse blocks from the unvisited buffer,
+              predicate_mask with the endpoints swapped, bfs_probe on
+              the frontier's bits); then bfs_level.  On a degree-split
+              snapshot each expand reads a hub's bit from its owner's
+              row of the buffer it expands (`hop.hub_owners`).
 
 Unlike GO (`run_hops`, which filters the final hop only), the WHERE mask
 applies at every level, as in the reference (frontier.py:67-76).  All
@@ -27,7 +29,7 @@ applies at every level, as in the reference (frontier.py:67-76).  All
 expands nothing, so its launches are skipped and it reports 0 edges, as
 the reference's fixed program computes.  The frontier, unvisited and
 candidate bitmaps are the first vmax columns of (P, vmax + H) buffers
-(`hop.new_frontier`), so extend_hubs fills their hub columns in place.
+(`hop.new_frontier`); their H tail columns stay unread.
 
 `run_bfs_sharded` is the mesh's BFS (Queue B K17, the reference's
 `build_bfs_fn`, bfs.py:54): top-down at every level — the reference's
@@ -48,8 +50,9 @@ from ..algo.frontier import bottom_up_step, sharded_level_step, \
 from .device import DeviceBlock, DeviceShard, DeviceSnapshot
 from .exprjit import Program
 from .hop import a2a_payload_bytes, exchange_marks_lanes, \
-    extend_fbm_sharded_lanes, new_frontier, new_group_marks, slot_groups
-from .kernels import bfs_level, extend_hubs
+    extend_fbm_sharded_lanes, hub_owners, new_frontier, new_group_marks, \
+    slot_groups
+from .kernels import bfs_level
 from .mesh import Mesh
 
 
@@ -85,7 +88,8 @@ def run_bfs(dev: DeviceSnapshot, blocks: Sequence[DeviceBlock],
         nothing)
       bottom_up: per-level branch (bools)
     """
-    P, vmax, H = dev.num_parts, dev.vmax, dev.num_hubs
+    P, vmax = dev.num_parts, dev.vmax
+    owners = hub_owners(dev)
     fbuf, ubuf = new_frontier(dev), new_frontier(dev)
     cand, fbm, unvis = seeds[:, :vmax], fbuf[:, :vmax], ubuf[:, :vmax]
     dist = torch.full((P, vmax), -1, dtype=torch.int32, device=seeds.device)
@@ -110,15 +114,13 @@ def run_bfs(dev: DeviceSnapshot, blocks: Sequence[DeviceBlock],
             e_cap.append(0)
             continue
         if use_bu:
-            if H:
-                extend_hubs(ubuf, dev.hub_owner, dev.hub_local, vmax)
             edges, width = bottom_up_step(rev_blocks, fbm, ubuf, cand,
-                                          dev.hub_dense, pred, fbits)
+                                          dev.hub_dense, pred, fbits,
+                                          owners=owners)
         else:
-            if H:
-                extend_hubs(fbuf, dev.hub_owner, dev.hub_local, vmax)
             edges, width = top_down_step(blocks, fbuf, cand,
-                                         dev.hub_dense, pred, deltas)
+                                         dev.hub_dense, pred, deltas,
+                                         owners=owners)
         hop_edges.append(edges)
         e_cap.append(width)
         n_front, n_unvis = bfs_level(cand, dist, level, fbm, unvis, fbits,

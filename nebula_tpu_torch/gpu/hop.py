@@ -6,11 +6,13 @@ GO's final-hop capture and MATCH's every-hop capture (`capture_hops`,
 configuration; here it is a host loop over the hand-written kernels of
 `gpu/kernels.py`.  In GO's mode:
 
-  per hop:             on a degree-split snapshot, extend_hubs (K8) fills
-                       the H hub columns of the (P, vmax + H) frontier
-                       buffer from the hub bits in the first vmax columns;
   per hop, per block:  expand (K1) the frontier bitmap through the block's
-                       CSR (hub rows included) — its slot arrays are sized
+                       CSR (hub rows included: on a degree-split snapshot
+                       its scan reads each hub's bit from the owner's row
+                       of the (P, vmax + H) frontier buffer, given the
+                       snapshot's owner tables — the reference's K8 hub
+                       extension, hop.py:303, folded in; the buffer's H
+                       tail columns stay unread) — its slot arrays are sized
                        exactly from the block's degree scan, so there is
                        no overflow and no escalation ladder; on a block
                        with a delta plane (never degree-split) they are
@@ -65,7 +67,9 @@ into an (Ll, P, vmax) matrix whose row d is bound for slot d, and one
 `exchange_marks_lanes` a hop (K15: pack_bits, the transport's
 all_to_all, unpack_or) gives every slot its next frontier.  On a
 degree-split snapshot `extend_fbm_sharded_lanes` (K16: owned_hub_bits,
-the transport's sum, fill_hub_columns) takes K8's place.  The exchange
+the transport's sum, fill_hub_columns) fills each slot's hub columns,
+which its expand reads (a slot holds no other part's row to read the
+bits from).  The exchange
 works a slot group at a time (`Mesh.groups`, the slots that share a
 device; on one card, all of them): the frontier buffers, each hop's mark
 matrices and next frontiers are one allocation a group with a leading
@@ -76,15 +80,14 @@ a slot.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from .device import DeviceBlock, DeviceShard, DeviceSnapshot
 from .exprjit import Program
-from .kernels import compact_capture, expand, extend_hubs, \
-    fill_hub_columns, mark, merge_delta, owned_hub_bits, pack_bits, \
-    predicate_mask, unpack_or
+from .kernels import compact_capture, expand, fill_hub_columns, mark, \
+    merge_delta, owned_hub_bits, pack_bits, predicate_mask, unpack_or
 from .mesh import Mesh
 
 
@@ -98,19 +101,32 @@ def new_frontier(dev: DeviceSnapshot,
                        dtype=torch.bool, device=dev.device)
 
 
+def hub_owners(dev: DeviceSnapshot) -> Optional[Tuple[torch.Tensor,
+                                                      torch.Tensor]]:
+    """The (hub_owner, hub_local) tables through which a single-device
+    expand reads each hub's bit from its owner's row, or None for an
+    unsplit snapshot."""
+    return (dev.hub_owner, dev.hub_local) if dev.num_hubs else None
+
+
 def expand_merged(b: DeviceBlock, fbm: torch.Tensor, hub_dense=None,
                   dl: Optional[Dict[str, Any]] = None, parts=None,
-                  pid: int = 0):
+                  pid: int = 0, owners=None):
     """expand (K1) one block from the frontier buffer (or lane stack),
     then, when the block has a delta plane `dl` (its d_* tensors),
     merge_delta (K9).  `parts` and `pid`: a shard slot's part count and
-    part (see `kernels.expand`).  Returns (src, dst, rank, eidx, valid,
-    total): valid is the merged (P, EB + Dcap) mask (with the lane axis),
-    or None when the valid slots are each row's prefix below total."""
+    part (see `kernels.expand`).  `owners`: `hub_owners(dev)` on a
+    single device (the hub bits read from their owners' rows), None on
+    a shard slot (its hub columns filled).  Returns (src, dst, rank,
+    eidx, valid, total): valid is the merged (P, EB + Dcap) mask (with
+    the lane axis), or None when the valid slots are each row's prefix
+    below total."""
     dcap = 0 if dl is None else dl["d_src"].shape[1]
+    hub_owner, hub_local = owners if owners is not None else (None, None)
     src, dst, rk, eidx, total = expand(b.indptr, b.nbr, b.rank, fbm,
                                        hub_dense, extra=dcap, parts=parts,
-                                       pid=pid)
+                                       pid=pid, hub_owner=hub_owner,
+                                       hub_local=hub_local)
     if dl is None:
         return src, dst, rk, eidx, None, total
     # a delta snapshot is never degree-split: fbm is the (P, vmax) bitmap
@@ -124,14 +140,15 @@ def expand_merged(b: DeviceBlock, fbm: torch.Tensor, hub_dense=None,
 def _hop_block(b: DeviceBlock, dl, fbm: torch.Tensor, hub_dense,
                pred: Optional[Program], want_pred: bool, captured: bool,
                ycols: Sequence[str], mark_out, P: int, vmax: int,
-               parts=None, pid: int = 0):
+               parts=None, pid: int = 0, owners=None):
     """One hop of one block: expand (merged with its delta plane), the
     WHERE mask where `want_pred`, mark the kept dsts into `mark_out` (a
     (P, vmax) bitmap view or an (L, P, vmax) stack; None on the last hop)
     and, when `captured`, compact the kept slots with the `ycols` yield
-    columns.  Returns (total, slot width, capture dict or None)."""
+    columns.  `owners`: see `expand_merged`.  Returns (total, slot
+    width, capture dict or None)."""
     src, dst, rk, eidx, valid, total = expand_merged(b, fbm, hub_dense, dl,
-                                                     parts, pid)
+                                                     parts, pid, owners)
     keep = None
     if want_pred:
         keep = predicate_mask(
@@ -184,7 +201,8 @@ def run_hops(dev: DeviceSnapshot, blocks: Sequence[DeviceBlock],
         with capture_hops, one such list per hop (no yield columns),
         each hop at its own width
     """
-    P, vmax, H = dev.num_parts, dev.vmax, dev.num_hubs
+    P, vmax = dev.num_parts, dev.vmax
+    owners = hub_owners(dev)
     lead = tuple(frontier.shape[:-1])         # (P,) or (L, P)
     deltas = list(deltas) if deltas is not None else [None] * len(blocks)
     fbm = frontier
@@ -194,8 +212,6 @@ def run_hops(dev: DeviceSnapshot, blocks: Sequence[DeviceBlock],
     hop_caps: List[List[Dict[str, torch.Tensor]]] = []
     for hop in range(steps):
         frontier_sizes.append(fbm[..., :vmax].sum(-1, dtype=torch.int32))
-        if H:
-            extend_hubs(fbm, dev.hub_owner, dev.hub_local, vmax)
         last = hop == steps - 1
         captured = capture and (last or capture_hops)
         nxt = None if last else torch.zeros_like(fbm)
@@ -207,7 +223,7 @@ def run_hops(dev: DeviceSnapshot, blocks: Sequence[DeviceBlock],
                 b, dl, fbm, dev.hub_dense, pred,
                 pred is not None and (last or capture_hops), captured,
                 () if capture_hops else yield_cols,
-                None if last else nxt[..., :vmax], P, vmax)
+                None if last else nxt[..., :vmax], P, vmax, owners=owners)
             edges += total
             width = max(width, w)
             if cap is not None:

@@ -5,15 +5,17 @@ The GO path's five kernels, sources in `nebula_tpu_torch/csrc/`:
 
   expand            Queue B K1 — frontier-bitmap CSR expansion, with the
                     hub rows of a degree-split snapshot
-                    (nebula_tpu/tpu/hop.py:_expand_block :58, :104-110)
+                    (nebula_tpu/tpu/hop.py:_expand_block :58, :104-110);
+                    given the hub owner tables, its scan reads each hub's
+                    bit from its owner's row: K8, the hub bits
+                    (hop.py:_hub_consts :271, _extend_fbm_local :303),
+                    has no kernel of its own (`extend_hubs_plain` states
+                    it)
   mark              K2 / K6 — kept dst ids into the (P, vmax) bitmap
                     (hop.py:_mark :168, runtime.py:_seed_builder :969):
                     two kernels chosen by shape (`mark_path`), the
                     bitmap staged as bits in shared memory or a direct
                     test-before-set scatter
-  extend_hubs       K8 — hub-active bits appended to the expansion
-                    bitmap (hop.py:_hub_consts :271, _extend_fbm_local
-                    :303)
   predicate_mask    K4 — the WHERE keep mask, a register program from
                     gpu/exprjit.py run over row tiles, four slots a
                     thread, with the column gathers fused; a program of
@@ -33,8 +35,8 @@ mask, and predicate_mask and compact_capture read each prop column as a
 pair: the base (P, emax) tensor and the delta (P, Dcap) tensor, the
 delta half at eidx - emax.
 
-The BFS path (gpu/bfs.py) reuses expand, mark, extend_hubs and
-predicate_mask and adds two, both in bfs.cu:
+The BFS path (gpu/bfs.py) reuses expand, mark and predicate_mask and
+adds two, both in bfs.cu:
 
   bfs_probe         K11 — the bottom-up membership test: a reverse slot's
                     unvisited src is reached when its in-neighbour is on
@@ -106,7 +108,7 @@ from . import exprjit as X
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("expand.cu", "mark.cu", "hubs.cu", "predicate.cu",
+SOURCES = ("expand.cu", "mark.cu", "predicate.cu",
            "compact_capture.cu", "bfs.cu", "pagerank.cu", "relax.cu",
            "delta.cu", "exchange.cu")
 HEADERS = ("scan.cuh", "rowtile.cuh", "fastdiv.cuh", "launch.cuh")
@@ -210,11 +212,10 @@ def _load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.nt_scan_tile.argtypes, lib.nt_scan_tile.restype = [], I
-    lib.nt_expand_scan.argtypes = [P, P, I, I, I, P, P, P, P]
+    lib.nt_expand_scan.argtypes = [P, P, I, I, I, I, P, P, P, P, P, P]
     lib.nt_expand_fill.argtypes = ([P] * 5 + [I] * 4 + [P, I, I, I, LL]
                                    + [P] * 5)
     lib.nt_mark.argtypes = [P, P, LL, I, I, LL, LL, I, P, P]
-    lib.nt_extend_hubs.argtypes = [P, P, P, I, I, I, I, P]
     lib.nt_predicate_sizes.argtypes = [P]
     lib.nt_merge_delta_sizes.argtypes = [P]
     lib.nt_predicate_mask.argtypes = [P] * 7 + [I] * 5 + [P, I, P]
@@ -240,8 +241,7 @@ def _load() -> ctypes.CDLL:
     lib.nt_relax_stage_bytes.argtypes = [LL]
     lib.nt_relax_stage_bytes.restype = LL
     for fn in (lib.nt_expand_scan, lib.nt_expand_fill, lib.nt_mark,
-               lib.nt_extend_hubs, lib.nt_predicate_sizes,
-               lib.nt_merge_delta_sizes,
+               lib.nt_predicate_sizes, lib.nt_merge_delta_sizes,
                lib.nt_predicate_mask, lib.nt_compact_capture,
                lib.nt_bfs_probe, lib.nt_bfs_level, lib.nt_merge_delta,
                lib.nt_pagerank_block, lib.nt_pagerank_vblock,
@@ -338,7 +338,7 @@ def _scan_scratch(rows: int, n: int, dev) -> torch.Tensor:
 
 
 def _own_wrappers():
-    return (expand, mark, extend_hubs, predicate_mask, compact_capture,
+    return (expand, mark, predicate_mask, compact_capture,
             bfs_probe, bfs_level, merge_delta, pack_bits, unpack_or,
             owned_hub_bits, fill_hub_columns)
 
@@ -352,7 +352,7 @@ def _wrappers():
 
 def _count(fn, route=None) -> None:
     """Add one to a wrapper's launch count, and to its route's where it
-    has two kernels (wrappers launch from several threads when batched
+    has routes (wrappers launch from several threads when batched
     statements run beside solo ones)."""
     with _count_lock:
         fn.launches += 1
@@ -369,8 +369,9 @@ def reset_launch_counts() -> None:
 
 
 def route_launch_counts() -> dict:
-    """Launches of each route of the wrappers that have two kernels
-    (bfs_probe, wcc_step, sssp_step), as {"wcc_step (staged)": n, ...}."""
+    """Launches of each route of the wrappers that have routes (expand's
+    "hub owners", bfs_probe's, wcc_step's and sssp_step's two kernels),
+    as {"wcc_step (staged)": n, ...}."""
     with _count_lock:
         return {f"{fn.__name__} ({route})": n for fn in _wrappers()
                 for route, n in getattr(fn, "route_launches", {}).items()}
@@ -423,24 +424,46 @@ def _part_of_row(n_rows: int, P: int, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _check_owner_tables(P: int, parts, pid: int, hub_dense, hub_owner,
+                        hub_local) -> None:
+    """Owner tables need the hub ids beside them, come as a pair, and
+    need every part's rows: a shard slot has no other part's row."""
+    if hub_owner is None and hub_local is None:
+        return
+    if hub_owner is None or hub_local is None or hub_dense is None:
+        raise ValueError("hub_owner and hub_local come together, with "
+                         "hub_dense")
+    if (P if parts is None else int(parts)) != P or int(pid) != 0:
+        raise ValueError(f"owner tables need every part's rows; a shard "
+                         f"slot (parts {parts}, pid {pid}) has none but "
+                         f"its own, and fills its hub columns instead")
+
+
 def expand_plain(indptr, nbr, rank, fbm, hub_dense=None, extra: int = 0,
-                 parts=None, pid: int = 0):
+                 parts=None, pid: int = 0, hub_owner=None, hub_local=None):
     """Plain version of `expand`: (src, dst, rank, eidx) (P, EB + extra)
     int32 and total (P,) int32, EB = max(total).  Slot j < total[p] of
     part p is edge eidx of row `row`, where row is the frontier row
     whose degree range holds j; slots past total[p] are padding (-1, -1,
     0, 0).  A local row's src is row * parts + pid + p (parts defaults to
     P).  With hub_dense (H,) the last H of fbm's rows are hub rows and
-    their slots' src is hub_dense[row - (rows - H)].  With a lane axis,
-    fbm (L, P, rows) gives (L, P, EB + extra) slots and (L, P) totals, EB
-    the max over every lane."""
+    their slots' src is hub_dense[row - (rows - H)].  With hub_owner and
+    hub_local (H,) each hub row's bit is read from its owner's row,
+    fbm[hub_owner[h], hub_local[h]] (`extend_hubs_plain`'s gather), and
+    fbm's H tail columns are not read.  With a lane axis, fbm (L, P,
+    rows) gives (L, P, EB + extra) slots and (L, P) totals, EB the max
+    over every lane; a lane's hubs read that lane's owner rows."""
     P = indptr.shape[0]
+    _check_owner_tables(P, parts, pid, hub_dense, hub_owner, hub_local)
     parts = P if parts is None else int(parts)
     lead = _lead(fbm, 2)
     nrows = fbm.shape[-1]
+    H = 0 if hub_dense is None else int(hub_dense.numel())
+    if hub_owner is not None:
+        fbm = extend_hubs_plain(fbm.clone(), hub_owner, hub_local,
+                                nrows - H)
     f = _rows(fbm, lead)
     R = f.shape[0]
-    H = 0 if hub_dense is None else int(hub_dense.numel())
     dev = fbm.device
     pq = _part_of_row(R, P, dev)
     deg = torch.where(f, (indptr[:, 1:] - indptr[:, :-1])[pq], 0).to(_I32)
@@ -469,21 +492,27 @@ def expand_plain(indptr, nbr, rank, fbm, hub_dense=None, extra: int = 0,
 
 
 def expand(indptr, nbr, rank, fbm, hub_dense=None, extra: int = 0,
-           parts=None, pid: int = 0):
+           parts=None, pid: int = 0, hub_owner=None, hub_local=None):
     """Expand one block's CSR from the (P, rows) bool frontier bitmap, or
     from an (L, P, rows) stack of L lanes' bitmaps in the same launch.
     Returns (src, dst, rank, eidx, total) as `expand_plain` does.  An
     unsplit block has rows = vmax; a degree-split one rows = vmax + H,
-    with its (H,) int32 hub ids in hub_dense.  `extra` padding columns
-    follow the EB slot columns: room for `merge_delta`'s delta rows.
-    `parts` and `pid`: the CSR rows given are parts pid .. pid + P - 1 of
-    a `parts`-part snapshot (a shard slot gives its one part; the
+    with its (H,) int32 hub ids in hub_dense.  With the (H,) int32 owner
+    tables hub_owner and hub_local the scan reads each hub row's bit from
+    its owner's row of the same lane (counted as the "hub owners" route)
+    and never the H tail columns; without them it reads the tail
+    columns, which the caller filled (the mesh's fill_hub_columns).
+    `extra` padding columns follow the EB slot columns: room for
+    `merge_delta`'s delta rows.  `parts` and `pid`: the CSR rows given
+    are parts pid .. pid + P - 1 of a `parts`-part snapshot (a shard slot
+    gives its one part, and then no owner tables: ValueError; the
     defaults, P and 0, are the whole snapshot).  The one device-to-host
     read is max(total) over every lane and part."""
     if fbm.device.type == "cpu":
         return expand_plain(indptr, nbr, rank, fbm, hub_dense, extra,
-                            parts, pid)
+                            parts, pid, hub_owner, hub_local)
     P = indptr.shape[0]
+    _check_owner_tables(P, parts, pid, hub_dense, hub_owner, hub_local)
     parts = P if parts is None else int(parts)
     lead = _lead(fbm, 2)
     if lead[-1] != P:
@@ -493,20 +522,26 @@ def expand(indptr, nbr, rank, fbm, hub_dense=None, extra: int = 0,
     emax = nbr.shape[1]
     dev = fbm.device
     H = 0 if hub_dense is None else int(hub_dense.numel())
+    owners = hub_owner is not None
     _want(fbm, "fbm", torch.bool, lead + (nrows,), dev)
     _want(indptr, "indptr", _I32, (P, nrows + 1), dev)
     _want(nbr, "nbr", _I32, (P, emax), dev)
     _want(rank, "rank", _I32, (P, emax), dev)
     if H:
         _want(hub_dense, "hub_dense", _I32, (H,), dev)
+    if owners:
+        _want(hub_owner, "hub_owner", _I32, (H,), dev)
+        _want(hub_local, "hub_local", _I32, (H,), dev)
     lib = _lib()
     starts = torch.empty(lead + (nrows,), dtype=_I32, device=dev)
     total = torch.empty(lead, dtype=_I32, device=dev)
     status = _scan_scratch(L * P, nrows, dev)
     stream = _stream(fbm)
-    _check(lib.nt_expand_scan(indptr.data_ptr(), fbm.data_ptr(), P, L,
-                              nrows, starts.data_ptr(), total.data_ptr(),
-                              status.data_ptr(), stream), "expand scan")
+    _check(lib.nt_expand_scan(
+        indptr.data_ptr(), fbm.data_ptr(), P, L, nrows, nrows - H,
+        hub_owner.data_ptr() if owners else None,
+        hub_local.data_ptr() if owners else None, starts.data_ptr(),
+        total.data_ptr(), status.data_ptr(), stream), "expand scan")
     EB = int(total.max()) if P else 0        # the one read per hop
     W = EB + int(extra)
     outs = [torch.empty(lead + (W,), dtype=_I32, device=dev)
@@ -518,7 +553,7 @@ def expand(indptr, nbr, rank, fbm, hub_dense=None, extra: int = 0,
             nrows - H, hub_dense.data_ptr() if H else None, parts, int(pid),
             emax, W,
             *[o.data_ptr() for o in outs], stream), "expand fill")
-    _count(expand)
+    _count(expand, "hub owners" if owners else None)
     return (*outs, total)
 
 
@@ -621,40 +656,21 @@ def mark(ids, P: int, vmax: int, keep=None, out=None, path=None):
 
 
 # ---------------------------------------------------------------------------
-# extend_hubs (K8)
+# extend_hubs (K8): folded into expand's scan
 # ---------------------------------------------------------------------------
+#
+# K8 has no kernel: on every single-device path `expand` reads a hub
+# row's bit from its owner's row (the owner tables), and the mesh fills
+# its slots' hub columns with K16.  `extend_hubs_plain` remains as the
+# stated semantics that expand's owner route is held against.
 
 
 def extend_hubs_plain(fbm, hub_owner, hub_local, vmax: int):
-    """Plain version of `extend_hubs`: fbm[:, vmax + h] =
-    fbm[hub_owner[h], hub_local[h]] for every part (of every lane), in
-    place."""
+    """The hub bits of a degree-split frontier buffer (the reference's
+    _extend_fbm_local): fbm[:, vmax + h] = fbm[hub_owner[h], hub_local[h]]
+    for every part (of every lane), in place."""
     bits = fbm[..., hub_owner.long(), hub_local.long()]
     fbm[..., vmax:] = bits[..., None, :]
-    return fbm
-
-
-def extend_hubs(fbm, hub_owner, hub_local, vmax: int):
-    """Fill the H hub columns of the (P, vmax + H) bool expansion bitmap
-    — or of each lane of an (L, P, vmax + H) stack, in one launch — from
-    the hub bits in the first vmax columns (their owners' rows).  Returns
-    fbm, updated in place."""
-    if fbm.device.type == "cpu":
-        return extend_hubs_plain(fbm, hub_owner, hub_local, vmax)
-    lead = _lead(fbm, 2)
-    P, width = lead[-1], fbm.shape[-1]
-    L = lead[0] if len(lead) == 2 else 1
-    H = width - vmax
-    dev = fbm.device
-    _want(fbm, "fbm", torch.bool, lead + (width,), dev)
-    _want(hub_owner, "hub_owner", _I32, (H,), dev)
-    _want(hub_local, "hub_local", _I32, (H,), dev)
-    if H <= 0 or P == 0:
-        return fbm
-    _check(_lib().nt_extend_hubs(fbm.data_ptr(), hub_owner.data_ptr(),
-                                 hub_local.data_ptr(), P, L, vmax, H,
-                                 _stream(fbm)), "extend_hubs")
-    _count(extend_hubs)
     return fbm
 
 
@@ -1392,3 +1408,4 @@ def fill_hub_columns(fbm, summed):
 for _fn in _own_wrappers():
     _fn.launches = 0
 bfs_probe.route_launches = dict.fromkeys(PROBE_ROUTES, 0)
+expand.route_launches = {"hub owners": 0}

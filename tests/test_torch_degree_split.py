@@ -1,9 +1,12 @@
 """The supernode degree-split in the port against the JAX reference.
 
 `degree_split` (graphstore/csr.py) array for array against the
-reference's, `extend_hubs_plain` (K8) against `hop._extend_fbm_local`,
-`expand_plain` with hub rows against `hop._expand_block(...,
-hub_dense=...)` under `jax.vmap`, and GO N STEPS with the split active:
+reference's, `extend_hubs_plain` (K8's semantics) against
+`hop._extend_fbm_local`, `expand` with hub rows — their bits from the
+tail columns, or read from the owners' rows through the owner tables
+whatever the tail holds — against `hop._expand_block(...,
+hub_dense=...)` over `_extend_fbm_local` under `jax.vmap`, solo and
+lanes, and GO N STEPS with the split active:
 the reference `TpuRuntime` pinned with `tpu_degree_split_threshold` set
 and the port's `GpuRuntime(device="cpu", degree_split_threshold=...)`,
 every column equal in order, hop_edges and frontier_sizes equal.  The
@@ -149,46 +152,143 @@ def test_extend_hubs_matches_reference(graph, seed):
         jnp.asarray(fbm), jnp.asarray(owner), jnp.asarray(local), P))
     buf = torch.zeros((P, vmax + len(hubs)), dtype=torch.bool)
     buf[:, :vmax] = torch.from_numpy(fbm)
-    got = K.extend_hubs(buf, torch.from_numpy(owner),
-                        torch.from_numpy(local), vmax)
+    got = K.extend_hubs_plain(buf, torch.from_numpy(owner),
+                              torch.from_numpy(local), vmax)
     assert got is buf
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def _ref_expand_split(hb, fbm, hubs, P, vmax, EB):
+    """The reference's expansion of one degree-split block from the
+    (P, vmax) ownership bitmap: `_extend_fbm_local`, then `_expand_block`
+    over every part (vmapped), as tpu/hop.py:518 runs it."""
+    hubs = np.asarray(hubs)
+    efbm = ref_hop._extend_fbm_local(
+        jnp.asarray(fbm), jnp.asarray((hubs % P).astype(np.int32)),
+        jnp.asarray((hubs // P).astype(np.int32)), P)
+    hd = jnp.asarray(hubs.astype(np.int32))
+    ref = jax.vmap(lambda ip, nb, r, f, pid: ref_hop._expand_block(
+        ip, nb, r, f, EB, P, pid, vmax_local=vmax, hub_dense=hd))(
+        jnp.asarray(hb.indptr), jnp.asarray(hb.nbr), jnp.asarray(hb.rank),
+        efbm, jnp.arange(P, dtype=jnp.int32))
+    return [np.asarray(x) for x in ref]
+
+
+def _split_frontier(rng, hubs, lead, vmax, active):
+    """A random (lead..., P, vmax) ownership bitmap with the `active`
+    hubs' owner bits set."""
+    fbm = rng.random(lead + (P, vmax)) < 0.05
+    fbm[..., hubs % P, hubs // P] = False
+    fbm[..., active % P, active // P] = True
+    return fbm
+
+
+_HUB_SOURCES = ("tail filled", "owners, tail zero", "owners, tail junk")
+
+
+@pytest.mark.parametrize("hub_source", _HUB_SOURCES)
 @pytest.mark.parametrize("direction", ["out", "in"])
 @pytest.mark.parametrize("seed", [0, 1])
-def test_expand_hub_rows_match_reference(graph, direction, seed):
+def test_expand_hub_rows_match_reference(graph, direction, seed,
+                                         hub_source):
+    """The hub rows' bits from the tail columns `extend_hubs_plain` fills,
+    or through the owner tables (the single-device route) with the tail
+    columns zero or junk: every slot equals the reference's."""
     dev = graph["port_rt"].snapshots["snb"]
     hb = dev.host.blocks[("KNOWS", direction)]
     hubs = dev.host.hub_dense
     vmax, H = dev.vmax, len(hubs)
     rng = np.random.default_rng(seed)
-    fbm = rng.random((P, vmax)) < 0.05
-    fbm[hubs[:3] % P, hubs[:3] // P] = True       # some hubs are active
+    fbm = _split_frontier(rng, hubs, (), vmax, hubs[:3])
     buf = torch.zeros((P, vmax + H), dtype=torch.bool)
     buf[:, :vmax] = torch.from_numpy(fbm)
-    K.extend_hubs(buf, dev.hub_owner, dev.hub_local, vmax)
+    kw = {}
+    if hub_source == "tail filled":
+        K.extend_hubs_plain(buf, dev.hub_owner, dev.hub_local, vmax)
+    else:
+        kw = dict(hub_owner=dev.hub_owner, hub_local=dev.hub_local)
+        if hub_source == "owners, tail junk":
+            # the opposite of every hub's bit: a scan that reads the tail
+            # gets every hub row wrong
+            junk = ~torch.from_numpy(fbm[hubs % P, hubs // P])
+            buf[:, vmax:] = junk[None, :]
     src, dst, rk, eidx, total = K.expand(
         torch.from_numpy(hb.indptr), torch.from_numpy(hb.nbr),
-        torch.from_numpy(hb.rank), buf, dev.hub_dense)
+        torch.from_numpy(hb.rank), buf, dev.hub_dense, **kw)
     EB = src.shape[1]
-    hd = jnp.asarray(hubs.astype(np.int32))
-    ref = jax.vmap(lambda ip, nb, r, f, pid: ref_hop._expand_block(
-        ip, nb, r, f, EB, P, pid, vmax_local=vmax, hub_dense=hd))(
-        jnp.asarray(hb.indptr), jnp.asarray(hb.nbr), jnp.asarray(hb.rank),
-        jnp.asarray(buf.numpy()), jnp.arange(P, dtype=jnp.int32))
-    np.testing.assert_array_equal(total.numpy(), np.asarray(ref[5]))
-    assert EB == int(np.asarray(ref[5]).max()) and not np.asarray(ref[6]).any()
+    ref = _ref_expand_split(hb, fbm, hubs, P, vmax, EB)
+    np.testing.assert_array_equal(total.numpy(), ref[5])
+    assert EB == int(ref[5].max()) and not ref[6].any()
     for i, (name, got) in enumerate((("src", src), ("dst", dst),
                                      ("rank", rk), ("eidx", eidx))):
         assert got.dtype == torch.int32, name
-        np.testing.assert_array_equal(got.numpy(), np.asarray(ref[i]),
-                                      err_msg=name)
+        np.testing.assert_array_equal(got.numpy(), ref[i], err_msg=name)
     # hub rows really ran: some slot's source is a hub expanded outside
     # its owner part
     s = src.numpy()
     part = np.broadcast_to(np.arange(P)[:, None], s.shape)
     assert ((s >= 0) & (s % P != part)).any()
+
+
+@pytest.mark.parametrize("direction", ["out", "in"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_expand_hub_owner_lanes_match_reference(graph, direction, seed):
+    """An (L, P, vmax + H) lane stack whose lanes activate different hubs
+    (one lane none), the tail columns junk: each lane reads its own
+    owner rows, and its slots equal the reference's solo expansion of
+    that lane, at the stack's shared width."""
+    dev = graph["port_rt"].snapshots["snb"]
+    hb = dev.host.blocks[("KNOWS", direction)]
+    hubs = dev.host.hub_dense
+    vmax, H = dev.vmax, len(hubs)
+    rng = np.random.default_rng(seed + 10)
+    actives = [hubs[:1], hubs[1:4], hubs[:0], hubs[-2:]]
+    fbm = np.stack([_split_frontier(rng, hubs, (), vmax, a)
+                    for a in actives])
+    buf = torch.from_numpy(rng.random((len(actives), P, vmax + H)) < 0.5)
+    buf[..., :vmax] = torch.from_numpy(fbm)
+    src, dst, rk, eidx, total = K.expand(
+        torch.from_numpy(hb.indptr), torch.from_numpy(hb.nbr),
+        torch.from_numpy(hb.rank), buf, dev.hub_dense,
+        hub_owner=dev.hub_owner, hub_local=dev.hub_local)
+    EB = src.shape[-1]
+    hub_src = set(hubs.tolist())
+    seen = []
+    for lane, active in enumerate(actives):
+        ref = _ref_expand_split(hb, fbm[lane], hubs, P, vmax, EB)
+        np.testing.assert_array_equal(total[lane].numpy(), ref[5])
+        for i, (name, got) in enumerate((("src", src), ("dst", dst),
+                                         ("rank", rk), ("eidx", eidx))):
+            np.testing.assert_array_equal(got[lane].numpy(), ref[i],
+                                          err_msg=f"lane {lane} {name}")
+        # a lane expands no hub that it did not activate
+        got_hubs = set(src[lane].numpy().ravel().tolist()) & hub_src
+        assert got_hubs <= set(active.tolist()), lane
+        seen.append(got_hubs)
+    assert seen[1] and not seen[2]
+
+
+@pytest.mark.parametrize("parts, pid", [(8, 3), (None, 1), (16, 0)])
+def test_expand_owner_tables_refuse_a_shard_slot(graph, parts, pid):
+    """Owner tables name rows of every part: with a shard slot's part
+    offset (its CSR row alone) expand raises ValueError, on the CPU as
+    on the card."""
+    dev = graph["port_rt"].snapshots["snb"]
+    hb = dev.host.blocks[("KNOWS", "out")]
+    H = dev.num_hubs
+    n = 1 if parts == 8 else P
+    buf = torch.zeros((n, dev.vmax + H), dtype=torch.bool)
+    with pytest.raises(ValueError, match="owner tables"):
+        K.expand(torch.from_numpy(hb.indptr[:n]),
+                 torch.from_numpy(hb.nbr[:n]),
+                 torch.from_numpy(hb.rank[:n]), buf, dev.hub_dense,
+                 parts=parts, pid=pid, hub_owner=dev.hub_owner,
+                 hub_local=dev.hub_local)
+    with pytest.raises(ValueError, match="come together"):
+        K.expand(torch.from_numpy(hb.indptr), torch.from_numpy(hb.nbr),
+                 torch.from_numpy(hb.rank),
+                 torch.zeros((P, dev.vmax + H), dtype=torch.bool),
+                 dev.hub_dense, hub_owner=dev.hub_owner)
 
 
 def _yields(M):

@@ -209,7 +209,7 @@ def test_wrappers_never_fall_back_off_the_cpu(monkeypatch):
 
     monkeypatch.setattr(K, "_lib", no_lib)
     for name in ("expand_plain", "mark_plain", "compact_capture_plain",
-                 "extend_hubs_plain", "predicate_mask_plain",
+                 "predicate_mask_plain",
                  "bfs_probe_plain", "bfs_level_plain", "merge_delta_plain",
                  "pack_bits_plain", "unpack_or_plain",
                  "owned_hub_bits_plain", "fill_hub_columns_plain"):
@@ -231,8 +231,11 @@ def test_wrappers_never_fall_back_off_the_cpu(monkeypatch):
         K.compact_capture(*ints, torch.empty((P, 4), dtype=torch.bool, **m))
     hubs = torch.empty((2,), dtype=torch.int32, **m)
     with pytest.raises(K.KernelError):
-        K.extend_hubs(torch.empty((P, 6), dtype=torch.bool, **m), hubs,
-                      hubs, 4)
+        K.expand(torch.empty((P, 7), dtype=torch.int32, **m),
+                 torch.empty((P, 3), dtype=torch.int32, **m),
+                 torch.empty((P, 3), dtype=torch.int32, **m),
+                 torch.empty((P, 6), dtype=torch.bool, **m), hubs,
+                 hub_owner=hubs, hub_local=hubs)
     prog, _ = X.compile_predicate(
         PE.Binary(">", PE.EdgeProp("e", "w"), PE.Literal(1)),
         {"w": PropType.INT64}, StringPool())
@@ -279,7 +282,8 @@ def test_wrappers_never_fall_back_off_the_cpu(monkeypatch):
         K.owned_hub_bits(slot, 0, hubs, hubs)
     with pytest.raises(K.KernelError):
         K.fill_hub_columns(slot, torch.empty((1, 2), dtype=torch.int32, **m))
-    assert K.launch_counts() == {"expand": 0, "mark": 0, "extend_hubs": 0,
+    assert K.route_launch_counts()["expand (hub owners)"] == 0
+    assert K.launch_counts() == {"expand": 0, "mark": 0,
                                  "predicate_mask": 0, "compact_capture": 0,
                                  "bfs_probe": 0, "bfs_level": 0,
                                  "merge_delta": 0, "pack_bits": 0,

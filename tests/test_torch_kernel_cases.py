@@ -62,6 +62,12 @@ hop._extend_fbm_sharded_lanes (:292) summed over the group's slots, and
 CPU branch the same; vmax off a 32-bit word, row strides and bases off
 16 bytes, the transports' strided views, groups whose first part is not
 0.  Exact.  Then the group forms' input checks off the CPU.
+
+`expand`'s owner route (the wrapper's CPU branch, `expand_plain` with
+hub_owner / hub_local) ↔ hop._expand_block over hop._extend_fbm_local
+(nebula_tpu/tpu/hop.py:58, :303) lane by lane, on `expand_owner_cases`:
+hubs owned by the first, a middle and the last part, an inactive hub,
+tail columns zero or junk, 1, 2 and 8 lanes, H = 1, 73 and 300.  Exact.
 """
 import jax
 import jax.numpy as jnp
@@ -80,9 +86,9 @@ from nebula_tpu.tpu import hop as ref_hop
 from nebula_tpu_torch.algo import kernels as AK
 from nebula_tpu_torch.bench.kernel_cases import (
     PREDICATE_BUILDERS, PREDICATE_NAMES, PREDICATE_TYPES, bfs_cases,
-    copy_view, exchange_cases, fresh_bfs_args, fresh_merge_args,
-    mark_cases, merge_delta_cases, pagerank_cases, predicate_cases,
-    predicate_program, relax_cases)
+    copy_view, exchange_cases, expand_owner_cases, fresh_bfs_args,
+    fresh_merge_args, mark_cases, merge_delta_cases, pagerank_cases,
+    predicate_cases, predicate_program, relax_cases)
 from nebula_tpu_torch.gpu import exprjit as X
 from nebula_tpu_torch.gpu import kernels as K
 
@@ -93,6 +99,7 @@ MERGE = merge_delta_cases("cpu")
 RELAX = relax_cases("cpu")
 BFS = bfs_cases("cpu")
 EXCHANGE = exchange_cases("cpu")
+OWNERS = expand_owner_cases("cpu")
 STEP_TOL = 1e-12
 
 
@@ -437,16 +444,70 @@ def test_route_launch_counts():
     K._count(AK.sssp_step, "staged")
     K._count(AK.sssp_step, "staged")
     K._count(K.bfs_probe, "global")
+    K._count(K.expand, "hub owners")
     assert K.route_launch_counts() == {
+        "expand (hub owners)": 1,
         "bfs_probe (staged)": 0, "bfs_probe (global)": 1,
         "wcc_step (staged)": 0, "wcc_step (global)": 1,
         "sssp_step (staged)": 2, "sssp_step (global)": 0}
     assert K.launch_counts()["bfs_probe"] == 1
+    assert K.launch_counts()["expand"] == 1
     assert K.launch_counts()["wcc_step"] == 1
     assert K.launch_counts()["sssp_step"] == 2
     K.reset_launch_counts()
     assert set(K.route_launch_counts().values()) == {0}
     assert K.launch_counts()["sssp_step"] == 0
+
+
+# ---------------------------------------------------------------------------
+# expand's owner route (K8 folded into K1's scan)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", OWNERS, ids=[c[0] for c in OWNERS])
+def test_expand_owner_case_matches_reference(case):
+    """Each lane row's slots, padding included, equal the reference's
+    `_expand_block` over `_extend_fbm_local` of that lane's ownership
+    bitmap (tpu/hop.py:518): the hub bits from the owners' rows of the
+    same lane, the tail columns never read; and equal the tail route
+    over the buffer `extend_hubs_plain` fills."""
+    _, args, kw = case
+    indptr, nbr, rank, fbm, hub_dense, extra, _, _ = args
+    own, loc = kw["hub_owner"], kw["hub_local"]
+    got = K.expand(*args, **kw)
+    P, nrows, H = indptr.shape[0], fbm.shape[-1], hub_dense.numel()
+    vloc = nrows - H
+    W = got[0].shape[-1]
+    assert W == int(got[4].max()) + extra
+    lanes = fbm.reshape(-1, P, nrows).numpy()
+    for lane, f in enumerate(lanes):
+        efbm = ref_hop._extend_fbm_local(
+            jnp.asarray(f[:, :vloc]), jnp.asarray(own.numpy()),
+            jnp.asarray(loc.numpy()), P)
+        for p in range(P):
+            ref = [np.asarray(x) for x in ref_hop._expand_block(
+                jnp.asarray(indptr[p].numpy()), jnp.asarray(nbr[p].numpy()),
+                jnp.asarray(rank[p].numpy()), efbm[p], W, P, jnp.int32(p),
+                vloc, jnp.asarray(hub_dense.numpy()))]
+            q = lane * P + p
+            assert int(got[4].reshape(-1)[q]) == int(ref[5]) and not ref[6]
+            for name, g, w in zip(("src", "dst", "rank", "eidx"), got, ref):
+                np.testing.assert_array_equal(
+                    g.reshape(-1, W)[q].numpy(), w, err_msg=f"{q} {name}")
+    filled = K.extend_hubs_plain(fbm.clone(), own, loc, vloc)
+    tail = K.expand(indptr, nbr, rank, filled, hub_dense, extra)
+    assert all(torch.equal(a, b) for a, b in zip(got, tail))
+
+
+def test_expand_owner_cases_read_past_the_tail():
+    """Every junk-tail case expands differently through the tail columns:
+    a scan that read them would be caught."""
+    for name, args, kw in OWNERS:
+        if "junk" not in name:
+            continue
+        a = K.expand(*args, **kw)
+        b = K.expand(*args)
+        assert not all(torch.equal(x, y) for x, y in zip(a, b)), name
 
 
 # ---------------------------------------------------------------------------
