@@ -5,7 +5,8 @@ The paths are GO N STEPS, `CALL algo.*`, the device BFS of FIND
 SHORTEST PATH, GO and the BFS again on a snapshot with writes pending in
 its delta plane, concurrent GO statements batched into one run of the
 lane-widened kernels, MATCH's every-hop expansion, and GO, the BFS and
-MATCH again over a mesh of eight shard slots, each through the
+MATCH again over a mesh of eight shard slots, and GO and MATCH over
+DATE, DATETIME, TIME and GEOGRAPHY edge props, each through the
 hand-written CUDA kernels.
 
 Run from the repository root on a machine with a CUDA card and nvcc:
@@ -290,11 +291,39 @@ Phases, in order; any failure exits non-zero before the result line:
        g. (a)'s filtered GO through the process-group transport, a
           one-rank NCCL group holding all eight slots: rows equal to
           (a)'s, the bytes sent equal to (a)'s exchange_bytes;
- 11. the `kernels` JSON line (the split GO path's, the algo path's, the
+ 11. temporal and geography props on phase 3's graph: five edge columns
+     derived from each edge's f by a fixed rule (temporal_words): d and
+     d2 DATE (1920-2019), t DATETIME with microseconds, tm TIME, g
+     GEOGRAPHY (pool codes of 1,000 point WKTs), about one value in 50
+     of each NULL; launch counters zeroed just before each run and read
+     just after:
+       a. the snapshot carrying them pinned as the main path lays it out
+          (split at --split);
+       b. GO 3 STEPS from the 16 seeds WHERE KNOWS.d < KNOWS.d2 (the
+          predicate program on two DATE columns; d2's rule keeps about
+          1% of the final hop) YIELD d, t, tm, g: edges and hop_edges
+          equal to phase 3's, rows equal as a multiset to the numpy
+          oracle's words (datagen.host_final_hop) decoded by the
+          runtime's per-value decode, each column's decode timed; GO 1
+          STEP YIELD d, t, tm, g and with Edge rows, and traverse_hops
+          over 2 hops, from the last 64 persons with out-edges: rows,
+          Edges and frames (check_frames, and 2,000 decoded Edges a hop)
+          against the out block's words; each query one warm-up and 2
+          timed runs; predicate_mask on the d < d2 program at the
+          filtered hop 3 against its plain version, timed beside the
+          torch formulation (`predicate_mask (temporal)`);
+       c. 1,000 inserts from the seeds carrying every column's type
+          (dates before 1970, new points, NULLs) through a SnapshotStore
+          with the extra columns into GpuRuntime(delta_max_edges=8192)'s
+          plane on the unsplit snapshot: b's GO 3 STEPS rows equal, in
+          order, to a fresh pin of the written out block (the inserts
+          spliced into each row as a rebuild orders it) and that pin's
+          rows to the oracle; merge_delta launched;
+ 12. the `kernels` JSON line (the split GO path's, the algo path's, the
      split BFS path's (6d's for the global probe), the delta GO path's,
-     the batched path's, the MATCH path's and the mesh GO path's
-     launches), the card line, and the result line {"ok": true,
-     "device": {...}} last.
+     the batched path's, the MATCH path's, the mesh GO path's and phase
+     11's filtered GO path's launches), the card line, and the result
+     line {"ok": true, "device": {...}} last.
 Without CUDA it prints no result and exits 2.
 """
 from __future__ import annotations
@@ -427,6 +456,20 @@ MESH_SLOTS = 8                   # phase 10: make_mesh(8), every slot on
 MESH_RUNS = 3                    # phase 10's timed runs of a query
 MESH_KERNELS = ("pack_bits", "unpack_or")
 MESH_HUB_KERNELS = ("owned_hub_bits", "fill_hub_columns")
+# phase 11: DATE, DATETIME, TIME and GEOGRAPHY edge columns on phase 3's
+# graph, derived from each edge's f by a fixed rule (temporal_words)
+TEMPORAL_TYPES = {"d": "DATE", "d2": "DATE", "t": "DATETIME", "tm": "TIME",
+                  "g": "GEOGRAPHY"}
+TEMPORAL_YIELDS = ("d", "t", "tm", "g")    # the port's _MAX_YIELD_COLS
+TEMPORAL_POINTS = 1_000          # distinct WKT strings of g
+TEMPORAL_NULL_EVERY = 50         # about one value in 50 of each column
+TEMPORAL_INSERTS = 1_000         # 11c's write batch, each from a seed
+TEMPORAL_RUNS = 2                # timed runs a query, after one warm-up
+TEMPORAL_SEEDS = 64              # 11b's GO 1 STEP and traverse_hops seeds
+TEMPORAL_SAMPLE = 2_000          # frame entries a hop decoded in 11b
+DAY_US = 86_400_000_000
+ROUTE_SOURCES["predicate_mask (temporal)"] = (
+    ROUTE_SOURCES["predicate_mask"][0], "nebula_tpu/tpu/exprjit.py:201")
 
 
 T0 = time.perf_counter()
@@ -2196,6 +2239,200 @@ def run_match(rt, store, space, seeds, steps, filt, runs: int, K,
     p50 = {k: None if v[0] is None else float(np.median(v))
            for k, v in phases.items()}
     return first[0], first[1], launches, p50, first[2]
+
+
+def temporal_words(f, pool):
+    """Phase 11's edge columns as the snapshot stores them ((P, Emax)
+    int64 words), each derived from the block's `f` column, one uniform
+    draw an edge and the same in both directions, by a fixed rule:
+    d, a DATE in 1920-2019; d2, 0 to 98 days before d or, for 1 edge in
+    100, one day after it (so that WHERE d < d2 keeps about 1% of the
+    final hop); t, a DATETIME in 1920-2019 with microseconds; tm, a
+    TIME; g, one of TEMPORAL_POINTS point WKTs (pool codes); about one
+    value in TEMPORAL_NULL_EVERY of each column NULL."""
+    import numpy as np
+    from nebula_tpu_torch.graphstore.csr import INT_NULL
+    u = (np.nan_to_num(f, nan=0.0) * float(1 << 40)).astype(np.int64)
+    d = u % 36_525 - 18_262
+    k = (u >> 17) % 100
+    pts = np.asarray([pool.encode(f"POINT({i % 360 - 180}.25 "
+                                  f"{(i // 360) * 30 - 45}.5)")
+                      for i in range(TEMPORAL_POINTS)], np.int64)
+    words = {"d": d, "d2": np.where(k == 99, d + 1, d - k),
+             "t": (u >> 3) % (36_525 * DAY_US) - 18_262 * DAY_US,
+             "tm": (u >> 7) % DAY_US,
+             "g": pts[(u >> 23) % TEMPORAL_POINTS]}
+    for j, name in enumerate(TEMPORAL_TYPES):
+        words[name][(u >> (29 + j)) % TEMPORAL_NULL_EVERY == 0] = INT_NULL
+    return words
+
+
+def temporal_snapshot(snap):
+    """`snap` (phase 3's unsplit north star) with phase 11's columns
+    added to every block: the CSR arrays and w, f, city shared, the pool
+    a copy."""
+    from nebula_tpu_torch.graphstore.csr import (CsrBlock, CsrSnapshot,
+                                                 StringPool)
+    from nebula_tpu_torch.graphstore.schema import PropType
+    pool = StringPool(list(snap.pool.strings))
+    types = {n: PropType[t] for n, t in TEMPORAL_TYPES.items()}
+    blocks = {key: CsrBlock(
+        etype=b.etype, direction=b.direction, indptr=b.indptr, nbr=b.nbr,
+        rank=b.rank, props={**b.props, **temporal_words(b.props["f"], pool)},
+        prop_types={**b.prop_types, **types})
+        for key, b in snap.blocks.items()}
+    return CsrSnapshot(space=snap.space, epoch=snap.epoch,
+                       num_parts=snap.num_parts, vmax=snap.vmax,
+                       num_vertices=snap.num_vertices, blocks=blocks,
+                       tags=snap.tags, pool=pool,
+                       dense_to_vid=snap.dense_to_vid)
+
+
+def final_words(snap, seeds, steps: int, names, where: bool):
+    """The numpy oracle of a GO over out-KNOWS on `snap`: (edges
+    traversed, {name: the final hop's words}, final dsts), with `where`
+    only the edges whose d < d2 (both non-NULL, as the WHERE keeps
+    them)."""
+    import numpy as np
+    from nebula_tpu_torch.bench.datagen import host_final_hop
+    from nebula_tpu_torch.graphstore.csr import INT_NULL
+    total, ((blk, o, i),) = host_final_hop(snap, seeds, steps)
+    keep = np.ones(o.size, bool)
+    if where:
+        d, d2 = blk.props["d"][o, i], blk.props["d2"][o, i]
+        keep = (d != INT_NULL) & (d2 != INT_NULL) & (d < d2)
+    o, i = o[keep], i[keep]
+    return total, {n: blk.props[n][o, i] for n in names}, blk.nbr[o, i]
+
+
+def check_decoded(label, rows, words, types, pool) -> dict:
+    """The rows' decoded columns equal, as a multiset of rows, the
+    oracle's words decoded as the runtime decodes a column
+    (decode_prop_column_np: decode_prop one by one for these types).
+    Returns each column's decode seconds."""
+    from collections import Counter
+    from nebula_tpu_torch.graphstore.csr import decode_prop_column_np
+    want, secs = [], {}
+    for n in words:
+        t0 = time.perf_counter()
+        want.append(decode_prop_column_np(types[n], words[n], pool))
+        secs[n] = time.perf_counter() - t0
+    got = [rows.column(n) for n in words]
+    if len(rows) != len(want[0]) \
+            or Counter(zip(*got)) != Counter(zip(*want)):
+        raise AssertionError(f"[{label}] {len(rows)} rows differ from the "
+                             f"oracle's {len(want[0])}")
+    return secs
+
+
+def edge_props_ok(blk, P, pool, e) -> bool:
+    """Whether Edge `e` (dense src and dst) carries the decoded props of
+    one of the out-block's (src, dst) edges (a multigraph key may have
+    several)."""
+    import numpy as np
+    from nebula_tpu_torch.graphstore.csr import decode_prop
+    o, lo = e.src % P, e.src // P
+    a, b = int(blk.indptr[o, lo]), int(blk.indptr[o, lo + 1])
+    names = list(blk.prop_types)
+    got = tuple(e.props[n] for n in names)
+    return any(got == tuple(decode_prop(blk.prop_types[n],
+                                        blk.props[n][o, j], pool)
+                            for n in names)
+               for j in a + np.flatnonzero(blk.nbr[o, a:b] == e.dst))
+
+
+def temporal_inserts(store, arrs, seeds, pool, n_ins: int):
+    """11c's writes: n_ins KNOWS inserts, each from one of `seeds` to a
+    person it has no base edge to, distinct keys, with values of every
+    phase 11 column (dates and datetimes on both sides of 1970, new
+    points, some NULL) made from a fixed seed: (src, dst, props)."""
+    import numpy as np
+    from nebula_tpu_torch.bench.datagen import _NAMES
+    from nebula_tpu_torch.core.geo import from_wkt
+    from nebula_tpu_torch.core.value import NULL, Date, DateTime, Time
+    rng = np.random.default_rng(11)
+    n = int(arrs["n"])
+    src = rng.choice(np.asarray(seeds), 2 * n_ins)
+    dst = rng.integers(0, n, 2 * n_ins)
+    _, at = np.unique(src * n + dst, return_index=True)
+    once = np.zeros(src.size, bool)
+    once[at] = True
+    idx = np.nonzero((src != dst) & ~store.base_has(src, dst) & once)[0]
+    if idx.size < n_ins:
+        raise AssertionError(f"made {idx.size} inserts")
+    out = []
+    for k, i in enumerate(idx[:n_ins]):
+        y = 1950 + k % 40
+        props = {"w": k % 100, "f": float(rng.random()),
+                 "city": _NAMES[k % len(_NAMES)],
+                 "d": Date(y, 1 + k % 12, 1 + k % 28),
+                 "d2": Date(y + (k % 3) - 1, 1 + k % 12, 1 + k % 28),
+                 "t": DateTime(y, 12, 31, 23, 59, k % 60,
+                               int(rng.integers(1_000_000))),
+                 "tm": Time(k % 24, k % 60, (7 * k) % 60, k),
+                 "g": from_wkt(f"POINT({k % 180}.75 {k % 90 - 45}.125)")}
+        for j, name in enumerate(TEMPORAL_TYPES):
+            if (k + j) % TEMPORAL_NULL_EVERY == 0:
+                props[name] = NULL
+        out.append((int(src[i]), int(dst[i]), props))
+    return out
+
+
+def spliced_snapshot(snap, pool_strings, inserts):
+    """The written snapshot a full rebuild pins, for GO over out-KNOWS:
+    `snap`'s out block with `inserts` (new keys, rank 0) each after the
+    base edges of its row whose neighbor is not greater, as
+    snapshot_from_arrays orders a row; its words encoded by encode_prop
+    against a pool of `pool_strings` (the base pool before the writes)."""
+    import numpy as np
+    from nebula_tpu_torch.graphstore.csr import (CsrBlock, CsrSnapshot,
+                                                 StringPool, encode_prop)
+    P, blk = snap.num_parts, snap.block("KNOWS", "out")
+    pool = StringPool(list(pool_strings))
+    ins = sorted(inserts, key=lambda x: (x[0] % P, x[0] // P, x[1]))
+    src = np.asarray([x[0] for x in ins], np.int64)
+    dst = np.asarray([x[1] for x in ins], np.int64)
+    o, lo = src % P, src // P
+    ip = blk.indptr.astype(np.int64)
+    pos = np.asarray([ip[a, b] + np.searchsorted(
+        blk.nbr[a, ip[a, b]:ip[a, b + 1]], d, "right")
+        for a, b, d in zip(o, lo, dst)], np.int64)
+    cols = {"nbr": blk.nbr, "rank": blk.rank, **blk.props}
+    vals = {"nbr": dst.astype(np.int32), "rank": np.zeros(src.size,
+                                                          np.int32)}
+    for n, pt in blk.prop_types.items():
+        vals[n] = np.asarray([encode_prop(pt, x[2][n], pool) for x in ins],
+                             cols[n].dtype)
+    ends = ip[:, -1]
+    emax = int((ends + np.bincount(o, minlength=P)).max())
+    new = {k: np.zeros((P, emax), v.dtype) for k, v in cols.items()}
+    for p in range(P):
+        sel = o == p
+        for k, v in cols.items():
+            row = np.insert(v[p, :ends[p]], pos[sel], vals[k][sel])
+            new[k][p, :row.size] = row
+    add = np.zeros(ip.shape, np.int64)
+    np.add.at(add, (o, lo + 1), 1)
+    out = CsrBlock(etype="KNOWS", direction="out",
+                   indptr=(ip + np.cumsum(add, axis=1)).astype(np.int32),
+                   nbr=new.pop("nbr"), rank=new.pop("rank"), props=new,
+                   prop_types=dict(blk.prop_types))
+    return CsrSnapshot(space=snap.space, epoch=0, num_parts=P,
+                       vmax=snap.vmax, num_vertices=snap.num_vertices,
+                       blocks={("KNOWS", "out"): out}, pool=pool,
+                       dense_to_vid=snap.dense_to_vid)
+
+
+def timed(fn, runs: int):
+    """fn()'s last result and the wall seconds of `runs` calls after one
+    warm-up call."""
+    lat = []
+    for i in range(runs + 1):
+        t = time.perf_counter()
+        out = fn()
+        if i:
+            lat.append(time.perf_counter() - t)
+    return out, lat
 
 
 def main(argv=None) -> int:
@@ -4218,14 +4455,206 @@ def main(argv=None) -> int:
         dist.destroy_process_group()
     del mesh_rows, rows, caps, res_pg
 
-    # -- 11. result --------------------------------------------------------
-    stamp("phase 11")
+    # -- 11. temporal and geography props ----------------------------------
+    # 11a. phase 3's graph with DATE, DATETIME, TIME and GEOGRAPHY columns,
+    # pinned as the main path lays it out (split at --split)
+    stamp("phase 11a")
+    t11 = time.perf_counter()
+    temporal = {}
+    tsnap = temporal_snapshot(ns.snap)
+    temporal["columns_s"] = time.perf_counter() - t11
+    ttypes = tsnap.block("KNOWS", "out").prop_types
+    tstore = SnapshotStore(tsnap)
+    trt = GpuRuntime(degree_split_threshold=ns.split_threshold)
+    t0 = time.perf_counter()
+    trt.pin_prebuilt(tsnap)
+    torch.cuda.synchronize()
+    temporal["pin_s"] = time.perf_counter() - t0
+    temporal["pinned_bytes"] = trt.hbm_bytes()
+    temporal["device_free_bytes"] = torch.cuda.mem_get_info()[0]
+    tdev = trt.snapshots["ns"]
+    tlabel = "split" if tdev.num_hubs else "unsplit"
+    tyields = [(E.EdgeProp("KNOWS", n), n) for n in TEMPORAL_YIELDS]
+    twhere = E.Binary("<", E.EdgeProp("KNOWS", "d"),
+                      E.EdgeProp("KNOWS", "d2"))
+    deg = np.diff(tsnap.block("KNOWS", "out").indptr, axis=1).T.reshape(-1)
+    seeds64 = np.flatnonzero(deg[:len(tsnap.dense_to_vid)] > 0
+                             )[-TEMPORAL_SEEDS:].tolist()
+    log(f"[11a] {json.dumps(temporal)}; {tlabel}, {tdev.num_hubs} hubs; "
+        f"GO 1 STEP and MATCH seeds: the last {len(seeds64)} persons with "
+        f"out-edges")
+
+    # 11b. GO 3 STEPS from the north-star seeds YIELD d, t, tm, g WHERE
+    # KNOWS.d < KNOWS.d2 (the predicate program on two DATE columns), GO
+    # 1 STEP with the yields and with Edge rows, traverse_hops over 2 hops
+    stamp("phase 11b")
+    K.reset_launch_counts()
+    (rows11, st11), lat = timed(lambda: trt.traverse(
+        tstore, "ns", ns.seeds, ["KNOWS"], "out", 3, edge_filter=twhere,
+        yields=tyields), TEMPORAL_RUNS)
+    torch.cuda.synchronize()
+    launches11 = counts(K)
+    for name in (SPLIT_KERNELS if tdev.num_hubs else UNSPLIT_KERNELS):
+        if launches11[name] <= 0:
+            raise AssertionError(f"[11b] kernel {name} never launched")
+    total, want_w, _ = final_words(tsnap, ns.seeds, 3, TEMPORAL_YIELDS,
+                                   where=True)
+    go3 = results[tlabel]["unfiltered"]
+    if st11.edges_traversed() != total or st11.hop_edges != go3["hop_edges"]:
+        raise AssertionError(f"[11b] edges {st11.edges_traversed()} vs "
+                             f"{total}, hop_edges {st11.hop_edges}")
+    secs = check_decoded("11b GO 3 STEPS", rows11, want_w, ttypes,
+                         tsnap.pool)
+    per = {n: sec / max(len(rows11), 1) for n, sec in secs.items()}
+    decode = {n: {"s": secs[n], "us_per_value": per[n] * 1e6,
+                  "projected_s_at_unfiltered_rows": per[n] * go3["rows"]}
+              for n in secs}
+    temporal["go3_where_d_lt_d2"] = {
+        "rows": len(rows11), "final_hop_edges": go3["rows"],
+        "hop_edges": st11.hop_edges, "p50_ms": float(np.median(lat)) * 1e3,
+        "runs_ms": [x * 1e3 for x in lat], "device_ms": st11.device_s * 1e3,
+        "fetch_ms": st11.fetch_s * 1e3, "mat_ms": st11.mat_s * 1e3,
+        "host_decode": decode,
+        "launches": {k: v for k, v in launches11.items() if v}}
+    log(f"[11b] GO 3 STEPS WHERE d < d2 YIELD d, t, tm, g: "
+        f"{json.dumps(temporal['go3_where_d_lt_d2'])} | {card}")
+    del rows11
+    (rows1, st1), lat = timed(lambda: trt.traverse(
+        tstore, "ns", seeds64, ["KNOWS"], "out", 1, yields=tyields),
+        TEMPORAL_RUNS)
+    total1, want1, _ = final_words(tsnap, seeds64, 1, TEMPORAL_YIELDS,
+                                   where=False)
+    if st1.edges_traversed() != total1:
+        raise AssertionError("[11b] GO 1 STEP edges differ")
+    check_decoded("11b GO 1 STEP", rows1, want1, ttypes, tsnap.pool)
+    (erows, _), elat = timed(lambda: trt.traverse(
+        tstore, "ns", seeds64, ["KNOWS"], "out", 1), TEMPORAL_RUNS)
+    tblk, P11 = tsnap.block("KNOWS", "out"), tsnap.num_parts
+    if len(erows) != total1 or not all(
+            edge_props_ok(tblk, P11, tsnap.pool, r[1]) for r in erows):
+        raise AssertionError("[11b] Edge rows differ from the oracle")
+    (frames11, fst), flat = timed(lambda: trt.traverse_hops(
+        tstore, "ns", seeds64, ["KNOWS"], "out", 2), TEMPORAL_RUNS)
+    check_frames("11b", frames11, host_hop_edges(tsnap, seeds64, 2))
+    rng11 = np.random.default_rng(5)
+    for f in frames11:
+        idx = rng11.choice(f.n, min(f.n, TEMPORAL_SAMPLE), replace=False)
+        if not all(edge_props_ok(tblk, P11, tsnap.pool, e)
+                   for e in f.decode(np.sort(idx))):
+            raise AssertionError("[11b] a frame's Edge differs from the "
+                                 "oracle")
+    temporal["go1"] = {"rows": len(rows1), "p50_ms": float(np.median(lat))
+                       * 1e3, "mat_ms": st1.mat_s * 1e3}
+    temporal["go1_edge_rows"] = {"rows": len(erows),
+                                 "p50_ms": float(np.median(elat)) * 1e3}
+    temporal["match_2_hops"] = {"frame_edges": [f.n for f in frames11],
+                                "p50_ms": float(np.median(flat)) * 1e3,
+                                "decoded_a_hop": TEMPORAL_SAMPLE}
+    log(f"[11b] GO 1 STEP YIELD d, t, tm, g: {json.dumps(temporal['go1'])};"
+        f" Edge rows: {json.dumps(temporal['go1_edge_rows'])}; "
+        f"traverse_hops 2: {json.dumps(temporal['match_2_hops'])} | {card}")
+    del rows1, erows, frames11
+
+    # the predicate program on the temporal columns against its plain
+    # version at the filtered hop 3's slots
+    tprog, _ = X.compile_predicate(twhere, dict(ttypes), tdev.pool,
+                                   device=rt.device)
+    tblk_d = tdev.blocks[("KNOWS", "out")]
+    _, _, tbufs, _ = hop_inputs(tdev)
+    tsl = K.expand_plain(tblk_d.indptr, tblk_d.nbr, tblk_d.rank, tbufs[2],
+                         tdev.hub_dense)
+    tpa = (tprog, *tsl, [tblk_d.props[n] for n in tprog.columns])
+    tot_t = int(tsl[4].sum())
+
+    def d_lt_d2_torch():
+        e = tsl[3].long()
+        d, d2 = (tblk_d.props[n].gather(-1, e) for n in ("d", "d2"))
+        return (torch.arange(e.shape[-1], device=e.device)
+                < tsl[4][..., None]) & (d != INT_NULL) & (d2 != INT_NULL) \
+            & (d < d2)
+
+    want_t = K.predicate_mask_plain(*tpa)
+    if not torch.equal(d_lt_d2_torch(), want_t):
+        raise AssertionError("[11b] d < d2 in torch differs")
+    record("predicate_mask (temporal)", [K.predicate_mask(*tpa)], [want_t],
+           cuda_ms(lambda: K.predicate_mask(*tpa), reps),
+           cuda_ms(lambda: K.predicate_mask_plain(*tpa), reps),
+           cuda_ms(d_lt_d2_torch, reps),
+           tot_t * (4 + 2 * 8) + tsl[0].numel() + 4 * P11,
+           tot_t * len(tprog.code), tag="[11b]",
+           counts={"predicate_mask (temporal)":
+                   launches11["predicate_mask"]},
+           note=f" (d < d2 at {tlabel} hop 3, {len(tprog.code)} "
+                f"instructions, {tot_t} valid slots)")
+    del tsl, tpa, tbufs, want_t
+    trt.unpin("ns")
+
+    # 11c. 1,000 inserts from the seeds carrying every column's type
+    # through the delta plane; GO 3 STEPS then equals a fresh pin's
+    stamp("phase 11c")
+    wstore = SnapshotStore(tsnap, ns.arrs, extra=ttypes)
+    wstore.delta_watch("ns")
+    trd = GpuRuntime(delta_max_edges=DELTA_CAP)
+    trd.pin_prebuilt(tsnap)
+    pool0 = list(tsnap.pool.strings)
+    ins = temporal_inserts(wstore, ns.arrs, ns.seeds, tsnap.pool,
+                           TEMPORAL_INSERTS)
+    for a, b, props in ins:
+        wstore.insert_edge(a, b, props)
+    t0 = time.perf_counter()
+    if trd.pin(wstore, "ns") is not trd.snapshots["ns"] \
+            or trd.snapshots["ns"].delta.applied_epoch \
+            != wstore.space("ns").epoch:
+        raise AssertionError("[11c] the writes were not applied in place")
+    torch.cuda.synchronize()
+    apply_s = time.perf_counter() - t0
+    K.reset_launch_counts()
+    (rows_d, st_d), dlat = timed(lambda: trd.traverse(
+        wstore, "ns", ns.seeds, ["KNOWS"], "out", 3, edge_filter=twhere,
+        yields=tyields), TEMPORAL_RUNS)
+    torch.cuda.synchronize()
+    launches11c = counts(K)
+    for name in DELTA_GO_KERNELS:
+        if launches11c[name] <= 0:
+            raise AssertionError(f"[11c] kernel {name} never launched")
+    t0 = time.perf_counter()
+    fsnap = spliced_snapshot(tsnap, pool0, ins)
+    splice_s = time.perf_counter() - t0
+    trd.unpin("ns")
+    trf = GpuRuntime()
+    trf.pin_prebuilt(fsnap)
+    rows_f, st_f = trf.traverse(SnapshotStore(fsnap), "ns", ns.seeds,
+                                ["KNOWS"], "out", 3, edge_filter=twhere,
+                                yields=tyields)
+    if not rows_equal(rows_d, rows_f) or st_d.hop_edges != st_f.hop_edges:
+        raise AssertionError(f"[11c] {len(rows_d)} rows through the plane "
+                             f"vs {len(rows_f)} from a fresh pin")
+    total_f, want_f, _ = final_words(fsnap, ns.seeds, 3, TEMPORAL_YIELDS,
+                                     where=True)
+    if st_f.edges_traversed() != total_f:
+        raise AssertionError("[11c] the fresh pin's edges differ")
+    check_decoded("11c fresh pin", rows_f, want_f, ttypes, fsnap.pool)
+    trf.unpin("ns")
+    temporal["writes"] = {
+        "inserts": len(ins), "apply_s": apply_s, "splice_s": splice_s,
+        "pool_before": len(pool0), "pool_after": len(tsnap.pool),
+        "rows": len(rows_d), "hop_edges": st_d.hop_edges,
+        "p50_ms": float(np.median(dlat)) * 1e3,
+        "launches": {k: v for k, v in launches11c.items() if v}}
+    temporal["phase_s"] = time.perf_counter() - t11
+    log(f"[11c] GO 3 STEPS WHERE d < d2 through {len(ins)} inserts: "
+        f"{json.dumps(temporal['writes'])} | {card}")
+    log(f"[11] phase 11 took {temporal['phase_s']:.1f} s")
+    del rows_d, rows_f, fsnap, tsnap, wstore, tstore
+
+    # -- 12. result --------------------------------------------------------
+    stamp("phase 12")
     log(json.dumps({"go3": results, "expand_per_hop": per_hop,
                     "unsplit_launches": launches_u,
                     "unsplit_kernels": extra, "algo": algo, "bfs": bfs,
                     "bfs_launches": bfs_launches, "delta": delta,
                     "delta_launches": launches_d, "batch": batch,
-                    "match": match, "mesh": mesh,
+                    "match": match, "mesh": mesh, "temporal": temporal,
                     "hbm_bytes": rt.hbm_bytes() + (
                         rts.hbm_bytes() if rts is not None else 0)}))
     print(json.dumps({"kernels": rows_out}))

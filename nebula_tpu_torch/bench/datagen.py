@@ -6,7 +6,8 @@ tails on both sides, so some sources are supernodes), and
 `snapshot_from_arrays` lays them out as a CsrSnapshot with out and in
 KNOWS blocks and w (INT64) / f (DOUBLE) / city (STRING) edge props.
 `host_csr_traverse` is the numpy GO oracle the port's device path is
-checked against, `host_bfs` (a copy of the reference's, :282) the numpy
+checked against (`host_final_hop` its walk, giving the final hop's
+slots), `host_bfs` (a copy of the reference's, :282) the numpy
 BFS oracle of bench.py config 5, `host_trail_paths` (a copy of the
 reference's, :361) the trail-count oracle of bench.py config 4b's MATCH
 and `host_hop_edges` its every-hop edge sets.  `unique_keys` keeps one
@@ -18,6 +19,7 @@ runs it.
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -130,12 +132,12 @@ def snapshot_from_arrays(arrs, parts: int = 8,
     return snap
 
 
-def host_csr_traverse(snap, seeds, steps: int, w_gt=None,
-                      materialize: bool = False, etypes=("KNOWS",)):
-    """Numpy GO oracle over the same CSR: per hop, gather neighbor
-    ranges with repeat, dedup with np.unique; `w_gt` filters the final
-    hop on KNOWS.w > w_gt.  Returns (edges_traversed, final_kept_count)
-    and, with materialize=True, also the final hop's (dst, w) arrays."""
+def host_final_hop(snap, seeds, steps: int, etypes=("KNOWS",)):
+    """The walk of the numpy GO oracle: per hop, gather the frontier's
+    neighbor ranges with repeat, then dedup with np.unique.  Returns
+    (edges_traversed, final) where final lists, a block of `etypes`
+    each, (block, owner, slot): the part and the slot in it of every
+    final-hop edge, in the frontier's CSR order."""
     P = snap.num_parts
     blks = [snap.block(et, "out") for et in etypes]
     frontier = np.unique(np.asarray(seeds, np.int64))
@@ -143,36 +145,40 @@ def host_csr_traverse(snap, seeds, steps: int, w_gt=None,
     for hop in range(steps):
         owner = frontier % P
         local = frontier // P
-        nxts, ws = [], []
+        final = []
         for blk in blks:
             s = blk.indptr[owner, local].astype(np.int64)
             e = blk.indptr[owner, local + 1].astype(np.int64)
             deg = e - s
             total += int(deg.sum())
-            if deg.sum() == 0:
-                nxts.append(np.empty(0, np.int64))
-                ws.append(np.empty(0, blk.props["w"].dtype))
-                continue
             rows = np.repeat(np.arange(frontier.size), deg)
             offs = np.arange(deg.sum(), dtype=np.int64) - \
                 np.repeat(np.cumsum(deg) - deg, deg)
-            idx = s[rows] + offs
-            nxts.append(blk.nbr[owner[rows], idx].astype(np.int64))
-            if hop == steps - 1:
-                ws.append(blk.props["w"][owner[rows], idx])
-        nxt = np.concatenate(nxts) if len(nxts) > 1 else nxts[0]
-        if nxt.size == 0:
-            return (total, 0, None, None) if materialize else (total, 0)
-        if hop == steps - 1:
-            w = np.concatenate(ws) if len(ws) > 1 else ws[0]
-            if w_gt is not None:
-                keep = w > w_gt
-                nxt, w = nxt[keep], w[keep]
-            if materialize:
-                return total, int(nxt.size), nxt, w
-            return total, int(nxt.size)
-        frontier = np.unique(nxt)
-    return (total, 0, None, None) if materialize else (total, 0)
+            final.append((blk, owner[rows], s[rows] + offs))
+        if hop < steps - 1:
+            frontier = np.unique(np.concatenate(
+                [blk.nbr[o, i] for blk, o, i in final]).astype(np.int64))
+    return total, final
+
+
+def host_csr_traverse(snap, seeds, steps: int, w_gt=None,
+                      materialize: bool = False, etypes=("KNOWS",)):
+    """Numpy GO oracle over the same CSR (`host_final_hop`'s walk);
+    `w_gt` filters the final hop on KNOWS.w > w_gt.  Returns
+    (edges_traversed, final_kept_count) and, with materialize=True, also
+    the final hop's (dst, w) arrays."""
+    total, final = host_final_hop(snap, seeds, steps, etypes)
+    nxt = np.concatenate([blk.nbr[o, i] for blk, o, i in final]
+                         ).astype(np.int64)
+    if nxt.size == 0:
+        return (total, 0, None, None) if materialize else (total, 0)
+    w = np.concatenate([blk.props["w"][o, i] for blk, o, i in final])
+    if w_gt is not None:
+        keep = w > w_gt
+        nxt, w = nxt[keep], w[keep]
+    if materialize:
+        return total, int(nxt.size), nxt, w
+    return total, int(nxt.size)
 
 
 def _expand_paths(blk, P, fr):
@@ -301,9 +307,10 @@ class SnapshotStore:
 
     This is a bench stand-in, not a store: one space, one edge type, no
     vertices or tags, rank 0 only (the arrays have no rank), every
-    insert carries all of w, f and city, and a key (src, dst, 0) shared
-    by parallel base edges cannot be written (a store keeps one edge per
-    key; the generated multigraph may hold several)."""
+    insert carries all of w, f and city (and the `extra` columns, when
+    the snapshot has more), and a key (src, dst, 0) shared by parallel
+    base edges cannot be written (a store keeps one edge per key; the
+    generated multigraph may hold several)."""
 
     class _SD:
         def __init__(self, n, epoch):
@@ -334,7 +341,7 @@ class SnapshotStore:
         def edge_row(self, etype, src, dst, rank):
             if etype != "KNOWS":
                 return None, None
-            return self.store.edge_row(src, dst, rank), _KnowsSchema
+            return self.store.edge_row(src, dst, rank), self.store._schema
 
         def vertex_rows(self, vid) -> Dict[str, Dict[str, Any]]:
             return {}
@@ -342,11 +349,19 @@ class SnapshotStore:
         def tag_schema(self, tag):
             return None
 
-    def __init__(self, snap, arrs=None):
+    def __init__(self, snap, arrs=None,
+                 extra: Optional[Dict[str, PropType]] = None):
         self.snap = snap
         self._sd = SnapshotStore._SD(len(snap.dense_to_vid), snap.epoch)
         self.catalog = SnapshotStore._Catalog()
         self._arrs = arrs
+        # KNOWS columns beyond w, f and city (name -> type): the arrays
+        # hold no base values for them, so such a store writes new keys
+        # only
+        self._extra = dict(extra or {})
+        self._schema = _KnowsSchema if not self._extra else \
+            SimpleNamespace(props=_KnowsSchema.props + [
+                PropDef(n, t) for n, t in self._extra.items()])
         self._overlay: Dict[Tuple[int, int, int], Optional[dict]] = {}
         self._log: Optional[DeltaLog] = None
         self._keys = None          # (sorted src*n + dst codes, their order)
@@ -419,7 +434,10 @@ class SnapshotStore:
             raise ValueError("the bench's KNOWS edges carry rank 0 only")
         if not (0 <= src < n and 0 <= dst < n):
             raise ValueError(f"({src}, {dst}) is not a pair of persons")
-        self._base_index(src, dst)      # refuses parallel-edge keys
+        base = self._base_index(src, dst)   # refuses parallel-edge keys
+        if base is not None and row is not None and self._extra:
+            raise ValueError(f"KNOWS ({src}, {dst}) is a base edge: the "
+                             f"arrays hold none of {sorted(self._extra)}")
         self._overlay[(int(src), int(dst), 0)] = row
         self._sd.epoch += 1
         if self._log is not None:
@@ -428,13 +446,15 @@ class SnapshotStore:
     def insert_edge(self, src: int, dst: int, props: Dict[str, Any],
                     rank: int = 0) -> None:
         """Insert KNOWS (src, dst, rank) — or overwrite it, as INSERT
-        EDGE does — with all of w (int), f (float) and city (a name)."""
-        if set(props) != {"w", "f", "city"} or props["city"] not in _NAMES:
-            raise ValueError("an insert carries w, f and one of the "
-                             "bench's city names")
-        self._write(src, dst, rank, {"w": int(props["w"]),
-                                     "f": float(props["f"]),
-                                     "city": props["city"]})
+        EDGE does — with all of w (int), f (float), city (a name) and the
+        store's extra columns (values of their types)."""
+        if set(props) != {"w", "f", "city"} | set(self._extra) \
+                or props["city"] not in _NAMES:
+            raise ValueError("an insert carries w, f, one of the bench's "
+                             "city names and every extra column")
+        self._write(src, dst, rank, {
+            "w": int(props["w"]), "f": float(props["f"]),
+            "city": props["city"], **{n: props[n] for n in self._extra}})
 
     def delete_edge(self, src: int, dst: int, rank: int = 0) -> None:
         self._write(src, dst, rank, None)
@@ -472,7 +492,10 @@ class SnapshotStore:
         """The written graph as `make_social_arrays`-shaped arrays: the
         base edges minus every written key, then the live written rows in
         write order.  `snapshot_from_arrays` of it is what a full rebuild
-        pins."""
+        pins.  A store with extra columns has none: the arrays cannot
+        hold them."""
+        if self._extra:
+            raise ValueError("mutated_arrays holds w, f and city only")
         a = self._arrs
         keep = np.ones(a["src"].size, bool)
         for (s, d, _r) in self._overlay:

@@ -37,9 +37,11 @@ frontier_sizes and WorkCounters — those of its solo run.
 
 The delta plane differs from the reference where the reference falls
 back to a full rebuild of the snapshot, which needs the store slice:
-a broken or gapped log, an overflow, a write the port cannot encode, or
+a broken or gapped log, an overflow, a key the plane cannot hold, or
 a write to a degree-split snapshot raise `GpuUnavailable` naming the
-cause (and unpin the space when the mirror may be half applied).  It
+cause (and unpin the space when the mirror may be half applied).  A
+DURATION value written to a DURATION column raises TypeError from its
+encode, as the reference's does.  It
 does not compact: a plane past the reference's fill watermark serves on
 until it overflows.
 
@@ -56,9 +58,9 @@ and `tpu_shard_hbm_bytes{shard}` (:500-530) and the metric
 over a process group is refused: each rank would hold only its own
 parts' captures.
 
-What the port leaves out raises `CannotCompile`, as the reference does
-for a filter it cannot compile: a result column of a type this slice
-does not decode (temporal, geography).  `GpuRuntime()` runs on `cuda:0`
+Every prop type decodes as the reference decodes it, temporal and
+geography values included (one object a value, `csr.decode_prop`).
+`GpuRuntime()` runs on `cuda:0`
 (a 1-slot mesh, local mode), and the CPU runs only when the caller
 passes `device="cpu"` or a mesh laid over the CPU (the kernels' plain
 versions then run).
@@ -76,8 +78,8 @@ import torch
 
 from ..core import expr as E
 from ..core.value import ColumnarDataSet, Edge
-from ..graphstore.csr import DECODABLE, decode_prop_column, \
-    decode_prop_column_np, degree_split
+from ..graphstore.csr import decode_prop_column, decode_prop_column_np, \
+    degree_split
 from ..graphstore.delta import DeltaOverflow, DeltaUnsupported, HostDelta
 from ..utils.failpoints import FailpointError, fail
 from ..utils.stats import current_cost, current_work, stats as metrics, \
@@ -88,7 +90,7 @@ from .bfs import run_bfs, run_bfs_sharded
 from .device import DeviceSnapshot, GpuUnavailable, mesh_lanes, \
     mesh_parts, pin_bytes, pin_sharded, pin_snapshot, put_delta_blocks, \
     resolve_device
-from .exprjit import CannotCompile, compile_predicate, eval_yield_column_np
+from .exprjit import compile_predicate, eval_yield_column_np
 from .hop import new_frontier, run_hops, \
     run_hops_sharded, seed_slot_frontiers
 from .kernels import mark
@@ -161,21 +163,6 @@ def _cap_keys_for_yields(yields, device_props=()) -> Optional[set]:
             else:
                 return None              # unmodeled expr: fetch all
     return need
-
-
-def _refuse_undecodable(dev, block_keys, wanted, what: str) -> None:
-    """Raise CannotCompile, before any device run, when a block the
-    statement reads carries a prop outside DECODABLE among `wanted` (None:
-    every prop of the block, as Edge rows and MATCH frames decode them),
-    so that the caller can fall back (divergence 9: temporal and
-    geography props)."""
-    for bk in block_keys:
-        types = dev.host.blocks[bk].prop_types
-        bad = [n for n in (types if wanted is None else wanted)
-               if n in types and types[n] not in DECODABLE]
-        if bad:
-            raise CannotCompile(f"{what} of {bad[0]} ({types[bad[0]].name}) "
-                                f"is not ported yet")
 
 
 def _canonical_perm(ls, rk, dk, is_delta) -> np.ndarray:
@@ -995,8 +982,6 @@ class GpuRuntime:
             wanted = None if yields is None else {
                 x.name for e, _ in yields for x in E.walk(e)
                 if x.kind == "edge_prop" and not x.name.startswith("_")}
-            _refuse_undecodable(dev, block_keys, wanted,
-                                "Edge row" if yields is None else "yield")
             yield_cols = tuple(sorted(
                 n for n in wanted or ()
                 if all(n in dev.host.blocks[bk].props for bk in block_keys))
@@ -1086,7 +1071,6 @@ class GpuRuntime:
         dense = [d for d in dense if d >= 0]
         if not dense:
             return [HopFrame.empty() for _ in range(max_hop)], stats
-        _refuse_undecodable(dev, block_keys, None, "MATCH frame")
 
         dview, dextras = self._grab_delta(
             dev, block_keys, () if pred is None else pred.columns)

@@ -2,8 +2,9 @@
 padded numpy arrays, the state the device plane pins.
 
 A copy of the parts of `nebula_tpu/graphstore/csr.py` the port needs:
-StringPool, the NULL sentinels, the batched prop-column decode, the
-value encode of the delta plane (`encode_prop`, `_encode_default`),
+StringPool, the NULL sentinels, the value encode and decode
+(`encode_prop`, `_encode_default`, `decode_prop` and the batched
+`decode_prop_column`, temporal and geography values included),
 CsrBlock, TagTable, CsrSnapshot and the supernode `degree_split`.  Building a
 snapshot from a live store waits for the store slice;
 `snapshot_from_fields` builds one from plain arrays (the fields another
@@ -24,16 +25,10 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..core.value import Date, DateTime, Time, is_null
 from .schema import PropType
 
 INT_NULL = np.iinfo(np.int64).min
-
-# prop types whose columns decode in this slice; temporal and geography
-# columns need the value classes the store slice brings
-DECODABLE = frozenset({
-    PropType.BOOL, PropType.INT64, PropType.INT32, PropType.INT16,
-    PropType.INT8, PropType.TIMESTAMP, PropType.FLOAT, PropType.DOUBLE,
-    PropType.STRING, PropType.FIXED_STRING})
 
 
 class StringPool:
@@ -66,17 +61,25 @@ class StringPool:
             self._obj_arr = arr
         return arr
 
+    def decode(self, c: int) -> Optional[str]:
+        if 0 <= c < len(self.strings):
+            return self.strings[c]
+        return None
 
-def decode_prop_column(pt: PropType, raw: np.ndarray,
+    def __len__(self):
+        return len(self.strings)
+
+
+def decode_prop_column(pt: PropType, raw: "np.ndarray",
                        pool: StringPool) -> List[Any]:
-    """Batched decode of a whole property column to Python values
-    (sentinels → NULL)."""
+    """Batched decode of a whole property column (same semantics as
+    decode_prop per element, ~20× faster than calling it in a loop —
+    the TPU materialization path decodes hundreds of thousands of final
+    edges per query)."""
     from ..core.value import NULL
-    if pt not in DECODABLE:
-        raise ValueError(f"prop type {pt.name} does not decode in this port")
     if pt in (PropType.FLOAT, PropType.DOUBLE):
         a = raw.astype(np.float64)
-        if not np.isnan(a).any():
+        if not np.isnan(a).any():       # no-null fast path: one C tolist
             return a.tolist()
         return [NULL if x != x else x for x in a.tolist()]
     av = raw.astype(np.int64)
@@ -85,19 +88,26 @@ def decode_prop_column(pt: PropType, raw: np.ndarray,
         ns = len(strings)
         if av.size and ((av >= 0) & (av < ns)).all():
             return pool.obj_array()[av].tolist()
-        return [strings[r] if 0 <= r < ns else NULL for r in av.tolist()]
+        vals = av.tolist()
+        return [strings[r] if 0 <= r < ns else NULL for r in vals]
     vals = av.tolist()
     if pt == PropType.BOOL:
         return [NULL if r == INT_NULL else bool(r) for r in vals]
-    if not (av == INT_NULL).any():
+    if pt in (PropType.DATE, PropType.DATETIME, PropType.TIME,
+              PropType.DURATION, PropType.GEOGRAPHY):
+        return [decode_prop(pt, r, pool) for r in vals]
+    if not (av == INT_NULL).any():      # no-null fast path
         return vals
     return [NULL if r == INT_NULL else r for r in vals]
 
 
-def decode_prop_column_np(pt: PropType, raw: np.ndarray,
-                          pool: StringPool) -> np.ndarray:
-    """decode_prop_column, columnar: native numeric dtype on the
-    null-free fast paths, object dtype otherwise."""
+def decode_prop_column_np(pt: PropType, raw: "np.ndarray",
+                          pool: StringPool) -> "np.ndarray":
+    """decode_prop_column, columnar: returns a numpy array — native
+    numeric dtype on the null-free fast paths, object dtype otherwise —
+    creating NO per-element Python objects on the fast paths.  Feeds the
+    ColumnarDataSet result handle (device results stay columnar until
+    the wire/print boundary)."""
     if pt in (PropType.FLOAT, PropType.DOUBLE):
         a = raw.astype(np.float64)
         if not np.isnan(a).any():
@@ -107,13 +117,48 @@ def decode_prop_column_np(pt: PropType, raw: np.ndarray,
         ns = len(pool.strings)
         if av.size == 0 or ((av >= 0) & (av < ns)).all():
             return pool.obj_array()[av]
-    elif pt in DECODABLE and pt != PropType.BOOL:
+    elif pt not in (PropType.BOOL, PropType.DATE, PropType.DATETIME,
+                    PropType.TIME, PropType.DURATION, PropType.GEOGRAPHY):
         av = raw.astype(np.int64)
         if not (av == INT_NULL).any():
             return av
     out = np.empty(len(raw), dtype=object)
     out[:] = decode_prop_column(pt, raw, pool)
     return out
+
+
+def decode_prop(pt: PropType, raw: Any, pool: StringPool) -> Any:
+    """Exact inverse of encode_prop (sentinels → NULL)."""
+    import datetime as _dt
+
+    from ..core.value import NULL
+    if pt in (PropType.FLOAT, PropType.DOUBLE):
+        f = float(raw)
+        return NULL if np.isnan(f) else f
+    r = int(raw)
+    if r == INT_NULL:
+        return NULL
+    if pt in (PropType.STRING, PropType.FIXED_STRING):
+        s = pool.decode(r)
+        return NULL if s is None else s
+    if pt == PropType.BOOL:
+        return bool(r)
+    if pt == PropType.DATE:
+        d = _dt.date(1970, 1, 1) + _dt.timedelta(days=r)
+        return Date(d.year, d.month, d.day)
+    if pt == PropType.DATETIME:
+        ts, us = divmod(r, 1_000_000)
+        d = _dt.datetime.fromtimestamp(ts, _dt.timezone.utc)
+        return DateTime(d.year, d.month, d.day, d.hour, d.minute, d.second, us)
+    if pt == PropType.TIME:
+        us = r % 1_000_000
+        sec = r // 1_000_000
+        return Time(sec // 3600, (sec // 60) % 60, sec % 60, us)
+    if pt == PropType.GEOGRAPHY:
+        from ..core.geo import from_wkt
+        s = pool.decode(r)
+        return NULL if s is None else from_wkt(s)
+    return r
 
 
 @dataclass
@@ -273,49 +318,45 @@ def _col_dtype(pt: PropType):
     return np.float64 if pt in (PropType.FLOAT, PropType.DOUBLE) else np.int64
 
 
-# types whose values the port has no class for yet (the reference encodes
-# them from its temporal and geography values)
-_UNENCODABLE = frozenset({PropType.DATE, PropType.TIME, PropType.DATETIME,
-                          PropType.DURATION, PropType.GEOGRAPHY})
-
-
 def encode_prop(pt: PropType, v: Any, pool: StringPool) -> Any:
-    """One value as the snapshot column stores it: NULL → the column's
-    sentinel, strings → pool codes, bools → 0/1.  A type in
-    `_UNENCODABLE` raises DeltaUnsupported instead of a wrong word."""
-    from ..core.value import is_null
-    from .delta import DeltaUnsupported
-    if pt in _UNENCODABLE:
-        raise DeltaUnsupported(f"{pt.name} values do not encode in this port")
     if is_null(v):
         return np.nan if pt in (PropType.FLOAT, PropType.DOUBLE) else INT_NULL
     if pt in (PropType.STRING, PropType.FIXED_STRING):
         return pool.encode(v)
+    if pt == PropType.GEOGRAPHY:
+        return pool.encode(v.wkt())     # dictionary-encoded WKT
     if pt == PropType.BOOL:
         return int(v)
+    if pt == PropType.DATE:
+        return v.days_since_epoch()
+    if pt == PropType.DATETIME:
+        # epoch-microseconds computed from calendar fields: lossless AND
+        # monotonic across the epoch (to_timestamp() truncates toward zero,
+        # which mis-encodes pre-1970 values)
+        import datetime as _dt
+        delta = (_dt.datetime(v.year, v.month, v.day, v.hour, v.minute,
+                              v.sec, v.microsec, tzinfo=_dt.timezone.utc)
+                 - _dt.datetime(1970, 1, 1, tzinfo=_dt.timezone.utc))
+        return ((delta.days * 86400 + delta.seconds) * 1_000_000
+                + delta.microseconds)
+    if pt == PropType.TIME:
+        return ((v.hour * 60 + v.minute) * 60 + v.sec) * 1_000_000 + v.microsec
     if pt in (PropType.FLOAT, PropType.DOUBLE):
         return float(v)
     return int(v)
 
 
 def _encode_default(pd, pool: StringPool):
-    """Encoded schema default for rows written before an ALTER added the
-    column, or None when there is no usable default.  The reference's
-    insert-time coercion is int → float for float columns; a malformed
-    default degrades to None (NULL) as there."""
-    from .delta import DeltaUnsupported
+    """Encoded, coerced schema default for pre-ALTER rows (fill_row
+    parity), or None when there is no usable default — shared by the
+    edge-block and tag-table builders."""
     if not pd.has_default:
         return None
-    v = pd.default
-    if pd.ptype in (PropType.FLOAT, PropType.DOUBLE) \
-            and isinstance(v, int) and not isinstance(v, bool):
-        v = float(v)
     try:
-        return encode_prop(pd.ptype, v, pool)
-    except DeltaUnsupported:
-        raise
-    except Exception:  # noqa: BLE001 — malformed default → NULL
-        return None
+        from .schema import coerce
+        return encode_prop(pd.ptype, coerce(pd.ptype, pd.default), pool)
+    except Exception:  # noqa: BLE001 — malformed default → NULL, same
+        return None    # degradation as host fill_row
 
 
 def snapshot_from_fields(fields: Dict[str, Any]) -> CsrSnapshot:

@@ -53,7 +53,7 @@ def pow2(n: int) -> int:
 
 class DeltaUnsupported(Exception):
     """This change set cannot ride the delta (unknown dense id, broken
-    log, hub-split snapshot, a value the port cannot encode)."""
+    log, hub-split snapshot)."""
 
 
 class DeltaOverflow(Exception):

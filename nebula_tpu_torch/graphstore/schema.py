@@ -7,6 +7,8 @@ from dataclasses import dataclass
 from enum import Enum
 from typing import Any
 
+from ..core.value import is_null
+
 
 class PropType(Enum):
     BOOL = "bool"
@@ -24,6 +26,25 @@ class PropType(Enum):
     DATETIME = "datetime"
     DURATION = "duration"
     GEOGRAPHY = "geography"
+
+
+_FLOAT_TYPES = (PropType.FLOAT, PropType.DOUBLE)
+
+
+def coerce(t: PropType, v: Any) -> Any:
+    """Insert-time coercion (int→float for double columns; WKT text for
+    geography columns)."""
+    if is_null(v):
+        return v
+    if t in _FLOAT_TYPES and isinstance(v, int) and not isinstance(v, bool):
+        return float(v)
+    if t == PropType.GEOGRAPHY and isinstance(v, str):
+        from ..core.geo import GeoError, from_wkt
+        try:
+            return from_wkt(v)
+        except GeoError:
+            return v            # check_type rejects with a clean error
+    return v
 
 
 @dataclass

@@ -11,11 +11,15 @@ reference `TpuRuntime(make_mesh(1))` (local mode) pins one with
 `build_snapshot`, carried into the port with `snapshot_from_fields` and
 pinned into `GpuRuntime(device="cpu", delta_max_edges=...)`, which reads
 it through a small converting reader (the reference's rows hold its own
-NULL).  After every write group GO's YIELD columns must equal the
+values: `test_torch_value.to_port` carries them).  After every write group GO's YIELD columns must equal the
 reference's in order, and so must hop_edges and frontier_sizes; a fresh
 pin of a rebuilt snapshot must give the same columns; the BFS depths and
-per-level hop_edges must equal the reference's.  Tolerance: exact — the
-path moves integers and copies float64 values.
+per-level hop_edges must equal the reference's.  DATE, DATETIME, TIME,
+DURATION and GEOGRAPHY values encode and decode as the reference's
+(before 1970 too), and logged writes of them reach the plane.  A string
+first pooled by a write (fault C2, where the reference's cached WHERE
+program goes stale) gives the port a fresh pin's rows.  Tolerance:
+exact — the path moves integers and copies float64 values.
 """
 import random
 
@@ -38,14 +42,16 @@ from nebula_tpu.utils.config import get_config
 
 from nebula_tpu_torch.bench import datagen as D
 from nebula_tpu_torch.core import expr as PE
-from nebula_tpu_torch.core.value import NULL, NullKind, NullValue
+from nebula_tpu_torch.core.value import NULL
 from nebula_tpu_torch.gpu import GpuRuntime, GpuUnavailable
 from nebula_tpu_torch.gpu import kernels as K
 from nebula_tpu_torch.gpu.hop import run_hops
 from nebula_tpu_torch.graphstore import csr as port_csr
 from nebula_tpu_torch.graphstore.csr import snapshot_from_fields
-from nebula_tpu_torch.graphstore.delta import DeltaUnsupported, HostDelta
+from nebula_tpu_torch.graphstore.delta import HostDelta
 from nebula_tpu_torch.graphstore.schema import PropDef, PropType
+
+from test_torch_value import same_value, to_port
 
 MAXI = np.iinfo(np.int32).max
 N = 90                 # persons of the twin stores
@@ -301,14 +307,10 @@ class _Writer:
 GROUPS = ("inserts", "deletes", "resurrect", "overwrite", "mixed")
 
 
-def _port_value(v):
-    return NullValue(NullKind[v.kind.name]) if isinstance(v, RefNull) else v
-
-
 class _PortSchema:
     def __init__(self, sv):
         self.props = [PropDef(pd.name, PropType[pd.ptype.name],
-                              default=_port_value(pd.default),
+                              default=to_port(pd.default),
                               has_default=pd.has_default)
                       for pd in sv.props]
 
@@ -326,11 +328,11 @@ class _ConvReader:
     def edge_row(self, etype, src, dst, rank):
         row, sv = self.inner.edge_row(etype, src, dst, rank)
         return (None if row is None else
-                {k: _port_value(v) for k, v in row.items()},
+                {k: to_port(v) for k, v in row.items()},
                 None if sv is None else _PortSchema(sv))
 
     def vertex_rows(self, vid):
-        return {t: {k: _port_value(v) for k, v in r.items()}
+        return {t: {k: to_port(v) for k, v in r.items()}
                 for t, r in self.inner.vertex_rows(vid).items()}
 
     def tag_schema(self, tag):
@@ -747,14 +749,210 @@ def test_encode_prop_matches_reference(pt, v):
     assert a == b or (a != a and b != b)
 
 
+def _temporal_values():
+    from nebula_tpu.core import geo as ref_geo
+    from nebula_tpu.core import value as RV
+    return {
+        "DATE": [RV.Date(1970, 1, 1), RV.Date(1969, 12, 31),
+                 RV.Date(1900, 3, 1), RV.Date(2024, 2, 29), REF_NULL],
+        "TIME": [RV.Time(0, 0, 0, 0), RV.Time(23, 59, 59, 999_999),
+                 RV.Time(12, 30, 5, 17), REF_NULL],
+        "DATETIME": [RV.DateTime(1970, 1, 1), RV.DateTime(1969, 12, 31, 23,
+                                                          59, 59, 999_999),
+                     RV.DateTime(1901, 5, 6, 7, 8, 9, 10),
+                     RV.DateTime(2024, 3, 9, 13, 4, 5, 123_456), REF_NULL],
+        "DURATION": [RV.Duration(seconds=90, months=2), 7, -3, REF_NULL],
+        "GEOGRAPHY": [ref_geo.from_wkt("POINT(1.5 -2.25)"),
+                      ref_geo.from_wkt("LINESTRING(0 0, 1 1, 2 0)"),
+                      ref_geo.from_wkt("POLYGON((0 0, 4 0, 4 4, 0 0))"),
+                      REF_NULL],
+    }
+
+
+def _encode_outcome(csr, pt, v, pool):
+    try:
+        return "value", csr.encode_prop(pt, v, pool)
+    except Exception as ex:   # noqa: BLE001 — the class is compared
+        return "raise", type(ex).__name__
+
+
 @pytest.mark.parametrize("pt", ["DATE", "TIME", "DATETIME", "DURATION",
                                 "GEOGRAPHY"])
 def test_values_the_port_cannot_represent_raise(pt):
-    with pytest.raises(DeltaUnsupported):
-        port_csr.encode_prop(PropType[pt], 1, port_csr.StringPool())
-    pd = PropDef("x", PropType[pt], default=1, has_default=True)
-    with pytest.raises(DeltaUnsupported):
-        port_csr._encode_default(pd, port_csr.StringPool())
+    """Once a refusal (divergence 9: the port had no temporal or
+    geography values); now each value, NULL and values before 1970
+    included, encodes to the reference's word, the words decode to the
+    reference's values one at a time and as a column, and a default of
+    the type encodes as the reference's.  DURATION is what the reference
+    makes of it: a Duration value has no int word, so its encode raises
+    TypeError in both packages and its default encodes to None (NULL);
+    an int written to the column is its own word, and a word decodes to
+    the raw int."""
+    ref_pool, port_pool = ref_csr.StringPool(), port_csr.StringPool()
+    words = []
+    for v in _temporal_values()[pt]:
+        want = _encode_outcome(ref_csr, RefPropType[pt], v, ref_pool)
+        got = _encode_outcome(port_csr, PropType[pt], to_port(v), port_pool)
+        assert got == want and type(got[1]) is type(want[1]), v
+        if want[0] == "value":
+            words.append(want[1])
+        rd = RefPropDef("x", RefPropType[pt], default=v, has_default=True)
+        pd = PropDef("x", PropType[pt], default=to_port(v), has_default=True)
+        assert port_csr._encode_default(pd, port_pool) == \
+            ref_csr._encode_default(rd, ref_pool)
+    assert port_pool.strings == ref_pool.strings
+    if pt == "DURATION":
+        assert words == [7, -3, port_csr.INT_NULL]
+        assert _encode_outcome(port_csr, PropType[pt], to_port(
+            _temporal_values()[pt][0]), port_pool) == ("raise", "TypeError")
+    raw = np.asarray(words, np.int64)
+    for w in words:
+        assert same_value(port_csr.decode_prop(PropType[pt], w, port_pool),
+                          ref_csr.decode_prop(RefPropType[pt], w, ref_pool))
+    got = port_csr.decode_prop_column(PropType[pt], raw, port_pool)
+    want = ref_csr.decode_prop_column(RefPropType[pt], raw, ref_pool)
+    assert got == to_port(want) and len(got) == len(words)
+    assert all(same_value(a, b) for a, b in zip(got, want))
+    got_np = port_csr.decode_prop_column_np(PropType[pt], raw, port_pool)
+    want_np = ref_csr.decode_prop_column_np(RefPropType[pt], raw, ref_pool)
+    assert got_np.dtype == want_np.dtype
+    assert [repr(x) for x in got_np] == [repr(x) for x in want_np]
+
+
+def _dated_store(parts, seed):
+    """A reference GraphStore whose edges carry DATE, DATETIME, TIME and
+    GEOGRAPHY props (values on both sides of 1970, NULLs among them)."""
+    from nebula_tpu.core import geo as ref_geo
+    from nebula_tpu.core import value as RV
+    rng = random.Random(seed)
+    st = GraphStore()
+    st.create_space("g", partition_num=parts, vid_type="INT64")
+    st.catalog.create_tag("g", "person", [RefPropDef("age",
+                                                     RefPropType.INT64)])
+    st.catalog.create_edge("g", "knows", [
+        RefPropDef("w", RefPropType.INT64),
+        RefPropDef("d", RefPropType.DATE), RefPropDef("d2", RefPropType.DATE),
+        RefPropDef("t", RefPropType.DATETIME),
+        RefPropDef("tm", RefPropType.TIME),
+        RefPropDef("g", RefPropType.GEOGRAPHY)])
+
+    def props(k):
+        def maybe(v):
+            return REF_NULL if rng.random() < .05 else v
+        return {"w": k,
+                "d": maybe(RV.Date(1969 + k % 3, 1 + k % 12, 1 + k % 28)),
+                "d2": maybe(RV.Date(1969 + (k * 7) % 3, 1 + (k * 5) % 12,
+                                    1 + (k * 3) % 28)),
+                "t": maybe(RV.DateTime(1969 + k % 2, 12, 31, 23, 59,
+                                       k % 60, (k * 7919) % 1_000_000)),
+                "tm": maybe(RV.Time(k % 24, (k * 7) % 60, k % 60, k)),
+                # the writes' keys (1000 and up) make points of their own
+                "g": maybe(ref_geo.from_wkt(
+                    f"POINT({k % 7} {k % 5 + 10 * (k // 1000)}.5)"))}
+    for v in range(N):
+        st.insert_vertex("g", v, "person", {"age": v})
+    for v in range(N):
+        for _ in range(rng.randint(0, 6)):
+            st.insert_edge("g", v, "knows", rng.randrange(N),
+                           rng.randint(0, 2), props(rng.randrange(500)))
+    return st, props
+
+
+def _dated_yields(M):
+    return [(M.EdgeProp("knows", n), n) for n in ("d", "t", "tm", "g")]
+
+
+def _dated_where(M):
+    return M.Binary("<", M.EdgeProp("knows", "d"), M.EdgeProp("knows", "d2"))
+
+
+@pytest.mark.parametrize("parts,steps", [(1, 1), (4, 2)])
+def test_temporal_and_geography_writes_match_reference(delta_cfg, parts,
+                                                       steps):
+    """Logged writes of DATE, DATETIME, TIME and GEOGRAPHY values (new
+    points among them, so the pool grows) reach the plane the merge
+    kernel reads: GO's yields, unfiltered and WHERE d < d2, equal the
+    reference's after each group, and a fresh pin's of the written
+    store."""
+    (ref_st, props), (twin, _) = (_dated_store(parts, 60 + parts),
+                                  _dated_store(parts, 60 + parts))
+    ref_rt = TpuRuntime(make_mesh(1))
+    assert ref_rt.pin(ref_st, "g").delta is not None
+    port_rt = _port_pin(twin)
+    port_st = _PortStore(twin)
+    dev = port_rt.snapshots["g"]
+    pool0 = len(dev.host.pool)
+    for group in range(3):
+        for i in range(8):
+            row = props(1000 + 31 * i + group)
+            for st in (ref_st, twin):
+                st.insert_edge("g", SEEDS[i % 3], "knows",
+                               (5 * i + group) % N, 50 + group, row)
+        for filt in (False, True):
+            tag = f"group {group} filt={filt}"
+            want, wst = ref_rt.traverse(
+                ref_st, "g", SEEDS, ["knows"], "out", steps,
+                edge_filter=_dated_where(RE) if filt else None,
+                yields=_dated_yields(RE))
+            got, gst = port_rt.traverse(
+                port_st, "g", SEEDS, ["knows"], "out", steps,
+                edge_filter=_dated_where(PE) if filt else None,
+                yields=_dated_yields(PE))
+            assert len(got) == len(want) > 0, tag
+            _assert_cols_equal(_cols(got), _cols(want), tag)
+            for n in got.column_names:
+                assert got.column(n) == to_port(want.column(n)), (tag, n)
+            assert gst.hop_edges == wst.hop_edges, tag
+            fresh = _port_pin(twin, delta_max_edges=0)
+            rows, _ = fresh.traverse(
+                port_st, "g", SEEDS, ["knows"], "out", steps,
+                edge_filter=_dated_where(PE) if filt else None,
+                yields=_dated_yields(PE))
+            _assert_cols_equal(_cols(got), _cols(rows), f"rebuild {tag}")
+    assert port_rt.snapshots["g"] is dev
+    assert dev.delta.host.total_edges() > 0
+    assert len(dev.host.pool) > pool0           # new points were pooled
+
+
+def test_string_first_pooled_by_a_write_matches_a_fresh_pin(delta_cfg):
+    """A write that first brings a string into the pool, then GO 1 STEP,
+    MATCH (`traverse_hops`) and the 1-step BFS WHERE knows.tag == "zz":
+    the port's rows, frames and depths equal a fresh pin's of the
+    written store.  (The port compiles the WHERE program for every
+    statement, so its string constant is looked up in the pool as it
+    is then.  The reference caches the compiled program under the base
+    snapshot's epoch and the filter's text; on this script it answers
+    0 rows, 0 frame edges and no vertex at depth 1 after the write,
+    where its own fresh pin answers 1, 1 and 1.)"""
+    twin = _store(4, 20)
+    port_rt = _port_pin(twin)
+    port_st = _PortStore(twin)
+    where = PE.Binary("==", PE.EdgeProp("knows", "tag"), PE.Literal("zz"))
+
+    def run(rt):
+        rows, _ = rt.traverse(port_st, "g", SEEDS, ["knows"], "out", 1,
+                              edge_filter=where, yields=_yields(PE))
+        frames, _ = rt.traverse_hops(port_st, "g", SEEDS, ["knows"], "out",
+                                     1, edge_filter=where)
+        dist, _ = rt.bfs(port_st, "g", SEEDS, ["knows"], "out", 1,
+                         edge_filter=where)
+        return rows, frames, np.asarray(dist)
+
+    rows, frames, dist = run(port_rt)
+    assert len(rows) == 0 and frames[0].n == 0
+    assert int((dist == 1).sum()) == 0
+    twin.insert_edge("g", SEEDS[0], "knows", 3, 70,
+                     {"w": 1, "f": .5, "tag": "zz"})
+    rows, frames, dist = run(port_rt)
+    assert port_rt.snapshots["g"].delta.host.total_edges() > 0
+    f_rows, f_frames, f_dist = run(_port_pin(twin, delta_max_edges=0))
+    assert len(rows) == len(f_rows) == 1
+    _assert_cols_equal(_cols(rows), _cols(f_rows), "GO")
+    assert frames[0].n == f_frames[0].n == 1
+    assert [repr(e) for e in frames[0].edges] == \
+        [repr(e) for e in f_frames[0].edges]
+    np.testing.assert_array_equal(dist, f_dist)
+    assert int((dist == 1).sum()) == 1
 
 
 def test_host_delta_block_arrays_match_reference(delta_cfg):

@@ -41,7 +41,15 @@ def test_port_modules_exist():
               "nebula_tpu_torch.utils.failpoints",
               "nebula_tpu_torch.utils.cancel", "nebula_tpu_torch.utils.stats",
               "nebula_tpu_torch.utils.workload",
-              "nebula_tpu_torch.gpu.batch", "nebula_tpu_torch.gpu.mesh"):
+              "nebula_tpu_torch.gpu.batch", "nebula_tpu_torch.gpu.mesh",
+              "nebula_tpu_torch.core", "nebula_tpu_torch.core.geo",
+              "nebula_tpu_torch.core.aggregates",
+              "nebula_tpu_torch.core.functions",
+              "nebula_tpu_torch.core.wire",
+              "nebula_tpu_torch.graphstore.index",
+              "nebula_tpu_torch.graphstore.fulltext",
+              "nebula_tpu_torch.query", "nebula_tpu_torch.query.tokenizer",
+              "nebula_tpu_torch.query.ast", "nebula_tpu_torch.query.parser"):
         assert m in names, m
 
 

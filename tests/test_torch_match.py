@@ -17,9 +17,10 @@ path moves integers and copies float64 values):
     frames against `host_trail_paths` (both packages') where every
     (src, dst) key is unique, and the parallel-edge rule where it is not;
   * GO's Edge rows (`traverse` without yields) against the reference's;
-  * a DATE prop, which the reference decodes and the port cannot yet:
-    `traverse_hops` and `traverse` both refuse it with `CannotCompile`
-    before any device run;
+  * DATE, DATETIME, TIME, GEOGRAPHY and DURATION props (values before
+    1970 and NULLs among them): GO's yields and Edge rows, MATCH frames
+    and a WHERE over two temporal columns, against the reference's, the
+    values also compared with `==` once carried into the port;
   * batching: concurrent MATCH expansions share one run, each equal to
     its solo run, and a GO never shares a MATCH's run.
 
@@ -46,7 +47,7 @@ from nebula_tpu.utils.config import get_config as ref_get_config
 
 from nebula_tpu_torch.bench import datagen as D
 from nebula_tpu_torch.core import expr as PE
-from nebula_tpu_torch.gpu import CannotCompile, GpuRuntime, HopFrame, \
+from nebula_tpu_torch.gpu import GpuRuntime, HopFrame, \
     join_frontier_trails, trail_distinct_keep
 from nebula_tpu_torch.gpu.exprjit import compile_predicate
 from nebula_tpu_torch.gpu.hop import run_hops
@@ -58,6 +59,7 @@ from test_torch_batch import _batching, _counter, _threads, clean, \
     company  # noqa: F401 — fixtures
 from test_torch_delta import GROUPS, SEEDS, _PortStore, _port_pin, \
     _store, _Writer, delta_cfg  # noqa: F401 — fixture
+from test_torch_value import to_port
 
 P = 8
 SPLIT = 64                      # degree-split threshold of the split cases
@@ -545,58 +547,169 @@ def test_edge_rows_through_writes_match_reference(delta_cfg):
 
 
 # ---------------------------------------------------------------------------
-# a temporal prop the port cannot decode yet (divergence 9): both entry
-# points refuse it before any device run
+# temporal and geography props: GO yields, Edge rows, MATCH frames and a
+# WHERE over two temporal columns, decoded as the reference decodes them
 # ---------------------------------------------------------------------------
+
+_INT_NULL = np.iinfo(np.int64).min
+
+
+def _dated_columns(n, pool):
+    """The `dated` fixture's prop columns over n edge slots: int64 words
+    as the snapshot stores them, every 50th slot of each NULL."""
+    i = np.arange(n, dtype=np.int64)
+    wkts = [f"POINT({(k * 37) % 360 - 180} {(k * 11) % 180 - 90}.25)"
+            for k in range(20)]
+    codes = np.asarray([pool.encode(w) for w in wkts], np.int64)
+    cols = {
+        # DATE: days since the epoch, 1968-1971
+        "d": (i % 800) - 400,
+        "d2": (i * 7) % 800 - 400,
+        # DATETIME: epoch microseconds, about 1969-1971, microseconds set
+        "t": (i - n // 2) * 86_400_000_123 + (i * 7919) % 1_000_000,
+        # TIME: microseconds of the day
+        "tm": (i * 7_777_777_777) % 86_400_000_000,
+        "g": codes[i % len(codes)],
+        # DURATION: the reference decodes its raw word
+        "du": i * 1000 - 5000,
+    }
+    types = {"d": RefPropType.DATE, "d2": RefPropType.DATE,
+             "t": RefPropType.DATETIME, "tm": RefPropType.TIME,
+             "g": RefPropType.GEOGRAPHY, "du": RefPropType.DURATION}
+    for k, (name, c) in enumerate(cols.items()):
+        c[(i + k) % 50 == 0] = _INT_NULL
+    return cols, types
 
 
 @pytest.fixture(scope="module")
 def dated():
-    """make_social_arrays(300, 4), P = 4, with an int64 DATE column `d`
-    (days since the epoch) added to the reference snapshot's blocks
-    before it is carried."""
+    """make_social_arrays(300, 4), P = 4, with DATE columns `d` and `d2`,
+    a DATETIME `t`, a TIME `tm`, a GEOGRAPHY `g` (pool codes of 20 point
+    WKTs) and a DURATION `du` added to the reference snapshot's blocks
+    before it is carried; values on both sides of 1970, NULLs among
+    them."""
     arrs = ref_datagen.make_social_arrays(300, 4)
     ref_snap = ref_datagen.snapshot_from_arrays(arrs, parts=4)
     for b in ref_snap.blocks.values():
-        b.props["d"] = (np.arange(b.nbr.size, dtype=np.int64) % 400
-                        ).reshape(b.nbr.shape) + 50
-        b.prop_types["d"] = RefPropType.DATE
+        cols, types = _dated_columns(b.nbr.size, ref_snap.pool)
+        for name, c in cols.items():
+            b.props[name] = c.reshape(b.nbr.shape)
+            b.prop_types[name] = types[name]
     carried = snapshot_from_fields(_fields(ref_snap))
     rt = GpuRuntime(device="cpu")
     rt.pin_prebuilt(carried)
-    ran = []
-    rt._run = lambda *a, **kw: ran.append(a)        # any device run
     return dict(ref_rt=_ref_rt(ref_snap),
                 ref_store=ref_datagen.SnapshotStore(ref_snap), rt=rt,
-                store=D.SnapshotStore(carried), ran=ran,
+                store=D.SnapshotStore(carried),
                 seeds=np.unique(arrs["src"][:32])[:8].tolist())
 
 
+def _dated_kinds(values):
+    return {type(v).__name__ for v in values}
+
+
 def test_match_frames_refuse_a_date_prop(dated):
-    want, _ = dated["ref_rt"].traverse_hops(
+    """Once a refusal (divergence 9); now the frames over the temporal,
+    geography and duration props equal the reference's, in order, and
+    their Edges equal the reference's carried into the port."""
+    want, wst = dated["ref_rt"].traverse_hops(
         dated["ref_store"], "snb", dated["seeds"], ["KNOWS"], "out", 2)
-    dates = [e.props["d"] for e in want[0].edges]
-    assert dates and all(type(v).__name__ == "Date" for v in dates)
-    with pytest.raises(CannotCompile, match="MATCH frame of d \\(DATE\\)"):
-        dated["rt"].traverse_hops(dated["store"], "snb", dated["seeds"],
-                                  ["KNOWS"], "out", 2)
-    assert dated["ran"] == []
+    got, st = dated["rt"].traverse_hops(dated["store"], "snb",
+                                        dated["seeds"], ["KNOWS"], "out", 2)
+    _assert_frames_equal(got, want, "dated")
+    for a, b in zip(want, got):
+        assert list(b.edges) == to_port(list(a.edges))
+    assert st.hop_edges == wst.hop_edges
+    edges = [e for f in want for e in f.edges]
+    assert _dated_kinds(e.props["d"] for e in edges) == {"Date",
+                                                        "NullValue"}
+    assert _dated_kinds(e.props["g"] for e in edges) == {"Geography",
+                                                        "NullValue"}
+    assert any(e.props["t"].year < 1970 for e in edges
+               if type(e.props["t"]).__name__ == "DateTime")
 
 
-@pytest.mark.parametrize("yields", ["edge rows", "date yield"])
+_DATED_YIELDS = {
+    "edge rows": None,
+    "date yield": ["d"],
+    "temporal yields": ["d", "t", "tm", "g"],
+    "duration yield": ["du", "d2"],
+}
+
+
+def _dated_yields(names, M):
+    return None if names is None else [(M.EdgeProp("KNOWS", n), n)
+                                       for n in names]
+
+
+def _dated_rows_equal(got, want, names):
+    assert len(got) == len(want) > 0
+    if names is None:
+        assert [repr(r) for r in got] == [repr(r) for r in want]
+        assert [list(r) for r in got] == to_port([list(r) for r in want])
+        return
+    assert got.column_names == want.column_names == names
+    for n in names:
+        a, b = want.column(n), got.column(n)
+        assert [repr(x) for x in b] == [repr(x) for x in a], n
+        assert b == to_port(a), n
+
+
+@pytest.mark.parametrize("yields", sorted(_DATED_YIELDS))
 def test_go_refuses_a_date_prop(dated, yields):
-    def ys(M):
-        return None if yields == "edge rows" else \
-            [(M.EdgeProp("KNOWS", "d"), "d")]
+    """Once a refusal (divergence 9); now GO's Edge rows and its YIELD
+    of DATE, DATETIME, TIME, GEOGRAPHY and DURATION columns equal the
+    reference's, in order."""
+    names = _DATED_YIELDS[yields]
+    want, wst = dated["ref_rt"].traverse(
+        dated["ref_store"], "snb", dated["seeds"], ["KNOWS"], "out", 2,
+        yields=_dated_yields(names, RE))
+    got, st = dated["rt"].traverse(
+        dated["store"], "snb", dated["seeds"], ["KNOWS"], "out", 2,
+        yields=_dated_yields(names, PE))
+    _dated_rows_equal(got, want, names)
+    assert st.hop_edges == wst.hop_edges
 
-    want, _ = dated["ref_rt"].traverse(
-        dated["ref_store"], "snb", dated["seeds"], ["KNOWS"], "out", 1,
-        yields=ys(RE))
-    assert len(want) > 0
-    with pytest.raises(CannotCompile, match=" of d \\(DATE\\)"):
-        dated["rt"].traverse(dated["store"], "snb", dated["seeds"],
-                             ["KNOWS"], "out", 1, yields=ys(PE))
-    assert dated["ran"] == []
+
+_DATED_WHERE = {
+    "d < d2": lambda M: M.Binary("<", M.EdgeProp("KNOWS", "d"),
+                                 M.EdgeProp("KNOWS", "d2")),
+    "d2 >= d": lambda M: M.Binary(">=", M.EdgeProp("KNOWS", "d2"),
+                                  M.EdgeProp("KNOWS", "d")),
+    "t > t or tm == tm": lambda M: M.Binary(
+        "OR", M.Binary(">", M.EdgeProp("KNOWS", "t"),
+                       M.EdgeProp("KNOWS", "t")),
+        M.Binary("==", M.EdgeProp("KNOWS", "tm"),
+                 M.EdgeProp("KNOWS", "tm"))),
+    "g == g and d2 > d": lambda M: M.Binary(
+        "AND", M.Binary("==", M.EdgeProp("KNOWS", "g"),
+                        M.EdgeProp("KNOWS", "g")),
+        M.Binary(">", M.EdgeProp("KNOWS", "d2"),
+                 M.EdgeProp("KNOWS", "d"))),
+}
+
+
+@pytest.mark.parametrize("where", sorted(_DATED_WHERE))
+def test_temporal_where_matches_reference(dated, where):
+    """A WHERE over two temporal columns of one kind (the predicate
+    program compares their words) keeps the reference's rows in GO and
+    its edges in every MATCH frame."""
+    names = ["d", "t", "tm", "g"]
+    want, wst = dated["ref_rt"].traverse(
+        dated["ref_store"], "snb", dated["seeds"], ["KNOWS"], "out", 2,
+        edge_filter=_DATED_WHERE[where](RE), yields=_dated_yields(names, RE))
+    got, st = dated["rt"].traverse(
+        dated["store"], "snb", dated["seeds"], ["KNOWS"], "out", 2,
+        edge_filter=_DATED_WHERE[where](PE), yields=_dated_yields(names, PE))
+    _dated_rows_equal(got, want, names)
+    assert st.hop_edges == wst.hop_edges
+    fw, _ = dated["ref_rt"].traverse_hops(
+        dated["ref_store"], "snb", dated["seeds"], ["KNOWS"], "out", 2,
+        edge_filter=_DATED_WHERE[where](RE))
+    fg, _ = dated["rt"].traverse_hops(
+        dated["store"], "snb", dated["seeds"], ["KNOWS"], "out", 2,
+        edge_filter=_DATED_WHERE[where](PE))
+    _assert_frames_equal(fg, fw, where)
 
 
 # ---------------------------------------------------------------------------
