@@ -5,9 +5,11 @@ The paths are GO N STEPS, `CALL algo.*`, the device BFS of FIND
 SHORTEST PATH, GO and the BFS again on a snapshot with writes pending in
 its delta plane, concurrent GO statements batched into one run of the
 lane-widened kernels, MATCH's every-hop expansion, and GO, the BFS and
-MATCH again over a mesh of eight shard slots, and GO and MATCH over
-DATE, DATETIME, TIME and GEOGRAPHY edge props, each through the
-hand-written CUDA kernels.
+MATCH again over a mesh of eight shard slots, GO and MATCH over DATE,
+DATETIME, TIME and GEOGRAPHY edge props, and GO and the BFS on a
+snapshot the runtime built from the port's own store, through its
+writes, rebuilds and compaction, each through the hand-written CUDA
+kernels.
 
 Run from the repository root on a machine with a CUDA card and nvcc:
 
@@ -319,7 +321,35 @@ Phases, in order; any failure exits non-zero before the result line:
           order, to a fresh pin of the written out block (the inserts
           spliced into each row as a rebuild orders it) and that pin's
           rows to the oracle; merge_delta launched;
- 12. the `kernels` JSON line (the split GO path's, the algo path's, the
+ 12. the store path at bench.py config 4b's store-backed size
+     (bench.py:727-733): make_social_graph(150_000, 6, parts=8, seed=11,
+     space="twb") fills the port's GraphStore (about 888,000 KNOWS
+     edges); launch counters zeroed just before each GO path and read
+     just after:
+       a. GpuRuntime(delta_max_edges=2048).pin(store, "twb") exports and
+          pins it (the build, export and pin seconds, hbm_bytes,
+          max_memory_allocated); the pinned mirror's KNOWS out block
+          holds exactly the store's edges: each part's count, and 1,000
+          seeded vertices' rows against the store's get_neighbors;
+       b. GO 3 STEPS from 16 pick_seeds(min_degree=3) YIELD dst(edge),
+          KNOWS.w, unfiltered and WHERE KNOWS.w > 50, on that pin and
+          on a pin split at 64 (H hubs logged; the owner route on every
+          expand): rows equal to host_csr_traverse over the built
+          snapshot, and the filtered rows to a row-at-a-time walk of the
+          store's own get_neighbors(edge_filter=...); p50, device loop,
+          launches a query;
+       c. about 10,000 writes through the store's API, from --seed
+          (LDBC SNB IU8 and DEL8: edge inserts, deletes, overwrites of
+          w, 64 persons inserted into the vmax slack): the next pin
+          folds them in place, merge_delta launches, and GO's rows
+          (in order) and the BFS's depths equal those of a second
+          runtime that pins the written store fresh;
+       d. a batch past the plane rebuilds and re-pins (tpu_pins + 1),
+          as does a write to the split pin; the rows equal the fresh
+          pin's; a batch past the compaction watermark (0.25) compacts
+          on a thread, which is joined: tpu_compactions + 1, the plane
+          empty, the rows and depths equal to the fresh pin's;
+ 13. the `kernels` JSON line (the split GO path's, the algo path's, the
      split BFS path's (6d's for the global probe), the delta GO path's,
      the batched path's, the MATCH path's, the mesh GO path's and phase
      11's filtered GO path's launches), the card line, and the result
@@ -470,6 +500,24 @@ TEMPORAL_SAMPLE = 2_000          # frame entries a hop decoded in 11b
 DAY_US = 86_400_000_000
 ROUTE_SOURCES["predicate_mask (temporal)"] = (
     ROUTE_SOURCES["predicate_mask"][0], "nebula_tpu/tpu/exprjit.py:201")
+# phase 12: the store path at bench.py config 4b's store-backed size
+# (bench.py:727-733): make_social_graph(150_000, 6, parts=8, seed=11)
+STORE_PERSONS = 150_000
+STORE_DEGREE = 6
+STORE_GRAPH_SEED = 11
+STORE_SPACE = "twb"
+STORE_SEEDS = 16                 # pick_seeds(..., min_degree=3)
+STORE_CHECKED = 1_000            # vertices whose rows 12a walks
+STORE_SPLIT = 64                 # 12b's degree_split_threshold
+STORE_DELTA_CAP = 2048           # 12c's delta_max_edges
+# 12c's write batch through the store's API (LDBC SNB IU8 and DEL8):
+# edge inserts (some from the seeds), deletes, overwrites of w, and
+# persons inserted into the vmax slack, each with an edge from a seed
+STORE_WRITES = {"insert": 6_000, "seed_insert": 500, "delete": 2_000,
+                "overwrite": 2_000, "vertex": 64}
+STORE_OVERFLOW = 2_100           # 12d: inserts from part 0's sources
+STORE_COMPACT_WM = 0.25          # 12d: the watermark the compaction crosses
+STORE_COMPACT_WRITES = 600       # inserts from part 0's sources
 
 
 T0 = time.perf_counter()
@@ -653,12 +701,13 @@ def zero_tail(f, vmax: int):
     return g
 
 
-def run_go(rt, ns, repeats: int, label: str, K, oracle, keep_rows=None):
-    """Drive the GO path of `rt` (unfiltered and filtered), each query
-    checked against the oracle (host_csr_traverse on ns.snap, computed
-    once a filter and kept in `oracle` for the next layout); returns
-    (results, launches).  `keep_rows`, a dict, gets each filter's last
-    rows and stats."""
+def run_go(rt, ns, repeats: int, label: str, K, oracle, keep_rows=None,
+           space: str = "ns"):
+    """Drive the GO path of `rt` (unfiltered and filtered) on `space`,
+    each query checked against the oracle (host_csr_traverse on ns.snap,
+    computed once a filter and kept in `oracle` for the next layout);
+    returns (results, launches).  `keep_rows`, a dict, gets each
+    filter's last rows and stats."""
     import numpy as np
     import torch
     from nebula_tpu_torch.bench.datagen import host_csr_traverse
@@ -670,7 +719,7 @@ def run_go(rt, ns, repeats: int, label: str, K, oracle, keep_rows=None):
         lat, dev_lat = [], []
         for _ in range(repeats + 1):           # the first run is warm-up
             t = time.perf_counter()
-            rows, st = rt.traverse(ns.store, "ns", ns.seeds, ["KNOWS"],
+            rows, st = rt.traverse(ns.store, space, ns.seeds, ["KNOWS"],
                                    "out", 3, edge_filter=filt,
                                    yields=ns.yields)
             lat.append(time.perf_counter() - t)
@@ -2433,6 +2482,375 @@ def timed(fn, runs: int):
         if i:
             lat.append(time.perf_counter() - t)
     return out, lat
+
+
+def store_writes(store, host, seeds, seed: int):
+    """12c's writes, made from `seed` with numpy, in a random order, as
+    calls on the store: ("insert", src, dst, props), ("delete", src,
+    dst), ("overwrite", src, dst, {"w": new w}) and ("vertex", vid,
+    props).  Deletes and overwrites take distinct live edges of the
+    pinned out block; inserts take pairs of distinct persons,
+    STORE_WRITES["seed_insert"] of them from a seed; each new person
+    gets one edge from a seed."""
+    import numpy as np
+    from nebula_tpu_torch.bench.datagen import _NAMES
+    rng = np.random.default_rng(seed)
+    blk = host.block("KNOWS", "out")
+    P = host.num_parts
+    counts = blk.indptr[:, -1].astype(np.int64)
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    n_pick = STORE_WRITES["delete"] + STORE_WRITES["overwrite"]
+    flat = rng.choice(int(starts[-1]), n_pick, replace=False)
+    part = np.searchsorted(starts, flat, side="right") - 1
+    slot = flat - starts[part]
+    ops = []
+    for i, (p, e) in enumerate(zip(part.tolist(), slot.tolist())):
+        local = int(np.searchsorted(blk.indptr[p], e, side="right")) - 1
+        src = host.dense_to_vid[local * P + p]
+        dst = host.dense_to_vid[int(blk.nbr[p, e])]
+        if i < STORE_WRITES["delete"]:
+            ops.append(("delete", src, dst))
+        else:
+            ops.append(("overwrite", src, dst,
+                        {"w": int(rng.integers(100))}))
+    n = STORE_PERSONS
+    m = STORE_WRITES["insert"]
+    src = rng.integers(0, n, m)
+    src[:STORE_WRITES["seed_insert"]] = rng.choice(
+        np.asarray(seeds), STORE_WRITES["seed_insert"])
+    dst = rng.integers(0, n, m)
+    for a, b in zip(src.tolist(), dst.tolist()):
+        if a != b:
+            ops.append(("insert", a, b, {
+                "w": int(rng.integers(100)), "f": float(rng.random()),
+                "city": _NAMES[int(rng.integers(len(_NAMES)))]}))
+    new = []
+    for k in range(STORE_WRITES["vertex"]):
+        vid = n + k
+        new.append(("vertex", vid, {"age": int(rng.integers(13, 90)),
+                                    "name": _NAMES[k % len(_NAMES)]}))
+        new.append(("insert", int(seeds[k % len(seeds)]), vid, {
+            "w": int(rng.integers(100)), "f": float(rng.random()),
+            "city": _NAMES[k % len(_NAMES)]}))
+    ops = [ops[i] for i in rng.permutation(len(ops))]
+    return ops + new          # a new person before the edge to it
+
+
+def apply_store_writes(store, ops, rank: int = 0) -> None:
+    for op in ops:
+        if op[0] == "insert":
+            store.insert_edge(STORE_SPACE, op[1], "KNOWS", op[2], rank,
+                              op[3])
+        elif op[0] == "delete":
+            store.delete_edge(STORE_SPACE, op[1], "KNOWS", op[2], 0)
+        elif op[0] == "overwrite":
+            store.update_edge(STORE_SPACE, op[1], "KNOWS", op[2], 0, op[3])
+        else:
+            store.insert_vertex(STORE_SPACE, op[1], "Person", op[2])
+
+
+def part0_inserts(n: int, seed: int):
+    """n edge inserts whose sources all lie in part 0 (vid % 8 == 0): one
+    (block, part) of a delta plane takes every row."""
+    import numpy as np
+    from nebula_tpu_torch.bench.datagen import _NAMES
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, STORE_PERSONS // 8, n) * 8
+    dst = rng.integers(0, STORE_PERSONS, n)
+    return [("insert", int(a), int(b), {
+        "w": int(rng.integers(100)), "f": float(rng.random()),
+        "city": _NAMES[int(rng.integers(len(_NAMES)))]})
+        for a, b in zip(src.tolist(), dst.tolist())]
+
+
+def check_store_mirror(store, host, seed: int) -> dict:
+    """12a: the pinned host mirror's KNOWS out block holds exactly the
+    store's edges: each part's edge count, and for STORE_CHECKED seeded
+    vertices their CSR row (nbr, rank, w) against the store's own
+    get_neighbors walk, row for row."""
+    import numpy as np
+    sd = store.space(STORE_SPACE)
+    blk = host.block("KNOWS", "out")
+    P = host.num_parts
+    per_part = []
+    for p in range(P):
+        n_store = sum(len(per.get("KNOWS", ())) for per in
+                      sd.parts[p].out_edges.values())
+        if blk.edges_of_part(p) != n_store:
+            raise AssertionError(f"[12a] part {p}: {blk.edges_of_part(p)} "
+                                 f"edges pinned, {n_store} in the store")
+        per_part.append(n_store)
+    rng = np.random.default_rng(seed)
+    walked = 0
+    for v in rng.choice(STORE_PERSONS, STORE_CHECKED, replace=False):
+        rows = list(store.get_neighbors(STORE_SPACE, [int(v)], ["KNOWS"],
+                                        "out"))
+        d = sd.dense_id(int(v))
+        p, li = d % P, d // P
+        lo, hi = int(blk.indptr[p, li]), int(blk.indptr[p, li + 1])
+        want = ([sd.dense_id(r[3]) for r in rows], [r[2] for r in rows],
+                [r[4]["w"] for r in rows])
+        got = (blk.nbr[p, lo:hi].tolist(), blk.rank[p, lo:hi].tolist(),
+               blk.props["w"][p, lo:hi].tolist())
+        if got != want:
+            raise AssertionError(f"[12a] vertex {int(v)}: CSR row {got} "
+                                 f"vs the store's {want}")
+        walked += len(rows)
+    return {"edges_per_part": per_part, "vertices_walked": STORE_CHECKED,
+            "edges_walked": walked}
+
+
+def store_walk(store, seeds, steps: int, where_text: str):
+    """The host engine's semantics, row at a time and independent of the
+    CSR: the frontier's out-edges through the store's get_neighbors,
+    deduplicated into the next frontier, and the last hop through its
+    storage-side filter (`edge_filter`).  Returns the (dst, w) pairs of
+    the last hop, sorted."""
+    from nebula_tpu_torch.query.parser import parse_expression
+    frontier = sorted(set(seeds))
+    for _ in range(steps - 1):
+        frontier = sorted({r[3] for r in store.get_neighbors(
+            STORE_SPACE, frontier, ["KNOWS"], "out")})
+    filt = parse_expression(where_text)
+    return sorted((r[3], r[4]["w"]) for r in store.get_neighbors(
+        STORE_SPACE, frontier, ["KNOWS"], "out", edge_filter=filt))
+
+
+def go_pairs(rows):
+    """(d, w) pairs of a GO's rows, sorted."""
+    import numpy as np
+    return sorted(zip(np.asarray(rows.column_array("d")).tolist(),
+                      np.asarray(rows.column_array("w")).tolist()))
+
+
+def metric(name: str):
+    from nebula_tpu_torch.utils.stats import stats
+    return stats().snapshot().get(name, 0)
+
+
+def store_phase(K, card: str, repeats: int, seed: int, ns) -> dict:
+    """Phase 12: the store path on the card.  Config 4b's store is built
+    through the port's GraphStore and pinned by GpuRuntime().pin(store,
+    space); GO runs on the unsplit and the split pin, writes go through
+    the store's API and fold into the plane, and the runtime rebuilds
+    and compacts where the reference does.  Returns the phase's numbers;
+    raises on any failed check."""
+    import numpy as np
+    import torch
+    from nebula_tpu_torch.bench.datagen import make_social_graph, pick_seeds
+    from nebula_tpu_torch.gpu import GpuRuntime
+
+    out = {}
+    t12 = time.perf_counter()
+    # 12a. build the store and pin it
+    stamp("phase 12a")
+    t0 = time.perf_counter()
+    store = make_social_graph(STORE_PERSONS, STORE_DEGREE, parts=8,
+                              seed=STORE_GRAPH_SEED, space=STORE_SPACE)
+    build_s = time.perf_counter() - t0
+    rta = GpuRuntime(delta_max_edges=STORE_DELTA_CAP,
+                     delta_compact_watermark=2.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    b0, pins0 = metric("tpu_snapshot_build_us.sum"), metric("tpu_pins")
+    t0 = time.perf_counter()
+    deva = rta.pin(store, STORE_SPACE)
+    torch.cuda.synchronize()
+    pin_s = time.perf_counter() - t0
+    host = deva.host
+    if metric("tpu_pins") != pins0 + 1 or deva.delta is None:
+        raise AssertionError("[12a] the pin did not build with a plane")
+    mirror = check_store_mirror(store, host, seed)
+    out["12a"] = {
+        "persons": STORE_PERSONS, "edges": host.block(
+            "KNOWS", "out").total_edges(),
+        "store_build_s": build_s,
+        "build_snapshot_s": (metric("tpu_snapshot_build_us.sum") - b0)
+        / 1e6, "pin_s": pin_s, "vmax": host.vmax,
+        "hbm_bytes": rta.hbm_bytes(),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "mirror": mirror}
+    log(f"[12a] {json.dumps(out['12a'])} | {card}")
+
+    # 12b. GO 3 STEPS on the unsplit and the split pin
+    stamp("phase 12b")
+    seeds = pick_seeds(store, STORE_SPACE, STORE_SEEDS, min_degree=3)
+    ns12 = SimpleNamespace(store=store, snap=host, seeds=seeds,
+                           yields=ns.yields, w_filter=ns.w_filter,
+                           w_gt=ns.w_gt)
+    where = f"KNOWS.w > {ns.w_gt}"
+    walk = store_walk(store, seeds, 3, where)
+    oracle, go = {}, {}
+    rts = GpuRuntime(degree_split_threshold=STORE_SPLIT)
+    t0 = time.perf_counter()
+    devs = rts.pin(store, STORE_SPACE)
+    torch.cuda.synchronize()
+    split_pin_s = time.perf_counter() - t0
+    if devs.num_hubs <= 0:
+        raise AssertionError("[12b] the split pin has no hubs")
+    for label, rt, split in (("store unsplit", rta, False),
+                             ("store split", rts, True)):
+        kept = {}
+        res, launches = run_go(rt, ns12, repeats, label, K, oracle,
+                               keep_rows=kept, space=STORE_SPACE)
+        for name in (SPLIT_KERNELS if split else UNSPLIT_KERNELS):
+            if launches[name] <= 0:
+                raise AssertionError(f"[12b] {label}: kernel {name} never "
+                                     f"launched")
+        check_hub_route(launches, f"[12b] {label}", split=split)
+        rows_w = kept[f"w>{ns.w_gt}"][0]
+        if go_pairs(rows_w) != walk:
+            raise AssertionError(f"[12b] {label}: WHERE {where} rows differ "
+                                 f"from the store's get_neighbors walk")
+        n_runs = 2 * (repeats + 1)
+        go[label] = {"go3": res, "launches_per_query": {
+            k: v / n_runs for k, v in launches.items() if v}}
+        log(f"[12b] {label}: {json.dumps(go[label])} | {card}")
+    if go["store split"]["go3"]["unfiltered"]["hop_edges"] != \
+            go["store unsplit"]["go3"]["unfiltered"]["hop_edges"]:
+        raise AssertionError("[12b] split and unsplit hop_edges differ")
+    out["12b"] = dict(go, seeds=seeds, hubs=devs.num_hubs,
+                      split_threshold=STORE_SPLIT, split_pin_s=split_pin_s,
+                      walk_rows=len(walk))
+    log(f"[12b] split at {STORE_SPLIT}: H={devs.num_hubs} hubs, pinned "
+        f"(built and split) in {split_pin_s:.2f} s")
+
+    def both_go(rt):
+        return {fl: rt.traverse(store, STORE_SPACE, seeds, ["KNOWS"], "out",
+                                3, edge_filter=filt, yields=ns.yields)
+                for fl, filt in (("unfiltered", None),
+                                 (f"w>{ns.w_gt}", ns.w_filter))}
+
+    def same_as(label, got, want, ordered=True, hops=None):
+        """`got`'s rows equal `want`'s (a fresh pin's), and its hop_edges
+        `hops` (without a plane, `want`'s)."""
+        for fl in want:
+            (a, sa), (b, sb) = got[fl], want[fl]
+            same = rows_equal(a, b) if ordered else go_pairs(a) == \
+                go_pairs(b)
+            if not same or sa.hop_edges != (hops or sb.hop_edges):
+                raise AssertionError(f"{label} {fl}: {len(a)} rows, "
+                                     f"hop_edges {sa.hop_edges}, vs {len(b)} "
+                                     f"and {hops or sb.hop_edges}")
+
+    def bfs_same(label, rt, rt_fresh):
+        da, _ = rt.bfs(store, STORE_SPACE, [seeds[0]], ["KNOWS"], "out",
+                       BFS_STEPS)
+        db, _ = rt_fresh.bfs(store, STORE_SPACE, [seeds[0]], ["KNOWS"],
+                             "out", BFS_STEPS)
+        w = min(da.shape[1], db.shape[1])
+        # a pin with a plane holds the vmax slack; one without none
+        if not (np.array_equal(da[:, :w], db[:, :w])
+                and (da[:, w:] == -1).all() and (db[:, w:] == -1).all()):
+            raise AssertionError(f"{label}: BFS depths differ from a "
+                                 f"fresh pin's")
+        return int((da >= 0).sum())
+
+    # 12c. ~10,000 writes through the store's API fold into the plane
+    stamp("phase 12c")
+    ops = store_writes(store, host, seeds, seed)
+    t0 = time.perf_counter()
+    apply_store_writes(store, ops)
+    writes_s = time.perf_counter() - t0
+    pins0 = metric("tpu_pins")
+    t0 = time.perf_counter()
+    if rta.pin(store, STORE_SPACE) is not deva \
+            or deva.delta.applied_epoch != store.space(STORE_SPACE).epoch:
+        raise AssertionError("[12c] the writes were not folded in place")
+    torch.cuda.synchronize()
+    apply_s = time.perf_counter() - t0
+    hd = deva.delta.host
+    K.reset_launch_counts()
+    got = both_go(rta)
+    torch.cuda.synchronize()
+    launches_c = counts(K)
+    for name in DELTA_GO_KERNELS:
+        if launches_c[name] <= 0:
+            raise AssertionError(f"[12c] kernel {name} never launched")
+    rtf = GpuRuntime()
+    t0 = time.perf_counter()
+    rtf.pin(store, STORE_SPACE)
+    torch.cuda.synchronize()
+    fresh_pin_s = time.perf_counter() - t0
+    # over a plane hop_edges count the base's tombstoned edges too (the
+    # reference's rule, hop.py:145-159)
+    same_as("[12c]", got, both_go(rtf), hops=delta_rule_edges(
+        host, hd, go_frontiers(rtf.snapshots[STORE_SPACE].host, seeds, 3)))
+    reached = bfs_same("[12c]", rta, rtf)
+    if metric("tpu_pins") != pins0 + 1:       # rtf's pin only
+        raise AssertionError("[12c] the plane's runtime re-pinned")
+    out["12c"] = {"writes": len(ops), "kinds": dict(STORE_WRITES),
+                  "store_writes_s": writes_s, "apply_s": apply_s,
+                  "insert_rows": hd.total_edges(),
+                  "tombstones": hd.total_tombs(),
+                  "fill_ratio": hd.fill_ratio(),
+                  "fresh_pin_s": fresh_pin_s, "bfs_reached": reached,
+                  "rows": {fl: len(r) for fl, (r, _) in got.items()},
+                  "launches": {k: v for k, v in launches_c.items() if v}}
+    log(f"[12c] {json.dumps(out['12c'])} | {card}")
+
+    # 12d. rebuilds: an overflowing batch, a write to the split pin; then
+    # a batch past the compaction watermark
+    stamp("phase 12d")
+    apply_store_writes(store, part0_inserts(STORE_OVERFLOW, seed + 1),
+                       rank=2)
+    pins0, before = metric("tpu_pins"), deva
+    t0 = time.perf_counter()
+    got = both_go(rta)
+    overflow_s = time.perf_counter() - t0
+    deva = rta.snapshots[STORE_SPACE]
+    if deva is before or not before.retired \
+            or metric("tpu_pins") != pins0 + 1 \
+            or deva.delta.host.total_edges() != 0:
+        raise AssertionError("[12d] the overflow did not rebuild and "
+                             "re-pin")
+    t0 = time.perf_counter()
+    got_s = both_go(rts)
+    split_rebuild_s = time.perf_counter() - t0
+    if rts.snapshots[STORE_SPACE] is devs or metric("tpu_pins") != pins0 + 2 \
+            or rts.snapshots[STORE_SPACE].num_hubs <= 0:
+        raise AssertionError("[12d] the write to the split pin did not "
+                             "rebuild")
+    fresh = both_go(rtf)
+    same_as("[12d] overflow", got, fresh)
+    same_as("[12d] split", got_s, fresh, ordered=False)
+    rta.delta_compact_watermark = STORE_COMPACT_WM
+    apply_store_writes(store, part0_inserts(STORE_COMPACT_WRITES, seed + 2),
+                       rank=3)
+    done0, before = metric("tpu_compactions"), deva
+    # the apply starts the compaction; a run racing its swap would find
+    # its snapshot retired (the reference's callers retry then), so this
+    # pin is the only call until the thread is joined
+    if rta.pin(store, STORE_SPACE) is not before:
+        raise AssertionError("[12d] the writes were not folded in place")
+    fill = before.delta.host.fill_ratio()
+    t0 = time.perf_counter()
+    thread = getattr(before, "_compact_thread", None)
+    if thread is None:
+        raise AssertionError(f"[12d] no compaction at fill {fill}")
+    thread.join(timeout=300)
+    join_s = time.perf_counter() - t0
+    deva = rta.snapshots[STORE_SPACE]
+    if thread.is_alive() or metric("tpu_compactions") != done0 + 1 \
+            or deva is before or deva.delta.host.total_edges() \
+            or deva.delta.host.total_tombs():
+        raise AssertionError("[12d] the compaction did not swap in an empty "
+                             "plane")
+    same_as("[12d] compaction", both_go(rta), both_go(rtf))
+    bfs_same("[12d] compaction", rta, rtf)
+    out["12d"] = {"overflow_inserts": STORE_OVERFLOW,
+                  "overflow_go_s": overflow_s,
+                  "split_rebuild_go_s": split_rebuild_s,
+                  "compact_inserts": STORE_COMPACT_WRITES,
+                  "compact_fill": fill, "compact_join_s": join_s,
+                  "tpu_pins": metric("tpu_pins"),
+                  "tpu_compactions": metric("tpu_compactions")}
+    out["phase_s"] = time.perf_counter() - t12
+    log(f"[12d] {json.dumps(out['12d'])} | {card}")
+    log(f"[12] phase 12 took {out['phase_s']:.1f} s")
+    for rt in (rta, rts, rtf):
+        rt.unpin(STORE_SPACE)
+    return out
 
 
 def main(argv=None) -> int:
@@ -4647,14 +5065,18 @@ def main(argv=None) -> int:
     log(f"[11] phase 11 took {temporal['phase_s']:.1f} s")
     del rows_d, rows_f, fsnap, tsnap, wstore, tstore
 
-    # -- 12. result --------------------------------------------------------
-    stamp("phase 12")
+    # -- 12. the store path ---------------------------------------------
+    store12 = store_phase(K, card, args.repeats, args.seed, ns)
+
+    # -- 13. result --------------------------------------------------------
+    stamp("phase 13")
     log(json.dumps({"go3": results, "expand_per_hop": per_hop,
                     "unsplit_launches": launches_u,
                     "unsplit_kernels": extra, "algo": algo, "bfs": bfs,
                     "bfs_launches": bfs_launches, "delta": delta,
                     "delta_launches": launches_d, "batch": batch,
                     "match": match, "mesh": mesh, "temporal": temporal,
+                    "store": store12,
                     "hbm_bytes": rt.hbm_bytes() + (
                         rts.hbm_bytes() if rts is not None else 0)}))
     print(json.dumps({"kernels": rows_out}))

@@ -1,6 +1,9 @@
 """Synthetic LDBC-SNB-shaped Person/KNOWS graph at north-star scale.
 
-A copy of the array-native half of `nebula_tpu/bench/datagen.py`:
+A copy of `nebula_tpu/bench/datagen.py` short of its CSV writer:
+`make_social_graph` fills the port's own `graphstore.store.GraphStore`
+(Person vertices and KNOWS edges, one insert at a time, the store-backed
+cells' graph) and `pick_seeds` picks traversal seeds from it;
 `make_social_arrays` draws the edge arrays (uniform endpoints with Zipf
 tails on both sides, so some sources are supernodes), and
 `snapshot_from_arrays` lays them out as a CsrSnapshot with out and in
@@ -28,9 +31,70 @@ from ..core import expr as E
 from ..graphstore.csr import CsrBlock, CsrSnapshot, StringPool
 from ..graphstore.delta import DeltaLog
 from ..graphstore.schema import PropDef, PropType
+from ..graphstore.store import GraphStore
 
 _NAMES = ["ada", "bob", "cid", "dee", "eve", "fay", "gus", "hal",
           "ivy", "joe", "kim", "lee", "mia", "ned", "oda", "pam"]
+
+
+def make_social_graph(n_persons: int = 20_000, avg_degree: int = 25,
+                      parts: int = 8, seed: int = 7, space: str = "snb",
+                      store: GraphStore | None = None,
+                      edge_props: bool = True) -> GraphStore:
+    """Person vertices + KNOWS edges with a Zipf-ish degree tail.
+
+    Vertex ids are ints 0..n-1.  Edge props: w INT64 (the benchmark's
+    filter column), f DOUBLE, city STRING (dict-encodable).
+    """
+    rng = np.random.default_rng(seed)
+    st = store if store is not None else GraphStore()
+    st.create_space(space, partition_num=parts, vid_type="INT64")
+    st.catalog.create_tag(space, "Person", [
+        PropDef("age", PropType.INT64),
+        PropDef("name", PropType.STRING)])
+    eprops = [PropDef("w", PropType.INT64),
+              PropDef("f", PropType.DOUBLE),
+              PropDef("city", PropType.STRING)] if edge_props else []
+    st.catalog.create_edge(space, "KNOWS", eprops)
+
+    ages = rng.integers(13, 90, n_persons)
+    name_ix = rng.integers(0, len(_NAMES), n_persons)
+    for v in range(n_persons):
+        st.insert_vertex(space, int(v), "Person",
+                         {"age": int(ages[v]), "name": _NAMES[name_ix[v]]})
+
+    n_edges = n_persons * avg_degree
+    src = rng.integers(0, n_persons, n_edges)
+    # dst mixture: mostly uniform (frontier growth under traversal) with a
+    # Zipf tail (supernode destinations, like follower graphs)
+    dst = rng.integers(0, n_persons, n_edges)
+    hot = rng.random(n_edges) < 0.15
+    dst[hot] = (rng.zipf(1.6, int(hot.sum())) - 1) % n_persons
+    w = rng.integers(0, 100, n_edges)
+    f = rng.random(n_edges)
+    city_ix = rng.integers(0, len(_NAMES), n_edges)
+    for i in range(n_edges):
+        s, d = int(src[i]), int(dst[i])
+        if s == d:
+            continue
+        props = ({"w": int(w[i]), "f": float(f[i]),
+                  "city": _NAMES[city_ix[i]]} if edge_props else {})
+        st.insert_edge(space, s, "KNOWS", d, 0, props)
+    return st
+
+
+def pick_seeds(store: GraphStore, space: str, k: int,
+               min_degree: int = 1) -> list:
+    """k vertex ids that actually have out-edges (traversal seeds)."""
+    sd = store.space(space)
+    seeds = []
+    for p in sd.parts:
+        for vid, per in p.out_edges.items():
+            if sum(len(m) for m in per.values()) >= min_degree:
+                seeds.append(vid)
+                if len(seeds) >= k:
+                    return seeds
+    return seeds
 
 
 def make_social_arrays(n_persons: int, avg_degree: int, seed: int = 7,

@@ -150,6 +150,9 @@ class DeviceSnapshot:
     # set when a pin replaces (or unpin drops) this snapshot: a dispatch
     # that finds it under the runtime's read gate raises GpuUnavailable
     retired: bool = False
+    # the `uid` of the store space a pin from a store built it from (None
+    # for pin_prebuilt): a snapshot serves only the store it came from
+    space_uid: Optional[int] = None
     # a sharded pin: its mesh and one DeviceShard per slot this process
     # holds; the snapshot's own blocks and tensors are then empty
     mesh: Optional[Mesh] = None

@@ -1,7 +1,8 @@
 """GpuRuntime: pinned snapshots and the GO traversal on one device.
 
 Port of the solo single-device path of `nebula_tpu/tpu/runtime.py`:
-`pin_prebuilt` (:871), `unpin`, `hbm_bytes`, the seed bitmap (:941-987),
+`pin` (:555) with `_build_fresh` (:616), `pin_prebuilt` (:871),
+`unpin`, `hbm_bytes`, the seed bitmap (:941-987),
 `traverse` (:1753) with a columnar YIELD list, `_block_columns` (:2266),
 `_materialize_yields` (:2373), `_d2v`, `_cap_keys_for_yields` and
 `_cat_parts`, the supernode degree-split at pin time
@@ -9,7 +10,8 @@ Port of the solo single-device path of `nebula_tpu/tpu/runtime.py`:
 plane's one dispatch per iteration, `bfs` (:2121), the device BFS
 of FIND SHORTEST PATH, and the delta plane: its arming in
 `pin_prebuilt` (the reference's `_arm_delta`, :639),
-`_try_delta_update` (:652), `_grab_delta` (:728), `_delta_perms` (:2241)
+`_try_delta_update` (:652), `_emit_delta_gauges` (:751), `_maybe_compact`
+and `_compact` (:766, :788), `_grab_delta` (:728), `_delta_perms` (:2241)
 and the delta decode of `_block_columns` (:2302-2337), the dispatch gate
 (`_DispatchGate` :147, `_gated_dispatch` :1052), and the multi-lane
 batched GO: `_try_batched` (:1429), the lane seed build (:1138, :976),
@@ -23,8 +25,9 @@ and `trail_distinct_keep` (:254-405).
 
 The dispatch gate is a read-write lock with writer preference: every
 device dispatch (a GO run, solo or batched, a BFS, an algo iteration)
-holds the read side; `pin_prebuilt`, `unpin` and a delta apply hold the
-write side, so an apply never lands under a running kernel, and a
+holds the read side; every put (`pin_prebuilt`, a pin from a store, a
+compaction's swap), `unpin` and a delta apply hold the write side, so an
+apply never lands under a running kernel, and a
 snapshot a pin replaced is marked `retired` — a dispatch that finds it
 under the gate raises `GpuUnavailable`.
 
@@ -35,15 +38,23 @@ frontier through the lane-widened kernels, one gated dispatch, one
 fetch) and each takes its own lane back out, with its own hop_edges,
 frontier_sizes and WorkCounters — those of its solo run.
 
-The delta plane differs from the reference where the reference falls
-back to a full rebuild of the snapshot, which needs the store slice:
-a broken or gapped log, an overflow, a key the plane cannot hold, or
-a write to a degree-split snapshot raise `GpuUnavailable` naming the
-cause (and unpin the space when the mirror may be half applied).  A
-DURATION value written to a DURATION column raises TypeError from its
-encode, as the reference's does.  It
-does not compact: a plane past the reference's fill watermark serves on
-until it overflows.
+`pin(store, space)` builds from the port's own `graphstore.store.
+GraphStore` (the reference's `pin`, :555-609, and `_build_fresh`,
+:616): a snapshot serves while its epoch is the store's (and it was
+built from this store's space: `space_uid`); with a delta plane armed,
+the writes the store logged since fold into it; otherwise, and wherever
+the fold fails (a broken or gapped log, an overflow, a key the plane
+cannot hold, a write to a degree-split snapshot, which arms no plane),
+the store is exported again (`graphstore.csr.build_snapshot`, the vmax
+slack reserved when the plane is on) and re-pinned.  A plane past
+`delta_compact_watermark` is compacted on a thread (`_maybe_compact`,
+`_compact`, :766-830): the rebuild runs off the dispatch gate and only
+the swap takes its write side.  A store that cannot be exported (the
+bench's `datagen.SnapshotStore`, anything but a `GraphStore`) is never
+rebuilt or compacted: where the reference would rebuild, `pin` raises
+`GpuUnavailable` naming the cause (and unpins the space when the mirror
+may be half applied).  A DURATION value written to a DURATION column
+raises TypeError from its encode, as the reference's does.
 
 The sharded mesh (`GpuRuntime(mesh=make_mesh(P))`, the reference's
 `TpuRuntime(mesh)`, :408-416): a P-part snapshot is pinned slot by slot
@@ -78,9 +89,11 @@ import torch
 
 from ..core import expr as E
 from ..core.value import ColumnarDataSet, Edge
-from ..graphstore.csr import decode_prop_column, decode_prop_column_np, \
-    degree_split
+from ..graphstore.csr import build_snapshot, decode_prop_column, \
+    decode_prop_column_np, degree_split
 from ..graphstore.delta import DeltaOverflow, DeltaUnsupported, HostDelta
+from ..graphstore.store import GraphStore
+from ..utils import trace
 from ..utils.failpoints import FailpointError, fail
 from ..utils.stats import current_cost, current_work, stats as metrics, \
     use_cost, use_work
@@ -97,6 +110,10 @@ from .kernels import mark
 from .mesh import InProcess, Mesh
 
 _MAX_YIELD_COLS = 4     # device-gathered yield columns (runtime.py:1812)
+# padded local rows a store export reserves, with the delta plane on, for
+# vertices inserted after the pin (the reference's flag
+# `tpu_delta_vmax_slack`, utils/config.py:230)
+DELTA_VMAX_SLACK = 64
 
 
 def _d2v(host) -> np.ndarray:
@@ -163,6 +180,20 @@ def _cap_keys_for_yields(yields, device_props=()) -> Optional[set]:
             else:
                 return None              # unmodeled expr: fetch all
     return need
+
+
+def _dst_keys(vids: np.ndarray) -> np.ndarray:
+    """int64 sort keys of an object array of dst vids, as the snapshot
+    export orders them (`csr.dst_sort_key`): the vid itself in an int
+    vid space, the code-point string order otherwise.  An int space's
+    dense-to-vid array is an object array when a write left unassigned
+    dense ids (None) in the vmax slack; its vids still sort as ints
+    (the reference sorts them as strings there, unlike its rebuild)."""
+    unset = vids == None  # noqa: E711 — elementwise over objects
+    live = vids[~unset]
+    if live.size and isinstance(live[0], int):
+        return np.where(unset, -1, vids).astype(np.int64)
+    return np.unique(vids.astype("U"), return_inverse=True)[1]
 
 
 def _canonical_perm(ls, rk, dk, is_delta) -> np.ndarray:
@@ -516,12 +547,17 @@ class GpuRuntime:
 
     delta_max_edges: the reference's flag `tpu_delta_max_edges`, the
     per-(block, part) delta capacity (0 = the delta plane is off).  When
-    it is > 0, `pin_prebuilt` arms an empty plane on an unsplit snapshot,
-    and `pin` folds the writes a store logged since into it."""
+    it is > 0, every pin arms an empty plane on an unsplit snapshot, and
+    `pin` folds the writes a store logged since into it.
+
+    delta_compact_watermark: the reference's flag
+    `tpu_delta_compact_watermark`: past this fill ratio of the plane, an
+    apply starts a background compaction (0 = never)."""
 
     def __init__(self, device: Any = None, degree_split_threshold: int = 0,
                  delta_max_edges: int = 0, mesh: Optional[Mesh] = None,
-                 hbm_limit_bytes: int = 0):
+                 hbm_limit_bytes: int = 0,
+                 delta_compact_watermark: float = 0.75):
         if mesh is None:
             self.device = resolve_device(device)
             mesh = Mesh(1, [self.device], InProcess())
@@ -542,6 +578,7 @@ class GpuRuntime:
         self.local_mode = self.mesh_size == 1
         self.degree_split_threshold = int(degree_split_threshold)
         self.delta_max_edges = int(delta_max_edges)
+        self.delta_compact_watermark = float(delta_compact_watermark)
         self.hbm_limit_bytes = int(hbm_limit_bytes)
         self.snapshots: Dict[str, DeviceSnapshot] = {}
         self._gate = _DispatchGate()
@@ -581,31 +618,51 @@ class GpuRuntime:
         first, and the pinned copy and its host mirror share the split
         layout.  The put runs under the write side of the dispatch gate:
         in-flight dispatches drain first, new ones wait."""
+        snap, hd = self._prepare(snap)
+        wait_s = self._gate.acquire_write()
+        try:
+            dev = self._put_locked(snap, hd, None)
+        finally:
+            self._gate.release_write()
+        self._count_pin(wait_s)
+        return dev
+
+    def _prepare(self, snap):
+        """(snapshot as pinned, its empty delta mirror or None): the
+        degree split when the threshold is set, the int32 range check,
+        and the plane armed at pin time, so the first write costs one
+        small apply.  Degree-split snapshots opt out: hub rows re-home
+        edges, so delta row identity breaks."""
         if self.degree_split_threshold > 0 and snap.hub_dense is None:
             snap = degree_split(snap, self.degree_split_threshold)
         if snap.num_parts * snap.vmax >= 1 << 31:
             # dense ids are int32 on the device, as in the reference
             raise GpuUnavailable(
                 f"P*vmax = {snap.num_parts * snap.vmax} exceeds int32")
-        # the EMPTY delta plane is put at pin time, so the first write
-        # costs one small apply.  Degree-split snapshots opt out: hub
-        # rows re-home edges, so delta row identity breaks
         hd = HostDelta(snap, self.delta_max_edges) \
             if self.delta_max_edges > 0 and snap.hub_dense is None else None
-        self._gate.acquire_write()
-        try:
-            self._check_hbm_budget(snap, snap.space,
-                                   0 if hd is None else hd.nbytes())
-            self._unpin_locked(snap.space)
-            dev = (pin_snapshot(snap, self.device) if self.local_mode
-                   else pin_sharded(snap, self.mesh))
-            if hd is not None:
-                put_delta_blocks(dev, hd)
-            self.snapshots[snap.space] = dev
-        finally:
-            self._gate.release_write()
-        self._emit_hbm_gauges()
+        return snap, hd
+
+    def _put_locked(self, snap, hd, space_uid) -> DeviceSnapshot:
+        """Retire the space's snapshot and put `snap` (and its empty
+        plane) in its place; the caller holds the write side of the
+        gate."""
+        self._check_hbm_budget(snap, snap.space,
+                               0 if hd is None else hd.nbytes())
+        self._unpin_locked(snap.space)
+        dev = (pin_snapshot(snap, self.device) if self.local_mode
+               else pin_sharded(snap, self.mesh))
+        if hd is not None:
+            put_delta_blocks(dev, hd)
+        dev.space_uid = space_uid
+        self.snapshots[snap.space] = dev
         return dev
+
+    def _count_pin(self, wait_s: float) -> None:
+        st = metrics()
+        st.observe("tpu_repin_wait_us", int(wait_s * 1e6))
+        st.inc("tpu_pins")
+        self._emit_hbm_gauges()
 
     def _home_bytes(self, per_slot: Dict[int, int]) -> Counter:
         """Bytes per slot, summed per device of the mesh (the index of
@@ -657,78 +714,140 @@ class GpuRuntime:
         return dev.delta.applied_epoch if dev.delta is not None \
             else dev.epoch
 
-    def pin(self, store, space: str) -> DeviceSnapshot:
-        """The pinned snapshot serving `space` at the store's epoch; with
-        a delta plane armed, the writes the store logged since are
-        folded into it first (`_try_delta_update`)."""
-        dev = self.snapshots.get(space)
-        epoch = store.space(space).epoch
-        if dev is not None and self._served_epoch(dev) == epoch:
-            return dev
-        if dev is not None and dev.delta is not None:
-            return self._try_delta_update(store, space, dev)
-        raise GpuUnavailable(
-            f"space {space!r} has no snapshot pinned at epoch {epoch}: "
-            f"pin one with pin_prebuilt (building one from a store "
-            f"waits for the store slice)"
-            + ("" if dev is None else
-               "; the pinned one has no delta plane"
-               + (" (degree-split)" if dev.num_hubs else "")))
+    @staticmethod
+    def exportable(store) -> bool:
+        """Whether `pin` can build a snapshot of `store`: only the port's
+        own `GraphStore` is exported; a stand-in that merely serves dense
+        ids and logs writes (the bench's `datagen.SnapshotStore`) is
+        pinned with `pin_prebuilt` and never rebuilt or compacted."""
+        return isinstance(store, GraphStore)
 
-    def _try_delta_update(self, store, space: str,
-                          dev: DeviceSnapshot) -> DeviceSnapshot:
+    def pin(self, store, space: str, force: bool = False) -> DeviceSnapshot:
+        """The pinned snapshot serving `space` at the store's epoch.  A
+        snapshot of this store's space that serves the epoch is returned
+        as it is; with a delta plane armed, the writes the store logged
+        since are folded into it first (`_try_delta_update`).  Otherwise
+        (nothing pinned, `force`, another store's snapshot, no plane, or a
+        fold the plane cannot take) the store is exported and re-pinned
+        (`_pin_fresh`); a store that cannot be exported raises
+        GpuUnavailable naming the cause."""
+        sd = store.space(space)
+        uid = getattr(sd, "uid", None)
+        cur = self.snapshots.get(space)
+        if cur is None:
+            cause = "none is pinned"
+        elif force:
+            cause = "a forced re-pin"
+        elif cur.space_uid != uid and self.exportable(store):
+            # uid guards the (space, epoch) check against another store
+            # whose same-named space happens to share the epoch value; a
+            # stand-in is served by the snapshot pinned for it
+            cause = "the pinned one was not built from this store"
+        elif self._served_epoch(cur) == sd.epoch:
+            return cur
+        elif cur.delta is not None and hasattr(store, "delta_records") \
+                and hasattr(store, "delta_reader"):
+            dev, cause = self._try_delta_update(store, space, cur)
+            if dev is not None:
+                return dev
+        elif cur.delta is not None:
+            cause = "the store logs no writes (no delta_records)"
+        else:
+            cause = "the pinned one has no delta plane" + (
+                " (degree-split)" if cur.num_hubs else "")
+        if not self.exportable(store):
+            raise GpuUnavailable(
+                f"space {space!r} has no snapshot pinned at epoch "
+                f"{sd.epoch} ({cause}), and a {type(store).__name__} "
+                f"cannot be exported: pin one with pin_prebuilt")
+        return self._pin_fresh(store, space, force)
+
+    def _build_fresh(self, store, space: str):
+        """Export the store's space for a full (re)pin (the reference's
+        `_build_fresh`, :616): with the plane on, the store starts (or
+        keeps) watching dirty keys BEFORE the export — a key noted
+        between the watch and the export is merely re-read at apply
+        time, so no write is lost — and the export reserves the vmax
+        slack.  Returns `_prepare`'s (snapshot, empty mirror)."""
+        if self.delta_max_edges > 0:
+            store.delta_watch(space)
+        t0 = time.perf_counter()
+        snap = build_snapshot(
+            store, space, vmax_extra=DELTA_VMAX_SLACK
+            if self.delta_max_edges > 0 else 0)
+        metrics().observe("tpu_snapshot_build_us",
+                          int((time.perf_counter() - t0) * 1e6))
+        return self._prepare(snap)
+
+    def _pin_fresh(self, store, space: str, force: bool) -> DeviceSnapshot:
+        """Build and pin (the reference's `pin`, :583-609): the put runs
+        under the write side of the dispatch gate, and a concurrent pin
+        that already put a snapshot serving this epoch wins."""
+        sd = store.space(space)
+        uid = getattr(sd, "uid", None)
+        snap, hd = self._build_fresh(store, space)
+        wait_s = self._gate.acquire_write()
+        try:
+            old = self.snapshots.get(space)
+            if old is not None and not force and not old.retired \
+                    and old.space_uid == uid \
+                    and self._served_epoch(old) == sd.epoch:
+                return old
+            dev = self._put_locked(snap, hd, uid)
+        finally:
+            self._gate.release_write()
+        self._count_pin(wait_s)
+        return dev
+
+    def _try_delta_update(self, store, space: str, dev: DeviceSnapshot
+                          ) -> Tuple[Optional[DeviceSnapshot], str]:
         """Advance a delta-armed snapshot to the store's epoch without a
         re-pin: read the dirty keys, apply them to the host mirror by
         re-reading the store, put only the changed blocks, and trim the
         consumed keys from the log.  It runs under the write side of the
         dispatch gate and re-reads the log there: writes that landed
         while it waited fold into this apply, and a concurrent first pin
-        that applied them already leaves nothing to do.  Where the
-        reference takes the full-rebuild path, this raises GpuUnavailable
-        naming the cause; after a failed apply the mirror may be half
-        applied, so the space is unpinned."""
-        if not (hasattr(store, "delta_records")
-                and hasattr(store, "delta_reader")):
-            raise GpuUnavailable(f"space {space!r}: the store logs no "
-                                 f"writes (no delta_records)")
+        that applied them already leaves nothing to do.  Returns (the
+        snapshot, "") or, where the reference takes the full-rebuild
+        path, (None, the cause).  After a failed apply the mirror may be
+        half applied: on a store that cannot be rebuilt the space is
+        unpinned; on one that can, the rebuild retires it."""
         self._gate.acquire_write()
         try:
-            if self.snapshots.get(space) is not dev or dev.retired:
-                replaced = True          # a concurrent pin swapped it
-            else:
-                replaced = False
-                self._apply_delta_locked(store, space, dev)
+            replaced = self.snapshots.get(space) is not dev or dev.retired
+            if not replaced:
+                cause = self._apply_delta_locked(store, space, dev)
         finally:
             self._gate.release_write()
-        if replaced:
-            return self.pin(store, space)
-        return dev
+        if replaced:                     # a concurrent pin swapped it
+            return self.pin(store, space), ""
+        if cause:
+            return None, cause
+        self._emit_delta_gauges(dev)
+        metrics().inc("tpu_repin_avoided")
+        self._maybe_compact(store, space, dev)
+        return dev, ""
 
     def _apply_delta_locked(self, store, space: str,
-                            dev: DeviceSnapshot) -> None:
+                            dev: DeviceSnapshot) -> str:
         """The apply of `_try_delta_update`; the caller holds the write
-        side of the gate."""
+        side of the gate.  Returns "" or the cause of a failure."""
         dd = dev.delta
         rec = store.delta_records(space)
         if rec is None:
-            raise GpuUnavailable(f"space {space!r}: the delta log is broken "
-                                 f"or not watching; a full rebuild waits "
-                                 f"for the store slice")
+            return "the delta log is broken or not watching"
         keys, target, floor = rec
         if floor > dd.applied_epoch:
-            raise GpuUnavailable(
-                f"space {space!r}: the delta log starts at epoch {floor}, "
-                f"after the plane's {dd.applied_epoch} (a log gap)")
+            return (f"the delta log starts at epoch {floor}, after the "
+                    f"plane's {dd.applied_epoch} (a log gap)")
         if target == dd.applied_epoch:
-            return                       # a concurrent update got there
+            return ""                    # a concurrent update got there
         try:
             changes = dd.host.apply(store.delta_reader(space), keys)
         except (DeltaOverflow, DeltaUnsupported) as ex:
-            self._unpin_locked(space)
-            raise GpuUnavailable(
-                f"space {space!r}: delta apply failed "
-                f"({type(ex).__name__}: {ex}); a full rebuild waits for "
-                f"the store slice") from ex
+            if not self.exportable(store):
+                self._unpin_locked(space)
+            return f"delta apply failed ({type(ex).__name__}: {ex})"
         put_delta_blocks(dev, dd.host, sorted(changes.blocks))
         if changes.num_vertices:
             nv = np.ascontiguousarray(dd.host.snap.num_vertices, np.int32)
@@ -743,6 +862,73 @@ class GpuRuntime:
         dd.applied_epoch = target
         store.delta_trim(space, keys)
         self._emit_hbm_gauges()
+        return ""
+
+    def _emit_delta_gauges(self, dev: DeviceSnapshot) -> None:
+        """The plane's residency gauges (the reference's :751)."""
+        if dev.delta is None:
+            return
+        hd = dev.delta.host
+        st = metrics()
+        st.gauge("tpu_delta_edges",
+                 float(hd.total_edges() + hd.total_tombs()))
+        st.gauge("tpu_delta_bytes", float(hd.nbytes()))
+        per, tpp = hd.edges_per_part(), hd.tombs_per_part()
+        for p in range(dev.num_parts):
+            st.gauge_labeled("tpu_shard_delta_edges", {"shard": p},
+                             float(per[p] + tpp[p]))
+
+    def _maybe_compact(self, store, space: str,
+                       dev: DeviceSnapshot) -> None:
+        """The watermark check after an apply (the reference's :766): past
+        the fill ratio, start the background compaction.  Never on a
+        store that cannot be exported."""
+        wm = self.delta_compact_watermark
+        if wm <= 0 or dev.delta is None or dev.retired \
+                or not self.exportable(store):
+            return
+        if dev.delta.host.fill_ratio() < wm:
+            return
+        if getattr(dev, "_compacting", False):
+            return
+        dev._compacting = True
+        t = threading.Thread(target=self._compact,
+                             args=(store, space, dev), daemon=True,
+                             name=f"gpu-compact-{space}")
+        dev._compact_thread = t
+        t.start()
+
+    def _compact(self, store, space: str, dev: DeviceSnapshot) -> None:
+        """Fold the plane back into a fresh base (the reference's :788):
+        the whole build runs OFF the dispatch gate (reads keep flowing
+        against the old base and its plane); only the swap takes the
+        write side.  A snapshot replaced while building is left alone.
+        Errors are swallowed, as the reference's are: the old snapshot
+        serves on."""
+        t0 = time.perf_counter()
+        try:
+            with trace.span("tpu:compaction", space=space):
+                snap, hd = self._build_fresh(store, space)
+                fail.hit("tpu:compact_swap", key=space)
+                self._gate.acquire_write()
+                try:
+                    if self.snapshots.get(space) is not dev \
+                            or dev.retired:
+                        return           # superseded while building
+                    new = self._put_locked(snap, hd, dev.space_uid)
+                finally:
+                    self._gate.release_write()
+                metrics().inc("tpu_compactions")
+                self._emit_delta_gauges(new)
+                self._emit_hbm_gauges()
+                trace.record_phase("tpu:compaction",
+                                   time.perf_counter() - t0, space=space)
+        except FailpointError:
+            pass                         # KILL test hook: abort cleanly
+        except Exception:  # noqa: BLE001 — background thread must not die
+            pass
+        finally:
+            dev._compacting = False
 
     @staticmethod
     def _grab_delta(dev: DeviceSnapshot, block_keys, prop_names):
@@ -1357,7 +1543,7 @@ class GpuRuntime:
         (local_src, rank, dst_key) order and delta rows are appended —
         the union must interleave exactly where a full rebuild would
         have placed the new rows.  dst_key is the vid itself for int
-        vids, code-point string order otherwise.  Each permutation is the
+        vids, code-point string order otherwise (`_dst_keys`).  Each permutation is the
         stable lexsort's (`_canonical_perm`), so parallel edges keep
         base-before-delta order.  A part that captured no delta row is
         in that order already: its entry is None, and nothing runs."""
@@ -1377,7 +1563,7 @@ class GpuRuntime:
             else:
                 dk = d2v_arr[d_]
                 if dk.dtype == object:
-                    dk = np.unique(dk.astype("U"), return_inverse=True)[1]
+                    dk = _dst_keys(dk)
             perms.append(_canonical_perm(s_ // P, r_, dk.astype(np.int64),
                                          is_delta))
         return perms

@@ -1,15 +1,18 @@
 """The CSR snapshot: each space's adjacency and edge-property columns as
 padded numpy arrays, the state the device plane pins.
 
-A copy of the parts of `nebula_tpu/graphstore/csr.py` the port needs:
-StringPool, the NULL sentinels, the value encode and decode
-(`encode_prop`, `_encode_default`, `decode_prop` and the batched
-`decode_prop_column`, temporal and geography values included),
-CsrBlock, TagTable, CsrSnapshot and the supernode `degree_split`.  Building a
-snapshot from a live store waits for the store slice;
-`snapshot_from_fields` builds one from plain arrays (the fields another
-process or package exported), and `bench.datagen.snapshot_from_arrays`
-from generated edge arrays.
+A copy of `nebula_tpu/graphstore/csr.py`: StringPool, the NULL
+sentinels, the value encode and decode (`encode_prop`, `_encode_default`,
+`decode_prop` and the batched `decode_prop_column`, temporal and
+geography values included), CsrBlock, TagTable, CsrSnapshot, the
+supernode `degree_split`, the export from a live store (`build_snapshot`,
+`_build_block`, `_build_tag_table`) and the host oracles `neighbors_of`
+and `expand_frontier_host`.  The reference's COO→CSR step runs a host
+C++ library with a numpy twin; the port has the numpy twin only
+(`build_coo_csr`, same slot order).  `snapshot_from_fields` builds a
+snapshot from plain arrays (the fields another process or package
+exported), and `bench.datagen.snapshot_from_arrays` from generated edge
+arrays.
 
 Layout (identical to the reference):
   * one CsrBlock per (edge type, direction), every part padded to the
@@ -17,6 +20,8 @@ Layout (identical to the reference):
   * dense vids encode their partition: owner(d) = d % P, local(d) = d // P;
   * strings are dictionary codes against the space's StringPool;
   * NULL sentinels inside columns: int → INT64_MIN, float → NaN.
+Row order inside a block matches GraphStore.get_neighbors exactly (src
+local index, then (rank, neighbor)).
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ import numpy as np
 from ..core.value import Date, DateTime, Time, is_null
 from .schema import PropType
 
+CODE_NULL = -1
 INT_NULL = np.iinfo(np.int64).min
 
 
@@ -179,6 +185,16 @@ class CsrBlock:
     props: Dict[str, np.ndarray] = field(default_factory=dict)
     prop_types: Dict[str, PropType] = field(default_factory=dict)
 
+    @property
+    def num_parts(self) -> int:
+        return self.indptr.shape[0]
+
+    def edges_of_part(self, p: int) -> int:
+        return int(self.indptr[p, -1])
+
+    def total_edges(self) -> int:
+        return int(self.indptr[:, -1].sum())
+
 
 @dataclass
 class TagTable:
@@ -210,6 +226,15 @@ class CsrSnapshot:
 
     def block(self, etype: str, direction: str = "out") -> CsrBlock:
         return self.blocks[(etype, direction)]
+
+    def owner(self, dense: int) -> int:
+        return dense % self.num_parts
+
+    def local(self, dense: int) -> int:
+        return dense // self.num_parts
+
+    def dense(self, local: int, part: int) -> int:
+        return local * self.num_parts + part
 
     def hbm_bytes(self) -> int:
         total = self.num_vertices.nbytes
@@ -426,3 +451,254 @@ def snapshot_from_fields(fields: Dict[str, Any]) -> CsrSnapshot:
         snap.tags[tg] = TagTable(tag=tg, present=present, props=props,
                                  prop_types=types)
     return snap
+
+
+# --------------------------------------------------------------------------
+# Export from a live store (the reference's csr.py:296-490)
+# --------------------------------------------------------------------------
+
+
+def build_coo_csr(src_dense: np.ndarray, dst_dense: np.ndarray,
+                  rank: np.ndarray, dst_key: np.ndarray, P: int,
+                  vmax: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                      np.ndarray, int]:
+    """COO edge arrays → (indptr (P, vmax+1) i32, nbr (P, emax) i32, rank
+    (P, emax) i32, perm (P, emax) i64, emax).  perm[p, slot] is the COO
+    index whose edge landed in that slot (for property-column gathers);
+    -1 pad.
+
+    The reference's `native/kernels.py:build_coo_csr` with its numpy twin
+    `_numpy_coo_csr` (:57) as the only path, vectorized: the slot order
+    is the same, part, local, rank, dst_key, COO index."""
+    n = int(src_dense.shape[0])
+    if n == 0:
+        return (np.zeros((P, vmax + 1), np.int32),
+                np.full((P, 1), -1, np.int32),
+                np.zeros((P, 1), np.int32),
+                np.full((P, 1), -1, np.int64), 1)
+    src_dense = np.ascontiguousarray(src_dense, np.int64)
+    dst_dense = np.ascontiguousarray(dst_dense, np.int64)
+    rank = np.ascontiguousarray(rank, np.int64)
+    dst_key = np.ascontiguousarray(dst_key, np.int64)
+    part = src_dense % P
+    local = src_dense // P
+    counts = np.bincount(part, minlength=P)
+    emax = max(1, int(counts.max()))
+    order = np.lexsort((np.arange(n), dst_key, rank, local, part))
+    sp = part[order]
+    # the k-th edge of the sorted order sits at slot k - (edges of the
+    # parts before its own)
+    slot = np.arange(n) - (np.cumsum(counts) - counts)[sp]
+    nbr = np.full((P, emax), -1, np.int32)
+    rk = np.zeros((P, emax), np.int32)
+    perm = np.full((P, emax), -1, np.int64)
+    perm[sp, slot] = order
+    nbr[sp, slot] = dst_dense[order]
+    rk[sp, slot] = rank[order]
+    rows = np.bincount(sp * (vmax + 1) + local[order] + 1,
+                       minlength=P * (vmax + 1)).reshape(P, vmax + 1)
+    indptr = np.cumsum(rows, axis=1).astype(np.int32)
+    return indptr, nbr, rk, perm, emax
+
+
+def dst_sort_key(dst_vids) -> np.ndarray:
+    """int64 ordering key per neighbor: the vid itself for ints, the
+    sorted-unique ordinal for strings (matches store._nbr_key)."""
+    if not dst_vids:
+        return np.zeros(0, np.int64)
+    if isinstance(dst_vids[0], int):
+        return np.asarray(dst_vids, np.int64)
+    arr = np.asarray([str(v) for v in dst_vids], dtype=object)
+    _, inv = np.unique(arr, return_inverse=True)
+    return inv.astype(np.int64)
+
+
+def build_snapshot(store, space: str,
+                   edge_types: Optional[List[str]] = None,
+                   tags: Optional[List[str]] = None,
+                   directions: Tuple[str, ...] = ("out", "in"),
+                   edge_props: Optional[Dict[str, List[str]]] = None,
+                   tag_props: Optional[Dict[str, List[str]]] = None,
+                   vmax_extra: int = 0) -> CsrSnapshot:
+    """Export a space of a `graphstore.store.GraphStore` into a
+    CsrSnapshot (numpy; the device put is gpu/'s).
+
+    edge_props / tag_props restrict which property columns are exported
+    (None = all): the device-memory budget knob.  vmax_extra reserves
+    extra padded local rows: the delta plane places freshly inserted
+    vertices into the slack instead of forcing a full re-pin.
+    """
+    sd = store.space(space)
+    with sd.lock:
+        P = sd.num_parts
+        vmax = max(sd.part_counts) if sd.part_counts else 0
+        vmax = max(vmax, 1) + max(int(vmax_extra), 0)
+        snap = CsrSnapshot(space=space, epoch=sd.epoch, num_parts=P, vmax=vmax,
+                           num_vertices=np.asarray(sd.part_counts, np.int32),
+                           dense_to_vid=list(sd.dense_to_vid))
+        etypes = edge_types
+        if etypes is None:
+            etypes = sorted(e.name for e in store.catalog.edges(space))
+        tag_names = tags
+        if tag_names is None:
+            tag_names = sorted(t.name for t in store.catalog.tags(space))
+
+        for et in etypes:
+            sv = store.catalog.get_edge(space, et).latest
+            want = None if edge_props is None else edge_props.get(et, [])
+            for direction in directions:
+                snap.blocks[(et, direction)] = _build_block(
+                    sd, et, direction, sv, snap.pool, vmax, want)
+
+        for tg in tag_names:
+            sv = store.catalog.get_tag(space, tg).latest
+            want = None if tag_props is None else tag_props.get(tg, [])
+            snap.tags[tg] = _build_tag_table(sd, tg, sv, snap.pool, vmax, want)
+        return snap
+
+
+def _build_block(sd, etype: str, direction: str, sv, pool: StringPool,
+                 vmax: int, want_props: Optional[List[str]]) -> CsrBlock:
+    """COO collection (one pass over the plane dicts) + the COO→padded-CSR
+    step (`build_coo_csr`) — sort order (local, rank, dst per
+    store._nbr_key) matches get_neighbors."""
+    import time as _time
+
+    from .store import ttl_expired
+    P = sd.num_parts
+    plane_attr = "out_edges" if direction == "out" else "in_edges"
+    prop_defs = [p for p in sv.props
+                 if want_props is None or p.name in want_props]
+    now = _time.time()
+    has_ttl = bool(sv.ttl_col) and sv.ttl_duration > 0
+    src_dense: List[int] = []
+    dst_dense: List[int] = []
+    ranks: List[int] = []
+    dst_vids: List[Any] = []
+    rows: List[Dict[str, Any]] = []
+    for p in range(P):
+        plane = getattr(sd.parts[p], plane_attr)
+        for vid, per in plane.items():
+            em = per.get(etype)
+            if not em:
+                continue
+            sdense = sd.vid_to_dense[vid]
+            for (rk, other), row in em.items():
+                if has_ttl and ttl_expired(sv, row, now):
+                    continue        # device parity with host read filter
+                src_dense.append(sdense)
+                dst_dense.append(sd.vid_to_dense.get(other, -1))
+                ranks.append(rk)
+                dst_vids.append(other)
+                rows.append(row)
+
+    indptr, nbr, rank, perm, emax = build_coo_csr(
+        np.asarray(src_dense, np.int64), np.asarray(dst_dense, np.int64),
+        np.asarray(ranks, np.int64), dst_sort_key(dst_vids), P, vmax)
+
+    props: Dict[str, np.ndarray] = {}
+    ptypes: Dict[str, PropType] = {}
+    valid = perm >= 0
+    safe_perm = np.where(valid, perm, 0)
+    for pd in prop_defs:
+        dt = _col_dtype(pd.ptype)
+        fill = np.nan if dt == np.float64 else INT_NULL
+        # rows written before ALTER ... ADD lack the new key: encode the
+        # latest schema's default (read-side fill_row parity), coerced
+        # like insert-time defaults (a geography default is WKT text)
+        a = _encode_default(pd, pool)
+        absent = fill if a is None else a
+        if rows:
+            coo = np.fromiter(
+                (absent if (v := row.get(pd.name)) is None
+                 else encode_prop(pd.ptype, v, pool) for row in rows),
+                dtype=dt, count=len(rows))
+            col = np.where(valid, coo[safe_perm], fill).astype(dt)
+        else:
+            col = np.full((P, emax), fill, dt)
+        props[pd.name] = col
+        ptypes[pd.name] = pd.ptype
+
+    return CsrBlock(etype=etype, direction=direction,
+                    indptr=indptr, nbr=nbr, rank=rank,
+                    props=props, prop_types=ptypes)
+
+
+def _build_tag_table(sd, tag: str, sv, pool: StringPool, vmax: int,
+                     want_props: Optional[List[str]]) -> TagTable:
+    import time as _time
+
+    from .store import ttl_expired
+    P = sd.num_parts
+    prop_defs = [p for p in sv.props
+                 if want_props is None or p.name in want_props]
+    present = np.zeros((P, vmax), bool)
+    props: Dict[str, np.ndarray] = {}
+    ptypes: Dict[str, PropType] = {}
+    absents: Dict[str, Any] = {}
+    for pd in prop_defs:
+        dt = _col_dtype(pd.ptype)
+        fill = np.nan if dt == np.float64 else INT_NULL
+        props[pd.name] = np.full((P, vmax), fill, dt)
+        ptypes[pd.name] = pd.ptype
+        # encoded default for pre-ALTER rows, hoisted out of the row
+        # loop (identical for every row); None = leave the NULL fill
+        absents[pd.name] = _encode_default(pd, pool)
+
+    now = _time.time()
+    for p in range(P):
+        part = sd.parts[p]
+        for li in range(sd.part_counts[p]):
+            vid = sd.dense_to_vid[li * P + p]
+            tv = part.vertices.get(vid)
+            if not tv or tag not in tv:
+                continue
+            if ttl_expired(sv, tv[tag][1], now):
+                continue
+            present[p, li] = True
+            _, row = tv[tag]
+            for pd in prop_defs:
+                v = row.get(pd.name)
+                if v is None:
+                    a = absents[pd.name]   # pre-ALTER row: serve default
+                    if a is not None:
+                        props[pd.name][p, li] = a
+                    continue
+                props[pd.name][p, li] = encode_prop(pd.ptype, v, pool)
+
+    return TagTable(tag=tag, present=present, props=props, prop_types=ptypes)
+
+
+# --------------------------------------------------------------------------
+# Host-side reference ops over a snapshot (oracles for the device kernels)
+# --------------------------------------------------------------------------
+
+
+def neighbors_of(snap: CsrSnapshot, block: CsrBlock,
+                 dense_src: int) -> np.ndarray:
+    if snap.hub_dense is not None:
+        hi_ = np.searchsorted(snap.hub_dense, dense_src)
+        if hi_ < len(snap.hub_dense) and snap.hub_dense[hi_] == dense_src:
+            # degree-split hub: its owner-local row is empty — the
+            # adjacency lives as chunk rows vmax+hi_ across ALL parts
+            row = snap.vmax + int(hi_)
+            return np.concatenate(
+                [block.nbr[p, int(block.indptr[p, row]):
+                           int(block.indptr[p, row + 1])]
+                 for p in range(snap.num_parts)])
+    p = snap.owner(dense_src)
+    li = snap.local(dense_src)
+    lo, hi = int(block.indptr[p, li]), int(block.indptr[p, li + 1])
+    return block.nbr[p, lo:hi]
+
+
+def expand_frontier_host(snap: CsrSnapshot, block: CsrBlock,
+                         frontier: np.ndarray) -> np.ndarray:
+    """Reference one-hop expansion: all neighbors of `frontier` (dense ids),
+    deduplicated + sorted."""
+    outs = [neighbors_of(snap, block, int(d)) for d in frontier]
+    if not outs:
+        return np.zeros(0, np.int32)
+    cat = np.concatenate(outs)
+    cat = cat[cat >= 0]
+    return np.unique(cat).astype(np.int32)

@@ -30,9 +30,10 @@ The reader `apply` re-reads through is any object with:
   vertex_rows(vid) -> {tag: {prop: value}}
   tag_schema(tag) -> schema or None
 
-Values are the port's (`core.value.NULL` for null).  The reference's
-`LocalStoreReader` over its `GraphStore` waits for the port's store;
-`bench.datagen.SnapshotStore.delta_reader` is the bench's reader.
+Values are the port's (`core.value.NULL` for null).  `LocalStoreReader`
+is the reader over the port's `graphstore.store.GraphStore` (what its
+`delta_reader` hands out); `bench.datagen.SnapshotStore.delta_reader` is
+the bench's reader.
 """
 from __future__ import annotations
 
@@ -431,3 +432,57 @@ class HostDelta:
             total += self.snap.num_parts * (
                 self.dcap * per_row + self.tcap * 4)
         return total
+
+
+class LocalStoreReader:
+    """Re-read adapter over a single-process GraphStore (under sd.lock
+    at the call site: apply runs with the gate's write side held, so
+    reads here see a consistent post-commit state)."""
+
+    def __init__(self, store, space: str):
+        self.store = store
+        self.space = space
+        self.sd = store.space(space)
+        import time as _t
+        self.now = _t.time()
+
+    def dense_of(self, vid) -> Optional[int]:
+        d = self.sd.vid_to_dense.get(vid)
+        return None if d is None else int(d)
+
+    def edge_row(self, etype, src, dst, rank):
+        from .schema import SchemaError
+        from .store import ttl_expired
+        try:
+            sv = self.store.catalog.get_edge(self.space, etype).latest
+        except SchemaError:
+            return None, None           # dropped edge type: invisible
+        row = self.sd.parts[self.sd.part_of(src)].out_edges \
+            .get(src, {}).get(etype, {}).get((rank, dst))
+        if row is None:
+            return None, sv
+        if sv.ttl_col and sv.ttl_duration > 0 and \
+                ttl_expired(sv, row, self.now):
+            return None, sv
+        return row, sv
+
+    def vertex_rows(self, vid) -> Dict[str, Dict[str, Any]]:
+        from .store import ttl_expired
+        tv = self.sd.parts[self.sd.part_of(vid)].vertices.get(vid) or {}
+        out = {}
+        for tag, (_ver, row) in tv.items():
+            sv = self.tag_schema(tag)
+            if sv is None:
+                continue
+            if sv.ttl_col and sv.ttl_duration > 0 and \
+                    ttl_expired(sv, row, self.now):
+                continue
+            out[tag] = row
+        return out
+
+    def tag_schema(self, tag):
+        from .schema import SchemaError
+        try:
+            return self.store.catalog.get_tag(self.space, tag).latest
+        except SchemaError:
+            return None

@@ -1,7 +1,7 @@
-"""Query layer: the nGQL tokenizer, AST and parser.
+"""Query layer: the nGQL tokenizer, AST, parser and validator.
 
-Copies of `nebula_tpu/query/{tokenizer,ast,parser}.py`.  The validator
-needs the schema catalog and waits for the store; plan, planner and
-optimizer wait for the executors.
+Copies of `nebula_tpu/query/{tokenizer,ast,parser,validator}.py`.  Plan,
+planner and optimizer wait for the executors.
 """
 from .parser import ParseError, parse
+from .validator import ValidationError, validate

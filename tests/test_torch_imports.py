@@ -49,7 +49,17 @@ def test_port_modules_exist():
               "nebula_tpu_torch.graphstore.index",
               "nebula_tpu_torch.graphstore.fulltext",
               "nebula_tpu_torch.query", "nebula_tpu_torch.query.tokenizer",
-              "nebula_tpu_torch.query.ast", "nebula_tpu_torch.query.parser"):
+              "nebula_tpu_torch.query.ast", "nebula_tpu_torch.query.parser",
+              "nebula_tpu_torch.query.validator",
+              "nebula_tpu_torch.utils.racecheck",
+              "nebula_tpu_torch.utils.trace",
+              "nebula_tpu_torch.utils.memtracker",
+              "nebula_tpu_torch.graphstore.schema_wire",
+              "nebula_tpu_torch.graphstore.engine",
+              "nebula_tpu_torch.graphstore.store",
+              "nebula_tpu_torch.cluster", "nebula_tpu_torch.cluster.wal",
+              "nebula_tpu_torch.cluster.pushdown",
+              "nebula_tpu_torch.exec", "nebula_tpu_torch.exec.context"):
         assert m in names, m
 
 
