@@ -8,8 +8,9 @@ lane-widened kernels, MATCH's every-hop expansion, and GO, the BFS and
 MATCH again over a mesh of eight shard slots, GO and MATCH over DATE,
 DATETIME, TIME and GEOGRAPHY edge props, and GO and the BFS on a
 snapshot the runtime built from the port's own store, through its
-writes, rebuilds and compaction, each through the hand-written CUDA
-kernels.
+writes, rebuilds and compaction, and nGQL GO statements and writes
+through the port's QueryEngine on that store, each through the
+hand-written CUDA kernels.
 
 Run from the repository root on a machine with a CUDA card and nvcc:
 
@@ -349,11 +350,38 @@ Phases, in order; any failure exits non-zero before the result line:
           pin's; a batch past the compaction watermark (0.25) compacts
           on a thread, which is joined: tpu_compactions + 1, the plane
           empty, the rows and depths equal to the fresh pin's;
- 13. the `kernels` JSON line (the split GO path's, the algo path's, the
+ 13. nGQL through the port's QueryEngine on phase 12's store, with its
+     unsplit runtime (the plane of 2,048) and the one split at 64, each
+     statement against a host engine (tpu_runtime=None) on the same
+     store; launch counters zeroed just before each statement and read
+     just after:
+       a. EXPLAIN of each statement below shows one TpuTraverse node and
+          no ExpandAll;
+       b. bench.py config 1's GO 2 STEPS YIELD dst(edge), config 2's GO
+          3 STEPS WHERE KNOWS.w > 50 YIELD dst(edge), KNOWS.w, the same
+          unfiltered, GO 2 STEPS REVERSELY YIELD src(edge), and config
+          2's on the split runtime (whose first statement rebuilds the
+          pin 12d left stale, in its warm-up): one warm-up and 5 timed
+          runs each; rows equal to the host engine's as a multiset,
+          last_tpu_stats set, no fallback, plan-cache hits, launches
+          equal to the bare GpuRuntime.traverse call's with the
+          executor's own arguments; p50 of the engine, the host engine
+          and the bare call, and the device loop;
+       c. about 1,000 writes as nGQL (INSERT EDGE in statements of 100
+          rows, DELETE EDGE, UPDATE EDGE ... SET w) through the device
+          engine, then config 2's statement: folded into the plane
+          (tpu_pins unchanged, merge_delta launched), rows equal to the
+          host engine's;
+       d. GO 1 STEP WHERE upper(KNOWS.city) == "ADA", a filter the rule
+          refuses, plans no TpuTraverse, launches no kernel, and gives
+          the host engine's rows (on a longer GO the rule would still
+          fuse the hops below the last, as the reference's does);
+ 14. the `kernels` JSON line (the split GO path's, the algo path's, the
      split BFS path's (6d's for the global probe), the delta GO path's,
-     the batched path's, the MATCH path's, the mesh GO path's and phase
-     11's filtered GO path's launches), the card line, and the result
-     line {"ok": true, "device": {...}} last.
+     the batched path's, the MATCH path's, the mesh GO path's, phase
+     11's filtered GO path's and phase 13's engine GO path's launches),
+     the card line, and the result line {"ok": true, "device": {...}}
+     last.
 Without CUDA it prints no result and exits 2.
 """
 from __future__ import annotations
@@ -518,6 +546,16 @@ STORE_WRITES = {"insert": 6_000, "seed_insert": 500, "delete": 2_000,
 STORE_OVERFLOW = 2_100           # 12d: inserts from part 0's sources
 STORE_COMPACT_WM = 0.25          # 12d: the watermark the compaction crosses
 STORE_COMPACT_WRITES = 600       # inserts from part 0's sources
+# phase 13: nGQL through the port's QueryEngine on phase 12's store
+ENGINE_RUNS = 5                  # timed runs a statement, after one warm-up
+ENGINE_HOST_RUNS = 2             # the host engine's timed runs
+ENGINE_INSERTS = 700             # 13c: INSERT EDGE rows from the seeds
+ENGINE_INSERT_BATCH = 100        # rows an INSERT statement
+ENGINE_DELETES = 200             # 13c: DELETE EDGE keys, 100 a statement
+ENGINE_UPDATES = 100             # 13c: UPDATE EDGE statements, one edge each
+ENGINE_RANK = 5                  # 13c's inserts' rank: no edge of phase 12's
+ENGINE_WATERMARK = 0.75          # GpuRuntime's default compaction watermark
+ENGINE_KERNELS = ("expand", "mark", "compact_capture")
 
 
 T0 = time.perf_counter()
@@ -2848,9 +2886,267 @@ def store_phase(K, card: str, repeats: int, seed: int, ns) -> dict:
     out["phase_s"] = time.perf_counter() - t12
     log(f"[12d] {json.dumps(out['12d'])} | {card}")
     log(f"[12] phase 12 took {out['phase_s']:.1f} s")
-    for rt in (rta, rts, rtf):
+    rtf.unpin(STORE_SPACE)
+    # phase 13 runs nGQL on this store through rta and rts, and unpins
+    # them when it ends
+    return out, SimpleNamespace(store=store, rta=rta, rts=rts, seeds=seeds)
+
+
+def engine_statements(seeds):
+    """Phase 13b's statements: (label, nGQL, runtime)."""
+    vids = ", ".join(map(str, seeds))
+    c2 = (f"GO 3 STEPS FROM {vids} OVER KNOWS WHERE KNOWS.w > 50 "
+          f"YIELD dst(edge) AS d, KNOWS.w AS w")
+    return [
+        ("config 1", f"GO 2 STEPS FROM {vids} OVER KNOWS "
+         f"YIELD dst(edge) AS d", "unsplit"),
+        ("config 2", c2, "unsplit"),
+        ("unfiltered", f"GO 3 STEPS FROM {vids} OVER KNOWS "
+         f"YIELD dst(edge) AS d, KNOWS.w AS w", "unsplit"),
+        ("reversely", f"GO 2 STEPS FROM {vids} OVER KNOWS REVERSELY "
+         f"YIELD src(edge) AS s", "unsplit"),
+        ("config 2 split", c2, "split"),
+    ]
+
+
+def engine_writes(store, seeds, seed: int):
+    """Phase 13c's nGQL writes: INSERT EDGE statements of
+    ENGINE_INSERT_BATCH rows from the seeds, DELETE EDGE statements of
+    100 second-hop edges, and one UPDATE EDGE statement an edge for
+    other second-hop edges."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    first = sorted({r[3] for r in store.get_neighbors(
+        STORE_SPACE, seeds, ["KNOWS"], "out")})
+    second = sorted({(r[0], r[3], r[2]) for r in store.get_neighbors(
+        STORE_SPACE, first, ["KNOWS"], "out")})
+    pick = rng.permutation(len(second))[:ENGINE_DELETES + ENGINE_UPDATES]
+    edges = [second[i] for i in pick]
+    # city strings the store's pool has not seen: the plane brings them
+    cities = ("Ann", "Bob", "Cid", "Dee")
+    rows = [f"{seeds[i % len(seeds)]}->{int(rng.integers(STORE_PERSONS))}"
+            f"@{ENGINE_RANK}:({int(rng.integers(100))}, "
+            f"{float(rng.random())!r}, \"{cities[i % 4]}\")"
+            for i in range(ENGINE_INSERTS)]
+    stmts = [f"INSERT EDGE KNOWS(w, f, city) VALUES "
+             f"{', '.join(rows[i:i + ENGINE_INSERT_BATCH])}"
+             for i in range(0, len(rows), ENGINE_INSERT_BATCH)]
+    dels = [f"{s}->{d}@{r}" for s, d, r in edges[:ENGINE_DELETES]]
+    stmts += [f"DELETE EDGE KNOWS {', '.join(dels[i:i + 100])}"
+              for i in range(0, len(dels), 100)]
+    stmts += [f"UPDATE EDGE ON KNOWS {s}->{d}@{r} SET w = "
+              f"{int(rng.integers(100))}"
+              for s, d, r in edges[ENGINE_DELETES:]]
+    return stmts, {"inserts": ENGINE_INSERTS, "deletes": len(dels),
+                   "updates": len(edges) - len(dels)}
+
+
+def engine_phase(K, card: str, st12, seed: int) -> tuple:
+    """Phase 13: nGQL statements through the port's QueryEngine on phase
+    12's store and two of its runtimes, each against a host engine on
+    the same store.  Returns (the phase's numbers, the launches of one
+    run of each device statement); raises on any failed check."""
+    import numpy as np
+    import torch
+    from nebula_tpu_torch.exec.engine import QueryEngine
+
+    out = {}
+    t13 = time.perf_counter()
+    store, seeds = st12.store, st12.seeds
+    rts = {"unsplit": st12.rta, "split": st12.rts}
+
+    # 13a. engines and plans
+    stamp("phase 13a")
+
+    def open_engine(rt):
+        eng = QueryEngine(store, tpu_runtime=rt)
+        sess = eng.new_session()
+        rs = eng.execute(sess, f"USE {STORE_SPACE}")
+        if rs.error is not None:
+            raise AssertionError(f"[13a] USE: {rs.error}")
+        return eng, sess
+
+    engines = {k: open_engine(rt) for k, rt in rts.items()}
+    host = open_engine(None)
+
+    def run(es, q):
+        eng, sess = es
+        eng.qctx.last_tpu_stats = None
+        eng.qctx.last_tpu_fallback = None
+        t0 = time.perf_counter()
+        rs = eng.execute(sess, q)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if rs.error is not None:
+            raise AssertionError(f"[13] {q[:80]}...: {rs.error}")
+        return rs, dt, eng.qctx.last_tpu_stats, eng.qctx.last_tpu_fallback
+
+    def multiset(rs):
+        return sorted(map(repr, rs.data.rows))
+
+    def plan_of(es, q):
+        return run(es, "EXPLAIN " + q)[0].data.rows[0][0]
+
+    stmts = engine_statements(seeds)
+    for label, q, layout in stmts:
+        plan = plan_of(engines[layout], q)
+        if plan.count("TpuTraverse") != 1 or "ExpandAll" in plan:
+            raise AssertionError(f"[13a] {label}: the plan is not one "
+                                 f"TpuTraverse node:\n{plan}")
+    log(f"[13a] {len(stmts)} statements plan to one TpuTraverse node "
+        f"each, no ExpandAll")
+
+    def bare_args(rt, es, q):
+        """The arguments the TpuTraverse executor hands the runtime."""
+        calls = []
+        orig = rt.traverse
+
+        def rec(*a, **k):
+            calls.append((a, k))
+            return orig(*a, **k)
+        rt.traverse = rec
+        try:
+            run(es, q)
+        finally:
+            del rt.traverse
+        if len(calls) != 1:
+            raise AssertionError(f"[13] {len(calls)} runtime calls")
+        return calls[0]
+
+    def counted(fn):
+        K.reset_launch_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, counts(K)
+
+    def statement(tag, label, q, layout, runs):
+        """One warm-up (which folds or rebuilds as the pin needs), then
+        `runs` timed runs with their launches; rows, fallback and
+        launches against the host engine and the bare call."""
+        rt, es = rts[layout], engines[layout]
+        pins0 = metric("tpu_pins")
+        (a, kw) = bare_args(rt, es, q)
+        warm_pins = metric("tpu_pins") - pins0
+        hits0 = metric("plan_cache_hits")
+        lat, dev_s, launches = [], [], None
+        for _ in range(runs):
+            (rs, dt, st, fb), got = counted(lambda: run(es, q))
+            if st is None or fb is not None:
+                raise AssertionError(f"{tag} {label}: stats {st}, "
+                                     f"fallback {fb}")
+            if launches is not None and got != launches:
+                raise AssertionError(f"{tag} {label}: launches {got} then "
+                                     f"{launches}")
+            launches = got
+            lat.append(dt)
+            dev_s.append(st.device_s)
+        hits = metric("plan_cache_hits") - hits0
+        if hits < runs:
+            raise AssertionError(f"{tag} {label}: {hits} plan-cache hits "
+                                 f"in {runs} runs")
+        bare_lat = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            (rows_b, _), bare = counted(lambda: rt.traverse(*a, **kw))
+            bare_lat.append(time.perf_counter() - t0)
+        if bare != launches:
+            raise AssertionError(f"{tag} {label}: the engine launched "
+                                 f"{launches}, the bare call {bare}")
+        for name in ENGINE_KERNELS:
+            if launches.get(name, 0) <= 0:
+                raise AssertionError(f"{tag} {label}: kernel {name} never "
+                                     f"launched")
+        if kw.get("edge_filter") is not None \
+                and launches.get("predicate_mask", 0) <= 0:
+            raise AssertionError(f"{tag} {label}: no predicate_mask")
+        check_hub_route(launches, f"{tag} {label}", split=layout == "split")
+        launches = {k: v for k, v in launches.items() if v}
+        host_lat = []
+        for _ in range(ENGINE_HOST_RUNS):
+            rs_h, dt, _, _ = run(host, q)
+            host_lat.append(dt)
+        if multiset(rs) != multiset(rs_h) or len(rows_b) != len(rs_h.data):
+            raise AssertionError(f"{tag} {label}: {len(rs.data)} device "
+                                 f"rows, {len(rs_h.data)} host rows")
+        p50 = float(np.median(lat)) * 1e3
+        bare_p50 = float(np.median(bare_lat)) * 1e3
+        res = {"rows": len(rs_h.data), "p50_ms": p50,
+               "host_p50_ms": float(np.median(host_lat)) * 1e3,
+               "bare_p50_ms": bare_p50, "overhead_ms": p50 - bare_p50,
+               "device_loop_ms": float(np.median(dev_s)) * 1e3,
+               "warmup_pins": warm_pins, "plan_cache_hits": hits,
+               "launches": launches}
+        log(f"{tag} {label}: {json.dumps(res)} | {card}")
+        return res, launches
+
+    # 13b. the reads
+    stamp("phase 13b")
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    reads = {}
+    for label, q, layout in stmts:
+        reads[label], launches = statement("[13b]", label, q, layout,
+                                           ENGINE_RUNS)
+        add(launches)
+    if reads["config 2 split"]["warmup_pins"] != 1:
+        raise AssertionError("[13b] the stale split pin did not rebuild "
+                             "once")
+    out["13b"] = reads
+
+    # 13c. nGQL writes fold into the unsplit runtime's plane
+    stamp("phase 13c")
+    rts["unsplit"].delta_compact_watermark = ENGINE_WATERMARK
+    writes, kinds = engine_writes(store, seeds, seed)
+    t0 = time.perf_counter()
+    for q in writes:
+        run(engines["unsplit"], q)
+    writes_s = time.perf_counter() - t0
+    dev = rts["unsplit"].snapshots[STORE_SPACE]
+    pins0 = metric("tpu_pins")
+    res, launches = statement("[13c]", "config 2 after the writes",
+                              stmts[1][1], "unsplit", 1)
+    if metric("tpu_pins") != pins0 or \
+            rts["unsplit"].snapshots[STORE_SPACE] is not dev or \
+            launches.get("merge_delta", 0) <= 0:
+        raise AssertionError("[13c] the writes were not folded into the "
+                             "plane")
+    add(launches)
+    hd = dev.delta.host
+    out["13c"] = dict(res, statements=len(writes), writes_s=writes_s,
+                      insert_rows=hd.total_edges(),
+                      tombstones=hd.total_tombs(),
+                      fill_ratio=hd.fill_ratio(), **kinds)
+    log(f"[13c] {len(writes)} write statements in {writes_s:.2f} s, "
+        f"{json.dumps(kinds)}, the plane at fill {hd.fill_ratio():.4f}")
+
+    # 13d. a filter the rule refuses runs on the host, no kernel launched
+    stamp("phase 13d")
+    # one step: on a longer GO the rule still fuses the hops below the
+    # refused last one, as the reference's does
+    q = (f"GO FROM {', '.join(map(str, seeds))} OVER KNOWS WHERE "
+         f"upper(KNOWS.city) == \"ADA\" YIELD dst(edge) AS d, KNOWS.w AS w")
+    if "TpuTraverse" in plan_of(engines["unsplit"], q):
+        raise AssertionError("[13d] the rule fused a refused filter")
+    (rs, dt, _, _), launches = counted(lambda: run(engines["unsplit"], q))
+    if any(launches.values()):
+        raise AssertionError(f"[13d] kernels launched: {launches}")
+    rs_h = run(host, q)[0]
+    if multiset(rs) != multiset(rs_h):
+        raise AssertionError("[13d] rows differ from the host engine's")
+    out["13d"] = {"rows": len(rs_h.data), "ms": dt * 1e3}
+    log(f"[13d] GO 1 STEP WHERE upper(KNOWS.city) on the host: "
+        f"{json.dumps(out['13d'])} | {card}")
+
+    for rt in rts.values():
         rt.unpin(STORE_SPACE)
-    return out
+    out["launches"] = total
+    out["phase_s"] = time.perf_counter() - t13
+    log(f"[13] phase 13 took {out['phase_s']:.1f} s")
+    return out, total
 
 
 def main(argv=None) -> int:
@@ -5066,17 +5362,26 @@ def main(argv=None) -> int:
     del rows_d, rows_f, fsnap, tsnap, wstore, tstore
 
     # -- 12. the store path ---------------------------------------------
-    store12 = store_phase(K, card, args.repeats, args.seed, ns)
+    store12, st12 = store_phase(K, card, args.repeats, args.seed, ns)
 
-    # -- 13. result --------------------------------------------------------
-    stamp("phase 13")
+    # -- 13. nGQL through the port's QueryEngine ---------------------------
+    engine13, launches13 = engine_phase(K, card, st12, args.seed)
+    del st12
+    # the kernels line counts the engine GO path's launches too
+    for row in rows_out:
+        name = HUB_ROUTE if row["name"] == \
+            "extend_hubs (fused into expand)" else row["name"]
+        row["launches"] += launches13.get(name, 0)
+
+    # -- 14. result --------------------------------------------------------
+    stamp("phase 14")
     log(json.dumps({"go3": results, "expand_per_hop": per_hop,
                     "unsplit_launches": launches_u,
                     "unsplit_kernels": extra, "algo": algo, "bfs": bfs,
                     "bfs_launches": bfs_launches, "delta": delta,
                     "delta_launches": launches_d, "batch": batch,
                     "match": match, "mesh": mesh, "temporal": temporal,
-                    "store": store12,
+                    "store": store12, "engine": engine13,
                     "hbm_bytes": rt.hbm_bytes() + (
                         rts.hbm_bytes() if rts is not None else 0)}))
     print(json.dumps({"kernels": rows_out}))

@@ -32,11 +32,6 @@ Design points, as in the reference:
   * A group whose window expires while a writer holds the gate (a pin
     or a delta apply) re-arms its window instead of launching.
 
-One divergence from the reference: `_concurrency_hint` reads only the
-live registry.  The reference also asks its admission controller for a
-recent multi-statement drain burst; the port has no admission
-controller yet (ROADMAP Queue C).
-
 Metrics: `tpu_batches_formed`, `tpu_batch_lanes` and
 `tpu_batch_gate_rearms` (a member's forming wait is in its statement's
 queue time); failpoint
@@ -151,10 +146,13 @@ class BatchFormer:
         """Is there evidence that batchmates may arrive?  Without any,
         the statement dispatches solo with ZERO added latency — the
         forming window only ever delays statements that provably have
-        concurrent company.  The evidence is the live registry alone:
-        the reference's admission-drain half waits for an admission
-        controller in the port."""
-        return len(live_registry()) > 1
+        concurrent company: more than one live statement, or the
+        admission controller's queued or running statements or recent
+        drain burst."""
+        if len(live_registry()) > 1:
+            return True
+        from ..utils.admission import admission
+        return admission().concurrency_hint()
 
     # -- enrollment --------------------------------------------------------
 

@@ -28,11 +28,25 @@ import torch
 
 from ..graphstore.csr import CsrSnapshot, StringPool
 from ..graphstore.schema import PropType
+from .exprjit import CannotCompile
 from .mesh import InProcess, Mesh
 
 
 class GpuUnavailable(Exception):
     """The device plane cannot serve this space or configuration."""
+
+
+class MeshLayoutRefused(GpuUnavailable, CannotCompile):
+    """A snapshot whose part count differs from the mesh's slots: the
+    device plane cannot serve it (`GpuUnavailable`), and a fused GO
+    over it is a statement the device cannot express (`CannotCompile`),
+    so its executor takes the host path."""
+
+
+class SnapshotRetired(GpuUnavailable):
+    """A dispatch found its snapshot replaced by a concurrent pin (a
+    rebuild, or a compaction's swap): the call can run again on the
+    snapshot now pinned."""
 
 
 @dataclass
@@ -270,7 +284,7 @@ def pin_snapshot(snap: CsrSnapshot, device: torch.device) -> DeviceSnapshot:
 
 def _check_mesh_parts(snap: CsrSnapshot, mesh: Mesh) -> None:
     if snap.num_parts != mesh.size:
-        raise GpuUnavailable(
+        raise MeshLayoutRefused(
             f"snapshot has {snap.num_parts} parts but the mesh has "
             f"{mesh.size} slots; create the space with partition_num == "
             f"mesh size to pin it")
@@ -301,7 +315,7 @@ def pin_sharded(snap: CsrSnapshot, mesh: Mesh) -> DeviceSnapshot:
     """Pin a P-part snapshot on a P-slot mesh, slot by slot: each slot
     this process holds gets only its own part's rows, on its own device,
     and the hub tables.  A part count other than the mesh's raises
-    GpuUnavailable."""
+    MeshLayoutRefused."""
     _check_mesh_parts(snap, mesh)
     dev = DeviceSnapshot(space=snap.space, epoch=snap.epoch,
                          num_parts=snap.num_parts, vmax=snap.vmax,

@@ -29,7 +29,7 @@ holds the read side; every put (`pin_prebuilt`, a pin from a store, a
 compaction's swap), `unpin` and a delta apply hold the write side, so an
 apply never lands under a running kernel, and a
 snapshot a pin replaced is marked `retired` — a dispatch that finds it
-under the gate raises `GpuUnavailable`.
+under the gate raises `SnapshotRetired`, a `GpuUnavailable`.
 
 With `batch_max_lanes` > 1 (gpu/batch.py; 0, the default, is off),
 concurrent compatible `traverse` calls enrol in one group of the batch
@@ -100,9 +100,9 @@ from ..utils.stats import current_cost, current_work, stats as metrics, \
 from ..utils.workload import current_live, dispatch_table, use_live
 from .batch import batch_former
 from .bfs import run_bfs, run_bfs_sharded
-from .device import DeviceSnapshot, GpuUnavailable, mesh_lanes, \
-    mesh_parts, pin_bytes, pin_sharded, pin_snapshot, put_delta_blocks, \
-    resolve_device
+from .device import DeviceSnapshot, GpuUnavailable, SnapshotRetired, \
+    mesh_lanes, mesh_parts, pin_bytes, pin_sharded, pin_snapshot, \
+    put_delta_blocks, resolve_device
 from .exprjit import compile_predicate, eval_yield_column_np
 from .hop import new_frontier, run_hops, \
     run_hops_sharded, seed_slot_frontiers
@@ -1020,7 +1020,7 @@ class GpuRuntime:
     def _check_live(dev: DeviceSnapshot) -> None:
         """Under the read gate: a snapshot a pin replaced is not run."""
         if dev.retired:
-            raise GpuUnavailable(
+            raise SnapshotRetired(
                 f"the snapshot of space {dev.space!r} was retired by a "
                 f"concurrent pin")
 

@@ -1,7 +1,11 @@
-"""Query layer: the nGQL tokenizer, AST, parser and validator.
+"""Query layer: tokenizer, parser, AST, validator, plan, planner,
+optimizer.
 
-Copies of `nebula_tpu/query/{tokenizer,ast,parser,validator}.py`.  Plan,
-planner and optimizer wait for the executors.
+Copies of `nebula_tpu/query/`.  The device fusion rule registers itself
+in `optimizer.TPU_RULES` from `nebula_tpu_torch.gpu`.
 """
 from .parser import ParseError, parse
+from .plan import ExecutionPlan, PlanNode, transform_plan, walk_plan
+from .planner import PlannerContext, QueryError, plan_statement
+from .optimizer import RULES, optimize, register_rule
 from .validator import ValidationError, validate

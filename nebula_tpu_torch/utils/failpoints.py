@@ -1,46 +1,65 @@
-"""Deterministic failpoint injection — the fail-rs analog.
+"""The port's copy of `nebula_tpu/utils/failpoints.py`, whole.
 
-The port's copy of nebula_tpu/utils/failpoints.py: the registry, `fail`,
-`hit` and `FailpointError`.  The seeded `FaultSchedule` and the RPC
-`kill_conn` action stay in the reference (the port has no RPC layer).
-Named sites carry `fail.hit("site")`; an unarmed site costs one
-dict-truthiness check.  Tests arm sites with a small action language:
+Deterministic failpoint injection — the TiKV/CockroachDB fail-rs
+analog.
 
-    fail.arm("tpu:batch_form", "raise")          # the next hit raises
-    fail.arm("tpu:dispatch_gate", "delay(0.25)") # one stall
-    fail.arm("tpu:batch_form", "-1*raise(x)")    # every hit, forever
+Every crash-shaped code path in the cluster layer carries a named
+failpoint site (`fail.hit("raft:pre_fsync")`); unarmed sites cost one
+dict-truthiness check.  Tests and the chaos harness arm sites with a
+small action language, per-site:
+
+    fail.arm("rpc:recv", "2*off->1*kill_conn")   # skip 2 hits, kill on 3rd
+    fail.arm("wal:pre_fsync", "delay(0.25)")     # one fsync stall
+    fail.arm("toss:pre_in", "-1*raise(torn)")    # every hit, forever
 
 Actions:
     off          no-op (consumes a hit — the skip/counting primitive)
     raise[(msg)] raise FailpointError(msg)
     delay(s)     sleep s seconds (stalls, NOT failures)
+    kill_conn    raise ConnectionKilled — the RPC layer translates it
+                 into tearing down the live connection mid-call (the
+                 at-least-once reply-lost hazard)
 
 A spec is a `->`-chain of `[N*]action` terms; N=-1 repeats forever,
-omitted N means once.  When the chain exhausts the site disarms.  Arming
-also works from the environment:
-    NEBULA_FAILPOINTS="tpu:batch_form=raise;tpu:dispatch_gate=delay(0.1)"
+omitted N means once.  When the chain exhausts the site disarms.
 
-Every FIRED action increments the labeled counter
-`failpoint_fired{name,action}`.  The port's sites: `tpu:batch_form`
-(gpu/batch.py) and `tpu:dispatch_gate` (gpu/runtime.py).
+Seeded schedules (`FaultSchedule`) arm sites with PSEUDO-RANDOM but
+fully deterministic triggers: each rule's decisions are drawn from
+`random.Random(f"{seed}:{site}")`, so the k-th hit of a site triggers
+identically across runs of the same workload — a failing chaos run is
+reproducible from its seed alone (tools/chaos_bench.py prints the
+reproducer line).
+
+Arming also works from the environment (CI chaos jobs):
+    NEBULA_FAILPOINTS="raft:pre_fsync=delay(0.1);rpc:recv=3*off->1*kill_conn"
+
+Observability: every FIRED action (not unarmed hits) increments the
+labeled counter `failpoint_fired{name,action}`.
 """
 from __future__ import annotations
 
 import os
+import random
 import re
 import threading
 import time
-from typing import Dict, List
+from typing import Callable, Dict, List, Optional, Tuple
 
-__all__ = ["FailpointError", "FailpointRegistry", "fail", "hit"]
+__all__ = ["FailpointError", "ConnectionKilled", "FailpointRegistry",
+           "FaultSchedule", "fail", "hit"]
 
 
 class FailpointError(Exception):
     """An armed `raise` action fired."""
 
 
+class ConnectionKilled(FailpointError):
+    """An armed `kill_conn` action fired; rpc.py translates this into
+    killing the live connection (reply lost mid-call)."""
+
+
 _TERM_RE = re.compile(r"^(?:(-?\d+)\*)?([a-z_]+)(?:\(([^)]*)\))?$")
-_ACTIONS = frozenset({"off", "raise", "delay"})
+_ACTIONS = frozenset({"off", "raise", "delay", "kill_conn"})
 
 
 def _parse_spec(spec: str) -> List[List]:
@@ -69,7 +88,7 @@ class FailpointRegistry:
 
     def __init__(self):
         self._lock = threading.Lock()
-        self._armed: Dict[str, List[List]] = {}  # name → action terms
+        self._armed: Dict[str, object] = {}     # name → terms | callable
         self._hits: Dict[str, int] = {}         # per-site hit counter
         env = os.environ.get("NEBULA_FAILPOINTS")
         if env:
@@ -89,6 +108,18 @@ class FailpointRegistry:
             self._armed[name] = terms
             self._hits.setdefault(name, 0)
 
+    def arm_callable(self, name: str,
+                     fn: Callable[[int, object],
+                                  Optional[Tuple[str, object]]]):
+        """Arm with a decision function: fn(hit_index, key) returns
+        (action, arg) or None for no-op.  `key` is the optional context
+        the site passed to hit() (e.g. the raft group name), letting a
+        rule target one group/part while the site stays global.  The
+        seeded-schedule hook."""
+        with self._lock:
+            self._armed[name] = fn
+            self._hits.setdefault(name, 0)
+
     def disarm(self, name: str):
         with self._lock:
             self._armed.pop(name, None)
@@ -98,9 +129,18 @@ class FailpointRegistry:
             self._armed.clear()
             self._hits.clear()
 
+    def scoped(self) -> "_Scope":
+        """Context manager that restores the pre-entry armed set on exit
+        (test isolation)."""
+        return _Scope(self)
+
     def hit_count(self, name: str) -> int:
         with self._lock:
             return self._hits.get(name, 0)
+
+    def armed(self) -> List[str]:
+        with self._lock:
+            return sorted(self._armed)
 
     # -- the hot-path entry ----------------------------------------------
 
@@ -111,20 +151,31 @@ class FailpointRegistry:
             arm = self._armed.get(name)
             if arm is None:
                 return
-            self._hits[name] = self._hits.get(name, 0) + 1
-            while arm and arm[0][0] == 0:
-                arm.pop(0)
-            if not arm:
-                self._armed.pop(name, None)
+            idx = self._hits.get(name, 0)
+            self._hits[name] = idx + 1
+            if not callable(arm):
+                while arm and arm[0][0] == 0:
+                    arm.pop(0)
+                if not arm:
+                    self._armed.pop(name, None)
+                    return
+                term = arm[0]
+                if term[0] > 0:
+                    term[0] -= 1
+                kind, arg = term[1], term[2]
+                # eager disarm on exhaustion: the hit AFTER the last
+                # term must be a true unarmed no-op (uncounted)
+                if term[0] == 0 and len(arm) == 1:
+                    self._armed.pop(name, None)
+        if callable(arm):
+            # decision fns run OUTSIDE the registry lock: a chaos
+            # harness decision may block (holding a propose open while
+            # a killer thread acts) and must not freeze every other
+            # site in the process — raft's own failpoint hits included
+            decision = arm(idx, key)
+            if decision is None:
                 return
-            term = arm[0]
-            if term[0] > 0:
-                term[0] -= 1
-            kind, arg = term[1], term[2]
-            # eager disarm on exhaustion: the hit AFTER the last term
-            # must be a true unarmed no-op (uncounted)
-            if term[0] == 0 and len(arm) == 1:
-                self._armed.pop(name, None)
+            kind, arg = decision
         self._fire(name, kind, arg)
 
     def _fire(self, name: str, kind: str, arg):
@@ -137,6 +188,97 @@ class FailpointRegistry:
             time.sleep(float(arg))
         elif kind == "raise":
             raise FailpointError(arg or f"failpoint {name} fired")
+        elif kind == "kill_conn":
+            raise ConnectionKilled(f"failpoint {name} killed connection")
+
+
+class _Scope:
+    def __init__(self, reg: FailpointRegistry):
+        self.reg = reg
+
+    def __enter__(self):
+        with self.reg._lock:
+            self._saved = dict(self.reg._armed)
+        return self.reg
+
+    def __exit__(self, *exc):
+        with self.reg._lock:
+            self.reg._armed.clear()
+            self.reg._armed.update(self._saved)
+        return False
+
+
+class FaultSchedule:
+    """A seeded, deterministic set of probabilistic failpoint rules.
+
+    rules: [{"fp": name, "action": "raise"|"delay"|"kill_conn"|"off",
+             "arg": optional, "p": probability per hit,
+             "max": max fires (default unbounded),
+             "after": skip the first N hits (default 0),
+             "key": only fire when the site's context key contains
+                    this substring (e.g. "meta" → only the metad raft
+                    group; default: any)}]
+
+    Each rule draws its per-hit trigger decisions from
+    random.Random(f"{seed}:{fp}") — the k-th hit of a site always decides
+    identically for a given seed, independent of wall-clock or thread
+    interleaving, so a failure reproduces from (seed, workload) alone.
+    """
+
+    def __init__(self, seed: int, rules: List[Dict]):
+        self.seed = int(seed)
+        self.rules = rules
+        self.fired: Dict[str, int] = {}
+        self._lock = threading.Lock()
+
+    def arm(self, reg: Optional[FailpointRegistry] = None):
+        reg = reg or fail
+        for rule in self.rules:
+            name = rule["fp"]
+            rng = random.Random(f"{self.seed}:{name}")
+            action = rule.get("action", "raise")
+            arg = rule.get("arg")
+            if action == "delay" and arg is None:
+                arg = 0.05
+            p = float(rule.get("p", 1.0))
+            after = int(rule.get("after", 0))
+            cap = rule.get("max")
+            keyf = rule.get("key")
+            state = {"fired": 0}
+
+            def decide(idx, key, _rng=rng, _p=p, _after=after, _cap=cap,
+                       _state=state, _action=action, _arg=arg,
+                       _name=name, _keyf=keyf):
+                with self._lock:
+                    # one draw per hit (under the schedule lock — hits
+                    # arrive from many threads) keeps the decision
+                    # stream aligned with the hit index regardless of
+                    # earlier outcomes
+                    r = _rng.random()
+                    if _keyf is not None and _keyf not in str(key):
+                        return None
+                    if idx < _after:
+                        return None
+                    if _cap is not None and _state["fired"] >= _cap:
+                        return None
+                    if r >= _p:
+                        return None
+                    _state["fired"] += 1
+                    self.fired[_name] = self.fired.get(_name, 0) + 1
+                return (_action, _arg)
+
+            reg.arm_callable(name, decide)
+        return self
+
+    def disarm(self, reg: Optional[FailpointRegistry] = None):
+        reg = reg or fail
+        for rule in self.rules:
+            reg.disarm(rule["fp"])
+
+    def describe(self) -> str:
+        parts = [f"{r['fp']}={r.get('action', 'raise')}"
+                 f"(p={r.get('p', 1.0)})" for r in self.rules]
+        return f"seed={self.seed} " + " ".join(parts)
 
 
 #: process-global registry — all production sites hit() this instance

@@ -1,13 +1,26 @@
-"""StatsManager — counters, gauges, rolling series and histograms.
+"""The port's copy of `nebula_tpu/utils/stats.py`, whole.
 
-The port's copy of nebula_tpu/utils/stats.py, without the Prometheus
-text export (nothing in the port serves it): the process-wide registry
-`stats()`, the deterministic per-statement `WorkCounters` with
-`use_work` / `current_work`, and the per-plan-node `CostRecorder` with
-`use_cost` / `current_cost`.  The device runtime charges a statement's
-dispatches, traversed edges and per-hop frontier sizes to the
-thread's WorkCounters — a batched statement gets its own lane's counts,
-equal to its solo run's.
+StatsManager — counters, gauges, rolling histograms, Prometheus export.
+
+Analog of the reference's src/common/stats StatsManager: named counters (`num_queries`), value series
+with rolling windows exposing sum/count/avg/rate and p50/p95/p99
+(`query_latency_us`), served by every daemon's `/stats` endpoint.  The
+TPU build adds device gauges (HBM bytes pinned, per-hop all_to_all
+volume, kernel step time) through the same registry.
+
+The observability layer adds:
+  * labeled counters (`inc_labeled`: per-op RPC error counts) and
+    fixed-bucket histograms (`observe`: per-RPC-op latency,
+    per-statement-kind query latency); raft append/commit counts are
+    plain counters (`raft_appends`/`raft_commits`);
+  * `to_prometheus()` — the text exposition format served at
+    `GET /metrics` (cumulative `_bucket{le=...}` rows, `_sum`/`_count`,
+    label escaping per the spec);
+  * `WorkCounters` + `use_work`/`current_work` — per-query DETERMINISTIC
+    work counts (edges traversed, frontier sizes, RPC calls, wire
+    bytes, device dispatches).  Work counts are stable across noisy
+    VMs even when timings are not, so bench.py emits them as the
+    regression signal.
 """
 from __future__ import annotations
 
@@ -29,6 +42,33 @@ def _label_key(labels: Optional[Dict[str, Any]]) -> _LabelKey:
     if not labels:
         return ()
     return tuple(sorted((str(k), str(v)) for k, v in labels.items()))
+
+
+def _prom_name(name: str) -> str:
+    """Prometheus metric names allow [a-zA-Z0-9_:]; ours may carry dots."""
+    return "".join(c if (c.isascii() and (c.isalnum() or c in "_:"))
+                   else "_" for c in name)
+
+
+def _prom_label_value(v: str) -> str:
+    """Escape per the exposition format: backslash, quote, newline."""
+    return (v.replace("\\", "\\\\").replace('"', '\\"')
+            .replace("\n", "\\n"))
+
+
+def _prom_labels(key: _LabelKey, extra: str = "") -> str:
+    parts = [f'{_prom_name(k)}="{_prom_label_value(v)}"' for k, v in key]
+    if extra:
+        parts.append(extra)
+    return "{" + ",".join(parts) + "}" if parts else ""
+
+
+def _prom_num(v: float) -> str:
+    if isinstance(v, float) and v == float("inf"):
+        return "+Inf"
+    if float(v).is_integer():
+        return str(int(v))
+    return repr(float(v))
 
 
 class _Series:
@@ -183,6 +223,92 @@ class StatsManager:
                 out[f"{name}{suffix}.sum"] = row[-1]
         return out
 
+    def to_text(self) -> str:
+        snap = self.snapshot()
+        return "\n".join(f"{k}={snap[k]}" for k in sorted(snap))
+
+    def to_prometheus(self) -> str:
+        """Prometheus text exposition format (version 0.0.4)."""
+        with self.lock:
+            counters = dict(self.counters)
+            gauges = dict(self.gauges)
+            series = dict(self.series)
+            labeled = {n: dict(v) for n, v in self.labeled.items()}
+            labeled_g = {n: dict(v)
+                         for n, v in self.labeled_gauges.items()}
+            hists = dict(self.histograms)
+        lines: List[str] = []
+        for name in sorted(counters):
+            pn = _prom_name(name)
+            lines.append(f"# TYPE {pn} counter")
+            lines.append(f"{pn} {_prom_num(counters[name])}")
+        for name in sorted(labeled):
+            pn = _prom_name(name)
+            lines.append(f"# TYPE {pn} counter")
+            for key in sorted(labeled[name]):
+                lines.append(f"{pn}{_prom_labels(key)} "
+                             f"{_prom_num(labeled[name][key])}")
+        for name in sorted(gauges):
+            pn = _prom_name(name)
+            lines.append(f"# TYPE {pn} gauge")
+            lines.append(f"{pn} {_prom_num(gauges[name])}")
+        for name in sorted(labeled_g):
+            pn = _prom_name(name)
+            lines.append(f"# TYPE {pn} gauge")
+            for key in sorted(labeled_g[name]):
+                lines.append(f"{pn}{_prom_labels(key)} "
+                             f"{_prom_num(labeled_g[name][key])}")
+        # rolling series export as gauges of their window aggregates
+        for name in sorted(series):
+            snap = series[name].snapshot()
+            pn = _prom_name(name)
+            lines.append(f"# TYPE {pn} summary")
+            lines.append(f"{pn}_count {_prom_num(snap['count'])}")
+            lines.append(f"{pn}_sum {_prom_num(snap['sum'])}")
+            for q in (50, 95, 99):
+                if f"p{q}" in snap:
+                    lines.append(
+                        f'{pn}{{quantile="0.{q}"}} '
+                        f"{_prom_num(snap[f'p{q}'])}")
+        for name in sorted(hists):
+            h = hists[name]
+            pn = _prom_name(name)
+            lines.append(f"# TYPE {pn} histogram")
+            with h.lock:
+                per = {k: list(row) for k, row in h.per_label.items()}
+            for key in sorted(per):
+                row = per[key]
+                cum = 0
+                for ub, c in zip(h.buckets, row):
+                    cum += c
+                    le = f'le="{_prom_num(ub)}"'
+                    lines.append(f"{pn}_bucket{_prom_labels(key, le)} "
+                                 f"{cum}")
+                inf = 'le="+Inf"'
+                lines.append(f"{pn}_bucket{_prom_labels(key, inf)} "
+                             f"{_prom_num(row[-2])}")
+                lines.append(f"{pn}_count{_prom_labels(key)} "
+                             f"{_prom_num(row[-2])}")
+                lines.append(f"{pn}_sum{_prom_labels(key)} "
+                             f"{_prom_num(row[-1])}")
+        return "\n".join(lines) + "\n"
+
+    def hist_totals(self, name: str) -> Optional[Tuple[Tuple[float, ...],
+                                                       List[float]]]:
+        """(buckets, per-bucket counts summed over label sets, plus the
+        trailing [count, sum]) — the SLO engine's raw-histogram surface
+        (utils/slo.py reads `query_latency_us_hist` through this)."""
+        h = self.histograms.get(name)
+        if h is None:
+            return None
+        with h.lock:
+            rows = [list(r) for r in h.per_label.values()]
+        total = [0.0] * (len(h.buckets) + 2)
+        for r in rows:
+            for i, v in enumerate(r):
+                total[i] += v
+        return h.buckets, total
+
     def reset(self):
         with self.lock:
             self.counters.clear()
@@ -230,6 +356,12 @@ class WorkCounters:
         with self._lock:
             setattr(self, field, getattr(self, field) + n)
 
+    def add_rpc(self, sent: int, recv: int):
+        with self._lock:
+            self.rpc_calls += 1
+            self.wire_bytes_sent += sent
+            self.wire_bytes_recv += recv
+
     def extend_frontier(self, sizes: List[int]):
         with self._lock:
             self.frontier_sizes.extend(int(x) for x in sizes)
@@ -264,7 +396,8 @@ class WorkCounters:
 
 
 class CostRecorder:
-    """Per-plan-node cost sink: while a node's executor runs, this thread-local recorder accumulates the cost
+    """Per-plan-node cost sink: while a node's
+    executor runs, this thread-local recorder accumulates the cost
     records remote services return in the RPC reply envelope
     (`remote_us`, `rows`, `wal_fsyncs`, `dedup_hits`) plus the client
     side's own call/byte counts and the device runtime's dispatch cost
@@ -282,6 +415,20 @@ class CostRecorder:
     def add(self, field: str, n: int = 1):
         with self._lock:
             self.data[field] = self.data.get(field, 0) + int(n)
+
+    def merge_reply(self, cost: Dict[str, Any]):
+        """Fold a reply-envelope cost record in.  The remote side ships
+        its handler time as a FIXED-WIDTH decimal string ("us") so
+        reply byte counts stay deterministic run-to-run (the wire-byte
+        work counters are a regression probe); everything else is plain
+        deterministic ints."""
+        with self._lock:
+            for k, v in cost.items():
+                key = "remote_us" if k == "us" else k
+                try:
+                    self.data[key] = self.data.get(key, 0) + int(float(v))
+                except (TypeError, ValueError):
+                    continue
 
     def as_dict(self) -> Dict[str, int]:
         with self._lock:

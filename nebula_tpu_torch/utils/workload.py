@@ -1,31 +1,70 @@
-"""Live workload plane: who is running what, right now.
+"""The port's copy of `nebula_tpu/utils/workload.py`, whole.
 
-The port's copy of nebula_tpu/utils/workload.py:71-345:
+Live workload plane: who is running WHAT, right now.
+
+PROFILE and the flight recorder only report statements after
+they complete; admission control needs to see
+the cluster's in-flight state — and a wedged statement (a device
+dispatch stuck behind a re-pin, a stuck RPC) needs to leave evidence while
+it is still wedged, not after its budget burned.  Three pieces:
 
   * `WorkloadRegistry` — every executing statement registers a
-    `LiveQuery` carrying its live progress (queue-wait vs device µs,
-    dispatches, and while it is enrolled in a device batch its batch id
-    and lane).  The device runtime adds queue and dispatch time through
-    the `current_live()` thread-local.  The batch former's concurrency
-    hint reads its size (gpu/batch.py).
+    `LiveQuery` carrying live progress: the plan node currently
+    running, rows produced so far, queue-wait vs device vs host µs,
+    memory charged.  The scheduler updates it per plan node (a handful
+    of attribute writes — the ≤2 % overhead budget), the device
+    runtime adds queue/dispatch time through the `current_live()`
+    thread-local.  Served by `SHOW QUERIES` / `SHOW SESSIONS`,
+    `GET /queries` on every daemon, and metad's federated
+    `GET /cluster_queries`.
 
   * `DispatchTable` — the device dispatch queue's live state: each
-    dispatch registers queued → running → done, so the queue depth
-    gauge sees a dispatch waiting on the runtime's gate.
+    kernel dispatch registers queued→running→done transitions, so the
+    queue depth gauge and the stall watchdog see a dispatch that never
+    came back.  Kept here (not in the gpu package) so the webservice
+    and watchdog never import torch.
 
-The stall watchdog and the flight recorder stay in the reference.
+  * `StallWatchdog` — a daemon thread that scans both tables every
+    `stall_watchdog_interval_secs`.  Any statement exceeding its
+    deadline-derived stall threshold (or any dispatch stuck past
+    `stall_default_secs`) gets ONE capture: all thread stacks, the
+    in-flight dispatch table, the kernel-ledger tail and the live
+    registry snapshot, appended to a bounded ring (`GET /stalls`,
+    `SHOW STALLS`) plus a forced flight-recorder entry — purely
+    observational, the stalled statement is never touched.
 """
 from __future__ import annotations
 
+import sys
 import threading
 import time
+import traceback
+from collections import deque
 from typing import Any, Dict, List, Optional
 
 from .config import define_flag, get_config
 
 define_flag("workload_plane_enabled", True,
-            "maintain the live per-statement registry (off = register "
-            "nothing)")
+            "maintain the live per-statement registry behind "
+            "SHOW QUERIES / GET /queries (off = register nothing; "
+            "the A/B lever for the bench overhead probe)")
+define_flag("stall_watchdog_interval_secs", 1.0,
+            "how often the stall watchdog scans in-flight statements "
+            "and device dispatches (0 disables the thread; scan_once() "
+            "still works for tests)")
+define_flag("stall_threshold_secs", 0.0,
+            "flat stall threshold; 0 derives it per statement from the "
+            "deadline budget (stall_deadline_fraction) or falls back "
+            "to stall_default_secs when unbudgeted")
+define_flag("stall_deadline_fraction", 0.5,
+            "deadline-derived threshold: a statement is stalled once "
+            "it has burned this fraction of its query_timeout_secs "
+            "budget without finishing")
+define_flag("stall_default_secs", 20.0,
+            "stall threshold for unbudgeted statements and for device "
+            "dispatches (which carry no deadline of their own)")
+define_flag("stall_ring_capacity", 64,
+            "stall captures retained in the ring behind GET /stalls")
 
 
 # -- live statement registry ------------------------------------------------
@@ -65,19 +104,38 @@ class LiveQuery:
         self.tracker = tracker            # MemoryTracker (bytes charged)
         self.killed = False
         self.queued = False               # waiting in the admission queue
-        # the statement's effective read-consistency level
+        # the statement's effective read-consistency level:
+        # surfaced in SHOW QUERIES so an operator can see which reads
+        # are leader-bound vs replica-spread at a glance
         self.consistency = consistency
-        # multi-lane batched dispatch: while this statement is enrolled
-        # in a forming/in-flight device batch, the group id and this
-        # statement's lane (snapshot() renders "bid/lane")
+        # multi-lane batched dispatch: while this statement
+        # is enrolled in a forming/in-flight device batch, the group id
+        # and this statement's lane — SHOW QUERIES renders "bid/lane"
         self.batch_id: Optional[int] = None
         self.lane: Optional[int] = None
-        # lanes the statement actually shared a launch with (stays 0
-        # for solo dispatches)
+        # lanes the statement actually shared a launch with (the
+        # insights registry's batching-share column reads this at
+        # completion; stays 0 for solo dispatches)
         self.batch_lanes: int = 0
-        # statement fingerprint
+        # statement fingerprint: joins this in-flight row
+        # against the aggregate SHOW STATEMENTS table
         self.fingerprint = fingerprint or ""
         self._lock = threading.Lock()
+
+    # -- scheduler hooks (one per plan node) -----------------------------
+
+    def node_start(self, kind: str, node_id: int):
+        self.node_kind = kind
+        self.node_id = node_id
+
+    def node_done(self, rows: int):
+        with self._lock:
+            self.nodes_done += 1
+            self.rows += int(rows)
+
+    def set_operator(self, label: str):
+        """Finer-than-node progress (fused pipeline segments)."""
+        self.node_kind = label
 
     # -- runtime hooks ---------------------------------------------------
 
@@ -115,7 +173,7 @@ class LiveQuery:
 
 
 class WorkloadRegistry:
-    """Process-wide map of in-flight statements."""
+    """Process-wide map of in-flight statements (all engines)."""
 
     def __init__(self):
         self._live: Dict[int, LiveQuery] = {}
@@ -166,7 +224,7 @@ _registry = WorkloadRegistry()
 
 
 def live_registry() -> WorkloadRegistry:
-    """The process-wide registry."""
+    """The process-wide registry (served at /queries, SHOW QUERIES)."""
     return _registry
 
 
@@ -230,8 +288,8 @@ class _DispatchToken:
 
 class DispatchTable:
     """Live device dispatches: queued (waiting on the dispatch gate) or
-    running (its kernels launched).  The runtime drives transitions;
-    `snapshot()` and the queue-depth gauge read."""
+    running (inside the jitted call).  The runtime drives transitions;
+    the watchdog and GET /queries read."""
 
     def __init__(self):
         self._inflight: Dict[int, _DispatchToken] = {}
@@ -271,6 +329,13 @@ class DispatchTable:
             toks = list(self._inflight.values())
         return [t.snapshot() for t in sorted(toks, key=lambda x: x.seq)]
 
+    def queued_depth(self) -> int:
+        """Dispatches waiting on the gate right now — the overload
+        signal `tpu_dispatch_queue_cap` (utils/admission.py) judges."""
+        with self._lock:
+            return sum(1 for t in self._inflight.values()
+                       if t.t_run is None)
+
     def __len__(self):
         with self._lock:
             return len(self._inflight)
@@ -281,3 +346,227 @@ _dispatches = DispatchTable()
 
 def dispatch_table() -> DispatchTable:
     return _dispatches
+
+
+# -- stall watchdog ---------------------------------------------------------
+
+
+def _thread_stacks() -> Dict[str, List[str]]:
+    """Formatted stack of every live thread, keyed `name (ident)` —
+    the post-mortem a wedged device dispatch otherwise denies us."""
+    names = {t.ident: t.name for t in threading.enumerate()}
+    out: Dict[str, List[str]] = {}
+    for ident, frame in sys._current_frames().items():
+        key = f"{names.get(ident, '?')} ({ident})"
+        out[key] = [ln.rstrip("\n") for ln in
+                    traceback.format_stack(frame)]
+    return out
+
+
+class StallWatchdog:
+    """Scans the live registry + dispatch table; captures each stalled
+    entity exactly once into a bounded ring."""
+
+    def __init__(self):
+        self._ring: "deque[dict]" = deque()
+        self._lock = threading.Lock()
+        self._seq = 0
+        self._seen_q: set = set()         # qids already captured
+        self._seen_d: set = set()         # dispatch seqs already captured
+        # serializes whole scans: the background thread and an on-
+        # demand scan_once() caller (tests, tools) must not both pass
+        # the seen-set check for one stalled entity — "captured
+        # exactly once" is the documented contract
+        self._scan_lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    # -- thresholds ------------------------------------------------------
+
+    @staticmethod
+    def _flags():
+        cfg = get_config()
+
+        def g(name, dflt):
+            try:
+                return float(cfg.get(name))
+            except Exception:  # noqa: BLE001 — config not initialized
+                return dflt
+        return (g("stall_threshold_secs", 0.0),
+                g("stall_deadline_fraction", 0.5),
+                g("stall_default_secs", 20.0))
+
+    @staticmethod
+    def _stmt_threshold(lq: LiveQuery, flat: float, frac: float,
+                        dflt: float) -> float:
+        if flat > 0:
+            return flat
+        if lq.deadline is not None:
+            budget = lq.deadline - lq.m0
+            if budget > 0:
+                return budget * frac
+        return dflt
+
+    @staticmethod
+    def stmt_threshold_s(lq: LiveQuery) -> float:
+        """Deadline-derived: a budgeted statement is stalled once it
+        burned `stall_deadline_fraction` of its budget; an unbudgeted
+        one after `stall_default_secs`.  `stall_threshold_secs` > 0
+        overrides both (the test/ops lever)."""
+        return StallWatchdog._stmt_threshold(lq, *StallWatchdog._flags())
+
+    # -- scanning --------------------------------------------------------
+
+    def scan_once(self) -> int:
+        """One scan; returns the number of NEW stall captures THIS call
+        made.  Scans serialize on _scan_lock, so the background thread
+        and an on-demand caller can never double-capture one entity —
+        whoever scans first wins, the other sees it in _seen_*."""
+        with self._scan_lock:
+            now = time.monotonic()
+            captured = 0
+            flat, frac, dflt = self._flags()
+            for lq in list(live_registry()._live.values()):
+                if lq.qid in self._seen_q:
+                    continue
+                elapsed = now - lq.m0
+                thr = self._stmt_threshold(lq, flat, frac, dflt)
+                if elapsed > thr:
+                    self._seen_q.add(lq.qid)
+                    self._capture("statement", lq.snapshot(), elapsed,
+                                  thr)
+                    self._flight_capture(lq, elapsed)
+                    captured += 1
+            d_thr = flat if flat > 0 else dflt
+            for tok in list(dispatch_table()._inflight.values()):
+                if tok.seq in self._seen_d:
+                    continue
+                elapsed = now - tok.t_queued
+                if elapsed > d_thr:
+                    self._seen_d.add(tok.seq)
+                    self._capture("dispatch", tok.snapshot(), elapsed,
+                                  d_thr)
+                    captured += 1
+            # forget finished entities so their ids can't leak the
+            # sets (set(dict) is one C-level pass — atomic under the
+            # GIL, unlike a comprehension racing register() inserts)
+            self._seen_q &= set(live_registry()._live)
+            self._seen_d &= set(dispatch_table()._inflight)
+            return captured
+
+    def _capture(self, kind: str, subject: Dict[str, Any],
+                 elapsed: float, threshold: float):
+        from .flight import kernel_ledger
+        from .stats import stats
+        entry = {
+            "ts": time.time(),
+            "kind": kind,
+            "subject": subject,
+            "elapsed_s": round(elapsed, 3),
+            "threshold_s": round(threshold, 3),
+            "stacks": _thread_stacks(),
+            "dispatches": dispatch_table().snapshot(),
+            "kernels": kernel_ledger().list(limit=16),
+            "live": live_registry().snapshot(),
+        }
+        try:
+            cap = int(get_config().get("stall_ring_capacity"))
+        except Exception:  # noqa: BLE001
+            cap = 64
+        with self._lock:
+            self._seq += 1
+            entry["id"] = self._seq
+            self._ring.append(entry)
+            while len(self._ring) > max(cap, 1):
+                self._ring.popleft()
+        stats().inc_labeled("stall_events", {"kind": kind})
+
+    @staticmethod
+    def _flight_capture(lq: LiveQuery, elapsed: float):
+        """Forced flight-recorder entry for the stalled statement — the
+        incident evidence survives even if the statement never
+        completes (its own completion record would then never land)."""
+        from .flight import flight_recorder
+        try:
+            flight_recorder().record(
+                stmt=lq.stmt, kind=lq.kind,
+                latency_us=int(elapsed * 1e6), error=None,
+                trace_id=None, session=lq.session,
+                operators=[lq.snapshot()], force="stalled",
+                fingerprint=lq.fingerprint)
+        except Exception:  # noqa: BLE001 — watchdog must never throw
+            pass
+
+    # -- reading ---------------------------------------------------------
+
+    def get(self, entry_id: int) -> Optional[dict]:
+        with self._lock:
+            for e in self._ring:
+                if e["id"] == entry_id:
+                    return e
+        return None
+
+    def list(self, limit: int = 20) -> List[dict]:
+        """Newest-first summaries (no stack bodies)."""
+        if limit <= 0:
+            return []
+        with self._lock:
+            entries = list(self._ring)
+        return [{"id": e["id"], "ts": e["ts"], "kind": e["kind"],
+                 "elapsed_s": e["elapsed_s"],
+                 "threshold_s": e["threshold_s"],
+                 "subject": {k: v for k, v in e["subject"].items()
+                             if k != "stmt"} | (
+                     {"stmt": e["subject"]["stmt"][:120]}
+                     if "stmt" in e["subject"] else {}),
+                 "threads": len(e["stacks"])}
+                for e in reversed(entries[-limit:])]
+
+    def clear(self):
+        with self._lock:
+            self._ring.clear()
+            self._seen_q.clear()
+            self._seen_d.clear()
+
+    # -- lifecycle -------------------------------------------------------
+
+    def ensure_started(self):
+        """Idempotent: start the scan thread if the interval flag says
+        so and it is not already running (engines call this at
+        construction; tests drive scan_once() directly)."""
+        if self._thread is not None and self._thread.is_alive():
+            return
+        try:
+            interval = float(get_config().get(
+                "stall_watchdog_interval_secs"))
+        except Exception:  # noqa: BLE001
+            interval = 1.0
+        if interval <= 0:
+            return
+        self._stop.clear()
+
+        def loop():
+            while not self._stop.wait(interval):
+                try:
+                    self.scan_once()
+                except Exception:  # noqa: BLE001 — keep the loop alive
+                    pass
+
+        self._thread = threading.Thread(target=loop, daemon=True,
+                                        name="stall-watchdog")
+        self._thread.start()
+
+    def stop(self):
+        self._stop.set()
+        t = self._thread
+        self._thread = None
+        if t is not None:
+            t.join(timeout=2)
+
+
+_watchdog = StallWatchdog()
+
+
+def stall_watchdog() -> StallWatchdog:
+    """The process-wide watchdog (served at /stalls, SHOW STALLS)."""
+    return _watchdog

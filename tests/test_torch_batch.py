@@ -584,20 +584,50 @@ def test_lone_statement_skips_the_window(graph, clean):
 
 
 def test_concurrency_hint_reads_only_the_live_registry(clean):
-    """Divergence from the reference (batch.py:170-181): the hint has no
-    admission-controller half until the port has one."""
-    reg = live_registry()
-    base = len(reg)
-    assert base <= 1
-    assert BatchFormer._concurrency_hint() is False
-    reg.register(qid=-201, session=0, user="t", stmt="x", kind="Go")
-    reg.register(qid=-202, session=0, user="t", stmt="x", kind="Go")
+    """The hint is the reference's (tpu/batch.py:170-181): more than one
+    live statement, or the admission controller's evidence (queued
+    statements, or a drain burst of two or more within the last quarter
+    second).  Both formers answer alike in every state below."""
+    from nebula_tpu.tpu.batch import BatchFormer as RefBatchFormer
+    from nebula_tpu.utils.admission import admission as ref_admission
+    from nebula_tpu_torch.utils.admission import admission
+
+    def hints():
+        return BatchFormer._concurrency_hint(), \
+            RefBatchFormer._concurrency_hint()
+
+    regs = (live_registry(), ref_live_registry())
+    adms = (admission(), ref_admission())
+    assert all(len(r) <= 1 for r in regs)
+    assert hints() == (False, False)
+    for reg in regs:
+        reg.register(qid=-201, session=0, user="t", stmt="x", kind="Go")
+        reg.register(qid=-202, session=0, user="t", stmt="x", kind="Go")
     try:
-        assert BatchFormer._concurrency_hint() is True
+        assert hints() == (True, True)
     finally:
-        reg.deregister(-201)
-        reg.deregister(-202)
-    assert BatchFormer._concurrency_hint() is False
+        for reg in regs:
+            reg.deregister(-201)
+            reg.deregister(-202)
+    assert hints() == (False, False)
+    saved = [(a._last_burst, a._queued_n) for a in adms]
+    try:
+        for a in adms:
+            a._last_burst = (2, time.monotonic())
+        assert hints() == (True, True)
+        for a in adms:
+            a._last_burst = (1, time.monotonic())
+        assert hints() == (False, False)
+        for a in adms:
+            a._last_burst = (2, time.monotonic() - 1.0)
+        assert hints() == (False, False)
+        for a in adms:
+            a._queued_n = 1
+        assert hints() == (True, True)
+    finally:
+        for a, (burst, queued) in zip(adms, saved):
+            a._last_burst, a._queued_n = burst, queued
+    assert hints() == (False, False)
 
 
 def test_batch_form_failpoint_runs_solo(graph, clean, company):

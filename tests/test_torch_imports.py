@@ -59,7 +59,19 @@ def test_port_modules_exist():
               "nebula_tpu_torch.graphstore.store",
               "nebula_tpu_torch.cluster", "nebula_tpu_torch.cluster.wal",
               "nebula_tpu_torch.cluster.pushdown",
-              "nebula_tpu_torch.exec", "nebula_tpu_torch.exec.context"):
+              "nebula_tpu_torch.exec", "nebula_tpu_torch.exec.context",
+              "nebula_tpu_torch.query.plan", "nebula_tpu_torch.query.planner",
+              "nebula_tpu_torch.query.optimizer",
+              "nebula_tpu_torch.exec.frame",
+              "nebula_tpu_torch.exec.permissions",
+              "nebula_tpu_torch.exec.jobs", "nebula_tpu_torch.exec.algorithms",
+              "nebula_tpu_torch.exec.executors",
+              "nebula_tpu_torch.exec.scheduler", "nebula_tpu_torch.exec.engine",
+              "nebula_tpu_torch.gpu.traverse",
+              "nebula_tpu_torch.utils.consistency",
+              "nebula_tpu_torch.utils.epochs", "nebula_tpu_torch.utils.flight",
+              "nebula_tpu_torch.utils.insights",
+              "nebula_tpu_torch.utils.admission", "nebula_tpu_torch.utils.slo"):
         assert m in names, m
 
 

@@ -10,9 +10,10 @@ before each statement the engine's catalog is carried into the port
 through the two packages' `schema_wire` (reference dumps, port loads).
 Each package parses the statement with its own parser; both validators
 must pass, or both must raise `ValidationError` with the same text.
-The statements of tests/unit/test_validator.py (its three tests drive
-`QueryEngine`, which the port does not have yet) are held the same way
-against a catalog built through the catalog API.
+The statements of tests/unit/test_validator.py are held the same way
+against a catalog built through the catalog API, and its three tests
+run once a package through each package's `QueryEngine`, with the same
+body (`test_torch_engine.load_twin`).
 """
 import glob
 import os
@@ -33,6 +34,7 @@ import nebula_tpu_torch.query.parser as port_parser
 import nebula_tpu_torch.query.validator as port_validator
 
 from tck.runner import parse_feature
+from test_torch_engine import load_twin, run_twin, twin_cases
 
 FEATURES = os.path.join(os.path.dirname(__file__), "tck", "features")
 FEATURE_PATHS = sorted(glob.glob(os.path.join(FEATURES, "*.feature")))
@@ -161,3 +163,17 @@ def test_deduce_api(pkg):
     assert deduce(parse_expression("1 < 2"), sc) == "bool"
     assert deduce(parse_expression("upper(\"x\")"), sc) == "string"
     assert deduce(parse_expression("size([1])"), sc) == "int"
+
+
+VALIDATOR_TWINS = {pkg: load_twin("tests/unit/test_validator.py", pkg)
+                   for pkg in ("ref", "port")}
+VALIDATOR_CASES = [(pkg, name, kw, cid)
+                   for pkg in ("ref", "port")
+                   for name, kw, cid in twin_cases(VALIDATOR_TWINS[pkg])]
+
+
+@pytest.mark.parametrize("pkg,name,kw", [c[:3] for c in VALIDATOR_CASES],
+                         ids=[f"{c[3]}-{c[0]}" for c in VALIDATOR_CASES])
+def test_validator_engine_twin(pkg, name, kw):
+    """tests/unit/test_validator.py's three tests, through `QueryEngine`."""
+    run_twin(VALIDATOR_TWINS[pkg], name, kw, {})
