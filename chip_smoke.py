@@ -30,8 +30,8 @@ Phases, in order; any failure exits non-zero before the result line:
      30, seed=7) → snapshot_from_arrays(parts=8), then GO 3 STEPS from 16
      seeds YIELD dst(edge) AS d, KNOWS.w AS w, unfiltered and WHERE
      KNOWS.w > 50, each checked against the host oracle
-     host_csr_traverse on the unsplit snapshot (rows by lexsorted
-     equality, traversed edges by count), on two paths:
+     host_csr_traverse on the unsplit snapshot (rows as multisets,
+     traversed edges by count), on two paths:
        a. unsplit: GpuRuntime().pin_prebuilt;
        b. split, as bench.py runs it: GpuRuntime(degree_split_threshold=
           --split, 2048 by default).pin_prebuilt of the same arrays; its
@@ -114,9 +114,9 @@ Phases, in order; any failure exits non-zero before the result line:
           run.  The same iterations driven through the plain steps on
           the card must give the same state (WCC, SSSP exactly; PageRank
           max |Δrank| <= 1e-8) and two kernel PageRank runs bit-identical
-          ranks; the cold run's host parts are timed apart;
-       b. tools/algo_bench.run_suite at bench.py's algo size
-          (min(--persons, 300000) persons, degree 30, 8 parts): rows equal
+          ranks; PageRank's cold run's host parts are timed apart;
+       b. tools/algo_bench.run_suite at bench.py's algo degree
+          (min(--persons, 50000) persons, degree 30, 8 parts): rows equal
           to the numpy oracles (PageRank within 1e-8);
        c. each step kernel against its plain version on the inputs of
           the first and a middle iteration of (a) (exact; PageRank
@@ -183,9 +183,10 @@ Phases, in order; any failure exits non-zero before the result line:
           before the writes and after (p50 of DELTA_REPEATS runs after a
           warm-up, each state): rows equal, in order, to a fresh
           GpuRuntime() pin of snapshot_from_arrays(store.mutated_arrays())
-          (the full rebuild) and, lexsorted, to host_csr_traverse on it;
-          hop_edges equal to the reference's count (each hop's frontier's
-          base out-degrees, deletes included, plus its delta rows);
+          (the full rebuild) and, as multisets, to host_csr_traverse on
+          it; hop_edges equal to the reference's count (each hop's
+          frontier's base out-degrees, deletes included, plus its delta
+          rows);
           expand, merge_delta, mark, predicate_mask and compact_capture
           launched;
        c. config 5's BFS from vertex 0, every level top-down (the plane
@@ -294,7 +295,9 @@ Phases, in order; any failure exits non-zero before the result line:
        g. (a)'s filtered GO through the process-group transport, a
           one-rank NCCL group holding all eight slots: rows equal to
           (a)'s, the bytes sent equal to (a)'s exchange_bytes;
- 11. temporal and geography props on phase 3's graph: five edge columns
+ 11. temporal and geography props on the north star's recipe at
+     min(--persons, 250000) persons (datagen.north_star: degree 30, the
+     same seeds' rule; depth cut for the time limit): five edge columns
      derived from each edge's f by a fixed rule (temporal_words): d and
      d2 DATE (1920-2019), t DATETIME with microseconds, tm TIME, g
      GEOGRAPHY (pool codes of 1,000 point WKTs), about one value in 50
@@ -305,14 +308,14 @@ Phases, in order; any failure exits non-zero before the result line:
        b. GO 3 STEPS from the 16 seeds WHERE KNOWS.d < KNOWS.d2 (the
           predicate program on two DATE columns; d2's rule keeps about
           1% of the final hop) YIELD d, t, tm, g: edges and hop_edges
-          equal to phase 3's, rows equal as a multiset to the numpy
+          equal to the numpy walk's, rows equal as a multiset to the numpy
           oracle's words (datagen.host_final_hop) decoded by the
           runtime's per-value decode, each column's decode timed; GO 1
           STEP YIELD d, t, tm, g and with Edge rows, and traverse_hops
           over 2 hops, from the last 64 persons with out-edges: rows,
           Edges and frames (check_frames, and 2,000 decoded Edges a hop)
-          against the out block's words; each query one warm-up and 2
-          timed runs; predicate_mask on the d < d2 program at the
+          against the out block's words; each query one warm-up and one
+          timed run; predicate_mask on the d < d2 program at the
           filtered hop 3 against its plain version, timed beside the
           torch formulation (`predicate_mask (temporal)`);
        c. 1,000 inserts from the seeds carrying every column's type
@@ -345,11 +348,13 @@ Phases, in order; any failure exits non-zero before the result line:
           folds them in place, merge_delta launches, and GO's rows
           (in order) and the BFS's depths equal those of a second
           runtime that pins the written store fresh;
-       d. a batch past the plane rebuilds and re-pins (tpu_pins + 1),
-          as does a write to the split pin; the rows equal the fresh
-          pin's; a batch past the compaction watermark (0.25) compacts
-          on a thread, which is joined: tpu_compactions + 1, the plane
-          empty, the rows and depths equal to the fresh pin's;
+       d. on a store of its own at 20,000 persons (each rebuild is an
+          export; depth cut for the time limit): a batch past the plane
+          rebuilds and re-pins (tpu_pins + 1), as does a write to the
+          split pin; the rows equal a fresh pin's; then on this store a
+          batch past the compaction watermark (0.25) over c's writes
+          compacts on a thread, which is joined: tpu_compactions + 1,
+          the plane empty, the rows and depths equal to the fresh pin's;
  13. nGQL through the port's QueryEngine on phase 12's store, with its
      unsplit runtime (the plane of 2,048) and the one split at 64, each
      statement against a host engine (tpu_runtime=None) on the same
@@ -361,8 +366,8 @@ Phases, in order; any failure exits non-zero before the result line:
           3 STEPS WHERE KNOWS.w > 50 YIELD dst(edge), KNOWS.w, the same
           unfiltered, GO 2 STEPS REVERSELY YIELD src(edge), and config
           2's on the split runtime (whose first statement rebuilds the
-          pin 12d left stale, in its warm-up): one warm-up and 5 timed
-          runs each; rows equal to the host engine's as a multiset,
+          pin 12's writes left stale, in its warm-up): one warm-up and 2
+          timed runs each; rows equal to the host engine's as a multiset,
           last_tpu_stats set, no fallback, plan-cache hits, launches
           equal to the bare GpuRuntime.traverse call's with the
           executor's own arguments; p50 of the engine, the host engine
@@ -376,12 +381,41 @@ Phases, in order; any failure exits non-zero before the result line:
           refuses, plans no TpuTraverse, launches no kernel, and gives
           the host engine's rows (on a longer GO the rule would still
           fuse the hops below the last, as the reference's does);
- 14. the `kernels` JSON line (the split GO path's, the algo path's, the
+ 14. MATCH, FIND PATH, GET SUBGRAPH and CALL algo.* through the port's
+     QueryEngine on phase 12's store as phase 13 left it, on its unsplit
+     runtime (13c's writes pending on the plane) and the one split at
+     64; each statement one warm-up (which records the runtime calls its
+     executor makes) and 1 timed run (3 for config 4b), launch counters
+     zeroed just before each and read just after, equal to those of the
+     recorded calls made bare:
+       a. EXPLAIN of config 4b's statement (MATCH (a:Person)-[e:KNOWS
+          *1..4]->(b) from 1,792 pick_seeds(min_degree=3) RETURN
+          count(*), bench.py:739-750) is one TpuMatchAgg node;
+       b. MATCH *1..3 from phase 12's 16 seeds RETURN id(b), size(e),
+          unfiltered and with the inline {city: "ada"} (the device's
+          WHERE mask at every hop), and a one-hop MATCH WHERE e.w > 50
+          (pushed into the Traverse, rechecked on the host): rows equal
+          to the host engine's as a multiset;
+       c. config 4b's count(*) through TpuMatchAgg equals
+          host_trail_paths over a fresh build_snapshot of the store; p50
+          beside the bare traverse_hops call's;
+       d. FIND SHORTEST PATH from 4 seeds to 16 vids (8 two hops out, 8
+          drawn) UPTO 6 STEPS, unfiltered and WHERE KNOWS.w > 50: one
+          BFS a source; rows equal to the host engine's, in order;
+       e. FIND ALL PATH ... UPTO 3 STEPS, and GET SUBGRAPH 2 STEPS from
+          the 16 seeds OUT KNOWS: rows equal to the host engine's;
+       f. CALL algo.pagerank(max_iter=20, tol=0), algo.wcc() and
+          algo.sssp(src=<seed>, weight="w") on the unsplit runtime while
+          13c's writes are pending: tpu_pins rises by 1 (the statement
+          re-pins before the algorithm reads the adjacency), K12-K14
+          launches equal run_algorithm's on the same snapshot, rows
+          equal to a host engine's (PageRank within 1e-8);
+ 15. the `kernels` JSON line (the split GO path's, the algo path's, the
      split BFS path's (6d's for the global probe), the delta GO path's,
      the batched path's, the MATCH path's, the mesh GO path's, phase
-     11's filtered GO path's and phase 13's engine GO path's launches),
-     the card line, and the result line {"ok": true, "device": {...}}
-     last.
+     11's filtered GO path's and phase 13's and 14's engine paths'
+     launches), the card line, and the result line {"ok": true,
+     "device": {...}} last.
 Without CUDA it prints no result and exits 2.
 """
 from __future__ import annotations
@@ -475,6 +509,8 @@ ALGO_RUNS = {"pagerank": ({"max_iter": 20, "tol": 0.0}, "pagerank_step"),
              "wcc": ({}, "wcc_step"),
              "sssp": ({"src": 0, "weight": "w"}, "sssp_step")}
 RELAX_RUNS = ("wcc", "sssp")      # the algorithms of csrc/relax.cu
+COLD_PARTS = ("pagerank",)        # [5a] runs whose cold host parts are timed
+SUITE_PERSONS = 50_000            # [5b] algo_bench's persons, at most
 # phase 5d: a social graph with more vertices than the staged route's
 # shared memory holds as bits (1,859,584), so that WCC and SSSP run the
 # global route: make_social_arrays(GLOBAL_PERSONS, GLOBAL_DEGREE) in 8
@@ -492,7 +528,7 @@ BFS_KERNELS = ("expand", "mark", "bfs_probe", "bfs_level")
 BFS_STEPS = 5                    # bench.py config 5: rt.bfs(..., "out", 5)
 BFS_RUNS = 4                     # one cold run, then the timed warm runs
 DELTA_CAP = 8192                 # GpuRuntime(delta_max_edges=...), phase 7
-DELTA_REPEATS = 2                # phase 7's timed GO runs a query and state
+DELTA_REPEATS = 1                # phase 7's timed GO runs a query and state
 # phase 7's write batch: inserts (those from the seeds), deletes, and
 # overwrites of w (each a tombstone plus an insert)
 WRITES = {"insert": 24_000, "seed_insert": 1_000, "delete": 8_000,
@@ -511,18 +547,20 @@ MATCH_SEEDS = 1_792
 MATCH_HOPS = 4
 MESH_SLOTS = 8                   # phase 10: make_mesh(8), every slot on
 #                                  the one card
-MESH_RUNS = 3                    # phase 10's timed runs of a query
+MESH_RUNS = 2                    # phase 10's timed runs of a query
 MESH_KERNELS = ("pack_bits", "unpack_or")
 MESH_HUB_KERNELS = ("owned_hub_bits", "fill_hub_columns")
-# phase 11: DATE, DATETIME, TIME and GEOGRAPHY edge columns on phase 3's
-# graph, derived from each edge's f by a fixed rule (temporal_words)
+# phase 11: DATE, DATETIME, TIME and GEOGRAPHY edge columns on the north
+# star's recipe at TEMPORAL_PERSONS persons, derived from each edge's f by
+# a fixed rule (temporal_words)
+TEMPORAL_PERSONS = 250_000
 TEMPORAL_TYPES = {"d": "DATE", "d2": "DATE", "t": "DATETIME", "tm": "TIME",
                   "g": "GEOGRAPHY"}
 TEMPORAL_YIELDS = ("d", "t", "tm", "g")    # the port's _MAX_YIELD_COLS
 TEMPORAL_POINTS = 1_000          # distinct WKT strings of g
 TEMPORAL_NULL_EVERY = 50         # about one value in 50 of each column
 TEMPORAL_INSERTS = 1_000         # 11c's write batch, each from a seed
-TEMPORAL_RUNS = 2                # timed runs a query, after one warm-up
+TEMPORAL_RUNS = 1                # timed runs a query, after one warm-up
 TEMPORAL_SEEDS = 64              # 11b's GO 1 STEP and traverse_hops seeds
 TEMPORAL_SAMPLE = 2_000          # frame entries a hop decoded in 11b
 DAY_US = 86_400_000_000
@@ -544,10 +582,12 @@ STORE_DELTA_CAP = 2048           # 12c's delta_max_edges
 STORE_WRITES = {"insert": 6_000, "seed_insert": 500, "delete": 2_000,
                 "overwrite": 2_000, "vertex": 64}
 STORE_OVERFLOW = 2_100           # 12d: inserts from part 0's sources
+STORE_REBUILD_PERSONS = 20_000   # 12d's own store for the two rebuilds
 STORE_COMPACT_WM = 0.25          # 12d: the watermark the compaction crosses
-STORE_COMPACT_WRITES = 600       # inserts from part 0's sources
+STORE_COMPACT_WRITES = 100       # inserts from part 0's sources, on 12c's
+#                                  writes (a fill of 0.73): folded in place
 # phase 13: nGQL through the port's QueryEngine on phase 12's store
-ENGINE_RUNS = 5                  # timed runs a statement, after one warm-up
+ENGINE_RUNS = 2                  # timed runs a statement, after one warm-up
 ENGINE_HOST_RUNS = 2             # the host engine's timed runs
 ENGINE_INSERTS = 700             # 13c: INSERT EDGE rows from the seeds
 ENGINE_INSERT_BATCH = 100        # rows an INSERT statement
@@ -556,6 +596,21 @@ ENGINE_UPDATES = 100             # 13c: UPDATE EDGE statements, one edge each
 ENGINE_RANK = 5                  # 13c's inserts' rank: no edge of phase 12's
 ENGINE_WATERMARK = 0.75          # GpuRuntime's default compaction watermark
 ENGINE_KERNELS = ("expand", "mark", "compact_capture")
+# phase 14: MATCH, FIND PATH, GET SUBGRAPH and CALL algo.* through the
+# engine, on phase 12's store as phase 13 left it
+MATCH_ENGINE_RUNS = 1            # timed runs a statement, after one warm-up
+C4B_RUNS = 3                     # 14c's timed runs: config 4b's p50 of 3
+C4B_HOPS = 4                     # config 4b's *1..4 (bench.py:744)
+PATH_SRCS = 4                    # 14d's and 14e's sources: phase 12's seeds
+PATH_DSTS = 16                   # their destinations: half two hops out
+SHORTEST_UPTO = 6
+ALL_PATH_UPTO = 3
+SUBGRAPH_STEPS = 2
+#: 14f's algorithms: (func, params); sssp's src is phase 12's first seed
+ALGO_CALLS = (("pagerank", {"max_iter": 20, "tol": 0.0}), ("wcc", {}),
+              ("sssp", {"weight": "w"}))
+ALGO_KERNELS = {"pagerank": "pagerank_step", "wcc": "wcc_step",
+                "sssp": "sssp_step"}
 
 
 T0 = time.perf_counter()
@@ -772,9 +827,7 @@ def run_go(rt, ns, repeats: int, label: str, K, oracle, keep_rows=None,
                                  f"{len(rows)} vs {kept}")
         d = np.asarray(rows.column_array("d"), np.int64)
         w = np.asarray(rows.column_array("w"), np.int64)
-        a, b = np.lexsort((w, d)), np.lexsort((want_w, want_d))
-        if not (np.array_equal(d[a], want_d[b])
-                and np.array_equal(w[a], want_w[b])):
+        if not same_multiset([d, w], [want_d, want_w]):
             raise AssertionError(f"{label} {flabel}: rows differ from the "
                                  f"oracle")
         if keep_rows is not None:
@@ -881,8 +934,9 @@ def run_algo(rt, ns, K, AE, AK):
             raise AssertionError(f"algo.{func}: kernel state differs from "
                                  f"the plain steps'")
         res[func]["e2e_warm_s"] = warm
-        res[func].update(cold_parts(AE, rt, snap, sd, func, params, g,
-                                    state_k))
+        if func in COLD_PARTS:
+            res[func].update(cold_parts(AE, rt, snap, sd, func, params, g,
+                                        state_k))
         mid = it_k // 2 + 1
         log(f"[5a] algo.{func}: {json.dumps(res[func])}")
         res[func]["check_args"] = [(1, calls[0])] + (
@@ -1049,8 +1103,8 @@ def cold_parts(AE, rt, snap, sd, func, params, g, state):
 
 
 def run_algo_suite(rt, persons: int):
-    """Phase 5b: the port's algo_bench at bench.py's algo size; rows
-    must equal the numpy oracles'."""
+    """Phase 5b: the port's algo_bench at bench.py's algo degree on
+    `persons` persons; rows must equal the numpy oracles'."""
     from nebula_tpu_torch.tools.algo_bench import run_suite
     t = time.perf_counter()
     suite = run_suite(persons=persons, degree=30, parts=8, repeats=1,
@@ -1728,6 +1782,49 @@ def rows_equal(a, b) -> bool:
                for n in a.column_names)
 
 
+def same_multiset(got, want) -> bool:
+    """Whether two tables of integer columns (equal-length arrays, the
+    same columns in the same order) hold the same rows as multisets.
+    Each row's columns are packed into as few int64 words as the two
+    tables' joint ranges allow; one word is compared by np.sort, more by
+    a lexsort over the words (a lexsort over the columns themselves
+    takes tens of seconds at 30M rows)."""
+    import numpy as np
+    got = [np.asarray(c).astype(np.int64, copy=False).ravel() for c in got]
+    want = [np.asarray(c).astype(np.int64, copy=False).ravel()
+            for c in want]
+    n = got[0].size
+    if any(c.size != n for c in got + want):
+        return False
+    if n == 0:
+        return True
+    words, used = ([], []), 63
+    for x, y in zip(got, want):
+        lo = min(int(x.min()), int(y.min()))
+        bits = (max(int(x.max()), int(y.max())) - lo).bit_length()
+        if bits == 0:                   # one value in both: no order
+            continue
+        if bits > 62:                   # the column alone, as it is
+            for w, c in zip(words, (x, y)):
+                w.append(c.copy())
+            used = 63
+            continue
+        if used + bits > 63:
+            for w in words:
+                w.append(np.zeros(n, np.int64))
+            used = 0
+        for w, c in zip(words, (x, y)):
+            w[-1] <<= bits
+            w[-1] |= c - lo
+        used += bits
+    if len(words[0]) <= 1:
+        if not words[0]:
+            return True
+        return np.array_equal(np.sort(words[0][0]), np.sort(words[1][0]))
+    a, b = (np.lexsort(w[::-1]) for w in words)
+    return all(np.array_equal(x[a], y[b]) for x, y in zip(*words))
+
+
 def go_call(rt, store, steps, filt, yields):
     """One GO statement of phase 8 on the north-star space, by seeds."""
     return lambda seeds: rt.traverse(store, "ns", seeds, ["KNOWS"], "out",
@@ -2245,15 +2342,12 @@ def frames_equal(a, b) -> bool:
 def check_frames(label, frames, oracle) -> None:
     """Each hop's frame equals the numpy every-hop expansion
     (datagen.host_hop_edges) as a multiset of (src, dst, rank)."""
-    import numpy as np
     if len(frames) != len(oracle):
         raise AssertionError(f"[{label}] {len(frames)} frames, "
                              f"{len(oracle)} oracle hops")
     for h, (f, (s, d, r)) in enumerate(zip(frames, oracle)):
-        a, b = np.lexsort((f.rank, f.dst, f.src)), np.lexsort((r, d, s))
-        if f.n != s.size or not all(
-                np.array_equal(x[a], y[b])
-                for x, y in ((f.src, s), (f.dst, d), (f.rank, r))):
+        if f.n != s.size or not same_multiset([f.src, f.dst, f.rank],
+                                              [s, d, r]):
             raise AssertionError(f"[{label}] hop {h + 1}: frame of {f.n} "
                                  f"edges differs from the oracle's "
                                  f"{s.size}")
@@ -2355,7 +2449,7 @@ def temporal_words(f, pool):
 
 
 def temporal_snapshot(snap):
-    """`snap` (phase 3's unsplit north star) with phase 11's columns
+    """`snap` (an unsplit north-star snapshot) with phase 11's columns
     added to every block: the CSR arrays and w, f, city shared, the pool
     a copy."""
     from nebula_tpu_torch.graphstore.csr import (CsrBlock, CsrSnapshot,
@@ -2587,14 +2681,16 @@ def apply_store_writes(store, ops, rank: int = 0) -> None:
             store.insert_vertex(STORE_SPACE, op[1], "Person", op[2])
 
 
-def part0_inserts(n: int, seed: int):
-    """n edge inserts whose sources all lie in part 0 (vid % 8 == 0): one
-    (block, part) of a delta plane takes every row."""
+def part0_inserts(n: int, seed: int, persons: int = 0):
+    """n edge inserts among `persons` persons (STORE_PERSONS by default)
+    whose sources all lie in part 0 (vid % 8 == 0): one (block, part) of
+    a delta plane takes every row."""
     import numpy as np
     from nebula_tpu_torch.bench.datagen import _NAMES
     rng = np.random.default_rng(seed)
-    src = rng.integers(0, STORE_PERSONS // 8, n) * 8
-    dst = rng.integers(0, STORE_PERSONS, n)
+    persons = persons or STORE_PERSONS
+    src = rng.integers(0, persons // 8, n) * 8
+    dst = rng.integers(0, persons, n)
     return [("insert", int(a), int(b), {
         "w": int(rng.integers(100)), "f": float(rng.random()),
         "city": _NAMES[int(rng.integers(len(_NAMES)))]})
@@ -2664,6 +2760,86 @@ def go_pairs(rows):
 def metric(name: str):
     from nebula_tpu_torch.utils.stats import stats
     return stats().snapshot().get(name, 0)
+
+
+def store_go(rt, store, seeds, ns):
+    """GO 3 STEPS over out-KNOWS on the store's space from `seeds`,
+    unfiltered and WHERE KNOWS.w > ns.w_gt, yielding ns.yields:
+    {filter label: (rows, stats)}."""
+    return {fl: rt.traverse(store, STORE_SPACE, seeds, ["KNOWS"], "out", 3,
+                            edge_filter=filt, yields=ns.yields)
+            for fl, filt in (("unfiltered", None),
+                             (f"w>{ns.w_gt}", ns.w_filter))}
+
+
+def same_go(label, got, want, ordered=True, hops=None) -> None:
+    """`got`'s rows equal `want`'s (a fresh pin's), in order or as a
+    multiset, and its hop_edges `hops` (without a plane, `want`'s)."""
+    for fl in want:
+        (a, sa), (b, sb) = got[fl], want[fl]
+        same = rows_equal(a, b) if ordered else go_pairs(a) == go_pairs(b)
+        if not same or sa.hop_edges != (hops or sb.hop_edges):
+            raise AssertionError(f"{label} {fl}: {len(a)} rows, "
+                                 f"hop_edges {sa.hop_edges}, vs {len(b)} "
+                                 f"and {hops or sb.hop_edges}")
+
+
+def store_rebuilds(seed: int, ns) -> dict:
+    """[12d]'s rebuilds, on a store of STORE_REBUILD_PERSONS built as
+    [12a]'s (each rebuild is an export of the whole store: the depth is
+    cut for the time limit): a batch that overflows one (block, part) of
+    the plane re-pins the plane's runtime with an empty plane, and the
+    same writes re-pin the runtime split at STORE_SPLIT (a split pin has
+    no plane); GO 3 STEPS on each then equals a fresh pin's, the split
+    one's as a multiset.  Returns the numbers; raises on any failed
+    check."""
+    from nebula_tpu_torch.bench.datagen import make_social_graph, pick_seeds
+    from nebula_tpu_torch.gpu import GpuRuntime
+    t0 = time.perf_counter()
+    store = make_social_graph(STORE_REBUILD_PERSONS, STORE_DEGREE, parts=8,
+                              seed=STORE_GRAPH_SEED, space=STORE_SPACE)
+    out = {"persons": STORE_REBUILD_PERSONS,
+           "store_build_s": time.perf_counter() - t0}
+    try:
+        seeds = pick_seeds(store, STORE_SPACE, STORE_SEEDS, min_degree=3)
+        rta = GpuRuntime(delta_max_edges=STORE_DELTA_CAP,
+                         delta_compact_watermark=2.0)
+        rts, rtf = GpuRuntime(degree_split_threshold=STORE_SPLIT), \
+            GpuRuntime()
+        before, devs = rta.pin(store, STORE_SPACE), rts.pin(store,
+                                                            STORE_SPACE)
+        if before.delta is None or devs.num_hubs <= 0:
+            raise AssertionError(f"[12d] plane {before.delta}, "
+                                 f"{devs.num_hubs} hubs")
+        apply_store_writes(store, part0_inserts(
+            STORE_OVERFLOW, seed + 1, STORE_REBUILD_PERSONS), rank=2)
+        pins0 = metric("tpu_pins")
+        t0 = time.perf_counter()
+        got = store_go(rta, store, seeds, ns)
+        out["overflow_go_s"] = time.perf_counter() - t0
+        deva = rta.snapshots[STORE_SPACE]
+        if deva is before or not before.retired \
+                or metric("tpu_pins") != pins0 + 1 \
+                or deva.delta.host.total_edges() != 0:
+            raise AssertionError("[12d] the overflow did not rebuild and "
+                                 "re-pin")
+        t0 = time.perf_counter()
+        got_s = store_go(rts, store, seeds, ns)
+        out["split_rebuild_go_s"] = time.perf_counter() - t0
+        if rts.snapshots[STORE_SPACE] is devs \
+                or metric("tpu_pins") != pins0 + 2 \
+                or rts.snapshots[STORE_SPACE].num_hubs <= 0:
+            raise AssertionError("[12d] the write to the split pin did not "
+                                 "rebuild")
+        fresh = store_go(rtf, store, seeds, ns)
+        same_go("[12d] overflow", got, fresh)
+        same_go("[12d] split", got_s, fresh, ordered=False)
+        out["rows"] = {fl: len(r) for fl, (r, _) in fresh.items()}
+        for rt in (rta, rts, rtf):
+            rt.unpin(STORE_SPACE)
+    finally:
+        store.close()
+    return out
 
 
 def store_phase(K, card: str, repeats: int, seed: int, ns) -> dict:
@@ -2754,22 +2930,7 @@ def store_phase(K, card: str, repeats: int, seed: int, ns) -> dict:
         f"(built and split) in {split_pin_s:.2f} s")
 
     def both_go(rt):
-        return {fl: rt.traverse(store, STORE_SPACE, seeds, ["KNOWS"], "out",
-                                3, edge_filter=filt, yields=ns.yields)
-                for fl, filt in (("unfiltered", None),
-                                 (f"w>{ns.w_gt}", ns.w_filter))}
-
-    def same_as(label, got, want, ordered=True, hops=None):
-        """`got`'s rows equal `want`'s (a fresh pin's), and its hop_edges
-        `hops` (without a plane, `want`'s)."""
-        for fl in want:
-            (a, sa), (b, sb) = got[fl], want[fl]
-            same = rows_equal(a, b) if ordered else go_pairs(a) == \
-                go_pairs(b)
-            if not same or sa.hop_edges != (hops or sb.hop_edges):
-                raise AssertionError(f"{label} {fl}: {len(a)} rows, "
-                                     f"hop_edges {sa.hop_edges}, vs {len(b)} "
-                                     f"and {hops or sb.hop_edges}")
+        return store_go(rt, store, seeds, ns)
 
     def bfs_same(label, rt, rt_fresh):
         da, _ = rt.bfs(store, STORE_SPACE, [seeds[0]], ["KNOWS"], "out",
@@ -2812,7 +2973,7 @@ def store_phase(K, card: str, repeats: int, seed: int, ns) -> dict:
     fresh_pin_s = time.perf_counter() - t0
     # over a plane hop_edges count the base's tombstoned edges too (the
     # reference's rule, hop.py:145-159)
-    same_as("[12c]", got, both_go(rtf), hops=delta_rule_edges(
+    same_go("[12c]", got, both_go(rtf), hops=delta_rule_edges(
         host, hd, go_frontiers(rtf.snapshots[STORE_SPACE].host, seeds, 3)))
     reached = bfs_same("[12c]", rta, rtf)
     if metric("tpu_pins") != pins0 + 1:       # rtf's pin only
@@ -2827,31 +2988,11 @@ def store_phase(K, card: str, repeats: int, seed: int, ns) -> dict:
                   "launches": {k: v for k, v in launches_c.items() if v}}
     log(f"[12c] {json.dumps(out['12c'])} | {card}")
 
-    # 12d. rebuilds: an overflowing batch, a write to the split pin; then
-    # a batch past the compaction watermark
+    # 12d. rebuilds: an overflowing batch and a write to the split pin, on
+    # a store of their own; then, on this one, a batch past the
+    # compaction watermark over 12c's writes
     stamp("phase 12d")
-    apply_store_writes(store, part0_inserts(STORE_OVERFLOW, seed + 1),
-                       rank=2)
-    pins0, before = metric("tpu_pins"), deva
-    t0 = time.perf_counter()
-    got = both_go(rta)
-    overflow_s = time.perf_counter() - t0
-    deva = rta.snapshots[STORE_SPACE]
-    if deva is before or not before.retired \
-            or metric("tpu_pins") != pins0 + 1 \
-            or deva.delta.host.total_edges() != 0:
-        raise AssertionError("[12d] the overflow did not rebuild and "
-                             "re-pin")
-    t0 = time.perf_counter()
-    got_s = both_go(rts)
-    split_rebuild_s = time.perf_counter() - t0
-    if rts.snapshots[STORE_SPACE] is devs or metric("tpu_pins") != pins0 + 2 \
-            or rts.snapshots[STORE_SPACE].num_hubs <= 0:
-        raise AssertionError("[12d] the write to the split pin did not "
-                             "rebuild")
-    fresh = both_go(rtf)
-    same_as("[12d] overflow", got, fresh)
-    same_as("[12d] split", got_s, fresh, ordered=False)
+    out["12d"] = store_rebuilds(seed, ns)
     rta.delta_compact_watermark = STORE_COMPACT_WM
     apply_store_writes(store, part0_inserts(STORE_COMPACT_WRITES, seed + 2),
                        rank=3)
@@ -2874,15 +3015,13 @@ def store_phase(K, card: str, repeats: int, seed: int, ns) -> dict:
             or deva.delta.host.total_tombs():
         raise AssertionError("[12d] the compaction did not swap in an empty "
                              "plane")
-    same_as("[12d] compaction", both_go(rta), both_go(rtf))
+    same_go("[12d] compaction", both_go(rta), both_go(rtf))
     bfs_same("[12d] compaction", rta, rtf)
-    out["12d"] = {"overflow_inserts": STORE_OVERFLOW,
-                  "overflow_go_s": overflow_s,
-                  "split_rebuild_go_s": split_rebuild_s,
-                  "compact_inserts": STORE_COMPACT_WRITES,
-                  "compact_fill": fill, "compact_join_s": join_s,
-                  "tpu_pins": metric("tpu_pins"),
-                  "tpu_compactions": metric("tpu_compactions")}
+    out["12d"].update(overflow_inserts=STORE_OVERFLOW,
+                      compact_inserts=STORE_COMPACT_WRITES,
+                      compact_fill=fill, compact_join_s=join_s,
+                      tpu_pins=metric("tpu_pins"),
+                      tpu_compactions=metric("tpu_compactions"))
     out["phase_s"] = time.perf_counter() - t12
     log(f"[12d] {json.dumps(out['12d'])} | {card}")
     log(f"[12] phase 12 took {out['phase_s']:.1f} s")
@@ -2890,6 +3029,66 @@ def store_phase(K, card: str, repeats: int, seed: int, ns) -> dict:
     # phase 13 runs nGQL on this store through rta and rts, and unpins
     # them when it ends
     return out, SimpleNamespace(store=store, rta=rta, rts=rts, seeds=seeds)
+
+
+def open_engine(store, rt, tag: str):
+    """A QueryEngine on `store` (the host engine when `rt` is None) and
+    a session that uses the store's space."""
+    from nebula_tpu_torch.exec.engine import QueryEngine
+    eng = QueryEngine(store, tpu_runtime=rt)
+    sess = eng.new_session()
+    rs = eng.execute(sess, f"USE {STORE_SPACE}")
+    if rs.error is not None:
+        raise AssertionError(f"{tag} USE: {rs.error}")
+    return eng, sess
+
+
+def run_stmt(es, q: str, tag: str):
+    """One statement: (result, seconds to the card's idle, last_tpu_stats,
+    last_tpu_fallback); an error fails the phase."""
+    import torch
+    eng, sess = es
+    eng.qctx.last_tpu_stats = None
+    eng.qctx.last_tpu_fallback = None
+    t0 = time.perf_counter()
+    rs = eng.execute(sess, q)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if rs.error is not None:
+        raise AssertionError(f"{tag} {q[:80]}...: {rs.error}")
+    return rs, dt, eng.qctx.last_tpu_stats, eng.qctx.last_tpu_fallback
+
+
+def multiset(rs):
+    return sorted(map(repr, rs.data.rows))
+
+
+def counted_launches(K, fn):
+    """fn() with the launch counters zeroed just before and read just
+    after: (its result, the counts)."""
+    import torch
+    K.reset_launch_counts()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, counts(K)
+
+
+def runtime_calls(rt, method: str, fn):
+    """fn() with the runtime's `method` recording every call made in it:
+    (fn's result, [(args, kwargs), ...]) — the arguments an executor
+    hands the runtime, for the bare calls a statement is held to."""
+    calls = []
+    orig = getattr(rt, method)
+
+    def rec(*a, **k):
+        calls.append((a, k))
+        return orig(*a, **k)
+    setattr(rt, method, rec)
+    try:
+        res = fn()
+    finally:
+        delattr(rt, method)
+    return res, calls
 
 
 def engine_statements(seeds):
@@ -2947,8 +3146,6 @@ def engine_phase(K, card: str, st12, seed: int) -> tuple:
     the same store.  Returns (the phase's numbers, the launches of one
     run of each device statement); raises on any failed check."""
     import numpy as np
-    import torch
-    from nebula_tpu_torch.exec.engine import QueryEngine
 
     out = {}
     t13 = time.perf_counter()
@@ -2957,32 +3154,11 @@ def engine_phase(K, card: str, st12, seed: int) -> tuple:
 
     # 13a. engines and plans
     stamp("phase 13a")
-
-    def open_engine(rt):
-        eng = QueryEngine(store, tpu_runtime=rt)
-        sess = eng.new_session()
-        rs = eng.execute(sess, f"USE {STORE_SPACE}")
-        if rs.error is not None:
-            raise AssertionError(f"[13a] USE: {rs.error}")
-        return eng, sess
-
-    engines = {k: open_engine(rt) for k, rt in rts.items()}
-    host = open_engine(None)
+    engines = {k: open_engine(store, rt, "[13a]") for k, rt in rts.items()}
+    host = open_engine(store, None, "[13a]")
 
     def run(es, q):
-        eng, sess = es
-        eng.qctx.last_tpu_stats = None
-        eng.qctx.last_tpu_fallback = None
-        t0 = time.perf_counter()
-        rs = eng.execute(sess, q)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        if rs.error is not None:
-            raise AssertionError(f"[13] {q[:80]}...: {rs.error}")
-        return rs, dt, eng.qctx.last_tpu_stats, eng.qctx.last_tpu_fallback
-
-    def multiset(rs):
-        return sorted(map(repr, rs.data.rows))
+        return run_stmt(es, q, "[13]")
 
     def plan_of(es, q):
         return run(es, "EXPLAIN " + q)[0].data.rows[0][0]
@@ -2998,26 +3174,10 @@ def engine_phase(K, card: str, st12, seed: int) -> tuple:
 
     def bare_args(rt, es, q):
         """The arguments the TpuTraverse executor hands the runtime."""
-        calls = []
-        orig = rt.traverse
-
-        def rec(*a, **k):
-            calls.append((a, k))
-            return orig(*a, **k)
-        rt.traverse = rec
-        try:
-            run(es, q)
-        finally:
-            del rt.traverse
+        _, calls = runtime_calls(rt, "traverse", lambda: run(es, q))
         if len(calls) != 1:
             raise AssertionError(f"[13] {len(calls)} runtime calls")
         return calls[0]
-
-    def counted(fn):
-        K.reset_launch_counts()
-        res = fn()
-        torch.cuda.synchronize()
-        return res, counts(K)
 
     def statement(tag, label, q, layout, runs):
         """One warm-up (which folds or rebuilds as the pin needs), then
@@ -3030,7 +3190,8 @@ def engine_phase(K, card: str, st12, seed: int) -> tuple:
         hits0 = metric("plan_cache_hits")
         lat, dev_s, launches = [], [], None
         for _ in range(runs):
-            (rs, dt, st, fb), got = counted(lambda: run(es, q))
+            (rs, dt, st, fb), got = counted_launches(
+                K, lambda: run(es, q))
             if st is None or fb is not None:
                 raise AssertionError(f"{tag} {label}: stats {st}, "
                                      f"fallback {fb}")
@@ -3047,7 +3208,8 @@ def engine_phase(K, card: str, st12, seed: int) -> tuple:
         bare_lat = []
         for _ in range(runs):
             t0 = time.perf_counter()
-            (rows_b, _), bare = counted(lambda: rt.traverse(*a, **kw))
+            (rows_b, _), bare = counted_launches(
+                K, lambda: rt.traverse(*a, **kw))
             bare_lat.append(time.perf_counter() - t0)
         if bare != launches:
             raise AssertionError(f"{tag} {label}: the engine launched "
@@ -3131,7 +3293,8 @@ def engine_phase(K, card: str, st12, seed: int) -> tuple:
          f"upper(KNOWS.city) == \"ADA\" YIELD dst(edge) AS d, KNOWS.w AS w")
     if "TpuTraverse" in plan_of(engines["unsplit"], q):
         raise AssertionError("[13d] the rule fused a refused filter")
-    (rs, dt, _, _), launches = counted(lambda: run(engines["unsplit"], q))
+    (rs, dt, _, _), launches = counted_launches(
+        K, lambda: run(engines["unsplit"], q))
     if any(launches.values()):
         raise AssertionError(f"[13d] kernels launched: {launches}")
     rs_h = run(host, q)[0]
@@ -3141,18 +3304,309 @@ def engine_phase(K, card: str, st12, seed: int) -> tuple:
     log(f"[13d] GO 1 STEP WHERE upper(KNOWS.city) on the host: "
         f"{json.dumps(out['13d'])} | {card}")
 
-    for rt in rts.values():
-        rt.unpin(STORE_SPACE)
     out["launches"] = total
     out["phase_s"] = time.perf_counter() - t13
     log(f"[13] phase 13 took {out['phase_s']:.1f} s")
+    # phase 14 runs MATCH, the paths and the algorithms on this store
+    # through the same runtimes, and unpins them when it ends
+    return out, total
+
+
+def match_statements(store, seeds, seed: int):
+    """Phase 14's statements: {key: nGQL} and the config-4b seeds."""
+    import numpy as np
+    from nebula_tpu_torch.bench.datagen import pick_seeds
+    c4b_seeds = pick_seeds(store, STORE_SPACE, MATCH_SEEDS, min_degree=3)
+    v16 = ", ".join(map(str, seeds))
+    srcs = seeds[:PATH_SRCS]
+    one = sorted({r[3] for r in store.get_neighbors(
+        STORE_SPACE, srcs, ["KNOWS"], "out")})
+    two = sorted({r[3] for r in store.get_neighbors(
+        STORE_SPACE, one, ["KNOWS"], "out")} - set(srcs))
+    rng = np.random.default_rng(seed)
+    near = [two[i] for i in sorted(rng.permutation(len(two))
+                                   [:PATH_DSTS // 2])]
+    far = [int(v) for v in rng.choice(STORE_PERSONS, PATH_DSTS - len(near),
+                                      replace=False)]
+    s_, d_ = ", ".join(map(str, srcs)), ", ".join(map(str, near + far))
+    path = f"FROM {s_} TO {d_} OVER KNOWS"
+    return {
+        "config 4b": f"MATCH (a:Person)-[e:KNOWS*1..{C4B_HOPS}]->(b) WHERE "
+                     f"id(a) IN [{', '.join(map(str, c4b_seeds))}] "
+                     f"RETURN count(*) AS paths",
+        "*1..3": f"MATCH (a:Person)-[e:KNOWS*1..3]->(b) WHERE id(a) IN "
+                 f"[{v16}] RETURN id(b) AS b, size(e) AS n",
+        # the inline map is the edge filter the device applies as its
+        # WHERE mask at every hop
+        "*1..3 {city}": f"MATCH (a:Person)-[e:KNOWS*1..3 {{city: \"ada\"}}]"
+                        f"->(b) WHERE id(a) IN [{v16}] RETURN id(b) AS b, "
+                        f"size(e) AS n",
+        # a var-length `e` is a list, so `e.w > 50` holds for no row
+        # there; on one hop the optimizer pushes it into the Traverse,
+        # where the alias spelling does not compile: the frames come
+        # unfiltered and the executor rechecks each edge on the host
+        "one hop, e.w > 50": f"MATCH (a:Person)-[e:KNOWS]->(b) WHERE id(a) "
+                             f"IN [{v16}] AND e.w > 50 RETURN id(b) AS b, "
+                             f"e.w AS w",
+        "shortest": f"FIND SHORTEST PATH {path} UPTO {SHORTEST_UPTO} STEPS "
+                    f"YIELD path AS p",
+        "shortest, w > 50": f"FIND SHORTEST PATH {path} WHERE KNOWS.w > 50 "
+                            f"UPTO {SHORTEST_UPTO} STEPS YIELD path AS p",
+        "all paths": f"FIND ALL PATH {path} UPTO {ALL_PATH_UPTO} STEPS "
+                     f"YIELD path AS p",
+        "subgraph": f"GET SUBGRAPH {SUBGRAPH_STEPS} STEPS FROM {v16} OUT "
+                    f"KNOWS YIELD VERTICES AS v, EDGES AS e",
+    }, c4b_seeds
+
+
+def match_phase(K, card: str, st12, seed: int) -> tuple:
+    """Phase 14: MATCH, config 4b's fused MATCH aggregate, FIND SHORTEST
+    and ALL PATH, GET SUBGRAPH and CALL algo.* through the port's
+    QueryEngine on phase 12's store as phase 13 left it (its writes
+    pending on the unsplit runtime's plane), on that runtime and the one
+    split at 64.  Each statement's launches equal those of the bare
+    runtime calls its executor made, with their own arguments; its rows
+    equal the host engine's, or the oracle's.  Returns (the phase's
+    numbers, the launches of one run of each device statement); raises
+    on any failed check."""
+    import numpy as np
+    from nebula_tpu_torch.algo import engine as AE
+    from nebula_tpu_torch.bench.datagen import host_trail_paths
+
+    out, total = {}, {}
+    t14 = time.perf_counter()
+    store, seeds = st12.store, st12.seeds
+    rts = {"unsplit": st12.rta, "split": st12.rts}
+    engines = {k: open_engine(store, rt, "[14a]") for k, rt in rts.items()}
+    host = open_engine(store, None, "[14a]")
+    host_res = {}           # the store holds still through this phase
+
+    def host_rows(q):
+        if q not in host_res:
+            rs, dt, _, _ = run_stmt(host, q, "[14]")
+            host_res[q] = rs, dt * 1e3
+        return host_res[q]
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    def statement(tag, label, layout, q, method, check, kernels=(),
+                  runs=MATCH_ENGINE_RUNS):
+        """A warm-up that records the runtime calls of `method` the
+        executor makes, then `runs` timed runs, launch counters zeroed
+        just before each and read just after; the bare calls made again
+        as many times; `check(result)` holds the rows."""
+        rt, es = rts[layout], engines[layout]
+        pins0 = metric("tpu_pins")
+        _, calls = runtime_calls(rt, method, lambda: run_stmt(es, q, tag))
+        warm_pins = metric("tpu_pins") - pins0
+        if not calls:
+            raise AssertionError(f"{tag} {label} ({layout}): the runtime "
+                                 f"was not asked")
+        lat, dev_s, launches = [], [], None
+        for _ in range(runs):
+            (rs, dt, st, fb), got = counted_launches(
+                K, lambda: run_stmt(es, q, tag))
+            if st is None or fb is not None:
+                raise AssertionError(f"{tag} {label} ({layout}): stats "
+                                     f"{st}, fallback {fb}")
+            if launches is not None and got != launches:
+                raise AssertionError(f"{tag} {label} ({layout}): launches "
+                                     f"{got} then {launches}")
+            launches = got
+            lat.append(dt)
+            dev_s.append(st.device_s)
+        bare_lat = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            _, bare = counted_launches(K, lambda: [
+                getattr(rt, method)(*a, **k) for a, k in calls])
+            bare_lat.append(time.perf_counter() - t0)
+        if bare != launches:
+            raise AssertionError(f"{tag} {label} ({layout}): the engine "
+                                 f"launched {launches}, the bare calls "
+                                 f"{bare}")
+        for name in kernels:
+            if launches.get(name, 0) <= 0:
+                raise AssertionError(f"{tag} {label} ({layout}): kernel "
+                                     f"{name} never launched")
+        check_hub_route(launches, f"{tag} {label} ({layout})",
+                        split=layout == "split")
+        launches = {k: v for k, v in launches.items() if v}
+        add(launches)
+        p50 = float(np.median(lat)) * 1e3
+        bare_p50 = float(np.median(bare_lat)) * 1e3
+        res = {"rows": len(rs.data), "p50_ms": p50, "bare_p50_ms": bare_p50,
+               "overhead_ms": p50 - bare_p50,
+               "device_loop_ms": float(np.median(dev_s)) * 1e3,
+               "runtime_calls": len(calls), "warmup_pins": warm_pins,
+               "launches": launches}
+        res.update(check(rs) or {})
+        log(f"{tag} {label} ({layout}): {json.dumps(res)} | {card}")
+        return res, calls
+
+    def same_rows(q, ordered):
+        """The host engine's rows, in order or as a multiset."""
+        def check(rs):
+            h, host_ms = host_rows(q)
+            a, b = ([repr(r) for r in x.data.rows] for x in (rs, h))
+            if (a != b) if ordered else (sorted(a) != sorted(b)):
+                raise AssertionError(f"[14] {len(a)} device rows, {len(b)} "
+                                     f"host rows: {q[:80]}...")
+            if not a:
+                raise AssertionError(f"[14] no rows: {q[:80]}...")
+            return {"host_ms": host_ms}
+        return check
+
+    qs, c4b_seeds = match_statements(store, seeds, seed)
+
+    # 14a. config 4b plans one TpuMatchAgg node
+    stamp("phase 14a")
+    for layout, es in engines.items():
+        plan = run_stmt(es, "EXPLAIN " + qs["config 4b"],
+                        "[14a]")[0].data.rows[0][0]
+        if plan.count("TpuMatchAgg") != 1 \
+                or "Traverse" in plan.replace("TpuMatchAgg", ""):
+            raise AssertionError(f"[14a] config 4b ({layout}) is not one "
+                                 f"TpuMatchAgg node:\n{plan[:400]}")
+    log(f"[14a] config 4b's MATCH *1..{C4B_HOPS} from {len(c4b_seeds)} "
+        f"seeds plans to one TpuMatchAgg node on both runtimes")
+
+    res = {}
+    # 14b. MATCH's Traverse on the device, unfiltered and with the mask
+    stamp("phase 14b")
+    for layout in rts:
+        for label in ("*1..3", "*1..3 {city}", "one hop, e.w > 50"):
+            q = qs[label]
+            filt = "city" in label
+            r, calls = statement(
+                "[14b]", label, layout, q, "traverse_hops",
+                same_rows(q, False),
+                ENGINE_KERNELS + (("predicate_mask",) if filt else ()))
+            if (calls[0][1].get("edge_filter") is not None) != filt:
+                raise AssertionError(f"[14b] {label}: edge_filter "
+                                     f"{calls[0][1].get('edge_filter')}")
+            res[f"{label} ({layout})"] = r
+    out["14b"] = {k: v for k, v in res.items()}
+
+    # 14c. config 4b's count(*) against host_trail_paths
+    stamp("phase 14c")
+    t0 = time.perf_counter()
+    # the host engine's own snapshot of the store as it stands: a fresh
+    # build_snapshot, which its CALL algo.* statements in 14f reuse
+    snap, sd = AE._host_snapshot(host[0].qctx, STORE_SPACE)
+    want = host_trail_paths(snap, [sd.dense_id(v) for v in c4b_seeds],
+                            C4B_HOPS)
+    oracle_s = time.perf_counter() - t0
+    del snap
+
+    def trails(rs):
+        got = [list(r) for r in rs.data.rows]
+        if got != [[want]]:
+            raise AssertionError(f"[14c] {got} trails, host_trail_paths "
+                                 f"{want}")
+        return {"trails": want, "oracle_s": oracle_s}
+
+    c4b = {}
+    for layout in rts:
+        c4b[layout], _ = statement("[14c]", "config 4b", layout,
+                                   qs["config 4b"], "traverse_hops", trails,
+                                   ENGINE_KERNELS, runs=C4B_RUNS)
+    out["14c"] = c4b
+
+    # 14d. FIND SHORTEST PATH: one BFS a source
+    stamp("phase 14d")
+    res = {}
+    for layout in rts:
+        for label in ("shortest", "shortest, w > 50"):
+            q = qs[label]
+            r, calls = statement("[14d]", label, layout, q, "bfs",
+                                 same_rows(q, True),
+                                 ("expand", "mark", "bfs_level")
+                                 + (("predicate_mask",) if "w" in label
+                                    else ()))
+            if len(calls) != PATH_SRCS:
+                raise AssertionError(f"[14d] {label}: {len(calls)} BFS "
+                                     f"runs for {PATH_SRCS} sources")
+            res[f"{label} ({layout})"] = r
+    out["14d"] = res
+
+    # 14e. FIND ALL PATH and GET SUBGRAPH over traverse_hops frames
+    stamp("phase 14e")
+    res = {}
+    for layout in rts:
+        for label in ("all paths", "subgraph"):
+            q = qs[label]
+            res[f"{label} ({layout})"], _ = statement(
+                "[14e]", label, layout, q, "traverse_hops",
+                same_rows(q, True), ENGINE_KERNELS)
+    out["14e"] = res
+
+    # 14f. CALL algo.* with phase 13c's writes pending on the plane: the
+    # first statement re-pins once, then each runs on that snapshot
+    stamp("phase 14f")
+    rt, es = rts["unsplit"], engines["unsplit"]
+    hd = rt.snapshots[STORE_SPACE].delta.host
+    pending = hd.total_edges() + hd.total_tombs()
+    if not pending:
+        raise AssertionError("[14f] the plane holds no writes")
+    pins0 = metric("tpu_pins")
+    res = {}
+    for func, params in ALGO_CALLS:
+        params = dict(params, **({"src": seeds[0]} if func == "sssp"
+                                 else {}))
+        q = f"CALL algo.{func}(" + ", ".join(
+            f"{k}={json.dumps(v)}" for k, v in params.items()) + ")"
+        (rs, dt, _, _), launches = counted_launches(
+            K, lambda: run_stmt(es, q, "[14f]"))
+        snap = rt.snapshots[STORE_SPACE].host
+        t0 = time.perf_counter()
+        (rows_b, info), bare = counted_launches(K, lambda: AE.run_algorithm(
+            func, params, snap, store.space(STORE_SPACE), rt=rt))
+        bare_ms = (time.perf_counter() - t0) * 1e3
+        kname = ALGO_KERNELS[func]
+        if launches != bare or launches[kname] != info["iterations"] \
+                or info["mode"] != "device":
+            raise AssertionError(f"[14f] {func}: the engine launched "
+                                 f"{launches}, run_algorithm {bare} in "
+                                 f"{info['iterations']} iterations")
+        rows = [list(r) for r in rs.data.rows]
+        h, host_ms = host_rows(q)
+        hrows = [list(r) for r in h.data.rows]
+        if rows != rows_b or [r[0] for r in rows] != [r[0] for r in hrows]:
+            raise AssertionError(f"[14f] {func}: {len(rows)} rows, "
+                                 f"run_algorithm {len(rows_b)}, host "
+                                 f"{len(hrows)}")
+        err = max((abs(a[1] - b[1]) for a, b in zip(rows, hrows)),
+                  default=0.0)
+        if err > (PAGERANK_RUN_TOL if func == "pagerank" else 0.0):
+            raise AssertionError(f"[14f] {func}: {err} from the host")
+        launches = {k: v for k, v in launches.items() if v}
+        add(launches)
+        res[func] = {"rows": len(rows), "iterations": info["iterations"],
+                     "ms": dt * 1e3, "bare_ms": bare_ms, "host_ms": host_ms,
+                     "max_abs_err_vs_host": err, "launches": launches}
+        log(f"[14f] {q}: {json.dumps(res[func])} | {card}")
+    repins = metric("tpu_pins") - pins0
+    hd = rt.snapshots[STORE_SPACE].delta.host
+    if repins != 1 or hd.total_edges() or hd.total_tombs():
+        raise AssertionError(f"[14f] {repins} re-pins with {pending} "
+                             f"pending writes")
+    out["14f"] = dict(res, pending_writes=pending, repins=repins)
+
+    for rt in rts.values():
+        rt.unpin(STORE_SPACE)
+    out["launches"] = total
+    out["phase_s"] = time.perf_counter() - t14
+    log(f"[14] phase 14 took {out['phase_s']:.1f} s")
     return out, total
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--persons", type=int, default=1_000_000)
-    ap.add_argument("--repeats", type=int, default=5)
+    ap.add_argument("--repeats", type=int, default=2)
     ap.add_argument("--split", type=int, default=2048,
                     help="degree-split threshold of path 3b (0 skips it)")
     ap.add_argument("--seed", type=int, default=1,
@@ -3166,7 +3620,7 @@ def main(argv=None) -> int:
         return 2
     from nebula_tpu_torch.algo import engine as AE
     from nebula_tpu_torch.algo import kernels as AK
-    from nebula_tpu_torch.bench.datagen import north_star
+    from nebula_tpu_torch.bench.datagen import host_final_hop, north_star
     from nebula_tpu_torch.core import expr as E
     from nebula_tpu_torch.core.value import NULL
     from nebula_tpu_torch.gpu import GpuRuntime
@@ -3287,12 +3741,14 @@ def main(argv=None) -> int:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
         log(f"{tag} {name}{note}: {json.dumps(into[-1])}")
 
-    def hop_inputs(dev):
+    def hop_inputs(dev, seeds=None):
         """Frontier buffers entering hops 1-3 (hub columns filled) and
-        the hop-2 dst ids, from the plain versions."""
+        the hop-2 dst ids, from the plain versions, from `seeds` (the
+        north star's by default)."""
         blk = dev.blocks[("KNOWS", "out")]
         P, vmax = dev.num_parts, dev.vmax
-        ids = torch.tensor(sorted(set(ns.seeds)), dtype=torch.int32,
+        seeds = ns.seeds if seeds is None else seeds
+        ids = torch.tensor(sorted(set(seeds)), dtype=torch.int32,
                            device=dev.device)
         buf = new_frontier(dev)
         K.mark_plain(ids, P, vmax, out=buf[:, :vmax])
@@ -3545,7 +4001,7 @@ def main(argv=None) -> int:
     # -- 5. the algo plane --------------------------------------------------
     stamp("phase 5")
     algo, algo_launches = run_algo(rt, ns, K, AE, AK)
-    algo["suite"] = run_algo_suite(rt, min(args.persons, 300_000))
+    algo["suite"] = run_algo_suite(rt, min(args.persons, SUITE_PERSONS))
     for func, (params, kname) in ALGO_RUNS.items():
         checks = algo[func].pop("check_args")
         plain = getattr(AK, kname + "_plain")
@@ -3882,9 +4338,8 @@ def main(argv=None) -> int:
                                  f"order, from the rebuilt snapshot's")
         _t, kept, want_d, want_w = host_csr_traverse(
             rebuilt, ns.seeds, 3, w_gt=w_gt, materialize=True)
-        a, b = np.lexsort((w, d)), np.lexsort((want_w, want_d))
-        if len(rows) != kept or not (np.array_equal(d[a], want_d[b])
-                                     and np.array_equal(w[a], want_w[b])):
+        if len(rows) != kept or not same_multiset([d, w],
+                                                  [want_d, want_w]):
             raise AssertionError(f"delta GO {flabel}: rows differ from "
                                  f"host_csr_traverse on the rebuild")
         if st.hop_edges != want_hops:
@@ -4729,10 +5184,9 @@ def main(argv=None) -> int:
         *loc3, delta_f3, dl7["d_src"], dl7["d_dst"], dl7["d_rank"],
         dl7["d_valid"], dl7["d_tomb"], blk7.nbr.shape[1])
 
-    def slot_keys(cols, keep):
-        # the kept (src, dst, rank, eidx) slots, in one canonical order
-        a = torch.stack([c[keep] for c in cols], 1).cpu().numpy()
-        return a[np.lexsort(a.T[::-1])]
+    def slot_rows(cols, keep):
+        # the kept (src, dst, rank, eidx) slots
+        return [c[keep].cpu().numpy() for c in cols]
     for sh, dls in zip(dev8d.shards, rt8d._grab_delta(dev8d, [bk8],
                                                       {"w"})[1]):
         b8, d8l, q = sh.blocks[bk8], dls[0], sh.part
@@ -4749,9 +5203,9 @@ def main(argv=None) -> int:
         wvt = K.merge_delta_plain(*w8, base8[4], f8, *da8,
                                   parts=MESH_SLOTS, pid=q)
         err_m8 = max(err_m8, max_abs_err([*gvt, *g8], [*wvt, *w8]))
-        if int(wvt[1]) != int(loc_t[q]) or not np.array_equal(
-                slot_keys([t[0, 0] for t in w8], wvt[0][0, 0]),
-                slot_keys([t[q] for t in loc3[:4]], loc_v[q])):
+        if int(wvt[1]) != int(loc_t[q]) or not same_multiset(
+                slot_rows([t[0, 0] for t in w8], wvt[0][0, 0]),
+                slot_rows([t[q] for t in loc3[:4]], loc_v[q])):
             raise AssertionError(f"[10c] slot {q}'s merged slots are not "
                                  f"row {q} of the local merge")
         m8.append((int(wvt[1]), q, f8, base8, g8, w8, da8, dc8, wvt[0]))
@@ -5170,16 +5624,20 @@ def main(argv=None) -> int:
     del mesh_rows, rows, caps, res_pg
 
     # -- 11. temporal and geography props ----------------------------------
-    # 11a. phase 3's graph with DATE, DATETIME, TIME and GEOGRAPHY columns,
-    # pinned as the main path lays it out (split at --split)
+    # 11a. the north star's recipe at TEMPORAL_PERSONS with DATE,
+    # DATETIME, TIME and GEOGRAPHY columns, pinned as the main path lays
+    # it out (split at --split)
     stamp("phase 11a")
     t11 = time.perf_counter()
-    temporal = {}
-    tsnap = temporal_snapshot(ns.snap)
-    temporal["columns_s"] = time.perf_counter() - t11
+    temporal = {"persons": min(args.persons, TEMPORAL_PERSONS)}
+    ns11 = north_star(temporal["persons"], split_threshold=args.split)
+    temporal["graph_s"] = time.perf_counter() - t11
+    t0 = time.perf_counter()
+    tsnap = temporal_snapshot(ns11.snap)
+    temporal["columns_s"] = time.perf_counter() - t0
     ttypes = tsnap.block("KNOWS", "out").prop_types
     tstore = SnapshotStore(tsnap)
-    trt = GpuRuntime(degree_split_threshold=ns.split_threshold)
+    trt = GpuRuntime(degree_split_threshold=ns11.split_threshold)
     t0 = time.perf_counter()
     trt.pin_prebuilt(tsnap)
     torch.cuda.synchronize()
@@ -5204,16 +5662,19 @@ def main(argv=None) -> int:
     stamp("phase 11b")
     K.reset_launch_counts()
     (rows11, st11), lat = timed(lambda: trt.traverse(
-        tstore, "ns", ns.seeds, ["KNOWS"], "out", 3, edge_filter=twhere,
+        tstore, "ns", ns11.seeds, ["KNOWS"], "out", 3, edge_filter=twhere,
         yields=tyields), TEMPORAL_RUNS)
     torch.cuda.synchronize()
     launches11 = counts(K)
     for name in (SPLIT_KERNELS if tdev.num_hubs else UNSPLIT_KERNELS):
         if launches11[name] <= 0:
             raise AssertionError(f"[11b] kernel {name} never launched")
-    total, want_w, _ = final_words(tsnap, ns.seeds, 3, TEMPORAL_YIELDS,
+    total, want_w, _ = final_words(tsnap, ns11.seeds, 3, TEMPORAL_YIELDS,
                                    where=True)
-    go3 = results[tlabel]["unfiltered"]
+    # the unfiltered GO's hop_edges and rows, by the numpy walk
+    walked = [host_final_hop(tsnap, ns11.seeds, k)[0] for k in (1, 2, 3)]
+    hops = [b - a for a, b in zip([0] + walked, walked)]
+    go3 = {"hop_edges": hops, "rows": hops[-1]}
     if st11.edges_traversed() != total or st11.hop_edges != go3["hop_edges"]:
         raise AssertionError(f"[11b] edges {st11.edges_traversed()} vs "
                              f"{total}, hop_edges {st11.hop_edges}")
@@ -5274,7 +5735,7 @@ def main(argv=None) -> int:
     tprog, _ = X.compile_predicate(twhere, dict(ttypes), tdev.pool,
                                    device=rt.device)
     tblk_d = tdev.blocks[("KNOWS", "out")]
-    _, _, tbufs, _ = hop_inputs(tdev)
+    _, _, tbufs, _ = hop_inputs(tdev, ns11.seeds)
     tsl = K.expand_plain(tblk_d.indptr, tblk_d.nbr, tblk_d.rank, tbufs[2],
                          tdev.hub_dense)
     tpa = (tprog, *tsl, [tblk_d.props[n] for n in tprog.columns])
@@ -5306,12 +5767,12 @@ def main(argv=None) -> int:
     # 11c. 1,000 inserts from the seeds carrying every column's type
     # through the delta plane; GO 3 STEPS then equals a fresh pin's
     stamp("phase 11c")
-    wstore = SnapshotStore(tsnap, ns.arrs, extra=ttypes)
+    wstore = SnapshotStore(tsnap, ns11.arrs, extra=ttypes)
     wstore.delta_watch("ns")
     trd = GpuRuntime(delta_max_edges=DELTA_CAP)
     trd.pin_prebuilt(tsnap)
     pool0 = list(tsnap.pool.strings)
-    ins = temporal_inserts(wstore, ns.arrs, ns.seeds, tsnap.pool,
+    ins = temporal_inserts(wstore, ns11.arrs, ns11.seeds, tsnap.pool,
                            TEMPORAL_INSERTS)
     for a, b, props in ins:
         wstore.insert_edge(a, b, props)
@@ -5324,7 +5785,7 @@ def main(argv=None) -> int:
     apply_s = time.perf_counter() - t0
     K.reset_launch_counts()
     (rows_d, st_d), dlat = timed(lambda: trd.traverse(
-        wstore, "ns", ns.seeds, ["KNOWS"], "out", 3, edge_filter=twhere,
+        wstore, "ns", ns11.seeds, ["KNOWS"], "out", 3, edge_filter=twhere,
         yields=tyields), TEMPORAL_RUNS)
     torch.cuda.synchronize()
     launches11c = counts(K)
@@ -5337,13 +5798,13 @@ def main(argv=None) -> int:
     trd.unpin("ns")
     trf = GpuRuntime()
     trf.pin_prebuilt(fsnap)
-    rows_f, st_f = trf.traverse(SnapshotStore(fsnap), "ns", ns.seeds,
+    rows_f, st_f = trf.traverse(SnapshotStore(fsnap), "ns", ns11.seeds,
                                 ["KNOWS"], "out", 3, edge_filter=twhere,
                                 yields=tyields)
     if not rows_equal(rows_d, rows_f) or st_d.hop_edges != st_f.hop_edges:
         raise AssertionError(f"[11c] {len(rows_d)} rows through the plane "
                              f"vs {len(rows_f)} from a fresh pin")
-    total_f, want_f, _ = final_words(fsnap, ns.seeds, 3, TEMPORAL_YIELDS,
+    total_f, want_f, _ = final_words(fsnap, ns11.seeds, 3, TEMPORAL_YIELDS,
                                      where=True)
     if st_f.edges_traversed() != total_f:
         raise AssertionError("[11c] the fresh pin's edges differ")
@@ -5359,22 +5820,25 @@ def main(argv=None) -> int:
     log(f"[11c] GO 3 STEPS WHERE d < d2 through {len(ins)} inserts: "
         f"{json.dumps(temporal['writes'])} | {card}")
     log(f"[11] phase 11 took {temporal['phase_s']:.1f} s")
-    del rows_d, rows_f, fsnap, tsnap, wstore, tstore
+    del rows_d, rows_f, fsnap, tsnap, wstore, tstore, ns11
 
     # -- 12. the store path ---------------------------------------------
     store12, st12 = store_phase(K, card, args.repeats, args.seed, ns)
 
     # -- 13. nGQL through the port's QueryEngine ---------------------------
     engine13, launches13 = engine_phase(K, card, st12, args.seed)
+
+    # -- 14. MATCH, the paths and the algorithms through the engine ------
+    match14, launches14 = match_phase(K, card, st12, args.seed)
     del st12
-    # the kernels line counts the engine GO path's launches too
+    # the kernels line counts the engine paths' launches too
     for row in rows_out:
         name = HUB_ROUTE if row["name"] == \
             "extend_hubs (fused into expand)" else row["name"]
-        row["launches"] += launches13.get(name, 0)
+        row["launches"] += launches13.get(name, 0) + launches14.get(name, 0)
 
-    # -- 14. result --------------------------------------------------------
-    stamp("phase 14")
+    # -- 15. result --------------------------------------------------------
+    stamp("phase 15")
     log(json.dumps({"go3": results, "expand_per_hop": per_hop,
                     "unsplit_launches": launches_u,
                     "unsplit_kernels": extra, "algo": algo, "bfs": bfs,
@@ -5382,6 +5846,7 @@ def main(argv=None) -> int:
                     "delta_launches": launches_d, "batch": batch,
                     "match": match, "mesh": mesh, "temporal": temporal,
                     "store": store12, "engine": engine13,
+                    "engine_match": match14,
                     "hbm_bytes": rt.hbm_bytes() + (
                         rts.hbm_bytes() if rts is not None else 0)}))
     print(json.dumps({"kernels": rows_out}))

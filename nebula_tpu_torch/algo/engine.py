@@ -16,11 +16,15 @@ answered by the oracle.  Both paths share graph preparation
 (algo/graph.py) and row assembly, so rows are identical up to PageRank's
 float tolerance.
 
-`run_algorithm` is the entry point.  The executor body `run_call_algo`
-and its store snapshot `_host_snapshot` need the query context and the
-store, which the nGQL slice brings; the cancel check, the `algo:iter`
-failpoint, the `tpu:algo_iter` span and the `algo_*` metrics of the
-reference's `_iterate` wait for the port's utils.
+Between iterations the statement also runs the cancel check (KILL
+QUERY and query_timeout land BETWEEN iterations, partial state
+discarded), hits the `algo:iter` failpoint, and emits `algo_iterations`
+/ `algo_iter_us` and a `tpu:algo_iter` trace span per dispatch.
+
+`run_algorithm` is the entry point (the bench's and the executor's);
+`run_call_algo` is the CallAlgo executor's body, over the statement's
+host snapshot (`_host_snapshot`).  On a mesh runtime the algorithm runs
+on the first slot's device (`rt.device`), as the reference's `dev0`.
 """
 from __future__ import annotations
 
@@ -43,6 +47,9 @@ class AlgoError(Exception):
 
 # -- graph preparation (shared by both modes) -------------------------------
 
+#: host-snapshot LRU for stores WITHOUT a device runtime (a runtime's
+#: pin() already caches per epoch); key (space, store uid) → (epoch, snap)
+_snap_cache: Dict[Tuple, Tuple[int, Any]] = {}
 #: flat-edge LRU; key (id(snap), blocks, weight) → (snap ref, AlgoGraph)
 _graph_cache: Dict[Tuple, Tuple[Any, AlgoGraph]] = {}
 #: device-resident edge arrays; key (id(snap), blocks, weight, device) →
@@ -65,6 +72,41 @@ def _lru_get(cache: Dict, key):
     if ent is not None:
         cache[key] = ent
     return ent
+
+
+def _host_snapshot(qctx, space: str):
+    """-> (CsrSnapshot, space-data) for the statement's space, or
+    raise AlgoError when the store has no dense-snapshot form."""
+    store = qctx.store
+    snap = getattr(store, "snap", None)
+    if snap is not None:                 # prebuilt bench SnapshotStore
+        return snap, store.space(space)
+    try:
+        sd = store.space(space)
+        sd.dense_id
+    except AttributeError:
+        raise AlgoError(
+            "CALL algo.* needs the dense-snapshot store (standalone "
+            "engine or device-pinned space); the distributed store "
+            "is not yet served") from None
+    rt = getattr(qctx, "tpu_runtime", None)
+    if rt is not None:
+        dev = rt.pin(store, space)
+        hd = dev.delta.host if dev.delta is not None else None
+        if hd is not None and (hd.total_edges() or hd.total_tombs()):
+            # algorithms read the BASE host CSR directly — pending delta
+            # edges live only in the mirror, so fold them in with a full
+            # re-pin before handing the adjacency out
+            dev = rt.pin(store, space, force=True)
+        return dev.host, sd
+    key = (space, getattr(sd, "uid", None) or id(sd))
+    ent = _lru_get(_snap_cache, key)
+    if ent is not None and ent[0] == sd.epoch:
+        return ent[1], sd
+    from ..graphstore.csr import build_snapshot
+    snap = build_snapshot(store, space)
+    _lru_put(_snap_cache, key, (sd.epoch, snap))
+    return snap, sd
 
 
 def _algo_graph(snap, block_keys, weight_prop) -> AlgoGraph:
@@ -163,15 +205,26 @@ def _effective_max_iter(func: str, params: Dict[str, Any],
 
 def _iterate(name: str, max_iter: int, live, body,
              iter_us: Optional[List[int]] = None) -> int:
-    """Drive `body(it) -> (active, converged)`, stamping the live
-    progress SHOW QUERIES renders after each iteration.  Returns the
-    iterations actually run; `iter_us` (when given) collects
-    per-iteration wall µs — the bench's probe."""
+    """Drive `body(it) -> (active, converged)` with the per-iteration
+    contract: cancel check (kill/deadline land HERE, between
+    iterations), the `algo:iter` failpoint, the `tpu:algo_iter` span,
+    `algo_*` metrics, and the live-progress stamp SHOW QUERIES
+    renders.  Returns the iterations actually run; `iter_us` (when
+    given) collects per-iteration wall µs — the bench's probe."""
+    from ..utils import cancel as _cancel
+    from ..utils import trace
+    from ..utils.failpoints import fail
+    from ..utils.stats import stats
     iters = 0
     for it in range(1, max_iter + 1):
+        _cancel.check()
+        fail.hit("algo:iter", key=name)
         t0 = time.perf_counter()
-        active, converged = body(it)
+        with trace.span("tpu:algo_iter", algo=name, iteration=it):
+            active, converged = body(it)
         us = int((time.perf_counter() - t0) * 1e6)
+        stats().inc_labeled("algo_iterations", {"algo": name})
+        stats().observe("algo_iter_us", us, {"algo": name})
         if iter_us is not None:
             iter_us.append(us)
         if live is not None:
@@ -180,6 +233,8 @@ def _iterate(name: str, max_iter: int, live, body,
         iters = it
         if converged:
             break
+    # a kill/deadline that landed during the LAST body must still win
+    _cancel.check()
     return iters
 
 
@@ -343,6 +398,8 @@ def run_algorithm(func: str, params: Dict[str, Any], snap, sd,
     canonical vid order and info = {'mode', 'iterations', 'n_edges',
     'n_vertices'}.  `iter_us` collects per-iteration wall µs on the
     device path (the bench's probe)."""
+    from ..utils import cancel as _cancel
+    from ..utils.stats import stats
     params, block_keys, g, src_dense = prepare(func, params, snap, sd)
     if src_dense == -1:
         # unknown source: no reachable set — empty result, not an
@@ -368,17 +425,46 @@ def run_algorithm(func: str, params: Dict[str, Any], snap, sd,
                 iter_us)
     else:
         ran_mode = "host"
+        _cancel.check()
         if live is not None:
             live.set_operator(f"algo.{func}[host oracle]")
         if func == "pagerank":
             state, iters = pagerank_np(
                 g, float(params["damping"]),
                 _effective_max_iter(func, params, g),
-                float(params["tol"]))
+                float(params["tol"]), check=_cancel.check)
         elif func == "wcc":
             state, iters = wcc_np(g), 1
         else:
             state, iters = sssp_np(g, src_dense), 1
+        _cancel.check()
+    stats().inc_labeled("algo_runs", {"algo": func, "mode": ran_mode})
     return assemble_rows(func, g, state), \
         {"mode": ran_mode, "iterations": iters,
          "n_edges": g.n_edges, "n_vertices": g.n_vertices}
+
+
+# -- the executor entry point -----------------------------------------------
+
+
+def run_call_algo(node, qctx, ectx):
+    """Executor body for the CallAlgo plan node: the statement's host
+    snapshot, `run_algorithm` on the engine's runtime (None: the
+    oracles), then the YIELD projection.  A device error propagates."""
+    from ..core.value import DataSet
+    from ..utils.workload import current_live
+
+    a = node.args
+    func = a["algo"]
+    snap, sd = _host_snapshot(qctx, a["space"])
+    rows, _info = run_algorithm(
+        func, a["params"], snap, sd,
+        rt=getattr(qctx, "tpu_runtime", None), live=current_live())
+    cols = a["yield"]                   # [(col, alias), ...]
+    spec = ALGORITHMS[func]
+    idx = {c: i for i, c in enumerate(spec.yield_cols)}
+    names = [al for _, al in cols]
+    sel = [idx[c] for c, _ in cols]
+    if sel == list(range(len(spec.yield_cols))):
+        return DataSet(names, rows)
+    return DataSet(names, [[r[i] for i in sel] for r in rows])

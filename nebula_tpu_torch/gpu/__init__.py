@@ -5,9 +5,11 @@ from .device import DeviceSnapshot, GpuUnavailable, SnapshotRetired, \
 from .exprjit import CannotCompile
 from .runtime import GpuRuntime, HopFrame, TraverseStats, \
     join_frontier_trails, trail_distinct_keep
-# imported for its effect: registers the TpuTraverse executor and the GO
-# fusion rule in query.optimizer.TPU_RULES
+# imported for their effect: register the TpuTraverse and TpuMatchAgg
+# executors and their fusion rules in query.optimizer.TPU_RULES, the GO
+# rule first (the reference's order, nebula_tpu/tpu/__init__.py)
 from . import traverse  # noqa: F401
+from . import match_agg  # noqa: F401
 
 __all__ = ["CannotCompile", "DeviceSnapshot", "GpuRuntime",
            "GpuUnavailable", "HopFrame", "SnapshotRetired", "TraverseStats",

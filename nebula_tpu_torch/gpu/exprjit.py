@@ -2,7 +2,8 @@
 evaluate YIELD columns columnar-side.
 
 Port of `nebula_tpu/tpu/exprjit.py` (`compilable`, `compile_predicate`,
-`_term_alg`, `yieldable`, `eval_yield_column_np`).  The reference builds
+`_term_alg`, the vertex-predicate compiler, `yieldable`,
+`eval_yield_column_np`).  The reference builds
 ONE jnp expression that XLA fuses into the hop (Queue B K4); here the
 typed term tree is lowered to a small register program (below), run by
 the hand-written CUDA interpreter `csrc/predicate.cu` on the card and
@@ -25,7 +26,7 @@ Columns arrive as a dict: reserved keys `_rank`, `_src`, `_dst`
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
@@ -649,6 +650,436 @@ def _lower(tree, pool: StringPool, device) -> Program:
             f"{MAX_INSNS}), {len(consts)} constants (max {MAX_CONSTS}), "
             f"{len(columns)} columns (max {MAX_COLS})")
     return Program(code, consts, columns, top[0], kind != "bool", device)
+
+
+# ---------------------------------------------------------------------------
+# The (value, is_null, kind) term algebra over numpy
+# ---------------------------------------------------------------------------
+#
+# The reference builds its in-kernel masks and its host vertex masks
+# from one algebra (`_term_alg`, over jnp and over np).  The port's edge
+# masks are the register program above; the vertex masks (fused MATCH,
+# gpu/match_agg.py) keep the algebra over numpy, a copy of the
+# reference's with the reference's typing, so the two packages cannot
+# drift on a vertex predicate.
+
+Term = Tuple[Any, Any, str]             # (val, isnull, kind)
+
+
+def _np_lit(v: Any, pool: StringPool) -> Callable[[Dict[str, Any]], Term]:
+    if v is None or isinstance(v, NullValue):
+        return lambda c: (np.zeros((), np.int64), np.ones((), bool),
+                          "int")
+    if isinstance(v, bool):
+        return lambda c: (np.asarray(v), np.zeros((), bool), "bool")
+    if isinstance(v, int):
+        if not (-(1 << 63) <= v < (1 << 63)):
+            # host compares arbitrary-precision ints; fall back
+            raise CannotCompile("int literal outside int64")
+        return lambda c: (np.asarray(v, np.int64), np.zeros((), bool),
+                          "int")
+    if isinstance(v, float):
+        return lambda c: (np.asarray(v, np.float64),
+                          np.zeros((), bool), "float")
+    if isinstance(v, str):
+        code = pool.lookup(v)   # -2 when absent: equals nothing non-null
+        return lambda c: (np.asarray(code, np.int64),
+                          np.zeros((), bool), "str")
+    raise CannotCompile(f"literal {type(v)}")
+
+
+def _np_unary(op: str, f) -> Callable[[Dict[str, Any]], Term]:
+    def g(c):
+        v, n, k = f(c)
+        if op == "IS_NULL":
+            return (n, np.zeros(np.shape(n), bool), "bool")
+        if op == "IS_NOT_NULL":
+            return (np.logical_not(n), np.zeros(np.shape(n), bool),
+                    "bool")
+        if op == "NOT":
+            if k != "bool":
+                raise CannotCompile("NOT on non-bool")
+            return (np.logical_not(v), n, "bool")
+        if op == "-":
+            if k not in _NUMERIC:
+                raise CannotCompile("negate non-numeric")
+            return (-v, n, k)
+        if op == "+":
+            if k not in _NUMERIC:
+                raise CannotCompile("+x non-numeric")
+            return (v, n, k)
+        raise CannotCompile(f"unary {op}")
+    return g
+
+
+def _np_coerce_pair(av, ak, bv, bk):
+    """Numeric promotion for mixed int/float operands."""
+    if ak == bk:
+        return av, bv, ak
+    if set((ak, bk)) == {"int", "float"}:
+        return (av.astype(np.float64) if ak == "int" else av,
+                bv.astype(np.float64) if bk == "int" else bv, "float")
+    raise CannotCompile(f"type mix {ak}/{bk}")
+
+
+def _np_binary(op: str, fa, fb) -> Callable[[Dict[str, Any]], Term]:
+    def g(c):
+        av, an, ak = fa(c)
+        bv, bn, bk = fb(c)
+        if op in _LOGIC_OPS:
+            if ak != "bool" or bk != "bool":
+                raise CannotCompile("logic on non-bool")
+            if op == "AND":
+                is_false = (~an & ~av) | (~bn & ~bv)
+                val = ~is_false
+                null = ~is_false & (an | bn)
+                return (val & ~null, null, "bool")
+            if op == "OR":
+                is_true = (~an & av) | (~bn & bv)
+                null = ~is_true & (an | bn)
+                return (is_true, null, "bool")
+            # XOR
+            return (np.logical_xor(av, bv), an | bn, "bool")
+        if op in _CMP_OPS:
+            null = an | bn
+            if "str" in (ak, bk) or "bool" in (ak, bk) or "geo" in (ak, bk):
+                if ak != bk:
+                    raise CannotCompile(f"compare {ak} vs {bk}")
+                if op not in ("==", "!="):
+                    # dict codes are insertion-ordered, not value-ordered
+                    raise CannotCompile(f"ordering on {ak}")
+                val = (av == bv) if op == "==" else (av != bv)
+                return (val, null, "bool")
+            a2, b2, _ = _np_coerce_pair(av, ak, bv, bk)
+            val = {"==": a2 == b2, "!=": a2 != b2, "<": a2 < b2,
+                   "<=": a2 <= b2, ">": a2 > b2, ">=": a2 >= b2}[op]
+            return (val, null, "bool")
+        if op in _ARITH_OPS:
+            if ak not in _NUMERIC or bk not in _NUMERIC:
+                raise CannotCompile(f"arith on {ak}/{bk}")
+            a2, b2, k = _np_coerce_pair(av, ak, bv, bk)
+            null = an | bn
+            if op == "+":
+                return (a2 + b2, null, k)
+            if op == "-":
+                return (a2 - b2, null, k)
+            if op == "*":
+                return (a2 * b2, null, k)
+            if op == "/":
+                null = null | (b2 == 0)
+                safe = np.where(b2 == 0, np.ones((), b2.dtype), b2)
+                if k == "int":
+                    # host semantics: truncation toward zero
+                    q = np.abs(a2) // np.abs(safe)
+                    sign = np.where((a2 >= 0) == (safe >= 0), 1, -1)
+                    return (q * sign, null, "int")
+                return (a2 / safe, null, "float")
+            # %
+            null = null | (b2 == 0)
+            safe = np.where(b2 == 0, np.ones((), b2.dtype), b2)
+            if k == "int":
+                # host v_mod: sign follows the dividend (C fmod style)
+                r = np.abs(a2) % np.abs(safe)
+                return (np.where(a2 >= 0, r, -r), null, "int")
+            return (np.where(np.signbit(a2),
+                             -(np.abs(a2) % np.abs(safe)),
+                             np.abs(a2) % np.abs(safe)), null, "float")
+        if op in _BIT_OPS:
+            # host gives BAD_TYPE (row-dropping) for non-int
+            # operands incl. bools/floats — only the int/int shape
+            # compiles; everything else falls back
+            if ak != "int" or bk != "int":
+                raise CannotCompile(f"bitwise on {ak}/{bk}")
+            null = an | bn
+            val = {"&": av & bv, "|": av | bv, "^": av ^ bv}[op]
+            return (val, null, "int")
+        raise CannotCompile(f"binary {op}")
+    return g
+
+
+def _np_in_list(fa, items: List[Any], pool: StringPool,
+             negate: bool) -> Callable[[Dict[str, Any]], Term]:
+    def g(c):
+        av, an, ak = fa(c)
+        any_true = np.zeros(np.shape(av), bool)
+        any_null = np.zeros(np.shape(av), bool)
+        for it in items:
+            if it is None or isinstance(it, NullValue):
+                any_null = np.ones(np.shape(av), bool)
+                continue
+            # type-mismatched items yield NULL from v_eq on the host
+            # (not False), so anything not exactly comparable must
+            # fall back
+            if isinstance(it, bool):
+                if ak != "bool":
+                    raise CannotCompile("IN bool item vs non-bool")
+                any_true = any_true | (av == it)
+            elif isinstance(it, int):
+                if ak not in _NUMERIC \
+                        or not (-(1 << 63) <= it < (1 << 63)):
+                    raise CannotCompile("IN int item vs non-numeric")
+                if ak == "int":
+                    any_true = any_true | (av == it)
+                else:
+                    any_true = any_true | (av == float(it))
+            elif isinstance(it, float):
+                if ak not in _NUMERIC:
+                    raise CannotCompile("IN float item vs non-numeric")
+                any_true = any_true | (av.astype(np.float64) == it)
+            elif isinstance(it, str):
+                if ak != "str":
+                    raise CannotCompile("IN str item vs non-string")
+                any_true = any_true | (av == pool.lookup(it))
+            else:
+                raise CannotCompile(f"IN item {type(it)}")
+        val = any_true
+        null = an | (~any_true & any_null)
+        if negate:
+            return (~val & ~null, null, "bool")
+        return (val & ~null, null, "bool")
+    return g
+
+
+# ---------------------------------------------------------------------------
+# Vertex-predicate compiler (numpy, host plane)
+# ---------------------------------------------------------------------------
+#
+# The fused MATCH pipeline (tpu/match_agg.py) evaluates AppendVertices
+# filters — `_hastag(v, "Tag")`, `v.Tag.prop > x`, compositions — as ONE
+# numpy mask over the snapshot's TagTable columns instead of per-row
+# Python `Expr.eval` over built Vertex objects, in the numpy term
+# algebra above, so a host-side mask never dispatches to the device.
+
+
+def _vertex_ref(x: "E.Expr", alias: str):
+    """Classify a vertex-alias reference.  Returns ("prop", tag, prop) |
+    ("attr", prop) | ("hastag", tag) | None; raises CannotCompile on a
+    reference to a DIFFERENT alias (the caller's filter must be
+    single-alias)."""
+    if isinstance(x, E.LabelTagProp):
+        if x.var != alias:
+            raise CannotCompile(f"prop of other alias {x.var}")
+        return ("prop", x.tag, x.prop)
+    if isinstance(x, E.AttributeExpr) and isinstance(x.obj, E.LabelExpr):
+        # tag-less `v.prop`: get_attribute over the MERGED tag props
+        # (later tag in sorted order wins on a name collision)
+        if x.obj.name != alias:
+            raise CannotCompile(f"attr of other alias {x.obj.name}")
+        return ("attr", x.attr)
+    if (isinstance(x, E.FunctionCall) and x.name == "_hastag"
+            and len(x.args) == 2 and isinstance(x.args[0], E.LabelExpr)
+            and isinstance(x.args[1], E.Literal)
+            and isinstance(x.args[1].value, str)):
+        if x.args[0].name != alias:
+            raise CannotCompile(f"_hastag of other alias {x.args[0].name}")
+        return ("hastag", x.args[1].value)
+    return None
+
+
+def _vertex_id_ref(x: "E.Expr", alias: str) -> bool:
+    """True iff x is id(<alias>)."""
+    return (isinstance(x, E.FunctionCall) and x.name == "id"
+            and len(x.args) == 1 and isinstance(x.args[0], E.LabelExpr)
+            and x.args[0].name == alias)
+
+
+def vertex_compilable(e: "E.Expr", alias: str) -> bool:
+    """Static gate: will compile_vertex_predicate_np succeed (given the
+    snapshot has the referenced tags)?  Conservative, schema-free."""
+    try:
+        _vertex_check(e, alias)
+        return True
+    except CannotCompile:
+        return False
+
+
+def _vertex_check(e: "E.Expr", alias: str):
+    if isinstance(e, E.Literal):
+        v = e.value
+        if v is None or isinstance(v, (bool, int, float, str, NullValue)):
+            return
+        raise CannotCompile(f"literal {type(v)}")
+    if _vertex_ref(e, alias) is not None:
+        return
+    if isinstance(e, E.Unary):
+        if e.op in ("NOT", "-", "+", "IS_NULL", "IS_NOT_NULL"):
+            _vertex_check(e.operand, alias)
+            return
+        raise CannotCompile(f"unary {e.op}")
+    if isinstance(e, E.Binary):
+        li, ri = _vertex_id_ref(e.lhs, alias), _vertex_id_ref(e.rhs, alias)
+        if li or ri:
+            if _id_pred_shape_ok(e, li, ri):
+                return
+            raise CannotCompile("id(v) only compiles vs non-null "
+                                "literal vids")
+        if e.op in _LOGIC_OPS + _CMP_OPS + _ARITH_OPS + _BIT_OPS:
+            _vertex_check(e.lhs, alias)
+            _vertex_check(e.rhs, alias)
+            return
+        if e.op in ("IN", "NOT IN"):
+            _vertex_check(e.lhs, alias)
+            if not isinstance(e.rhs, (E.ListExpr, E.SetExpr)):
+                raise CannotCompile("IN rhs must be a literal list")
+            for item in e.rhs.items:
+                if not isinstance(item, E.Literal):
+                    raise CannotCompile("IN item not literal")
+            return
+        raise CannotCompile(f"binary {e.op}")
+    raise CannotCompile(f"expr kind {e.kind}")
+
+
+def compile_vertex_predicate_np(e: "E.Expr", alias: str, snap,
+                                sd) -> Callable[["np.ndarray"], "np.ndarray"]:
+    """Compile a single-alias vertex predicate against CsrSnapshot tag
+    tables.  Returns mask_fn(dense_ids) -> bool array: True where the
+    predicate is (non-null) true for the vertex with that dense id.
+
+    Tag-table null currency matches the edge plane: INT_NULL sentinel in
+    int-coded columns, NaN in floats — absent-tag rows carry the fill,
+    so `v.Tag.prop` on a vertex without Tag is NULL exactly like the
+    host's per-row lookup (core/expr.py LabelTagProp)."""
+    P = snap.num_parts
+    pool = snap.pool
+
+    def dense_of(v):
+        d = sd.dense_id(v)
+        return int(d) if d is not None else -1
+
+    def vid_cmp(op, values):
+        dv = [dense_of(x.value) for x in values]
+
+        def g(c):
+            ep = c["_dense"]
+            m = np.zeros(np.shape(ep), bool)
+            for d in dv:
+                m = m | (ep == d)
+            if op in ("!=", "NOT IN"):
+                m = np.logical_not(m)
+            return (m, np.zeros(np.shape(ep), bool), "bool")
+        return g
+
+    def build(x: "E.Expr"):
+        if isinstance(x, E.Binary):
+            li, ri = _vertex_id_ref(x.lhs, alias), _vertex_id_ref(x.rhs, alias)
+            if li or ri:
+                if x.op in ("==", "!="):
+                    lit = x.rhs if li else x.lhs
+                    if not isinstance(lit, E.Literal):
+                        raise CannotCompile("id(v) vs non-literal")
+                    return vid_cmp(x.op, [lit])
+                if x.op in ("IN", "NOT IN") and li:
+                    return vid_cmp(x.op, list(x.rhs.items))
+                raise CannotCompile("id(v) predicate shape")
+        if isinstance(x, E.Literal):
+            return _np_lit(x.value, pool)
+        ref = _vertex_ref(x, alias)
+        if ref is not None:
+            if ref[0] == "attr":
+                return _attr_term(snap, P, ref[1])
+            if ref[0] == "hastag":
+                tt = snap.tags.get(ref[1])
+                if tt is None:
+                    return lambda c: (np.zeros(np.shape(c["_dense"]), bool),
+                                      np.zeros(np.shape(c["_dense"]), bool),
+                                      "bool")
+                pres = tt.present
+
+                def g(c, pres=pres):
+                    d = c["_dense"]
+                    m = pres[d % P, d // P]
+                    return (m, np.zeros(m.shape, bool), "bool")
+                return g
+            _, tag, pname = ref
+            tt = snap.tags.get(tag)
+            if tt is None or pname not in tt.props:
+                # unknown tag/prop → NULL (host LabelTagProp: absent)
+                return lambda c: (np.zeros(np.shape(c["_dense"]), np.int64),
+                                  np.ones(np.shape(c["_dense"]), bool),
+                                  "int")
+            kind = _kind_of(tt.prop_types[pname])
+            col = tt.props[pname]
+
+            def g(c, col=col, kind=kind):
+                d = c["_dense"]
+                raw = col[d % P, d // P]
+                if kind == "float":
+                    return (raw, np.isnan(raw), "float")
+                if kind == "bool":
+                    return (raw != 0, raw == INT_NULL, "bool")
+                return (raw, raw == INT_NULL, kind)
+            return g
+        if isinstance(x, E.Unary):
+            return _np_unary(x.op, build(x.operand))
+        if isinstance(x, E.Binary):
+            if x.op in ("IN", "NOT IN"):
+                return _np_in_list(build(x.lhs),
+                                   [it.value for it in x.rhs.items],
+                                   pool, negate=x.op == "NOT IN")
+            return _np_binary(x.op, build(x.lhs), build(x.rhs))
+        raise CannotCompile(f"expr kind {x.kind}")
+
+    term = build(e)
+
+    def mask_fn(dense):
+        val, isnull, kind = term({"_dense": dense})
+        if kind != "bool":
+            return np.zeros(np.shape(dense), bool)
+        val = np.broadcast_to(val, np.shape(dense))
+        isnull = np.broadcast_to(isnull, np.shape(dense))
+        return np.logical_and(val, np.logical_not(isnull))
+
+    return mask_fn
+
+
+def merged_attr_columns(snap, prop: str):
+    """(present, raw, kind) per tag whose schema carries `prop`, in the
+    snapshot's sorted-tag order — the columnar mirror of
+    Vertex.properties()'s dict merge (later tag wins).  Raises when the
+    participating columns disagree on the value kind (a per-row merge
+    of mixed encodings has no single columnar type)."""
+    parts = []
+    for tt in snap.tags.values():          # insertion = sorted tag order
+        if prop in tt.props:
+            parts.append((tt.present, tt.props[prop],
+                          _kind_of(tt.prop_types[prop]),
+                          tt.prop_types[prop]))
+    kinds = {k for _, _, k, _ in parts}
+    if len(kinds) > 1:
+        raise CannotCompile(f"attr {prop} mixes value kinds across tags")
+    return parts
+
+
+def merged_attr_raw(snap, parts, dense: "np.ndarray"):
+    """Merged raw column for `parts` at `dense` (sentinel nulls)."""
+    P = snap.num_parts
+    kind = parts[0][2]
+    if kind == "float":
+        val = np.full(np.shape(dense), np.nan)
+    else:
+        val = np.full(np.shape(dense), INT_NULL, np.int64)
+    p_, li = dense % P, dense // P
+    for pres, col, _, _ in parts:
+        pm = pres[p_, li]
+        val = np.where(pm, col[p_, li], val)
+    return val
+
+
+def _attr_term(snap, P, prop: str):
+    parts = merged_attr_columns(snap, prop)
+    if not parts:
+        return lambda c: (np.zeros(np.shape(c["_dense"]), np.int64),
+                          np.ones(np.shape(c["_dense"]), bool), "int")
+    kind = parts[0][2]
+
+    def g(c):
+        raw = merged_attr_raw(snap, parts, c["_dense"])
+        if kind == "float":
+            return (raw, np.isnan(raw), "float")
+        if kind == "bool":
+            return (raw != 0, raw == INT_NULL, "bool")
+        return (raw, raw == INT_NULL, kind)
+    return g
 
 
 # ---------------------------------------------------------------------------

@@ -40,8 +40,29 @@ from ..query.plan import PlanNode
 from .device import SnapshotRetired
 from .exprjit import CannotCompile, compilable, yieldable
 
-#: runs of a fused GO whose snapshot a concurrent pin keeps retiring
+#: runs of a device call whose snapshot a concurrent pin keeps retiring
 RETIRED_ATTEMPTS = 3
+
+
+def run_on_device(qctx, call):
+    """`call()`, the device half of a statement, under the executors'
+    error policy: a `SnapshotRetired` (a rebuild or a compaction's swap
+    replaced the snapshot mid-run) runs it again on the snapshot now
+    pinned, up to RETIRED_ATTEMPTS runs; a `CannotCompile` (a statement
+    the device cannot express) is recorded in `qctx.last_tpu_fallback`
+    and answered with None, and the caller takes its host path, which
+    has identical semantics.  Anything else propagates: a
+    `GpuUnavailable`, a CUDA error or a failed kernel build is the
+    statement's error."""
+    for attempt in range(1, RETIRED_ATTEMPTS + 1):
+        try:
+            return call()
+        except SnapshotRetired:
+            if attempt == RETIRED_ATTEMPTS:
+                raise
+        except CannotCompile as ex:
+            qctx.last_tpu_fallback = f"{type(ex).__name__}: {ex}"
+            return None
 
 # ---------------------------------------------------------------------------
 # Fusion rule
@@ -162,36 +183,21 @@ def _tpu_traverse(node, qctx, ectx, space):
     vids = [v for v in vids if not is_null(v)]
     rt = getattr(qctx, "tpu_runtime", None)
     yields = a.get("yields")
-    if rt is not None:
-        for attempt in range(1, RETIRED_ATTEMPTS + 1):
-            try:
-                rows, stats = rt.traverse(
-                    qctx.store, sp, vids, a["edge_types"], a["direction"],
-                    a["steps"], edge_filter=a.get("edge_filter"),
-                    yields=yields)
-            except SnapshotRetired:
-                # a concurrent pin (a rebuild, a compaction's swap)
-                # replaced the snapshot mid-run: run on the new one
-                if attempt == RETIRED_ATTEMPTS:
-                    raise
-                continue
-            except CannotCompile as ex:
-                # the device cannot express this statement; the host
-                # path below has identical semantics, and the cause is
-                # recorded for PROFILE/debug rather than silently
-                # swallowed
-                qctx.last_tpu_fallback = f"{type(ex).__name__}: {ex}"
-                break
-            qctx.last_tpu_stats = stats
-            if yields is not None:
-                if isinstance(rows, DataSet):
-                    # ColumnarDataSet: rows stay numpy columns until a
-                    # consumer crosses the row boundary (lazy handle)
-                    rows.column_names = list(node.col_names)
-                    return rows
-                return DataSet(list(node.col_names), rows)
-            return DataSet(["_src", "_edge", "_dst"],
-                           [[s, e, d] for (s, e, d) in rows])
+    got = None if rt is None else run_on_device(qctx, lambda: rt.traverse(
+        qctx.store, sp, vids, a["edge_types"], a["direction"], a["steps"],
+        edge_filter=a.get("edge_filter"), yields=yields))
+    if got is not None:
+        rows, stats = got
+        qctx.last_tpu_stats = stats
+        if yields is not None:
+            if isinstance(rows, DataSet):
+                # ColumnarDataSet: rows stay numpy columns until a
+                # consumer crosses the row boundary (lazy handle)
+                rows.column_names = list(node.col_names)
+                return rows
+            return DataSet(list(node.col_names), rows)
+        return DataSet(["_src", "_edge", "_dst"],
+                       [[s, e, d] for (s, e, d) in rows])
     return _host_traverse(node, qctx, sp, vids)
 
 

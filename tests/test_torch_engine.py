@@ -30,14 +30,14 @@ def load_twin(relpath: str, pkg: str, replace=()):
     """The test module at `relpath` (from the repo root), executed as
     written (`pkg` "ref") or with every `nebula_tpu` import read as the
     port's (`pkg` "port"; `nebula_tpu.tpu` is the port's `gpu`).
-    `replace` adds (old, new) text pairs applied to the port's copy
-    first, one line for one line."""
+    `replace` adds (old, new) text pairs applied to the copy first, one
+    line for one line."""
     path = ROOT / relpath
     src = path.read_text()
+    for old, new in replace:
+        assert old in src, (relpath, old)
+        src = src.replace(old, new)
     if pkg == "port":
-        for old, new in replace:
-            assert old in src, (relpath, old)
-            src = src.replace(old, new)
         src = src.replace("nebula_tpu.tpu", "nebula_tpu_torch.gpu")
         src = re.sub(r"\bnebula_tpu\b(?!_torch)", "nebula_tpu_torch", src)
     name = f"twin_{pkg}_{path.stem}"
@@ -157,3 +157,35 @@ def flag_runtime(_mesh=None):
 
 def no_mesh(parts):
     return None
+
+
+#: the port's CPU runtimes the device-branch twins run on: the three local
+#: layouts and a mesh of shard slots (as many as the store's parts)
+DEVICE_LAYOUTS = ("unsplit", "split", "plane", "mesh")
+
+
+def layout_runtime(layout: str, parts: int = 8):
+    """A CPU `GpuRuntime` of one layout: "unsplit"; "split", degree-split
+    at 4; "plane", a delta plane of 64; "mesh", `parts` shard slots on
+    the CPU."""
+    import torch
+    from nebula_tpu_torch.gpu import GpuRuntime, make_mesh
+    if layout == "mesh":
+        return GpuRuntime(mesh=make_mesh(
+            parts, devices=[torch.device("cpu")] * parts))
+    return GpuRuntime(device="cpu", **{
+        "unsplit": {}, "split": {"degree_split_threshold": 4},
+        "plane": {"delta_max_edges": 64}}[layout])
+
+
+def mesh_parts(parts):
+    """Stands for the reference's `make_mesh(parts)` beside
+    `mesh_runtime`: the mesh is the part count."""
+    return parts
+
+
+def mesh_runtime(parts=None):
+    """Stands for the reference's `TpuRuntime(make_mesh(parts))`: a CPU
+    mesh of `parts` shard slots, or one local CPU device for one part."""
+    return layout_runtime("unsplit") if not parts or parts == 1 \
+        else layout_runtime("mesh", parts)

@@ -13,10 +13,14 @@ against the JAX package's (`nebula_tpu.tpu.traverse`), on the CPU.
   non-compilable filter, duplicate literal vids at one step, a
   non-yieldable column) gives the reference's device plan, with the
   reference's GO rule alone in its `optimizer.TPU_RULES`.
-- Divergence 12 (ROADMAP): a device error in a fused GO propagates as
-  the statement's error; only `CannotCompile` takes the host path.
-- Divergence 13: in device mode MATCH, FIND PATH and GET SUBGRAPH run
-  their host executors, and CALL algo.* raises `ExecError`.
+- Divergence 12 (ROADMAP): a device error in a fused GO, and in each
+  device branch of MATCH, FIND PATH, GET SUBGRAPH, the fused MATCH
+  aggregate and CALL algo.*, propagates as the statement's error; only
+  `CannotCompile` takes the host path; `SnapshotRetired` reruns.
+- MATCH, FIND PATH and GET SUBGRAPH ask the runtime in device mode, and
+  CALL algo.* gives the oracle's rows (tests/test_torch_gpu_match.py,
+  test_torch_match_agg.py and test_torch_algo_engine.py hold them
+  whole).
 Tolerance: exact.
 """
 import pytest
@@ -31,7 +35,7 @@ from nebula_tpu_torch.exec.executors import EXECUTORS, ExecError
 from nebula_tpu_torch.gpu import CannotCompile, GpuRuntime, GpuUnavailable
 from nebula_tpu_torch.utils.stats import stats
 
-from test_torch_engine import load_twin, run_twin
+from test_torch_engine import layout_runtime, load_twin, run_twin
 from test_torch_tck import canon_plan
 
 TWIN = load_twin("tests/unit/test_tpu.py", "port", replace=((
@@ -48,15 +52,7 @@ GO_TESTS = ["test_engine_fusion_end_to_end", "test_mton_and_piped_go_parity",
             "test_non_yieldable_keeps_project",
             "test_over_all_direction_combos_parity"]
 
-LAYOUTS = {
-    "unsplit": dict(),
-    "split": dict(degree_split_threshold=4),
-    "plane": dict(delta_max_edges=64),
-}
-
-
-def port_rt(layout):
-    return GpuRuntime(device="cpu", **LAYOUTS[layout])
+LAYOUTS = ("unsplit", "split", "plane")
 
 
 _REF_RT = []
@@ -71,7 +67,7 @@ def ref_rt():
 @pytest.mark.parametrize("layout", sorted(LAYOUTS))
 @pytest.mark.parametrize("name", GO_TESTS)
 def test_go_half_of_test_tpu(name, layout):
-    run_twin(TWIN, name, {}, {"rt": port_rt(layout)})
+    run_twin(TWIN, name, {}, {"rt": layout_runtime(layout)})
 
 
 # -- rows against the reference's device engine -----------------------------
@@ -167,7 +163,7 @@ def test_rows_equal_the_reference_device_engine(layout):
     fused statement ran on the port's device path."""
     want = _reference_rows()
     _, port_st = _stores(21)
-    rt = port_rt(layout)
+    rt = layout_runtime(layout)
     port_dev = _Side(QueryEngine, port_st, rt, port_wire)
     pins = stats().snapshot().get("tpu_pins", 0)
     for k in range(len(WRITES) + 1):
@@ -196,7 +192,7 @@ def test_a_filter_past_the_interpreter_limits_takes_the_host_path():
     ref_st, port_st = _stores(22)
     where = " OR ".join(f"knows.w == {i}" for i in range(140))
     q = f"GO 2 STEPS FROM 3, 17 OVER knows WHERE {where} YIELD dst(edge)"
-    port = _Side(QueryEngine, port_st, port_rt("unsplit"), port_wire)
+    port = _Side(QueryEngine, port_st, layout_runtime("unsplit"), port_wire)
     port.eng.qctx.last_tpu_fallback = None
     assert port.rows(q) == _Side(RefQueryEngine, ref_st, None,
                                  ref_wire).rows(q)
@@ -244,7 +240,7 @@ def test_refusal_matches_the_reference_plan(case):
     q, kept = REFUSALS[case]
     ref_st, port_st = _stores(23)
     ref = _Side(RefQueryEngine, ref_st, ref_rt(), ref_wire)
-    port = _Side(QueryEngine, port_st, port_rt("unsplit"), port_wire)
+    port = _Side(QueryEngine, port_st, layout_runtime("unsplit"), port_wire)
     want = _ref_device_plan(ref.eng, ref.sess, q)
     got = canon_plan(port.plan(q))
     assert got == want, (case, got, want)
@@ -289,7 +285,7 @@ def test_device_error_in_fused_go_propagates(monkeypatch):
     lets a `GpuUnavailable` (a CUDA error, a failed kernel build) be the
     statement's error, and records no fallback."""
     _, port_st = _stores(24)
-    rt = port_rt("unsplit")
+    rt = layout_runtime("unsplit")
     port = _Side(QueryEngine, port_st, rt, port_wire)
     q = "GO 2 STEPS FROM 3, 17 OVER knows YIELD dst(edge) AS d"
 
@@ -326,7 +322,7 @@ def test_a_retired_snapshot_reruns_on_the_device(monkeypatch):
     from nebula_tpu_torch.gpu import SnapshotRetired
     from nebula_tpu_torch.gpu.traverse import RETIRED_ATTEMPTS
     _, port_st = _stores(27)
-    rt = port_rt("plane")
+    rt = layout_runtime("plane")
     port = _Side(QueryEngine, port_st, rt, port_wire)
     host = _Side(QueryEngine, port_st, None, port_wire)
     q = "GO 2 STEPS FROM 3, 17 OVER knows YIELD dst(edge) AS d"
@@ -396,9 +392,9 @@ def test_reference_falls_back_on_a_device_error(monkeypatch):
     assert ref.eng.qctx.last_tpu_fallback == "TpuUnavailable: no device"
 
 
-# -- divergence 13: MATCH, FIND PATH, GET SUBGRAPH and CALL algo -------------
+# -- MATCH, FIND PATH, GET SUBGRAPH and CALL algo on the device ---------------
 
-HOST_IN_DEVICE_MODE = [
+DEVICE_BRANCHES = [
     "MATCH (a:person)-[e:knows*1..2]->(b) WHERE id(a) == 3 "
     "RETURN id(b) AS b",
     "FIND SHORTEST PATH FROM 3 TO 17 OVER knows YIELD path AS p",
@@ -408,30 +404,126 @@ HOST_IN_DEVICE_MODE = [
 ]
 
 
-@pytest.mark.parametrize("q", HOST_IN_DEVICE_MODE)
-def test_match_paths_and_subgraph_run_their_host_executors(q, monkeypatch):
-    """Divergence 13: their device halves (ROADMAP A5b, A6b) are not
-    ported, so the runtime is never asked and the rows are the host's
-    and the reference's."""
-    ref_st, port_st = _stores(25)
-    rt = port_rt("unsplit")
+def _counting(monkeypatch, rt):
+    """Count the runtime's device calls by method name."""
+    calls = {}
+    for name in ("traverse", "traverse_hops", "bfs", "algo_dispatch"):
+        real = getattr(rt, name)
 
-    def never(*a, **k):
-        raise AssertionError("the runtime was asked")
-    for name in ("traverse", "traverse_hops", "bfs"):
-        monkeypatch.setattr(rt, name, never)
+        def counted(*a, _name=name, _real=real, **k):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _real(*a, **k)
+        monkeypatch.setattr(rt, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("q", DEVICE_BRANCHES)
+def test_match_paths_and_subgraph_ask_the_runtime(q, monkeypatch):
+    """Their device halves ask the runtime (the BFS for the shortest
+    path, `traverse_hops` for the others), and the rows are the
+    reference's device and host engines' and the port's host engine's,
+    as a multiset."""
+    ref_st, port_st = _stores(25)
+    rt = layout_runtime("unsplit")
+    calls = _counting(monkeypatch, rt)
     port = _Side(QueryEngine, port_st, rt, port_wire)
+    port.eng.qctx.last_tpu_fallback = None
     got = port.rows(q)
+    assert calls == ({"bfs": 1} if "SHORTEST" in q
+                     else {"traverse_hops": 1}), calls
+    assert port.eng.qctx.last_tpu_fallback is None
     assert got == _Side(QueryEngine, port_st, None, port_wire).rows(q)
     assert got == _Side(RefQueryEngine, ref_st, None, ref_wire).rows(q)
+    assert got == _Side(RefQueryEngine, ref_st, ref_rt(), ref_wire).rows(q)
 
 
-def test_call_algo_raises_until_its_engine_side_is_ported():
-    _, port_st = _stores(26)
-    for rt in (None, port_rt("unsplit")):
+def test_call_algo_rows_equal_the_oracle(monkeypatch):
+    """CALL algo.* runs on the runtime's step kernels (one dispatch an
+    iteration), or by the numpy oracle without a runtime, with the
+    reference's host engine's rows; a parameter the engine refuses is an
+    `ExecError`."""
+    ref_st, port_st = _stores(26)
+    q = "CALL algo.wcc() YIELD vid, component"
+    want = _Side(RefQueryEngine, ref_st, None, ref_wire).rows(q)
+    for rt in (None, layout_runtime("unsplit")):
+        calls = {} if rt is None else _counting(monkeypatch, rt)
         port = _Side(QueryEngine, port_st, rt, port_wire)
-        rs = port.eng.execute(port.sess, "CALL algo.wcc() YIELD vid, component")
-        assert rs.error == "ExecutionError: CALL algo.* is not available " \
-            "in this engine yet (ROADMAP A9b)", rs.error
-    with pytest.raises(ExecError):
-        EXECUTORS["CallAlgo"](None, None, None, None)
+        assert port.rows(q) == want
+        assert port.rows('CALL algo.wcc(mode="host") YIELD vid, '
+                         'component') == want
+        assert (calls.get("algo_dispatch", 0) > 0) == (rt is not None)
+    from nebula_tpu_torch.query.plan import PlanNode
+    node = PlanNode("CallAlgo", deps=[], args={
+        "algo": "wcc", "space": "g", "params": {"mode": "nowhere"},
+        "yield": [("vid", "vid")]}, col_names=["vid"])
+    with pytest.raises(ExecError, match="mode must be one of"):
+        EXECUTORS["CallAlgo"](node, port.eng.qctx, None, "g")
+
+
+# -- divergence 12 on every device branch ------------------------------------
+
+#: (statement, the runtime method its device branch calls)
+BRANCH_CALLS = {
+    "MATCH": ("MATCH (a:person)-[e:knows*1..2]->(b) WHERE id(a) IN [3, 17] "
+              "RETURN id(b) AS b", "traverse_hops"),
+    "FIND SHORTEST PATH": ("FIND SHORTEST PATH FROM 3 TO 17, 44 OVER knows "
+                           "UPTO 4 STEPS YIELD path AS p", "bfs"),
+    "FIND ALL PATH": ("FIND ALL PATH FROM 3 TO 17 OVER knows UPTO 2 STEPS "
+                      "YIELD path AS p", "traverse_hops"),
+    "FIND NOLOOP PATH": ("FIND NOLOOP PATH FROM 3 TO 17 OVER knows UPTO 3 "
+                         "STEPS YIELD path AS p", "traverse_hops"),
+    "GET SUBGRAPH": ("GET SUBGRAPH 2 STEPS FROM 3 OUT knows "
+                     "YIELD vertices AS v, edges AS e", "traverse_hops"),
+    "TpuMatchAgg": ("MATCH (a:person)-[e:knows*1..3]->(b) WHERE id(a) IN "
+                    "[1, 2] RETURN count(*) AS c", "traverse_hops"),
+    "CALL algo": ("CALL algo.pagerank(max_iter=5, tol=0.0)",
+                  "algo_dispatch"),
+}
+
+
+@pytest.mark.parametrize("branch", sorted(BRANCH_CALLS))
+def test_device_error_in_each_branch_propagates(branch, monkeypatch):
+    """Divergence 12 on each device branch: a `GpuUnavailable` from the
+    runtime is the statement's error and no fallback is recorded; a
+    `CannotCompile` takes the host path, recorded (CALL algo.* has no
+    host path on a device engine: divergence 4); a `SnapshotRetired`
+    reruns the device call."""
+    from nebula_tpu_torch.gpu import SnapshotRetired
+    q, method = BRANCH_CALLS[branch]
+    _, port_st = _stores(28)
+    rt = layout_runtime("unsplit")
+    port = _Side(QueryEngine, port_st, rt, port_wire)
+    host = _Side(QueryEngine, port_st, None, port_wire)
+    real = getattr(rt, method)
+    if branch == "TpuMatchAgg":
+        assert "TpuMatchAgg" in port.plan(q)
+
+    def raising(exc):
+        def call(*a, **k):
+            raise exc
+        return call
+    monkeypatch.setattr(rt, method,
+                        raising(GpuUnavailable("the card fell off the bus")))
+    port.eng.qctx.last_tpu_fallback = None
+    rs = port.eng.execute(port.sess, q)
+    assert rs.error == "ExecutionError: the card fell off the bus", rs.error
+    assert port.eng.qctx.last_tpu_fallback is None
+
+    calls = []
+
+    def retire_first(*a, **k):
+        calls.append(1)
+        if len(calls) == 1:
+            raise SnapshotRetired("retired by a concurrent pin")
+        return real(*a, **k)
+    monkeypatch.setattr(rt, method, retire_first)
+    want = host.rows(q) if branch != "CALL algo" else None
+    if want is not None:
+        assert port.rows(q) == want
+        assert len(calls) >= 2 and port.eng.qctx.last_tpu_fallback is None
+
+        monkeypatch.setattr(rt, method,
+                            raising(CannotCompile("not expressible")))
+        assert port.rows(q) == want
+        assert port.eng.qctx.last_tpu_fallback == \
+            "CannotCompile: not expressible"

@@ -21,16 +21,18 @@ rows and whether a GO statement's trace is among them.
 Device mode: the port's EXPLAIN of every statement that holds a GO, and
 every EXPLAIN statement of the scenarios, is held to the reference's
 device plan, made by the reference's engine with the device flag on and
-the GO fusion rule (`make_tpu_rule`) alone in `optimizer.TPU_RULES`, so
-a `TpuTraverse` node stands exactly where the reference's does.  The
-reference's MATCH rules (`make_match_agg_rule`,
-`make_match_pipeline_rule`) are ROADMAP A5b.  So is the device half of
-MATCH, FIND PATH and GET SUBGRAPH: in device mode those statements run
-their host executors (divergence 13), and their rows are held like any
-other.  On the 8-slot mesh a space of another part count is a layout
-the runtime cannot express (`MeshLayoutRefused`, a `CannotCompile`), so
-its GO takes the host path there, as the reference's does on its mesh;
-the local engine runs them all on its device path.
+the GO and MATCH-aggregate fusion rules (`make_tpu_rule`,
+`make_match_agg_rule`) alone in `optimizer.TPU_RULES`, so a
+`TpuTraverse` or `TpuMatchAgg` node stands exactly where the
+reference's does.  The reference's MATCH pipeline rule
+(`make_match_pipeline_rule`) is ROADMAP A5b part 2.  MATCH, FIND PATH,
+GET SUBGRAPH run their device halves on the device engines, and their rows are held like any other: no scenario that
+compares rows in order reads a statement whose device rows come in
+another order than the host's.  On the 8-slot mesh a space of another
+part count is a layout the runtime cannot express (`MeshLayoutRefused`,
+a `CannotCompile`), so its statements take the host path there, as the
+reference's do on its mesh; the local engine runs them all on its
+device path.
 
 No scenario is left out: none needs a module this slice leaves out.
 Tolerance: exact.
@@ -105,19 +107,26 @@ class _Engine:
 
     def ref_device_plan(self, stmt):
         """The reference engine's EXPLAIN of `stmt` as its device engine
-        plans it, with the GO fusion rule alone."""
-        import nebula_tpu.tpu.traverse as ref_traverse
+        plans it, with the GO and MATCH-aggregate fusion rules alone."""
         from nebula_tpu.query import optimizer as ref_opt
         assert self.pkg == "ref"
         saved_rules, saved_rt = list(ref_opt.TPU_RULES), \
             self.eng.qctx.tpu_runtime
-        ref_opt.TPU_RULES[:] = [ref_traverse.make_tpu_rule]
+        ref_opt.TPU_RULES[:] = ref_device_rules()
         self.eng.qctx.tpu_runtime = object()   # EXPLAIN never runs it
         try:
             return self.eng.execute(self.sess, stmt)
         finally:
             ref_opt.TPU_RULES[:] = saved_rules
             self.eng.qctx.tpu_runtime = saved_rt
+
+
+def ref_device_rules():
+    """The reference's fusion rules the port has: GO's and the MATCH
+    aggregate's (its MATCH pipeline rule is ROADMAP A5b part 2)."""
+    import nebula_tpu.tpu.match_agg as ref_match_agg
+    import nebula_tpu.tpu.traverse as ref_traverse
+    return [ref_traverse.make_tpu_rule, ref_match_agg.make_match_agg_rule]
 
 
 _NUMBERED = re.compile(r"(#|\bn|_)(\d+)\b")
@@ -172,6 +181,8 @@ def outcome(e: _Engine, rs, ordered: bool, explain: bool, stmt=""):
 
 
 _GO = re.compile(r"\bGO\b", re.I)
+#: the statements whose device halves this slice ports, by first word
+_DEVICE_KIND = re.compile(r"^\s*(MATCH|FIND|GET)\b", re.I)
 
 
 def _is_explain(stmt):
@@ -187,8 +198,9 @@ def has_go(stmt: str) -> bool:
 def replay(scn, counts=None):
     """Run one scenario on the four engines; raise AssertionError at the
     first statement whose outcomes differ.  `counts` (a dict), when
-    given, adds up the statements, and the GO statements and the fused
-    ones of the device plans."""
+    given, adds up the statements, the GO statements and the fused
+    ones of the device plans, and per device engine the MATCH, FIND
+    PATH and GET SUBGRAPH statements that ran on its runtime."""
     ref = _Engine("ref")
     host = _Engine("port")
     devs = [_Engine("port", "mesh"), _Engine("port", "local")]
@@ -211,8 +223,14 @@ def replay(scn, counts=None):
                 want_plan = outcome(ref, ref.ref_device_plan(stmt), ordered,
                                     explain, stmt)
             for dev in devs:
+                dev.eng.qctx.last_tpu_stats = None
                 got = outcome(dev, dev.execute(stmt), ordered, explain,
                               stmt)
+                kind = _DEVICE_KIND.match(stmt)
+                if counts is not None and kind and not explain \
+                        and dev.eng.qctx.last_tpu_stats is not None:
+                    key = (dev.layout, kind.group(1).upper())
+                    counts[key] = counts.get(key, 0) + 1
                 assert got == (want_plan if explain else want), \
                     f"{where}: port device ({dev.layout}) {got!r} != " \
                     f"reference {'device plan ' if explain else ''}" \
@@ -254,3 +272,18 @@ def test_go_plans_fuse_in_device_mode():
         replay(scn, counts)
     assert counts["go"] > 20, counts
     assert 0 < counts["fused"] < counts["go"], counts
+
+
+def test_match_paths_and_subgraph_run_on_the_device_engines():
+    """The replay reaches the device halves: on both device engines
+    MATCH, FIND PATH and GET SUBGRAPH statements of their features ran
+    on the runtime (`last_tpu_stats` set) on the local engine, and MATCH
+    statements on the mesh (the path features' spaces have another part
+    count than its 8 slots)."""
+    counts = {}
+    for scn in scenarios(["match", "match_aggregate_fused", "match_paths",
+                          "path_subgraph", "paths_advanced"]):
+        replay(scn, counts)
+    for kind in ("MATCH", "FIND", "GET"):
+        assert counts.get(("local", kind), 0) > 0, (kind, counts)
+    assert counts.get(("mesh", "MATCH"), 0) > 0, counts
