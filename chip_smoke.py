@@ -8,8 +8,9 @@ lane-widened kernels, MATCH's every-hop expansion, and GO, the BFS and
 MATCH again over a mesh of eight shard slots, GO and MATCH over DATE,
 DATETIME, TIME and GEOGRAPHY edge props, and GO and the BFS on a
 snapshot the runtime built from the port's own store, through its
-writes, rebuilds and compaction, and nGQL GO statements and writes
-through the port's QueryEngine on that store, each through the
+writes, rebuilds and compaction, nGQL GO statements and writes through
+the port's QueryEngine on that store, and LDBC IC5 and IC9 fused into
+one MATCH pipeline node through that engine, each through the
 hand-written CUDA kernels.
 
 Run from the repository root on a machine with a CUDA card and nvcc:
@@ -18,6 +19,7 @@ Run from the repository root on a machine with a CUDA card and nvcc:
     python3 chip_smoke.py --persons 20000 # a quick check
     python3 chip_smoke.py --split 0       # skip the degree-split path
     python3 chip_smoke.py --seed 3        # another write batch (phase 7)
+    python3 chip_smoke.py --ic-persons 2000  # a smaller phase 15 slice
 
 Phases, in order; any failure exits non-zero before the result line:
   1. the card's name and power limit (nvidia-smi) and torch's name for it;
@@ -390,7 +392,9 @@ Phases, in order; any failure exits non-zero before the result line:
      recorded calls made bare:
        a. EXPLAIN of config 4b's statement (MATCH (a:Person)-[e:KNOWS
           *1..4]->(b) from 1,792 pick_seeds(min_degree=3) RETURN
-          count(*), bench.py:739-750) is one TpuMatchAgg node;
+          count(*), bench.py:739-750) is one TpuMatchAgg node, and
+          each single-clause MATCH of b plans a Traverse and no
+          TpuMatchPipeline, as the reference's three rules plan it;
        b. MATCH *1..3 from phase 12's 16 seeds RETURN id(b), size(e),
           unfiltered and with the inline {city: "ada"} (the device's
           WHERE mask at every hop), and a one-hop MATCH WHERE e.w > 50
@@ -410,11 +414,35 @@ Phases, in order; any failure exits non-zero before the result line:
           re-pins before the algorithm reads the adjacency), K12-K14
           launches equal run_algorithm's on the same snapshot, rows
           equal to a host engine's (PageRank within 1e-8);
- 15. the `kernels` JSON line (the split GO path's, the algo path's, the
+ 15. the MATCH pipeline through the engine: LDBC IC5 and IC9 as
+     bench.py:786-830 runs them (root 5, min_date 17,000, max_date
+     19,000) on make_snb_interactive(--ic-persons, 6,000 by default,
+     parts=8) in the port's store, on an unsplit runtime with a delta
+     plane of 2,048 and one split at 64, each statement against a host
+     engine on the same store:
+       a. each statement's EXPLAIN, through canon_plan, is the
+          reference's device plan (IC_PLANS): one TpuMatchPipeline node;
+       b. one warm-up, which records the segment program (its sha256
+          must be the reference's, IC_PROGRAMS) and the traverse_hops
+          call of each chain, then 2 timed runs with the launch counters
+          zeroed just before each and read just after: rows equal to
+          ic5_numpy / ic9_numpy and to the host engine's, in order;
+          match_pipeline_fused + 1 a run and match_pipeline_fallback
+          unmoved; launches equal to the recorded calls made bare;
+          p50 of the engine, the bare calls and the host engine, the
+          device loop, and PROFILE's segment rows;
+       c. nGQL writes through the unsplit engine (96 new Posts by the
+          root's friends with their HAS_CREATOR and CONTAINER_OF edges,
+          48 HAS_MEMBER edges deleted, 4 of IC5's top forums retitled):
+          folded into the plane once (tpu_repin_avoided + 1, merge_delta
+          launched), the split runtime re-pins; both statements again as
+          in b, rows equal to the host engine's and to a fresh pin's,
+          and every device tag tensor equal to the host mirror's;
+ 16. the `kernels` JSON line (the split GO path's, the algo path's, the
      split BFS path's (6d's for the global probe), the delta GO path's,
      the batched path's, the MATCH path's, the mesh GO path's, phase
-     11's filtered GO path's and phase 13's and 14's engine paths'
-     launches), the card line, and the result line {"ok": true,
+     11's filtered GO path's and phase 13's, 14's and 15's engine
+     paths' launches), the card line, and the result line {"ok": true,
      "device": {...}} last.
 Without CUDA it prints no result and exits 2.
 """
@@ -611,6 +639,37 @@ ALGO_CALLS = (("pagerank", {"max_iter": 20, "tol": 0.0}), ("wcc", {}),
               ("sssp", {"weight": "w"}))
 ALGO_KERNELS = {"pagerank": "pagerank_step", "wcc": "wcc_step",
                 "sssp": "sssp_step"}
+# phase 15: LDBC IC5 and IC9 through the MATCH pipeline, bench.py:786-830
+IC_PERSONS = 6_000               # bench.py's NEBULA_BENCH_IC_PERSONS default
+IC_PARTS = 8
+IC_SPACE = "ic"
+IC_ROOT, IC_MIN_DATE, IC_MAX_DATE = 5, 17_000, 19_000
+IC_SPLIT = 64                    # the split runtime's threshold, as 12b's
+IC_RUNS = 2                      # timed runs a statement, after one warm-up
+IC_POSTS = 96                    # 15c: new Posts by the root's friends
+IC_UNJOIN = 48                   # 15c: HAS_MEMBER edges deleted
+IC_RETITLE = 4                   # 15c: Forum titles rewritten
+IC_KERNELS = ("expand", "mark", "compact_capture")
+#: the reference's device plan of each statement (its EXPLAIN through
+#: `canon_plan`, nebula_tpu/tpu/pipeline.py's rule) and the sha256 of its
+#: segment program's canonical repr, on make_snb_interactive at any size
+#: (tests/test_torch_pipeline.py holds both to the reference's engine)
+IC_PLANS = {
+    "IC5": ("TpuMatchPipeline#0 {space='ic', ops=[{'op': 'seed', 'vids': "
+            "[5], 'alias': 'person', 'out': 0}, {'op': 'vpred', 'in': 0, "
+            "'alias': 'person', 'pred': _hastag(person, \"Person\"), "
+            "'out': 1}, {…+2762ch, n_chains=4, fallback=<subplan TopN#1>} "
+            "-> ['forumName', 'postCount']"),
+    "IC9": ("TpuMatchPipeline#0 {space='ic', ops=[{'op': 'seed', 'vids': "
+            "[5], 'alias': 'root', 'out': 0}, {'op': 'vpred', 'in': 0, "
+            "'alias': 'root', 'pred': _hastag(root, \"Person\"), 'out': "
+            "1}, {'op': …+1447ch, n_chains=2, fallback=<subplan TopN#1>} -> "
+            "['fid', 'mid', 'd']"),
+}
+IC_PROGRAMS = {
+    "IC5": "bfddc0ac3205bd0da1b09e553fa2556952eb78bc4cd8ccd95e4dd5f062f23cf5",
+    "IC9": "398d216798a4382b50f35195d05029b66aa913e8d9bddde16dc7122a2ce92608",
+}
 
 
 T0 = time.perf_counter()
@@ -3031,13 +3090,13 @@ def store_phase(K, card: str, repeats: int, seed: int, ns) -> dict:
     return out, SimpleNamespace(store=store, rta=rta, rts=rts, seeds=seeds)
 
 
-def open_engine(store, rt, tag: str):
+def open_engine(store, rt, tag: str, space: str = STORE_SPACE):
     """A QueryEngine on `store` (the host engine when `rt` is None) and
-    a session that uses the store's space."""
+    a session that uses `space`."""
     from nebula_tpu_torch.exec.engine import QueryEngine
     eng = QueryEngine(store, tpu_runtime=rt)
     sess = eng.new_session()
-    rs = eng.execute(sess, f"USE {STORE_SPACE}")
+    rs = eng.execute(sess, f"USE {space}")
     if rs.error is not None:
         raise AssertionError(f"{tag} USE: {rs.error}")
     return eng, sess
@@ -3470,8 +3529,18 @@ def match_phase(K, card: str, st12, seed: int) -> tuple:
                 or "Traverse" in plan.replace("TpuMatchAgg", ""):
             raise AssertionError(f"[14a] config 4b ({layout}) is not one "
                                  f"TpuMatchAgg node:\n{plan[:400]}")
+    # the single-clause MATCH statements keep their Traverse: the
+    # reference's pipeline rule fuses only multi-clause pipelines
+    for label in ("*1..3", "*1..3 {city}", "one hop, e.w > 50"):
+        plan = run_stmt(engines["unsplit"], "EXPLAIN " + qs[label],
+                        "[14a]")[0].data.rows[0][0]
+        if "TpuMatchPipeline" in plan or "Traverse" not in plan:
+            raise AssertionError(f"[14a] {label}: not the reference's "
+                                 f"Traverse plan:\n{plan[:400]}")
     log(f"[14a] config 4b's MATCH *1..{C4B_HOPS} from {len(c4b_seeds)} "
-        f"seeds plans to one TpuMatchAgg node on both runtimes")
+        f"seeds plans to one TpuMatchAgg node on both runtimes; the "
+        f"single-clause MATCH statements plan a Traverse, as the "
+        f"reference's three rules do")
 
     res = {}
     # 14b. MATCH's Traverse on the device, unfiltered and with the mask
@@ -3603,6 +3672,336 @@ def match_phase(K, card: str, st12, seed: int) -> tuple:
     return out, total
 
 
+_NUMBERED = re.compile(r"(#|\bn|_)(\d+)\b")
+
+
+def canon_plan(text: str) -> str:
+    """Renumber plan node ids and numbered names in order of first
+    appearance, so two engines' EXPLAIN texts compare (a copy of
+    tests/test_torch_tck.py's)."""
+    seen = {}
+
+    def sub(m):
+        key = (m.group(1), m.group(2))
+        seen.setdefault(key, len([k for k in seen if k[0] == m.group(1)]))
+        return f"{m.group(1)}{seen[key]}"
+    return _NUMBERED.sub(sub, text)
+
+
+def program_digest(ops) -> str:
+    """sha256 of a segment program's repr through `canon_plan`."""
+    import hashlib
+    return hashlib.sha256(canon_plan(repr(ops)).encode()).hexdigest()
+
+
+def ic_statements():
+    """IC5 and IC9 as bench.py:792-814 writes them."""
+    return {
+        "IC5": (f"MATCH (person:Person)-[:KNOWS*1..2]-(friend:Person) "
+                f"WHERE id(person) == {IC_ROOT} AND id(friend) != {IC_ROOT} "
+                f"WITH DISTINCT friend "
+                f"MATCH (friend)<-[membership:HAS_MEMBER]-(forum:Forum) "
+                f"WHERE membership.joinDate > {IC_MIN_DATE} "
+                f"WITH DISTINCT friend, forum "
+                f"OPTIONAL MATCH (friend)<-[:HAS_CREATOR]-(post:Post)"
+                f"<-[:CONTAINER_OF]-(forum) "
+                f"WITH forum, count(post) AS postCount "
+                f"RETURN forum.Forum.title AS forumName, postCount "
+                f"ORDER BY postCount DESC, forumName ASC LIMIT 20"),
+        "IC9": (f"MATCH (root:Person)-[:KNOWS*1..2]-(friend:Person) "
+                f"WHERE id(root) == {IC_ROOT} AND id(friend) != {IC_ROOT} "
+                f"WITH DISTINCT friend "
+                f"MATCH (friend)<-[:HAS_CREATOR]-(message) "
+                f"WHERE message.creationDate < {IC_MAX_DATE} "
+                f"RETURN id(friend) AS fid, id(message) AS mid, "
+                f"message.creationDate AS d ORDER BY d DESC, mid ASC "
+                f"LIMIT 20"),
+    }
+
+
+def pipeline_programs(PL, fn):
+    """fn() with the segment program of every fused pipeline run in it
+    recorded: (fn's result, [ops, ...])."""
+    progs = []
+    orig = PL._Runner.run
+
+    def run(runner, ops):
+        progs.append(ops)
+        return orig(runner, ops)
+    PL._Runner.run = run
+    try:
+        res = fn()
+    finally:
+        PL._Runner.run = orig
+    return res, progs
+
+
+def fallbacks() -> int:
+    from nebula_tpu_torch.utils.stats import stats
+    return sum(v for k, v in stats().snapshot().items()
+               if k.startswith("match_pipeline_fallback"))
+
+
+def ic_writes(arrs, top_forums, seed: int):
+    """Phase 15c's nGQL writes, from `seed`: IC_POSTS new Posts (LDBC
+    IU6) dated just below IC9's bound, each created by one of the
+    root's 1..2-hop friends (HAS_CREATOR) in a forum that friend joined
+    after IC5's bound (CONTAINER_OF); IC_UNJOIN such memberships deleted
+    (HAS_MEMBER); and the title of IC_RETITLE of IC5's top forums
+    rewritten (a tag column).  Returns (statements, counts)."""
+    import numpy as np
+    from nebula_tpu_torch.bench.datagen import _friends_1_2
+    rng = np.random.default_rng(seed)
+    fr = set(_friends_1_2(arrs, IC_ROOT).tolist())
+    qual = {}
+    for f, p, d in zip(arrs["mem_f"].tolist(), arrs["mem_p"].tolist(),
+                       arrs["mem_d"].tolist()):
+        if p in fr and d > IC_MIN_DATE:
+            qual.setdefault(p, []).append(f)
+    members = sorted(qual)
+    f0, v0 = arrs["f0"], arrs["c0"] + arrs["n_comments"]
+    posts, creators, containers = [], [], []
+    for j in range(IC_POSTS):
+        p = members[int(rng.integers(len(members)))]
+        f = qual[p][int(rng.integers(len(qual[p])))]
+        date = int(rng.integers(IC_MAX_DATE - 100, IC_MAX_DATE))
+        posts.append(f'{v0 + j}:({date}, "ic15_{j}")')
+        creators.append(f"{v0 + j}->{p}:()")
+        containers.append(f"{f0 + f}->{v0 + j}:()")
+    stmts = [f"INSERT VERTEX Post(creationDate, content) VALUES "
+             f"{', '.join(posts)}",
+             f"INSERT EDGE HAS_CREATOR() VALUES {', '.join(creators)}",
+             f"INSERT EDGE CONTAINER_OF() VALUES {', '.join(containers)}"]
+    pairs = sorted({(f, p) for p, fs in qual.items() for f in fs})
+    pick = sorted(rng.permutation(len(pairs))[:IC_UNJOIN].tolist())
+    stmts.append("DELETE EDGE HAS_MEMBER " + ", ".join(
+        f"{f0 + pairs[i][0]}->{pairs[i][1]}" for i in pick))
+    for i, f in enumerate(top_forums[:IC_RETITLE]):
+        stmts.append(f'UPDATE VERTEX ON Forum {f} SET title = '
+                     f'"retitled{i}"')
+    return stmts, {"posts": IC_POSTS, "unjoined": len(pick),
+                   "retitled": min(IC_RETITLE, len(top_forums))}
+
+
+def device_tags_equal_host(dev) -> int:
+    """Every pinned tag tensor against the host mirror's column; returns
+    the tag tables' bytes.  Raises on a difference."""
+    import numpy as np
+    nbytes = 0
+    for name, t in dev.host.tags.items():
+        d = dev.tags[name]
+        for col, want in (("present", t.present), *t.props.items()):
+            got = (d.present if col == "present" else d.props[col])
+            got = got.cpu().numpy()
+            if got.shape != want.shape or not np.array_equal(
+                    got, want, equal_nan=want.dtype.kind == "f"):
+                raise AssertionError(f"[15c] device tag {name}.{col} "
+                                     f"differs from the host mirror")
+            nbytes += got.nbytes
+    return nbytes
+
+
+def pipeline_phase(K, card: str, persons: int, seed: int) -> tuple:
+    """Phase 15: LDBC IC5 and IC9 (bench.py:786-830) through the port's
+    QueryEngine, each fused into one TpuMatchPipeline node, on
+    make_snb_interactive(persons) with an unsplit runtime (a delta
+    plane) and one split at IC_SPLIT, each statement against the numpy
+    oracles and a host engine on the same store, then through nGQL
+    writes.  Returns (the phase's numbers, the launches of one run of
+    each statement); raises on any failed check."""
+    import numpy as np
+    from nebula_tpu_torch.bench.datagen import (ic5_numpy, ic9_numpy,
+                                                make_snb_interactive)
+    from nebula_tpu_torch.gpu import GpuRuntime
+    from nebula_tpu_torch.gpu import pipeline as PL
+
+    out, total = {}, {}
+    t15 = time.perf_counter()
+    stamp("phase 15a")
+    t0 = time.perf_counter()
+    store, arrs = make_snb_interactive(persons, parts=IC_PARTS)
+    build_s = time.perf_counter() - t0
+    rts = {"unsplit": GpuRuntime(delta_max_edges=STORE_DELTA_CAP),
+           "split": GpuRuntime(degree_split_threshold=IC_SPLIT)}
+    engines = {k: open_engine(store, rt, "[15a]", IC_SPACE)
+               for k, rt in rts.items()}
+    host = open_engine(store, None, "[15a]", IC_SPACE)
+    qs = ic_statements()
+    oracles = {
+        "IC5": [tuple(t) for t in ic5_numpy(arrs, IC_ROOT, IC_MIN_DATE)],
+        "IC9": [tuple(t) for t in ic9_numpy(arrs, IC_ROOT, IC_MAX_DATE)]}
+    out["graph"] = {k: arrs[k] for k in ("n_persons", "n_forums",
+                                         "n_posts", "n_comments")}
+    out["graph"].update(knows_pairs=len(arrs["know_pairs"]),
+                        memberships=int(arrs["mem_f"].size),
+                        build_s=build_s)
+    log(f"[15a] make_snb_interactive({persons}, parts={IC_PARTS}): "
+        f"{json.dumps(out['graph'])}")
+
+    # 15a. each statement plans the reference's one TpuMatchPipeline node
+    for layout, es in engines.items():
+        for name, q in qs.items():
+            plan = canon_plan(run_stmt(es, "EXPLAIN " + q, "[15a]")[0]
+                              .data.rows[0][0])
+            if plan != IC_PLANS[name]:
+                raise AssertionError(f"[15a] {name} ({layout}) plans\n"
+                                     f"{plan}\nnot the reference's\n"
+                                     f"{IC_PLANS[name]}")
+    log("[15a] IC5 and IC9 plan the reference's TpuMatchPipeline node on "
+        "both runtimes")
+
+    host_res = {}
+
+    def host_rows(name):
+        if name not in host_res:
+            rs, dt, _, _ = run_stmt(host, qs[name], "[15]")
+            host_res[name] = [repr(r) for r in rs.data.rows], dt * 1e3
+        return host_res[name]
+
+    def statement(tag, layout, name, oracle=None, kernels=()):
+        """A warm-up that records the segment program and the
+        traverse_hops calls of its chains, then IC_RUNS timed runs with
+        the launch counters zeroed just before each and read just after,
+        the bare calls made again as many times, and one PROFILE."""
+        rt, es = rts[layout], engines[layout]
+        q = qs[name]
+        pins0, avoided0 = metric("tpu_pins"), metric("tpu_repin_avoided")
+        (_, calls), progs = pipeline_programs(PL, lambda: runtime_calls(
+            rt, "traverse_hops", lambda: run_stmt(es, q, tag)))
+        warm = {"pins": metric("tpu_pins") - pins0,
+                "repins_avoided": metric("tpu_repin_avoided") - avoided0}
+        if len(progs) != 1 \
+                or program_digest(progs[0]) != IC_PROGRAMS[name]:
+            raise AssertionError(f"{tag} {name} ({layout}): ran "
+                                 f"{len(progs)} programs, not the "
+                                 f"reference's: {progs[:1]!r}")
+        chains = sum(op["op"] == "chain" for op in progs[0])
+        if len(calls) != chains:
+            raise AssertionError(f"{tag} {name} ({layout}): {len(calls)} "
+                                 f"traverse_hops calls for {chains} chains")
+        lat, dev_s, launches = [], [], None
+        for _ in range(IC_RUNS):
+            fused0, fb0 = metric("match_pipeline_fused"), fallbacks()
+            (rs, dt, st, fb), got = counted_launches(
+                K, lambda: run_stmt(es, q, tag))
+            if st is None or fb is not None \
+                    or metric("match_pipeline_fused") != fused0 + 1 \
+                    or fallbacks() != fb0:
+                raise AssertionError(f"{tag} {name} ({layout}): not fused "
+                                     f"(stats {st}, fallback {fb})")
+            if launches is not None and got != launches:
+                raise AssertionError(f"{tag} {name} ({layout}): launches "
+                                     f"{got} then {launches}")
+            launches = got
+            lat.append(dt)
+            dev_s.append(st.device_s)
+        bare_lat = []
+        for _ in range(IC_RUNS):
+            t0 = time.perf_counter()
+            _, bare = counted_launches(K, lambda: [
+                rt.traverse_hops(*a, **k) for a, k in calls])
+            bare_lat.append(time.perf_counter() - t0)
+        if bare != launches:
+            raise AssertionError(f"{tag} {name} ({layout}): the engine "
+                                 f"launched {launches}, the bare calls "
+                                 f"{bare}")
+        for kname in IC_KERNELS + tuple(kernels):
+            if launches.get(kname, 0) <= 0:
+                raise AssertionError(f"{tag} {name} ({layout}): kernel "
+                                     f"{kname} never launched")
+        check_hub_route(launches, f"{tag} {name} ({layout})",
+                        split=layout == "split")
+        rows = [repr(r) for r in rs.data.rows]
+        hrows, host_ms = host_rows(name)
+        if rows != hrows or len(rows) != 20:
+            raise AssertionError(f"{tag} {name} ({layout}): {len(rows)} "
+                                 f"rows, the host engine's {len(hrows)}, "
+                                 f"not equal in order")
+        if oracle is not None and [tuple(r) for r in rs.data.rows] \
+                != oracle:
+            raise AssertionError(f"{tag} {name} ({layout}): rows differ "
+                                 f"from the numpy oracle")
+        prof = run_stmt(es, "PROFILE " + q, tag)[0]
+        segs = [ln.strip() for ln in (prof.plan_desc or "").splitlines()
+                if "segment:" in ln]
+        if not segs or not any("segment:result" in ln for ln in segs):
+            raise AssertionError(f"{tag} {name} ({layout}): PROFILE shows "
+                                 f"no segments")
+        launches = {k: v for k, v in launches.items() if v}
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        p50 = float(np.median(lat)) * 1e3
+        res = {"rows": len(rows), "p50_ms": p50,
+               "bare_p50_ms": float(np.median(bare_lat)) * 1e3,
+               "host_ms": host_ms,
+               "device_loop_ms": float(np.median(dev_s)) * 1e3,
+               "chains": chains, "hop_edges": list(st.hop_edges),
+               "warmup": warm, "launches": launches}
+        log(f"{tag} {name} ({layout}): {json.dumps(res)} | {card}")
+        for ln in segs:
+            log(f"{tag}   {ln}")
+        return res, rs
+
+    # 15b. rows against the oracles and the host engine
+    stamp("phase 15b")
+    res, top = {}, []
+    for layout in rts:
+        for name in qs:
+            r, rs = statement("[15b]", layout, name, oracles[name],
+                              ("predicate_mask",) if name == "IC5" else ())
+            res[f"{name} ({layout})"] = r
+            if name == "IC5":
+                top = [arrs["f0"] + int(row[0][len("forum"):])
+                       for row in rs.data.rows]
+    out["15b"] = res
+
+    # 15c. nGQL writes folded into the plane, then both statements again
+    stamp("phase 15c")
+    stmts, wfacts = ic_writes(arrs, top, seed)
+    t0 = time.perf_counter()
+    for q in stmts:
+        run_stmt(engines["unsplit"], q, "[15c]")
+    write_s = time.perf_counter() - t0
+    host_res.clear()
+    dev = rts["unsplit"].snapshots[IC_SPACE]
+    avoided0 = metric("tpu_repin_avoided")
+    res = {}
+    for layout in rts:
+        for name in qs:
+            res[f"{name} ({layout})"], _ = statement(
+                "[15c]", layout, name,
+                kernels=("merge_delta",) if layout == "unsplit" else ())
+    avoided = metric("tpu_repin_avoided") - avoided0
+    if avoided != 1 or rts["unsplit"].snapshots[IC_SPACE] is not dev:
+        raise AssertionError(f"[15c] {avoided} re-pins avoided; the writes "
+                             f"were not folded into the plane once")
+    hd = dev.delta.host
+    tag_bytes = device_tags_equal_host(dev)
+    fresh = open_engine(store, GpuRuntime(), "[15c]", IC_SPACE)
+    for name, q in qs.items():
+        rs, _, st, fb = run_stmt(fresh, q, "[15c]")
+        if st is None or fb is not None \
+                or [repr(r) for r in rs.data.rows] != host_rows(name)[0]:
+            raise AssertionError(f"[15c] {name}: a fresh pin's rows differ")
+    out["15c"] = dict(res, writes=dict(wfacts, statements=len(stmts),
+                                       write_s=write_s),
+                      repins_avoided=avoided,
+                      delta_edges=hd.total_edges(), tombs=hd.total_tombs(),
+                      tag_bytes=tag_bytes)
+    log(f"[15c] {json.dumps(out['15c']['writes'])}: folded into the plane "
+        f"once ({hd.total_edges()} delta edges, {hd.total_tombs()} "
+        f"tombstones), rows equal to the host engine's and a fresh "
+        f"pin's; {tag_bytes} bytes of device tag tables equal the host "
+        f"mirror")
+    fresh[0].qctx.tpu_runtime.unpin(IC_SPACE)
+    for rt in rts.values():
+        rt.unpin(IC_SPACE)
+    out["launches"] = total
+    out["phase_s"] = time.perf_counter() - t15
+    log(f"[15] phase 15 took {out['phase_s']:.1f} s")
+    return out, total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--persons", type=int, default=1_000_000)
@@ -3611,6 +4010,9 @@ def main(argv=None) -> int:
                     help="degree-split threshold of path 3b (0 skips it)")
     ap.add_argument("--seed", type=int, default=1,
                     help="seed of phase 7's write batch")
+    ap.add_argument("--ic-persons", type=int, default=IC_PERSONS,
+                    help="persons of phase 15's LDBC SNB interactive "
+                         "slice")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -5831,14 +6233,18 @@ def main(argv=None) -> int:
     # -- 14. MATCH, the paths and the algorithms through the engine ------
     match14, launches14 = match_phase(K, card, st12, args.seed)
     del st12
+
+    # -- 15. LDBC IC5 and IC9 through the MATCH pipeline ------------------
+    pipe15, launches15 = pipeline_phase(K, card, args.ic_persons, args.seed)
     # the kernels line counts the engine paths' launches too
     for row in rows_out:
         name = HUB_ROUTE if row["name"] == \
             "extend_hubs (fused into expand)" else row["name"]
-        row["launches"] += launches13.get(name, 0) + launches14.get(name, 0)
+        row["launches"] += launches13.get(name, 0) \
+            + launches14.get(name, 0) + launches15.get(name, 0)
 
-    # -- 15. result --------------------------------------------------------
-    stamp("phase 15")
+    # -- 16. result --------------------------------------------------------
+    stamp("phase 16")
     log(json.dumps({"go3": results, "expand_per_hop": per_hop,
                     "unsplit_launches": launches_u,
                     "unsplit_kernels": extra, "algo": algo, "bfs": bfs,
@@ -5846,7 +6252,7 @@ def main(argv=None) -> int:
                     "delta_launches": launches_d, "batch": batch,
                     "match": match, "mesh": mesh, "temporal": temporal,
                     "store": store12, "engine": engine13,
-                    "engine_match": match14,
+                    "engine_match": match14, "pipeline": pipe15,
                     "hbm_bytes": rt.hbm_bytes() + (
                         rts.hbm_bytes() if rts is not None else 0)}))
     print(json.dumps({"kernels": rows_out}))

@@ -18,7 +18,10 @@ edge per (src, dst) key, as a store does.  `SnapshotStore` is the store
 stand-in the runtime's `traverse`, `traverse_hops` and `bfs` read dense
 ids and edge-type ids from, with a write side for the delta plane.
 `north_star` sets up the repo's north-star GO once for every script that
-runs it.
+runs it.  `make_snb_interactive` (with `_friends_1_2`, `ic5_numpy` and
+`ic9_numpy`, copies of the reference's :425-619) builds the
+Person/Forum/Post/Comment slice bench.py runs LDBC IC5 and IC9 on, in the
+port's store, with the numpy oracles of both queries.
 """
 from __future__ import annotations
 
@@ -616,3 +619,211 @@ def north_star(persons: int = 1_000_000,
     w_filter = E.Binary(">", E.EdgeProp("KNOWS", "w"), E.Literal(50))
     return NorthStar(snap, SnapshotStore(snap), seeds, yields, w_filter, 50,
                      int(arrs["src"].size), int(split_threshold), arrs)
+
+
+
+
+# ---------------------------------------------------------------------------
+# LDBC-SNB interactive slice (the reference's datagen.py:415-619):
+# enough of the datagen schema — Person/Forum/Post/Comment with KNOWS /
+# HAS_MEMBER / CONTAINER_OF / HAS_CREATOR and datagen-like skew — to run
+# IC5 and IC9 with their published query text, plus numpy oracles for
+# both.
+# ---------------------------------------------------------------------------
+
+
+def make_snb_interactive(n_persons: int = 4_000, parts: int = 8,
+                         seed: int = 19, space: str = "ic",
+                         store: GraphStore | None = None):
+    """Person/Forum/Post/Comment graph with LDBC-interactive shape.
+
+    Vid layout (INT64, one space): persons [0, P), forums [P, P+F),
+    posts [P+F, P+F+M), comments [P+F+M, ...).  Distributions follow the
+    datagen spirit: Zipf-tailed KNOWS degree, power-law forum sizes and
+    posts-per-forum, post creators drawn from the forum's members,
+    comments replying to (and created near) existing posts.  Dates are
+    epoch-day ints (the queries only compare/order them).
+
+    Returns (store, arrays) where arrays carries the raw numpy columns
+    the IC5/IC9 oracles run over.
+    """
+    rng = np.random.default_rng(seed)
+    st = store if store is not None else GraphStore()
+    st.create_space(space, partition_num=parts, vid_type="INT64")
+    st.catalog.create_tag(space, "Person", [
+        PropDef("firstName", PropType.STRING),
+        PropDef("lastName", PropType.STRING)])
+    st.catalog.create_tag(space, "Forum", [
+        PropDef("title", PropType.STRING)])
+    st.catalog.create_tag(space, "Post", [
+        PropDef("creationDate", PropType.INT64),
+        PropDef("content", PropType.STRING)])
+    st.catalog.create_tag(space, "Comment", [
+        PropDef("creationDate", PropType.INT64),
+        PropDef("content", PropType.STRING)])
+    st.catalog.create_edge(space, "KNOWS", [
+        PropDef("creationDate", PropType.INT64)])
+    st.catalog.create_edge(space, "HAS_MEMBER", [
+        PropDef("joinDate", PropType.INT64)])
+    st.catalog.create_edge(space, "CONTAINER_OF", [])
+    st.catalog.create_edge(space, "HAS_CREATOR", [])
+    st.catalog.create_edge(space, "REPLY_OF", [])
+
+    n_forums = max(n_persons // 10, 4)
+    for v in range(n_persons):
+        st.insert_vertex(space, v, "Person",
+                         {"firstName": _NAMES[v % len(_NAMES)],
+                          "lastName": _NAMES[(v * 7 + 3) % len(_NAMES)]})
+
+    # KNOWS: undirected in LDBC — insert BOTH directions so `-[:KNOWS]-`
+    # and the directed planes agree on the friendship set
+    n_k = n_persons * 8
+    ks = rng.integers(0, n_persons, n_k)
+    kd = rng.integers(0, n_persons, n_k)
+    hot = rng.random(n_k) < 0.15
+    kd[hot] = (rng.zipf(1.6, int(hot.sum())) - 1) % n_persons
+    kdate = rng.integers(15_000, 20_000, n_k)
+    keep = ks != kd
+    ks, kd, kdate = ks[keep], kd[keep], kdate[keep]
+    pairs = {}
+    for s, d, dt in zip(ks.tolist(), kd.tolist(), kdate.tolist()):
+        pairs[(min(s, d), max(s, d))] = dt
+    know_pairs = np.array(sorted(pairs), np.int64).reshape(-1, 2)
+    know_dates = np.array([pairs[tuple(p)] for p in know_pairs.tolist()],
+                          np.int64)
+    for (a, b), dt in zip(know_pairs.tolist(), know_dates.tolist()):
+        st.insert_edge(space, a, "KNOWS", b, 0, {"creationDate": int(dt)})
+        st.insert_edge(space, b, "KNOWS", a, 0, {"creationDate": int(dt)})
+
+    f0 = n_persons
+    for i in range(n_forums):
+        st.insert_vertex(space, f0 + i, "Forum",
+                         {"title": f"forum{i}"})
+    # memberships: forum sizes power-law; joinDate uniform
+    mem_f, mem_p, mem_d = [], [], []
+    sizes = np.minimum((rng.zipf(1.4, n_forums) * 3) % (n_persons // 2) + 2,
+                       n_persons)
+    for i in range(n_forums):
+        members = rng.choice(n_persons, size=int(sizes[i]), replace=False)
+        dates = rng.integers(15_000, 20_000, members.size)
+        for p, dt in zip(members.tolist(), dates.tolist()):
+            st.insert_edge(space, f0 + i, "HAS_MEMBER", p, 0,
+                           {"joinDate": int(dt)})
+        mem_f.extend([i] * members.size)
+        mem_p.extend(members.tolist())
+        mem_d.extend(dates.tolist())
+    mem_f = np.array(mem_f, np.int64)
+    mem_p = np.array(mem_p, np.int64)
+    mem_d = np.array(mem_d, np.int64)
+
+    # posts: per-forum volume power-law, creator drawn from members
+    p0 = f0 + n_forums
+    post_forum, post_creator, post_date = [], [], []
+    vol = (rng.zipf(1.3, n_forums) * 2) % 40 + 1
+    for i in range(n_forums):
+        m = mem_p[mem_f == i]
+        if m.size == 0:
+            continue
+        creators = rng.choice(m, size=int(vol[i]))
+        dates = rng.integers(15_000, 20_000, creators.size)
+        post_forum.extend([i] * creators.size)
+        post_creator.extend(creators.tolist())
+        post_date.extend(dates.tolist())
+    n_posts = len(post_forum)
+    post_forum = np.array(post_forum, np.int64)
+    post_creator = np.array(post_creator, np.int64)
+    post_date = np.array(post_date, np.int64)
+    for j in range(n_posts):
+        st.insert_vertex(space, p0 + j, "Post",
+                         {"creationDate": int(post_date[j]),
+                          "content": f"post{j}"})
+        st.insert_edge(space, f0 + int(post_forum[j]), "CONTAINER_OF",
+                       p0 + j, 0, {})
+        st.insert_edge(space, p0 + j, "HAS_CREATOR",
+                       int(post_creator[j]), 0, {})
+
+    # comments: reply to a random post, creator any person
+    c0 = p0 + n_posts
+    n_comments = n_posts * 2
+    cmt_post = rng.integers(0, max(n_posts, 1), n_comments)
+    cmt_creator = rng.integers(0, n_persons, n_comments)
+    cmt_date = rng.integers(15_000, 20_100, n_comments)
+    if n_posts == 0:
+        n_comments = 0
+    for j in range(n_comments):
+        st.insert_vertex(space, c0 + j, "Comment",
+                         {"creationDate": int(cmt_date[j]),
+                          "content": f"cmt{j}"})
+        st.insert_edge(space, c0 + j, "REPLY_OF",
+                       p0 + int(cmt_post[j]), 0, {})
+        st.insert_edge(space, c0 + j, "HAS_CREATOR",
+                       int(cmt_creator[j]), 0, {})
+
+    arrays = {
+        "n_persons": n_persons, "n_forums": n_forums,
+        "n_posts": n_posts, "n_comments": n_comments,
+        "f0": f0, "p0": p0, "c0": c0,
+        "know_pairs": know_pairs, "know_dates": know_dates,
+        "mem_f": mem_f, "mem_p": mem_p, "mem_d": mem_d,
+        "post_forum": post_forum, "post_creator": post_creator,
+        "post_date": post_date,
+        "cmt_post": cmt_post[:n_comments],
+        "cmt_creator": cmt_creator[:n_comments],
+        "cmt_date": cmt_date[:n_comments],
+    }
+    return st, arrays
+
+
+def _friends_1_2(arrays, root: int) -> np.ndarray:
+    """Dense person ids within 1..2 undirected KNOWS hops, root excluded."""
+    kp = arrays["know_pairs"]
+    adj = {}
+    for a, b in kp.tolist():
+        adj.setdefault(a, []).append(b)
+        adj.setdefault(b, []).append(a)
+    l1 = set(adj.get(root, []))
+    l2 = set()
+    for f in l1:
+        l2.update(adj.get(f, []))
+    out = (l1 | l2) - {root}
+    return np.array(sorted(out), np.int64)
+
+
+def ic5_numpy(arrays, root: int, min_date: int):
+    """Oracle for IC5: forums a 1..2-hop friend joined after min_date,
+    scored by posts created in that forum by friends whose OWN
+    membership qualifies (the official query counts over the
+    (friend, forum) membership pairs, so a post by a friend who is not
+    a qualifying member of that forum does not score)."""
+    fr = set(_friends_1_2(arrays, root).tolist())
+    mf, mp, md = arrays["mem_f"], arrays["mem_p"], arrays["mem_d"]
+    qual_pairs = {(int(f), int(p)) for f, p, d in zip(mf, mp, md)
+                  if int(p) in fr and int(d) > min_date}
+    qual_forums = {f for f, _ in qual_pairs}
+    pf, pc = arrays["post_forum"], arrays["post_creator"]
+    counts = {f: 0 for f in qual_forums}
+    for f, c in zip(pf.tolist(), pc.tolist()):
+        if (f, c) in qual_pairs:
+            counts[f] += 1
+    # ORDER BY postCount DESC, forum title ASC; LIMIT 20
+    out = sorted(((f"forum{f}", n) for f, n in counts.items()),
+                 key=lambda t: (-t[1], t[0]))[:20]
+    return out
+
+
+def ic9_numpy(arrays, root: int, max_date: int):
+    """Oracle for IC9: most recent messages (posts or comments) created
+    by 1..2-hop friends before max_date."""
+    fr = set(_friends_1_2(arrays, root).tolist())
+    p0, c0 = arrays["p0"], arrays["c0"]
+    msgs = []
+    for j, (c, d) in enumerate(zip(arrays["post_creator"].tolist(),
+                                   arrays["post_date"].tolist())):
+        if c in fr and d < max_date:
+            msgs.append((int(c), p0 + j, int(d)))
+    for j, (c, d) in enumerate(zip(arrays["cmt_creator"].tolist(),
+                                   arrays["cmt_date"].tolist())):
+        if c in fr and d < max_date:
+            msgs.append((int(c), c0 + j, int(d)))
+    msgs.sort(key=lambda t: (-t[2], t[1]))
+    return msgs[:20]

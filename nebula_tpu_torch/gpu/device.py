@@ -14,6 +14,13 @@ the plane is armed — plus the (H,) hub tables, on its own device.
 `shard_hbm_bytes` gives each slot's bytes (:255).  A part count that
 differs from the mesh raises GpuUnavailable (:315).
 
+Every tag table is pinned too (`DeviceTag`, the reference's device.py:170,
+put at :376): `present` and each prop column as (P, vmax) tensors, or
+part p's (1, vmax) rows on slot p.  Nothing on the device reads them
+(the vertex masks read the host mirror, `snap.tags`), but they are
+counted wherever the reference counts them: `hbm_bytes`,
+`shard_hbm_bytes`, `pin_bytes` and so the memory budget.
+
 The delta plane (`DeviceDelta`, `put_delta_blocks`, the reference's
 device.py:178/319) keeps each block's padded insert rows and sorted
 tombstones on the device beside the immutable base arrays.
@@ -62,6 +69,17 @@ class DeviceBlock:
 
 
 @dataclass
+class DeviceTag:
+    """One tag table resident on the device: `present` (P, Vmax) bool
+    and each prop column (P, Vmax), or one part's (1, Vmax) rows on a
+    shard slot."""
+    tag: str
+    present: torch.Tensor
+    props: Dict[str, torch.Tensor] = field(default_factory=dict)
+    prop_types: Dict[str, PropType] = field(default_factory=dict)
+
+
+@dataclass
 class DeviceDelta:
     """Device-resident delta-CSR buffers for one pinned snapshot: per
     (etype, direction) block, the padded insert rows and the sorted
@@ -103,12 +121,13 @@ class DeviceDelta:
 @dataclass
 class DeviceShard:
     """One shard slot's part of a snapshot pinned on a mesh: part
-    `part`'s rows of every block, (1, ...) tensors on `device`, and the
-    (H,) hub tables of a degree-split snapshot."""
+    `part`'s rows of every block and tag table, (1, ...) tensors on
+    `device`, and the (H,) hub tables of a degree-split snapshot."""
     part: int
     device: torch.device
     num_vertices: torch.Tensor        # (1,) i32
     blocks: Dict[Tuple[str, str], DeviceBlock] = field(default_factory=dict)
+    tags: Dict[str, DeviceTag] = field(default_factory=dict)
     hub_dense: Optional[torch.Tensor] = None
     hub_owner: Optional[torch.Tensor] = None
     hub_local: Optional[torch.Tensor] = None
@@ -123,7 +142,7 @@ class DeviceShard:
 
 def _pinned_leaves(t):
     """The pinned tensors of a snapshot or shard: num_vertices, the hub
-    tables, every block's arrays."""
+    tables, every block's arrays, every tag table's columns."""
     if t.num_vertices is not None:
         yield t.num_vertices
     if t.hub_dense is not None:
@@ -135,6 +154,9 @@ def _pinned_leaves(t):
         yield b.nbr
         yield b.rank
         yield from b.props.values()
+    for tg in t.tags.values():
+        yield tg.present
+        yield from tg.props.values()
 
 
 def _nbytes(leaves) -> int:
@@ -151,6 +173,7 @@ class DeviceSnapshot:
     device: torch.device
     num_vertices: Optional[torch.Tensor]  # (P,) i32; None when sharded
     blocks: Dict[Tuple[str, str], DeviceBlock] = field(default_factory=dict)
+    tags: Dict[str, DeviceTag] = field(default_factory=dict)
     pool: StringPool = field(default_factory=StringPool)
     host: Optional[CsrSnapshot] = None   # kept for vid and prop decode
     # degree-split hub tables (the reference's `_hub_consts`, hop.py:271),
@@ -168,7 +191,7 @@ class DeviceSnapshot:
     # for pin_prebuilt): a snapshot serves only the store it came from
     space_uid: Optional[int] = None
     # a sharded pin: its mesh and one DeviceShard per slot this process
-    # holds; the snapshot's own blocks and tensors are then empty
+    # holds; the snapshot's own blocks, tags and tensors are then empty
     mesh: Optional[Mesh] = None
     shards: List[DeviceShard] = field(default_factory=list)
 
@@ -257,19 +280,32 @@ def _put_blocks(snap: CsrSnapshot, put) -> Dict[Tuple[str, str],
         prop_types=dict(b.prop_types)) for key, b in snap.blocks.items()}
 
 
+def _put_tags(snap: CsrSnapshot, put) -> Dict[str, DeviceTag]:
+    return {name: DeviceTag(
+        tag=name, present=put(t.present),
+        props={k: put(v) for k, v in t.props.items()},
+        prop_types=dict(t.prop_types)) for name, t in snap.tags.items()}
+
+
 def _putter(device, rows: Optional[int] = None):
     """Copy a numpy array (its row `rows` only, as a (1, ...) array, when
-    given) to `device`, contiguous, same dtype."""
+    given) to `device`, contiguous, same dtype.  On the CPU too the
+    tensor is a copy, never a view of the host array: a host mirror
+    written in place (a delta apply) must not reach the pinned tensors
+    except through a put, as on the card."""
+    device = torch.device(device)
+
     def put(a: np.ndarray) -> torch.Tensor:
         if rows is not None:
             a = a[rows:rows + 1]
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        return t.clone() if device.type == "cpu" else t.to(device)
     return put
 
 
 def pin_snapshot(snap: CsrSnapshot, device: torch.device) -> DeviceSnapshot:
     """Copy every snapshot array to `device` (contiguous, same dtypes;
-    the hub tables as int32)."""
+    the hub tables as int32), the tag tables included."""
     put = _putter(device)
     dev = DeviceSnapshot(space=snap.space, epoch=snap.epoch,
                          num_parts=snap.num_parts, vmax=snap.vmax,
@@ -279,6 +315,7 @@ def pin_snapshot(snap: CsrSnapshot, device: torch.device) -> DeviceSnapshot:
     if hubs is not None:
         dev.hub_dense, dev.hub_owner, dev.hub_local = map(put, hubs)
     dev.blocks = _put_blocks(snap, put)
+    dev.tags = _put_tags(snap, put)
     return dev
 
 
@@ -302,6 +339,8 @@ def pin_bytes(snap: CsrSnapshot, mesh: Mesh,
     fixed = 0 if hubs is None else sum(a.nbytes for a in hubs)
     arrays = [a for b in snap.blocks.values()
               for a in (b.indptr, b.nbr, b.rank, *b.props.values())]
+    arrays += [a for t in snap.tags.values()
+               for a in (t.present, *t.props.values())]
     if mesh.size == 1:
         return {mesh.first: np.asarray(snap.num_vertices).nbytes + fixed
                 + sum(a.nbytes for a in arrays) + delta_bytes}
@@ -329,6 +368,7 @@ def pin_sharded(snap: CsrSnapshot, mesh: Mesh) -> DeviceSnapshot:
         if hubs is not None:
             sh.hub_dense, sh.hub_owner, sh.hub_local = map(_putter(d), hubs)
         sh.blocks = _put_blocks(snap, put)
+        sh.tags = _put_tags(snap, put)
         dev.shards.append(sh)
     return dev
 

@@ -101,7 +101,7 @@ from ..utils.workload import current_live, dispatch_table, use_live
 from .batch import batch_former
 from .bfs import run_bfs, run_bfs_sharded
 from .device import DeviceSnapshot, GpuUnavailable, SnapshotRetired, \
-    mesh_lanes, mesh_parts, pin_bytes, pin_sharded, pin_snapshot, \
+    _putter, mesh_lanes, mesh_parts, pin_bytes, pin_sharded, pin_snapshot, \
     put_delta_blocks, resolve_device
 from .exprjit import compile_predicate, eval_yield_column_np
 from .hop import new_frontier, run_hops, \
@@ -343,8 +343,8 @@ class _DispatchGate:
 class TraverseStats:
     __slots__ = ("hop_edges", "frontier_sizes", "result_edges", "e_cap",
                  "retries", "steps", "device_s", "pin_s", "put_s",
-                 "fetch_s", "mat_s", "total_s", "hbm_bytes", "queue_s",
-                 "shards", "exchange_bytes")
+                 "fetch_s", "mat_s", "total_s", "hbm_bytes", "segments",
+                 "queue_s", "shards", "exchange_bytes")
 
     def __init__(self):
         self.hop_edges: List[int] = []
@@ -361,6 +361,9 @@ class TraverseStats:
         self.mat_s = 0.0
         self.total_s = 0.0
         self.hbm_bytes = 0
+        # per-segment rows of a fused pipeline (gpu/pipeline.py fills
+        # it; the scheduler's PROFILE reads it)
+        self.segments: List[dict] = []
         # the dispatch gate's wait, plus the forming window when batched
         self.queue_s = 0.0
         # mesh facts: the shard slots the dispatch spanned and the bytes
@@ -559,23 +562,11 @@ class GpuRuntime:
                  hbm_limit_bytes: int = 0,
                  delta_compact_watermark: float = 0.75):
         if mesh is None:
-            self.device = resolve_device(device)
-            mesh = Mesh(1, [self.device], InProcess())
-        else:
-            if device is not None:
-                raise ValueError("pass a device or a mesh, not both")
-            if not mesh.in_process:
-                raise GpuUnavailable(
-                    "a runtime over a process-group mesh is not ported: "
-                    "each rank holds only its own parts' captures (run "
-                    "hop.run_hops_sharded on it directly)")
-            for d in mesh.devices:
-                resolve_device(d)
-            self.device = mesh.devices[0]
-        self.mesh = mesh
-        self.mesh_size = mesh_parts(mesh)
-        self.mesh_lanes = mesh_lanes(mesh)
-        self.local_mode = self.mesh_size == 1
+            mesh = Mesh(1, [resolve_device(device)], InProcess())
+        elif device is not None:
+            raise ValueError("pass a device or a mesh, not both")
+        self._mesh_epoch = 0
+        self._adopt_mesh(mesh)
         self.degree_split_threshold = int(degree_split_threshold)
         self.delta_max_edges = int(delta_max_edges)
         self.delta_compact_watermark = float(delta_compact_watermark)
@@ -583,10 +574,51 @@ class GpuRuntime:
         self.snapshots: Dict[str, DeviceSnapshot] = {}
         self._gate = _DispatchGate()
 
+    @staticmethod
+    def _check_mesh(mesh: Mesh) -> None:
+        """A runtime lies over an in-process mesh whose every device
+        resolves."""
+        if not mesh.in_process:
+            raise GpuUnavailable(
+                "a runtime over a process-group mesh is not ported: "
+                "each rank holds only its own parts' captures (run "
+                "hop.run_hops_sharded on it directly)")
+        for d in mesh.devices:
+            resolve_device(d)
+
+    def _adopt_mesh(self, mesh: Mesh) -> None:
+        self._check_mesh(mesh)
+        self.device = mesh.devices[0]
+        self.mesh = mesh
+        self.mesh_size = mesh_parts(mesh)
+        self.mesh_lanes = mesh_lanes(mesh)
+        self.local_mode = self.mesh_size == 1
+
     def _mesh_key(self) -> Tuple[int, int, int]:
-        """(lanes, parts, mesh id): the launch-grid identity every batch
-        compatibility key carries (the reference's runtime.py:471)."""
-        return (self.mesh_lanes, self.mesh_size, id(self.mesh))
+        """(lanes, parts, mesh epoch): the launch-grid identity every
+        batch compatibility key carries (the reference's runtime.py:471)."""
+        return (self.mesh_lanes, self.mesh_size, self._mesh_epoch)
+
+    def set_mesh(self, mesh: Mesh) -> None:
+        """Swap the runtime onto another one-axis mesh (the reference's
+        runtime.py:476-500).  Under the WRITE side of the dispatch gate
+        (in-flight dispatches drain first): every pinned snapshot is
+        retired and dropped — its tensors are laid out for the old mesh
+        and are freed once no run holds them; a run that grabbed one
+        raises SnapshotRetired and its executor runs it again on the new
+        pin — the mesh is swapped, and the mesh epoch bumps, so a batch
+        group still forming against the old mesh never merges with
+        lanes for the new one."""
+        self._check_mesh(mesh)
+        self._gate.acquire_write()
+        try:
+            for space in list(self.snapshots):
+                self._unpin_locked(space)
+            self._adopt_mesh(mesh)
+            self._mesh_epoch += 1
+        finally:
+            self._gate.release_write()
+        self._emit_hbm_gauges()
 
     @contextmanager
     def _collective_launch(self):
@@ -857,8 +889,20 @@ class GpuRuntime:
                         nv[sh.part:sh.part + 1].copy()).to(sh.device)
             else:
                 dev.num_vertices = torch.from_numpy(nv).to(self.device)
-        # changes.tag_cols change only the host mirror: the port pins no
-        # tag tables on the device
+        # the tag columns the writes changed are put again whole, as the
+        # reference's runtime.py:692-705 does; each slot its own row
+        for tag, colname in sorted(changes.tag_cols):
+            tt = dd.host.snap.tags.get(tag)
+            for tags, put in ([(sh.tags, _putter(sh.device, rows=sh.part))
+                               for sh in dev.shards]
+                              or [(dev.tags, _putter(self.device))]):
+                dt = tags.get(tag)
+                if dt is None or tt is None:
+                    continue
+                if colname == "present":
+                    dt.present = put(tt.present)
+                else:
+                    dt.props[colname] = put(tt.props[colname])
         dd.applied_epoch = target
         store.delta_trim(space, keys)
         self._emit_hbm_gauges()

@@ -135,10 +135,11 @@ def test_pinned_split_is_the_reference_split(graph):
         t = getattr(dev, name)
         assert t.dtype == torch.int32, name
         np.testing.assert_array_equal(t.numpy(), want)
-    # the hub tables count in the pinned bytes
+    # the hub tables and the tag tables count in the pinned bytes: the
+    # host's count holds the tag tables, the pin's the hub tables too
     assert dev.hbm_bytes() == sum(
         t.numel() * t.element_size() for t in dev._leaves())
-    assert dev.hbm_bytes() > dev.host.hbm_bytes()
+    assert dev.hbm_bytes() == dev.host.hbm_bytes() + 12 * H
 
 
 @pytest.mark.parametrize("seed", [0, 1])

@@ -12,10 +12,10 @@ find_shortest_device`, `exec.algorithms.find_path_device` and
   path rows) and check that the device path ran.
 - The same statements give the reference's device engine's rows IN
   ORDER (its `TpuRuntime(make_mesh(8))` on the virtual CPU mesh, with
-  its GO and MATCH-aggregate rules alone: the MATCH pipeline rule is
-  ROADMAP A5b part 2), every statement on the port's device path.
+  its GO, MATCH-aggregate and MATCH pipeline rules), every statement on
+  the port's device path.
 - Each statement's optimized plan equals the reference's device plan
-  with those two rules.
+  with those three rules.
 Tolerance: exact.
 """
 import pytest
@@ -114,8 +114,8 @@ _REF = {}
 
 def _reference():
     """{statement: (device rows, host rows, device plan)} of the
-    reference's engines on `random_store(21)`, with its GO and
-    MATCH-aggregate rules alone."""
+    reference's engines on `random_store(21)`, with its three fusion
+    rules."""
     if not _REF:
         from nebula_tpu.query import optimizer as ref_opt
         st = REF_TWIN.random_store(21)

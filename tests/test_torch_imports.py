@@ -69,6 +69,7 @@ def test_port_modules_exist():
               "nebula_tpu_torch.exec.scheduler", "nebula_tpu_torch.exec.engine",
               "nebula_tpu_torch.gpu.traverse",
               "nebula_tpu_torch.gpu.paths", "nebula_tpu_torch.gpu.match_agg",
+              "nebula_tpu_torch.gpu.pipeline",
               "nebula_tpu_torch.utils.consistency",
               "nebula_tpu_torch.utils.epochs", "nebula_tpu_torch.utils.flight",
               "nebula_tpu_torch.utils.insights",

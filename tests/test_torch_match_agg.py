@@ -10,8 +10,8 @@ device and host halves) and the vertex-predicate compiler
   slots.  They hold the fused node's rows to the unfused host chain's
   as a multiset, as the unit tests do.
 - The same statements give the reference's device engine's rows in
-  order (`TpuRuntime(make_mesh(8))`, its GO and MATCH-aggregate rules
-  alone), on the port's device path, and the same plans.
+  order (`TpuRuntime(make_mesh(8))`, its three fusion rules), on the
+  port's device path, and the same plans.
 - The port's vertex-predicate masks equal the reference's on the same
   store, expression by expression.
 Tolerance: exact.

@@ -337,6 +337,14 @@ def test_shard_hbm_ledger(graphs):
                 np.testing.assert_array_equal(d.props[n].numpy(),
                                               col[p:p + 1])
                 mine += col[p].nbytes
+        # and part p's rows of every tag table
+        assert set(sh.tags) == set(host.tags)
+        for name, t in host.tags.items():
+            d = sh.tags[name]
+            for dcol, col in [(d.present, t.present)] + [
+                    (d.props[n], c) for n, c in t.props.items()]:
+                np.testing.assert_array_equal(dcol.numpy(), col[p:p + 1])
+                mine += col[p].nbytes
         assert per[p] == mine
     # the local pin holds the same bytes but the hub tables' copies
     assert sum(per.values()) == g["local"].hbm_bytes() + 3 * 12 * H

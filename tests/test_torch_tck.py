@@ -21,11 +21,10 @@ rows and whether a GO statement's trace is among them.
 Device mode: the port's EXPLAIN of every statement that holds a GO, and
 every EXPLAIN statement of the scenarios, is held to the reference's
 device plan, made by the reference's engine with the device flag on and
-the GO and MATCH-aggregate fusion rules (`make_tpu_rule`,
-`make_match_agg_rule`) alone in `optimizer.TPU_RULES`, so a
-`TpuTraverse` or `TpuMatchAgg` node stands exactly where the
-reference's does.  The reference's MATCH pipeline rule
-(`make_match_pipeline_rule`) is ROADMAP A5b part 2.  MATCH, FIND PATH,
+all three of its fusion rules in `optimizer.TPU_RULES` (`make_tpu_rule`,
+`make_match_agg_rule`, `make_match_pipeline_rule`), so a
+`TpuTraverse`, `TpuMatchAgg` or `TpuMatchPipeline` node stands exactly
+where the reference's does.  MATCH, FIND PATH,
 GET SUBGRAPH run their device halves on the device engines, and their rows are held like any other: no scenario that
 compares rows in order reads a statement whose device rows come in
 another order than the host's.  On the 8-slot mesh a space of another
@@ -107,7 +106,7 @@ class _Engine:
 
     def ref_device_plan(self, stmt):
         """The reference engine's EXPLAIN of `stmt` as its device engine
-        plans it, with the GO and MATCH-aggregate fusion rules alone."""
+        plans it, with its three fusion rules."""
         from nebula_tpu.query import optimizer as ref_opt
         assert self.pkg == "ref"
         saved_rules, saved_rt = list(ref_opt.TPU_RULES), \
@@ -122,11 +121,13 @@ class _Engine:
 
 
 def ref_device_rules():
-    """The reference's fusion rules the port has: GO's and the MATCH
-    aggregate's (its MATCH pipeline rule is ROADMAP A5b part 2)."""
+    """The reference's fusion rules, all three, in its order: GO's, the
+    MATCH aggregate's and the MATCH pipeline's (the port has each)."""
     import nebula_tpu.tpu.match_agg as ref_match_agg
+    import nebula_tpu.tpu.pipeline as ref_pipeline
     import nebula_tpu.tpu.traverse as ref_traverse
-    return [ref_traverse.make_tpu_rule, ref_match_agg.make_match_agg_rule]
+    return [ref_traverse.make_tpu_rule, ref_match_agg.make_match_agg_rule,
+            ref_pipeline.make_match_pipeline_rule]
 
 
 _NUMBERED = re.compile(r"(#|\bn|_)(\d+)\b")
