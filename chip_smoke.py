@@ -9,9 +9,10 @@ MATCH again over a mesh of eight shard slots, GO and MATCH over DATE,
 DATETIME, TIME and GEOGRAPHY edge props, and GO and the BFS on a
 snapshot the runtime built from the port's own store, through its
 writes, rebuilds and compaction, nGQL GO statements and writes through
-the port's QueryEngine on that store, and LDBC IC5 and IC9 fused into
-one MATCH pipeline node through that engine, each through the
-hand-written CUDA kernels.
+the port's QueryEngine on that store, LDBC IC5 and IC9 fused into
+one MATCH pipeline node through that engine, and nGQL sent over RPC to
+a LocalCluster whose graphd pins the storageds' export, each through
+the hand-written CUDA kernels.
 
 Run from the repository root on a machine with a CUDA card and nvcc:
 
@@ -298,8 +299,9 @@ Phases, in order; any failure exits non-zero before the result line:
           one-rank NCCL group holding all eight slots: rows equal to
           (a)'s, the bytes sent equal to (a)'s exchange_bytes;
  11. temporal and geography props on the north star's recipe at
-     min(--persons, 250000) persons (datagen.north_star: degree 30, the
-     same seeds' rule; depth cut for the time limit): five edge columns
+     min(--persons, 100000) persons (datagen.north_star: degree 30, the
+     same seeds' rule; depth cut for the time limit, from 1,000,000 to
+     250,000 and then, when phase 16 came, to 100,000): five edge columns
      derived from each edge's f by a fixed rule (temporal_words): d and
      d2 DATE (1920-2019), t DATETIME with microseconds, tm TIME, g
      GEOGRAPHY (pool codes of 1,000 point WKTs), about one value in 50
@@ -327,10 +329,11 @@ Phases, in order; any failure exits non-zero before the result line:
           order, to a fresh pin of the written out block (the inserts
           spliced into each row as a rebuild orders it) and that pin's
           rows to the oracle; merge_delta launched;
- 12. the store path at bench.py config 4b's store-backed size
-     (bench.py:727-733): make_social_graph(150_000, 6, parts=8, seed=11,
-     space="twb") fills the port's GraphStore (about 888,000 KNOWS
-     edges); launch counters zeroed just before each GO path and read
+ 12. the store path at a third of bench.py config 4b's store-backed size
+     (bench.py:727-733, 150,000 persons; depth cut for the time limit
+     when phase 16 came): make_social_graph(50_000, 6, parts=8,
+     seed=11, space="twb") fills the port's GraphStore (about 296,000
+     KNOWS edges); launch counters zeroed just before each GO path and read
      just after:
        a. GpuRuntime(delta_max_edges=2048).pin(store, "twb") exports and
           pins it (the build, export and pin seconds, hbm_bytes,
@@ -438,10 +441,35 @@ Phases, in order; any failure exits non-zero before the result line:
           launched), the split runtime re-pins; both statements again as
           in b, rows equal to the host engine's and to a fresh pin's,
           and every device tag tensor equal to the host mirror's;
- 16. the `kernels` JSON line (the split GO path's, the algo path's, the
+ 16. the cluster plane at bench.py's concurrency size (bench.py:938-1063):
+     LocalCluster(n_meta=1, n_storage=3, n_graph=1) whose graphd holds
+     GpuRuntime(delta_max_edges=8192), space conc (8 parts, replica
+     factor 3), each statement held to a host QueryEngine on a local
+     GraphStore loaded with the same statements:
+       a. 2,000 Person vertices and the 11,989 KNOWS edges of
+          default_rng(29) in INSERTs of 400 rows through the client; the
+          first statements pin the space from the storageds' export
+          (load, export and put seconds, pinned bytes);
+       b. bench.py's mix: 64 client threads, 6 statements each,
+          alternating 1-hop GO and 1-hop MATCH; rows equal to the host
+          engine's as multisets, expand, mark and compact_capture
+          launched, one kernel-ledger record a kernel run; p50, p95,
+          p99, QPS and the dispatch-gate queue-wait share;
+       c. test_cluster_device_plane's five statements (two GO, MATCH
+          *1..2, GET SUBGRAPH, FIND ALL PATH) and a FIND SHORTEST PATH
+          from 4 seeds: PROFILE's fused nodes equal an in-process device
+          engine's EXPLAIN (TpuTraverse for GO), rows equal to the host
+          engine's, predicate_mask launched and mark more often than the
+          runs (next frontiers);
+       d. INSERT EDGE, DELETE EDGE and an INSERT VERTEX into the vmax
+          slack through the client: the next statements ride the plane
+          (tpu_repin_avoided rises, the snapshot and the export count
+          stay, merge_delta launched), rows equal to the host engine's,
+          and again after a forced re-export;
+ 17. the `kernels` JSON line (the split GO path's, the algo path's, the
      split BFS path's (6d's for the global probe), the delta GO path's,
      the batched path's, the MATCH path's, the mesh GO path's, phase
-     11's filtered GO path's and phase 13's, 14's and 15's engine
+     11's filtered GO path's and phase 13's, 14's, 15's and 16's engine
      paths' launches), the card line, and the result line {"ok": true,
      "device": {...}} last.
 Without CUDA it prints no result and exits 2.
@@ -581,7 +609,7 @@ MESH_HUB_KERNELS = ("owned_hub_bits", "fill_hub_columns")
 # phase 11: DATE, DATETIME, TIME and GEOGRAPHY edge columns on the north
 # star's recipe at TEMPORAL_PERSONS persons, derived from each edge's f by
 # a fixed rule (temporal_words)
-TEMPORAL_PERSONS = 250_000
+TEMPORAL_PERSONS = 100_000
 TEMPORAL_TYPES = {"d": "DATE", "d2": "DATE", "t": "DATETIME", "tm": "TIME",
                   "g": "GEOGRAPHY"}
 TEMPORAL_YIELDS = ("d", "t", "tm", "g")    # the port's _MAX_YIELD_COLS
@@ -594,9 +622,10 @@ TEMPORAL_SAMPLE = 2_000          # frame entries a hop decoded in 11b
 DAY_US = 86_400_000_000
 ROUTE_SOURCES["predicate_mask (temporal)"] = (
     ROUTE_SOURCES["predicate_mask"][0], "nebula_tpu/tpu/exprjit.py:201")
-# phase 12: the store path at bench.py config 4b's store-backed size
-# (bench.py:727-733): make_social_graph(150_000, 6, parts=8, seed=11)
-STORE_PERSONS = 150_000
+# phase 12: the store path at a third of bench.py config 4b's store-backed
+# size (bench.py:727-733: make_social_graph(150_000, 6, parts=8,
+# seed=11)), cut for the script's time limit
+STORE_PERSONS = 50_000
 STORE_DEGREE = 6
 STORE_GRAPH_SEED = 11
 STORE_SPACE = "twb"
@@ -650,6 +679,21 @@ IC_POSTS = 96                    # 15c: new Posts by the root's friends
 IC_UNJOIN = 48                   # 15c: HAS_MEMBER edges deleted
 IC_RETITLE = 4                   # 15c: Forum titles rewritten
 IC_KERNELS = ("expand", "mark", "compact_capture")
+# phase 16: the cluster plane, at bench.py's concurrency size
+# (bench.py:946-990)
+CONC_PERSONS = 2_000
+CONC_DEGREE = 6
+CONC_SEED = 29
+CONC_BATCH = 400                 # rows an INSERT, as bench.py writes them
+CONC_THREADS = 64
+CONC_REPS = 6                    # statements a thread
+CONC_JOIN_S = 600                # every client thread joins within this
+CONC_SPACE = "conc"
+CONC_DELTA_CAP = 8192            # the graphd's GpuRuntime(delta_max_edges=)
+CONC_PLANE_SEEDS = 4             # 16c's seeds
+CONC_KERNELS = ("expand", "mark", "compact_capture")     # K1, K6, K3
+PLANE_KERNELS = ("expand", "mark", "compact_capture", "predicate_mask")
+PHASE16_KERNELS = PLANE_KERNELS + ("merge_delta",)       # K1-K4, K6, K9
 #: the reference's device plan of each statement (its EXPLAIN through
 #: `canon_plan`, nebula_tpu/tpu/pipeline.py's rule) and the sha256 of its
 #: segment program's canonical repr, on make_snb_interactive at any size
@@ -4002,6 +4046,353 @@ def pipeline_phase(K, card: str, persons: int, seed: int) -> tuple:
     return out, total
 
 
+def cluster_statements(n: int):
+    """Phase 16a's load as bench.py:961-980 writes it: the Person
+    vertices and the KNOWS edges of `default_rng(CONC_SEED)` (self-loops
+    dropped), CONC_BATCH rows an INSERT."""
+    import numpy as np
+    stmts = []
+    for lo in range(0, n, CONC_BATCH):
+        vals = ", ".join(f"{v}:({v % 90})"
+                         for v in range(lo, min(lo + CONC_BATCH, n)))
+        stmts.append(f"INSERT VERTEX Person(age) VALUES {vals}")
+    rng = np.random.default_rng(CONC_SEED)
+    src = rng.integers(0, n, n * CONC_DEGREE)
+    dst = rng.integers(0, n, n * CONC_DEGREE)
+    keep = src != dst
+    src, dst = src[keep], dst[keep]
+    for lo in range(0, src.size, CONC_BATCH):
+        vals = ", ".join(f"{s}->{d}:({int(s + d) % 100})" for s, d in zip(
+            src[lo:lo + CONC_BATCH].tolist(),
+            dst[lo:lo + CONC_BATCH].tolist()))
+        stmts.append(f"INSERT EDGE KNOWS(w) VALUES {vals}")
+    return stmts, int(src.size), (src, dst)
+
+
+def conc_stmt(i: int, j: int, n: int) -> str:
+    """bench.py's `_conc_stmt` (:982-990): alternating 1-hop GO and
+    1-hop MATCH."""
+    seed = (i * 131 + j * 17) % n
+    if (i + j) % 2:
+        return (f"MATCH (a:Person)-[e:KNOWS]->(b) "
+                f"WHERE id(a) == {seed} RETURN id(b)")
+    return f"GO FROM {seed} OVER KNOWS YIELD dst(edge) AS d"
+
+
+def plane_statements(seeds, dsts):
+    """Phase 16c's statements: test_cluster_device_plane's five
+    (tests/unit/test_cluster.py:398-405) from each of the seeds, and a
+    FIND SHORTEST PATH."""
+    out = []
+    for s, t in zip(seeds, dsts):
+        out += [
+            f"GO 2 STEPS FROM {s} OVER KNOWS YIELD dst(edge) AS d, "
+            f"KNOWS.w AS w",
+            f"GO FROM {s}, {t} OVER KNOWS WHERE KNOWS.w > 6 "
+            f"YIELD dst(edge) AS d",
+            f"MATCH (a:Person)-[e:KNOWS*1..2]->(b) WHERE id(a) == {s} "
+            f"RETURN id(b), size(e)",
+            f"GET SUBGRAPH 2 STEPS FROM {s} OUT KNOWS YIELD VERTICES AS v, "
+            f"EDGES AS e",
+            f"FIND ALL PATH FROM {s} TO {t} OVER KNOWS UPTO 3 STEPS "
+            f"YIELD path AS p",
+            f"FIND SHORTEST PATH FROM {s} TO {t} OVER KNOWS UPTO 4 STEPS "
+            f"YIELD path AS p"]
+    return out
+
+
+def fused_nodes(plan_desc: str) -> list:
+    return sorted(set(re.findall(r"\bTpu\w+", plan_desc or "")))
+
+
+def timed_method(obj, name: str, sink: list):
+    """Wrap obj.<name> on the instance so that every call appends its
+    seconds to `sink`."""
+    orig = getattr(obj, name)
+
+    def wrapped(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return orig(*a, **k)
+        finally:
+            sink.append(time.perf_counter() - t0)
+    setattr(obj, name, wrapped)
+
+
+def cluster_phase(K, card: str, seed: int) -> tuple:
+    """Phase 16: the cluster plane on the card, at bench.py's concurrency
+    size (bench.py:938-1063): a LocalCluster of one metad, three
+    storageds and one graphd whose GpuRuntime pins the space from the
+    storageds' bulk export; the 64-thread GO/MATCH mix, the device-plane
+    statements and writes through the client, each held to a host
+    QueryEngine on a local store loaded with the same statements.
+    Returns (the phase's numbers, the launches of 16b-16d); raises on any
+    failed check."""
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+    from nebula_tpu_torch.cluster.launcher import LocalCluster
+    from nebula_tpu_torch.exec.engine import QueryEngine
+    from nebula_tpu_torch.gpu import GpuRuntime
+    from nebula_tpu_torch.graphstore.store import GraphStore
+    from nebula_tpu_torch.utils.config import get_config
+    from nebula_tpu_torch.utils.flight import kernel_ledger
+    from nebula_tpu_torch.utils.stats import stats
+
+    out, total = {}, {}
+    t16 = time.perf_counter()
+    stamp("phase 16")
+    stamp("phase 16a")
+    n = CONC_PERSONS
+    setup = [f"CREATE SPACE {CONC_SPACE}(partition_num=8, "
+             f"replica_factor=3, vid_type=INT64)", f"USE {CONC_SPACE}",
+             "CREATE TAG Person(age int)", "CREATE EDGE KNOWS(w int)"]
+    loads, n_edges, (esrc, edst) = cluster_statements(n)
+    host_eng = QueryEngine(GraphStore())
+    hs = host_eng.new_session()
+
+    def host(q):
+        rs = host_eng.execute(hs, q)
+        if rs.error is not None:
+            raise AssertionError(f"[16] host {q[:80]}: {rs.error}")
+        return rs
+
+    for q in setup + loads:
+        host(q)
+    rt = GpuRuntime(delta_max_edges=CONC_DELTA_CAP)
+    cfg = get_config()
+    cfg.set_dynamic("kernel_ledger_capacity", 1 << 16)
+    cluster = LocalCluster(n_meta=1, n_storage=3, n_graph=1,
+                           data_dir=tempfile.mkdtemp(prefix="chip_smoke_"),
+                           tpu_runtime=rt)
+    try:
+        cl = cluster.client()
+
+        def run(q, client=None):
+            rs = (client or cl).execute(q)
+            if rs.error is not None:
+                raise AssertionError(f"[16] {q[:80]}: {rs.error}")
+            return rs
+
+        run(setup[0])
+        cluster.reconcile_storage()
+        for q in setup[1:]:
+            run(q)
+        t0 = time.perf_counter()
+        for q in loads:
+            run(q)
+        load_s = time.perf_counter() - t0
+        store = cluster.graphds[0].store
+        export_s, put_s = [], []
+        timed_method(store, "build_csr_snapshot", export_s)
+        timed_method(rt, "_put_locked", put_s)
+        t0 = time.perf_counter()
+        warm = cluster.client()
+        run(f"USE {CONC_SPACE}", warm)
+        run(conc_stmt(0, 0, n), warm)
+        run(conc_stmt(0, 1, n), warm)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        dev = rt.snapshots.get(CONC_SPACE)
+        if dev is None or len(export_s) != 1 or dev.delta is None:
+            raise AssertionError(f"[16a] {len(export_s)} exports; the "
+                                 f"space was not pinned from the cluster "
+                                 f"with a delta plane")
+        out["16a"] = {"persons": n, "edges": n_edges, "insert_statements":
+                      len(loads), "load_s": load_s,
+                      "export_s": export_s[0], "put_s": put_s[0],
+                      "first_statements_s": first_s,
+                      "pinned_bytes": rt.hbm_bytes(), "vmax": dev.vmax}
+        log(f"[16a] {json.dumps(out['16a'])} | {card}")
+
+        # 16b. the 64-thread mix
+        stamp("phase 16b")
+
+        def qwait(snap):
+            return sum(v for k, v in snap.items()
+                       if k.startswith("tpu_dispatch_queue_us")
+                       and k.endswith(".sum"))
+
+        lats, rows, errs = [], {}, []
+        lock = threading.Lock()
+
+        def worker(i):
+            try:
+                c = cluster.client()
+                run(f"USE {CONC_SPACE}", c)
+                mine = []
+                for j in range(CONC_REPS):
+                    q = conc_stmt(i, j, n)
+                    t0 = time.perf_counter()
+                    rs = run(q, c)
+                    mine.append((time.perf_counter() - t0, (i, j), q,
+                                 sorted(map(repr, rs.data.rows))))
+                with lock:
+                    for dt, key, q, r in mine:
+                        lats.append(dt)
+                        rows[key] = (q, r)
+            except BaseException as ex:  # noqa: BLE001 — reported below
+                errs.append(repr(ex))
+
+        kernel_ledger().clear()
+        runs0 = metric("tpu_kernel_runs")
+        snap0 = stats().snapshot()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        ths = [threading.Thread(target=worker, args=(i,), daemon=True)
+               for i in range(CONC_THREADS)]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join(CONC_JOIN_S)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = counts(K)
+        if errs or any(t.is_alive() for t in ths):
+            raise AssertionError(f"[16b] {len(errs)} threads failed: "
+                                 f"{errs[:3]}")
+        snap1 = stats().snapshot()
+        runs = metric("tpu_kernel_runs") - runs0
+        ledger = kernel_ledger().list(limit=1 << 16)
+        if len(rows) != CONC_THREADS * CONC_REPS:
+            raise AssertionError(f"[16b] {len(rows)} statements answered")
+        for key, (q, got) in rows.items():
+            if got != sorted(map(repr, host(q).data.rows)):
+                raise AssertionError(f"[16b] {q}: rows differ from the "
+                                     f"host engine's")
+        if runs <= 0 or len(ledger) != runs:
+            raise AssertionError(f"[16b] {runs} kernel runs, {len(ledger)} "
+                                 f"ledger records")
+        for name in CONC_KERNELS:
+            if launches[name] <= 0:
+                raise AssertionError(f"[16b] kernel {name} never launched")
+        lats.sort()
+
+        def pq(p):
+            return lats[min(len(lats) - 1, int(len(lats) * p / 100))]
+
+        queue_us = qwait(snap1) - qwait(snap0)
+        total_us = sum(lats) * 1e6
+        out["16b"] = {"threads": CONC_THREADS, "stmts": len(lats),
+                      "p50_ms": pq(50) * 1e3, "p95_ms": pq(95) * 1e3,
+                      "p99_ms": pq(99) * 1e3, "qps": len(lats) / wall,
+                      "wall_s": wall, "queue_wait_us_total": queue_us,
+                      "queue_wait_share": queue_us / total_us,
+                      "kernel_runs": runs, "ledger_records": len(ledger),
+                      "launches": {k: v for k, v in launches.items() if v}}
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        log(f"[16b] {json.dumps(out['16b'])} | {card}")
+
+        # 16c. the device-plane statements
+        stamp("phase 16c")
+        rng = np.random.default_rng(seed)
+        seeds = [int(x) for x in rng.choice(esrc, CONC_PLANE_SEEDS,
+                                            replace=False)]
+        dsts = [int(edst[np.flatnonzero(esrc == s)[0]]) for s in seeds]
+        plane = plane_statements(seeds, dsts)
+        ref_eng = QueryEngine(host_eng.qctx.store, tpu_runtime=GpuRuntime())
+        rs_ = ref_eng.new_session()
+        ref_eng.execute(rs_, f"USE {CONC_SPACE}")
+
+        def plane_round(tag):
+            res = {}
+            K.reset_launch_counts()
+            runs0 = metric("tpu_kernel_runs")
+            for q in plane:
+                t0 = time.perf_counter()
+                got = sorted(map(repr, run(q).data.rows))
+                dt = time.perf_counter() - t0
+                if got != sorted(map(repr, host(q).data.rows)):
+                    raise AssertionError(f"{tag} {q}: rows differ from the "
+                                         f"host engine's")
+                res.setdefault(q.split(" ")[0] + " " + q.split(" ")[1],
+                               []).append(dt * 1e3)
+            torch.cuda.synchronize()
+            return res, counts(K), metric("tpu_kernel_runs") - runs0
+
+        plans = {}
+        for q in plane:
+            want = fused_nodes(ref_eng.execute(rs_, "EXPLAIN " + q)
+                               .plan_desc)
+            got = fused_nodes(run("PROFILE " + q).plan_desc)
+            if got != want or (q.startswith("GO")
+                               and "TpuTraverse" not in got):
+                raise AssertionError(f"[16c] {q}: PROFILE shows {got}, an "
+                                     f"in-process device engine {want}")
+            plans[q.split(" ")[0]] = got
+        ref_eng.qctx.tpu_runtime.unpin(CONC_SPACE)
+        lat_c, launches, runs = plane_round("[16c]")
+        for name in PLANE_KERNELS:
+            if launches[name] <= 0:
+                raise AssertionError(f"[16c] kernel {name} never launched")
+        if launches["mark"] <= runs:
+            raise AssertionError(f"[16c] {launches['mark']} mark launches "
+                                 f"in {runs} runs: no next frontier marked")
+        out["16c"] = {"statements": len(plane), "seeds": seeds,
+                      "fused": plans, "kernel_runs": runs,
+                      "ms": {k: sorted(v) for k, v in lat_c.items()},
+                      "launches": {k: v for k, v in launches.items() if v}}
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        log(f"[16c] {json.dumps(out['16c'])} | {card}")
+
+        # 16d. writes through the client ride the plane
+        stamp("phase 16d")
+        new_v = n + 1
+        writes = [
+            f"INSERT EDGE KNOWS(w) VALUES {seeds[0]}->{seeds[1]}:(77), "
+            f"{seeds[1]}->{seeds[2]}:(78)",
+            f"DELETE EDGE KNOWS {seeds[0]}->{dsts[0]}@0",
+            f"INSERT VERTEX Person(age) VALUES {new_v}:(33)",
+            f"INSERT EDGE KNOWS(w) VALUES {seeds[0]}->{new_v}:(79), "
+            f"{new_v}->{seeds[3]}:(80)"]
+        snap_before = rt.snapshots[CONC_SPACE]
+        avoided0 = metric("tpu_repin_avoided")
+        for q in writes:
+            run(q)
+            host(q)
+        lat_d, launches, runs = plane_round("[16d]")
+        avoided = metric("tpu_repin_avoided") - avoided0
+        if rt.snapshots[CONC_SPACE] is not snap_before or avoided < 1 \
+                or len(export_s) != 1:
+            raise AssertionError(f"[16d] the writes did not ride the plane "
+                                 f"({avoided} re-pins avoided, "
+                                 f"{len(export_s)} exports)")
+        if launches["merge_delta"] <= 0:
+            raise AssertionError("[16d] merge_delta never launched")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        hd = snap_before.delta.host
+        t0 = time.perf_counter()
+        rt.pin(store, CONC_SPACE, force=True)
+        torch.cuda.synchronize()
+        reexport_s = time.perf_counter() - t0
+        lat_f, _, _ = plane_round("[16d] re-export")
+        out["16d"] = {"writes": len(writes), "repins_avoided": avoided,
+                      "delta_edges": hd.total_edges(),
+                      "tombs": hd.total_tombs(), "kernel_runs": runs,
+                      "reexport_s": reexport_s, "exports": len(export_s),
+                      "launches": {k: v for k, v in launches.items() if v}}
+        log(f"[16d] {json.dumps(out['16d'])}: folded into the plane, rows "
+            f"equal to the host engine's before and after a forced "
+            f"re-export | {card}")
+        for name in PHASE16_KERNELS:
+            if total.get(name, 0) <= 0:
+                raise AssertionError(f"[16] kernel {name} never launched")
+    finally:
+        cluster.stop()
+        with cfg.lock:
+            cfg.dynamic_layer.pop("kernel_ledger_capacity", None)
+    rt.unpin(CONC_SPACE)
+    out["launches"] = total
+    out["phase_s"] = time.perf_counter() - t16
+    log(f"[16] phase 16 took {out['phase_s']:.1f} s | {card}")
+    return out, total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--persons", type=int, default=1_000_000)
@@ -6236,15 +6627,19 @@ def main(argv=None) -> int:
 
     # -- 15. LDBC IC5 and IC9 through the MATCH pipeline ------------------
     pipe15, launches15 = pipeline_phase(K, card, args.ic_persons, args.seed)
+
+    # -- 16. the cluster plane: nGQL to a LocalCluster's graphd ------------
+    cluster16, launches16 = cluster_phase(K, card, args.seed)
     # the kernels line counts the engine paths' launches too
     for row in rows_out:
         name = HUB_ROUTE if row["name"] == \
             "extend_hubs (fused into expand)" else row["name"]
         row["launches"] += launches13.get(name, 0) \
-            + launches14.get(name, 0) + launches15.get(name, 0)
+            + launches14.get(name, 0) + launches15.get(name, 0) \
+            + launches16.get(name, 0)
 
-    # -- 16. result --------------------------------------------------------
-    stamp("phase 16")
+    # -- 17. result --------------------------------------------------------
+    stamp("phase 17")
     log(json.dumps({"go3": results, "expand_per_hop": per_hop,
                     "unsplit_launches": launches_u,
                     "unsplit_kernels": extra, "algo": algo, "bfs": bfs,
@@ -6253,6 +6648,7 @@ def main(argv=None) -> int:
                     "match": match, "mesh": mesh, "temporal": temporal,
                     "store": store12, "engine": engine13,
                     "engine_match": match14, "pipeline": pipe15,
+                    "cluster": cluster16,
                     "hbm_bytes": rt.hbm_bytes() + (
                         rts.hbm_bytes() if rts is not None else 0)}))
     print(json.dumps({"kernels": rows_out}))

@@ -50,6 +50,13 @@ class MeshLayoutRefused(GpuUnavailable, CannotCompile):
     so its executor takes the host path."""
 
 
+class ExportFailed(GpuUnavailable, CannotCompile):
+    """A cluster store's export of a space over RPC failed (a meta error,
+    an unreachable part leader): no device fault, so a fused statement
+    is answered from the host (`CannotCompile`), as the reference
+    answers every export failure."""
+
+
 class SnapshotRetired(GpuUnavailable):
     """A dispatch found its snapshot replaced by a concurrent pin (a
     rebuild, or a compaction's swap): the call can run again on the

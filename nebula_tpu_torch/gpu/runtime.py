@@ -53,8 +53,15 @@ the swap takes its write side.  A store that cannot be exported (the
 bench's `datagen.SnapshotStore`, anything but a `GraphStore`) is never
 rebuilt or compacted: where the reference would rebuild, `pin` raises
 `GpuUnavailable` naming the cause (and unpins the space when the mirror
-may be half applied).  A DURATION value written to a DURATION column
-raises TypeError from its encode, as the reference's does.
+may be half applied).  A cluster store (`cluster.dstore.
+DistributedStore`, a graphd's) is exported over RPC from its storageds'
+part leaders (`build_csr_snapshot`, the reference's :616-634), with the
+vmax slack this runtime's plane needs; an export that fails there raises
+`ExportFailed`, which the executors answer from the host (no device
+fault), and its delta feed (`_ClusterDeltaReader`) folds the cluster's
+writes into the plane as a local store's do.  A DURATION value written
+to a DURATION column raises TypeError from its encode, as the
+reference's does.
 
 The sharded mesh (`GpuRuntime(mesh=make_mesh(P))`, the reference's
 `TpuRuntime(mesh)`, :408-416): a P-part snapshot is pinned slot by slot
@@ -75,6 +82,13 @@ geography values included (one object a value, `csr.decode_prop`).
 (a 1-slot mesh, local mode), and the CPU runs only when the caller
 passes `device="cpu"` or a mesh laid over the CPU (the kernels' plain
 versions then run).
+
+Each dispatch (GO, MATCH's every-hop run, a batched run, the BFS) leaves
+the reference's launch-level record (`_account`, after its :1312-1358
+and :1674-1748): `tpu_kernel_runs`, `tpu_edges_traversed`,
+`tpu_kernel_s`, `tpu_dispatch_us{kernel}`, `tpu_hbm_high_water_bytes`,
+one `utils.flight.kernel_ledger()` entry, and the `device:*` or
+`tpu:batch` trace phases.
 """
 from __future__ import annotations
 
@@ -95,14 +109,15 @@ from ..graphstore.delta import DeltaOverflow, DeltaUnsupported, HostDelta
 from ..graphstore.store import GraphStore
 from ..utils import trace
 from ..utils.failpoints import FailpointError, fail
+from ..utils.flight import kernel_ledger
 from ..utils.stats import current_cost, current_work, stats as metrics, \
     use_cost, use_work
 from ..utils.workload import current_live, dispatch_table, use_live
 from .batch import batch_former
 from .bfs import run_bfs, run_bfs_sharded
-from .device import DeviceSnapshot, GpuUnavailable, SnapshotRetired, \
-    _putter, mesh_lanes, mesh_parts, pin_bytes, pin_sharded, pin_snapshot, \
-    put_delta_blocks, resolve_device
+from .device import DeviceSnapshot, ExportFailed, GpuUnavailable, \
+    SnapshotRetired, _putter, mesh_lanes, mesh_parts, pin_bytes, \
+    pin_sharded, pin_snapshot, put_delta_blocks, resolve_device
 from .exprjit import compile_predicate, eval_yield_column_np
 from .hop import new_frontier, run_hops, \
     run_hops_sharded, seed_slot_frontiers
@@ -573,6 +588,7 @@ class GpuRuntime:
         self.hbm_limit_bytes = int(hbm_limit_bytes)
         self.snapshots: Dict[str, DeviceSnapshot] = {}
         self._gate = _DispatchGate()
+        self._hbm_high_water = 0
 
     @staticmethod
     def _check_mesh(mesh: Mesh) -> None:
@@ -748,11 +764,15 @@ class GpuRuntime:
 
     @staticmethod
     def exportable(store) -> bool:
-        """Whether `pin` can build a snapshot of `store`: only the port's
-        own `GraphStore` is exported; a stand-in that merely serves dense
-        ids and logs writes (the bench's `datagen.SnapshotStore`) is
-        pinned with `pin_prebuilt` and never rebuilt or compacted."""
-        return isinstance(store, GraphStore)
+        """Whether `pin` can build a snapshot of `store`: the port's own
+        `GraphStore`, or a cluster store (`cluster.dstore.
+        DistributedStore`, anything with `build_csr_snapshot`) that
+        exports its space from the storageds' part leaders; a stand-in
+        that merely serves dense ids and logs writes (the bench's
+        `datagen.SnapshotStore`) is pinned with `pin_prebuilt` and never
+        rebuilt or compacted."""
+        return isinstance(store, GraphStore) \
+            or hasattr(store, "build_csr_snapshot")
 
     def pin(self, store, space: str, force: bool = False) -> DeviceSnapshot:
         """The pinned snapshot serving `space` at the store's epoch.  A
@@ -800,13 +820,27 @@ class GpuRuntime:
         keeps) watching dirty keys BEFORE the export — a key noted
         between the watch and the export is merely re-read at apply
         time, so no write is lost — and the export reserves the vmax
-        slack.  Returns `_prepare`'s (snapshot, empty mirror)."""
-        if self.delta_max_edges > 0:
-            store.delta_watch(space)
+        slack.  A cluster store exports over RPC (`build_csr_snapshot`,
+        the storageds' `storage.export_part` fan-out), with the slack
+        this runtime's plane needs whatever the store's flags say; a
+        failure there (a meta error, an unreachable leader) is no device
+        fault and raises ExportFailed, so the executors answer from the
+        host, as the reference's do.  Returns `_prepare`'s (snapshot,
+        empty mirror)."""
+        slack = DELTA_VMAX_SLACK if self.delta_max_edges > 0 else 0
+        cluster = hasattr(store, "build_csr_snapshot")
         t0 = time.perf_counter()
-        snap = build_snapshot(
-            store, space, vmax_extra=DELTA_VMAX_SLACK
-            if self.delta_max_edges > 0 else 0)
+        try:
+            if self.delta_max_edges > 0:
+                store.delta_watch(space)
+            snap = store.build_csr_snapshot(space, vmax_extra=slack) \
+                if cluster else build_snapshot(store, space, vmax_extra=slack)
+        except Exception as ex:  # noqa: BLE001 — RPC and meta errors
+            if not cluster:
+                raise
+            raise ExportFailed(
+                f"the cluster's CSR export of space {space!r} failed "
+                f"({type(ex).__name__}: {ex})") from ex
         metrics().observe("tpu_snapshot_build_us",
                           int((time.perf_counter() - t0) * 1e6))
         return self._prepare(snap)
@@ -1432,8 +1466,55 @@ class GpuRuntime:
             info["e_cap"] = list(res["e_cap"])
             info["hbm_bytes"] = self.hbm_bytes()
         info.update(self._exchange_facts(sent[0]))
-        metrics().inc("tpu_kernel_runs")
+        self._account(kernel, steps, info["device_s"],
+                      int(out["hop_edges"].sum()), info["hbm_bytes"],
+                      info["e_cap"], info["exchange_bytes"],
+                      lanes=None if attribute else len(lane_dense),
+                      put_s=info["put_s"], fetch_s=info["fetch_s"])
         return out, info
+
+    def _account(self, kernel: str, steps: int, device_s: float,
+                 edges: int, hbm: int, e_cap, xbytes: int,
+                 lanes: Optional[int] = None, put_s: float = 0.0,
+                 fetch_s: float = 0.0) -> None:
+        """One dispatch's launch-level record, as the reference's
+        `_escalate_locked` (runtime.py:1674-1748) and `_escalate_lanes`
+        (:1312-1358) leave it: `tpu_kernel_runs`, `tpu_edges_traversed`
+        (the run's hop_edges, every lane's), `tpu_kernel_s`,
+        `tpu_dispatch_us{kernel}`, the gauge `tpu_hbm_high_water_bytes`,
+        one kernel-ledger entry (nothing is compiled, so `compiled` is
+        false, and there is no bucket ladder, so `retries` is 0; `shape`
+        is the hops' slot widths, after the lane count for a batched run)
+        and the trace phases: `device:put`, `device:dispatch` and
+        `device:fetch` for a solo run, `tpu:batch` for a batched one
+        (`lanes` set), and `tpu:shard_exchange` where the mesh moved
+        bytes."""
+        st = metrics()
+        st.inc("tpu_kernel_runs")
+        st.inc("tpu_edges_traversed", edges)
+        st.add_value("tpu_kernel_s", device_s)
+        dispatch_us = int(device_s * 1e6)
+        st.observe("tpu_dispatch_us", dispatch_us, {"kernel": kernel})
+        self._hbm_high_water = max(self._hbm_high_water, hbm)
+        st.gauge("tpu_hbm_high_water_bytes", float(self._hbm_high_water))
+        shape = ([] if lanes is None else [lanes]) + [int(e) for e in e_cap]
+        kernel_ledger().record(
+            kernel=kernel, shape=shape, steps=steps, compiled=False,
+            dispatch_us=dispatch_us, hbm_bytes=hbm, retries=0,
+            shards=self.mesh_size, exchange_bytes=xbytes)
+        if lanes is None:
+            trace.record_phase("device:put", put_s)
+            trace.record_phase("device:dispatch", device_s,
+                               eb=list(e_cap), retries=0)
+            trace.record_phase("device:fetch", fetch_s)
+        else:
+            trace.record_phase("tpu:batch", device_s, lanes=lanes,
+                               kernel=kernel, eb=list(e_cap))
+        if xbytes:
+            trace.record_phase(
+                "tpu:shard_exchange", 0.0, bytes=xbytes,
+                hops=steps if kernel == "bfs" else max(steps - 1, 0),
+                shards=self.mesh_size, lanes=lanes or 1)
 
     def _exchange_facts(self, xbytes: int) -> Dict[str, int]:
         """A dispatch's mesh facts (the reference's runtime.py:1337-1355,
@@ -1575,6 +1656,9 @@ class GpuRuntime:
         stats.hop_edges = [int(x) for x in hop_edges.sum(axis=0)]
         stats.e_cap = list(res["e_cap"])
         stats.hbm_bytes = self.hbm_bytes()
+        self._account("bfs", max_steps, stats.device_s,
+                      stats.edges_traversed(), stats.hbm_bytes,
+                      stats.e_cap, stats.exchange_bytes, put_s=stats.put_s)
         stats.total_s = time.perf_counter() - t_start
         return dist, stats
 

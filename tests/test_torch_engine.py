@@ -9,10 +9,12 @@ source a second time with `nebula_tpu` read as `nebula_tpu_torch`, and
 `run_twin` gives each test its fixtures (the module's own, `tmp_path`
 and `monkeypatch`).  Tolerance: exact, as the unit tests assert it.
 
-Left out, each with the ROADMAP item that brings it:
-- test_result_cache.py's `test_dedup_replayed_write_bumps_epoch_once`
-  and `test_cached_hot_read_survives_storage_outage` drive a cluster
-  (`cluster/`, A11); they are marked slow there as well.
+Left out here: test_result_cache.py's
+`test_dedup_replayed_write_bumps_epoch_once` and
+`test_cached_hot_read_survives_storage_outage`, marked slow there; they
+drive a cluster, and tests/test_torch_cluster.py runs them on the port's.
+`TwinFiles` and `run_twin(..., scope=)` serve the cluster twins
+(tests/test_torch_cluster*.py), whose fixtures are module-scoped.
 """
 import contextlib
 import inspect
@@ -90,27 +92,68 @@ def _fixture_function(obj):
     return None
 
 
-def run_twin(mod, name, kwargs, builtins):
+class TwinScope:
+    """The module-scoped fixture values of one twin module, kept from one
+    of its tests to the next as pytest keeps them, and torn down by
+    `close()` in reverse order."""
+
+    def __init__(self):
+        self.values = {}
+        self.stack = contextlib.ExitStack()
+
+    def close(self):
+        self.stack.close()
+        self.values.clear()
+
+
+def _fixture_scope(obj) -> str:
+    marker = getattr(obj, "_fixture_function_marker", None) \
+        or getattr(obj, "_pytestfixturefunction", None)
+    return getattr(marker, "scope", "function") or "function"
+
+
+def _autouse_fixtures(mod):
+    return [n for n, obj in vars(mod).items()
+            if _fixture_function(obj) is not None and getattr(
+                getattr(obj, "_fixture_function_marker", None)
+                or getattr(obj, "_pytestfixturefunction", None),
+                "autouse", False)]
+
+
+def run_twin(mod, name, kwargs, builtins, scope=None):
     """Call `mod.<name>` with `kwargs` and its fixtures: the module's own
     (function scope, generators torn down in reverse order) and the
-    pytest fixtures named in `builtins`."""
+    pytest fixtures named in `builtins`.  With a `TwinScope`, the
+    module's autouse fixtures run too, and its module-scoped fixtures
+    are taken from (or made into) the scope, as pytest shares them
+    between the tests of one file."""
     fn = getattr(mod, name)
     cache = dict(builtins)
     with contextlib.ExitStack() as stack:
         def resolve(arg):
             if arg in cache:
                 return cache[arg]
-            f = _fixture_function(getattr(mod, arg))
+            obj = getattr(mod, arg)
+            f = _fixture_function(obj)
             assert f is not None, f"{name}: no fixture {arg!r}"
+            shared = scope is not None and _fixture_scope(obj) != "function"
+            if shared and arg in scope.values:
+                cache[arg] = scope.values[arg]
+                return cache[arg]
             val = f(**{p: resolve(p)
                        for p in inspect.signature(f).parameters})
             if inspect.isgenerator(val):
                 gen = val
                 val = next(gen)
-                stack.callback(next, gen, None)
+                (scope.stack if shared else stack).callback(next, gen, None)
+            if shared:
+                scope.values[arg] = val
             cache[arg] = val
             return val
 
+        if scope is not None:
+            for arg in _autouse_fixtures(mod):
+                resolve(arg)
         fn(**{p: kwargs[p] if p in kwargs else resolve(p)
               for p in inspect.signature(fn).parameters})
 
@@ -155,7 +198,7 @@ def flag_runtime(_mesh=None):
         delta_compact_watermark=cfg.get("tpu_delta_compact_watermark"))
 
 
-def no_mesh(parts):
+def no_mesh(parts=None):
     return None
 
 
@@ -189,3 +232,47 @@ def mesh_runtime(parts=None):
     mesh of `parts` shard slots, or one local CPU device for one part."""
     return layout_runtime("unsplit") if not parts or parts == 1 \
         else layout_runtime("mesh", parts)
+
+
+class TwinFiles:
+    """The port-side twins of several unit test files, one test a case:
+    `spec` maps each file (from the repo root) to its `replace` pairs and
+    its `leave_out` names.  The reference's own run of each file is the
+    file itself, in tier-1; `check_lists` holds each twin's case list to
+    the reference module's, `leave_out` aside.  Module-scoped fixtures
+    live in one `TwinScope` a file, closed when the next file's first
+    case runs and by `close()`."""
+
+    def __init__(self, spec):
+        self.spec = spec
+        self.mods = {rel: load_twin(rel, "port", replace=rep)
+                     for rel, (rep, _lo) in spec.items()}
+        self.refs = {rel: load_twin(rel, "ref") for rel in spec}
+        self.cases = [
+            (rel, name, kw, f"{Path(rel).stem}::{cid}")
+            for rel, (_rep, lo) in spec.items()
+            for name, kw, cid in twin_cases(self.mods[rel], leave_out=lo)]
+        self._rel, self._scope = None, None
+
+    def params(self):
+        return dict(argnames="rel,name,kw",
+                    argvalues=[c[:3] for c in self.cases],
+                    ids=[c[3] for c in self.cases])
+
+    def run(self, rel, name, kw, builtins):
+        if rel != self._rel:
+            self.close()
+            self._rel, self._scope = rel, TwinScope()
+        run_twin(self.mods[rel], name, kw, builtins, scope=self._scope)
+
+    def close(self):
+        if self._scope is not None:
+            self._scope.close()
+        self._rel, self._scope = None, None
+
+    def check_lists(self):
+        for rel, (_rep, lo) in self.spec.items():
+            ref = {c[0] for c in twin_cases(self.refs[rel])}
+            port = {c[1] for c in self.cases if c[0] == rel}
+            assert set(lo) <= ref, (rel, set(lo) - ref)
+            assert ref and port == ref - set(lo), (rel, ref ^ port)

@@ -10,8 +10,8 @@ capacity and watermark come from the same flags the reference's
 `TpuRuntime` reads.  The reference's own run of these bodies is
 tests/unit/test_delta.py.  Tolerance: exact.
 
-Left out: `test_cluster_delta_fast_path` drives a cluster (`cluster/`,
-ROADMAP A11; marked slow there as well).
+Left out here: `test_cluster_delta_fast_path`, marked slow there; it
+drives a cluster, and tests/test_torch_cluster.py runs it on the port's.
 """
 import sys
 

@@ -24,6 +24,14 @@ def _modules():
         yield path, ".".join(parts)
 
 
+#: the cluster plane's modules, each the port's copy of the JAX package's
+CLUSTER = tuple(f"nebula_tpu_torch.cluster.{m}" for m in (
+    "rpc", "raft", "repair", "meta_service", "meta_client",
+    "storage_service", "storage_client", "dstore", "graph_service",
+    "client", "launcher", "daemons", "webservice", "balance",
+    "federation"))
+
+
 def test_port_modules_exist():
     names = {m for _, m in _modules()}
     for m in ("nebula_tpu_torch.core.value", "nebula_tpu_torch.core.expr",
@@ -73,7 +81,8 @@ def test_port_modules_exist():
               "nebula_tpu_torch.utils.consistency",
               "nebula_tpu_torch.utils.epochs", "nebula_tpu_torch.utils.flight",
               "nebula_tpu_torch.utils.insights",
-              "nebula_tpu_torch.utils.admission", "nebula_tpu_torch.utils.slo"):
+              "nebula_tpu_torch.utils.admission", "nebula_tpu_torch.utils.slo",
+              *CLUSTER):
         assert m in names, m
 
 
@@ -108,6 +117,8 @@ def _imported_names(tree):
 
 def test_no_module_imports_jax_or_the_reference():
     scripts = [ROOT / "chip_smoke.py"]
+    scanned = {m for _, m in _modules()}
+    assert set(CLUSTER) <= scanned
     for path in [p for p, _ in _modules()] + scripts:
         tree = ast.parse(path.read_text(), filename=str(path))
         for name in _imported_names(tree):

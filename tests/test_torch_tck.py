@@ -288,3 +288,36 @@ def test_match_paths_and_subgraph_run_on_the_device_engines():
     for kind in ("MATCH", "FIND", "GET"):
         assert counts.get(("local", kind), 0) > 0, (kind, counts)
     assert counts.get(("mesh", "MATCH"), 0) > 0, counts
+
+
+# -- the cluster TCK on the port's device graphd ------------------------------
+
+def cluster_tck():
+    """tests/tck/test_tck_cluster.py on the port: its own source, with its
+    runner (tests/tck/runner.py, read the same way) and `nebula_tpu`
+    read as `nebula_tpu_torch`; its cluster's graphd gets a device
+    runtime on the CPU, `GpuRuntime(device="cpu")`."""
+    from test_torch_engine import load_twin
+    load_twin("tests/tck/runner.py", "port")     # twin_port_runner
+    return load_twin("tests/tck/test_tck_cluster.py", "port", replace=(
+        ("from .runner import parse_feature, run_scenario",
+         "from twin_port_runner import parse_feature, run_scenario"),
+        ("    from nebula_tpu.cluster.launcher import LocalCluster\n",
+         "    from nebula_tpu.cluster.launcher import LocalCluster\n"
+         "    from nebula_tpu.tpu import GpuRuntime\n"),
+        ("                     data_dir=str(tmp_path))",
+         "                     data_dir=str(tmp_path),\n"
+         "                     tpu_runtime=GpuRuntime(device=\"cpu\"))"),
+    ))
+
+
+#: the cluster TCK's features in four shares, so that pytest-xdist's
+#: `--dist loadfile` runs them on four workers (tests/test_torch_tck_
+#: cluster_{0,1,2,3}.py); a share a feature, dealt by descending size
+CLUSTER_SHARES = 4
+
+
+def cluster_share(k: int):
+    by_size = sorted(ALL_FEATURES, key=lambda f: (-os.path.getsize(
+        os.path.join(FEATURES, f + ".feature")), f))
+    return sorted(by_size[k::CLUSTER_SHARES])
