@@ -297,7 +297,23 @@ Phases, in order; any failure exits non-zero before the result line:
           row p of the local one), timed at the widest slot;
        g. (a)'s filtered GO through the process-group transport, a
           one-rank NCCL group holding all eight slots: rows equal to
-          (a)'s, the bytes sent equal to (a)'s exchange_bytes;
+          (a)'s, the bytes sent equal to (a)'s exchange_bytes; then a
+          GpuRuntime over that group's mesh: GO (rows, hop_edges and
+          exchange_bytes equal to (a)'s), MATCH *1..3 WHERE w > 50
+          (frames equal to the in-process mesh's), the BFS (depths equal
+          to (b)'s); NCCL takes one rank a device, so two ranks are
+          held on the CPU over gloo (tests/test_torch_mesh2.py);
+       h. the two-axis grid: the north star's arrays at 4 parts pinned
+          through GpuRuntime(mesh=make_mesh2(2, 4)) (2 x 4 slots on the
+          one card, the rows sharing each part's copy: hbm_bytes equal
+          to make_mesh(4)'s, the pin's allocation below 1.5 times its),
+          split as the main path: GO 3 STEPS WHERE w > 50 with rows
+          equal to the local runtime's on the same snapshot, hop_edges,
+          exchange_bytes and launches a run equal to make_mesh(4)'s;
+          [8b]'s 8 statements as
+          one batch over the two rows (each lane's rows its solo run's,
+          every launch twice a solo run's); config 5's BFS on row 0,
+          depths equal to the local runtime's and phase 6's;
  11. temporal and geography props on the north star's recipe at
      min(--persons, 100000) persons (datagen.north_star: degree 30, the
      same seeds' rule; depth cut for the time limit, from 1,000,000 to
@@ -606,6 +622,8 @@ MESH_SLOTS = 8                   # phase 10: make_mesh(8), every slot on
 MESH_RUNS = 2                    # phase 10's timed runs of a query
 MESH_KERNELS = ("pack_bits", "unpack_or")
 MESH_HUB_KERNELS = ("owned_hub_bits", "fill_hub_columns")
+GRID_LANES, GRID_PARTS = 2, 4    # phase 10h: make_mesh2(2, 4) on one card
+GRID_RUNS = 5                    # phase 10h's timed rounds of its GO
 # phase 11: DATE, DATETIME, TIME and GEOGRAPHY edge columns on the north
 # star's recipe at TEMPORAL_PERSONS persons, derived from each edge's f by
 # a fixed rule (temporal_words)
@@ -692,6 +710,15 @@ CONC_SPACE = "conc"
 CONC_DELTA_CAP = 8192            # the graphd's GpuRuntime(delta_max_edges=)
 CONC_PLANE_SEEDS = 4             # 16c's seeds
 CONC_KERNELS = ("expand", "mark", "compact_capture")     # K1, K6, K3
+# the phase's Raft timing.  Every daemon of the LocalCluster shares one
+# interpreter with the 64 client threads, so a heartbeat round trip
+# takes up to ~0.4 s there (0.15 s at p99), and the default 150-300 ms
+# election timeout breaks Raft's broadcast-time << election-timeout
+# rule: split votes repeat for seconds and a statement's replica walk
+# runs out.  Seconds, as an upstream deployment sets them, restore it.
+CONC_RAFT_MS = {"raft_election_timeout_ms": 2_000.0,
+                "raft_heartbeat_interval_ms": 200.0}
+CONC_LEADER_WAIT_S = 60          # every part of the space elects within this
 PLANE_KERNELS = ("expand", "mark", "compact_capture", "predicate_mask")
 PHASE16_KERNELS = PLANE_KERNELS + ("merge_delta",)       # K1-K4, K6, K9
 #: the reference's device plan of each statement (its EXPLAIN through
@@ -1319,6 +1346,60 @@ def bfs_level_edges(snap, dist, steps: int, switch: bool = True):
     return edges
 
 
+def halve_parts(snap):
+    """`snap` (laid out by snapshot_from_arrays: dense id = vid, owner =
+    vid % P) at P / 2 parts, equal to snapshot_from_arrays(arrs, P / 2)
+    of the same arrays (edge blocks only) without its two argsorts:
+    row r of part q holds vid r * P/2 + q, which is row r // 2 of part
+    q + P/2 * (r % 2) here, and each row keeps its edges in order."""
+    import copy
+
+    import numpy as np
+    from nebula_tpu_torch.graphstore.csr import CsrBlock, CsrSnapshot
+    P = snap.num_parts
+    if P % 2 or snap.hub_dense is not None:
+        raise ValueError("halve_parts: an even, unsplit layout")
+    Q, n = P // 2, len(snap.dense_to_vid)
+    counts = np.bincount(np.arange(n, dtype=np.int64) % Q, minlength=Q)
+    vmax = max(int(counts.max()), 1)
+    r = np.arange(vmax, dtype=np.int64)
+    src_part = (np.arange(Q)[:, None] + Q * (r % 2)[None, :]).ravel()
+    src_row = np.broadcast_to(r // 2, (Q, vmax)).ravel()
+    out = CsrSnapshot(space=snap.space, epoch=0, num_parts=Q, vmax=vmax,
+                      num_vertices=counts.astype(np.int32),
+                      pool=copy.deepcopy(snap.pool),
+                      dense_to_vid=list(snap.dense_to_vid))
+    for key, b in snap.blocks.items():
+        start = b.indptr[src_part, src_row].astype(np.int64)
+        deg = b.indptr[src_part, src_row + 1].astype(np.int64) - start
+        indptr = np.zeros((Q, vmax + 1), np.int64)
+        np.cumsum(deg.reshape(Q, vmax), axis=1, out=indptr[:, 1:])
+        ends = indptr[:, -1]
+        emax = max(int(ends.max()), 1)
+        bounds = np.concatenate([[0], np.cumsum(ends)])
+        # the flat index into snap's (P, emax) arrays of each edge, in
+        # the halved layout's order (part-major, row by row)
+        base = src_part * b.nbr.shape[1] + start - (np.cumsum(deg) - deg)
+        flat = np.repeat(base, deg) + np.arange(int(bounds[-1]),
+                                                dtype=np.int64)
+
+        def lay(a, fill):
+            got = a.reshape(-1).take(flat)
+            dst = np.full((Q, emax), fill, a.dtype)
+            for i in range(Q):
+                dst[i, :ends[i]] = got[bounds[i]:bounds[i + 1]]
+            return dst
+        nbr = lay(b.nbr, -1)
+        out.blocks[key] = CsrBlock(
+            etype=b.etype, direction=b.direction,
+            indptr=indptr.astype(b.indptr.dtype), nbr=nbr,
+            rank=np.zeros_like(nbr),
+            props={k: lay(v, np.nan if v.dtype.kind == "f" else -2)
+                   for k, v in b.props.items()},
+            prop_types=dict(b.prop_types))
+    return out
+
+
 def run_bfs_path(rt, ns, seed, label, K, filt=None, tag="[6a]",
                  space="ns"):
     """Drive GpuRuntime.bfs as bench.py config 5 does (one cold run, then
@@ -1934,14 +2015,17 @@ def go_call(rt, store, steps, filt, yields):
                                      steps, edge_filter=filt, yields=yields)
 
 
-def run_batch(label, go, seed_sets, steps, K, same=rows_equal, size=len):
+def run_batch(label, go, seed_sets, steps, K, same=rows_equal, size=len,
+              rows=1):
     """Phase 8's and 9c's statements, `go(seeds)` -> (result, stats): each
     run solo (batching off; launch counters zeroed before the first and
     read after it), then all at once from threads with the former on,
     counters zeroed just before and read just after.  Checks one batch of
-    all of them, the batch's launches against one solo run's, and every
-    statement's result (`same`: rows in order, or frames) and hop_edges
-    against its solo run.  Returns (results, the batch's launches)."""
+    all of them, the batch's launches against one solo run's (times
+    `rows`, the lane rows of a grid, each running its chunk of the lanes
+    where a solo run takes one row), and every statement's result
+    (`same`: rows in order, or frames) and hop_edges against its solo
+    run.  Returns (results, the batch's launches)."""
     import threading
 
     import numpy as np
@@ -2015,7 +2099,7 @@ def run_batch(label, go, seed_sets, steps, K, same=rows_equal, size=len):
             f"{delta('tpu_kernel_runs')} device runs, "
             f"{delta('tpu_batch_lanes.sum')} lanes for {n} statements")
     used = {k: v for k, v in launches.items() if v}
-    if used != {k: v for k, v in solo_launches.items() if v}:
+    if used != {k: v * rows for k, v in solo_launches.items() if v}:
         raise AssertionError(f"[{label}] batch launches {used} vs one solo "
                              f"run's {solo_launches}")
     for i in range(n):
@@ -4119,6 +4203,26 @@ def timed_method(obj, name: str, sink: list):
     setattr(obj, name, wrapped)
 
 
+def wait_part_leaders(cluster, space: str) -> None:
+    """Block until every part of `space` has a Raft leader: with
+    CONC_RAFT_MS the first election takes 2-4 s, longer than a
+    statement's replica walk waits."""
+    mc = cluster.meta_clients[0]
+    n, sid = len(mc.parts_of(space)), mc.catalog.spaces[space].space_id
+    dl = time.monotonic() + CONC_LEADER_WAIT_S
+    while True:
+        led = {pid for ss in cluster.storageds
+               for (s, pid), part in list(ss.parts.items())
+               if s == sid and part.is_leader()}
+        if len(led) >= n:
+            return
+        if time.monotonic() > dl:
+            raise AssertionError(f"[16a] {n - len(led)} parts of {space} "
+                                 f"elected no leader in "
+                                 f"{CONC_LEADER_WAIT_S} s")
+        time.sleep(0.05)
+
+
 def cluster_phase(K, card: str, seed: int) -> tuple:
     """Phase 16: the cluster plane on the card, at bench.py's concurrency
     size (bench.py:938-1063): a LocalCluster of one metad, three
@@ -4164,6 +4268,8 @@ def cluster_phase(K, card: str, seed: int) -> tuple:
     rt = GpuRuntime(delta_max_edges=CONC_DELTA_CAP)
     cfg = get_config()
     cfg.set_dynamic("kernel_ledger_capacity", 1 << 16)
+    for k, v in CONC_RAFT_MS.items():
+        cfg.set_dynamic(k, v)
     cluster = LocalCluster(n_meta=1, n_storage=3, n_graph=1,
                            data_dir=tempfile.mkdtemp(prefix="chip_smoke_"),
                            tpu_runtime=rt)
@@ -4178,6 +4284,7 @@ def cluster_phase(K, card: str, seed: int) -> tuple:
 
         run(setup[0])
         cluster.reconcile_storage()
+        wait_part_leaders(cluster, CONC_SPACE)
         for q in setup[1:]:
             run(q)
         t0 = time.perf_counter()
@@ -4274,12 +4381,15 @@ def cluster_phase(K, card: str, seed: int) -> tuple:
             return lats[min(len(lats) - 1, int(len(lats) * p / 100))]
 
         queue_us = qwait(snap1) - qwait(snap0)
+        walks = sum(v - snap0.get(k, 0) for k, v in snap1.items()
+                    if k.startswith("storage_replica_walk_retries"))
         total_us = sum(lats) * 1e6
         out["16b"] = {"threads": CONC_THREADS, "stmts": len(lats),
                       "p50_ms": pq(50) * 1e3, "p95_ms": pq(95) * 1e3,
                       "p99_ms": pq(99) * 1e3, "qps": len(lats) / wall,
                       "wall_s": wall, "queue_wait_us_total": queue_us,
                       "queue_wait_share": queue_us / total_us,
+                      "replica_walk_retries": walks,
                       "kernel_runs": runs, "ledger_records": len(ledger),
                       "launches": {k: v for k, v in launches.items() if v}}
         for k, v in launches.items():
@@ -4385,12 +4495,247 @@ def cluster_phase(K, card: str, seed: int) -> tuple:
     finally:
         cluster.stop()
         with cfg.lock:
-            cfg.dynamic_layer.pop("kernel_ledger_capacity", None)
+            for k in ("kernel_ledger_capacity", *CONC_RAFT_MS):
+                cfg.dynamic_layer.pop(k, None)
     rt.unpin(CONC_SPACE)
     out["launches"] = total
     out["phase_s"] = time.perf_counter() - t16
     log(f"[16] phase 16 took {out['phase_s']:.1f} s | {card}")
     return out, total
+
+
+def pg_runtime(K, pg_mesh, rt8, ns, want_rows, want_go, want_depths):
+    """Phase 10g's second half: a GpuRuntime over the process-group mesh
+    `pg_mesh` (the split north star pinned again on it, as 10a's rt8
+    pins it) runs 10a's filtered GO, MATCH's every-hop frames of the same
+    seeds (*1..3 WHERE w > 50) and 10b's BFS; rows, hop_edges and
+    exchange_bytes equal 10a's, the frames the in-process mesh's, the
+    depths 10b's.  Returns the numbers."""
+    import numpy as np
+    import torch
+    from nebula_tpu_torch.gpu import GpuRuntime
+    t0 = time.perf_counter()
+    rtp = GpuRuntime(mesh=pg_mesh,
+                     degree_split_threshold=ns.split_threshold)
+    rtp.pin_prebuilt(ns.snap)
+    torch.cuda.synchronize()
+    out = {"pin_s": time.perf_counter() - t0,
+           "pinned_bytes": rtp.hbm_bytes(), "in_process": False}
+    K.reset_launch_counts()
+    rows, st = rtp.traverse(ns.store, "ns", ns.seeds, ["KNOWS"], "out", 3,
+                            edge_filter=ns.w_filter, yields=ns.yields)
+    torch.cuda.synchronize()
+    go_launches = counts(K)
+    if not rows_equal(rows, want_rows) \
+            or st.hop_edges != want_go["hop_edges"] \
+            or st.exchange_bytes != want_go["exchange_bytes"]:
+        raise AssertionError(f"[10g] the group runtime's GO: {len(rows)} "
+                             f"rows, hop_edges {st.hop_edges}, "
+                             f"{st.exchange_bytes} bytes vs 10a's")
+    out["go"] = {"rows": len(rows), "hop_edges": st.hop_edges,
+                 "exchange_bytes": st.exchange_bytes, "e_cap": st.e_cap,
+                 "device_ms": st.device_s * 1e3,
+                 "launches": {k: v for k, v in go_launches.items() if v}}
+    args = (ns.store, "ns", ns.seeds, ["KNOWS"], "out", 3)
+    frames, fst = rtp.traverse_hops(*args, edge_filter=ns.w_filter)
+    want_f, wst = rt8.traverse_hops(*args, edge_filter=ns.w_filter)
+    if not frames_equal(frames, want_f) or fst.hop_edges != wst.hop_edges \
+            or fst.exchange_bytes != wst.exchange_bytes:
+        raise AssertionError("[10g] the group runtime's frames differ from "
+                             "the in-process mesh's")
+    out["match"] = {"frame_edges": [f.n for f in frames],
+                    "hop_edges": fst.hop_edges,
+                    "device_ms": fst.device_s * 1e3}
+    dist, bst = rtp.bfs(ns.store, "ns", [ns.seeds[0]], ["KNOWS"], "out",
+                        BFS_STEPS)
+    P = ns.snap.num_parts
+    vv = np.arange(len(ns.snap.dense_to_vid))
+    if not np.array_equal(dist[vv % P, vv // P], want_depths):
+        raise AssertionError("[10g] the group runtime's depths differ from "
+                             "10b's")
+    out["bfs"] = {"hop_edges": bst.hop_edges,
+                  "exchange_bytes": bst.exchange_bytes,
+                  "device_ms": bst.device_s * 1e3}
+    rtp.unpin("ns")
+    return out
+
+
+def grid_phase(K, ns, lrt, bfs_depths, card: str) -> dict:
+    """Phase 10h: the two-axis grid on the one card.  The north star
+    laid out at 4 parts (10a's snapshot has 8; `halve_parts`), split
+    once as `lrt` (the main path's runtime) splits, and pinned through
+    GpuRuntime(mesh=make_mesh2(2, 4)) (a 2 x 4 grid, every slot on
+    cuda:0, the rows sharing each part's one copy), on make_mesh(4) and
+    on the one device.  GO 3 STEPS WHERE w > 50: rows equal the local runtime's,
+    hop_edges and exchange_bytes make_mesh(4)'s; [8b]'s 8 lanes as one
+    batch over the two rows, each lane's rows its solo run's; config 5's
+    BFS, depths the local runtime's (and phase 6's).  Logs the launches a
+    run, each loop's device time and the pinned bytes against the
+    one-axis mesh's.  Returns the numbers."""
+    import numpy as np
+    import torch
+    from types import SimpleNamespace
+
+    from nebula_tpu_torch.bench.datagen import SnapshotStore
+    from nebula_tpu_torch.gpu import GpuRuntime
+    from nebula_tpu_torch.gpu.device import make_mesh, make_mesh2, \
+        mesh_lanes, mesh_parts
+    from nebula_tpu_torch.gpu.hop import a2a_payload_bytes
+    from nebula_tpu_torch.graphstore.csr import degree_split
+    from nebula_tpu_torch.utils.workload import live_registry
+    stamp("phase 10h")
+    t10 = time.perf_counter()
+    out = {}
+    t0 = time.perf_counter()
+    # snapshot_from_arrays(ns.arrs, parts=GRID_PARTS)'s layout, from the
+    # north star's 8 parts (tests/test_torch_mesh2.py holds them equal)
+    snap4 = ns.snap
+    while snap4.num_parts > GRID_PARTS:
+        snap4 = halve_parts(snap4)
+    edges = {k: int(b.indptr[:, -1].sum()) for k, b in snap4.blocks.items()}
+    if snap4.num_parts != GRID_PARTS or set(edges.values()) != {ns.n_edges}:
+        raise AssertionError(f"[10h] laid {snap4.num_parts} parts, {edges}")
+    ns4 = SimpleNamespace(snap=snap4, store=SnapshotStore(snap4))
+    out["layout_s"] = time.perf_counter() - t0
+    grid = make_mesh2(GRID_LANES, GRID_PARTS)
+    slots = {d for r in grid.rows for d in r.devices}
+    if (mesh_lanes(grid), mesh_parts(grid)) != (GRID_LANES, GRID_PARTS) \
+            or len(slots) != 1:
+        raise AssertionError(f"[10h] make_mesh2 laid {grid}")
+    thr = lrt.degree_split_threshold
+    rts, alloc = {}, {}
+    t0 = time.perf_counter()
+    # split once, as each runtime's pin would split it
+    split4 = degree_split(snap4, thr) if thr > 0 else snap4
+    for name, kw in (("grid", {"mesh": grid}),
+                     ("axis", {"mesh": make_mesh(GRID_PARTS)}),
+                     ("local", {})):
+        rts[name] = GpuRuntime(degree_split_threshold=thr, **kw)
+        torch.cuda.synchronize()
+        a0 = torch.cuda.memory_allocated()
+        rts[name].pin_prebuilt(split4)
+        torch.cuda.synchronize()
+        alloc[name] = torch.cuda.memory_allocated() - a0
+    out["pin_s"] = time.perf_counter() - t0
+    devg = rts["grid"].snapshots["ns"]
+    shared = all(a is b for a, b in zip(devg.slot_shards[:GRID_PARTS],
+                                        devg.slot_shards[GRID_PARTS:]))
+    hbm = {k: rt.hbm_bytes() for k, rt in rts.items()}
+    # a copy a row would allocate twice make_mesh(4)'s bytes; the
+    # allocator's own rounding moves the two by a few KB
+    if not shared or hbm["grid"] != hbm["axis"] \
+            or alloc["grid"] > 1.5 * alloc["axis"]:
+        raise AssertionError(f"[10h] the rows do not share their copies: "
+                             f"hbm_bytes {hbm}, allocated {alloc}")
+    out["pin"] = {"hbm_bytes": hbm, "allocated_by_pin": alloc,
+                  "rows_share_copies": shared, "hubs": devg.num_hubs,
+                  "vmax": snap4.vmax}
+    log(f"[10h] make_mesh2({GRID_LANES}, {GRID_PARTS}) on one card: "
+        f"{json.dumps(out['pin'])} | {card}")
+
+    # GO 3 STEPS WHERE w > 50: a warm-up each, then GRID_RUNS rounds of
+    # one run each, so that a slow moment of the host falls on every
+    # runtime alike; each sample is kept beside the gen-2 collections
+    # Python's garbage collector made during it and the segments the
+    # caching allocator took from the card (device_s is the host's clock
+    # around a synchronised loop)
+    import gc
+
+    def events():
+        return (gc.get_stats()[2]["collections"],
+                torch.cuda.memory_stats().get("segment.all.allocated", 0))
+    t0 = time.perf_counter()
+    calls = {name: go_call(rt, ns4.store, 3, ns.w_filter, ns.yields)
+             for name, rt in rts.items()}
+    for call in calls.values():
+        call(ns.seeds)                           # warm-up
+    torch.cuda.synchronize()
+    go = {name: [None, None, {}, [], []] for name in rts}
+    for _ in range(GRID_RUNS):
+        for name, call in calls.items():
+            g = go[name]
+            K.reset_launch_counts()
+            e0 = events()
+            g[0], g[1] = call(ns.seeds)
+            g[4].append([b - a for a, b in zip(e0, events())])
+            g[3].append(g[1].device_s * 1e3)
+            for k, v in counts(K).items():
+                g[2][k] = g[2].get(k, 0) + v
+    torch.cuda.synchronize()
+    go = {name: (rows, st, {k: v / GRID_RUNS for k, v in launch.items()
+                            if v}, ms, ev)
+          for name, (rows, st, launch, ms, ev) in go.items()}
+    rows_g, st_g, launch_g, _, _ = go["grid"]
+    want_x = 2 * a2a_payload_bytes(GRID_PARTS, snap4.vmax)
+    if not rows_equal(rows_g, go["local"][0]) \
+            or (st_g.hop_edges, st_g.frontier_sizes) != \
+            (go["local"][1].hop_edges, go["local"][1].frontier_sizes) \
+            or st_g.hop_edges != go["axis"][1].hop_edges \
+            or st_g.exchange_bytes != go["axis"][1].exchange_bytes \
+            or st_g.exchange_bytes != want_x:
+        raise AssertionError(f"[10h] GO on the grid: {len(rows_g)} rows, "
+                             f"hop_edges {st_g.hop_edges}, "
+                             f"{st_g.exchange_bytes} bytes")
+    if launch_g != go["axis"][2]:
+        raise AssertionError(f"[10h] a solo GO on the grid launched "
+                             f"{launch_g}, on make_mesh(4) {go['axis'][2]}")
+    out["go"] = {"rows": len(rows_g), "hop_edges": st_g.hop_edges,
+                 "exchange_bytes": st_g.exchange_bytes,
+                 "e_cap": st_g.e_cap, "launches_per_run": launch_g,
+                 "device_loop_ms": {k: float(np.median(v[3]))
+                                    for k, v in go.items()},
+                 "device_loop_min_ms": {k: min(v[3]) for k, v in go.items()},
+                 "device_loop_samples_ms": {k: v[3] for k, v in go.items()},
+                 "gen2_collections_and_segments": {k: v[4]
+                                                   for k, v in go.items()},
+                 "samples": GRID_RUNS}
+    log(f"[10h] GO 3 STEPS w>{ns.w_gt}: {json.dumps(out['go'])} | {card}")
+    del go, rows_g
+    out["go_s"] = time.perf_counter() - t0
+
+    # [8b]'s eight statements as one batch over the two lane rows
+    t0 = time.perf_counter()
+    add_company()
+    try:
+        out["batch"], _ = run_batch(
+            "10h", go_call(rts["grid"], ns4.store, 3, ns.w_filter,
+                           ns.yields),
+            [ns.seeds[2 * i:2 * i + 2] for i in range(8)], 3, K,
+            rows=GRID_LANES)
+    finally:
+        for qid in (-1, -2):
+            live_registry().deregister(qid)
+
+    out["batch_s"] = time.perf_counter() - t0
+
+    # config 5's BFS on lane row 0 of the grid
+    t0 = time.perf_counter()
+    d_g, st_b, res_b, bl = run_bfs_path(rts["grid"], ns4, ns.seeds[0],
+                                        "grid 2 x 4", K, tag="[10h]")
+    d_l, _, res_l, _ = run_bfs_path(rts["local"], ns4, ns.seeds[0],
+                                    "local, 4 parts", K, tag="[10h]")
+    if not np.array_equal(d_g, d_l) or not np.array_equal(d_g, bfs_depths):
+        raise AssertionError("[10h] the grid's depths differ from the "
+                             "local runtime's")
+    if st_b.exchange_bytes != BFS_STEPS * a2a_payload_bytes(
+            GRID_PARTS, snap4.vmax):
+        raise AssertionError(f"[10h] BFS exchange_bytes "
+                             f"{st_b.exchange_bytes}")
+    out["bfs"] = {"hop_edges": st_b.hop_edges,
+                  "exchange_bytes": st_b.exchange_bytes,
+                  "device_loop_ms": res_b["device_p50_ms"],
+                  "local_device_loop_ms": res_l["device_p50_ms"],
+                  "launches_per_run": res_b["launches_per_run"]}
+    log(f"[10h] BFS: {json.dumps(out['bfs'])} | {card}")
+    for rt in rts.values():
+        rt.unpin("ns")
+    out["bfs_s"] = time.perf_counter() - t0
+    out["phase_s"] = time.perf_counter() - t10
+    steps = {k: round(out[k + "_s"], 2)
+             for k in ("layout", "pin", "go", "batch", "bfs")}
+    log(f"[10h] phase 10h took {out['phase_s']:.1f} s (seconds a step: "
+        f"{json.dumps(steps)}) | {card}")
+    return out
 
 
 def main(argv=None) -> int:
@@ -6376,7 +6721,12 @@ def main(argv=None) -> int:
     log(f"[10] K17 mesh loop: {json.dumps(mesh['k17'])}")
 
     # 10g. 10a's filtered GO once more through the process-group
-    # transport: a one-rank NCCL group holding all eight slots
+    # transport: a one-rank NCCL group holding all eight slots; then a
+    # GpuRuntime over that same mesh serves GO, MATCH's every-hop
+    # frames and the BFS (its gathers across the ranks and reductions
+    # run as one-rank collectives).  NCCL refuses two ranks on one
+    # device, so on this one-card machine the group has one rank; two
+    # ranks are held on the CPU over gloo (tests/test_torch_mesh2.py)
     stamp("phase 10g")
     torch.cuda.set_device(dev0)
     store_dir = tempfile.mkdtemp(prefix="nccl_store_")
@@ -6412,9 +6762,18 @@ def main(argv=None) -> int:
                        "sent_bytes": pg_mesh.transport.sent_bytes,
                        "device_and_fetch_s": pg_s}
         log(f"[10g] {json.dumps(mesh['10g'])}")
+        mesh["10g"]["runtime"] = pg_runtime(
+            K, pg_mesh, rt8, ns, mesh_rows[fl], mesh["10a"][fl],
+            bfs_depths)
+        log(f"[10g] GpuRuntime over the group: "
+            f"{json.dumps(mesh['10g']['runtime'])} | {card}")
     finally:
         dist.destroy_process_group()
     del mesh_rows, rows, caps, res_pg
+
+    # 10h. the two-axis grid on the one card
+    mesh["10h"] = grid_phase(K, ns, rts if rts is not None else rt,
+                             bfs_depths, card)
 
     # -- 11. temporal and geography props ----------------------------------
     # 11a. the north star's recipe at TEMPORAL_PERSONS with DATE,

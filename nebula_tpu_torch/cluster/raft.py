@@ -42,6 +42,16 @@ define_flag("raft_lease_margin_ms", 25.0,
             "election timeout disables the lease fast path entirely "
             "(every read-index falls back to a quorum round)")
 
+define_flag("raft_election_timeout_ms", 150.0,
+            "lower end of a member's randomized election timeout (the "
+            "upper end is twice it) when the constructor names none; "
+            "also the leader lease's window.  Raft stays live only while "
+            "a heartbeat round trip is well under it: a cluster whose "
+            "daemons share one interpreter under load needs seconds")
+
+define_flag("raft_heartbeat_interval_ms", 50.0,
+            "leader heartbeat period when the constructor names none")
+
 # raft_commit_latency_ms buckets (milliseconds — consensus rounds, not
 # the µs RPC scale of LATENCY_BUCKETS_US)
 COMMIT_LATENCY_BUCKETS_MS = (0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0,
@@ -99,6 +109,14 @@ class LoopbackTransport(RaftTransport):
         return part.handle(method, payload)
 
 
+def _flag_s(name: str, default: float) -> float:
+    """A millisecond flag in seconds; `default` before config is up."""
+    try:
+        return float(get_config().get(name)) / 1e3
+    except Exception:  # noqa: BLE001 — config not initialized
+        return default
+
+
 def _b64(b: bytes) -> str:
     return base64.b64encode(b).decode()
 
@@ -122,8 +140,8 @@ class RaftPart:
                  apply_cb: Callable[[int, bytes], None],
                  snapshot_cb: Optional[Callable[[], bytes]] = None,
                  restore_cb: Optional[Callable[[bytes], None]] = None,
-                 election_timeout: Tuple[float, float] = (0.15, 0.30),
-                 heartbeat_interval: float = 0.05,
+                 election_timeout: Optional[Tuple[float, float]] = None,
+                 heartbeat_interval: Optional[float] = None,
                  snapshot_threshold: int = 10_000,
                  wal_sync: bool = True,
                  learners: Optional[List[str]] = None):
@@ -142,8 +160,12 @@ class RaftPart:
         self.apply_cb = apply_cb
         self.snapshot_cb = snapshot_cb
         self.restore_cb = restore_cb
+        if election_timeout is None:
+            lo = _flag_s("raft_election_timeout_ms", 0.15)
+            election_timeout = (lo, 2 * lo)
         self.eto = election_timeout
-        self.hb = heartbeat_interval
+        self.hb = heartbeat_interval if heartbeat_interval is not None \
+            else _flag_s("raft_heartbeat_interval_ms", 0.05)
         self.snapshot_threshold = snapshot_threshold
 
         os.makedirs(wal_dir, exist_ok=True)

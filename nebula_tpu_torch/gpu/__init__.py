@@ -1,7 +1,7 @@
 """The device plane on one CUDA device or a mesh of shard slots (or, for
 tests, the CPU)."""
 from .device import DeviceSnapshot, GpuUnavailable, SnapshotRetired, \
-    make_mesh, pin_snapshot
+    make_mesh, make_mesh2, pin_snapshot
 from .exprjit import CannotCompile
 from .runtime import GpuRuntime, HopFrame, TraverseStats, \
     join_frontier_trails, trail_distinct_keep
@@ -16,5 +16,5 @@ from . import pipeline  # noqa: F401
 
 __all__ = ["CannotCompile", "DeviceSnapshot", "GpuRuntime",
            "GpuUnavailable", "HopFrame", "SnapshotRetired", "TraverseStats",
-           "join_frontier_trails", "make_mesh", "pin_snapshot",
+           "join_frontier_trails", "make_mesh", "make_mesh2", "pin_snapshot",
            "trail_distinct_keep"]

@@ -37,7 +37,11 @@ sharded runtime pins no reverse twins (runtime.py:2169) — each shard slot
 expanding its own part (`frontier.sharded_level_step`), one bit-packed
 exchange a level, the last one included (`bfs_exchange_bytes`, :42), each
 of its kernels one launch a slot group (`Mesh.groups`), then `bfs_level`
-per slot on what it received: new = cand & (dist < 0).
+per slot on what it received: new = cand & (dist < 0).  On a two-axis
+grid the BFS's one lane runs on lane row 0 alone: the reference
+replicates the CSR and dist over the rows (bfs.py:64-68), so every row
+computes the same dist.  On a process group `gather_bfs_ranks` gives
+every rank all P parts of dist and hop_edges.
 """
 from __future__ import annotations
 
@@ -135,9 +139,11 @@ def run_bfs_sharded(mesh: Mesh, shards: Sequence[DeviceShard],
                     pred: Optional[Program] = None,
                     deltas_by_slot: Optional[Sequence[Sequence[Optional[
                         Dict[str, Any]]]]] = None) -> Dict[str, Any]:
-    """A `max_steps`-level top-down BFS over a mesh of shard slots.  Per
-    slot this process holds: shards[i], its blocks, its (1, 1, vmax + H)
-    seed buffer (`hop.new_slot_frontiers` with the slot's seeds marked, a
+    """A `max_steps`-level top-down BFS over a mesh of shard slots (on a
+    two-axis grid, lane row 0's: the arguments list every row's slots,
+    row-major, as `hop.seed_slot_frontiers` seeds them).  Per slot this
+    process holds: shards[i], its blocks, its (1, 1, vmax + H) seed
+    buffer (`hop.new_slot_frontiers` with the slot's seeds marked, a
     view of its group's buffer; it becomes the candidate buffer) and,
     per block, its delta rows or None.  The frontier, unvisited,
     candidate, dist and count buffers and each level's mark matrices are
@@ -149,6 +155,12 @@ def run_bfs_sharded(mesh: Mesh, shards: Sequence[DeviceShard],
     mesh.devices[0]: dist (P, vmax) int32, hop_edges (P, max_steps)
     int32 (every level's out-edges of the frontier), e_cap (per level,
     the widest slot's width) and bottom_up (all False)."""
+    row = mesh.rows[0]
+    k = len(row.devices)
+    mesh, shards, blocks_by_slot, seeds_by_slot = \
+        row, shards[:k], blocks_by_slot[:k], seeds_by_slot[:k]
+    if deltas_by_slot is not None:
+        deltas_by_slot = deltas_by_slot[:k]
     P = mesh.size
     H = shards[0].num_hubs
     vmax = seeds_by_slot[0].shape[-1] - H
@@ -193,3 +205,15 @@ def run_bfs_sharded(mesh: Mesh, shards: Sequence[DeviceShard],
             "hop_edges": torch.cat([torch.stack(h, -1).to(out_dev)
                                     for h in hop_edges], 0),
             "e_cap": e_cap, "bottom_up": [False] * max_steps}
+
+
+def gather_bfs_ranks(mesh: Mesh, res: Dict[str, Any]) -> Dict[str, Any]:
+    """A `run_bfs_sharded` result with every rank's parts of dist and
+    hop_edges, on every rank of a process-group mesh; e_cap the max over
+    the ranks.  An in-process mesh's result is returned as it is."""
+    if mesh.in_process:
+        return res
+    t = mesh.transport
+    return dict(res, dist=t.all_gather(mesh, res["dist"], 0),
+                hop_edges=t.all_gather(mesh, res["hop_edges"], 0),
+                e_cap=t.max_ints(mesh, res["e_cap"]))

@@ -14,6 +14,22 @@ the plane is armed — plus the (H,) hub tables, on its own device.
 `shard_hbm_bytes` gives each slot's bytes (:255).  A part count that
 differs from the mesh raises GpuUnavailable (:315).
 
+On a two-axis grid (`make_mesh2`, the reference's :107) every lane row
+holds all P parts.  The reference replicates each part down its column
+of devices; here the rows whose slot for part p lies on the same device
+share one copy of part p's tensors (one `DeviceShard`), and only a row
+on another device gets a copy of its own.  On one card every row
+shares row 0's copies, so the grid pins the bytes of a one-axis mesh.
+The ledger (`shard_hbm_bytes`, `hbm_bytes`) counts each copy once, and
+the budget (`home_bytes`, `pin_home_bytes`) charges each device the
+copies it holds.
+
+With `devices=None`, `make_mesh` and `make_mesh2` join the process
+group the environment names (`mesh.init_multihost`, as the reference's
+do at :85 and :121) and, once joined, lay the slots over its ranks, one
+card a rank, with the `ProcessGroup` transport; there `make_mesh2`'s
+lane axis collapses to 1 (a process-group runtime forms no batch).
+
 Every tag table is pinned too (`DeviceTag`, the reference's device.py:170,
 put at :376): `present` and each prop column as (P, vmax) tensors, or
 part p's (1, vmax) rows on slot p.  Nothing on the device reads them
@@ -36,7 +52,7 @@ import torch
 from ..graphstore.csr import CsrSnapshot, StringPool
 from ..graphstore.schema import PropType
 from .exprjit import CannotCompile
-from .mesh import InProcess, Mesh
+from .mesh import InProcess, Mesh, init_multihost, process_group_mesh
 
 
 class GpuUnavailable(Exception):
@@ -129,10 +145,12 @@ class DeviceDelta:
 class DeviceShard:
     """One shard slot's part of a snapshot pinned on a mesh: part
     `part`'s rows of every block and tag table, (1, ...) tensors on
-    `device`, and the (H,) hub tables of a degree-split snapshot."""
+    `device`, and the (H,) hub tables of a degree-split snapshot.
+    `home`: the mesh's index of that device, for the budget."""
     part: int
     device: torch.device
     num_vertices: torch.Tensor        # (1,) i32
+    home: int = 0
     blocks: Dict[Tuple[str, str], DeviceBlock] = field(default_factory=dict)
     tags: Dict[str, DeviceTag] = field(default_factory=dict)
     hub_dense: Optional[torch.Tensor] = None
@@ -197,10 +215,19 @@ class DeviceSnapshot:
     # the `uid` of the store space a pin from a store built it from (None
     # for pin_prebuilt): a snapshot serves only the store it came from
     space_uid: Optional[int] = None
-    # a sharded pin: its mesh and one DeviceShard per slot this process
-    # holds; the snapshot's own blocks, tags and tensors are then empty
+    # a sharded pin: its mesh and one DeviceShard per copy of a part this
+    # process holds — row 0's slots first, one a part in part order, then
+    # the copies later lane rows hold on other devices; the snapshot's
+    # own blocks, tags and tensors are then empty
     mesh: Optional[Mesh] = None
     shards: List[DeviceShard] = field(default_factory=list)
+    # per slot of the mesh, row-major, the index of its copy in shards
+    slot_index: List[int] = field(default_factory=list)
+
+    @property
+    def slot_shards(self) -> List[DeviceShard]:
+        """The copy each slot reads, row-major over the lane rows."""
+        return [self.shards[j] for j in self.slot_index]
 
     @property
     def num_hubs(self) -> int:
@@ -218,16 +245,63 @@ class DeviceSnapshot:
     def hbm_bytes(self) -> int:
         return _nbytes(self._leaves())
 
+    def _copy_bytes(self):
+        """(copy, its bytes, the delta rows included) for each copy of a
+        part."""
+        dd = self.delta
+        for i, sh in enumerate(self.shards):
+            yield sh, _nbytes(sh._leaves()) + (
+                0 if dd is None else _nbytes(dd._leaves(i)))
+
     def shard_hbm_bytes(self) -> Dict[int, int]:
         """Per-slot ledger: the bytes resident for each part this process
-        holds (the delta rows included); {0: hbm_bytes()} in local mode.
-        The slots sum to hbm_bytes()."""
+        holds (the delta rows included, every copy the lane rows hold
+        on distinct devices); {0: hbm_bytes()} in local mode.  The slots
+        sum to hbm_bytes()."""
         if not self.shards:
             return {0: self.hbm_bytes()}
-        dd = self.delta
-        return {sh.part: _nbytes(sh._leaves()) + (
-            0 if dd is None else _nbytes(dd._leaves(i)))
-            for i, sh in enumerate(self.shards)}
+        out: Dict[int, int] = {}
+        for sh, b in self._copy_bytes():
+            out[sh.part] = out.get(sh.part, 0) + b
+        return out
+
+    def home_bytes(self) -> Dict[int, int]:
+        """The bytes each device holds, by the mesh's home index (local
+        mode: the one device, home 0)."""
+        if not self.shards:
+            return {0: self.hbm_bytes()}
+        out: Dict[int, int] = {}
+        for sh, b in self._copy_bytes():
+            out[sh.home] = out.get(sh.home, 0) + b
+        return out
+
+
+def _cards(who: str) -> List[torch.device]:
+    if not torch.cuda.is_available():
+        raise GpuUnavailable(f"{who}: no CUDA device (pass devices= to "
+                             f"lay the slots elsewhere)")
+    return [torch.device("cuda", i)
+            for i in range(torch.cuda.device_count())]
+
+
+def _rank_device() -> torch.device:
+    """This rank's card: `cuda:<local rank>` (LOCAL_RANK, else the rank
+    modulo the cards); a rank with no card raises GpuUnavailable."""
+    import os
+
+    import torch.distributed as dist
+    cards = _cards("a process group's mesh")
+    local = int(os.environ.get("LOCAL_RANK", dist.get_rank() % len(cards)))
+    return cards[local]
+
+
+def _laid(parts: int, lanes: int, devices: Sequence[torch.device]) -> Mesh:
+    """`lanes` rows of `parts` slots over `devices`, slot s (row-major) on
+    devices[s * len(devices) // n] for n slots, so several may share one."""
+    n = lanes * parts
+    homes = [s * len(devices) // n for s in range(n)]
+    return Mesh(parts, [devices[h] for h in homes], InProcess(),
+                homes=homes, lanes=lanes)
 
 
 def make_mesh(n: Optional[int] = None,
@@ -238,21 +312,68 @@ def make_mesh(n: Optional[int] = None,
     devices=[torch.device("cpu")] (or [cpu] * n: n entries are n devices
     to the memory budget, as the reference's virtual CPU mesh has).
     Unlike the reference's make_mesh, which raises when n exceeds the
-    real devices, several slots may share a device."""
+    real devices, several slots may share a device.  With devices=None
+    in a process group (`init_multihost`), the n slots (default: one a
+    rank) are laid over its ranks instead (`process_group_mesh` on this
+    rank's card)."""
     if devices is None:
-        if not torch.cuda.is_available():
-            raise GpuUnavailable("make_mesh: no CUDA device (pass devices= "
-                                 "to lay the slots elsewhere)")
-        devices = [torch.device("cuda", i)
-                   for i in range(torch.cuda.device_count())]
+        if init_multihost():
+            import torch.distributed as dist
+            return process_group_mesh(
+                dist.get_world_size() if n is None else int(n),
+                _rank_device())
+        devices = _cards("make_mesh")
     devices = [torch.device(d) for d in devices]
     if not devices:
         raise ValueError("make_mesh: no devices")
     n = len(devices) if n is None else int(n)
     if n < 1:
         raise ValueError(f"make_mesh: {n} slots")
-    homes = [s * len(devices) // n for s in range(n)]
-    return Mesh(n, [devices[h] for h in homes], InProcess(), homes=homes)
+    return _laid(n, 1, devices)
+
+
+def make_mesh2(lanes: int = 1, parts: Optional[int] = None,
+               devices: Optional[Sequence[Any]] = None) -> Mesh:
+    """A two-axis ("lane", "part") grid (the reference's make_mesh2,
+    tpu/device.py:107-145): `parts` part slots (default: the devices
+    over the lanes) in each of `lanes` rows; the part axis shards the
+    CSR, the lane axis spreads a batch's lanes over the rows, and each
+    row reads a copy of every part (rows on one device share it).
+
+    devices=None: every CUDA card; several slots may share a device (as
+    make_mesh's do), so the grid never degrades: on one H100,
+    make_mesh2(2, 4) is a 2 x 4 grid on cuda:0.  In a process group
+    (`init_multihost`) the lane axis collapses to 1, since a runtime
+    there forms no batch, and the `parts` slots (default: one a rank)
+    are laid over its ranks (`process_group_mesh` on this rank's card).
+    An explicit list degrades on too few devices, the lane axis first
+    (lanes -> len(devices) // parts, at least 1), and raises ValueError
+    where the parts alone do not fit; slot (l, p) lies on
+    devices[l * parts + p].  One device gives the (1, 1) mesh by
+    default."""
+    lanes = max(int(lanes), 1)
+    if devices is None:
+        if init_multihost():
+            import torch.distributed as dist
+            return process_group_mesh(
+                dist.get_world_size() if parts is None else int(parts),
+                _rank_device())
+        cards = _cards("make_mesh2")
+        return _laid(max(len(cards) // lanes, 1) if parts is None
+                     else max(int(parts), 1), lanes, cards)
+    devices = [torch.device(d) for d in devices]
+    if not devices:
+        raise ValueError("make_mesh2: no devices")
+    parts = max(len(devices) // lanes, 1) if parts is None \
+        else max(int(parts), 1)
+    if lanes * parts > len(devices):
+        lanes = max(len(devices) // parts, 1)     # the lane axis first
+        if parts > len(devices):
+            raise ValueError(f"need {lanes}x{parts} devices, have "
+                             f"{len(devices)}")
+    n = lanes * parts
+    return Mesh(parts, devices[:n], InProcess(), homes=range(n),
+                lanes=lanes)
 
 
 def mesh_parts(mesh: Mesh) -> int:
@@ -260,8 +381,24 @@ def mesh_parts(mesh: Mesh) -> int:
 
 
 def mesh_lanes(mesh: Mesh) -> int:
-    """Lane-axis size: 1 (the two-axis mesh is not ported)."""
-    return 1
+    """Lane-axis size: the grid's rows (1 for a one-axis mesh)."""
+    return mesh.lanes
+
+
+def _copies(mesh: Mesh):
+    """The copies of parts a pin on `mesh` puts in this process, as
+    (part, device, home): row 0's slots, then each later lane row's
+    slots on a home no earlier row put that part on; and per slot,
+    row-major, the index of the copy it reads."""
+    copies, index, seen = [], [], {}
+    for row in mesh.rows:
+        for p, d, h in zip(row.parts, row.devices, row.homes):
+            j = seen.get((p, h))
+            if j is None:
+                j = seen[(p, h)] = len(copies)
+                copies.append((p, d, h))
+            index.append(j)
+    return copies, index
 
 
 def _hub_tables(snap: CsrSnapshot):
@@ -334,14 +471,11 @@ def _check_mesh_parts(snap: CsrSnapshot, mesh: Mesh) -> None:
             f"mesh size to pin it")
 
 
-def pin_bytes(snap: CsrSnapshot, mesh: Mesh,
-              delta_bytes: int = 0) -> Dict[int, int]:
-    """What pinning `snap` on `mesh` puts on each slot this process
-    holds — the `shard_hbm_bytes()` of that pin — counted from the host
-    arrays before anything is put: on a 1-slot mesh the whole snapshot
-    (`pin_snapshot`), else part p's rows and the hub tables on slot p
-    (`pin_sharded`).  `delta_bytes`: the delta plane armed at pin time,
-    every part's rows (each slot holds its 1/P)."""
+def _part_bytes(snap: CsrSnapshot, mesh: Mesh,
+                delta_bytes: int) -> Dict[int, int]:
+    """One copy of each part this process holds, as a pin puts it: on a
+    1-slot mesh the whole snapshot, else part p's rows and the hub
+    tables."""
     hubs = _hub_tables(snap)
     fixed = 0 if hubs is None else sum(a.nbytes for a in hubs)
     arrays = [a for b in snap.blocks.values()
@@ -357,20 +491,53 @@ def pin_bytes(snap: CsrSnapshot, mesh: Mesh,
             + delta_bytes // mesh.size for p in mesh.parts}
 
 
+def pin_bytes(snap: CsrSnapshot, mesh: Mesh,
+              delta_bytes: int = 0) -> Dict[int, int]:
+    """What pinning `snap` on `mesh` puts on each slot this process
+    holds — the `shard_hbm_bytes()` of that pin — counted from the host
+    arrays before anything is put: on a 1-slot mesh the whole snapshot
+    (`pin_snapshot`), else part p's rows and the hub tables on slot p
+    (`pin_sharded`), once for each copy the lane rows hold on distinct
+    devices.  `delta_bytes`: the delta plane armed at pin time, every
+    part's rows (each slot holds its 1/P)."""
+    one = _part_bytes(snap, mesh, delta_bytes)
+    if mesh.size == 1:
+        return one
+    out: Dict[int, int] = {}
+    for p, _, _ in _copies(mesh)[0]:
+        out[p] = out.get(p, 0) + one[p]
+    return out
+
+
+def pin_home_bytes(snap: CsrSnapshot, mesh: Mesh,
+                   delta_bytes: int = 0) -> Dict[int, int]:
+    """`pin_bytes` by device: what the pin puts on each home of the
+    mesh, each copy of a part once on the device that holds it."""
+    one = _part_bytes(snap, mesh, delta_bytes)
+    if mesh.size == 1:
+        return {mesh.homes[0]: one[mesh.first]}
+    out: Dict[int, int] = {}
+    for p, _, h in _copies(mesh)[0]:
+        out[h] = out.get(h, 0) + one[p]
+    return out
+
+
 def pin_sharded(snap: CsrSnapshot, mesh: Mesh) -> DeviceSnapshot:
     """Pin a P-part snapshot on a P-slot mesh, slot by slot: each slot
     this process holds gets only its own part's rows, on its own device,
-    and the hub tables.  A part count other than the mesh's raises
-    MeshLayoutRefused."""
+    and the hub tables.  On a two-axis grid the lane rows whose slot for
+    part p lies on one device share one copy (`_copies`).  A part count
+    other than the mesh's raises MeshLayoutRefused."""
     _check_mesh_parts(snap, mesh)
     dev = DeviceSnapshot(space=snap.space, epoch=snap.epoch,
                          num_parts=snap.num_parts, vmax=snap.vmax,
                          device=mesh.devices[0], num_vertices=None,
                          pool=snap.pool, host=snap, mesh=mesh)
     hubs = _hub_tables(snap)
-    for p, d in zip(mesh.parts, mesh.devices):
+    copies, dev.slot_index = _copies(mesh)
+    for p, d, h in copies:
         put = _putter(d, rows=p)
-        sh = DeviceShard(part=p, device=d, num_vertices=put(
+        sh = DeviceShard(part=p, device=d, home=h, num_vertices=put(
             np.asarray(snap.num_vertices, np.int32)))
         if hubs is not None:
             sh.hub_dense, sh.hub_owner, sh.hub_local = map(_putter(d), hubs)

@@ -77,6 +77,17 @@ slot axis, each slot's buffer a view of it, so that each of K15's and
 K16's kernels is one launch a group a hop, and the hop's zero fills and
 frontier popcount one op a group.  The per-block kernels still run once
 a slot.
+
+On a two-axis grid (the reference's lanes x shards program,
+hop.py:653-814) a batch's L lanes are split into contiguous chunks, one
+a lane row (`lane_chunks`; the reference pads L to a multiple of the
+rows, the port pads nothing), and each row runs the loop above on its
+chunk over its own part slots, with its own exchange and hub extension;
+a row given no lane launches nothing.  The rows' results are put back
+together lane-major, the contract of hop.py:661-690.  On a process
+group each rank holds its own parts' results; `gather_ranks` gives every
+rank all P parts (the captures padded to the widest rank's width, which
+a max-reduce agrees on, as it does each hop's e_cap).
 """
 from __future__ import annotations
 
@@ -258,42 +269,56 @@ def a2a_payload_bytes(P: int, vmax: int, lanes: int = 1) -> int:
     return int(lanes) * P * P * (-(-int(vmax) // 32)) * 4
 
 
-def new_slot_frontiers(dev: DeviceSnapshot,
-                       lanes: int = 1) -> List[torch.Tensor]:
+def new_slot_frontiers(dev: DeviceSnapshot, lanes: int = 1,
+                       mesh: Optional[Mesh] = None) -> List[torch.Tensor]:
     """One zero (L, 1, vmax + H) frontier buffer for each slot of a
-    sharded pin, on the slot's device: the slot's own row of `new_frontier`
-    for each lane.  The slots of a group (`Mesh.groups`) are views of one
-    (S, L, 1, vmax + H) allocation, slot s at index s (`slot_groups`
-    gives it back)."""
+    sharded pin's mesh (or of `mesh`, one lane row of it), on the slot's
+    device: the slot's own row of `new_frontier` for each lane.  The
+    slots of a group (`Mesh.groups`) are views of one (S, L, 1, vmax + H)
+    allocation, slot s at index s (`slot_groups` gives it back)."""
+    mesh = dev.mesh if mesh is None else mesh
     width = dev.vmax + dev.num_hubs
     bufs: List[torch.Tensor] = []
-    for grp in dev.mesh.groups:
+    for grp in mesh.groups:
         bufs.extend(torch.zeros((len(grp), int(lanes), 1, width),
                                 dtype=torch.bool,
-                                device=dev.shards[grp.start].device
-                                ).unbind(0))
+                                device=mesh.devices[grp.start]).unbind(0))
     return bufs
+
+
+def lane_chunks(lanes: int, rows: int) -> List[int]:
+    """How many of a batch's lanes each lane row runs: contiguous
+    chunks, the first `lanes % rows` rows one lane longer."""
+    return [lanes // rows + (r < lanes % rows) for r in range(rows)]
 
 
 def seed_slot_frontiers(dev: DeviceSnapshot,
                         lane_dense: Sequence[Sequence[int]]
                         ) -> List[torch.Tensor]:
     """The seed build of a sharded pin (the sharded half of the
-    reference's seed builder, runtime.py:941-987): each slot's (L, 1,
-    vmax + H) buffers (`new_slot_frontiers`) with the seeds it owns —
-    dense id d with d % P == its part, at row d // P — marked by one
-    `mark` launch a slot for every lane.  `lane_dense`: each lane's seed
-    ids, checked to lie in [0, P * vmax) by the caller."""
+    reference's `_seed_builder`, runtime.py:941-987): each slot's (Ll, 1,
+    vmax + H) buffers (`new_slot_frontiers`), row-major over the lane
+    rows, row r holding its chunk of the lanes (`lane_chunks`), with the
+    seeds each slot owns — dense id d with d % P == its part, at row d //
+    P — marked by one `mark` launch a slot for every lane of its row (none
+    in a row given no lane).  `lane_dense`: each lane's seed ids, checked
+    to lie in [0, P * vmax) by the caller."""
     P, vmax = dev.num_parts, dev.vmax
     lanes = [torch.as_tensor(list(d), dtype=torch.int64) for d in lane_dense]
-    bufs = new_slot_frontiers(dev, lanes=len(lanes))
-    for sh, fbm in zip(dev.shards, bufs):
-        mine = [d[d % P == sh.part] // P for d in lanes]
-        cap = max((len(d) for d in mine), default=0) or 1
-        ids = torch.full((len(mine), cap), -1, dtype=torch.int32)
-        for i, d in enumerate(mine):
-            ids[i, :len(d)] = d
-        mark(ids.to(sh.device), 1, vmax, out=fbm[..., :vmax])
+    rows = dev.mesh.rows
+    bufs: List[torch.Tensor] = []
+    start = 0
+    for row, n in zip(rows, lane_chunks(len(lanes), len(rows))):
+        mine_lanes, start = lanes[start:start + n], start + n
+        rbufs = new_slot_frontiers(dev, lanes=n, mesh=row)
+        for part, d, fbm in zip(row.parts, row.devices, rbufs if n else ()):
+            mine = [x[x % P == part] // P for x in mine_lanes]
+            cap = max((len(x) for x in mine), default=0) or 1
+            ids = torch.full((len(mine), cap), -1, dtype=torch.int32)
+            for i, x in enumerate(mine):
+                ids[i, :len(x)] = x
+            mark(ids.to(d), 1, vmax, out=fbm[..., :vmax])
+        bufs.extend(rbufs)
     return bufs
 
 
@@ -363,17 +388,22 @@ def extend_fbm_sharded_lanes(mesh: Mesh, shards: Sequence[DeviceShard],
         fill_hub_columns(f, summed)
 
 
+def _pad_to(t: torch.Tensor, width: int, fill) -> torch.Tensor:
+    return t if t.shape[-1] == width else torch.nn.functional.pad(
+        t, (0, width - t.shape[-1]), value=fill)
+
+
 def _gather_parts(per_slot: Sequence[torch.Tensor], device,
-                  fill=None) -> torch.Tensor:
+                  fill=None, dim: int = 1) -> torch.Tensor:
     """Each slot's (Ll, 1, ...) leaf on `device`, concatenated in part
-    order along the part axis; with `fill`, the last axis padded to the
-    widest slot's width with that value first."""
+    order along the part axis (or, with dim=0, each lane row's leaf
+    along the lane axis); with `fill`, the last axis padded to the
+    widest one's width with that value first."""
     ts = [t.to(device) for t in per_slot]
     if fill is not None:
         width = max(t.shape[-1] for t in ts)
-        ts = [torch.nn.functional.pad(t, (0, width - t.shape[-1]),
-                                      value=fill) for t in ts]
-    return torch.cat(ts, 1)
+        ts = [_pad_to(t, width, fill) for t in ts]
+    return torch.cat(ts, dim)
 
 
 def _parts_by_hop(per_group: Sequence[List[torch.Tensor]],
@@ -385,6 +415,18 @@ def _parts_by_hop(per_group: Sequence[List[torch.Tensor]],
 
 
 _CAP_FILL = {"src": -1, "dst": -1}       # every other leaf pads with 0
+
+
+def _cat_caps(per_row: Sequence[List[Dict[str, torch.Tensor]]], device,
+              dim: int) -> List[Dict[str, torch.Tensor]]:
+    """Each block's capture dicts, one a slot (dim 1, the part axis) or
+    a lane row (dim 0), put together along `dim`, each leaf but kcount
+    padded to the widest one's width."""
+    return [{k: _gather_parts([caps[bi][k] for caps in per_row], device,
+                              None if k == "kcount"
+                              else _CAP_FILL.get(k, 0), dim)
+             for k in per_row[0][bi]}
+            for bi in range(len(per_row[0]))]
 
 
 def run_hops_sharded(mesh: Mesh, shards: Sequence[DeviceShard],
@@ -412,18 +454,51 @@ def run_hops_sharded(mesh: Mesh, shards: Sequence[DeviceShard],
     `exchange_marks_lanes` (K15) for every slot and lane.  The last hop
     ships nothing.
 
+    On a two-axis grid every argument lists the slots row-major over the
+    lane rows (`seed_slot_frontiers` seeds each row's chunk of the
+    lanes; `shards` and the blocks are the copies each slot reads), each
+    row runs the loop above on its chunk, and the rows' lanes are put
+    back together in order, each leaf on mesh.devices[0].
+
     Returns the `run_hops` contract for the parts this process holds,
     every per-part leaf reassembled in part order on mesh.devices[0]:
-    hop_edges and frontier_sizes (Ll, P, steps), the captures (Ll, P, EB)
-    per block (and per hop) with kcount (Ll, P), EB the widest slot's,
+    hop_edges and frontier_sizes (L, P, steps), the captures (L, P, EB)
+    per block (and per hop) with kcount (L, P), EB the widest slot's,
     and e_cap, each hop's widest slot width."""
+    width = len(mesh.devices)            # the slots of a lane row
+    deltas_by_slot = deltas_by_slot if deltas_by_slot is not None else [
+        [None] * len(blocks_by_slot[0])] * len(shards)
+    rows = []
+    for r, row in enumerate(mesh.rows):
+        at = slice(r * width, (r + 1) * width)
+        if frontier_by_slot[at][0].shape[0]:     # a row with no lane: none
+            rows.append(_run_row(row, shards[at], blocks_by_slot[at],
+                                 frontier_by_slot[at], steps, pred, capture,
+                                 yield_cols, deltas_by_slot[at],
+                                 capture_hops))
+    if len(rows) == 1:
+        return rows[0]
+    out_dev = mesh.devices[0]
+    res: Dict[str, Any] = {
+        k: _gather_parts([x[k] for x in rows], out_dev, dim=0)
+        for k in ("hop_edges", "frontier_sizes")}
+    res["e_cap"] = [max(w) for w in zip(*(x["e_cap"] for x in rows))]
+    if capture:
+        res["cap"] = [_cat_caps([x["cap"][h] for x in rows], out_dev, 0)
+                      for h in range(len(rows[0]["cap"]))] \
+            if capture_hops else _cat_caps([x["cap"] for x in rows],
+                                           out_dev, 0)
+    return res
+
+
+def _run_row(mesh: Mesh, shards, blocks_by_slot, frontier_by_slot,
+             steps: int, pred, capture: bool, yield_cols, deltas_by_slot,
+             capture_hops: bool) -> Dict[str, Any]:
+    """`run_hops_sharded` on one lane row (a one-axis mesh)."""
     P = mesh.size
     H = shards[0].num_hubs
     vmax = frontier_by_slot[0].shape[-1] - H
     out_dev = mesh.devices[0]
-    n_slots = len(shards)
-    deltas_by_slot = deltas_by_slot if deltas_by_slot is not None else [
-        [None] * len(blocks_by_slot[0])] * n_slots
     fbm = slot_groups(mesh, frontier_by_slot)
     hop_edges: List[List[torch.Tensor]] = [[] for _ in fbm]
     frontier_sizes: List[List[torch.Tensor]] = [[] for _ in fbm]
@@ -459,12 +534,7 @@ def run_hops_sharded(mesh: Mesh, shards: Sequence[DeviceShard],
                 slot_caps.append(caps)
             hop_edges[g].append(edges)
         if captured:
-            hop_caps.append([
-                {k: _gather_parts([sc[bi][k] for sc in slot_caps], out_dev,
-                                  None if k == "kcount"
-                                  else _CAP_FILL.get(k, 0))
-                 for k in slot_caps[0][bi]}
-                for bi in range(len(slot_caps[0]))])
+            hop_caps.append(_cat_caps(slot_caps, out_dev, 1))
         e_cap.append(width)
         if not last:
             nxt = [torch.zeros_like(f) for f in fbm]
@@ -479,3 +549,43 @@ def run_hops_sharded(mesh: Mesh, shards: Sequence[DeviceShard],
     if capture:
         res["cap"] = hop_caps if capture_hops else hop_caps[-1]
     return res
+
+
+def gather_ranks(mesh: Mesh, res: Dict[str, Any],
+                 capture_hops: bool = False) -> Dict[str, Any]:
+    """A `run_hops_sharded` result with every rank's parts, on every
+    rank of a process-group mesh: hop_edges, frontier_sizes, kcount and
+    each block's captures gathered along the part axis, the captures
+    first padded to the widest rank's width; e_cap the max over the
+    ranks.  One max-reduce for every width, then one all-gather a leaf.
+    An in-process mesh's result is returned as it is."""
+    if mesh.in_process:
+        return res
+    t = mesh.transport
+    by_hop = (res["cap"] if capture_hops else [res["cap"]]) \
+        if "cap" in res else []
+    dicts = [d for caps in by_hop for d in caps]
+    n = len(res["e_cap"])
+    widths = t.max_ints(mesh, list(res["e_cap"])
+                        + [d["src"].shape[-1] for d in dicts])
+    out: Dict[str, Any] = {
+        k: t.all_gather(mesh, res[k], 1)
+        for k in ("hop_edges", "frontier_sizes")}
+    out["e_cap"] = widths[:n]
+    wide = iter(widths[n:])
+    gathered = [[{k: t.all_gather(mesh, v if k == "kcount" else _pad_to(
+        v, w, _CAP_FILL.get(k, 0)), 1) for k, v in d.items()}
+        for d, w in zip(caps, wide)] for caps in by_hop]
+    if "cap" in res:
+        out["cap"] = gathered if capture_hops else gathered[0]
+    return out
+
+
+def sum_ranks(mesh: Mesh, n: int) -> int:
+    """`n` summed over the ranks of a process-group mesh: one all-gather
+    of an int64 (on an in-process mesh, `n` itself, with no device round
+    trip)."""
+    if mesh.in_process:
+        return int(n)
+    t = torch.tensor([int(n)], dtype=torch.int64, device=mesh.devices[0])
+    return int(mesh.transport.all_gather(mesh, t, 0).sum())

@@ -34,7 +34,22 @@ Two transports, one interface:
                 included), whose received tensor goes on as a view; the
                 sum one `all_reduce`.
 
-Neither gives way to the other on failure: a transport error raises.
+**Lane rows.**  A two-axis mesh (`device.make_mesh2`, the reference's
+`("lane", "part")` grid, tpu/device.py:107) holds `lanes` rows of the P
+part slots: slot (l, p) is lane row l's copy of part p.  `Mesh.rows`
+gives each row as a one-axis mesh over the same transport; the hop loop
+runs a batch's lanes in contiguous chunks, one a row, each row with its
+own exchange.  A one-axis mesh is its own only row.
+
+**Gathering across ranks.**  On a process group each rank runs the
+same runtime calls (SPMD) and holds only its own parts' results; two
+more collectives give every rank all P parts: `all_gather` (the ranks'
+per-part tensors, concatenated in part order) and `max_ints` (a
+max-reduce of a few host integers, such as each hop's widest slot).
+On `InProcess` both are the identity.
+
+Neither gives way to the other on failure: a transport error raises,
+and a collective that times out is the caller's error.
 """
 from __future__ import annotations
 
@@ -46,38 +61,49 @@ import torch
 
 
 class Mesh:
-    """P shard slots, of which this process holds slots `first` ..
-    `first + len(devices) - 1`, slot `first + i` on `devices[i]`.
-    `homes[i]` names the device slot `first + i` lives on, for the
+    """`lanes` rows of P shard slots, of which this process holds, in
+    every row, slots `first` .. `first + k - 1`: `devices` lists them
+    row-major, row l's slot `first + i` on `devices[l * k + i]`.
+    `homes` likewise names the device each slot lives on, for the
     per-device memory budget: the index of its entry in the device list
-    the mesh was laid over (default: one device a slot).  `groups`: the
-    runs of consecutive local slots with one home and device, as ranges
-    of local slot indices.  `launch_lock` is held by every run that
-    exchanges over the mesh, so two runs never interleave their
-    collectives."""
+    the mesh was laid over (default: one device a slot).  The fields
+    `devices`, `homes` and `groups` describe row 0 (for a one-axis mesh,
+    every slot); `rows` holds each row as a one-axis mesh over the same
+    transport.  `groups`: the runs of consecutive local slots of a row
+    with one home and device, as ranges of local slot indices.
+    `launch_lock` is held by every run that exchanges over the mesh, so
+    two runs never interleave their collectives."""
 
     def __init__(self, size: int, devices: Sequence[torch.device],
                  transport, first: int = 0,
-                 homes: Optional[Sequence[int]] = None):
+                 homes: Optional[Sequence[int]] = None, lanes: int = 1):
+        devices = tuple(torch.device(d) for d in devices)
+        homes = tuple(range(len(devices)) if homes is None else homes)
         self.size = int(size)
-        self.devices: Tuple[torch.device, ...] = tuple(
-            torch.device(d) for d in devices)
+        self.lanes = int(lanes)
         self.transport = transport
         self.first = int(first)
         self.launch_lock = threading.Lock()
-        self.homes: Tuple[int, ...] = tuple(
-            range(len(self.devices)) if homes is None else homes)
+        if self.lanes < 1 or len(devices) % self.lanes \
+                or len(homes) != len(devices):
+            raise ValueError(f"{len(devices)} slots ({len(homes)} homes) "
+                             f"do not make {self.lanes} lane rows")
+        k = len(devices) // self.lanes
+        self.devices: Tuple[torch.device, ...] = devices[:k]
+        self.homes: Tuple[int, ...] = homes[:k]
         if self.size < 1 or not self.devices \
-                or self.first + len(self.devices) > self.size:
-            raise ValueError(f"{len(self.devices)} slots from slot "
-                             f"{self.first} do not fit a mesh of "
-                             f"{self.size}")
-        starts = [i for i in range(len(self.devices))
+                or self.first + k > self.size:
+            raise ValueError(f"{k} slots from slot {self.first} do not "
+                             f"fit a mesh of {self.size}")
+        starts = [i for i in range(k)
                   if i == 0 or (self.homes[i], self.devices[i])
                   != (self.homes[i - 1], self.devices[i - 1])]
         self.groups: Tuple[range, ...] = tuple(
-            range(a, b) for a, b in zip(starts, starts[1:]
-                                        + [len(self.devices)]))
+            range(a, b) for a, b in zip(starts, starts[1:] + [k]))
+        self.rows: Tuple["Mesh", ...] = (self,) if self.lanes == 1 else \
+            tuple(Mesh(self.size, devices[r * k:(r + 1) * k], transport,
+                       self.first, homes[r * k:(r + 1) * k])
+                  for r in range(self.lanes))
 
     @property
     def parts(self) -> List[int]:
@@ -89,8 +115,9 @@ class Mesh:
         return isinstance(self.transport, InProcess)
 
     def __repr__(self) -> str:
-        return (f"Mesh(size={self.size}, first={self.first}, "
-                f"devices={[str(d) for d in self.devices]}, "
+        return (f"Mesh(lanes={self.lanes}, size={self.size}, "
+                f"first={self.first}, devices="
+                f"{[str(d) for r in self.rows for d in r.devices]}, "
                 f"transport={type(self.transport).__name__})")
 
 
@@ -133,6 +160,17 @@ class InProcess:
             total += v.to(total.device)
         return [total.to(mesh.devices[g.start]) for g in mesh.groups]
 
+    @staticmethod
+    def all_gather(mesh: Mesh, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every process's parts of `t` along `dim`: this process holds
+        them all already."""
+        return t
+
+    @staticmethod
+    def max_ints(mesh: Mesh, vals: Sequence[int]) -> List[int]:
+        """The max of each of `vals` over the processes: these."""
+        return [int(v) for v in vals]
+
 
 def _one_group(mesh: Mesh, vals: Sequence[torch.Tensor]) -> torch.Tensor:
     if len(vals) != 1 or len(mesh.groups) != 1:
@@ -173,6 +211,31 @@ class ProcessGroup:
         total = _one_group(mesh, vals)
         dist.all_reduce(total, op=dist.ReduceOp.SUM, group=self.group)
         return [total]
+
+    def all_gather(self, mesh: Mesh, t: torch.Tensor,
+                   dim: int) -> torch.Tensor:
+        """Every rank's `t` (the same shape on each: this rank's parts
+        along `dim`) concatenated along `dim` in rank order, which is part
+        order; one `all_gather`.  A bool tensor travels as bytes."""
+        import torch.distributed as dist
+        x = t.contiguous()
+        wire = x.view(torch.uint8) if x.dtype == torch.bool else x
+        out = [torch.empty_like(wire)
+               for _ in range(dist.get_world_size(self.group))]
+        dist.all_gather(out, wire, group=self.group)
+        got = torch.cat(out, dim)
+        return got.view(torch.bool) if x.dtype == torch.bool else got
+
+    def max_ints(self, mesh: Mesh, vals: Sequence[int]) -> List[int]:
+        """The max over the ranks of each of `vals`, a few host ints;
+        one `all_reduce` of an int64 tensor on the mesh's device."""
+        import torch.distributed as dist
+        if not len(vals):
+            return []
+        t = torch.tensor([int(v) for v in vals], dtype=torch.int64,
+                         device=mesh.devices[0])
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+        return [int(v) for v in t.tolist()]
 
 
 def process_group_mesh(n: int, device, group=None) -> Mesh:

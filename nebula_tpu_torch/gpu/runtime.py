@@ -72,9 +72,24 @@ one bit-packed exchange a hop, under the collective-launch mutex
 per-device budget `hbm_limit_bytes` (the reference's flag
 `tpu_hbm_limit_bytes`, `_check_hbm_budget` :829), the gauges `tpu_shards`
 and `tpu_shard_hbm_bytes{shard}` (:500-530) and the metric
-`tpu_all_to_all_bytes` (:1337-1355, :1720-1748) come with it.  A mesh
-over a process group is refused: each rank would hold only its own
-parts' captures.
+`tpu_all_to_all_bytes` (:1337-1355, :1720-1748) come with it.  The
+mesh may be a two-axis grid (`device.make_mesh2`, the reference's
+`TpuRuntime(make_mesh2(...))`): a batch's lanes are split over its lane
+rows, each row running its chunk over its own part slots, and the BFS
+runs on row 0.  It may span the ranks of a `torch.distributed` process
+group (`mesh.process_group_mesh`, or `make_mesh` / `make_mesh2` after
+`init_multihost`): each rank pins and runs its own parts, and every
+run gathers the per-part results (hop_edges, frontier_sizes, kcount,
+the captures, the BFS's dist) and reduces e_cap and exchange_bytes
+across the ranks, so that each rank fetches and materialises the rows
+the in-process mesh gives.  The contract is SPMD, as the reference's
+multi-controller JAX: every rank calls the same runtime methods with
+the same arguments in the same order, each from one thread; a rank that
+calls alone waits in its first collective until the group's timeout,
+and that error is the statement's.  Such a runtime forms no batch
+across statements (the former groups by timing, so two ranks would form
+different lanes) and compacts a delta plane in the call that crosses
+the watermark rather than on a thread.
 
 Every prop type decodes as the reference decodes it, temporal and
 geography values included (one object a value, `csr.decode_prop`).
@@ -114,13 +129,13 @@ from ..utils.stats import current_cost, current_work, stats as metrics, \
     use_cost, use_work
 from ..utils.workload import current_live, dispatch_table, use_live
 from .batch import batch_former
-from .bfs import run_bfs, run_bfs_sharded
+from .bfs import gather_bfs_ranks, run_bfs, run_bfs_sharded
 from .device import DeviceSnapshot, ExportFailed, GpuUnavailable, \
-    SnapshotRetired, _putter, mesh_lanes, mesh_parts, pin_bytes, \
+    SnapshotRetired, _putter, mesh_lanes, mesh_parts, pin_home_bytes, \
     pin_sharded, pin_snapshot, put_delta_blocks, resolve_device
 from .exprjit import compile_predicate, eval_yield_column_np
-from .hop import new_frontier, run_hops, \
-    run_hops_sharded, seed_slot_frontiers
+from .hop import gather_ranks, new_frontier, run_hops, \
+    run_hops_sharded, seed_slot_frontiers, sum_ranks
 from .kernels import mark
 from .mesh import InProcess, Mesh
 
@@ -548,9 +563,12 @@ class GpuRuntime:
     """Holds the pinned spaces of one device, or of a mesh of shard
     slots, and runs GO, MATCH and the BFS on them.
 
-    device: the one device of local mode (None: cuda:0).  mesh: an
-    in-process mesh (`device.make_mesh`) instead; a 1-slot mesh is local
-    mode.
+    device: the one device of local mode (None: cuda:0).  mesh: a mesh
+    instead: one axis (`device.make_mesh`), a two-axis grid
+    (`device.make_mesh2`) or a process group's (`mesh.process_group_mesh`);
+    a mesh of one part is local mode.  Over a process group the contract
+    is SPMD: every rank calls the same methods with the same arguments
+    in the same order, from one thread (see the module docstring).
 
     hbm_limit_bytes: the reference's flag `tpu_hbm_limit_bytes` (0, the
     default here, is off): a pin that would put more bytes than this on
@@ -592,15 +610,11 @@ class GpuRuntime:
 
     @staticmethod
     def _check_mesh(mesh: Mesh) -> None:
-        """A runtime lies over an in-process mesh whose every device
+        """A runtime lies over a mesh whose every slot's device
         resolves."""
-        if not mesh.in_process:
-            raise GpuUnavailable(
-                "a runtime over a process-group mesh is not ported: "
-                "each rank holds only its own parts' captures (run "
-                "hop.run_hops_sharded on it directly)")
-        for d in mesh.devices:
-            resolve_device(d)
+        for row in mesh.rows:
+            for d in row.devices:
+                resolve_device(d)
 
     def _adopt_mesh(self, mesh: Mesh) -> None:
         self._check_mesh(mesh)
@@ -616,11 +630,12 @@ class GpuRuntime:
         return (self.mesh_lanes, self.mesh_size, self._mesh_epoch)
 
     def set_mesh(self, mesh: Mesh) -> None:
-        """Swap the runtime onto another one-axis mesh (the reference's
-        runtime.py:476-500).  Under the WRITE side of the dispatch gate
-        (in-flight dispatches drain first): every pinned snapshot is
-        retired and dropped — its tensors are laid out for the old mesh
-        and are freed once no run holds them; a run that grabbed one
+        """Swap the runtime onto another mesh, of one axis or two (the
+        reference's runtime.py:476-500).  Under the WRITE side of the
+        dispatch gate (in-flight dispatches drain first): every pinned
+        snapshot is retired and dropped — its tensors are laid out for
+        the old mesh and are freed once no run holds them; a run that
+        grabbed one
         raises SnapshotRetired and its executor runs it again on the new
         pin — the mesh is swapped, and the mesh epoch bumps, so a batch
         group still forming against the old mesh never merges with
@@ -644,7 +659,8 @@ class GpuRuntime:
         collectives, so every sharded dispatch holds the mesh's lock.
         Local mode has no exchange and keeps full dispatch concurrency.
         Yields a one-entry list that holds, once the block ends, the bytes
-        the mesh's transport shipped inside it (0 in local mode)."""
+        the mesh's transport shipped inside it, summed over the ranks of
+        a process group (0 in local mode)."""
         sent = [0]
         if self.local_mode:
             yield sent
@@ -652,10 +668,8 @@ class GpuRuntime:
         transport = self.mesh.transport
         with self.mesh.launch_lock:
             before = transport.sent_bytes
-            try:
-                yield sent
-            finally:
-                sent[0] = transport.sent_bytes - before
+            yield sent
+            sent[0] = sum_ranks(self.mesh, transport.sent_bytes - before)
 
     # -- pinning ----------------------------------------------------------
 
@@ -712,27 +726,20 @@ class GpuRuntime:
         st.inc("tpu_pins")
         self._emit_hbm_gauges()
 
-    def _home_bytes(self, per_slot: Dict[int, int]) -> Counter:
-        """Bytes per slot, summed per device of the mesh (the index of
-        its entry in the device list)."""
-        out: Counter = Counter()
-        for part, b in per_slot.items():
-            out[self.mesh.homes[part - self.mesh.first]] += b
-        return out
-
     def _check_hbm_budget(self, snap, space: str, delta_bytes: int) -> None:
         """Refuse a pin that would put more than `hbm_limit_bytes` on one
         device (the reference's `_check_hbm_budget`, runtime.py:829): each
-        slot takes what `pin_bytes` counts for it (its part's rows, the
-        hub tables, its share of the delta plane armed at pin time), the
-        slots that share a device sum on it, and the other spaces' pinned
-        bytes add to it."""
+        copy of a part takes what `pin_bytes` counts for it (its part's
+        rows, the hub tables, its share of the delta plane armed at pin
+        time), the copies on one device sum on it — lane rows that share
+        a device share its copy, so it counts once — and the other
+        spaces' pinned bytes add to it."""
         if not self.hbm_limit_bytes:
             return
-        need = self._home_bytes(pin_bytes(snap, self.mesh, delta_bytes))
+        need = Counter(pin_home_bytes(snap, self.mesh, delta_bytes))
         for sp, other in self.snapshots.items():
             if sp != space:
-                need.update(self._home_bytes(other.shard_hbm_bytes()))
+                need.update(other.home_bytes())
         home, worst = max(need.items(), key=lambda kv: kv[1])
         if worst > self.hbm_limit_bytes:
             raise GpuUnavailable(
@@ -960,7 +967,9 @@ class GpuRuntime:
                        dev: DeviceSnapshot) -> None:
         """The watermark check after an apply (the reference's :766): past
         the fill ratio, start the background compaction.  Never on a
-        store that cannot be exported."""
+        store that cannot be exported.  Over a process group it runs in
+        this call instead, so that every rank swaps its pin at the same
+        point of the SPMD call sequence."""
         wm = self.delta_compact_watermark
         if wm <= 0 or dev.delta is None or dev.retired \
                 or not self.exportable(store):
@@ -970,6 +979,9 @@ class GpuRuntime:
         if getattr(dev, "_compacting", False):
             return
         dev._compacting = True
+        if not self.mesh.in_process:
+            self._compact(store, space, dev)
+            return
         t = threading.Thread(target=self._compact,
                              args=(store, space, dev), daemon=True,
                              name=f"gpu-compact-{space}")
@@ -1015,7 +1027,8 @@ class GpuRuntime:
         the (epoch, blocks) tuple; the materializer decodes this run's
         capture against view[1]'s numpy mirrors, never against dev.delta's
         current state (an apply replaces, never mutates, so the grabbed
-        arrays stay coherent)."""
+        arrays stay coherent).  A sharded pin's lists follow its slots,
+        row-major over the lane rows (each slot its copy's rows)."""
 
         def tensors(e):
             d = {k: e[k] for k in ("d_src", "d_dst", "d_rank", "d_valid",
@@ -1025,13 +1038,13 @@ class GpuRuntime:
 
         if dev.delta is None:
             none = [None] * len(block_keys)
-            return None, ([none] * len(dev.shards) if dev.shards else none)
+            return None, ([none] * len(dev.slot_index) if dev.shards
+                          else none)
         view = dev.delta.view
         entries = [view[1].get(bk) for bk in block_keys]
         if dev.shards:
-            return view, [[None if e is None else tensors(e["slots"][i])
-                           for e in entries]
-                          for i in range(len(dev.shards))]
+            return view, [[None if e is None else tensors(e["slots"][j])
+                           for e in entries] for j in dev.slot_index]
         return view, [None if e is None else tensors(e) for e in entries]
 
     @staticmethod
@@ -1395,10 +1408,10 @@ class GpuRuntime:
     @staticmethod
     def _run_blocks(dev: DeviceSnapshot, block_keys):
         """The blocks a run reads: the pin's, or on a sharded pin one
-        such list a slot."""
+        such list a slot, row-major over the lane rows."""
         if dev.shards:
             return [[sh.blocks[bk] for bk in block_keys]
-                    for sh in dev.shards]
+                    for sh in dev.slot_shards]
         return [dev.blocks[bk] for bk in block_keys]
 
     def _run(self, dev: DeviceSnapshot, blocks, lane_dense, steps: int,
@@ -1419,8 +1432,10 @@ class GpuRuntime:
         "hops") — and info the launch-level facts each lane's de-mux
         needs.  tpu_kernel_runs grows by ONE per run.  On a sharded pin
         the same run goes over the mesh's slots (`hop.run_hops_sharded`,
-        under the collective-launch mutex), and its captures come back in
-        the local layout."""
+        under the collective-launch mutex; on a grid, the lanes split over
+        its rows), its results gathered across a process group's ranks
+        (`hop.gather_ranks`), and its captures come back in the local
+        layout."""
         info: Dict[str, Any] = {"attributed": attribute}
         kernel = "hops" if capture_hops else "traverse"
         with (nullcontext() if attribute else _detached()), \
@@ -1438,10 +1453,11 @@ class GpuRuntime:
             info["put_s"] = time.perf_counter() - tp
             t0 = time.perf_counter()
             if dev.shards:
-                res = run_hops_sharded(
-                    self.mesh, dev.shards, blocks, frontier, steps,
+                res = gather_ranks(self.mesh, run_hops_sharded(
+                    self.mesh, dev.slot_shards, blocks, frontier, steps,
                     pred=pred, capture=capture, yield_cols=yield_cols,
-                    deltas_by_slot=dextras, capture_hops=capture_hops)
+                    deltas_by_slot=dextras, capture_hops=capture_hops),
+                    capture_hops)
             else:
                 res = run_hops(dev, blocks, frontier, steps, pred=pred,
                                capture=capture, yield_cols=yield_cols,
@@ -1560,10 +1576,12 @@ class GpuRuntime:
         fetched columns and delta view: statements grabbed under
         different delta views never share a run).  Returns this
         statement's captures after a shared run, or None when it should
-        run solo: batching off, no concurrent company, a 1-lane group, or
-        the `tpu:batch_form` failpoint rejected enrolment."""
+        run solo: batching off, no concurrent company, a 1-lane group, the
+        `tpu:batch_form` failpoint rejected enrolment, or a process-group
+        mesh (the former groups by timing: two ranks would form different
+        lanes and deadlock in the exchange)."""
         former = batch_former()
-        if not former.enabled():
+        if not former.enabled() or not self.mesh.in_process:
             return None
         try:
             tk = former.submit(key, dense, launch, kernel=kernel,
@@ -1637,10 +1655,10 @@ class GpuRuntime:
 
             t0 = time.perf_counter()
             if dev.shards:
-                res = run_bfs_sharded(
-                    self.mesh, dev.shards,
+                res = gather_bfs_ranks(self.mesh, run_bfs_sharded(
+                    self.mesh, dev.slot_shards,
                     self._run_blocks(dev, block_keys), seeds, max_steps,
-                    pred=pred, deltas_by_slot=dextras)
+                    pred=pred, deltas_by_slot=dextras))
             else:
                 res = run_bfs(dev, [dev.blocks[bk] for bk in block_keys],
                               [dev.blocks[rk] for rk in rev_keys]

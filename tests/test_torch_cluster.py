@@ -268,3 +268,38 @@ def test_result_cache_cluster_cases_on_the_port(name, tmp_path, monkeypatch):
     import test_torch_engine as TE
     run_twin(TE.MODS["tests/unit/test_result_cache.py", "port"], name, {},
              {"tmp_path": tmp_path, "monkeypatch": monkeypatch})
+
+
+def test_raft_timing_flags(tmp_path):
+    """A Raft member built without timings takes them from
+    `raft_election_timeout_ms` (the lower end; the upper is twice it)
+    and `raft_heartbeat_interval_ms`.  Unset, they are the reference's
+    constructor defaults; set, every group built after follows them and
+    its lease window with them; timings named in the call win."""
+    from nebula_tpu.cluster.raft import LoopbackTransport as RefTransport
+    from nebula_tpu.cluster.raft import RaftPart as RefPart
+    from nebula_tpu_torch.cluster.raft import LoopbackTransport, RaftPart
+    from nebula_tpu_torch.utils.config import get_config
+
+    def member(cls, tr, sub, **kw):
+        return cls("g", "a", ["a"], tr(), str(tmp_path / sub),
+                   apply_cb=lambda i, d: None, **kw)
+
+    ref = member(RefPart, RefTransport, "ref")
+    port = member(RaftPart, LoopbackTransport, "port")
+    assert (port.eto, port.hb) == (ref.eto, ref.hb) == ((0.15, 0.30), 0.05)
+    cfg = get_config()
+    try:
+        cfg.set_dynamic("raft_election_timeout_ms", 2000.0)
+        cfg.set_dynamic("raft_heartbeat_interval_ms", 200.0)
+        slow = member(RaftPart, LoopbackTransport, "slow")
+        assert (slow.eto, slow.hb) == ((2.0, 4.0), 0.2)
+        named = member(RaftPart, LoopbackTransport, "named",
+                       election_timeout=(0.15, 0.30), heartbeat_interval=0.05)
+        assert (named.eto, named.hb) == ((0.15, 0.30), 0.05)
+    finally:
+        with cfg.lock:
+            cfg.dynamic_layer.pop("raft_election_timeout_ms", None)
+            cfg.dynamic_layer.pop("raft_heartbeat_interval_ms", None)
+    for m in (ref, port, slow, named):
+        m.wal.close()

@@ -45,6 +45,8 @@ def test_port_modules_exist():
               "nebula_tpu_torch.algo.graph", "nebula_tpu_torch.algo.oracles",
               "nebula_tpu_torch.algo.kernels", "nebula_tpu_torch.algo.engine",
               "nebula_tpu_torch.tools.algo_bench",
+              "nebula_tpu_torch.tools.probe_device",
+              "nebula_tpu_torch.tools.multichip_bench",
               "nebula_tpu_torch.utils.config",
               "nebula_tpu_torch.utils.failpoints",
               "nebula_tpu_torch.utils.cancel", "nebula_tpu_torch.utils.stats",

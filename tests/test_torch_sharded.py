@@ -10,7 +10,8 @@ without a WHERE), MATCH's frames, the BFS, GO through a delta plane with
 writes pending, batched lanes, and the split GO and the BFS under three
 layouts of slot groups (one group of four, four of one, two of two:
 tests/test_torch_exchange.py holds the exchange itself); then the shard
-ledger, the per-device budget, the part/mesh check, K15's and K16's
+ledger, the per-device budget, the part/mesh check (and a runtime over
+a one-rank process group), K15's and K16's
 plain versions against the reference's functions, the part offset of
 expand and merge_delta, and a two-process gloo run of the process-group
 transport against the in-process one.  Tolerance: exact — the path moves integers
@@ -48,7 +49,8 @@ from nebula_tpu_torch.gpu.device import make_mesh, mesh_parts, pin_bytes, \
     pin_sharded
 from nebula_tpu_torch.gpu.hop import a2a_payload_bytes, run_hops_sharded, \
     seed_slot_frontiers
-from nebula_tpu_torch.gpu.mesh import Mesh, ProcessGroup, init_multihost
+from nebula_tpu_torch.gpu.mesh import Mesh, ProcessGroup, init_multihost, \
+    process_group_mesh
 from nebula_tpu_torch.graphstore.csr import degree_split, \
     snapshot_from_fields
 from nebula_tpu_torch.utils.config import get_config
@@ -424,9 +426,33 @@ def test_make_mesh_lays_slots_over_devices():
     assert rt.local_mode and rt.mesh_size == 1
     with pytest.raises(ValueError):
         GpuRuntime(device="cpu", mesh=m)
-    # a process-group mesh is out of the runtime's scope
-    with pytest.raises(GpuUnavailable):
-        GpuRuntime(mesh=Mesh(4, [CPU] * 2, ProcessGroup(), first=2))
+    # a process-group mesh serves (divergence 8, closed): rank 1 of two
+    # holds slots 2 and 3; over a one-rank gloo group, holding all four,
+    # GO answers as the in-process mesh does
+    rt2 = GpuRuntime(mesh=Mesh(4, [CPU] * 2, ProcessGroup(), first=2))
+    assert not rt2.local_mode and rt2.mesh_size == 4
+    assert rt2.mesh.parts == [2, 3]
+    import torch.distributed as dist
+    snap = D.snapshot_from_arrays(D.make_social_arrays(200, 4), parts=4)
+    store = D.SnapshotStore(snap)
+    inproc = GpuRuntime(mesh=_mesh(4))
+    inproc.pin_prebuilt(snap)
+    want, wst = inproc.traverse(store, "snb", [1, 5, 9], ["KNOWS"], "out",
+                                3, yields=_yields(PE))
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                                world_size=1, rank=0)
+        try:
+            rt1 = GpuRuntime(mesh=process_group_mesh(4, CPU))
+            rt1.pin_prebuilt(snap)
+            got, st = rt1.traverse(store, "snb", [1, 5, 9], ["KNOWS"],
+                                   "out", 3, yields=_yields(PE))
+        finally:
+            dist.destroy_process_group()
+    _assert_cols_equal(_cols(got), _cols(want), "one-rank group")
+    assert (st.hop_edges, st.frontier_sizes, st.exchange_bytes) == \
+        (wst.hop_edges, wst.frontier_sizes, wst.exchange_bytes) \
+        and st.exchange_bytes > 0
 
 
 def test_init_multihost_reads_the_reference_environment(monkeypatch):
